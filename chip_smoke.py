@@ -4,11 +4,11 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build both kernels from csrc/ (one nvcc per source, in parallel);
+  2. build the four kernels from csrc/ (one nvcc per source, in parallel);
   3. raygen kernel vs its plain version: random bits equal, o/d/g errors;
-  4. bounce kernel vs the plain step on random states of six scenes at the
-     main path's full width (2,097,152 lanes), bounces 0, 3, 7, 70, under
-     the lane rules of lumillyrender_tpu_torch/parity.py;
+  4. brute-force bounce kernel vs the plain step on random states of seven
+     scenes at the main path's full width (2,097,152 lanes), bounces 0, 3,
+     7, 70, under the lane rules of lumillyrender_tpu_torch/parity.py;
   5. the full-size new-cbox render (256^2, 64 spp in two 2M-lane chunks)
      through the CLI, with the launch counts of that run; then 64^2 x 8 spp
      films: the kernel path twice, and the plain path, all on the card;
@@ -16,7 +16,22 @@ Phases, in order; any failure exits non-zero:
      each stage width (2,097,152 -> 32,768 -> 4,096 lanes), is checked
      against the plain step on the same state; timing: forward rays/s, each
      kernel's bare launch time at each width beside its bound, launches per
-     chunk, the card's idle share; then one `{"kernels": [...]}` line.
+     chunk, the card's idle share;
+  7. BVH kernel vs the plain walk on welcome-geo (81,932 triangles): camera
+     rays of one chunk and random rays at 2,072,576 lanes, with and without
+     the shade outputs, capped occlusion queries and axis-aligned rays;
+  8. BVH bounce kernel vs the plain step on random states of welcome-geo
+     (IBL sky) and a ~9k-triangle terrain with spheres (uniform sky) at
+     2,072,576 lanes, bounces 0, 3, 7, 70;
+  9. the full-size welcome-geo render (512x368, 64 spp, hdr) through the
+     CLI, and its --aov depth and --aov normal renders, with the launch
+     counts of each run and no plain step or plain walk; 64x48 x 4 spp films of both, kernel path twice and plain
+     path once;
+ 10. one welcome-geo chunk (2,072,576 lanes) in which every bounce launch
+     (2,072,576 -> 259,072 -> 32,512 -> 4,096 lanes) is checked against the
+     plain step; timing as in phase 6, with the bounds counted from the
+     plain walk's node visits and triangle tests; then one
+     `{"kernels": [...]}` line.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
@@ -229,17 +244,322 @@ def random_state(scene, n, seed, bounce):
     return state_from_numpy(bounce, o, d, thr, acc, alive, lane, device="cuda")
 
 
+def check_bounce(tag, kernel_step, plain_step, state):
+    """One bounce of `kernel_step` against `plain_step` on `state` under
+    parity.py's rules; prints and returns the agreement."""
+    from lumillyrender_tpu_torch import parity
+
+    got = kernel_step(state)
+    want = plain_step(state)
+    torch.cuda.synchronize()
+    m = parity.agreement(want, got)
+    bad = parity.failures(m)
+    print(f"{tag}: lanes {m['lanes']}, tie {m['tie']:.4%}, "
+          f"excluded {m['excluded']:.4%}, accum flips "
+          f"{m['accum_flip']:.4%}, max rel "
+          + ", ".join(f"{k} {v:.1e}" for k, v in m["max_rel"].items())
+          + f", rays {m['rays'][1]:.0f}/{m['rays'][0]:.0f}"
+          + (f"  FAIL {bad}" if bad else ""))
+    if bad:
+        fail(f"bounce kernel vs plain on {tag}: {bad}")
+    return m
+
+
+def film_gap(a, b):
+    """(|mean| relative gap, share of pixels within 1e-4 of b's max, max
+    |a - b|) of two films."""
+    mean_rel = abs(float(a.mean()) - float(b.mean())) / float(b.mean())
+    within = float((np.abs(a - b) <= 1e-4 * np.abs(b).max()).mean())
+    return mean_rel, within, float(np.abs(a - b).max())
+
+
+def check_films(tag, films):
+    """The film gate: |mean| rel < 1e-4 and >= 99% of pixels within 1e-4 of
+    the film max. On the card the two paths, and two runs of one path, gave
+    bit-equal or ulp-close films (PERF.md, 6.1); the limits leave room for a
+    rare last-bit flip of one lane's decision (its path is then another
+    valid sample and moves a pixel or two) and none for a bias: 1% more or
+    less energy on any kind of lane moves the mean by far more than 1e-4."""
+    checks = {}
+    for name, (a, b) in films.items():
+        checks[name] = film_gap(a, b)
+        mean_rel, within, max_abs = checks[name]
+        print(f"{tag} films, {name}: |mean| rel {mean_rel:.3e}, pixels within "
+              f"1e-4 of the film max {within:.5f}, max |diff| {max_abs:.3e}")
+    for name, (mean_rel, within, _) in checks.items():
+        if not (mean_rel < 1e-4 and within >= 0.99):
+            fail(f"{tag} films disagree ({name})")
+    return checks
+
+
+class PlainCalls:
+    """Counts calls of the plain step and the plain BVH walk while open, so a
+    kernel-path run can show that it ran neither."""
+
+    def __enter__(self):
+        from lumillyrender_tpu_torch.integrator import wavefront
+        from lumillyrender_tpu_torch.ops import intersect
+
+        self.calls = 0
+        self.saved = [(m, name, getattr(m, name)) for m, name in (
+            (wavefront, "plain_bounce_step"), (intersect, "_walk_tris"))]
+        for mod, name, fn in self.saved:
+            def counted(*a, _fn=fn, **k):
+                self.calls += 1
+                return _fn(*a, **k)
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def run_main_path(tag, argv, want, must_be_zero=()):
+    """One CLI run with every launch count zeroed just before it and read
+    just after; fails unless each kernel in `want` launched and neither the
+    plain step nor the plain walk ran. Returns (result, counts)."""
+    from lumillyrender_tpu_torch import cli
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    with PlainCalls() as plain:
+        cuda_bounce.reset_counts()
+        result = cli.run(argv)
+        torch.cuda.synchronize()
+        launches = cuda_bounce.counts()
+    print(f"launches during the {tag} render: {launches}; plain step or "
+          f"walk calls: {plain.calls}")
+    if any(launches[k] < 1 for k in want):
+        fail(f"a kernel of the {tag} path was not launched: {launches}")
+    if plain.calls or any(launches[k] for k in must_be_zero):
+        fail(f"the {tag} render left the kernel path: {launches}, "
+             f"{plain.calls} plain calls")
+    film = result.film
+    print(f"film {film.shape}, mean {film.mean():.6f}, max {film.max():.4f}, "
+          f"rays {result.rays:.0f}, rays/s {result.rays_per_second:.4e}")
+    if not (np.isfinite(film).all() and film.max() > 0):
+        fail(f"the {tag} film is not finite and non-zero")
+    return result, launches
+
+
+def instrumented_chunk(c, spp_chunk, kernel, tables):
+    """Trace one chunk of `c` with the bounce kernel `kernel` (cuda_bounce.
+    bounce or bounce_bvh), checking every launch against the plain step on
+    the same state. Returns (checks by width, per-launch records (width,
+    live lanes, rays, node visits, triangle tests), first state by width)."""
+    from lumillyrender_tpu_torch import parity
+    from lumillyrender_tpu_torch.integrator import wavefront
+    from lumillyrender_tpu_torch.ops import cuda_bounce, intersect
+
+    st = c.settings
+    per_launch, first_state, checks = [], {}, {}
+
+    def counted_step(state):
+        w = state.o.shape[0]
+        first_state.setdefault(w, state)
+        # Both sides count this launch's rays from 0: the chunk's running
+        # float32 total passes 2^24, where the plain step's two additions
+        # (primary, then shadow rays) and the kernel's one round differently.
+        zero = dataclasses.replace(state, rays_traced=torch.zeros_like(state.rays_traced))
+        out = kernel(c.data, st, SEED, zero, tables)
+        want = wavefront.plain_bounce_step(c.data, st, SEED, zero)
+        # The walks the bound counts: the plain step's on the live lanes
+        # alone (the kernel skips dead ones), a primary ray each and a
+        # shadow ray each (the kernel's shadow rays are fewer: none where
+        # RR kills the lane or the light faces away).
+        live = state.alive.nonzero()[:, 0]
+        sub = dataclasses.replace(zero, **{k: getattr(zero, k)[live] for k in (
+            "o", "d", "throughput", "accum", "alive", "lane")})
+        with intersect.count_work() as work:
+            wavefront.plain_bounce_step(c.data, st, SEED, sub)
+        m = parity.agreement(want, out)
+        bad = parity.failures(m)
+        if bad:
+            fail(f"bounce kernel vs plain on the main path, width {w}, "
+                 f"bounce {state.bounce}: {bad}")
+        agg = checks.setdefault(w, dict(launches=0, tie=0.0, excluded=0.0,
+                                        accum_flip=0.0, max_rel=0.0, max_abs=0.0))
+        agg["launches"] += 1
+        for k in ("tie", "excluded", "accum_flip"):
+            agg[k] = max(agg[k], m[k])
+        agg["max_rel"] = max(agg["max_rel"], *m["max_rel"].values())
+        agg["max_abs"] = max(agg["max_abs"], *m["max_abs"].values())
+        per_launch.append((w, state.alive.sum(), out.rays_traced,
+                           work["visits"], work["tests"]))
+        return dataclasses.replace(out, rays_traced=state.rays_traced + out.rays_traced)
+
+    trace_chunk(c, 0, spp_chunk, cuda_bounce.generate_rays, counted_step)
+    torch.cuda.synchronize()
+    for w, agg in sorted(checks.items(), reverse=True):
+        print(f"main-path bounce, width {w}: {agg['launches']} launches each "
+              f"checked against the plain step: worst tie {agg['tie']:.4%}, "
+              f"excluded {agg['excluded']:.4%}, accum flips {agg['accum_flip']:.4%}, "
+              f"max rel {agg['max_rel']:.1e}, max abs {agg['max_abs']:.1e}")
+    return checks, per_launch, first_state
+
+
+# Operations counted from the sources: a slab test ~25 flops (six
+# subtractions and multiplies, min/max per axis, three compares), a
+# Moller-Trumbore test ~54, a sphere test ~25, shading a live lane ~150 and
+# its NEE ~150 more, beside each ray's intersection.
+SLAB_FLOPS, TRI_FLOPS, SPH_FLOPS, SHADE_FLOPS = 25, 54, 25, 150
+STATE_BYTES = 106  # bounce: o, d, throughput, accum 48 B each way, alive 1 B
+#                    each way, lane id in and ray count out, 4 B each
+
+
+def bounce_bounds(c, per_launch, table_bytes, brute):
+    """Per width: launches and the summed bound of the bounce launches
+    (bytes: the state each way and the tables once; operations: the
+    intersections and shading of this launch's rays, the BVH walks' node
+    visits and triangle tests counted by the plain walk on the live
+    lanes)."""
+    geom = c.data.geometry
+    nt, ns = geom.tri_p0.shape[0], geom.sph_c.shape[0]
+    by_width = {}
+    for w, a_in, r, visits, tests in per_launch:
+        a_in, r = float(a_in), float(r)
+        isect = (TRI_FLOPS * nt * r if brute
+                 else SLAB_FLOPS * float(visits) + TRI_FLOPS * float(tests))
+        ops = isect + SPH_FLOPS * ns * r + SHADE_FLOPS * r
+        t_bytes = (STATE_BYTES * w + table_bytes) / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_FLOPS_PER_S * 1e3
+        agg = by_width.setdefault(w, dict(launches=0, bound_ms=0.0, bytes_ms=0.0,
+                                          ops_ms=0.0, rays=0.0, visits=0.0, tests=0.0))
+        agg["launches"] += 1
+        agg["bound_ms"] += max(t_bytes, t_ops)
+        agg["bytes_ms"] += t_bytes
+        agg["ops_ms"] += t_ops
+        agg["rays"] += r
+        agg["visits"] += float(visits)
+        agg["tests"] += float(tests)
+    return by_width
+
+
+def time_bounce_widths(c, kernel, launch, tables, first_state, by_width):
+    """Bare launch, wrapper and plain-step times at each stage width, on
+    that stage's first state."""
+    from lumillyrender_tpu_torch.integrator import wavefront
+
+    st = c.settings
+    dev = torch.device("cuda")
+    for w, s0 in first_state.items():
+        a = by_width[w]
+        f3 = lambda: torch.empty((w, 3), dtype=torch.float32, device=dev)
+        out = (f3(), f3(), f3(), f3(), torch.empty(w, dtype=torch.bool, device=dev),
+               torch.empty(w, dtype=torch.float32, device=dev))
+        a["ms"] = graph_ms(lambda: launch(c.data, st, SEED, s0, tables, out))
+        a["wrapper_ms"] = graph_ms(lambda: kernel(c.data, st, SEED, s0, tables))
+        a["host_ms"] = events_ms(lambda: kernel(c.data, st, SEED, s0, tables), 10)
+        a["plain_ms"] = events_ms(
+            lambda: wavefront.plain_bounce_step(c.data, st, SEED, s0), 2)
+    for w, a in sorted(by_width.items(), reverse=True):
+        k = a["launches"]
+        print(f"bounce width {w}: {k} launches/chunk, kernel {a['ms']:.4f} "
+              f"ms/launch (bare launch, CUDA graph + events), bound "
+              f"{a['bound_ms'] / k:.4f} ms (bytes {a['bytes_ms'] / k:.4f}, "
+              f"operations {a['ops_ms'] / k:.4f}); wrapper with allocation "
+              f"and ray-count sum {a['wrapper_ms']:.4f} ms on the device, "
+              f"{a['host_ms']:.4f} ms with the host; plain {a['plain_ms']:.3f} ms")
+
+
+def weighted(by_width):
+    """Launch-weighted ms, bound, plain ms and what bounds the launches."""
+    n = sum(a["launches"] for a in by_width.values())
+    ms = sum(a["ms"] * a["launches"] for a in by_width.values()) / n
+    bound = sum(a["bound_ms"] for a in by_width.values()) / n
+    plain = sum(a["plain_ms"] * a["launches"] for a in by_width.values()) / n
+    by = ("bytes" if sum(a["bytes_ms"] for a in by_width.values())
+          >= sum(a["ops_ms"] for a in by_width.values()) else "operations")
+    return n, ms, bound, plain, by
+
+
+def chunk_rate(c, spp_chunk, timed, first_offset):
+    """Forward rays/s over `timed` chunks after one warm-up chunk (host clock
+    around work that ends in a synchronize): (rays/s, ms per chunk)."""
+    from lumillyrender_tpu_torch.integrator.render import render_chunk
+
+    dev = torch.device("cuda")
+    render_chunk(c.data, c.settings, SEED, first_offset, spp_chunk, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rays = []
+    for k in range(timed):
+        _, r = render_chunk(c.data, c.settings, SEED, first_offset + (k + 1) * spp_chunk,
+                            spp_chunk, device=dev)
+        rays.append(r)
+    torch.cuda.synchronize()
+    window = time.monotonic() - t0
+    return float(sum(float(r) for r in rays)) / window, window / timed * 1e3
+
+
+def idle_share(c, spp_chunk, chunk_ms, offset):
+    """Device busy time per chunk from the profiler's kernel records over two
+    chunks, against the unprofiled chunk time: (idle share or None, busy ms,
+    {kernel name: (ms, launches) per chunk})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lumillyrender_tpu_torch.integrator.render import render_chunk
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for k in range(2):
+            render_chunk(c.data, c.settings, SEED, offset + k * spp_chunk, spp_chunk,
+                         device=torch.device("cuda"))
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            t, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() / 2e3, n + 0.5)
+    if not by_name:
+        print("idle share: not measured (the profiler recorded no kernels)")
+        return None, None, {}
+    busy = sum(t for t, _ in by_name.values())
+    idle = 1.0 - busy / chunk_ms
+    print(f"device busy {busy:.4f} ms per chunk of {chunk_ms:.4f} ms: "
+          f"idle share {idle:.4f}")
+    for name, (t, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:8]:
+        print(f"  {t:9.4f} ms/chunk {n:7.1f} launches/chunk  {name[:70]}")
+    return idle, busy, by_name
+
+
+def welcome_rays(bvh, n, seed):
+    """Random rays: origins in the root box, directions uniform; and the same
+    count of axis-aligned rays whose origins lie on node planes (the slab
+    test's 0 * inf)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = bvh.node_min[0].cpu().numpy(), bvh.node_max[0].cpu().numpy()
+    o = rng.uniform(lo, hi, size=(n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    oa = rng.uniform(lo, hi, size=(n, 3)).astype(np.float32)
+    da = np.zeros((n, 3), np.float32)
+    axis = rng.integers(0, 3, size=n)
+    da[np.arange(n), axis] = rng.choice([-1.0, 1.0], size=n)
+    planes = np.concatenate([bvh.node_min.cpu().numpy(), bvh.node_max.cpu().numpy()])
+    rows = rng.integers(0, planes.shape[0], size=n)
+    for shift in (1, 2):
+        side = (axis + shift) % 3
+        oa[np.arange(n), side] = planes[rows, side]
+    cu = lambda x: torch.from_numpy(x).cuda()
+    return (cu(o), cu(d)), (cu(oa), cu(da))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from lumillyrender_tpu_torch import cli, parity
+    from lumillyrender_tpu_torch import cli
+    from lumillyrender_tpu_torch.constants import EPS, INF
     from lumillyrender_tpu_torch.integrator import wavefront
     from lumillyrender_tpu_torch.integrator.render import (
-        global_lanes, render, render_chunk,
+        default_spp_chunk, global_lanes, render,
     )
-    from lumillyrender_tpu_torch.ops import cuda_bounce, rng
+    from lumillyrender_tpu_torch.ops import cuda_bounce, cuda_build, cuda_bvh, intersect, rng
+    from lumillyrender_tpu_torch.scene import terrain
     from lumillyrender_tpu_torch.scene.compiler import compile_scene, compile_scene_file
     from lumillyrender_tpu_torch.scene.data import CAM_PINHOLE
     from lumillyrender_tpu_torch.scene.loader import parse_config
@@ -248,6 +568,11 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.monotonic()
     assets = REPO / "assets"
+    secs = {}
+
+    def lap(name, t0):
+        secs[name] = time.monotonic() - t0
+        print(f"[{name}: {secs[name]:.1f}s]", flush=True)
 
     phase("1 card")
     card = gpu_line()
@@ -257,19 +582,25 @@ def main() -> int:
 
     phase("2 build")
     t0 = time.monotonic()
-    secs = cuda_bounce.build(verbose=True)
-    print(f"built {sorted(secs)} in {time.monotonic() - t0:.1f}s "
-          f"(per source: {json.dumps({k: round(v, 1) for k, v in secs.items()})})")
+    built = cuda_build.build(verbose=True)
+    print(f"built {sorted(built)} in {time.monotonic() - t0:.1f}s "
+          f"(per source: {json.dumps({k: round(v, 1) for k, v in built.items()})})")
+    lap("build", t0)
 
     phase("3 raygen kernel vs plain")
+    t0 = time.monotonic()
     cbox = compile_scene_file(assets / "new-cbox.toml", device=dev)
     ibl = compile_scene_file(assets / "ibl-material.toml", device=dev)
+    geo = compile_scene_file(assets / "welcome-geo.toml", device=dev)
+    geo_chunk = default_spp_chunk(geo.settings)
     cases = [
         ("new-cbox 256^2x32 off0", cbox.data, cbox.settings, 32, 0),
         ("new-cbox 256^2x32 off32", cbox.data, cbox.settings, 32, 32),
         ("ibl-material thin-lens", ibl.data, ibl.settings, 8, 0),
         ("ibl-material realistic-pinhole", ibl.data,
          dataclasses.replace(ibl.settings, camera_kind=CAM_PINHOLE), 8, 0),
+        (f"welcome-geo 512x368x{geo_chunk} thin-lens", geo.data, geo.settings,
+         geo_chunk, 0),
     ]
     raygen_err = 0.0
     for tag, scene, st, spp, off in cases:
@@ -293,49 +624,34 @@ def main() -> int:
         # most: 1e-5 relative leaves room for that and nothing else.
         if max(errs.values()) > 1e-5:
             fail(f"raygen disagrees with its plain version ({tag}): {errs}")
+    lap("raygen", t0)
 
-    phase("4 bounce kernel vs plain step")
+    phase("4 brute-force bounce kernel vs plain step")
+    t0 = time.monotonic()
     scenes = {name: compile_scene_file(assets / f"{name}.toml", device=dev)
               for name in ("new-cbox", "primitive", "debug-nee", "brdf",
                            "many-light")}
     scenes["families"] = compile_scene(parse_config(GGX_REFR_SCENE), device=dev)
+    scenes["ibl-material"] = ibl
     n_cmp = 1 << 21  # the main path's full width
     bounce_err = 0.0
     for name, c in scenes.items():
         for b in (0, 3, 7, 70):
-            st = random_state(c.data, n_cmp, 1000 * b + len(name), b)
-            got = cuda_bounce.bounce(c.data, c.settings, SEED, st)
-            want = wavefront.plain_bounce_step(c.data, c.settings, SEED, st)
-            torch.cuda.synchronize()
-            m = parity.agreement(want, got)
-            bad = parity.failures(m)
-            print(f"{name}@b{b}: lanes {m['lanes']}, tie {m['tie']:.4%}, "
-                  f"excluded {m['excluded']:.4%}, accum flips "
-                  f"{m['accum_flip']:.4%}, max rel "
-                  + ", ".join(f"{k} {v:.1e}" for k, v in m["max_rel"].items())
-                  + f", rays {m['rays'][1]:.0f}/{m['rays'][0]:.0f}"
-                  + (f"  FAIL {bad}" if bad else ""))
-            if bad:
-                fail(f"bounce kernel vs plain on {name}@b{b}: {bad}")
+            m = check_bounce(
+                f"{name}@b{b}",
+                lambda s: cuda_bounce.bounce(c.data, c.settings, SEED, s),
+                lambda s: wavefront.plain_bounce_step(c.data, c.settings, SEED, s),
+                random_state(c.data, n_cmp, 1000 * b + len(name), b))
             if name == "new-cbox":
                 bounce_err = max(bounce_err, *m["max_abs"].values())
     del scenes
+    lap("brute bounce parity", t0)
 
     phase("5 end-to-end render (CLI, new-cbox 256^2 x 64 spp)")
-    cuda_bounce.reset_counts()
-    result = cli.run([str(assets / "new-cbox.toml"), "--out",
-                      str(OUT / "new-cbox.png")])
-    torch.cuda.synchronize()
-    launches = cuda_bounce.counts()
-    print(f"launches during the render: {launches}")
-    if min(launches.values()) < 1:
-        fail(f"a kernel was not launched on the main path: {launches}")
-    film = result.film
-    print(f"film {film.shape}, mean {film.mean():.6f}, max {film.max():.4f}, "
-          f"rays {result.rays:.0f}, rays/s {result.rays_per_second:.4e}")
-    if not (np.isfinite(film).all() and film.max() > 0):
-        fail("film is not finite and non-zero")
-
+    t0 = time.monotonic()
+    _, cbox_launches = run_main_path(
+        "new-cbox", [str(assets / "new-cbox.toml"), "--out", str(OUT / "new-cbox.png")],
+        want=("raygen", "bounce"), must_be_zero=("bvh", "bounce_bvh"))
     small = dataclasses.replace(cbox, settings=dataclasses.replace(
         cbox.settings, width=64, height=64, spp=8))
     f_k = render(small, seed=SEED, device=dev).film
@@ -344,136 +660,26 @@ def main() -> int:
         small, 0, 8, cuda_bounce.plain_generate_rays,
         lambda s: wavefront.plain_bounce_step(small.data, small.settings, SEED, s))
     f_p = f_p.reshape(64, 64, 3).cpu().numpy() / 8
-
-    def film_gap(a, b):
-        mean_rel = abs(float(a.mean()) - float(b.mean())) / float(b.mean())
-        within = float((np.abs(a - b) <= 1e-4 * np.abs(b).max()).mean())
-        return mean_rel, within, float(np.abs(a - b).max())
-
-    film_checks = {"kernel run vs kernel run": film_gap(f_k2, f_k),
-                   "kernel path vs plain path": film_gap(f_k, f_p)}
-    for tag, (mean_rel, within, max_abs) in film_checks.items():
-        print(f"64^2x8 films, {tag}: |mean| rel {mean_rel:.3e}, pixels within "
-              f"1e-4 of the film max {within:.5f}, max |diff| {max_abs:.3e}")
-    # On the card the two paths, and two runs of one path, gave bit-equal
-    # films (PERF.md, 6.1). The limits leave room for a rare last-bit flip of
-    # one lane's decision (its path is then another valid sample and moves a
-    # pixel or two) and none for a bias: 1% more or less energy on any kind
-    # of lane moves the mean by far more than 1e-4.
-    for tag, (mean_rel, within, _) in film_checks.items():
-        if not (mean_rel < 1e-4 and within >= 0.99):
-            fail(f"64^2x8 films disagree ({tag})")
+    cbox_films = check_films("new-cbox 64^2x8", {
+        "kernel run vs kernel run": (f_k2, f_k), "kernel path vs plain path": (f_k, f_p)})
+    lap("new-cbox render", t0)
 
     phase("6 timing (new-cbox 256^2, 32 spp per chunk)")
+    t0 = time.monotonic()
     st = cbox.settings
     spp_chunk = 32
     n = st.width * st.height * spp_chunk
-    render_chunk(cbox.data, st, SEED, 0, spp_chunk, device=dev)  # warm-up
-    torch.cuda.synchronize()
-    timed = 8
-    t0 = time.monotonic()
-    rays = []
-    for k in range(timed):
-        _, r = render_chunk(cbox.data, st, SEED, (k + 1) * spp_chunk, spp_chunk,
-                            device=dev)
-        rays.append(r)
-    torch.cuda.synchronize()
-    window = time.monotonic() - t0
-    total_rays = float(sum(float(r) for r in rays))
-    rays_per_s = total_rays / window
-    print(f"forward: {timed} chunks, {total_rays:.0f} rays in {window:.4f}s: "
-          f"{rays_per_s:.6e} rays/s  [{card}]")
-
-    # One instrumented chunk: every bounce launch checked against the plain
-    # step on the same state; live lanes and rays of each launch (for the
-    # bounds); the first state at each stage width (for the timings).
+    rays_per_s, chunk_ms = chunk_rate(cbox, spp_chunk, 8, 0)
+    print(f"forward: 8 chunks, {chunk_ms:.4f} ms each: {rays_per_s:.6e} rays/s  [{card}]")
     tables = cuda_bounce.pack_tables(cbox.data)
-    per_launch = []
-    first_state = {}
-    checks = {}
-
-    def counted_step(state):
-        w = state.o.shape[0]
-        first_state.setdefault(w, state)
-        # Both sides count this launch's rays from 0: the chunk's running
-        # float32 total passes 2^24, where the plain step's two additions
-        # (primary, then shadow rays) and the kernel's one round differently.
-        zero = dataclasses.replace(state, rays_traced=torch.zeros_like(state.rays_traced))
-        out = cuda_bounce.bounce(cbox.data, st, SEED, zero, tables)
-        want = wavefront.plain_bounce_step(cbox.data, st, SEED, zero)
-        m = parity.agreement(want, out)
-        bad = parity.failures(m)
-        if bad:
-            fail(f"bounce kernel vs plain on the main path, width {w}, "
-                 f"bounce {state.bounce}: {bad}")
-        c = checks.setdefault(w, dict(launches=0, tie=0.0, excluded=0.0,
-                                      accum_flip=0.0, max_rel=0.0, max_abs=0.0))
-        c["launches"] += 1
-        for k in ("tie", "excluded", "accum_flip"):
-            c[k] = max(c[k], m[k])
-        c["max_rel"] = max(c["max_rel"], *m["max_rel"].values())
-        c["max_abs"] = max(c["max_abs"], *m["max_abs"].values())
-        per_launch.append((w, state.alive.sum(), out.rays_traced))
-        return dataclasses.replace(out, rays_traced=state.rays_traced + out.rays_traced)
-
-    trace_chunk(cbox, 0, spp_chunk, cuda_bounce.generate_rays, counted_step)
-    torch.cuda.synchronize()
-    for w, c in sorted(checks.items(), reverse=True):
-        print(f"main-path bounce, width {w}: {c['launches']} launches each "
-              f"checked against the plain step: worst tie {c['tie']:.4%}, "
-              f"excluded {c['excluded']:.4%}, accum flips {c['accum_flip']:.4%}, "
-              f"max rel {c['max_rel']:.1e}, max abs {c['max_abs']:.1e}")
-        bounce_err = max(bounce_err, c["max_abs"])
-
-    geom = cbox.data.geometry
-    nt, ns = geom.tri_p0.shape[0], geom.sph_c.shape[0]
-    # Bound of one bounce launch over w lanes: bytes = 106 w (o, d,
-    # throughput, accum read and written, 48 B each way; alive 1 B each way;
-    # lane id read, ray count written, 4 B each); operations counted from
-    # csrc/bounce.cu, ~54 flops per Moller-Trumbore test and ~25 per sphere
-    # test, ~150 for shading a live lane and ~150 more for its NEE, times
-    # the live lanes (primary rays) and shadow rays of this launch.
-    f_isect = 54 * nt + 25 * ns
-    by_width = {}
-    for w, a_in, r in per_launch:
-        a_in, r = float(a_in), float(r)
-        ops = a_in * (f_isect + 150) + (r - a_in) * (f_isect + 150)
-        t_bytes = 106 * w / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_FLOPS_PER_S * 1e3
-        agg = by_width.setdefault(w, dict(launches=0, bound_ms=0.0,
-                                          bytes_ms=0.0, ops_ms=0.0))
-        agg["launches"] += 1
-        agg["bound_ms"] += max(t_bytes, t_ops)
-        agg["bytes_ms"] += t_bytes
-        agg["ops_ms"] += t_ops
-
-    def empty_out(w):
-        f3 = lambda: torch.empty((w, 3), dtype=torch.float32, device=dev)
-        return (f3(), f3(), f3(), f3(), torch.empty(w, dtype=torch.bool, device=dev),
-                torch.empty(w, dtype=torch.float32, device=dev))
-
-    for w, s0 in first_state.items():
-        a = by_width[w]
-        out = empty_out(w)
-        a["ms"] = graph_ms(lambda: cuda_bounce.bounce_launch(
-            cbox.data, st, SEED, s0, tables, out))
-        a["wrapper_ms"] = graph_ms(
-            lambda: cuda_bounce.bounce(cbox.data, st, SEED, s0, tables))
-        a["host_ms"] = events_ms(
-            lambda: cuda_bounce.bounce(cbox.data, st, SEED, s0, tables), 10)
-        a["plain_ms"] = events_ms(
-            lambda: wavefront.plain_bounce_step(cbox.data, st, SEED, s0), 2)
-    bounce_launches = sum(a["launches"] for a in by_width.values())
-    for w, a in sorted(by_width.items(), reverse=True):
-        k = a["launches"]
-        print(f"bounce width {w}: {k} launches/chunk, kernel {a['ms']:.4f} "
-              f"ms/launch (bare launch, CUDA graph + events), bound "
-              f"{a['bound_ms'] / k:.4f} ms (bytes {a['bytes_ms'] / k:.4f}, "
-              f"operations {a['ops_ms'] / k:.4f}); wrapper with allocation "
-              f"and ray-count sum {a['wrapper_ms']:.4f} ms on the device, "
-              f"{a['host_ms']:.4f} ms with the host; plain {a['plain_ms']:.3f} ms")
+    checks, per_launch, first_state = instrumented_chunk(cbox, spp_chunk, cuda_bounce.bounce,
+                                                         tables)
+    bounce_err = max(bounce_err, *(c["max_abs"] for c in checks.values()))
+    by_width = bounce_bounds(cbox, per_launch, 0, brute=True)
+    time_bounce_widths(cbox, cuda_bounce.bounce, cuda_bounce.bounce_launch, tables,
+                       first_state, by_width)
+    bounce_launches, b_ms, b_bound, b_plain, b_by = weighted(by_width)
     print(f"launches per chunk: raygen 1, bounce {bounce_launches}")
-
     o_buf = torch.empty((n, 3), dtype=torch.float32, device=dev)
     d_buf = torch.empty((n, 3), dtype=torch.float32, device=dev)
     raygen_ms = graph_ms(lambda: cuda_bounce.raygen_launch(
@@ -487,60 +693,212 @@ def main() -> int:
           f"bound {raygen_bound:.4f} ms (bytes); wrapper with allocation and "
           f"pdf/g fill {raygen_host_ms:.4f} ms with the host; plain "
           f"{raygen_plain_ms:.3f} ms")
+    cbox_idle, _, _ = idle_share(cbox, spp_chunk, chunk_ms, 10 * spp_chunk)
+    cbox_report = dict(rays_per_s=rays_per_s, chunk_ms=chunk_ms, idle_share=cbox_idle,
+                       bounce_by_width={str(w): a for w, a in by_width.items()},
+                       main_path_checks={str(w): c for w, c in checks.items()},
+                       film_checks=cbox_films)
+    del o_buf, d_buf, tables
+    lap("new-cbox timing", t0)
 
-    # Device busy time per chunk from the profiler's kernel records over two
-    # chunks, against the unprofiled chunk time above.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for k in range(2):
-            render_chunk(cbox.data, st, SEED, (k + 5) * spp_chunk, spp_chunk,
-                         device=dev)
+    phase("7 BVH kernel vs the plain walk (welcome-geo)")
+    t0 = time.monotonic()
+    gst = geo.settings
+    bvh = geo.data.bvh
+    btab = cuda_bvh.tables_of(bvh)
+    n_geo = gst.width * gst.height * geo_chunk
+    cam_o, cam_d, _, _ = cuda_bounce.generate_rays(geo.data, gst, SEED, 0, n_geo)
+    (rnd_o, rnd_d), (ax_o, ax_d) = welcome_rays(bvh, n_geo, 7)
+    inf = torch.full((n_geo,), INF, device=dev)
+    never = torch.full((n_geo,), -INF, device=dev)
+    # Light distances spanning hit, miss and boundary: half the lanes put
+    # the light on their nearest hit, so both verdicts occur.
+    dist = torch.from_numpy(np.random.default_rng(8).uniform(
+        1.0, 800.0, size=n_geo).astype(np.float32)).to(dev)
+    near_t, near_p = intersect._walk_tris(rnd_o, rnd_d, inf, never, bvh, False)
+    on = (near_p >= 0) & (torch.arange(n_geo, device=dev) % 2 == 0)
+    dist = torch.where(on, near_t, dist)
+    del near_t, near_p, on
+    cap = dist + 2.0 * EPS
+    stop = cap - 4.0 * EPS
+    verdict = lambda r: (r[1] >= 0) & ((r[0] - dist).abs() <= EPS)
+    bvh_checks = {}
+    bvh_err = 0.0
+    sets = [("camera rays", cam_o, cam_d, inf, never, False),
+            ("camera rays, shade", cam_o, cam_d, inf, never, True),
+            ("random rays", rnd_o, rnd_d, inf, never, False),
+            ("random rays, shade", rnd_o, rnd_d, inf, never, True),
+            ("random rays, occlusion", rnd_o, rnd_d, cap, stop, False),
+            ("axis-aligned rays", ax_o, ax_d, inf, never, True)]
+    walk_counts = {}
+    for tag, o, d, t0_, ts, shade in sets:
+        got = cuda_bvh.intersect_tris(o, d, t0_, ts, btab, shade)
+        want = intersect._walk_tris(o, d, t0_, ts, bvh, shade, counts=True)
         torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if getattr(e, "device_type", None) == DeviceType.CUDA:
-            t, c = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-    chunk_ms = window / timed * 1e3
-    if by_name:
-        busy_ms = sum(t for t, _ in by_name.values()) / 2 / 1e3
-        idle = 1.0 - busy_ms / chunk_ms
-        print(f"device busy {busy_ms:.4f} ms per chunk of {chunk_ms:.4f} ms: "
-              f"idle share {idle:.4f}")
-        for name, (t, c) in sorted(by_name.items(), key=lambda x: -x[1][0])[:8]:
-            print(f"  {t / 2 / 1e3:9.4f} ms/chunk {c / 2:7.1f} launches/chunk  {name[:70]}")
-    else:
-        idle = None
-        print("idle share: not measured (the profiler recorded no kernels)")
+        walk_counts[tag] = (float(want[-2].sum()), float(want[-1].sum()))
+        prim_flips = int((got[1] != want[1]).sum())
+        both = (got[1] >= 0) & (want[1] >= 0)
+        ulp = ((got[0] - want[0]).abs() / torch.maximum(want[0].abs(), torch.ones_like(want[0]))
+               ).max().item()
+        rec = dict(lanes=n_geo, prim_flips=prim_flips, t_max_rel=ulp,
+                   hits=int(both.sum()), visits=walk_counts[tag][0],
+                   tests=walk_counts[tag][1])
+        if shade:
+            rec["mat_flips"] = int((got[2] != want[2]).sum())
+            rec["n_max_abs"] = (got[3] - want[3]).abs().max().item()
+        if ts is stop:
+            exact = intersect._walk_tris(o, d, t0_, never, bvh, False)
+            rec["verdict_flips"] = int((verdict(got) != verdict(want)).sum())
+            rec["verdict_flips_vs_nearest"] = int((verdict(got) != verdict(exact)).sum())
+            rec["visible"] = int(verdict(got).sum())
+        bvh_checks[tag] = rec
+        bvh_err = max(bvh_err, (got[0] - want[0]).abs().max().item())
+        print(f"{tag}: " + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                                     for k, v in rec.items()))
+        # Prim ids, materials and verdicts exactly; t and n to 1e-6
+        # relative: the same operations in the same order, no contraction
+        # (measured: bit-equal, PERF.md 6.2).
+        if (prim_flips or rec.get("mat_flips") or rec.get("verdict_flips")
+                or rec.get("verdict_flips_vs_nearest") or ulp > 1e-6
+                or rec.get("n_max_abs", 0.0) > 1e-6):
+            fail(f"BVH kernel disagrees with the plain walk ({tag}): {rec}")
+    del rnd_o, rnd_d, ax_o, ax_d, dist, cap, stop
+    lap("bvh parity", t0)
 
-    b_ms = sum(a["ms"] * a["launches"] for a in by_width.values()) / bounce_launches
-    b_bound = sum(a["bound_ms"] for a in by_width.values()) / bounce_launches
-    b_plain = sum(a["plain_ms"] * a["launches"] for a in by_width.values()) / bounce_launches
-    b_by = ("bytes" if sum(a["bytes_ms"] for a in by_width.values())
-            >= sum(a["ops_ms"] for a in by_width.values()) else "operations")
+    phase("8 BVH bounce kernel vs plain step (welcome-geo, terrain)")
+    t0 = time.monotonic()
+    tdir = OUT / "terrain"
+    tdir.mkdir(exist_ok=True)
+    terrain.write_obj(tdir / "terrain.obj", *terrain.make_terrain(9000)[:3])
+    bvh_scenes = {"welcome-geo": geo, "terrain": compile_scene(
+        parse_config(terrain.terrain_scene_toml(), base_dir=tdir), device=dev)}
+    bvh_bounce_err = 0.0
+    for name, c in bvh_scenes.items():
+        for b in (0, 3, 7, 70):
+            m = check_bounce(
+                f"{name}@b{b}",
+                lambda s: cuda_bounce.bounce_bvh(c.data, c.settings, SEED, s),
+                lambda s: wavefront.plain_bounce_step(c.data, c.settings, SEED, s),
+                random_state(c.data, n_geo, 2000 * b + len(name), b))
+            bvh_bounce_err = max(bvh_bounce_err, *m["max_abs"].values())
+    del bvh_scenes
+    lap("bvh bounce parity", t0)
+
+    phase("9 end-to-end render (CLI, welcome-geo 512x368 x 64 spp, hdr; --aov depth)")
+    t0 = time.monotonic()
+    geo_result, geo_launches = run_main_path(
+        "welcome-geo", [str(assets / "welcome-geo.toml"), "--out", str(OUT / "welcome-geo.hdr")],
+        want=("raygen", "bounce_bvh"), must_be_zero=("bounce", "bvh"))
+    if geo_result.film.shape != (368, 512, 3):
+        fail(f"welcome-geo film shape {geo_result.film.shape}")
+    _, aov_launches = run_main_path(
+        "welcome-geo --aov depth",
+        [str(assets / "welcome-geo.toml"), "--aov", "depth",
+         "--out", str(OUT / "welcome-geo-depth.hdr")],
+        want=("raygen", "bvh"), must_be_zero=("bounce", "bounce_bvh"))
+    normal_result, _ = run_main_path(
+        "welcome-geo --aov normal",
+        [str(assets / "welcome-geo.toml"), "--aov", "normal",
+         "--out", str(OUT / "welcome-geo-normal.hdr")],
+        want=("raygen", "bvh"), must_be_zero=("bounce", "bounce_bvh"))
+    if not normal_result.film.max() <= 1.0:
+        fail("the normal AOV leaves [0, 1]")
+    small = dataclasses.replace(geo, settings=dataclasses.replace(
+        gst, width=64, height=48, spp=4))
+    f_k = render(small, seed=SEED, device=dev).film
+    f_k2 = render(small, seed=SEED, device=dev).film
+    f_p, _ = trace_chunk(
+        small, 0, 4, cuda_bounce.plain_generate_rays,
+        lambda s: wavefront.plain_bounce_step(small.data, small.settings, SEED, s))
+    f_p = f_p.reshape(48, 64, 3).cpu().numpy() / 4
+    geo_films = check_films("welcome-geo 64x48x4", {
+        "kernel run vs kernel run": (f_k2, f_k), "kernel path vs plain path": (f_k, f_p)})
+    # The depth AOV: the kernel path's film against the plain walk's.
+    small_aov = dataclasses.replace(small, settings=dataclasses.replace(
+        small.settings, integrator="depth"))
+    a_k = render(small_aov, seed=SEED, device=dev).film
+    o, d, _, _ = cuda_bounce.generate_rays(small.data, small_aov.settings, SEED, 0, 64 * 48 * 4)
+    hit = intersect.intersect(o, d, small.data.geometry, small.data.bvh, gst.intersector,
+                              plain=True)
+    from lumillyrender_tpu_torch.integrator.render import camera_lanes
+    _, px, py = camera_lanes(small_aov.settings, 0, o.shape[0], dev)
+    depth = torch.where(hit.prim >= 0, hit.t, torch.zeros_like(hit.t))
+    a_p = torch.zeros(64 * 48, dtype=torch.float32, device=dev)
+    a_p.index_add_(0, py * 64 + px, depth)
+    a_p = (a_p / 4).reshape(48, 64, 1).expand(48, 64, 3).cpu().numpy()
+    aov_films = check_films("welcome-geo depth 64x48x4", {"kernel path vs plain walk": (a_k, a_p)})
+    lap("welcome-geo render", t0)
+
+    phase(f"10 timing (welcome-geo 512x368, {geo_chunk} spp per chunk)")
+    t0 = time.monotonic()
+    geo_rate, geo_chunk_ms = chunk_rate(geo, geo_chunk, 3, 0)
+    print(f"forward: 3 chunks, {geo_chunk_ms:.4f} ms each: {geo_rate:.6e} rays/s  [{card}]")
+    gtables = cuda_bounce.pack_tables(geo.data)
+    table_bytes = sum(btab[k].numel() * 4 for k in ("nodes", "leaves", "ids"))
+    g_checks, g_per_launch, g_first = instrumented_chunk(geo, geo_chunk, cuda_bounce.bounce_bvh,
+                                                         gtables)
+    bvh_bounce_err = max(bvh_bounce_err, *(c["max_abs"] for c in g_checks.values()))
+    g_by_width = bounce_bounds(geo, g_per_launch, table_bytes, brute=False)
+    time_bounce_widths(geo, cuda_bounce.bounce_bvh, cuda_bounce.bounce_bvh_launch, gtables,
+                       g_first, g_by_width)
+    gb_launches, gb_ms, gb_bound, gb_plain, gb_by = weighted(g_by_width)
+    print(f"launches per chunk: raygen 1, BVH bounce {gb_launches}")
+    # Kernel 3 on the chunk's camera rays (the AOV path's query).
+    out3 = (torch.empty(n_geo, dtype=torch.float32, device=dev),
+            torch.empty(n_geo, dtype=torch.int32, device=dev))
+    k3_ms = graph_ms(lambda: cuda_bvh.intersect_tris_launch(cam_o, cam_d, inf, never, btab,
+                                                            out3))
+    k3_plain_ms = events_ms(lambda: intersect._walk_tris(cam_o, cam_d, inf, never, bvh, False), 2)
+    v3_, t3_ = walk_counts["camera rays"]
+    k3_bytes = (40 * n_geo + table_bytes) / HBM_BYTES_PER_S * 1e3
+    k3_ops = (SLAB_FLOPS * v3_ + TRI_FLOPS * t3_) / FP32_FLOPS_PER_S * 1e3
+    k3_bound = max(k3_bytes, k3_ops)
+    k3_by = "bytes" if k3_bytes >= k3_ops else "operations"
+    print(f"BVH kernel on {n_geo} camera rays: {k3_ms:.4f} ms/launch (bare launch), "
+          f"bound {k3_bound:.4f} ms (bytes {k3_bytes:.4f}, operations {k3_ops:.4f}: "
+          f"{v3_ / n_geo:.2f} node visits and {t3_ / n_geo:.2f} triangle tests per ray); "
+          f"plain walk {k3_plain_ms:.3f} ms")
+    geo_idle, _, _ = idle_share(geo, geo_chunk, geo_chunk_ms, 40 * geo_chunk)
+    lap("welcome-geo timing", t0)
+
     kernels = [
         dict(name="raygen", route="cuda",
              source="lumillyrender_tpu_torch/csrc/raygen.cu",
              replaces="lumillyrender_tpu/ops/pallas_bounce.py:2143",
-             launches=launches["raygen"], max_abs_err=raygen_err,
+             launches=cbox_launches["raygen"], max_abs_err=raygen_err,
              ms=raygen_ms, plain_ms=raygen_plain_ms, bound_ms=raygen_bound,
              bound_by="bytes", library_ms=None),
         dict(name="bounce", route="cuda",
              source="lumillyrender_tpu_torch/csrc/bounce.cu",
              replaces="lumillyrender_tpu/ops/pallas_bounce.py:786",
-             launches=launches["bounce"], max_abs_err=bounce_err,
+             launches=cbox_launches["bounce"], max_abs_err=bounce_err,
              ms=b_ms, plain_ms=b_plain, bound_ms=b_bound, bound_by=b_by,
              library_ms=None),
+        dict(name="bvh", route="cuda",
+             source="lumillyrender_tpu_torch/csrc/bvh.cu",
+             replaces="lumillyrender_tpu/ops/pallas_bvh.py:252",
+             launches=aov_launches["bvh"], max_abs_err=bvh_err,
+             ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound, bound_by=k3_by,
+             library_ms=None),
+        dict(name="bounce_bvh", route="cuda",
+             source="lumillyrender_tpu_torch/csrc/bounce_bvh.cu",
+             replaces="lumillyrender_tpu/ops/pallas_bounce.py:834",
+             launches=geo_launches["bounce_bvh"], max_abs_err=bvh_bounce_err,
+             ms=gb_ms, plain_ms=gb_plain, bound_ms=gb_bound, bound_by=gb_by,
+             library_ms=None),
     ]
-    report = dict(card=card, rays_per_s=rays_per_s, chunk_ms=chunk_ms,
-                  idle_share=idle,
-                  bounce_by_width={str(w): a for w, a in by_width.items()},
-                  main_path_checks={str(w): c for w, c in checks.items()},
-                  film_checks=film_checks,
-                  kernels=kernels, seconds=time.monotonic() - t_start)
+    report = dict(
+        card=card, new_cbox=cbox_report,
+        welcome_geo=dict(
+            rays_per_s=geo_rate, chunk_ms=geo_chunk_ms, idle_share=geo_idle,
+            cli_rays_per_s=geo_result.rays_per_second, cli_seconds=geo_result.seconds,
+            launches=geo_launches, aov_launches=aov_launches,
+            bounce_by_width={str(w): a for w, a in g_by_width.items()},
+            main_path_checks={str(w): c for w, c in g_checks.items()},
+            bvh_checks=bvh_checks, film_checks=geo_films, aov_film_checks=aov_films,
+            bvh_kernel=dict(ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound,
+                            bytes_ms=k3_bytes, ops_ms=k3_ops)),
+        kernels=kernels, phase_seconds=secs, seconds=time.monotonic() - t_start)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"\ntotal {time.monotonic() - t_start:.1f}s")
     print(card)

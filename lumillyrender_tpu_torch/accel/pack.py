@@ -5,8 +5,8 @@ Host-side. Converts `sah.build_ranges` output over a triangle table into the
 blocks with -1-padded original prim ids. Degenerate zero triangles pad block
 tails (a zero triangle's MT determinant is 0 -> always missed).
 
-Only the numpy builder is used; the brute-force scenes this package renders
-on the card carry the BVH leaves in `SceneData` without traversing them.
+Only the numpy builder is used. The BVH kernels (csrc/bvh_walk.cuh) read
+these arrays repacked by `ops/cuda_bvh.py::pack_bvh`.
 """
 
 from __future__ import annotations

@@ -29,8 +29,8 @@ def run(argv=None):
     parser.add_argument("--spp-chunk", type=int, default=None)
     parser.add_argument(
         "--intersector", choices=("auto", "brute", "bvh"), default="auto",
-        help="Intersection backend: auto picks brute force up to 8192 prims; "
-             "BVH traversal is not ported yet",
+        help="Intersection backend: auto picks brute force up to 8192 prims "
+             "and the BVH past them",
     )
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="cuda runs the kernels; cpu runs the plain "

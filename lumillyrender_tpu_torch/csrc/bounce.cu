@@ -1,13 +1,9 @@
-// One whole brute-force bounce per lane: nearest hit over every triangle and
-// sphere, sky on miss, front-face emission, Russian roulette, next-event
-// estimation (CDF light pick, point on light, capped shadow ray, no-MIS
-// contribution), BSDF sample/eval/coef for the five families, and the
-// throughput / accum / alive update. One thread per lane.
+// One whole brute-force bounce per lane (bounce_body.cuh with a sweep over
+// every triangle and sphere). One thread per lane.
 //
 // Replaces the TPU kernel lumillyrender_tpu/ops/pallas_bounce.py::_bounce_kernel
 // (body _bounce_body, intersection _intersect_all). Its plain version is
-// integrator/wavefront.py::plain_bounce_step, which this kernel follows
-// operation for operation.
+// integrator/wavefront.py::plain_bounce_step on a brute-force scene.
 //
 // Bound on an H100: at full width (2M lanes) memory. Each lane reads
 // o, d, throughput, accum (48 B), alive (1 B) and its lane id (4 B), and
@@ -22,429 +18,37 @@
 // lanes leave after the sky test; the light is picked by binary search
 // over the CDF, so the kernel has no cap on prims, lights or materials.
 //
-// Rounding: built with -fmad=false and IEEE division and sqrt. Tables are
-// float32 rows (ids stored as exact floats):
+// Triangle table (float32 rows, ids as exact floats):
 //   tris   (nt, 16): p0 3 | e1 3 | e2 3 | n 3 | mat | pad 3
-//   sph    (ns, 8):  c 3 | r | mat | pad 3
-//   mats   (nm, 16): type | color 3 | emission 3 | alpha | ior | absorb | pad 6
-//   lights (nl, 16): is_tri | p0 3 | e1 3 | e2 3 | c 3 | r | cdf | pad
-#include "common.cuh"
+#include "bounce_body.cuh"
 
-enum { MAT_LAMBERT = 0, MAT_PHONG = 1, MAT_BLINN_PHONG = 2, MAT_GGX = 3, MAT_REFRACTION = 4 };
-
-enum {
-  FLAG_NEE = 1,       // pt-direct with lights: next-event estimation
-  FLAG_EMIT = 2,      // this bounce adds front-face emission
-  FLAG_RR_FORCE = 4,  // bounce <= depth: positive RR probabilities become 1
-};
-
-struct Scene {
+// Nearest hit with t < t_init: triangles ascending, then spheres ascending,
+// strict < (the first of equal candidates wins; a triangle wins a tie).
+struct BruteIsect {
   const float* tris;
   int nt;
   const float* sph;
   int ns;
-  const float* mats;
-  int nm;
-  const float* lights;
-  int nl;
-  float total_area;
-};
 
-struct Hit {
-  float t;
-  bool hit;
-  int mat;
-  V3 pos, n;
-};
-
-// Nearest hit with t < t_init: triangles ascending, then spheres ascending,
-// strict < (the first of equal candidates wins).
-__device__ Hit intersect(const Scene& sc, V3 o, V3 d, float t_init) {
-  float best_t = t_init;
-  int best_p = -1, best_m = -1;
-  V3 best_f = v3(0.f, 0.f, 0.f);
-  for (int i = 0; i < sc.nt; ++i) {
-    const float* r = sc.tris + 16 * i;
-    const V3 p0 = v3(r[0], r[1], r[2]), e1 = v3(r[3], r[4], r[5]), e2 = v3(r[6], r[7], r[8]);
-    const V3 pv = cross(d, e2);
-    const float det = e1.x * pv.x + e1.y * pv.y + e1.z * pv.z;
-    const bool det_ok = fabsf(det) >= LLR_EPS;
-    const float inv = 1.0f / (det_ok ? det : 1.0f);
-    const V3 tv = sub(o, p0);
-    const float u = (tv.x * pv.x + tv.y * pv.y + tv.z * pv.z) * inv;
-    const V3 qv = cross(tv, e1);
-    const float v = (d.x * qv.x + d.y * qv.y + d.z * qv.z) * inv;
-    const float t = (e2.x * qv.x + e2.y * qv.y + e2.z * qv.z) * inv;
-    const bool ok = det_ok && u >= 0.f && u <= 1.f && v >= 0.f && u + v <= 1.f && t >= LLR_EPS;
-    if (ok && t < best_t) {
-      best_t = t;
-      best_p = i;
-      best_m = (int)r[12];
-      best_f = v3(r[9], r[10], r[11]);
-    }
-  }
-  for (int i = 0; i < sc.ns; ++i) {
-    const float* r = sc.sph + 8 * i;
-    const V3 c = v3(r[0], r[1], r[2]);
-    const float rad = r[3];
-    const V3 co = sub(o, c);
-    const float cod = co.x * d.x + co.y * d.y + co.z * d.z;
-    // The one fused multiply-add: see ops/intersect.py::_fma.
-    const float det = fmaf(cod, cod, -(co.x * co.x + co.y * co.y + co.z * co.z)) + rad * rad;
-    const float sq = sqrtf(det > 0.f ? det : 1.0f);
-    const float t1 = -cod - sq, t2 = -cod + sq;
-    const float t = t1 > LLR_EPS ? t1 : t2;
-    const bool ok = det > 0.f && t > LLR_EPS;
-    if (ok && t < best_t) {
-      best_t = t;
-      best_p = sc.nt + i;
-      best_m = (int)r[4];
-      best_f = c;
-    }
-  }
-  Hit h;
-  h.t = best_t;
-  h.hit = best_p >= 0;
-  h.mat = h.hit ? best_m : -1;
-  h.pos = add(o, scale(d, best_t));
-  if (!h.hit) {
-    h.n = v3(0.f, 0.f, 1.f);
-  } else if (best_p < sc.nt) {
-    h.n = best_f;
-  } else {
-    h.n = safe_normalize(sub(h.pos, best_f));
-  }
-  return h;
-}
-
-struct Mat {
-  int type;
-  V3 col, emi;
-  float alpha, ior, absorb;
-};
-
-__device__ __forceinline__ Mat load_mat(const Scene& sc, int row) {
-  row = min(max(row, 0), sc.nm - 1);
-  const float* r = sc.mats + 16 * row;
-  Mat m;
-  m.type = (int)r[0];
-  m.col = v3(r[1], r[2], r[3]);
-  m.emi = v3(r[4], r[5], r[6]);
-  m.alpha = r[7];
-  m.ior = r[8];
-  m.absorb = r[9];
-  return m;
-}
-
-__device__ __forceinline__ V3 orienting(V3 out, V3 n) { return dot(n, out) < 0.f ? neg(n) : n; }
-
-__device__ __forceinline__ V3 reflect(V3 v, V3 n) { return add(neg(v), scale(n, 2.0f * dot(v, n))); }
-
-__device__ __forceinline__ void onb(V3 w, V3& t, V3& b) {
-  const bool use_y = fabsf(w.x) > LLR_EPS;
-  const V3 a = use_y ? v3(0.f, 1.f, 0.f) : v3(1.f, 0.f, 0.f);
-  t = safe_normalize(cross(a, w));
-  b = cross(w, t);
-}
-
-__device__ __forceinline__ float signed_mod(float b, float m) {
-  return b > 0.f ? fmodf(b, m) : m - fmodf(-b, m);
-}
-
-__device__ float checker(float u, float v) {
-  const float lu = signed_mod(u, 150.f), lv = signed_mod(v, 150.f);
-  const float su = signed_mod(u, 30.f), sv = signed_mod(v, 30.f);
-  const float cu = signed_mod(u, 300.f), cv = signed_mod(v, 300.f);
-  const bool big_line = lu < 2.f || lv < 2.f;
-  const bool small_line = su < 1.f || sv < 1.f;
-  const bool cell = (cu < 150.f || cv < 150.f) && !(cu < 150.f && cv < 150.f);
-  float out = cell ? 0.8f : 1.0f;
-  if (small_line) out = 0.6f;
-  if (big_line) out = 0.5f;
-  return out;
-}
-
-__device__ __forceinline__ float pow_clamped(float base, float e) {
-  return base > 0.f ? powf(fmaxf(base, 1e-30f), e) : 0.f;
-}
-
-__device__ __forceinline__ float pow5(float x) {
-  const float x2 = x * x;
-  return x * (x2 * x2);
-}
-
-__device__ __forceinline__ float ggx_g1(V3 v, V3 n, float a2) {
-  const float c = dot(v, n);
-  const float tan2 = 1.0f / fmaxf(c * c, 1e-20f) - 1.0f;
-  return 2.0f / (1.0f + sqrtf(1.0f + a2 * a2 * tan2 * tan2));
-}
-
-__device__ __forceinline__ float ggx_ndf(V3 m, V3 n, float a2) {
-  const float mdn = dot(m, n);
-  float x = (a2 * a2 - 1.0f) * mdn * mdn + 1.0f;
-  x = x != 0.f ? x : 1.0f;
-  return a2 * a2 / (LLR_PI * x * x);
-}
-
-__device__ __forceinline__ float schlick_f0(float ior) {
-  const float nnn = 1.0f - ior, nnp = 1.0f + ior;
-  return (nnn * nnn) / (nnp * nnp);
-}
-
-__device__ __forceinline__ float fresnel_exact(float n1, float n2, V3 out, V3 in, V3 on) {
-  const float cos1 = dot(out, on);
-  const float cos2 = dot(in, neg(on));
-  const float rs0 = (n1 * cos1 - n2 * cos2) / (n1 * cos1 + n2 * cos2);
-  const float rp0 = (n1 * cos2 - n2 * cos1) / (n1 * cos2 + n2 * cos1);
-  return (rs0 * rs0 + rp0 * rp0) / 2.0f;
-}
-
-// Snell refraction; `valid` false on total internal reflection.
-__device__ __forceinline__ V3 refract(V3 v, V3 n, float eta, bool& valid) {
-  const float dn = dot(v, n);
-  const float cos2 = 1.0f - (eta * eta) * (1.0f - dn * dn);
-  valid = cos2 > 0.f;
-  const float safe = sqrtf(valid ? cos2 : 1.0f);
-  return sub(scale(neg(v), eta), scale(n, eta * -dn + safe));
-}
-
-// f(out, in); `n` is the geometric normal, oriented here.
-__device__ V3 eval_brdf(const Mat& m, V3 out, V3 in, V3 n, V3 pos) {
-  const V3 on = orienting(out, n);
-  const float i_dot_on = dot(in, on);
-  const bool front = i_dot_on > 0.f;
-  const V3 zero = v3(0.f, 0.f, 0.f);
-  switch (m.type) {
-    case MAT_LAMBERT:
-      return divs(scale(m.col, checker(pos.x, pos.z)), LLR_PI);
-    case MAT_PHONG: {
-      const V3 r = reflect(out, on);
-      const float s = (m.alpha + 2.0f) / LLR_TWO_PI * pow_clamped(dot(r, in), m.alpha);
-      return front ? scale(m.col, s) : zero;
-    }
-    case MAT_BLINN_PHONG: {
-      const V3 h = safe_normalize(add(in, out));
-      const float a = m.alpha;
-      const float s = (a + 2.0f) * (a + 4.0f) / (LLR_EIGHT_PI * (exp2f(-a / 2.0f) + a)) *
-                      pow_clamped(dot(h, on), a);
-      return front ? scale(m.col, s) : zero;
-    }
-    case MAT_GGX: {
-      const V3 h = safe_normalize(add(in, out));
-      const float a2 = m.alpha * m.alpha;
-      const float fr_s = schlick_f0(m.ior) + (1.0f - schlick_f0(m.ior)) * pow5(1.0f - dot(in, h));
-      const float g = ggx_g1(in, on, a2) * ggx_g1(out, on, a2);
-      const float d_ndf = ggx_ndf(h, on, a2);
-      const float denom = 4.0f * i_dot_on * dot(out, on);
-      const float s = fr_s * g * d_ndf / (denom != 0.f ? denom : 1.0f);
-      return front ? scale(m.col, s) : zero;
-    }
-    case MAT_REFRACTION: {
-      const bool entering = dot(out, n) > 0.f;
-      const float from_ior = entering ? 1.0f : m.ior;
-      const float to_ior = entering ? m.ior : 1.0f;
-      bool valid;
-      const V3 refr = refract(out, on, from_ior / to_ior, valid);
-      const float fr = fresnel_exact(from_ior, to_ior, out, refr, on);
-      const float i_dot_n = dot(in, n);
-      const float inv_idn = 1.0f / (i_dot_n != 0.f ? i_dot_n : 1.0f);
-      const float q = to_ior / from_ior;
-      const float ft = (1.0f - fr) * (q * q);
-      const float w_refl = i_dot_on > 0.f ? fr : ft;
-      return scale(scale(m.col, valid ? w_refl : 1.0f), inv_idn);
-    }
-  }
-  return zero;
-}
-
-// Importance-sample the lane's BSDF -> direction, pdf.
-__device__ V3 sample_bsdf(const Mat& m, V3 out, V3 n, float r1, float r2, float r3, float& pdf) {
-  const V3 on = orienting(out, n);
-  const float phi = LLR_TWO_PI * r1;
-  const float cp = cosf(phi), sp = sinf(phi);
-  switch (m.type) {
-    case MAT_LAMBERT: {
-      V3 u, v;
-      onb(on, u, v);
-      const float r2s = sqrtf(r2);
-      const V3 d = add(add(scale(u, cp * r2s), scale(v, sp * r2s)), scale(on, sqrtf(1.0f - r2)));
-      pdf = dot(d, n) / LLR_PI;
-      return d;
-    }
-    case MAT_PHONG: {
-      const float a = m.alpha;
-      const V3 r = reflect(out, on);
-      V3 ur, vr;
-      onb(r, ur, vr);
-      const float t = powf(r2, 1.0f / (a + 2.0f));
-      const float ts = sqrtf(fmaxf(1.0f - t * t, 0.f));
-      const V3 d = add(add(scale(ur, cp * ts), scale(vr, sp * ts)), scale(r, t));
-      pdf = (a + 2.0f) / LLR_TWO_PI * pow_clamped(dot(r, d), a);
-      return d;
-    }
-    case MAT_BLINN_PHONG: {
-      const float a = m.alpha;
-      V3 u, v;
-      onb(on, u, v);
-      const float t = powf(r2, 1.0f / (a + 2.0f));
-      const float ts = sqrtf(fmaxf(1.0f - t * t, 0.f));
-      const V3 h = add(add(scale(u, cp * ts), scale(v, sp * ts)), scale(on, t));
-      const V3 d = sub(scale(h, 2.0f * dot(out, h)), out);
-      pdf = (a + 2.0f) / LLR_TWO_PI * pow_clamped(dot(on, h), a);
-      return d;
-    }
-    case MAT_GGX: {
-      const float a2 = m.alpha * m.alpha;
-      V3 u, v;
-      onb(on, u, v);
-      const float tn = a2 * sqrtf(r2 / fmaxf(1.0f - r2, 1e-12f));
-      const float x = 1.0f + tn * tn;
-      const float cos_g = 1.0f / sqrtf(x);
-      const float sin_g = tn / sqrtf(x);
-      const V3 h = add(add(scale(u, cp * sin_g), scale(v, sp * sin_g)), scale(on, cos_g));
-      const float o_h = dot(out, h);
-      const V3 d = sub(scale(h, 2.0f * o_h), out);
-      pdf = ggx_ndf(h, on, a2) * dot(h, on) / (4.0f * (o_h != 0.f ? o_h : 1.0f));
-      return d;
-    }
-    case MAT_REFRACTION: {
-      const bool entering = dot(out, n) > 0.f;
-      const float from_ior = entering ? 1.0f : m.ior;
-      const float to_ior = entering ? m.ior : 1.0f;
-      bool valid;
-      const V3 refr = refract(out, on, from_ior / to_ior, valid);
-      const float fr = fresnel_exact(from_ior, to_ior, out, refr, on);
-      const V3 refl = reflect(out, on);
-      const bool choose_refl = r3 < fr;
-      pdf = valid ? (choose_refl ? fr : 1.0f - fr) : 1.0f;
-      return valid ? (choose_refl ? refl : refr) : refl;
-    }
-  }
-  pdf = 0.f;
-  return v3(0.f, 0.f, 0.f);
-}
-
-// Beer-Lambert absorption when exiting a refractive medium; 1 otherwise.
-__device__ __forceinline__ V3 coef(const Mat& m, V3 out, V3 n, float dist) {
-  if (m.type != MAT_REFRACTION || !(dot(out, n) < 0.f)) return v3(1.f, 1.f, 1.f);
-  const float ad = m.absorb * dist;
-  return v3(expf(-(1.0f - m.col.x) * ad), expf(-(1.0f - m.col.y) * ad),
-            expf(-(1.0f - m.col.z) * ad));
-}
-
-// NEE contribution of one lane (`scene.rs:104-151`).
-__device__ V3 direct_light(const Scene& sc, const Hit& sp, V3 out, const Mat& m, uint32_t seed,
-                           uint32_t lane, uint32_t ctr) {
-  const V3 zero = v3(0.f, 0.f, 0.f);
-  float r[4];
-  uniform4(seed, lane, ctr + 1u, r);
-  const float u1 = r[1], u2 = r[2];
-  // Area-proportional pick: first CDF entry >= roulette (searchsorted left).
-  const float roulette = sc.total_area * r[0];
-  int lo = 0, hi = sc.nl;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (sc.lights[16 * mid + 14] < roulette) lo = mid + 1; else hi = mid;
-  }
-  const float* L = sc.lights + 16 * min(lo, sc.nl - 1);
-  V3 lp;
-  if (L[0] > 0.f) {  // triangle: min/max trick (`triangle.rs:140-149`)
-    const V3 p0 = v3(L[1], L[2], L[3]), e1 = v3(L[4], L[5], L[6]), e2 = v3(L[7], L[8], L[9]);
-    const float mn = fminf(u1, u2), mx = fmaxf(u1, u2);
-    lp = add(add(scale(p0, mn), scale(add(p0, e1), 1.0f - mx)), scale(add(p0, e2), mx - mn));
-  } else {  // sphere: uniform over the full sphere (quirk #10)
-    const float phi = LLR_TWO_PI * u1;
-    const float z = u2 * 2.0f - 1.0f;
-    const float zs = sqrtf(fmaxf(1.0f - z * z, 0.f));
-    lp = add(v3(L[10], L[11], L[12]), scale(v3(cosf(phi) * zs, sinf(phi) * zs, z), L[13]));
-  }
-  const float pdf = 1.0f / sc.total_area;
-
-  const V3 path = sub(lp, sp.pos);
-  const float dist = norm(path);
-  const V3 wi = divs(path, fmaxf(dist, 1e-20f));
-  const V3 pn = orienting(out, sp.n);
-  const float cos_p = dot(wi, pn);
-  if (!(cos_p > 0.f) || !(dot(m.emi, m.emi) <= 0.f)) return zero;
-
-  // Shadow ray capped at dist + 2*EPS; visible iff the hit is the light
-  // point itself (|t - dist| <= EPS).
-  const Hit s = intersect(sc, sp.pos, wi, dist + 0.002f);
-  if (!(s.hit && fabsf(s.t - dist) <= LLR_EPS)) return zero;
-  const float light_cos = dot(neg(wi), s.n);
-  if (!(light_cos > 0.f)) return zero;
-
-  const float g = cos_p * light_cos / fmaxf(dot(path, path), 1e-20f);
-  const V3 f = eval_brdf(m, out, wi, pn, sp.pos);
-  const V3 le = load_mat(sc, s.mat).emi;
-  return scale(mul(f, le), g / pdf);
-}
-
-__global__ void __launch_bounds__(128) bounce_kernel(
-    const float* __restrict__ o_in, const float* __restrict__ d_in,
-    const float* __restrict__ thr_in, const float* __restrict__ acc_in,
-    const uint8_t* __restrict__ alive_in, const int32_t* __restrict__ lane_in,
-    float* __restrict__ o_out, float* __restrict__ d_out, float* __restrict__ thr_out,
-    float* __restrict__ acc_out, uint8_t* __restrict__ alive_out, float* __restrict__ rays_out,
-    Scene sc, int n, int bounce, uint32_t seed, int flags, float rr_scale, float sky_r,
-    float sky_g, float sky_b) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const V3 o = load3(o_in, i), d = load3(d_in, i), thr = load3(thr_in, i);
-  V3 acc = load3(acc_in, i);
-  const bool alive_entry = alive_in[i] != 0;
-  float rays = alive_entry ? 1.0f : 0.0f;
-  bool alive = false;
-  V3 new_o = o, new_d = d, new_thr = thr;
-
-  if (alive_entry) {
-    const Hit hp = intersect(sc, o, d, LLR_INF);
-    if (!hp.hit) {  // sky on miss, at every depth
-      acc = add(acc, mul(thr, v3(sky_r, sky_g, sky_b)));
-    } else {
-      const Mat m = load_mat(sc, hp.mat);
-      const V3 out = neg(d);
-      if ((flags & FLAG_EMIT) && dot(out, hp.n) > 0.f) acc = add(acc, mul(thr, m.emi));
-
-      const uint32_t lane = (uint32_t)lane_in[i];
-      const uint32_t ctr = (uint32_t)bounce * 8u;
-      float r[4];
-      uniform4(seed, lane, ctr, r);
-
-      // Russian roulette (`scene.rs:64-76,180-183`).
-      float prob = fmaxf(fmaxf(m.col.x, m.col.y), m.col.z) * rr_scale;
-      if ((flags & FLAG_RR_FORCE) && prob > 0.f) prob = 1.0f;
-      alive = prob == 1.0f || r[0] < prob;
-      if (alive) {
-        const float pc = fmaxf(prob, 1e-12f);
-        V3 t2 = v3(thr.x / pc, thr.y / pc, thr.z / pc);
-        if (flags & FLAG_NEE) {
-          const V3 dl = direct_light(sc, hp, out, m, seed, lane, ctr);
-          acc = add(acc, mul(t2, dl));
-          rays += 1.0f;  // the shadow ray
-        }
-        float pdf;
-        const V3 sd = sample_bsdf(m, out, hp.n, r[1], r[2], r[3], pdf);
-        const V3 f = eval_brdf(m, out, sd, hp.n, hp.pos);
-        const V3 cf = coef(m, out, hp.n, hp.t);
-        const float ws = dot(sd, hp.n) / (pdf != 0.f ? pdf : 1.0f);
-        const V3 w = scale(mul(f, cf), ws);
-        alive = (w.x != 0.f || w.y != 0.f || w.z != 0.f) && pdf != 0.f;
-        if (alive) {
-          new_o = hp.pos;
-          new_d = sd;
-          new_thr = mul(t2, w);
-        }
+  __device__ Hit operator()(V3 o, V3 d, float t_init, float /*t_stop*/) const {
+    float best_t = t_init;
+    int kind = 0, best_m = -1;  // kind: 0 miss, 1 triangle, 2 sphere
+    V3 best_f = v3(0.f, 0.f, 0.f);
+    for (int i = 0; i < nt; ++i) {
+      const float* r = tris + 16 * i;
+      float t;
+      if (tri_test(o, d, v3(r[0], r[1], r[2]), v3(r[3], r[4], r[5]), v3(r[6], r[7], r[8]), t) &&
+          t < best_t) {
+        best_t = t;
+        kind = 1;
+        best_m = (int)r[12];
+        best_f = v3(r[9], r[10], r[11]);
       }
     }
+    fold_spheres(sph, ns, o, d, best_t, kind, best_m, best_f);
+    return make_hit(o, d, best_t, kind != 0, kind == 1, best_m, best_f);
   }
-  store3(o_out, i, new_o);
-  store3(d_out, i, new_d);
-  store3(thr_out, i, new_thr);
-  store3(acc_out, i, acc);
-  alive_out[i] = alive ? 1 : 0;
-  rays_out[i] = rays;
-}
+};
 
 extern "C" int llr_bounce(const float* o_in, const float* d_in, const float* thr_in,
                           const float* acc_in, const uint8_t* alive_in, const int32_t* lane_in,
@@ -453,14 +57,11 @@ extern "C" int llr_bounce(const float* o_in, const float* d_in, const float* thr
                           const float* sph, int ns, const float* mats, int nm,
                           const float* lights, int nl, float total_area, int n, int bounce,
                           uint32_t seed, int flags, float rr_scale, float sky_r, float sky_g,
-                          float sky_b, void* stream) {
-  const Scene sc{tris, nt, sph, ns, mats, nm, lights, nl, total_area};
-  const int block = 128;
-  const int grid = (n + block - 1) / block;
-  if (grid > 0) {
-    bounce_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out, thr_out, acc_out, alive_out,
-        rays_out, sc, n, bounce, seed, flags, rr_scale, sky_r, sky_g, sky_b);
-  }
-  return (int)cudaGetLastError();
+                          float sky_b, const float* ibl, int ibl_w, int ibl_h, float lon,
+                          void* stream) {
+  const Scene sc{sph, ns, mats, nm, lights, nl, total_area, V3{sky_r, sky_g, sky_b},
+                 ibl, ibl_w, ibl_h, lon};
+  return launch_bounce(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out, thr_out,
+                       acc_out, alive_out, rays_out, sc, BruteIsect{tris, nt, sph, ns}, n, bounce,
+                       seed, flags, rr_scale, stream);
 }

@@ -1,0 +1,66 @@
+// One whole bounce per lane on a BVH scene (bounce_body.cuh with the
+// sphere pre-pass and the BVH walk of bvh_walk.cuh, for the primary ray and
+// the NEE shadow ray). One thread per lane.
+//
+// Replaces the TPU kernel lumillyrender_tpu/ops/pallas_bounce.py::
+// _bounce_kernel_bvh (sphere pre-pass _sphere_pass, packet walk
+// pallas_bvh.run_walk, and make_step_bvh's IBL epilogue, which runs here in
+// the kernel). Its plain version is integrator/wavefront.py::
+// plain_bounce_step on a BVH scene, whose intersection is
+// ops/intersect.py::intersect_bvh with the plain walk.
+//
+// Bound on an H100: operations at full width. The state is 106 B/lane each
+// way as in bounce.cu, but each live lane walks tens to hundreds of nodes
+// (~25 flops each) and tests a few 32-triangle leaves (~54 flops per
+// triangle) for its primary ray and again for its shadow ray, counted by
+// chip_smoke.py from the plain walk of the same launch. The design: one
+// thread per lane with its own cursor (no packet union of boxes, which the
+// TPU needed), the node and leaf tables in global memory (6.8 MB for
+// welcome-geo, held by the L2), the shading code shared with bounce.cu.
+//
+// Intersection contract (ops/intersect.py::intersect_bvh): spheres first,
+// from t_init, then a triangle wins only when strictly closer, so a sphere
+// wins a tie.
+#include "bounce_body.cuh"
+#include "bvh_walk.cuh"
+
+struct BvhIsect {
+  BvhTables b;
+  const float* sph;
+  int ns;
+
+  __device__ Hit operator()(V3 o, V3 d, float t_init, float t_stop) const {
+    float best_t = t_init;
+    int kind = 0, best_m = -1;  // kind: 0 miss, 1 triangle, 2 sphere
+    V3 best_f = v3(0.f, 0.f, 0.f);
+    fold_spheres(sph, ns, o, d, best_t, kind, best_m, best_f);
+    if (b.nodes != nullptr) {  // null: no triangles, an empty BVH
+      const TriHit w = walk_tris<true>(b, o, d, best_t, t_stop);
+      if (w.prim >= 0) {
+        best_t = w.t;
+        kind = 1;
+        best_m = w.mat;
+        best_f = w.n;
+      }
+    }
+    return make_hit(o, d, best_t, kind != 0, kind == 1, best_m, best_f);
+  }
+};
+
+extern "C" int llr_bounce_bvh(const float* o_in, const float* d_in, const float* thr_in,
+                              const float* acc_in, const uint8_t* alive_in,
+                              const int32_t* lane_in, float* o_out, float* d_out, float* thr_out,
+                              float* acc_out, uint8_t* alive_out, float* rays_out,
+                              const float* nodes, const float* leaves, const int32_t* ids, int k,
+                              const float* sph, int ns, const float* mats, int nm,
+                              const float* lights, int nl, float total_area, int n, int bounce,
+                              uint32_t seed, int flags, float rr_scale, float sky_r, float sky_g,
+                              float sky_b, const float* ibl, int ibl_w, int ibl_h, float lon,
+                              void* stream) {
+  const Scene sc{sph, ns, mats, nm, lights, nl, total_area, V3{sky_r, sky_g, sky_b},
+                 ibl, ibl_w, ibl_h, lon};
+  const BvhIsect isect{BvhTables{nodes, leaves, ids, k}, sph, ns};
+  return launch_bounce(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out, thr_out,
+                       acc_out, alive_out, rays_out, sc, isect, n, bounce, seed, flags, rr_scale,
+                       stream);
+}

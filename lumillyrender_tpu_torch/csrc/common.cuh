@@ -1,5 +1,6 @@
 // Shared device helpers for the render kernels: float3 arithmetic written
-// out one IEEE operation at a time, the pcg4d counter RNG, and constants.
+// out one IEEE operation at a time, the triangle and sphere tests, the pcg4d
+// counter RNG, and constants.
 //
 // The kernels are built with -fmad=false (see ops/cuda_bounce.py): every
 // a*b+c below rounds twice, exactly as the plain PyTorch version's separate
@@ -71,4 +72,32 @@ __device__ __forceinline__ void uniform4(uint32_t seed, uint32_t lane, uint32_t 
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) out[i] = (float)(v[i] >> 8) * (1.0f / 16777216.0f);
+}
+
+// Moller-Trumbore (ops/intersect.py::_mt, the same operations in the same
+// order): true with the hit distance in `t` when the ray hits the triangle
+// at t >= EPS.
+__device__ __forceinline__ bool tri_test(V3 o, V3 d, V3 p0, V3 e1, V3 e2, float& t) {
+  const V3 pv = cross(d, e2);
+  const float det = e1.x * pv.x + e1.y * pv.y + e1.z * pv.z;
+  const bool det_ok = fabsf(det) >= LLR_EPS;
+  const float inv = 1.0f / (det_ok ? det : 1.0f);
+  const V3 tv = sub(o, p0);
+  const float u = (tv.x * pv.x + tv.y * pv.y + tv.z * pv.z) * inv;
+  const V3 qv = cross(tv, e1);
+  const float v = (d.x * qv.x + d.y * qv.y + d.z * qv.z) * inv;
+  t = (e2.x * qv.x + e2.y * qv.y + e2.z * qv.z) * inv;
+  return det_ok && u >= 0.f && u <= 1.f && v >= 0.f && u + v <= 1.f && t >= LLR_EPS;
+}
+
+// Sphere test (ops/intersect.py::_sph_t): true with the distance in `t`.
+// The one fused multiply-add: see ops/intersect.py::_fma.
+__device__ __forceinline__ bool sphere_test(V3 o, V3 d, V3 c, float rad, float& t) {
+  const V3 co = sub(o, c);
+  const float cod = co.x * d.x + co.y * d.y + co.z * d.z;
+  const float det = fmaf(cod, cod, -(co.x * co.x + co.y * co.y + co.z * co.z)) + rad * rad;
+  const float sq = sqrtf(det > 0.f ? det : 1.0f);
+  const float t1 = -cod - sq, t2 = -cod + sq;
+  t = t1 > LLR_EPS ? t1 : t2;
+  return det > 0.f && t > LLR_EPS;
 }

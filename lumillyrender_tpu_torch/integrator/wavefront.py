@@ -10,9 +10,10 @@ roulette deaths handled by masking, in the reference's estimator order
   T *= brdf * coef * cos / pdf          (`scene.rs:78-102`)
 with sky radiance added for missed rays at every depth (`scene.rs:43`).
 
-`plain_bounce_step` is that transition in plain PyTorch; `make_bounce_step`
-returns the step the render loop runs, which launches the fused bounce
-kernel on a CUDA device (ops/cuda_bounce.py) and is the plain step on the
+`plain_bounce_step` is that transition in plain PyTorch (its intersection
+is brute force or the plain BVH walk); `make_bounce_step` returns the step
+the render loop runs, which launches a fused bounce kernel on a CUDA device
+(ops/cuda_bounce.py: brute force or BVH) and is the plain step on the
 CPU. The loop is a Python loop with one host sync per bounce (the "any lane
 alive" test).
 """
@@ -115,10 +116,11 @@ def _direct_light(scene, settings, sp, out_dir, m_gathered, lane, seed, ctr):
 
     # Capped shadow query: anything at t >= dist + 2*EPS cannot change the
     # verdict (`scene.rs:127-131` needs |t - dist| <= EPS); the second EPS
-    # is slack for f32 rounding of `t < dist + EPS`.
+    # is slack for f32 rounding of `t < dist + EPS`. A BVH walk may stop at
+    # any hit below the cap - 4*EPS: it settles the verdict as occluded.
     shadow, shadow_sp = intersect_shade(
         sp.position, wi, scene.geometry, scene.bvh, settings.intersector,
-        t_cap=dist + 2.0 * EPS,
+        t_cap=dist + 2.0 * EPS, occlusion=True, plain=True,
     )
     visible = shadow_sp.hit & (torch.abs(shadow.t - dist) <= EPS)
     ok = ok & visible
@@ -151,7 +153,8 @@ def plain_bounce_step(scene: SceneData, settings: RenderSettings, seed,
     nee = settings.integrator == "pt-direct"
 
     hit, sp = intersect_shade(
-        state.o, state.d, scene.geometry, scene.bvh, settings.intersector
+        state.o, state.d, scene.geometry, scene.bvh, settings.intersector,
+        plain=True,
     )
     rays = state.rays_traced + state.alive.sum(dtype=torch.float32)
 
@@ -216,8 +219,9 @@ def plain_bounce_step(scene: SceneData, settings: RenderSettings, seed,
 
 
 def make_bounce_step(scene: SceneData, settings: RenderSettings, seed):
-    """The per-bounce transition the render loop runs: the fused bounce
-    kernel for CUDA tensors, the plain step for CPU tensors."""
+    """The per-bounce transition the render loop runs: a fused bounce
+    kernel for CUDA tensors (brute force or BVH), the plain step for CPU
+    tensors."""
     from ..ops import cuda_bounce
 
     return cuda_bounce.make_step(scene, settings, seed)
@@ -225,7 +229,8 @@ def make_bounce_step(scene: SceneData, settings: RenderSettings, seed):
 
 def aov(scene: SceneData, settings: RenderSettings, o, d):
     """Debug AOV integrators (`scene.rs:48-62`): "normal" maps the hit
-    normal to [0,1]^3, "depth" returns the hit distance (0 on miss)."""
+    normal to [0,1]^3, "depth" returns the hit distance (0 on miss). On a
+    BVH scene the triangle walk is the BVH kernel for CUDA tensors."""
     hit = intersect(o, d, scene.geometry, scene.bvh, settings.intersector)
     sp = shade_point(o, d, hit, scene.geometry)
     if settings.integrator == "normal":

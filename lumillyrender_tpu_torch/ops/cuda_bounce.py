@@ -1,36 +1,27 @@
-"""The forward path's two kernels, hand-written CUDA C++ for Hopper (sm_90a).
+"""The forward path's kernels, hand-written CUDA C++ for Hopper (sm_90a).
 
 * `generate_rays` wraps `csrc/raygen.cu` (camera rays per lane); its plain
   version is `plain_generate_rays` (`rng.uniform4` + `camera.sample_rays`).
-* `bounce` wraps `csrc/bounce.cu` (one whole brute-force bounce); its plain
-  version is `integrator/wavefront.py:plain_bounce_step`.
+* `bounce` wraps `csrc/bounce.cu` (one whole brute-force bounce) and
+  `bounce_bvh` wraps `csrc/bounce_bvh.cu` (one whole bounce through the
+  BVH); both are `csrc/bounce_body.cuh` with another intersector, and their
+  plain version is `integrator/wavefront.py:plain_bounce_step`.
+* The BVH nearest-triangle kernel, `csrc/bvh.cu`, is wrapped in
+  `ops/cuda_bvh.py`.
 
 Each wrapper runs its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises. The launch itself is
-`raygen_launch` / `bounce_launch` (preallocated outputs, nothing else on
-the device, so it can be timed alone). Each kernel has a launch counter,
-`generate_rays.launches` and `bounce.launches`, raised by one per launch
-and nowhere else.
-
-Build: each source is compiled at first use by `nvcc` into a shared library
-with a plain C interface (loaded with ctypes), in `build/` beside this
-package, named by a hash of the sources and flags. `build()` starts one
-`nvcc` per source, all at once. Flags: `-gencode arch=compute_90a,
-code=sm_90a -std=c++17 -O3 -fmad=false`: no fast math, and no FMA
-contraction, so the kernels round every operation as the plain versions'
-separate PyTorch ops do.
+`raygen_launch` / `bounce_launch` / `bounce_bvh_launch` (preallocated
+outputs, nothing else on the device, so it can be timed alone). Each kernel
+has a launch counter, raised by one per launch and nowhere else;
+`counts()` reads all four and `reset_counts()` zeroes them. The kernels are
+built by `ops/cuda_build.py`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
@@ -38,117 +29,18 @@ from ..scene.data import (
     CAM_IDEAL_PINHOLE,
     CAM_OMNIDIRECTIONAL,
     RenderSettings,
+    SKY_IBL,
     SKY_UNIFORM,
     SceneData,
 )
-
-_PKG = Path(__file__).resolve().parents[1]
-SRC_DIR = _PKG / "csrc"
-BUILD_DIR = _PKG / "build"
-SOURCES = {"raygen": "raygen.cu", "bounce": "bounce.cu"}
-HEADERS = ("common.cuh",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
-
-_libs: dict[str, ctypes.CDLL] = {}
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_U = ctypes.c_uint32
-_F = ctypes.c_float
-_ARGTYPES = {
-    "llr_raygen": [_P, _P, _P, _P, _I, _U, _U, _I, _I, _I, _I, _I, _P, _P],
-    "llr_bounce": [_P] * 12 + [_P, _I, _P, _I, _P, _I, _P, _I, _F, _I, _I,
-                               _U, _I, _F, _F, _F, _F, _P],
-}
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
-
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (SOURCES[name],) + HEADERS:
-        h.update((SRC_DIR / f).read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-
-
-def build(names=tuple(SOURCES), verbose: bool = False) -> dict:
-    """Compile the named kernels that are not built yet, one nvcc process
-    per source, all started together. Returns {name: seconds} for those
-    compiled here; raises with nvcc's output if one fails."""
-    todo = [nm for nm in names if not _lib_path(nm).exists()]
-    if not todo:
-        return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    t0 = time.monotonic()
-    for nm in todo:
-        out = _lib_path(nm)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        extra = ["-Xptxas", "-v"] if verbose else []
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(SRC_DIR / SOURCES[nm])]
-        procs[nm] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True),
-                     tmp, out)
-    seconds = {}
-    failed = []
-    for nm, (p, tmp, out) in procs.items():
-        log, _ = p.communicate()
-        seconds[nm] = time.monotonic() - t0
-        if verbose and log:
-            print(log)
-        if p.returncode != 0:
-            failed.append(f"{nm}: nvcc exited {p.returncode}\n{log}")
-            continue
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return seconds
-
-
-def _lib(name: str) -> ctypes.CDLL:
-    if name not in _libs:
-        build((name,))
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        fn_name = f"llr_{name}"
-        fn = getattr(lib, fn_name)
-        fn.argtypes = _ARGTYPES[fn_name]
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return _libs[name]
-
-
-def _check(rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _ptr(t: torch.Tensor) -> int:
-    return t.data_ptr()
+from . import cuda_build, cuda_bvh
+from .cuda_build import ptr as _ptr
+from .intersect import _use_brute
 
 
 # ---------------------------------------------------------------------------
 # What the kernels serve
 # ---------------------------------------------------------------------------
-
-# Prims (tris + spheres) the brute-force kernel serves: the brute-force
-# threshold. Lights and materials have no cap (binary-search light pick,
-# tables read from global memory).
-MAX_PRIMS = 8192
 
 
 def raygen_supported(settings: RenderSettings) -> tuple[bool, str]:
@@ -160,33 +52,52 @@ def raygen_supported(settings: RenderSettings) -> tuple[bool, str]:
     return True, ""
 
 
-def bounce_supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
-    """(ok, reason) for the bounce kernel: brute-force scenes (up to
-    MAX_PRIMS prims) under a uniform sky, pt or pt-direct."""
-    nprim = scene.geometry.tri_p0.shape[0] + scene.geometry.sph_c.shape[0]
-    if settings.intersector not in ("auto", "brute"):
-        return False, (f"intersector {settings.intersector!r} needs BVH "
-                       "traversal: the BVH slice (slice 2)")
-    if settings.intersector == "auto" and nprim > MAX_PRIMS:
-        return False, (f"{nprim} prims is past the brute-force threshold "
-                       f"({MAX_PRIMS}): BVH traversal comes with the BVH "
-                       "slice (slice 2)")
-    if settings.sky_kind != SKY_UNIFORM:
-        return False, ("IBL and simple skies on the card come with the BVH "
-                       "slice (slice 2, _bounce_kernel_bvh's sky epilogue)")
-    if settings.integrator not in ("pt", "pt-direct"):
-        return False, (f"integrator {settings.integrator!r} (AOVs) runs on "
-                       "the card in a later slice")
+def bvh_supported(scene: SceneData) -> tuple[bool, str]:
+    """(ok, reason) for the BVH kernels: treelets of TREELET_K (32)
+    triangles. The compiler builds 128-wide leaves for meshes of
+    WIDE_MIN_TRIS triangles or more; those need the wide-leaf kernel."""
+    from ..accel.pack import TREELET_K, WIDE_MIN_TRIS
+
+    k = scene.bvh.blk_p0.shape[1]
+    if k != TREELET_K:
+        return False, (f"a BVH of {k}-wide leaves (built for meshes of "
+                       f"{WIDE_MIN_TRIS} triangles or more) needs the "
+                       "wide-leaf BVH kernel, which comes in slice 4 "
+                       "(pallas_bvh_wide._kernel, queue 2 of ROADMAP.md)")
     return True, ""
 
 
+def bounce_supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
+    """(ok, reason) for the bounce kernels: pt or pt-direct under a uniform
+    or IBL sky, on a brute-force scene (bounce.cu) or a BVH scene of
+    32-wide leaves (bounce_bvh.cu). Lights and materials have no cap
+    (binary-search light pick, tables read from global memory)."""
+    if settings.sky_kind not in (SKY_UNIFORM, SKY_IBL):
+        return False, ("the simple sky on the card comes in a later slice "
+                       "(queue 1 of ROADMAP.md); the card serves uniform "
+                       "and IBL skies")
+    if settings.integrator not in ("pt", "pt-direct"):
+        return False, (f"integrator {settings.integrator!r} has no bounce "
+                       "kernel: the AOVs run intersect and shade_point")
+    if _use_brute(scene.geometry, settings.intersector, scene.bvh):
+        return True, ""
+    return bvh_supported(scene)
+
+
 def supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
-    """(ok, reason): whether the card's forward path (both kernels) serves
-    this scene. The reason names the later slice of the port that will."""
+    """(ok, reason): whether the card's forward path serves this scene:
+    raygen, then the bounce kernels (pt, pt-direct) or, for the AOV
+    integrators, `intersect` (PyTorch brute force, or the sphere pre-pass
+    and the BVH kernel). The reason names the later slice of the port that
+    will."""
     ok, why = raygen_supported(settings)
-    if ok:
-        ok, why = bounce_supported(scene, settings)
-    return ok, why
+    if not ok:
+        return ok, why
+    if settings.integrator in ("normal", "depth"):
+        if _use_brute(scene.geometry, settings.intersector, scene.bvh):
+            return True, ""
+        return bvh_supported(scene)
+    return bounce_supported(scene, settings)
 
 
 def _require(check):
@@ -293,13 +204,13 @@ def raygen_launch(scene: SceneData, settings: RenderSettings, seed,
     w, h = settings.width, settings.height
     tw, th = tile_dims(settings) or (0, 0)
     cam = (ctypes.c_float * 24)(*_camera_row(scene))  # copied into the launch
-    rc = _lib("raygen").llr_raygen(
+    rc = cuda_build.fn("raygen")(
         _ptr(o), _ptr(d), None if g is None else _ptr(g),
         None if uniforms is None else _ptr(uniforms), n,
         int(seed) & 0xFFFFFFFF, (sample_offset * w * h) & 0xFFFFFFFF,
-        w, h, tw, th, settings.camera_kind, ctypes.addressof(cam), _stream(),
+        w, h, tw, th, settings.camera_kind, ctypes.addressof(cam), cuda_build.stream(),
     )
-    _check(rc, "raygen")
+    cuda_build.check(rc, "raygen")
     generate_rays.launches += 1
 
 
@@ -307,13 +218,14 @@ generate_rays.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Kernel B: one brute-force bounce
+# Kernels B and D: one bounce, brute force or through the BVH
 # ---------------------------------------------------------------------------
 
 
 def pack_tables(scene: SceneData) -> dict:
-    """The kernel's float32 tables (layouts in csrc/bounce.cu), on the
-    scene's device."""
+    """The bounce kernels' tables (layouts in csrc/bounce.cu and
+    csrc/bounce_body.cuh, the BVH's in csrc/bvh_walk.cuh), on the scene's
+    device."""
     g = scene.geometry
     mt = scene.materials
     lt = scene.lights
@@ -336,42 +248,21 @@ def pack_tables(scene: SceneData) -> dict:
         lights=rows([lt.is_tri, lt.p0, lt.e1, lt.e2, lt.c, lt.r, lt.cdf], 16),
         total_area=float(lt.total_area),
         sky=[float(x) for x in scene.sky.color.cpu()],
+        ibl=scene.sky.ibl.to(f32).contiguous(),
+        lon=float(scene.sky.longitude_offset),
+        bvh=cuda_bvh.tables_of(scene.bvh),
     )
 
 
-def bounce(scene: SceneData, settings: RenderSettings, seed, state,
-           tables: dict | None = None):
-    """PathState -> PathState after one bounce. Launches the bounce kernel
-    for a state on a CUDA device (with `tables` from `pack_tables`, packed
-    here when not given); the plain step on the CPU."""
-    from ..integrator.wavefront import PathState, plain_bounce_step
-
-    if state.o.device.type == "cpu":
-        return plain_bounce_step(scene, settings, seed, state)
-    if tables is None:
-        tables = pack_tables(scene)
-    n = state.o.shape[0]
-    dev = state.o.device
-    o, d, thr, acc = (torch.empty((n, 3), dtype=torch.float32, device=dev)
-                      for _ in range(4))
-    alive = torch.empty(n, dtype=torch.bool, device=dev)
-    rays = torch.empty(n, dtype=torch.float32, device=dev)
-    bounce_launch(scene, settings, seed, state, tables,
-                  (o, d, thr, acc, alive, rays))
-    return PathState(
-        bounce=state.bounce + 1, o=o, d=d, throughput=thr, accum=acc,
-        alive=alive, rays_traced=state.rays_traced + rays.sum(),
-        lane=state.lane,
-    )
-
-
-def bounce_launch(scene: SceneData, settings: RenderSettings, seed, state,
-                  tables: dict, out):
-    """The bounce kernel alone: reads `state`, writes `out` = (o, d,
-    throughput, accum (n,3) float32, alive (n,) bool, rays (n,) float32),
-    all on the card. `bounce` allocates these and sums the rays; this is
-    the launch it counts."""
+def _launch(kernel: str, scene: SceneData, settings: RenderSettings, seed,
+            state, tables: dict, out):
+    """Check the state, outputs and tables, and launch `llr_<kernel>`
+    ("bounce" or "bounce_bvh") on them."""
     _require(bounce_supported(scene, settings))
+    if _use_brute(scene.geometry, settings.intersector, scene.bvh) != (kernel == "bounce"):
+        raise ValueError(f"the {kernel} kernel does not serve intersector "
+                         f"{settings.intersector!r} on this scene; "
+                         "make_step picks the kernel that does")
     n = state.o.shape[0]
     for name in ("o", "d", "throughput", "accum"):
         t = getattr(state, name)
@@ -379,11 +270,15 @@ def bounce_launch(scene: SceneData, settings: RenderSettings, seed, state,
             raise ValueError(f"PathState.{name} must be a contiguous ({n},3) float32 tensor")
     if state.alive.dtype != torch.bool or state.lane.dtype != torch.int32:
         raise ValueError("PathState.alive must be bool and PathState.lane int32")
+    if n >= 2**31:
+        raise ValueError(f"{n} lanes do not fit the kernel's int32 lane index")
     o, d, thr, acc, alive, rays = out
     dev = state.o.device
+    bt = tables["bvh"]
     tensors = (state.o, state.d, state.throughput, state.accum, state.alive,
                state.lane, *out, tables["tris"], tables["sph"], tables["mats"],
-               tables["lights"])
+               tables["lights"], tables["ibl"], bt["nodes"], bt["leaves"],
+               bt["ids"])
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("the state, the outputs and the tables must lie on "
                          "one CUDA device")
@@ -405,42 +300,129 @@ def bounce_launch(scene: SceneData, settings: RenderSettings, seed, state,
              | (2 if emit else 0)
              | (4 if b <= settings.depth else 0))
     rr_scale = 0.5 ** max(b - settings.depth_limit, 0)
+    if kernel == "bounce":
+        isect = [_ptr(tables["tris"]), tables["tris"].shape[0]]
+    else:
+        # A scene without triangles has an empty BVH: no walk at all.
+        has_tris = scene.geometry.tri_p0.shape[0] > 0
+        if has_tris and bt["nodes"].data_ptr() % 16:
+            raise ValueError("the node table must be 16-byte aligned")
+        isect = [_ptr(bt["nodes"]) if has_tris else None, _ptr(bt["leaves"]),
+                 _ptr(bt["ids"]), bt["k"]]
+    ibl = settings.sky_kind == SKY_IBL
+    h, w = tables["ibl"].shape[:2]
     sky = tables["sky"]
-    rc = _lib("bounce").llr_bounce(
+    rc = cuda_build.fn(kernel)(
         _ptr(state.o), _ptr(state.d), _ptr(state.throughput),
         _ptr(state.accum), _ptr(alive_in), _ptr(lane_in),
         _ptr(o), _ptr(d), _ptr(thr), _ptr(acc), _ptr(alive), _ptr(rays),
-        _ptr(tables["tris"]), tables["tris"].shape[0],
+        *isect,
         _ptr(tables["sph"]), tables["sph"].shape[0],
         _ptr(tables["mats"]), tables["mats"].shape[0],
         _ptr(tables["lights"]), tables["lights"].shape[0],
-        tables["total_area"], n, b, int(seed) & 0xFFFFFFFF, flags,
-        rr_scale, sky[0], sky[1], sky[2], _stream(),
+        tables["total_area"], n, b, int(seed) & 0xFFFFFFFF, flags, rr_scale,
+        sky[0], sky[1], sky[2], _ptr(tables["ibl"]) if ibl else None, w, h,
+        tables["lon"], cuda_build.stream(),
     )
-    _check(rc, "bounce")
+    cuda_build.check(rc, kernel)
+
+
+def _step_out(state):
+    n = state.o.shape[0]
+    dev = state.o.device
+    f3 = lambda: torch.empty((n, 3), dtype=torch.float32, device=dev)
+    return (f3(), f3(), f3(), f3(), torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty(n, dtype=torch.float32, device=dev))
+
+
+def _next_state(state, out):
+    from ..integrator.wavefront import PathState
+
+    o, d, thr, acc, alive, rays = out
+    return PathState(
+        bounce=state.bounce + 1, o=o, d=d, throughput=thr, accum=acc,
+        alive=alive, rays_traced=state.rays_traced + rays.sum(),
+        lane=state.lane,
+    )
+
+
+def bounce(scene: SceneData, settings: RenderSettings, seed, state,
+           tables: dict | None = None):
+    """PathState -> PathState after one brute-force bounce. Launches the
+    bounce kernel for a state on a CUDA device (with `tables` from
+    `pack_tables`, packed here when not given); the plain step on the
+    CPU."""
+    from ..integrator.wavefront import plain_bounce_step
+
+    if state.o.device.type == "cpu":
+        return plain_bounce_step(scene, settings, seed, state)
+    out = _step_out(state)
+    bounce_launch(scene, settings, seed, state,
+                  pack_tables(scene) if tables is None else tables, out)
+    return _next_state(state, out)
+
+
+def bounce_launch(scene: SceneData, settings: RenderSettings, seed, state,
+                  tables: dict, out):
+    """The brute-force bounce kernel alone: reads `state`, writes `out` =
+    (o, d, throughput, accum (n,3) float32, alive (n,) bool, rays (n,)
+    float32), all on the card. `bounce` allocates these and sums the rays;
+    this is the launch it counts."""
+    _launch("bounce", scene, settings, seed, state, tables, out)
     bounce.launches += 1
 
 
 bounce.launches = 0
 
 
+def bounce_bvh(scene: SceneData, settings: RenderSettings, seed, state,
+               tables: dict | None = None):
+    """PathState -> PathState after one bounce through the BVH: the BVH
+    bounce kernel for a state on a CUDA device, the plain step on the
+    CPU. As `bounce` otherwise."""
+    from ..integrator.wavefront import plain_bounce_step
+
+    if state.o.device.type == "cpu":
+        return plain_bounce_step(scene, settings, seed, state)
+    out = _step_out(state)
+    bounce_bvh_launch(scene, settings, seed, state,
+                      pack_tables(scene) if tables is None else tables, out)
+    return _next_state(state, out)
+
+
+def bounce_bvh_launch(scene: SceneData, settings: RenderSettings, seed, state,
+                      tables: dict, out):
+    """The BVH bounce kernel alone, as `bounce_launch`."""
+    _launch("bounce_bvh", scene, settings, seed, state, tables, out)
+    bounce_bvh.launches += 1
+
+
+bounce_bvh.launches = 0
+
+
 def make_step(scene: SceneData, settings: RenderSettings, seed):
     """PathState -> PathState transition for the render loop: the bounce
-    kernel on a CUDA device (tables packed once), the plain step on the
-    CPU."""
+    kernel on a CUDA device (brute force or BVH, as `_use_brute` picks;
+    tables packed once), the plain step on the CPU."""
     from ..integrator.wavefront import plain_bounce_step
 
     if scene.geometry.tri_p0.device.type == "cpu":
         return lambda state: plain_bounce_step(scene, settings, seed, state)
     _require(bounce_supported(scene, settings))
     tables = pack_tables(scene)
-    return lambda state: bounce(scene, settings, seed, state, tables)
+    kernel = (bounce if _use_brute(scene.geometry, settings.intersector, scene.bvh)
+              else bounce_bvh)
+    return lambda state: kernel(scene, settings, seed, state, tables)
 
 
 def reset_counts():
     generate_rays.launches = 0
     bounce.launches = 0
+    cuda_bvh.intersect_tris.launches = 0
+    bounce_bvh.launches = 0
 
 
 def counts() -> dict:
-    return {"raygen": generate_rays.launches, "bounce": bounce.launches}
+    return {"raygen": generate_rays.launches, "bounce": bounce.launches,
+            "bvh": cuda_bvh.intersect_tris.launches,
+            "bounce_bvh": bounce_bvh.launches}

@@ -1,0 +1,156 @@
+"""Nearest-triangle queries through the BVH: the hand-written CUDA kernel
+csrc/bvh.cu (the counterpart of the JAX package's ops/pallas_bvh.py).
+
+* `pack_bvh(bvh)` builds the kernel's tables from a `Bvh`; `tables_of(bvh)`
+  packs once per Bvh object and keeps the result on it.
+* `intersect_tris(o, d, t_init, t_stop, tables, want_shade)` is the nearest
+  triangle strictly closer than `t_init` per lane, (t, prim[, mat, n]) with
+  prim = -1 (t = t_init) where none is. It launches the kernel for CUDA
+  tensors and runs the plain walk `ops/intersect.py::_walk_tris` for CPU
+  tensors, and is differentiable in o and d through the plane equation at
+  the detached winner (the JAX package's custom VJP,
+  `pallas_bvh.py::_make_diff_fn`).
+* `intersect_tris_launch` is the bare launch into preallocated outputs;
+  `intersect_tris.launches` counts launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..scene.data import Bvh
+from . import cuda_build
+from .intersect import _walk_tris
+
+
+def pack_bvh(bvh: Bvh) -> dict:
+    """The kernel's tables (layouts in csrc/bvh_walk.cuh), on the BVH's
+    device: nodes (N, 8) float32 [min3 | max3 | miss | leaf]; leaves
+    (L, 12, K) float32, component-major (p0, e1, e2, n); ids (L, 2, K) int32
+    (prim, mat); tri_n (T, 3), each prim's face normal for the backward
+    pass; k; and the Bvh itself for the plain walk."""
+    f32 = torch.float32
+    nodes = torch.cat([bvh.node_min, bvh.node_max,
+                       bvh.node_miss.to(f32)[:, None],
+                       bvh.node_leaf.to(f32)[:, None]], dim=1).contiguous()
+    leaves = torch.cat([bvh.blk_p0, bvh.blk_e1, bvh.blk_e2, bvh.blk_n],
+                       dim=2).transpose(1, 2).contiguous()
+    ids = torch.stack([bvh.blk_prim, bvh.blk_mat], dim=1).to(torch.int32)
+    valid = bvh.blk_prim >= 0
+    prim = bvh.blk_prim[valid].long()
+    n_tris = int(prim.max()) + 1 if prim.numel() else 0
+    tri_n = torch.zeros((n_tris, 3), dtype=f32, device=nodes.device)
+    tri_n[prim] = bvh.blk_n[valid]
+    return dict(nodes=nodes, leaves=leaves, ids=ids.contiguous(), tri_n=tri_n,
+                k=bvh.blk_p0.shape[1], bvh=bvh)
+
+
+def tables_of(bvh: Bvh) -> dict:
+    """`pack_bvh(bvh)`, packed at the first call and kept on `bvh`."""
+    tables = getattr(bvh, "_kernel_tables", None)
+    if tables is None:
+        tables = pack_bvh(bvh)
+        bvh._kernel_tables = tables
+    return tables
+
+
+def intersect_tris_launch(o, d, t_init, t_stop, tables: dict, out):
+    """The kernel alone: reads o, d (n,3), t_init, t_stop (n,) float32 and
+    writes `out` = (t (n,) float32, prim (n,) int32) or, for the shade
+    query, (t, prim, mat (n,) int32, n (n,3) float32), all contiguous on
+    one CUDA device. `intersect_tris` allocates these; this is the launch
+    it counts."""
+    n = o.shape[0]
+    dev = o.device
+    if dev.type != "cuda":
+        raise ValueError(f"the BVH kernel takes CUDA tensors, not {dev}")
+    if n >= 2**31:
+        raise ValueError(f"{n} lanes do not fit the kernel's int32 lane index")
+    want_shade = len(out) == 4
+    specs = [("o", o, (n, 3), torch.float32), ("d", d, (n, 3), torch.float32),
+             ("t_init", t_init, (n,), torch.float32),
+             ("t_stop", t_stop, (n,), torch.float32),
+             ("t", out[0], (n,), torch.float32),
+             ("prim", out[1], (n,), torch.int32)]
+    if want_shade:
+        specs += [("mat", out[2], (n,), torch.int32),
+                  ("n", out[3], (n, 3), torch.float32)]
+    elif len(out) != 2:
+        raise ValueError("out is (t, prim) or (t, prim, mat, n)")
+    k = tables["k"]
+    nodes, leaves, ids = tables["nodes"], tables["leaves"], tables["ids"]
+    specs += [("nodes", nodes, (nodes.shape[0], 8), torch.float32),
+              ("leaves", leaves, (leaves.shape[0], 12, k), torch.float32),
+              ("ids", ids, (leaves.shape[0], 2, k), torch.int32)]
+    for name, t, shape, dtype in specs:
+        if (t.shape != shape or t.dtype != dtype or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {shape} {dtype} "
+                             f"tensor on {dev}")
+    if nodes.data_ptr() % 16:
+        raise ValueError("the node table must be 16-byte aligned")
+    rc = cuda_build.fn("bvh")(
+        cuda_build.ptr(o), cuda_build.ptr(d), cuda_build.ptr(t_init),
+        cuda_build.ptr(t_stop), cuda_build.ptr(nodes), cuda_build.ptr(leaves),
+        cuda_build.ptr(ids), k, n, cuda_build.ptr(out[0]),
+        cuda_build.ptr(out[1]),
+        cuda_build.ptr(out[2]) if want_shade else None,
+        cuda_build.ptr(out[3]) if want_shade else None,
+        cuda_build.stream(),
+    )
+    cuda_build.check(rc, "BVH")
+    intersect_tris.launches += 1
+
+
+def _forward(o, d, t_init, t_stop, tables: dict, want_shade: bool):
+    if o.device.type == "cpu":
+        return _walk_tris(o, d, t_init, t_stop, tables["bvh"], want_shade)
+    n, dev = o.shape[0], o.device
+    out = (torch.empty(n, dtype=torch.float32, device=dev),
+           torch.empty(n, dtype=torch.int32, device=dev))
+    if want_shade:
+        out += (torch.empty(n, dtype=torch.int32, device=dev),
+                torch.empty((n, 3), dtype=torch.float32, device=dev))
+    intersect_tris_launch(o.contiguous(), d.contiguous(), t_init.contiguous(),
+                          t_stop.contiguous(), tables, out)
+    return out
+
+
+class _TriHit(torch.autograd.Function):
+    """The walk forward; backward through the plane equation of the
+    winner, t = ((p0 - o) . n) / (d . n): dt/do = -n / (d . n),
+    dt/dd = -t n / (d . n), zero on lanes no triangle won and where
+    |d . n| <= 1e-20. prim, mat and n are piecewise constant; t_init and
+    t_stop get no gradient (the JAX package's custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, o, d, t_init, t_stop, tables, want_shade):
+        outs = _forward(o, d, t_init, t_stop, tables, want_shade)
+        ctx.save_for_backward(d, outs[0], outs[1])
+        ctx.tri_n = tables["tri_n"]
+        ctx.mark_non_differentiable(*outs[1:])
+        return outs
+
+    @staticmethod
+    def backward(ctx, g_t, *_):
+        d, t, prim = ctx.saved_tensors
+        won = prim >= 0
+        nrm = ctx.tri_n[torch.clamp(prim, min=0).long()]
+        dn = (d * nrm).sum(dim=-1)
+        safe = won & (torch.abs(dn) > 1e-20)
+        inv = torch.where(safe, 1.0 / torch.where(safe, dn, torch.ones_like(dn)),
+                          torch.zeros_like(dn))
+        o_bar = (-g_t * inv)[..., None] * nrm
+        d_bar = (-g_t * t * inv)[..., None] * nrm
+        return o_bar, d_bar, None, None, None, None
+
+
+def intersect_tris(o, d, t_init, t_stop, tables: dict, want_shade: bool = False):
+    """Nearest triangle strictly closer than `t_init` per lane, stopping a
+    lane once its best t is <= `t_stop`: (t, prim) or, with `want_shade`,
+    (t, prim, mat, n (N,3)). Launches the kernel for CUDA tensors (with
+    `tables` from `pack_bvh`); the plain walk for CPU tensors."""
+    return _TriHit.apply(o, d, t_init, t_stop, tables, want_shade)
+
+
+intersect_tris.launches = 0

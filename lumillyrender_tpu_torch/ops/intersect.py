@@ -1,4 +1,4 @@
-"""Ray-scene intersection over SoA geometry: the brute-force half.
+"""Ray-scene intersection over SoA geometry: brute force and the BVH walk.
 
 Parity: Möller-Trumbore triangles (`triangle.rs:69-100`), quadratic spheres
 (`sphere.rs:42-63`), both with the reference's exact EPS semantics
@@ -8,12 +8,21 @@ Parity: Möller-Trumbore triangles (`triangle.rs:69-100`), quadratic spheres
 dense (C, N) test, its first minimum is folded into the running best with
 a strict `<`. That is the same winner as a sequential walk over the
 triangles in ascending order and then the spheres in ascending order.
-BVH traversal is the next slice of the port; a scene past the brute-force
-threshold raises here.
+
+`intersect_bvh` is the JAX package's BVH contract: a brute sphere pre-pass
+seeds the best t, and the triangle walk (`_walk_tris`, the plain version of
+the CUDA kernel csrc/bvh.cu) keeps a triangle only when it is strictly
+closer, so a sphere wins a tie. The walk is a per-lane stackless walk of
+the threaded treelet BVH: every lane visits its own node sequence, in DFS
+order, and tests the triangles of each hit leaf in slot order with a
+strict `<`. That is the winner of the JAX package's XLA walk and packet
+kernel too: each of them visits a superset of a lane's leaves in the same
+order under the same rule.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -31,9 +40,6 @@ CHUNK = 16
 # the JAX package's threshold off its accelerator; the card's own crossover
 # is not measured yet.
 BRUTE_MAX_PRIMS = 8192
-
-BVH_SLICE = "the BVH slice (slice 2: pallas_bvh._kernel and _bounce_kernel_bvh)"
-
 
 class Hit(NamedTuple):
     t: torch.Tensor  # (N,) distance; >= INF means miss
@@ -57,14 +63,15 @@ def _rows(a):
     return a[None, :, 0], a[None, :, 1], a[None, :, 2]
 
 
-def _tri_t(o, d, p0, e1, e2):
-    """Möller-Trumbore of rays o,d (N,3) against triangles p0,e1,e2 (C,3)
-    -> t (C, N) with misses as +INF."""
-    ox, oy, oz = _rows(o)
-    dx, dy, dz = _rows(d)
-    p0x, p0y, p0z = _cols(p0)
-    e1x, e1y, e1z = _cols(e1)
-    e2x, e2y, e2z = _cols(e2)
+def _mt(o3, d3, p0, e1, e2):
+    """Möller-Trumbore on broadcastable components: o3, d3, p0, e1, e2 are
+    (x, y, z) tuples. Returns (t, ok). Every kernel repeats these
+    operations in this order."""
+    ox, oy, oz = o3
+    dx, dy, dz = d3
+    p0x, p0y, p0z = p0
+    e1x, e1y, e1z = e1
+    e2x, e2y, e2z = e2
     pvx = dy * e2z - dz * e2y
     pvy = dz * e2x - dx * e2z
     pvz = dx * e2y - dy * e2x
@@ -84,6 +91,13 @@ def _tri_t(o, d, p0, e1, e2):
         & (v >= 0.0) & (u + v <= 1.0)
         & (t >= EPS)
     )
+    return t, ok
+
+
+def _tri_t(o, d, p0, e1, e2):
+    """Möller-Trumbore of rays o,d (N,3) against triangles p0,e1,e2 (C,3)
+    -> t (C, N) with misses as +INF."""
+    t, ok = _mt(_rows(o), _rows(d), _cols(p0), _cols(e1), _cols(e2))
     return torch.where(ok, t, torch.full_like(t, INF))
 
 
@@ -166,21 +180,12 @@ def _sphere_brute(o, d, geom: Geometry, best_t, best_p):
     return t, torch.where(upd, p, best_p)
 
 
-def intersect_shade_brute(o, d, geom: Geometry, t_cap=None):
-    """Nearest hit plus the winner's shade attributes. o,d: (N,3).
-
-    `t_cap` (N,) caps the search: hits at t >= t_cap are misses (and the
-    returned t is then t_cap). Returns (Hit, ShadePoint), the same as
-    `intersect_brute` followed by `shade_point`."""
-    n = o.shape[0]
-    nt = geom.tri_p0.shape[0]
-    ns = geom.sph_c.shape[0]
-    best_t = (torch.full((n,), INF, dtype=o.dtype, device=o.device)
-              if t_cap is None else t_cap)
-    best_t, best_p, best_m, best_f = _fold(o, d, geom, best_t, payload=True)
+def _finish(o, d, nt: int, ns: int, best_t, best_p, best_m, best_f):
+    """(Hit, ShadePoint) from a fold's winner: its t, prim, material row and
+    face normal (triangles) or center (spheres)."""
     hitmask = best_p >= 0
-    hit = Hit(t=best_t, prim=best_p)
-
+    hit = Hit(t=best_t, prim=torch.where(hitmask, best_p,
+                                         torch.full_like(best_p, -1)))
     pos = o + d * best_t[..., None]
     if ns:
         sn = vec.safe_normalize(pos - best_f)
@@ -193,9 +198,169 @@ def intersect_shade_brute(o, d, geom: Geometry, t_cap=None):
     return hit, ShadePoint(position=pos, normal=normal, mat=mat, hit=hitmask)
 
 
+def intersect_shade_brute(o, d, geom: Geometry, t_cap=None):
+    """Nearest hit plus the winner's shade attributes. o,d: (N,3).
+
+    `t_cap` (N,) caps the search: hits at t >= t_cap are misses (and the
+    returned t is then t_cap). Returns (Hit, ShadePoint), the same as
+    `intersect_brute` followed by `shade_point`."""
+    best_t = (torch.full((o.shape[0],), INF, dtype=o.dtype, device=o.device)
+              if t_cap is None else t_cap)
+    best_t, best_p, best_m, best_f = _fold(o, d, geom, best_t, payload=True)
+    return _finish(o, d, geom.tri_p0.shape[0], geom.sph_c.shape[0],
+                   best_t, best_p, best_m, best_f)
+
+
+# While `count_work()` is open: the node visits and triangle tests of every
+# plain walk, summed over lanes (tensors on the walk's device).
+_work: dict | None = None
+
+
+@contextlib.contextmanager
+def count_work():
+    """Sum the node visits (slab tests) and triangle tests of every plain
+    BVH walk run inside the block into the yielded dict, as
+    {"visits": tensor, "tests": tensor}; the kernels' bounds count these."""
+    global _work
+    _work = {"visits": 0, "tests": 0}
+    try:
+        yield _work
+    finally:
+        _work = None
+
+
+def _walk_tris(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool,
+               counts: bool = False):
+    """Nearest triangle strictly closer than `t_init` per lane, walking the
+    threaded BVH; the plain version of the CUDA kernel csrc/bvh.cu.
+
+    Each lane holds a node cursor (0 = root). A step runs the slab test of
+    the cursor's box against the lane's own best t: a hit inner node moves
+    the cursor to `cur + 1`, anything else to the node's `miss` link, and a
+    hit leaf first tests its K triangle slots in ascending order with a
+    strict `<` (padding slots, prim < 0, never win). A lane stops when its
+    cursor is -1 or its best t is <= `t_stop` (occlusion queries; -INF
+    never stops). A zero direction component gives an infinite inverse; a
+    NaN from inf * 0 (an origin on a box plane) propagates through
+    minimum/maximum and misses the box.
+
+    Returns (t, prim[, mat, n (N,3)]): prim = -1 and t = t_init where no
+    triangle beat t_init. With `counts` the per-lane int32 node visits and
+    triangle tests follow.
+    """
+    n = o.shape[0]
+    dev = o.device
+    inv = 1.0 / d
+    best_t = t_init.clone()
+    best_p = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_m = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_n = torch.zeros((n, 3), dtype=o.dtype, device=dev)
+    count = counts or _work is not None
+    visits = torch.zeros(n, dtype=torch.int32, device=dev)
+    tests = torch.zeros(n, dtype=torch.int32, device=dev)
+    miss_of = bvh.node_miss.long()
+    leaf_of = bvh.node_leaf.long()
+    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    live = torch.arange(n, device=dev)
+    while True:
+        cur = node[live]
+        keep = (cur >= 0) & (best_t[live] > t_stop[live])
+        live, cur = live[keep], cur[keep]
+        if live.numel() == 0:
+            break
+        ol, il = o[live], inv[live]
+        ta = (bvh.node_min[cur] - ol) * il
+        tb = (bvh.node_max[cur] - ol) * il
+        lo, hi = torch.minimum(ta, tb), torch.maximum(ta, tb)
+        tmin = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
+        tmax = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
+        box = (tmin <= tmax) & (tmax >= EPS) & (tmin < best_t[live])
+        leaf = leaf_of[cur]
+        inner = leaf < 0
+        node[live] = torch.where(box & inner, cur + 1, miss_of[cur])
+        if count:
+            visits[live] += 1
+        test = box & ~inner
+        lanes, blk = live[test], leaf[test]
+        if lanes.numel() == 0:
+            continue
+        prim = bvh.blk_prim[blk]  # (m, K)
+        oc = o[lanes][:, None, :]
+        dc = d[lanes][:, None, :]
+        t, ok = _mt(
+            (oc[..., 0], oc[..., 1], oc[..., 2]),
+            (dc[..., 0], dc[..., 1], dc[..., 2]),
+            *(tuple(x[..., c] for c in range(3))
+              for x in (bvh.blk_p0[blk], bvh.blk_e1[blk], bvh.blk_e2[blk])),
+        )
+        t = torch.where(ok & (prim >= 0), t, torch.full_like(t, float("inf")))
+        tmin_blk, j = torch.min(t, dim=1)  # the first of equal minima
+        upd = tmin_blk < best_t[lanes]
+        best_t[lanes] = torch.where(upd, tmin_blk, best_t[lanes])
+        jj = j[:, None]
+        best_p[lanes] = torch.where(upd, prim.gather(1, jj)[:, 0],
+                                    best_p[lanes])
+        if want_shade:
+            best_m[lanes] = torch.where(
+                upd, bvh.blk_mat[blk].gather(1, jj)[:, 0], best_m[lanes])
+            best_n[lanes] = torch.where(upd[:, None], bvh.blk_n[blk, j],
+                                        best_n[lanes])
+        if count:
+            tests[lanes] += (prim >= 0).sum(dim=1, dtype=torch.int32)
+    if _work is not None:
+        _work["visits"] = _work["visits"] + visits.sum()
+        _work["tests"] = _work["tests"] + tests.sum()
+    outs = (best_t, best_p) + ((best_m, best_n) if want_shade else ())
+    return outs + ((visits, tests) if counts else ())
+
+
+def intersect_bvh(o, d, geom: Geometry, bvh: Bvh, want_shade: bool = False,
+                  t_cap=None, occlusion: bool = False, plain: bool = False):
+    """Nearest hit through the BVH (the JAX package's `intersect_bvh`
+    contract). o,d: (N,3).
+
+    Spheres are folded by brute force first, from `t_cap` (INF when None);
+    the triangle walk then keeps a triangle only when it is strictly closer
+    than that best. `occlusion=True` lets a lane stop once any hit lies
+    below `t_cap - 4*EPS`: such a hit settles a shadow verdict (|t - dist|
+    <= EPS with t_cap = dist + 2*EPS) as occluded, so its t need not be the
+    nearest. The walk is `cuda_bvh.intersect_tris` (the kernel for CUDA
+    tensors, differentiable through the plane equation) or, with `plain`,
+    the plain walk `_walk_tris` on any device.
+
+    Returns Hit, or (Hit, ShadePoint) with `want_shade`."""
+    n = o.shape[0]
+    nt = geom.tri_p0.shape[0]
+    ns = geom.sph_c.shape[0]
+    dev = o.device
+    cap = (torch.full((n,), INF, dtype=o.dtype, device=dev)
+           if t_cap is None else t_cap)
+    stop = (cap - 4.0 * EPS if occlusion
+            else torch.full((n,), -INF, dtype=o.dtype, device=dev))
+    best_t, best_p, best_m, best_f = _fold(o, d, geom, cap, payload=True,
+                                           spheres_only=True)
+    if nt:
+        if plain:
+            outs = _walk_tris(o, d, best_t.detach(), stop, bvh, want_shade)
+        else:
+            from . import cuda_bvh
+
+            outs = cuda_bvh.intersect_tris(o, d, best_t.detach(), stop,
+                                           cuda_bvh.tables_of(bvh),
+                                           want_shade)
+        won = outs[1] >= 0
+        best_t = torch.where(won, outs[0], best_t)
+        best_p = torch.where(won, outs[1], best_p)
+        if want_shade:
+            best_m = torch.where(won, outs[2], best_m)
+            best_f = torch.where(won[:, None], outs[3], best_f)
+    hit, sp = _finish(o, d, nt, ns, best_t, best_p, best_m, best_f)
+    return (hit, sp) if want_shade else hit
+
+
 def _use_brute(geom: Geometry, mode: str, bvh: Bvh | None = None) -> bool:
     """Brute force for `mode="brute"`, and for `"auto"` up to
-    BRUTE_MAX_PRIMS prims."""
+    BRUTE_MAX_PRIMS prims; the BVH otherwise."""
     del bvh  # the threshold does not depend on the BVH layout here
     if mode == "brute":
         return True
@@ -204,25 +369,23 @@ def _use_brute(geom: Geometry, mode: str, bvh: Bvh | None = None) -> bool:
     return geom.tri_p0.shape[0] + geom.sph_c.shape[0] <= BRUTE_MAX_PRIMS
 
 
-def _require_brute(geom: Geometry, mode: str):
-    if not _use_brute(geom, mode):
-        nprim = geom.tri_p0.shape[0] + geom.sph_c.shape[0]
-        raise NotImplementedError(
-            f"BVH traversal (intersector {mode!r}, {nprim} prims) is not "
-            f"ported yet; it comes with {BVH_SLICE}"
-        )
-
-
-def intersect(o, d, geom: Geometry, bvh: Bvh, mode: str = "auto") -> Hit:
-    _require_brute(geom, mode)
-    return intersect_brute(o, d, geom)
+def intersect(o, d, geom: Geometry, bvh: Bvh, mode: str = "auto",
+              plain: bool = False) -> Hit:
+    """Nearest hit: brute force or the BVH, as `_use_brute` picks."""
+    if _use_brute(geom, mode, bvh):
+        return intersect_brute(o, d, geom)
+    return intersect_bvh(o, d, geom, bvh, plain=plain)
 
 
 def intersect_shade(o, d, geom: Geometry, bvh: Bvh, mode: str = "auto",
-                    t_cap=None):
-    """(Hit, ShadePoint) fused; see `intersect_shade_brute`."""
-    _require_brute(geom, mode)
-    return intersect_shade_brute(o, d, geom, t_cap=t_cap)
+                    t_cap=None, occlusion: bool = False, plain: bool = False):
+    """(Hit, ShadePoint) fused; see `intersect_shade_brute` and
+    `intersect_bvh` (brute force ignores `occlusion`: it tests every prim
+    either way)."""
+    if _use_brute(geom, mode, bvh):
+        return intersect_shade_brute(o, d, geom, t_cap=t_cap)
+    return intersect_bvh(o, d, geom, bvh, want_shade=True, t_cap=t_cap,
+                         occlusion=occlusion, plain=plain)
 
 
 def shade_point(o, d, hit: Hit, geom: Geometry) -> ShadePoint:

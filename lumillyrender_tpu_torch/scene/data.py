@@ -90,8 +90,8 @@ class LightTable(_Tensors):
 @dataclass
 class Bvh(_Tensors):
     """Flattened threaded (stackless) treelet BVH over triangles, DFS order
-    (`accel/sah.py`, `accel/pack.py`). Carried for the BVH slice; the
-    brute-force path never reads it."""
+    (`accel/sah.py`, `accel/pack.py`); walked by `ops/intersect.py::
+    _walk_tris` and the BVH kernels."""
 
     node_min: torch.Tensor  # (N, 3)
     node_max: torch.Tensor  # (N, 3)

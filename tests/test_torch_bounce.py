@@ -119,7 +119,8 @@ def test_wrappers_take_the_plain_path_on_cpu(assets_dir):
     for k in ("o", "d", "throughput", "accum", "alive", "lane"):
         assert torch.equal(getattr(a, k), getattr(b, k)), k
     assert torch.equal(a.rays_traced, b.rays_traced)
-    assert cuda_bounce.counts() == {"raygen": 0, "bounce": 0}
+    assert cuda_bounce.counts() == {"raygen": 0, "bounce": 0, "bvh": 0,
+                                    "bounce_bvh": 0}
 
 
 def test_compact_keeps_live_lanes_and_weights():

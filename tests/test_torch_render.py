@@ -15,7 +15,9 @@ from lumillyrender_tpu_torch.cli import main as cli_main
 from lumillyrender_tpu_torch.integrator.render import render
 from lumillyrender_tpu_torch.io.image import read_png
 from lumillyrender_tpu_torch.ops import cuda_bounce
+from lumillyrender_tpu_torch.ops.intersect import _use_brute
 from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
+from lumillyrender_tpu_torch.scene.data import SKY_SIMPLE
 
 torch.set_num_threads(2)
 
@@ -23,12 +25,14 @@ REPO = Path(__file__).resolve().parents[1]
 GOLDENS = Path(__file__).parent / "goldens"
 SEED = 1234  # tests/test_goldens.py
 
-# tests/test_goldens.py's configs for the brute-force scenes.
+# tests/test_goldens.py's configs, but for vr (the omnidirectional camera).
 GOLDEN_CONFIGS = [
     ("primitive", 48, 48, 8),
     ("debug-nee", 48, 48, 8),
     ("brdf", 64, 24, 8),
     ("new-cbox", 48, 48, 8),
+    ("ibl-material", 48, 36, 8),
+    ("welcome-geo", 32, 24, 4),
     ("many-light", 32, 32, 8),
 ]
 
@@ -40,15 +44,23 @@ GOLDEN_CONFIGS = [
 # there the two paths are different, equally valid Monte Carlo samples.
 # So the film gate is statistical, with bounds set from this measurement
 # (port CPU vs golden, seed 1234):
-#   scene       |mean| rel  8x8-block max rel  pixels within 1e-4
-#   primitive   7.9e-4      0.0050             0.869
-#   debug-nee   2.9e-3      0.0107             0.984
-#   brdf        3.7e-3      0.0261             0.946
-#   new-cbox    9.6e-3      0.0169             0.555
-#   many-light  0           0                  1.000
-# and a scene whose paths do not diverge (many-light) keeps the goldens'
-# own 1e-4 bound on every pixel.
+#   scene         |mean| rel  block max rel  pixels within 1e-4
+#   primitive     7.9e-4      0.0050         0.869
+#   debug-nee     2.9e-3      0.0107         0.984
+#   brdf          3.7e-3      0.0261         0.946
+#   new-cbox      9.6e-3      0.0169         0.555
+#   ibl-material  1.2e-3      0.0135 (4x4)   0.942
+#   welcome-geo   1.8e-2      0.0255         0.858
+#   many-light    0           0              1.000
+# Blocks are 8x8 pixels, 4x4 where the film's sides are not multiples of 8.
+# welcome-geo's 4 spp film is the noisiest (its light is 2000 times the
+# albedo: one diverged path moves the mean; the JAX package's own films of
+# seeds 1235-1237 are 0.05% to 58% off its golden), so its mean gets its
+# own bound, with the same margin over the measurement as the others. A
+# scene whose paths do not diverge (many-light) keeps the goldens' own 1e-4
+# bound on every pixel.
 MEAN_REL = 0.02
+MEAN_REL_OF = {"welcome-geo": 0.04}
 BLOCK_REL = 0.05
 WITHIN_FRAC = 0.45
 EXACT = {"many-light"}
@@ -67,12 +79,13 @@ def test_cpu_film_matches_golden(assets_dir, name, w, h, spp):
         assert rel.max() < 1e-4, f"{name}: max rel {rel.max():.2e}"
         return
     mean_rel = abs(film.mean() - golden.mean()) / golden.mean()
-    block = lambda x: x.reshape(h // 8, 8, w // 8, 8, 3).mean(axis=(1, 3))
+    b = 8 if h % 8 == 0 and w % 8 == 0 else 4
+    block = lambda x: x.reshape(h // b, b, w // b, b, 3).mean(axis=(1, 3))
     block_rel = (np.abs(block(film) - block(golden)).max()
                  / float(np.abs(block(golden)).max()))
     within = (rel <= 1e-4).mean()
-    assert mean_rel < MEAN_REL, f"{name}: mean rel {mean_rel:.2e}"
-    assert block_rel < BLOCK_REL, f"{name}: 8x8 block rel {block_rel:.3f}"
+    assert mean_rel < MEAN_REL_OF.get(name, MEAN_REL), f"{name}: mean rel {mean_rel:.2e}"
+    assert block_rel < BLOCK_REL, f"{name}: {b}x{b} block rel {block_rel:.3f}"
     assert within >= WITHIN_FRAC, f"{name}: {within:.3f} of pixels within 1e-4"
 
 
@@ -88,11 +101,26 @@ def test_cli_writes_png_on_cpu(assets_dir, tmp_path, capsys):
     assert "rays/s:" in printed and "device: cpu" in printed
 
 
+def test_cli_writes_hdr_of_a_bvh_scene_on_cpu(assets_dir, tmp_path, capsys):
+    """welcome-geo (81,932 triangles: the BVH path, IBL sky, thin lens)
+    through the CLI on the plain path, written as .hdr."""
+    from lumillyrender_tpu_torch.io.image import read_hdr
+
+    out = tmp_path / "welcome-geo.hdr"
+    rc = cli_main([str(assets_dir / "welcome-geo.toml"), "--device", "cpu",
+                   "--spp", "1", "--resolution", "32", "24", "--out", str(out)])
+    assert rc == 0
+    img = read_hdr(out)
+    assert img.shape == (24, 32, 3) and np.isfinite(img).all() and img.max() > 0
+    assert "polygons: 81932" in capsys.readouterr().out
+
+
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, lumillyrender_tpu_torch, lumillyrender_tpu_torch.cli, "
         "lumillyrender_tpu_torch.convert, lumillyrender_tpu_torch.parity, "
-        "lumillyrender_tpu_torch.ops.cuda_bounce\n"
+        "lumillyrender_tpu_torch.ops.cuda_bounce, lumillyrender_tpu_torch.ops.cuda_bvh, "
+        "lumillyrender_tpu_torch.ops.cuda_build, lumillyrender_tpu_torch.scene.terrain\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'lumillyrender_tpu' or m.startswith('lumillyrender_tpu.')]\n"
         "print(bad)\n"
@@ -118,7 +146,13 @@ def test_default_device_needs_a_card(assets_dir):
     ("vr", "omnidirectional"),
 ])
 def test_supported_rejects_later_slices(assets_dir, name, why):
+    """The card serves uniform and IBL skies (ibl-material is on the card),
+    not the simple sky, whose reason names the skies it does serve; nor the
+    omnidirectional camera."""
     c = compile_scene_file(assets_dir / f"{name}.toml", spp=1, device="cpu")
+    if name == "ibl-material":
+        assert cuda_bounce.supported(c.data, c.settings) == (True, "")
+        c.settings = dataclasses.replace(c.settings, sky_kind=SKY_SIMPLE)
     ok, reason = cuda_bounce.supported(c.data, c.settings)
     assert not ok and why in reason and "slice" in reason
     with pytest.raises(NotImplementedError, match="slice"):
@@ -126,8 +160,11 @@ def test_supported_rejects_later_slices(assets_dir, name, why):
 
 
 def test_supported_rejects_bvh_scenes(assets_dir):
-    """Past 8192 prims the scene needs BVH traversal (slice 2); the new-cbox
-    tables are tiled up to 8193 triangles without a compile."""
+    """Past 8192 prims a scene takes the BVH path, on the card too; a BVH of
+    128-wide leaves (the compiler's layout from 650,000 triangles) is
+    refused, naming the slice of the wide-leaf kernel. The new-cbox tables
+    are tiled up to 8193 triangles, and its leaves widened, without a
+    compile."""
     c = compile_scene_file(assets_dir / "new-cbox.toml", spp=1, device="cpu")
     assert cuda_bounce.supported(c.data, c.settings) == (True, "")
     g = c.data.geometry
@@ -137,5 +174,16 @@ def test_supported_rejects_bvh_scenes(assets_dir):
         for f in ("tri_p0", "tri_e1", "tri_e2", "tri_n", "tri_mat")
     })
     scene = dataclasses.replace(c.data, geometry=big)
-    ok, reason = cuda_bounce.supported(scene, c.settings)
-    assert not ok and "BVH" in reason and "slice 2" in reason
+    assert not _use_brute(big, c.settings.intersector)
+    assert cuda_bounce.supported(scene, c.settings) == (True, "")
+    b = scene.bvh
+    widen = lambda x, fill: torch.cat(
+        [x, torch.full((x.shape[0], 128 - x.shape[1]) + x.shape[2:], fill,
+                       dtype=x.dtype)], dim=1)
+    wide = dataclasses.replace(b, **{
+        f: widen(getattr(b, f), -1 if f in ("blk_prim", "blk_mat") else 0)
+        for f in ("blk_p0", "blk_e1", "blk_e2", "blk_n", "blk_prim", "blk_mat")
+    })
+    ok, reason = cuda_bounce.supported(dataclasses.replace(scene, bvh=wide),
+                                       c.settings)
+    assert not ok and "BVH" in reason and "slice 4" in reason
