@@ -244,13 +244,64 @@ def random_state(scene, n, seed, bounce):
     return state_from_numpy(bounce, o, d, thr, acc, alive, lane, device="cuda")
 
 
-def check_bounce(tag, kernel_step, plain_step, state):
-    """One bounce of `kernel_step` against `plain_step` on `state` under
-    parity.py's rules; prints and returns the agreement."""
+def explain_accum_flips(c, state, got, want, most=4):
+    """Print up to `most` lanes whose accum differs beyond parity.py's rtol:
+    the ray, both accum increments and the plain primary hit; for a lane
+    that escaped to an IBL sky, the texel of the plain lookup, of the same
+    lookup with IEEE divisions (tensor divisors; PyTorch multiplies a CUDA
+    tensor by the float reciprocal of a host scalar divisor) and the texel
+    the kernel's accum implies; for a lane that hit, the plain NEE term."""
     from lumillyrender_tpu_torch import parity
+    from lumillyrender_tpu_torch.constants import PI
+    from lumillyrender_tpu_torch.integrator import wavefront
+    from lumillyrender_tpu_torch.ops import bsdf, intersect, sky as sky_ops
+    from lumillyrender_tpu_torch.scene.data import SKY_IBL
 
-    got = kernel_step(state)
-    want = plain_step(state)
+    scene, st = c.data, c.settings
+    rel = ((got.accum - want.accum).abs() / want.accum.abs().clamp(min=1.0)).amax(1)
+    for i in (rel > parity.LIMITS["rtol"]).nonzero()[:most, 0].tolist():
+        s = slice(i, i + 1)
+        o, d = state.o[s], state.d[s]
+        hit, sp = intersect.intersect_shade(o, d, scene.geometry, scene.bvh,
+                                            st.intersector, plain=True)
+        line = (f"  accum flip, lane {i}: o {o[0].tolist()}, d {d[0].tolist()}, "
+                f"alive {bool(state.alive[i])}; accum increment kernel "
+                f"{(got.accum[i] - state.accum[i]).tolist()}, plain "
+                f"{(want.accum[i] - state.accum[i]).tolist()}; plain hit prim "
+                f"{int(hit.prim[0])}, t {float(hit.t[0]):.7g}")
+        if not bool(sp.hit[0]) and st.sky_kind == SKY_IBL:
+            sky = scene.sky
+            h, w = sky.ibl.shape[:2]
+            div = lambda x, y: x / torch.tensor(y, dtype=torch.float32, device=x.device)
+            theta = torch.arccos(torch.clamp(d[:, 1], -1.0, 1.0))
+            phi = torch.arctan2(d[:, 2], d[:, 0])
+            u = torch.remainder(div(phi + PI + sky.longitude_offset, 2.0 * PI), 1.0)
+            v = torch.remainder(div(theta, PI), 1.0)
+            ieee = int(torch.remainder(torch.floor(h * v).long() * w
+                                       + torch.floor(w * u).long(), w * h)[0])
+            texels = sky.ibl.reshape(-1, 3)
+            implied = int((state.accum[i] + state.throughput[i] * texels
+                           - got.accum[i]).abs().sum(1).argmin())
+            line += (f"; texel: plain lookup {int(sky_ops.ibl_texel(sky, d)[0])}, "
+                     f"IEEE divisions {ieee}, implied by the kernel's accum {implied}")
+        elif bool(sp.hit[0]):
+            direct = wavefront._direct_light(
+                scene, st, sp, -d, bsdf.gather(scene.materials, sp.mat), state.lane[s],
+                SEED, state.bounce * wavefront._SLOTS,
+                torch.ones(1, dtype=torch.bool, device=o.device))
+            line += f"; plain NEE term {direct[0].tolist()}"
+        print(line)
+
+
+def check_bounce(tag, c, kernel, state):
+    """One bounce of `kernel` (cuda_bounce.bounce or bounce_bvh) against the
+    plain step on `state` under parity.py's rules; prints the agreement and
+    any accum-flip lanes, and returns the agreement."""
+    from lumillyrender_tpu_torch import parity
+    from lumillyrender_tpu_torch.integrator import wavefront
+
+    got = kernel(c.data, c.settings, SEED, state)
+    want = wavefront.plain_bounce_step(c.data, c.settings, SEED, state)
     torch.cuda.synchronize()
     m = parity.agreement(want, got)
     bad = parity.failures(m)
@@ -260,6 +311,8 @@ def check_bounce(tag, kernel_step, plain_step, state):
           + ", ".join(f"{k} {v:.1e}" for k, v in m["max_rel"].items())
           + f", rays {m['rays'][1]:.0f}/{m['rays'][0]:.0f}"
           + (f"  FAIL {bad}" if bad else ""))
+    if m["accum_flip"]:
+        explain_accum_flips(c, state, got, want)
     if bad:
         fail(f"bounce kernel vs plain on {tag}: {bad}")
     return m
@@ -363,16 +416,11 @@ def instrumented_chunk(c, spp_chunk, kernel, tables):
         # (primary, then shadow rays) and the kernel's one round differently.
         zero = dataclasses.replace(state, rays_traced=torch.zeros_like(state.rays_traced))
         out = kernel(c.data, st, SEED, zero, tables)
-        want = wavefront.plain_bounce_step(c.data, st, SEED, zero)
-        # The walks the bound counts: the plain step's on the live lanes
-        # alone (the kernel skips dead ones), a primary ray each and a
-        # shadow ray each (the kernel's shadow rays are fewer: none where
-        # RR kills the lane or the light faces away).
-        live = state.alive.nonzero()[:, 0]
-        sub = dataclasses.replace(zero, **{k: getattr(zero, k)[live] for k in (
-            "o", "d", "throughput", "accum", "alive", "lane")})
+        # The walks the bound counts are the plain step's, which walks what
+        # the kernel walks: a live lane's primary ray, and the shadow ray of
+        # a lane that survived RR, faces its light and is not emissive.
         with intersect.count_work() as work:
-            wavefront.plain_bounce_step(c.data, st, SEED, sub)
+            want = wavefront.plain_bounce_step(c.data, st, SEED, zero)
         m = parity.agreement(want, out)
         bad = parity.failures(m)
         if bad:
@@ -406,14 +454,16 @@ def instrumented_chunk(c, spp_chunk, kernel, tables):
 SLAB_FLOPS, TRI_FLOPS, SPH_FLOPS, SHADE_FLOPS = 25, 54, 25, 150
 STATE_BYTES = 106  # bounce: o, d, throughput, accum 48 B each way, alive 1 B
 #                    each way, lane id in and ray count out, 4 B each
+# The bytes of a bound are the rays' or the state's alone: the prim and BVH
+# tables (at most 6.8 MB) stay in the 50 MB L2 across the warm launches
+# that are timed.
 
 
-def bounce_bounds(c, per_launch, table_bytes, brute):
+def bounce_bounds(c, per_launch, brute):
     """Per width: launches and the summed bound of the bounce launches
-    (bytes: the state each way and the tables once; operations: the
-    intersections and shading of this launch's rays, the BVH walks' node
-    visits and triangle tests counted by the plain walk on the live
-    lanes)."""
+    (bytes: the state each way; operations: the intersections and shading
+    of this launch's rays, the BVH walks' node visits and triangle tests
+    counted by the plain step, which walks what the kernel walks)."""
     geom = c.data.geometry
     nt, ns = geom.tri_p0.shape[0], geom.sph_c.shape[0]
     by_width = {}
@@ -422,7 +472,7 @@ def bounce_bounds(c, per_launch, table_bytes, brute):
         isect = (TRI_FLOPS * nt * r if brute
                  else SLAB_FLOPS * float(visits) + TRI_FLOPS * float(tests))
         ops = isect + SPH_FLOPS * ns * r + SHADE_FLOPS * r
-        t_bytes = (STATE_BYTES * w + table_bytes) / HBM_BYTES_PER_S * 1e3
+        t_bytes = STATE_BYTES * w / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_FLOPS_PER_S * 1e3
         agg = by_width.setdefault(w, dict(launches=0, bound_ms=0.0, bytes_ms=0.0,
                                           ops_ms=0.0, rays=0.0, visits=0.0, tests=0.0))
@@ -637,11 +687,8 @@ def main() -> int:
     bounce_err = 0.0
     for name, c in scenes.items():
         for b in (0, 3, 7, 70):
-            m = check_bounce(
-                f"{name}@b{b}",
-                lambda s: cuda_bounce.bounce(c.data, c.settings, SEED, s),
-                lambda s: wavefront.plain_bounce_step(c.data, c.settings, SEED, s),
-                random_state(c.data, n_cmp, 1000 * b + len(name), b))
+            m = check_bounce(f"{name}@b{b}", c, cuda_bounce.bounce,
+                             random_state(c.data, n_cmp, 1000 * b + len(name), b))
             if name == "new-cbox":
                 bounce_err = max(bounce_err, *m["max_abs"].values())
     del scenes
@@ -675,7 +722,7 @@ def main() -> int:
     checks, per_launch, first_state = instrumented_chunk(cbox, spp_chunk, cuda_bounce.bounce,
                                                          tables)
     bounce_err = max(bounce_err, *(c["max_abs"] for c in checks.values()))
-    by_width = bounce_bounds(cbox, per_launch, 0, brute=True)
+    by_width = bounce_bounds(cbox, per_launch, brute=True)
     time_bounce_widths(cbox, cuda_bounce.bounce, cuda_bounce.bounce_launch, tables,
                        first_state, by_width)
     bounce_launches, b_ms, b_bound, b_plain, b_by = weighted(by_width)
@@ -733,9 +780,10 @@ def main() -> int:
     walk_counts = {}
     for tag, o, d, t0_, ts, shade in sets:
         got = cuda_bvh.intersect_tris(o, d, t0_, ts, btab, shade)
-        want = intersect._walk_tris(o, d, t0_, ts, bvh, shade, counts=True)
+        with intersect.count_work() as work:
+            want = intersect._walk_tris(o, d, t0_, ts, bvh, shade)
         torch.cuda.synchronize()
-        walk_counts[tag] = (float(want[-2].sum()), float(want[-1].sum()))
+        walk_counts[tag] = (float(work["visits"]), float(work["tests"]))
         prim_flips = int((got[1] != want[1]).sum())
         both = (got[1] >= 0) & (want[1] >= 0)
         ulp = ((got[0] - want[0]).abs() / torch.maximum(want[0].abs(), torch.ones_like(want[0]))
@@ -775,11 +823,8 @@ def main() -> int:
     bvh_bounce_err = 0.0
     for name, c in bvh_scenes.items():
         for b in (0, 3, 7, 70):
-            m = check_bounce(
-                f"{name}@b{b}",
-                lambda s: cuda_bounce.bounce_bvh(c.data, c.settings, SEED, s),
-                lambda s: wavefront.plain_bounce_step(c.data, c.settings, SEED, s),
-                random_state(c.data, n_geo, 2000 * b + len(name), b))
+            m = check_bounce(f"{name}@b{b}", c, cuda_bounce.bounce_bvh,
+                             random_state(c.data, n_geo, 2000 * b + len(name), b))
             bvh_bounce_err = max(bvh_bounce_err, *m["max_abs"].values())
     del bvh_scenes
     lap("bvh bounce parity", t0)
@@ -833,12 +878,11 @@ def main() -> int:
     t0 = time.monotonic()
     geo_rate, geo_chunk_ms = chunk_rate(geo, geo_chunk, 3, 0)
     print(f"forward: 3 chunks, {geo_chunk_ms:.4f} ms each: {geo_rate:.6e} rays/s  [{card}]")
-    gtables = cuda_bounce.pack_tables(geo.data)
-    table_bytes = sum(btab[k].numel() * 4 for k in ("nodes", "leaves", "ids"))
+    gtables = cuda_bounce.pack_tables(geo.data, bvh=True)
     g_checks, g_per_launch, g_first = instrumented_chunk(geo, geo_chunk, cuda_bounce.bounce_bvh,
                                                          gtables)
     bvh_bounce_err = max(bvh_bounce_err, *(c["max_abs"] for c in g_checks.values()))
-    g_by_width = bounce_bounds(geo, g_per_launch, table_bytes, brute=False)
+    g_by_width = bounce_bounds(geo, g_per_launch, brute=False)
     time_bounce_widths(geo, cuda_bounce.bounce_bvh, cuda_bounce.bounce_bvh_launch, gtables,
                        g_first, g_by_width)
     gb_launches, gb_ms, gb_bound, gb_plain, gb_by = weighted(g_by_width)
@@ -850,7 +894,7 @@ def main() -> int:
                                                             out3))
     k3_plain_ms = events_ms(lambda: intersect._walk_tris(cam_o, cam_d, inf, never, bvh, False), 2)
     v3_, t3_ = walk_counts["camera rays"]
-    k3_bytes = (40 * n_geo + table_bytes) / HBM_BYTES_PER_S * 1e3
+    k3_bytes = 40 * n_geo / HBM_BYTES_PER_S * 1e3  # o, d, t_init, t_stop in; t, prim out
     k3_ops = (SLAB_FLOPS * v3_ + TRI_FLOPS * t3_) / FP32_FLOPS_PER_S * 1e3
     k3_bound = max(k3_bytes, k3_ops)
     k3_by = "bytes" if k3_bytes >= k3_ops else "operations"

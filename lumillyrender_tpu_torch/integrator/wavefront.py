@@ -20,11 +20,12 @@ alive" test).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
 
-from ..constants import EPS, PI
+from ..constants import EPS, INF, PI
 from ..ops import bsdf, rng, sky as sky_ops, table, vec
 from ..ops.intersect import _use_brute, intersect, intersect_shade, shade_point
 from ..scene.data import RenderSettings, SceneData
@@ -98,8 +99,17 @@ def _sample_light_point(scene: SceneData, u_pick, u1, u2):
     return point, pdf
 
 
-def _direct_light(scene, settings, sp, out_dir, m_gathered, lane, seed, ctr):
-    """NEE contribution (`scene.rs:104-151`). Returns (N,3) radiance."""
+def _only(mask, cap):
+    """The cap of a query whose answer only the `mask` lanes use: -inf on
+    the others, which no hit beats, so a BVH walk takes no step for them
+    (the kernels ask nothing there)."""
+    return torch.where(mask, cap, torch.full_like(cap, -math.inf))
+
+
+def _direct_light(scene, settings, sp, out_dir, m_gathered, lane, seed, ctr,
+                  alive):
+    """NEE contribution (`scene.rs:104-151`) of the `alive` lanes. Returns
+    (N,3) radiance."""
     u_pick, u1, u2, _ = rng.uniform4(seed, lane, ctr + _NEE)
     light_point, pdf = _sample_light_point(scene, u_pick, u1, u2)
 
@@ -109,7 +119,7 @@ def _direct_light(scene, settings, sp, out_dir, m_gathered, lane, seed, ctr):
 
     point_normal = vec.orienting_normal(out_dir, sp.normal)
     cos_p = vec.dot(wi, point_normal)
-    ok = cos_p > 0.0
+    ok = alive & (cos_p > 0.0)
 
     # Emissive-hit early-out (`scene.rs:105-108`): no NEE from emitters.
     ok = ok & (vec.sqr_norm(m_gathered.emission) <= 0.0)
@@ -120,7 +130,7 @@ def _direct_light(scene, settings, sp, out_dir, m_gathered, lane, seed, ctr):
     # any hit below the cap - 4*EPS: it settles the verdict as occluded.
     shadow, shadow_sp = intersect_shade(
         sp.position, wi, scene.geometry, scene.bvh, settings.intersector,
-        t_cap=dist + 2.0 * EPS, occlusion=True, plain=True,
+        t_cap=_only(ok, dist + 2.0 * EPS), occlusion=True, plain=True,
     )
     visible = shadow_sp.hit & (torch.abs(shadow.t - dist) <= EPS)
     ok = ok & visible
@@ -146,15 +156,19 @@ def _masked(mask, x):
 def plain_bounce_step(scene: SceneData, settings: RenderSettings, seed,
                       state: PathState) -> PathState:
     """One bounce transition over a PathState, in plain PyTorch: the plain
-    version of the fused bounce kernel, and the step the CPU runs."""
+    version of the fused bounce kernel, and the step the CPU runs. Like the
+    kernel it walks the BVH only for the queries whose answer it uses: the
+    primary ray of a live lane, the shadow ray of a lane that survived
+    Russian roulette, faces its light and is not emissive."""
     bounce = state.bounce
     lane = state.lane
     ctr = bounce * _SLOTS
     nee = settings.integrator == "pt-direct"
 
+    inf = torch.full_like(state.o[:, 0], INF)
     hit, sp = intersect_shade(
         state.o, state.d, scene.geometry, scene.bvh, settings.intersector,
-        plain=True,
+        t_cap=_only(state.alive, inf), plain=True,
     )
     rays = state.rays_traced + state.alive.sum(dtype=torch.float32)
 
@@ -187,7 +201,8 @@ def plain_bounce_step(scene: SceneData, settings: RenderSettings, seed,
 
     # NEE (`scene.rs:185-186`).
     if nee and settings.has_lights:
-        direct = _direct_light(scene, settings, sp, out_dir, m, lane, seed, ctr)
+        direct = _direct_light(scene, settings, sp, out_dir, m, lane, seed, ctr,
+                               alive)
         accum = accum + _masked(alive, throughput * direct)
         rays = rays + alive.sum(dtype=torch.float32)  # shadow rays
 

@@ -67,11 +67,9 @@ def bvh_supported(scene: SceneData) -> tuple[bool, str]:
     return True, ""
 
 
-def bounce_supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
-    """(ok, reason) for the bounce kernels: pt or pt-direct under a uniform
-    or IBL sky, on a brute-force scene (bounce.cu) or a BVH scene of
-    32-wide leaves (bounce_bvh.cu). Lights and materials have no cap
-    (binary-search light pick, tables read from global memory)."""
+def _shading_supported(settings: RenderSettings) -> tuple[bool, str]:
+    """(ok, reason) for what both bounce kernels shade: pt or pt-direct
+    under a uniform or IBL sky."""
     if settings.sky_kind not in (SKY_UNIFORM, SKY_IBL):
         return False, ("the simple sky on the card comes in a later slice "
                        "(queue 1 of ROADMAP.md); the card serves uniform "
@@ -79,6 +77,17 @@ def bounce_supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, 
     if settings.integrator not in ("pt", "pt-direct"):
         return False, (f"integrator {settings.integrator!r} has no bounce "
                        "kernel: the AOVs run intersect and shade_point")
+    return True, ""
+
+
+def bounce_supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
+    """(ok, reason) for the bounce kernels: pt or pt-direct under a uniform
+    or IBL sky, on a brute-force scene (bounce.cu) or a BVH scene of
+    32-wide leaves (bounce_bvh.cu). Lights and materials have no cap
+    (binary-search light pick, tables read from global memory)."""
+    ok, why = _shading_supported(settings)
+    if not ok:
+        return ok, why
     if _use_brute(scene.geometry, settings.intersector, scene.bvh):
         return True, ""
     return bvh_supported(scene)
@@ -222,10 +231,10 @@ generate_rays.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def pack_tables(scene: SceneData) -> dict:
+def pack_tables(scene: SceneData, bvh: bool = False) -> dict:
     """The bounce kernels' tables (layouts in csrc/bounce.cu and
-    csrc/bounce_body.cuh, the BVH's in csrc/bvh_walk.cuh), on the scene's
-    device."""
+    csrc/bounce_body.cuh), on the scene's device; with `bvh`, also the BVH
+    kernel's (csrc/bvh_walk.cuh), which only the BVH bounce reads."""
     g = scene.geometry
     mt = scene.materials
     lt = scene.lights
@@ -240,7 +249,7 @@ def pack_tables(scene: SceneData) -> dict:
                           device=dev)
         return torch.cat([t, pad], dim=1).contiguous()
 
-    return dict(
+    tables = dict(
         tris=rows([g.tri_p0, g.tri_e1, g.tri_e2, g.tri_n, g.tri_mat], 16),
         sph=rows([g.sph_c, g.sph_r, g.sph_mat], 8),
         mats=rows([mt.type_id, mt.color, mt.emission, mt.alpha, mt.ior,
@@ -250,19 +259,22 @@ def pack_tables(scene: SceneData) -> dict:
         sky=[float(x) for x in scene.sky.color.cpu()],
         ibl=scene.sky.ibl.to(f32).contiguous(),
         lon=float(scene.sky.longitude_offset),
-        bvh=cuda_bvh.tables_of(scene.bvh),
     )
+    if bvh:
+        tables["bvh"] = cuda_bvh.tables_of(scene.bvh)
+    return tables
 
 
 def _launch(kernel: str, scene: SceneData, settings: RenderSettings, seed,
             state, tables: dict, out):
     """Check the state, outputs and tables, and launch `llr_<kernel>`
     ("bounce" or "bounce_bvh") on them."""
-    _require(bounce_supported(scene, settings))
-    if _use_brute(scene.geometry, settings.intersector, scene.bvh) != (kernel == "bounce"):
-        raise ValueError(f"the {kernel} kernel does not serve intersector "
-                         f"{settings.intersector!r} on this scene; "
-                         "make_step picks the kernel that does")
+    _require(_shading_supported(settings))
+    bvh = kernel == "bounce_bvh"
+    if bvh:
+        _require(bvh_supported(scene))
+        if "bvh" not in tables:
+            raise ValueError("the BVH bounce needs pack_tables(scene, bvh=True)")
     n = state.o.shape[0]
     for name in ("o", "d", "throughput", "accum"):
         t = getattr(state, name)
@@ -274,11 +286,14 @@ def _launch(kernel: str, scene: SceneData, settings: RenderSettings, seed,
         raise ValueError(f"{n} lanes do not fit the kernel's int32 lane index")
     o, d, thr, acc, alive, rays = out
     dev = state.o.device
-    bt = tables["bvh"]
     tensors = (state.o, state.d, state.throughput, state.accum, state.alive,
-               state.lane, *out, tables["tris"], tables["sph"], tables["mats"],
-               tables["lights"], tables["ibl"], bt["nodes"], bt["leaves"],
-               bt["ids"])
+               state.lane, *out, tables["sph"], tables["mats"],
+               tables["lights"], tables["ibl"])
+    if bvh:
+        bt = tables["bvh"]
+        tensors += (bt["nodes"], bt["leaves"], bt["ids"])
+    else:
+        tensors += (tables["tris"],)
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("the state, the outputs and the tables must lie on "
                          "one CUDA device")
@@ -300,15 +315,15 @@ def _launch(kernel: str, scene: SceneData, settings: RenderSettings, seed,
              | (2 if emit else 0)
              | (4 if b <= settings.depth else 0))
     rr_scale = 0.5 ** max(b - settings.depth_limit, 0)
-    if kernel == "bounce":
-        isect = [_ptr(tables["tris"]), tables["tris"].shape[0]]
-    else:
+    if bvh:
         # A scene without triangles has an empty BVH: no walk at all.
         has_tris = scene.geometry.tri_p0.shape[0] > 0
         if has_tris and bt["nodes"].data_ptr() % 16:
             raise ValueError("the node table must be 16-byte aligned")
         isect = [_ptr(bt["nodes"]) if has_tris else None, _ptr(bt["leaves"]),
                  _ptr(bt["ids"]), bt["k"]]
+    else:
+        isect = [_ptr(tables["tris"]), tables["tris"].shape[0]]
     ibl = settings.sky_kind == SKY_IBL
     h, w = tables["ibl"].shape[:2]
     sky = tables["sky"]
@@ -386,7 +401,7 @@ def bounce_bvh(scene: SceneData, settings: RenderSettings, seed, state,
         return plain_bounce_step(scene, settings, seed, state)
     out = _step_out(state)
     bounce_bvh_launch(scene, settings, seed, state,
-                      pack_tables(scene) if tables is None else tables, out)
+                      pack_tables(scene, bvh=True) if tables is None else tables, out)
     return _next_state(state, out)
 
 
@@ -409,9 +424,9 @@ def make_step(scene: SceneData, settings: RenderSettings, seed):
     if scene.geometry.tri_p0.device.type == "cpu":
         return lambda state: plain_bounce_step(scene, settings, seed, state)
     _require(bounce_supported(scene, settings))
-    tables = pack_tables(scene)
-    kernel = (bounce if _use_brute(scene.geometry, settings.intersector, scene.bvh)
-              else bounce_bvh)
+    brute = _use_brute(scene.geometry, settings.intersector, scene.bvh)
+    tables = pack_tables(scene, bvh=not brute)
+    kernel = bounce if brute else bounce_bvh
     return lambda state: kernel(scene, settings, seed, state, tables)
 
 

@@ -212,7 +212,7 @@ def intersect_shade_brute(o, d, geom: Geometry, t_cap=None):
 
 
 # While `count_work()` is open: the node visits and triangle tests of every
-# plain walk, summed over lanes (tensors on the walk's device).
+# plain walk, summed over lanes.
 _work: dict | None = None
 
 
@@ -220,7 +220,8 @@ _work: dict | None = None
 def count_work():
     """Sum the node visits (slab tests) and triangle tests of every plain
     BVH walk run inside the block into the yielded dict, as
-    {"visits": tensor, "tests": tensor}; the kernels' bounds count these."""
+    {"visits": int, "tests": int or a 0-d tensor on the walk's device}; the
+    kernels' bounds count these."""
     global _work
     _work = {"visits": 0, "tests": 0}
     try:
@@ -229,8 +230,7 @@ def count_work():
         _work = None
 
 
-def _walk_tris(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool,
-               counts: bool = False):
+def _walk_tris(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool):
     """Nearest triangle strictly closer than `t_init` per lane, walking the
     threaded BVH; the plain version of the CUDA kernel csrc/bvh.cu.
 
@@ -245,8 +245,8 @@ def _walk_tris(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool,
     minimum/maximum and misses the box.
 
     Returns (t, prim[, mat, n (N,3)]): prim = -1 and t = t_init where no
-    triangle beat t_init. With `counts` the per-lane int32 node visits and
-    triangle tests follow.
+    triangle beat t_init. Inside `count_work()` the walk adds its node
+    visits and triangle tests to the open count.
     """
     n = o.shape[0]
     dev = o.device
@@ -255,9 +255,7 @@ def _walk_tris(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool,
     best_p = torch.full((n,), -1, dtype=torch.int32, device=dev)
     best_m = torch.full((n,), -1, dtype=torch.int32, device=dev)
     best_n = torch.zeros((n, 3), dtype=o.dtype, device=dev)
-    count = counts or _work is not None
-    visits = torch.zeros(n, dtype=torch.int32, device=dev)
-    tests = torch.zeros(n, dtype=torch.int32, device=dev)
+    work = _work
     miss_of = bvh.node_miss.long()
     leaf_of = bvh.node_leaf.long()
     node = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -278,8 +276,8 @@ def _walk_tris(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool,
         leaf = leaf_of[cur]
         inner = leaf < 0
         node[live] = torch.where(box & inner, cur + 1, miss_of[cur])
-        if count:
-            visits[live] += 1
+        if work is not None:
+            work["visits"] += live.numel()
         test = box & ~inner
         lanes, blk = live[test], leaf[test]
         if lanes.numel() == 0:
@@ -305,13 +303,9 @@ def _walk_tris(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool,
                 upd, bvh.blk_mat[blk].gather(1, jj)[:, 0], best_m[lanes])
             best_n[lanes] = torch.where(upd[:, None], bvh.blk_n[blk, j],
                                         best_n[lanes])
-        if count:
-            tests[lanes] += (prim >= 0).sum(dim=1, dtype=torch.int32)
-    if _work is not None:
-        _work["visits"] = _work["visits"] + visits.sum()
-        _work["tests"] = _work["tests"] + tests.sum()
-    outs = (best_t, best_p) + ((best_m, best_n) if want_shade else ())
-    return outs + ((visits, tests) if counts else ())
+        if work is not None:
+            work["tests"] += (prim >= 0).sum()
+    return (best_t, best_p) + ((best_m, best_n) if want_shade else ())
 
 
 def intersect_bvh(o, d, geom: Geometry, bvh: Bvh, want_shade: bool = False,

@@ -15,9 +15,14 @@ def radiance(sky: SkyData, kind: int, d) -> torch.Tensor:
         return simple_radiance(sky.color, sky.color2, d)
     if kind != SKY_IBL:
         return sky.color.expand_as(d)
+    return sky.ibl.reshape(-1, 3)[ibl_texel(sky, d)]
 
-    # Equirect lookup (`sky.rs:57-79`): y-up, u offset by longitude_offset
-    # in RADIANS (quirk #14), nearest-neighbor texel, width == 2*height.
+
+def ibl_texel(sky: SkyData, d) -> torch.Tensor:
+    """(N,) int64 flat texel index of the IBL lookup for directions d (N,3).
+
+    Equirect lookup (`sky.rs:57-79`): y-up, u offset by longitude_offset in
+    RADIANS (quirk #14), nearest-neighbor texel, width == 2*height."""
     h = sky.ibl.shape[0]
     w = sky.ibl.shape[1]
     theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))
@@ -27,8 +32,7 @@ def radiance(sky: SkyData, kind: int, d) -> torch.Tensor:
     x = torch.floor(w * u).to(torch.int64)
     y = torch.floor(h * v).to(torch.int64)
     # Reference wraps `index % all` over the flattened image (`sky.rs:73-74`).
-    idx = torch.remainder(y * w + x, w * h)
-    return sky.ibl.reshape(-1, 3)[idx]
+    return torch.remainder(y * w + x, w * h)
 
 
 def simple_radiance(meridian, horizon, d) -> torch.Tensor:

@@ -170,10 +170,12 @@ def test_compact_matches_jax(assets_dir, width):
 @pytest.mark.parametrize("name", ["primitive", "new-cbox"])
 def test_pack_tables_layout(assets_dir, name):
     """The bounce kernel's table rows (csrc/bounce.cu), also for a scene
-    without triangles."""
+    without triangles; the BVH tables only when asked for."""
     ref = _jax_compiled(assets_dir, name)
     scene = scene_from_numpy(ref.data)
     t = cuda_bounce.pack_tables(scene)
+    assert "bvh" not in t
+    assert cuda_bounce.pack_tables(scene, bvh=True)["bvh"]["k"] == scene.bvh.blk_p0.shape[1]
     g = ref.data.geometry
     nt, ns = np.asarray(g.tri_p0).shape[0], np.asarray(g.sph_c).shape[0]
     assert t["tris"].shape == (nt, 16) and t["sph"].shape == (ns, 8)

@@ -296,6 +296,32 @@ def test_plain_step_matches_jax_step_on_terrain(terrain_dir, assets_dir, integra
                              f"terrain {integrator} {sky}@b{bounce}")
 
 
+def test_plain_step_walks_only_what_it_uses(terrain_dir, assets_dir):
+    """The plain step walks the BVH only where the kernel does: dead lanes
+    add no node visit or triangle test, so a state's walks are those of its
+    live lanes alone, and a dead state walks nothing."""
+    import dataclasses
+
+    from lumillyrender_tpu_torch.ops import intersect
+
+    ref = _terrain(terrain_dir, "pt-direct", "uniform", assets_dir)
+    scene = scene_from_numpy(ref.data)
+    parts = _random_state(np.random.default_rng(13), ref.data, n=512)
+    state = _port_state(parts, 0)
+    live = state.alive.nonzero()[:, 0]
+    sub = dataclasses.replace(state, **{k: getattr(state, k)[live] for k in (
+        "o", "d", "throughput", "accum", "alive", "lane")})
+    dead = dataclasses.replace(state, alive=torch.zeros_like(state.alive))
+    counts = []
+    for st in (state, sub, dead):
+        with intersect.count_work() as work:
+            wavefront.plain_bounce_step(scene, ref.settings, SEED, st)
+        counts.append((int(work["visits"]), int(work["tests"])))
+    assert 0 < live.numel() < 512
+    assert counts[0] == counts[1] and counts[0][0] > 0
+    assert counts[2] == (0, 0)
+
+
 def test_plain_step_matches_tpu_bvh_kernel(terrain_dir, assets_dir):
     """One bounce of the TPU kernel itself (`make_step_bvh`, interpret mode,
     IBL epilogue included) on the terrain scene, same rules."""
