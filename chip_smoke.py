@@ -247,12 +247,10 @@ def random_state(scene, n, seed, bounce):
 def explain_accum_flips(c, state, got, want, most=4):
     """Print up to `most` lanes whose accum differs beyond parity.py's rtol:
     the ray, both accum increments and the plain primary hit; for a lane
-    that escaped to an IBL sky, the texel of the plain lookup, of the same
-    lookup with IEEE divisions (tensor divisors; PyTorch multiplies a CUDA
-    tensor by the float reciprocal of a host scalar divisor) and the texel
-    the kernel's accum implies; for a lane that hit, the plain NEE term."""
+    that escaped to an IBL sky, the texel of the plain lookup and the first
+    texel whose radiance gives the kernel's accum; for a lane that hit, the
+    plain NEE term."""
     from lumillyrender_tpu_torch import parity
-    from lumillyrender_tpu_torch.constants import PI
     from lumillyrender_tpu_torch.integrator import wavefront
     from lumillyrender_tpu_torch.ops import bsdf, intersect, sky as sky_ops
     from lumillyrender_tpu_torch.scene.data import SKY_IBL
@@ -270,20 +268,11 @@ def explain_accum_flips(c, state, got, want, most=4):
                 f"{(want.accum[i] - state.accum[i]).tolist()}; plain hit prim "
                 f"{int(hit.prim[0])}, t {float(hit.t[0]):.7g}")
         if not bool(sp.hit[0]) and st.sky_kind == SKY_IBL:
-            sky = scene.sky
-            h, w = sky.ibl.shape[:2]
-            div = lambda x, y: x / torch.tensor(y, dtype=torch.float32, device=x.device)
-            theta = torch.arccos(torch.clamp(d[:, 1], -1.0, 1.0))
-            phi = torch.arctan2(d[:, 2], d[:, 0])
-            u = torch.remainder(div(phi + PI + sky.longitude_offset, 2.0 * PI), 1.0)
-            v = torch.remainder(div(theta, PI), 1.0)
-            ieee = int(torch.remainder(torch.floor(h * v).long() * w
-                                       + torch.floor(w * u).long(), w * h)[0])
-            texels = sky.ibl.reshape(-1, 3)
+            texels = scene.sky.ibl.reshape(-1, 3)
             implied = int((state.accum[i] + state.throughput[i] * texels
                            - got.accum[i]).abs().sum(1).argmin())
-            line += (f"; texel: plain lookup {int(sky_ops.ibl_texel(sky, d)[0])}, "
-                     f"IEEE divisions {ieee}, implied by the kernel's accum {implied}")
+            line += (f"; texel: plain lookup {int(sky_ops.ibl_texel(scene.sky, d)[0])}, "
+                     f"implied by the kernel's accum {implied}")
         elif bool(sp.hit[0]):
             direct = wavefront._direct_light(
                 scene, st, sp, -d, bsdf.gather(scene.materials, sp.mat), state.lane[s],

@@ -93,8 +93,9 @@ __device__ __forceinline__ void fold_spheres(const float* sph, int ns, V3 o, V3 
   }
 }
 
-// Equirect sky lookup, ops/sky.py::radiance: y-up, nearest texel, u offset
-// by the longitude in radians, torch.remainder's floor-mod (not fmodf's
+// Equirect sky lookup, ops/sky.py::ibl_texel: y-up, nearest texel, u offset
+// by the longitude in radians, IEEE divisions (the plain lookup divides by
+// tensors for the same rounding), torch.remainder's floor-mod (not fmodf's
 // sign) and the int64 wrap of y*w + x over the flattened image.
 __device__ __forceinline__ float floor_mod(float a, float b) {
   float m = fmodf(a, b);
