@@ -1,10 +1,10 @@
-"""Drive the PyTorch/CUDA port's forward render on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port (forward render and training step) on one NVIDIA card and check it.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the four kernels from csrc/ (one nvcc per source, in parallel);
+  2. build the five kernels from csrc/ (one nvcc per source, in parallel);
   3. raygen kernel vs its plain version: random bits equal, o/d/g errors;
   4. brute-force bounce kernel vs the plain step on random states of seven
      scenes at the main path's full width (2,097,152 lanes), bounces 0, 3,
@@ -30,7 +30,26 @@ Phases, in order; any failure exits non-zero:
  10. one welcome-geo chunk (2,072,576 lanes) in which every bounce launch
      (2,072,576 -> 259,072 -> 32,512 -> 4,096 lanes) is checked against the
      plain step; timing as in phase 6, with the bounds counted from the
-     plain walk's node visits and triangle tests; then one
+     plain walk's node visits and triangle tests;
+ 11. backward kernel vs plain_bounce_bwd on random states and cotangents
+     of new-cbox, debug-nee and primitive at 1,048,576 lanes (the 16-spp
+     training step's full width), bounces 0, 3, 7, 70, on parity.py's
+     comparable lanes within parity.KERNEL_BWD_RTOL, with the recomputed
+     alive' equal to the forward kernel's on every lane; then
+     plain_bounce_bwd against autograd of the plain step at 65,536 lanes
+     within parity.AUTOGRAD_BWD_RTOL;
+ 12. the training step: FD-vs-AD on the kernel path (12x12 Lambert scene:
+     albedo, emission, sky, camera); then film_and_grads on new-cbox at
+     256^2 x 4 and x 16 spp per step, Adam from a perturbed albedo toward a
+     target rendered at the true one, every step with its counts zeroed
+     just before and read just after (80 bounce and 80 bounce_bwd
+     launches, no raygen, no plain step); gradients bit-equal over two
+     runs, and against the plain path's (autograd of the plain step) on the
+     card;
+ 13. timing of the training step: fwd+bwd rays/s at 4 and 16 spp per step
+     (rays counted as bench.py counts them), step time, idle share; the
+     backward kernel's bare launch at each stage width of a 16-spp step
+     beside its bound and the plain backward's time; then one
      `{"kernels": [...]}` line.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
@@ -154,6 +173,81 @@ radius = 0.6
 name = "floor"
 type = "sphere"
 radius = 1000
+"""
+
+
+# The 12x12 Lambert scene of the JAX package's backward-kernel FD gates
+# (tests/test_fused_bounce.py): a sphere lamp and two Lambert balls.
+LAMBERT_DIFF_SCENE = """
+[renderer]
+samples = 4
+integrator = "pt-direct"
+depth = 3
+depth-limit = 8
+
+[film]
+resolution = [12, 12]
+output = "png"
+
+[sky]
+type = "uniform"
+color = [0.4, 0.5, 0.6]
+
+[camera]
+type = "ideal-pinhole"
+fov = 45
+[[camera.transform]]
+type = "look-at"
+origin = [165, 0, 135]
+target = [165, 0, 165]
+up = [0, 1, 0]
+
+[[light]]
+type = "area"
+object = "lamp"
+emission = [6, 5, 4]
+
+[[object]]
+name = "lamp"
+mesh = "ball"
+material = "black"
+[[object.transform]]
+type = "translate"
+vector = [165, 9, 165]
+
+[[object]]
+mesh = "ball"
+material = "diffuse"
+[[object.transform]]
+type = "translate"
+vector = [163, 0, 165]
+
+[[object]]
+mesh = "ball"
+material = "gray"
+[[object.transform]]
+type = "translate"
+vector = [168, 0, 168]
+
+[[material]]
+name = "black"
+type = "lambert"
+albedo = [0, 0, 0]
+
+[[material]]
+name = "diffuse"
+type = "lambert"
+albedo = [0.6, 0.45, 0.3]
+
+[[material]]
+name = "gray"
+type = "lambert"
+albedo = [0.5, 0.5, 0.5]
+
+[[mesh]]
+name = "ball"
+type = "sphere"
+radius = 2
 """
 
 
@@ -335,16 +429,17 @@ def check_films(tag, films):
 
 
 class PlainCalls:
-    """Counts calls of the plain step and the plain BVH walk while open, so a
-    kernel-path run can show that it ran neither."""
+    """Counts calls of the plain step, the plain backward and the plain BVH
+    walk while open, so a kernel-path run can show that it ran none."""
 
     def __enter__(self):
         from lumillyrender_tpu_torch.integrator import wavefront
-        from lumillyrender_tpu_torch.ops import intersect
+        from lumillyrender_tpu_torch.ops import cuda_bounce, intersect
 
         self.calls = 0
         self.saved = [(m, name, getattr(m, name)) for m, name in (
-            (wavefront, "plain_bounce_step"), (intersect, "_walk_tris"))]
+            (wavefront, "plain_bounce_step"), (intersect, "_walk_tris"),
+            (cuda_bounce, "plain_bounce_bwd"))]
         for mod, name, fn in self.saved:
             def counted(*a, _fn=fn, **k):
                 self.calls += 1
@@ -443,6 +538,8 @@ def instrumented_chunk(c, spp_chunk, kernel, tables):
 SLAB_FLOPS, TRI_FLOPS, SPH_FLOPS, SHADE_FLOPS = 25, 54, 25, 150
 STATE_BYTES = 106  # bounce: o, d, throughput, accum 48 B each way, alive 1 B
 #                    each way, lane id in and ray count out, 4 B each
+DEAD_STATE_BYTES = 102  # a dead lane copies its state and reads no lane id
+# (a live lane that misses needs no lane id either; it is counted at 106)
 # The bytes of a bound are the rays' or the state's alone: the prim and BVH
 # tables (at most 6.8 MB) stay in the 50 MB L2 across the warm launches
 # that are timed.
@@ -450,7 +547,8 @@ STATE_BYTES = 106  # bounce: o, d, throughput, accum 48 B each way, alive 1 B
 
 def bounce_bounds(c, per_launch, brute):
     """Per width: launches and the summed bound of the bounce launches
-    (bytes: the state each way; operations: the intersections and shading
+    (bytes: the state each way, no lane id on a dead lane; operations: the
+    intersections and shading
     of this launch's rays, the BVH walks' node visits and triangle tests
     counted by the plain step, which walks what the kernel walks)."""
     geom = c.data.geometry
@@ -461,7 +559,7 @@ def bounce_bounds(c, per_launch, brute):
         isect = (TRI_FLOPS * nt * r if brute
                  else SLAB_FLOPS * float(visits) + TRI_FLOPS * float(tests))
         ops = isect + SPH_FLOPS * ns * r + SHADE_FLOPS * r
-        t_bytes = STATE_BYTES * w / HBM_BYTES_PER_S * 1e3
+        t_bytes = (STATE_BYTES * a_in + DEAD_STATE_BYTES * (w - a_in)) / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_FLOPS_PER_S * 1e3
         agg = by_width.setdefault(w, dict(launches=0, bound_ms=0.0, bytes_ms=0.0,
                                           ops_ms=0.0, rays=0.0, visits=0.0, tests=0.0))
@@ -586,6 +684,374 @@ def welcome_rays(bvh, n, seed):
     return (cu(o), cu(d)), (cu(oa), cu(da))
 
 
+# ---------------------------------------------------------------------------
+# The training step (phases 11-13)
+# ---------------------------------------------------------------------------
+
+# Bytes a lane of the backward kernel must move. A live lane that hits:
+# o, d, throughput and 4 cotangents ((n,3) f32), alive 1 B and its lane id
+# 4 B in, 3 cotangents out. One that misses needs no lane id. A dead lane
+# passes its o, d and throughput cotangents through: alive, 3 in, 3 out.
+BWD_HIT_BYTES = 125
+BWD_MISS_BYTES = 121
+BWD_DEAD_BYTES = 73
+BWD_SHADE_FLOPS = 600  # shading recompute (~300) and the VJP (~300) per live lane
+# Whole-path gradients, kernel path vs plain path on the card at one seed:
+# the two forwards agree lane by lane (phases 4 and 6), the backward kernel
+# equals plain_bounce_bwd to a few ulps (phase 11), and the closed form is
+# exact where autograd of the plain step evaluates cos/pdf's two cancelling
+# terms; measured 2.6e-6 of each leaf's largest magnitude (PERF.md 6.3),
+# held to 1e-4.
+TRAIN_PLAIN_RTOL = 1e-4
+TRAIN_STEPS = 3
+
+
+def perturbed(mats, seed):
+    """A second material table: colours and emissions moved by up to 20%."""
+    g = torch.Generator().manual_seed(seed)
+    f = lambda t: t * (1.0 + 0.2 * (torch.rand(t.shape, generator=g) - 0.5)).to(t.device)
+    return dataclasses.replace(mats, color=f(mats.color), emission=f(mats.emission))
+
+
+def cotangents(n, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((n, 3), generator=g, device="cuda") for _ in range(4)]
+
+
+def check_bwd(tag, c, state, cot, mats_eval=None):
+    """The backward kernel against plain_bounce_bwd on one state: the
+    cotangents are zeroed on the lanes parity.bwd_comparable excludes
+    (kernel forward against the plain forward), then parity.py's backward
+    rules, and the kernel's recomputed alive' equals the forward kernel's on
+    every lane. Returns the readings."""
+    from lumillyrender_tpu_torch import parity
+    from lumillyrender_tpu_torch.integrator import wavefront
+    from lumillyrender_tpu_torch.ops import cuda_bounce, intersect
+    from lumillyrender_tpu_torch.ops.bounce_bwd import plain_bounce_bwd
+
+    n = state.o.shape[0]
+    fwd_k = cuda_bounce.bounce(c.data, c.settings, SEED, state, mats_eval=mats_eval)
+    fwd_p = wavefront.plain_bounce_step(c.data, c.settings, SEED, state, mats_eval)
+    _, sp = intersect.intersect_shade_brute(state.o, state.d, c.data.geometry)
+    keep = parity.bwd_comparable(fwd_p, fwd_k, sp.normal)
+    kt = torch.from_numpy(keep).to(state.o.device)
+    cot = [g * kt[:, None] for g in cot]
+    got = cuda_bounce.bounce_bwd(c.data, c.settings, SEED, state, *cot, mats_eval=mats_eval,
+                                 with_alive=True)
+    want = plain_bounce_bwd(c.data, c.settings, SEED, state, *cot, mats_eval=mats_eval)
+    torch.cuda.synchronize()
+    errs = parity.bwd_errors(want, got, keep)
+    lane_rel = max(((getattr(got, k) - getattr(want, k)).abs()
+                    / getattr(want, k).abs().clamp(min=1.0))[kt].max().item()
+                   for k in ("o", "d", "throughput"))
+    max_abs = max((getattr(got, k) - getattr(want, k)).abs().max().item()
+                  for k in ("o", "d", "throughput", "albedo", "emission", "sky"))
+    rec = dict(lanes=n, comparable=float(keep.mean()),
+               alive_mismatch=int((got.alive != fwd_k.alive).sum()), rel_to_max=errs,
+               lane_max_rel=lane_rel, max_abs=max_abs)
+    bad = parity.bwd_failures(errs, parity.KERNEL_BWD_RTOL)
+    if rec["alive_mismatch"]:
+        bad.append(f"recomputed alive' differs on {rec['alive_mismatch']} lanes")
+    if not rec["comparable"] > parity.BWD_LIMITS["comparable"]:
+        bad.append(f"only {rec['comparable']:.2%} comparable")
+    print(f"{tag}: lanes {n}, comparable {rec['comparable']:.4%}, alive' mismatches "
+          f"{rec['alive_mismatch']}, rel to max " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+          + f", per-lane max rel {lane_rel:.1e}, max abs {max_abs:.1e}"
+          + (f"  FAIL {bad}" if bad else ""))
+    if bad:
+        fail(f"backward kernel vs plain on {tag}: {bad}")
+    return rec
+
+
+def autograd_vs_plain_bwd(tag, c, state, cot):
+    """plain_bounce_bwd against autograd of the plain step on one state, on
+    the lanes whose sampled direction does not graze (where autograd's
+    cancelling cos/pdf terms are noise), under parity.py's backward
+    tolerances."""
+    from lumillyrender_tpu_torch import parity
+    from lumillyrender_tpu_torch.integrator import wavefront
+    from lumillyrender_tpu_torch.ops import intersect
+    from lumillyrender_tpu_torch.ops.bounce_bwd import plain_bounce_bwd
+
+    rep = dataclasses.replace
+    x = [t.clone().requires_grad_() for t in (state.o, state.d, state.throughput, state.accum)]
+    mats, sky = c.data.materials, c.data.sky
+    col, emi, sky_c = (t.clone().requires_grad_() for t in (mats.color, mats.emission, sky.color))
+    out = wavefront.plain_bounce_step(
+        rep(c.data, sky=rep(sky, color=sky_c)), c.settings, SEED,
+        rep(state, o=x[0], d=x[1], throughput=x[2], accum=x[3]),
+        rep(mats, color=col, emission=emi))
+    _, sp = intersect.intersect_shade_brute(state.o, state.d, c.data.geometry)
+    keep = parity.bwd_comparable(out, out, sp.normal)
+    kt = torch.from_numpy(keep).to(state.o.device)[:, None]
+    cot = [g * kt for g in cot]
+    g = torch.autograd.grad((out.o, out.d, out.throughput, out.accum),
+                            x[:3] + [col, emi, sky_c], cot, allow_unused=True)
+    g = [torch.zeros_like(v) if a is None else a for a, v in zip(g, x[:3] + [col, emi, sky_c])]
+    want = plain_bounce_bwd(c.data, c.settings, SEED, state, *cot)
+    errs = parity.bwd_errors(dict(o=g[0], d=g[1], throughput=g[2], albedo=g[3], emission=g[4],
+                                  sky=g[5]), want, keep)
+    bad = parity.bwd_failures(errs, parity.AUTOGRAD_BWD_RTOL)
+    print(f"{tag}: plain_bounce_bwd vs autograd of the plain step, lanes {state.o.shape[0]}, "
+          f"comparable {keep.mean():.4%}, rel to max "
+          + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()) + (f"  FAIL {bad}" if bad else ""))
+    if bad:
+        fail(f"plain_bounce_bwd vs autograd on {tag}: {bad}")
+    return dict(comparable=float(keep.mean()), rel_to_max=errs)
+
+
+def set_leaf(p, part, field, idx, v):
+    t = getattr(getattr(p, part), field).clone()
+    t[idx] = v
+    return p._replace(**{part: dataclasses.replace(getattr(p, part), **{field: t})})
+
+
+def fd_vs_ad(tag, c, part, field, idx, eps, atol, rtol):
+    """tests/test_diff.py's gate on the card: central differences at three
+    steps (the median) against pixel_grad of the mean film, sampling
+    pinned at theta0."""
+    from lumillyrender_tpu_torch.diff import params_of, pixel_grad, render_diff
+
+    p0 = params_of(c.data)
+    spp = c.settings.spp
+    f = lambda p: float(render_diff(c.data, c.settings, p, 21, spp, params_sample=p0).mean())
+    g = pixel_grad(c.data, c.settings, p0, 21, spp, lambda film: film.mean(), params_sample=p0)
+    g_ad = float(getattr(getattr(g, part), field)[idx])
+    v0 = float(getattr(getattr(p0, part), field)[idx])
+    central = lambda e: (f(set_leaf(p0, part, field, idx, v0 + e))
+                         - f(set_leaf(p0, part, field, idx, v0 - e))) / (2 * e)
+    g_fd = float(np.median([central(eps / 2), central(eps), central(2 * eps)]))
+    ok = np.isfinite(g_ad) and np.isfinite(g_fd) and abs(g_ad - g_fd) < atol + rtol * abs(g_fd)
+    print(f"FD vs AD, {tag}: AD {g_ad:.7g}, FD {g_fd:.7g}, rel {abs(g_ad - g_fd) / max(abs(g_fd), 1e-30):.2e}"
+          f" (limit {atol:g} + {rtol:g} |FD|)" + ("" if ok else "  FAIL"))
+    if not ok:
+        fail(f"FD vs AD on the kernel path, {tag}")
+    return dict(ad=g_ad, fd=g_fd)
+
+
+class PlainDiffStep:
+    """While open, the differentiable loop steps with autograd of the plain
+    step (the plain path) instead of `cuda_bounce.make_step_diff`'s
+    kernels, for a comparison at the same seed."""
+
+    def __enter__(self):
+        from lumillyrender_tpu_torch.integrator import wavefront
+        from lumillyrender_tpu_torch.ops import cuda_bounce
+
+        self.saved = cuda_bounce.make_step_diff
+
+        def plain(scene, settings, seed, mats_eval=None):
+            return lambda s: wavefront.plain_bounce_step(scene, settings, seed, s, mats_eval)
+
+        cuda_bounce.make_step_diff = plain
+        return self
+
+    def __exit__(self, *exc):
+        from lumillyrender_tpu_torch.ops import cuda_bounce
+
+        cuda_bounce.make_step_diff = self.saved
+        return False
+
+
+def grads_gap(a, b) -> dict:
+    """{part.field: max |a - b| over max |b|} of two DiffParams of gradients
+    (float leaves with a nonzero gradient in b)."""
+    out = {}
+    for pa, pb in zip(a, b):
+        for f in dataclasses.fields(pb):
+            x, y = getattr(pa, f.name), getattr(pb, f.name)
+            if not y.is_floating_point() or not y.abs().max() > 0:
+                continue
+            out[f"{type(pb).__name__}.{f.name}"] = ((x - y).abs().max() / y.abs().max()).item()
+    return out
+
+
+def train_new_cbox(cb, spp):
+    """Phase 12's main path at `spp` per step: film_and_grads from a
+    perturbed albedo (x0.8) toward the film at the true one, Adam on the
+    albedo, each step with the counts zeroed just before it and read just
+    after; then two runs at one point must give bit-equal gradients.
+    Returns (record, the last params, target)."""
+    from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
+    from lumillyrender_tpu_torch.diff.render import leaves
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    st = cb.settings
+    p_true = params_of(cb.data)
+    with torch.no_grad():
+        target = render_diff(cb.data, st, p_true, SEED, spp)
+    albedo = torch.nn.Parameter(p_true.materials.color * 0.8)
+    opt = torch.optim.Adam([albedo], lr=0.02)
+    losses, step_launches, total = [], [], {}
+    for k in range(TRAIN_STEPS):
+        p = p_true._replace(materials=dataclasses.replace(p_true.materials,
+                                                          color=albedo.detach()))
+        with PlainCalls() as plain:
+            cuda_bounce.reset_counts()
+            loss, film, grads = film_and_grads(cb.data, st, p, target, SEED, spp)
+            torch.cuda.synchronize()
+            launches = cuda_bounce.counts()
+        err = (p_true.materials.color - albedo.detach()).abs().sum().item()
+        print(f"new-cbox 256^2 x {spp} spp, Adam step {k}: loss {float(loss):.6e}, "
+              f"sum |albedo - true| {err:.4f}, launches {launches}, plain calls {plain.calls}")
+        if (launches["bounce"] != 80 or launches["bounce_bwd"] != 80
+                or any(launches[n] for n in ("raygen", "bvh", "bounce_bvh")) or plain.calls):
+            fail(f"the training step left the kernel path: {launches}, {plain.calls} plain calls")
+        if not all(torch.isfinite(t).all() for t in leaves(grads)):
+            fail("a training-step gradient is not finite")
+        for name, v in launches.items():
+            total[name] = total.get(name, 0) + v
+        losses.append(float(loss))
+        step_launches.append(launches)
+        opt.zero_grad()
+        albedo.grad = grads.materials.color
+        opt.step()
+    p = p_true._replace(materials=dataclasses.replace(p_true.materials, color=albedo.detach()))
+    l1, f1, g1 = film_and_grads(cb.data, st, p, target, SEED, spp)
+    l2, f2, g2 = film_and_grads(cb.data, st, p, target, SEED, spp)
+    torch.cuda.synchronize()
+    bit_equal = (torch.equal(l1, l2) and torch.equal(f1, f2)
+                 and all(torch.equal(a, b) for a, b in zip(leaves(g1), leaves(g2))))
+    print(f"new-cbox 256^2 x {spp} spp: two runs of film_and_grads at one point, loss, film "
+          f"and every gradient bit-equal: {bit_equal}")
+    if not bit_equal:
+        fail(f"the training step's gradients differ between two runs ({spp} spp)")
+    return dict(losses=losses, launches_per_step=step_launches, launches=total,
+                bit_equal=bit_equal), p, target, g1
+
+
+def device_busy(fn):
+    """(busy device ms of one `fn()`, {kernel name: (ms, launches)}) from
+    the profiler's kernel records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            t, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    return sum(t for t, _ in by_name.values()), by_name
+
+
+def time_train_step(cb, spp, p, target, steps):
+    """fwd+bwd rays/s of the training step at `spp` per step, counted as
+    bench.py counts them (camera, live bounce and NEE shadow rays of the
+    forward sweep), over `steps` steps after a warm-up (host clock around
+    work that ends in a synchronize), each step at its own seed; the step
+    time; the idle share of one profiled step."""
+    from lumillyrender_tpu_torch.diff import render_diff
+    from lumillyrender_tpu_torch.diff.render import leaves, map_params
+
+    st = cb.settings
+
+    def step(seed):
+        live = map_params(p, lambda t: t.detach().requires_grad_(t.is_floating_point()))
+        film, rays = render_diff(cb.data, st, live, seed, spp, with_rays=True)
+        loss = torch.mean((film - target) ** 2)
+        torch.autograd.grad(loss, [t for t in leaves(live) if t.requires_grad],
+                            allow_unused=True)
+        return rays
+
+    step(SEED + 50)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rays = [step(SEED + 51 + k) for k in range(steps)]
+    torch.cuda.synchronize()
+    window = time.monotonic() - t0
+    total = sum(float(r) for r in rays)
+    step_ms = window / steps * 1e3
+    busy, by_name = device_busy(lambda: step(SEED + 99))
+    idle = 1.0 - busy / step_ms
+    print(f"training step 256^2 x {spp} spp: {step_ms:.4f} ms per step (mean of {steps}), "
+          f"{total / steps:.0f} rays per step: {total / window:.6e} fwd+bwd rays/s; device busy "
+          f"{busy:.4f} ms: idle share {idle:.4f}")
+    for name, (t, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:8]:
+        print(f"  {t:9.4f} ms/step {n:6d} launches/step  {name[:70]}")
+    return dict(rays_per_s=total / window, step_ms=step_ms, rays_per_step=total / steps,
+                busy_ms=busy, idle_share=idle,
+                top_kernels={k[:70]: v for k, v in sorted(by_name.items(),
+                                                          key=lambda x: -x[1][0])[:8]})
+
+
+def time_bwd_widths(cb, spp, p, target):
+    """The backward kernel at each stage width of one training step: the
+    first launch's state, cotangents and tables at each width are kept;
+    each is checked against plain_bounce_bwd, its bare launch timed (CUDA
+    graph + events) beside its bound (bytes: BWD_HIT_BYTES, BWD_MISS_BYTES or
+    BWD_DEAD_BYTES a lane by what this state's lane needs, plus the partial
+    table; operations: this state's live lanes and shadow rays) and the
+    plain backward's time. Returns {width: record}."""
+    from lumillyrender_tpu_torch.diff import film_and_grads
+    from lumillyrender_tpu_torch.ops import cuda_bounce, intersect
+    from lumillyrender_tpu_torch.ops.bounce_bwd import plain_bounce_bwd
+
+    kept = {}
+    launch = cuda_bounce.bounce_bwd_launch
+
+    def keeping(scene, settings, seed, state, cot, tables, out):
+        # The backward runs from the last bounce to the first, so the last
+        # launch at a width is its stage's first bounce (the most live lanes).
+        w = state.o.shape[0]
+        n = kept[w]["launches"] if w in kept else 0
+        kept[w] = dict(scene=scene, state=state, cot=[g.clone() for g in cot],
+                       tables=tables, launches=n + 1)
+        return launch(scene, settings, seed, state, cot, tables, out)
+
+    cuda_bounce.bounce_bwd_launch = keeping
+    try:
+        film_and_grads(cb.data, cb.settings, p, target, SEED, spp)
+        torch.cuda.synchronize()
+    finally:
+        cuda_bounce.bounce_bwd_launch = launch
+    st = cb.settings
+    geom = cb.data.geometry
+    nt, ns = geom.tri_p0.shape[0], geom.sph_c.shape[0]
+    out = {}
+    for w, k in sorted(kept.items(), reverse=True):
+        scene, cot, tables = k["scene"], k["cot"], k["tables"]
+        # The backward keeps no accum (it passes through); the forward
+        # launches below need one.
+        state = dataclasses.replace(k["state"], accum=torch.zeros_like(k["state"].o))
+        me = cuda_bounce.materials_of_rows(tables["mats_eval"], scene.materials.type_id)
+        rec = check_bwd(f"main-path backward, width {w}", dataclasses.replace(cb, data=scene),
+                        state, cot, me)
+        nm = tables["mats"].shape[0]
+        bufs = (torch.empty_like(state.o), torch.empty_like(state.o), torch.empty_like(state.o),
+                torch.empty((cuda_bounce.bwd_blocks(w), 6 * nm + 3), dtype=torch.float32,
+                            device=state.o.device), None)
+        rec["ms"] = graph_ms(lambda: cuda_bounce.bounce_bwd_launch(scene, st, SEED, state, cot,
+                                                                   tables, bufs))
+        rec["plain_ms"] = events_ms(lambda: plain_bounce_bwd(scene, st, SEED, state, *cot,
+                                                             mats_eval=me), 2)
+        zero = dataclasses.replace(state, rays_traced=torch.zeros_like(state.rays_traced))
+        fwd = cuda_bounce.bounce(scene, st, SEED, zero, tables)
+        live = float(state.alive.sum())
+        shadow = float(fwd.rays_traced) - live
+        _, sp = intersect.intersect_shade_brute(state.o, state.d, geom)
+        missed = float((state.alive & ~sp.hit).sum())
+        bytes_ = ((live - missed) * BWD_HIT_BYTES + missed * BWD_MISS_BYTES
+                  + (w - live) * BWD_DEAD_BYTES
+                  + cuda_bounce.bwd_blocks(w) * (6 * nm + 3) * 4)
+        ops = ((live + shadow) * (TRI_FLOPS * nt + SPH_FLOPS * ns)
+               + (live - missed) * BWD_SHADE_FLOPS)
+        rec.update(launches=k["launches"], live=live, missed=missed, shadow_rays=shadow,
+                   bytes_ms=bytes_ / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_FLOPS_PER_S * 1e3)
+        rec["bound_ms"] = max(rec["bytes_ms"], rec["ops_ms"])
+        print(f"backward width {w}: {k['launches']} launches/step, kernel {rec['ms']:.4f} "
+              f"ms/launch (bare launch, CUDA graph + events), bound {rec['bound_ms']:.4f} ms "
+              f"(bytes {rec['bytes_ms']:.4f}, operations {rec['ops_ms']:.4f}; {live:.0f} live "
+              f"lanes, {missed:.0f} of them missing, {shadow:.0f} shadow rays); plain "
+              f"{rec['plain_ms']:.3f} ms")
+        out[w] = rec
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -602,6 +1068,7 @@ def main() -> int:
     from lumillyrender_tpu_torch.scene.compiler import compile_scene, compile_scene_file
     from lumillyrender_tpu_torch.scene.data import CAM_PINHOLE
     from lumillyrender_tpu_torch.scene.loader import parse_config
+    from lumillyrender_tpu_torch.diff import film_and_grads
 
     OUT.mkdir(exist_ok=True)
     dev = torch.device("cuda")
@@ -894,6 +1361,81 @@ def main() -> int:
     geo_idle, _, _ = idle_share(geo, geo_chunk, geo_chunk_ms, 40 * geo_chunk)
     lap("welcome-geo timing", t0)
 
+    phase("11 backward kernel vs plain (new-cbox, debug-nee, primitive)")
+    t0 = time.monotonic()
+    bwd_scenes = {"new-cbox": cbox}
+    for name in ("debug-nee", "primitive"):
+        bwd_scenes[name] = compile_scene_file(assets / f"{name}.toml", device=dev)
+    n_bwd = 1 << 20  # the 16-spp training step's full width
+    bwd_checks = {}
+    for name, c in bwd_scenes.items():
+        me = perturbed(c.data.materials, len(name))
+        for b in (0, 3, 7, 70):
+            tag = f"{name}@b{b}"
+            bwd_checks[tag] = check_bwd(tag, c, random_state(c.data, n_bwd, 3000 * b + len(name), b),
+                                        cotangents(n_bwd, 7 * b + len(name)), me)
+    bwd_err = max(r["max_abs"] for r in bwd_checks.values())
+    autograd_checks = {}
+    for name in ("new-cbox", "debug-nee"):
+        c = bwd_scenes[name]
+        autograd_checks[name] = autograd_vs_plain_bwd(
+            f"{name}@b3", c, random_state(c.data, 1 << 16, 77, 3), cotangents(1 << 16, 78))
+    del bwd_scenes
+    lap("backward parity", t0)
+
+    phase("12 training step (FD vs AD on the kernel path; film_and_grads on new-cbox 256^2)")
+    t0 = time.monotonic()
+    lam = compile_scene(parse_config(LAMBERT_DIFF_SCENE), device=dev)
+    fd = {}
+    with PlainCalls() as plain:
+        cuda_bounce.reset_counts()
+        for tag, (part, field, idx, eps, atol, rtol, mb) in {
+                "albedo": ("materials", "color", (1, 0), 2e-2, 2e-4, 0.08, 5),
+                "emission": ("materials", "emission", (0, 1), 0.5, 1e-5, 0.05, 5),
+                "sky": ("sky", "color", 1, 5e-2, 1e-5, 0.05, 5),
+                "camera": ("camera", "aperture_position", 2, 5e-2, 2e-3, 0.25, 3)}.items():
+            c = dataclasses.replace(lam, settings=dataclasses.replace(lam.settings, max_bounces=mb))
+            fd[tag] = fd_vs_ad(tag, c, part, field, idx, eps, atol, rtol)
+        fd_launches = cuda_bounce.counts()
+    print(f"FD vs AD launches: {fd_launches}; plain step or backward calls: {plain.calls}")
+    if fd_launches["bounce_bwd"] < 1 or plain.calls:
+        fail(f"the FD gates left the kernel path: {fd_launches}, {plain.calls} plain calls")
+    training = {}
+    for spp in (4, 16):
+        rec, p_last, target, g_kernel = train_new_cbox(cbox, spp)
+        if spp == 4:
+            with PlainDiffStep():
+                _, _, g_plain = film_and_grads(cbox.data, cbox.settings, p_last, target, SEED, spp)
+            torch.cuda.synchronize()
+            gap = grads_gap(g_kernel, g_plain)
+            print("kernel path vs plain path (autograd of the plain step), 256^2 x 4 spp, "
+                  "max |diff| over max |plain| per gradient: "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in gap.items()))
+            rec["vs_plain"] = gap
+            if not max(gap.values()) < TRAIN_PLAIN_RTOL:
+                fail(f"kernel-path gradients disagree with the plain path's: {gap}")
+        training[spp] = dict(rec, params=p_last, target=target)
+    lap("training step", t0)
+
+    phase("13 timing of the training step (new-cbox 256^2, 4 and 16 spp per step)")
+    t0 = time.monotonic()
+    train_timing = {spp: time_train_step(cbox, spp, training[spp]["params"],
+                                         training[spp]["target"], 5 if spp == 4 else 3)
+                    for spp in (4, 16)}
+    bwd_widths = time_bwd_widths(cbox, 16, training[16]["params"], training[16]["target"])
+    bwd_err = max(bwd_err, *(r["max_abs"] for r in bwd_widths.values()))
+    nb = sum(r["launches"] for r in bwd_widths.values())
+    bwd_ms = sum(r["ms"] * r["launches"] for r in bwd_widths.values()) / nb
+    bwd_plain = sum(r["plain_ms"] * r["launches"] for r in bwd_widths.values()) / nb
+    bwd_bound = sum(r["bound_ms"] * r["launches"] for r in bwd_widths.values()) / nb
+    bwd_by = ("bytes" if sum(r["bytes_ms"] * r["launches"] for r in bwd_widths.values())
+              >= sum(r["ops_ms"] * r["launches"] for r in bwd_widths.values()) else "operations")
+    print(f"backward kernel, launch-weighted over the {nb} launches of a 16-spp step: "
+          f"{bwd_ms:.4f} ms, bound {bwd_bound:.4f} ms ({bwd_by}), plain {bwd_plain:.3f} ms")
+    lap("training timing", t0)
+    for spp in training:
+        del training[spp]["params"], training[spp]["target"]
+
     kernels = [
         dict(name="raygen", route="cuda",
              source="lumillyrender_tpu_torch/csrc/raygen.cu",
@@ -919,6 +1461,12 @@ def main() -> int:
              launches=geo_launches["bounce_bvh"], max_abs_err=bvh_bounce_err,
              ms=gb_ms, plain_ms=gb_plain, bound_ms=gb_bound, bound_by=gb_by,
              library_ms=None),
+        dict(name="bounce_bwd", route="cuda",
+             source="lumillyrender_tpu_torch/csrc/bounce_bwd.cu",
+             replaces="lumillyrender_tpu/ops/pallas_bounce.py:1305",
+             launches=training[16]["launches"]["bounce_bwd"], max_abs_err=bwd_err,
+             ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bwd_bound, bound_by=bwd_by,
+             library_ms=None),
     ]
     report = dict(
         card=card, new_cbox=cbox_report,
@@ -931,6 +1479,12 @@ def main() -> int:
             bvh_checks=bvh_checks, film_checks=geo_films, aov_film_checks=aov_films,
             bvh_kernel=dict(ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound,
                             bytes_ms=k3_bytes, ops_ms=k3_ops)),
+        training=dict(backward_checks=bwd_checks, autograd_checks=autograd_checks,
+                      fd_vs_ad=fd, fd_launches=fd_launches,
+                      steps={str(k): v for k, v in training.items()},
+                      timing={str(k): v for k, v in train_timing.items()},
+                      backward_by_width={str(w): {k: v for k, v in r.items()}
+                                         for w, r in bwd_widths.items()}),
         kernels=kernels, phase_seconds=secs, seconds=time.monotonic() - t_start)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"\ntotal {time.monotonic() - t_start:.1f}s")

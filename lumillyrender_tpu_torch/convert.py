@@ -1,10 +1,12 @@
-"""Carry state across from numpy: scenes and path states.
+"""Carry state across from numpy: scenes, path states and parameters.
 
 The JAX package and this one can be fed identical inputs through numpy:
 `scene_from_numpy` takes the leaves of a compiled scene (any nested mapping
 or dataclass of arrays with the JAX package's field names, such as its
-`compile_scene_file(p).data` after `np.asarray` of each leaf), and
-`state_from_numpy` / `state_to_numpy` move a `PathState` either way.
+`compile_scene_file(p).data` after `np.asarray` of each leaf),
+`state_from_numpy` / `state_to_numpy` move a `PathState` either way, and
+`params_from_numpy` / `params_to_numpy` move the differentiable parameters
+(`diff.DiffParams`) and their gradients.
 """
 
 from __future__ import annotations
@@ -15,13 +17,24 @@ import numpy as np
 import torch
 
 from .integrator.wavefront import PathState
-from .scene.data import SceneData, scene_from_tree, tensor_of
+from .scene.data import (
+    CameraData,
+    MaterialTable,
+    SceneData,
+    SkyData,
+    scene_from_tree,
+    tensor_of,
+)
+
+_PARAM_TYPES = {"materials": MaterialTable, "camera": CameraData, "sky": SkyData}
 
 
 def _as_tree(x):
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return {f.name: _as_tree(getattr(x, f.name))
                 for f in dataclasses.fields(x)}
+    if hasattr(x, "_asdict"):  # a NamedTuple such as DiffParams
+        return _as_tree(x._asdict())
     if isinstance(x, dict):
         return {k: _as_tree(v) for k, v in x.items()}
     return np.asarray(x)
@@ -58,3 +71,31 @@ def state_to_numpy(state: PathState) -> dict:
         rays_traced=float(state.rays_traced),
         lane=n(state.lane).view(np.uint32),
     )
+
+
+def params_from_numpy(tree, device="cpu"):
+    """The JAX package's `DiffParams` (materials, camera, sky; any nested
+    mapping, NamedTuple or dataclass of arrays with its field names) ->
+    the port's `diff.DiffParams` on `device`."""
+    from .diff.render import DiffParams
+
+    t = _as_tree(tree)
+    return DiffParams(**{
+        name: cls(**{f.name: tensor_of(t[name][f.name]).to(device)
+                     for f in dataclasses.fields(cls)})
+        for name, cls in _PARAM_TYPES.items()})
+
+
+def params_to_numpy(params) -> dict:
+    """`diff.DiffParams` (of values or gradients) -> {'materials': {field:
+    array}, 'camera': ..., 'sky': ...}. Integer leaves come back as zeros
+    of their shape (a gradient has none; the JAX package gives them
+    float0)."""
+    out = {}
+    for name, part in params._asdict().items():
+        out[name] = {}
+        for f in dataclasses.fields(part):
+            x = getattr(part, f.name).detach().cpu()
+            out[name][f.name] = (x.numpy() if x.is_floating_point()
+                                 else np.zeros(tuple(x.shape), np.float32))
+    return out

@@ -18,48 +18,21 @@
 // lanes leave after the sky test; the light is picked by binary search
 // over the CDF, so the kernel has no cap on prims, lights or materials.
 //
-// Triangle table (float32 rows, ids as exact floats):
-//   tris   (nt, 16): p0 3 | e1 3 | e2 3 | n 3 | mat | pad 3
+// The triangle table and the intersector, BruteIsect, are in
+// bounce_body.cuh, which the backward kernel (bounce_bwd.cu) shares.
 #include "bounce_body.cuh"
-
-// Nearest hit with t < t_init: triangles ascending, then spheres ascending,
-// strict < (the first of equal candidates wins; a triangle wins a tie).
-struct BruteIsect {
-  const float* tris;
-  int nt;
-  const float* sph;
-  int ns;
-
-  __device__ Hit operator()(V3 o, V3 d, float t_init, float /*t_stop*/) const {
-    float best_t = t_init;
-    int kind = 0, best_m = -1;  // kind: 0 miss, 1 triangle, 2 sphere
-    V3 best_f = v3(0.f, 0.f, 0.f);
-    for (int i = 0; i < nt; ++i) {
-      const float* r = tris + 16 * i;
-      float t;
-      if (tri_test(o, d, v3(r[0], r[1], r[2]), v3(r[3], r[4], r[5]), v3(r[6], r[7], r[8]), t) &&
-          t < best_t) {
-        best_t = t;
-        kind = 1;
-        best_m = (int)r[12];
-        best_f = v3(r[9], r[10], r[11]);
-      }
-    }
-    fold_spheres(sph, ns, o, d, best_t, kind, best_m, best_f);
-    return make_hit(o, d, best_t, kind != 0, kind == 1, best_m, best_f);
-  }
-};
 
 extern "C" int llr_bounce(const float* o_in, const float* d_in, const float* thr_in,
                           const float* acc_in, const uint8_t* alive_in, const int32_t* lane_in,
                           float* o_out, float* d_out, float* thr_out, float* acc_out,
                           uint8_t* alive_out, float* rays_out, const float* tris, int nt,
-                          const float* sph, int ns, const float* mats, int nm,
-                          const float* lights, int nl, float total_area, int n, int bounce,
+                          const float* sph, int ns, const float* mats,
+                          const float* mats_eval, int nm, const float* lights, int nl,
+                          float total_area, int n, int bounce,
                           uint32_t seed, int flags, float rr_scale, float sky_r, float sky_g,
                           float sky_b, const float* ibl, int ibl_w, int ibl_h, float lon,
                           void* stream) {
-  const Scene sc{sph, ns, mats, nm, lights, nl, total_area, V3{sky_r, sky_g, sky_b},
+  const Scene sc{sph, ns, mats, mats_eval, nm, lights, nl, total_area, V3{sky_r, sky_g, sky_b},
                  ibl, ibl_w, ibl_h, lon};
   return launch_bounce(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out, thr_out,
                        acc_out, alive_out, rays_out, sc, BruteIsect{tris, nt, sph, ns}, n, bounce,

@@ -18,8 +18,19 @@
 // lookup runs here (the TPU kernel left it to a host epilogue: Mosaic has
 // no per-lane gather).
 //
+// Two material tables, as the TPU kernel reads them: the sampling table
+// drives Russian roulette, the NEE emitter test and BSDF sampling; the
+// evaluation table drives emission, the BRDF, coef and NEE's f and l_e. The
+// differentiable path passes a detached copy as the first and the live
+// parameters as the second; the forward render passes one table twice, and
+// launch_bounce then picks the instance that loads each hit's row once.
+// The pieces the backward kernel (bounce_bwd.cu) recomputes are functions
+// here (the brute-force intersector, rr_prob, light_point, nee_geometry,
+// scatter), so both kernels take the same decisions on a lane.
+//
 // Rounding: built with -fmad=false and IEEE division and sqrt. Tables are
 // float32 rows (ids stored as exact floats):
+//   tris   (nt, 16): p0 3 | e1 3 | e2 3 | n 3 | mat | pad 3
 //   sph    (ns, 8):  c 3 | r | mat | pad 3
 //   mats   (nm, 16): type | color 3 | emission 3 | alpha | ior | absorb | pad 6
 //   lights (nl, 16): is_tri | p0 3 | e1 3 | e2 3 | c 3 | r | cdf | pad
@@ -39,7 +50,8 @@ enum {
 struct Scene {
   const float* sph;
   int ns;
-  const float* mats;
+  const float* mats;       // sampling table
+  const float* mats_eval;  // evaluation table (may be `mats`)
   int nm;
   const float* lights;
   int nl;
@@ -53,8 +65,10 @@ struct Scene {
 struct Hit {
   float t;
   bool hit;
+  bool sph;  // a sphere won (its normal then depends on the position)
   int mat;
   V3 pos, n;
+  V3 c;  // the winning sphere's center
 };
 
 // The hit of ops/intersect.py::_finish: position, the outward normal (the
@@ -64,8 +78,10 @@ __device__ __forceinline__ Hit make_hit(V3 o, V3 d, float best_t, bool hit, bool
   Hit h;
   h.t = best_t;
   h.hit = hit;
+  h.sph = hit && !tri;
   h.mat = h.hit ? best_m : -1;
   h.pos = add(o, scale(d, best_t));
+  h.c = best_f;
   if (!h.hit) {
     h.n = v3(0.f, 0.f, 1.f);
   } else if (tri) {
@@ -92,6 +108,35 @@ __device__ __forceinline__ void fold_spheres(const float* sph, int ns, V3 o, V3 
     }
   }
 }
+
+// Brute force: the nearest hit with t < t_init, triangles ascending, then
+// spheres ascending, strict < (the first of equal candidates wins; a
+// triangle wins a tie). bounce.cu and bounce_bwd.cu intersect with it.
+struct BruteIsect {
+  const float* tris;
+  int nt;
+  const float* sph;
+  int ns;
+
+  __device__ Hit operator()(V3 o, V3 d, float t_init, float /*t_stop*/) const {
+    float best_t = t_init;
+    int kind = 0, best_m = -1;  // kind: 0 miss, 1 triangle, 2 sphere
+    V3 best_f = v3(0.f, 0.f, 0.f);
+    for (int i = 0; i < nt; ++i) {
+      const float* r = tris + 16 * i;
+      float t;
+      if (tri_test(o, d, v3(r[0], r[1], r[2]), v3(r[3], r[4], r[5]), v3(r[6], r[7], r[8]), t) &&
+          t < best_t) {
+        best_t = t;
+        kind = 1;
+        best_m = (int)r[12];
+        best_f = v3(r[9], r[10], r[11]);
+      }
+    }
+    fold_spheres(sph, ns, o, d, best_t, kind, best_m, best_f);
+    return make_hit(o, d, best_t, kind != 0, kind == 1, best_m, best_f);
+  }
+};
 
 // Equirect sky lookup, ops/sky.py::ibl_texel: y-up, nearest texel, u offset
 // by the longitude in radians, IEEE divisions (the plain lookup divides by
@@ -123,9 +168,10 @@ struct Mat {
   float alpha, ior, absorb;
 };
 
-__device__ __forceinline__ Mat load_mat(const Scene& sc, int row) {
-  row = min(max(row, 0), sc.nm - 1);
-  const float* r = sc.mats + 16 * row;
+// Row `row` (clamped) of a material table of `nm` rows.
+__device__ __forceinline__ Mat load_mat(const float* table, int nm, int row) {
+  row = min(max(row, 0), nm - 1);
+  const float* r = table + 16 * row;
   Mat m;
   m.type = (int)r[0];
   m.col = v3(r[1], r[2], r[3]);
@@ -332,15 +378,23 @@ __device__ __forceinline__ V3 coef(const Mat& m, V3 out, V3 n, float dist) {
             expf(-(1.0f - m.col.z) * ad));
 }
 
-// NEE contribution of one lane (`scene.rs:104-151`).
-template <class Isect>
-__device__ V3 direct_light(const Scene& sc, const Isect& isect, const Hit& sp, V3 out,
-                           const Mat& m, uint32_t seed, uint32_t lane, uint32_t ctr) {
-  const V3 zero = v3(0.f, 0.f, 0.f);
+// Russian-roulette probability (`scene.rs:64-76`) from the sampling row:
+// max albedo, halved per bounce past depth_limit (`rr_scale`), forced to 1
+// while bounce <= depth when positive.
+__device__ __forceinline__ float rr_prob(const Mat& ms, int flags, float rr_scale) {
+  float prob = fmaxf(fmaxf(ms.col.x, ms.col.y), ms.col.z) * rr_scale;
+  if ((flags & FLAG_RR_FORCE) && prob > 0.f) prob = 1.0f;
+  return prob;
+}
+
+// NEE's point on a light (`objects.rs:37-51`): area-proportional pick, the
+// first CDF entry >= roulette (searchsorted left), then a uniform point on
+// the picked triangle or sphere. Draws slot ctr + 1.
+__device__ __forceinline__ V3 light_point(const Scene& sc, uint32_t seed, uint32_t lane,
+                                          uint32_t ctr) {
   float r[4];
   uniform4(seed, lane, ctr + 1u, r);
   const float u1 = r[1], u2 = r[2];
-  // Area-proportional pick: first CDF entry >= roulette (searchsorted left).
   const float roulette = sc.total_area * r[0];
   int lo = 0, hi = sc.nl;
   while (lo < hi) {
@@ -348,43 +402,84 @@ __device__ V3 direct_light(const Scene& sc, const Isect& isect, const Hit& sp, V
     if (sc.lights[16 * mid + 14] < roulette) lo = mid + 1; else hi = mid;
   }
   const float* L = sc.lights + 16 * min(lo, sc.nl - 1);
-  V3 lp;
   if (L[0] > 0.f) {  // triangle: min/max trick (`triangle.rs:140-149`)
     const V3 p0 = v3(L[1], L[2], L[3]), e1 = v3(L[4], L[5], L[6]), e2 = v3(L[7], L[8], L[9]);
     const float mn = fminf(u1, u2), mx = fmaxf(u1, u2);
-    lp = add(add(scale(p0, mn), scale(add(p0, e1), 1.0f - mx)), scale(add(p0, e2), mx - mn));
-  } else {  // sphere: uniform over the full sphere (quirk #10)
-    const float phi = LLR_TWO_PI * u1;
-    const float z = u2 * 2.0f - 1.0f;
-    const float zs = sqrtf(fmaxf(1.0f - z * z, 0.f));
-    lp = add(v3(L[10], L[11], L[12]), scale(v3(cosf(phi) * zs, sinf(phi) * zs, z), L[13]));
+    return add(add(scale(p0, mn), scale(add(p0, e1), 1.0f - mx)), scale(add(p0, e2), mx - mn));
   }
-  const float pdf = 1.0f / sc.total_area;
+  // sphere: uniform over the full sphere (quirk #10)
+  const float phi = LLR_TWO_PI * u1;
+  const float z = u2 * 2.0f - 1.0f;
+  const float zs = sqrtf(fmaxf(1.0f - z * z, 0.f));
+  return add(v3(L[10], L[11], L[12]), scale(v3(cosf(phi) * zs, sinf(phi) * zs, z), L[13]));
+}
 
-  const V3 path = sub(lp, sp.pos);
-  const float dist = norm(path);
-  const V3 wi = divs(path, fmaxf(dist, 1e-20f));
-  const V3 pn = orienting(out, sp.n);
-  const float cos_p = dot(wi, pn);
-  if (!(cos_p > 0.f) || !(dot(m.emi, m.emi) <= 0.f)) return zero;
+// NEE's geometry (`scene.rs:104-151`): the light point, the oriented
+// normal, the capped shadow query and its verdict. `ok` says whether the
+// lane gathers light.
+struct Nee {
+  V3 path, wi, pn;
+  float dist, cos_p, light_cos;
+  Hit s;  // the shadow query's hit (read only when ok)
+  bool ok;
+};
 
+template <class Isect>
+__device__ __forceinline__ Nee nee_geometry(const Scene& sc, const Isect& isect, const Hit& sp,
+                                            V3 out, const Mat& ms, uint32_t seed, uint32_t lane,
+                                            uint32_t ctr) {
+  Nee e{};
+  e.path = sub(light_point(sc, seed, lane, ctr), sp.pos);
+  e.dist = norm(e.path);
+  e.wi = divs(e.path, fmaxf(e.dist, 1e-20f));
+  e.pn = orienting(out, sp.n);
+  e.cos_p = dot(e.wi, e.pn);
+  // No NEE from emitters (`scene.rs:105-108`), by the sampling row.
+  if (!(e.cos_p > 0.f) || !(dot(ms.emi, ms.emi) <= 0.f)) return e;
   // Shadow ray capped at dist + 2*EPS; visible iff the hit is the light
   // point itself (|t - dist| <= EPS). A walk may stop at any hit below
   // cap - 4*EPS: that hit already settles the verdict as occluded.
-  const float cap = dist + 0.002f;
-  const Hit s = isect(sp.pos, wi, cap, cap - 0.004f);
-  if (!(s.hit && fabsf(s.t - dist) <= LLR_EPS)) return zero;
-  const float light_cos = dot(neg(wi), s.n);
-  if (!(light_cos > 0.f)) return zero;
+  const float cap = e.dist + 0.002f;
+  e.s = isect(sp.pos, e.wi, cap, cap - 0.004f);
+  if (!(e.s.hit && fabsf(e.s.t - e.dist) <= LLR_EPS)) return e;
+  e.light_cos = dot(neg(e.wi), e.s.n);
+  e.ok = e.light_cos > 0.f;
+  return e;
+}
 
-  const float g = cos_p * light_cos / fmaxf(dot(path, path), 1e-20f);
-  const V3 f = eval_brdf(m, out, wi, pn, sp.pos);
-  const V3 le = load_mat(sc, s.mat).emi;
+// NEE contribution of one lane: f from the evaluation row `me`, l_e from
+// the evaluation table's row of the light hit.
+template <class Isect>
+__device__ V3 direct_light(const Scene& sc, const Isect& isect, const Hit& sp, V3 out,
+                           const Mat& ms, const Mat& me, uint32_t seed, uint32_t lane,
+                           uint32_t ctr) {
+  const Nee e = nee_geometry(sc, isect, sp, out, ms, seed, lane, ctr);
+  if (!e.ok) return v3(0.f, 0.f, 0.f);
+  const float pdf = 1.0f / sc.total_area;
+  const float g = e.cos_p * e.light_cos / fmaxf(dot(e.path, e.path), 1e-20f);
+  const V3 f = eval_brdf(me, out, e.wi, e.pn, sp.pos);
+  const V3 le = load_mat(sc.mats_eval, sc.nm, e.s.mat).emi;
   return scale(mul(f, le), g / pdf);
 }
 
+// BSDF sampling and the throughput weight (`scene.rs:78-102`): direction
+// `sd` sampled from the sampling row with r[1..3], w = f * coef * cos / pdf
+// from the evaluation row. False where the lane dies (w == 0 or pdf == 0).
+__device__ __forceinline__ bool scatter(const Mat& ms, const Mat& me, const Hit& hp, V3 out,
+                                        const float r[4], V3& sd, V3& w) {
+  float pdf;
+  sd = sample_bsdf(ms, out, hp.n, r[1], r[2], r[3], pdf);
+  const V3 f = eval_brdf(me, out, sd, hp.n, hp.pos);
+  const V3 cf = coef(me, out, hp.n, hp.t);
+  const float ws = dot(sd, hp.n) / (pdf != 0.f ? pdf : 1.0f);
+  w = scale(mul(f, cf), ws);
+  return (w.x != 0.f || w.y != 0.f || w.z != 0.f) && pdf != 0.f;
+}
+
 // One bounce per lane; `isect(o, d, t_init, t_stop)` is the intersector.
-template <class Isect>
+// `kSplit`: the two material tables differ; without it (the forward
+// render's one table passed twice) a hit's row is loaded once.
+template <class Isect, bool kSplit>
 __global__ void __launch_bounds__(128) bounce_kernel(
     const float* __restrict__ o_in, const float* __restrict__ d_in,
     const float* __restrict__ thr_in, const float* __restrict__ acc_in,
@@ -406,34 +501,29 @@ __global__ void __launch_bounds__(128) bounce_kernel(
     if (!hp.hit) {  // sky on miss, at every depth
       acc = add(acc, mul(thr, sky_radiance(sc, d)));
     } else {
-      const Mat m = load_mat(sc, hp.mat);
+      const Mat ms = load_mat(sc.mats, sc.nm, hp.mat);
+      const Mat me = kSplit ? load_mat(sc.mats_eval, sc.nm, hp.mat) : ms;
       const V3 out = neg(d);
-      if ((flags & FLAG_EMIT) && dot(out, hp.n) > 0.f) acc = add(acc, mul(thr, m.emi));
+      if ((flags & FLAG_EMIT) && dot(out, hp.n) > 0.f) acc = add(acc, mul(thr, me.emi));
 
       const uint32_t lane = (uint32_t)lane_in[i];
       const uint32_t ctr = (uint32_t)bounce * 8u;
       float r[4];
       uniform4(seed, lane, ctr, r);
 
-      // Russian roulette (`scene.rs:64-76,180-183`).
-      float prob = fmaxf(fmaxf(m.col.x, m.col.y), m.col.z) * rr_scale;
-      if ((flags & FLAG_RR_FORCE) && prob > 0.f) prob = 1.0f;
+      // Russian roulette (`scene.rs:180-183`).
+      const float prob = rr_prob(ms, flags, rr_scale);
       alive = prob == 1.0f || r[0] < prob;
       if (alive) {
         const float pc = fmaxf(prob, 1e-12f);
         V3 t2 = v3(thr.x / pc, thr.y / pc, thr.z / pc);
         if (flags & FLAG_NEE) {
-          const V3 dl = direct_light(sc, isect, hp, out, m, seed, lane, ctr);
+          const V3 dl = direct_light(sc, isect, hp, out, ms, me, seed, lane, ctr);
           acc = add(acc, mul(t2, dl));
           rays += 1.0f;  // the shadow ray
         }
-        float pdf;
-        const V3 sd = sample_bsdf(m, out, hp.n, r[1], r[2], r[3], pdf);
-        const V3 f = eval_brdf(m, out, sd, hp.n, hp.pos);
-        const V3 cf = coef(m, out, hp.n, hp.t);
-        const float ws = dot(sd, hp.n) / (pdf != 0.f ? pdf : 1.0f);
-        const V3 w = scale(mul(f, cf), ws);
-        alive = (w.x != 0.f || w.y != 0.f || w.z != 0.f) && pdf != 0.f;
+        V3 sd, w;
+        alive = scatter(ms, me, hp, out, r, sd, w);
         if (alive) {
           new_o = hp.pos;
           new_d = sd;
@@ -459,8 +549,12 @@ int launch_bounce(const float* o_in, const float* d_in, const float* thr_in, con
                   int flags, float rr_scale, void* stream) {
   const int block = 128;
   const int grid = (n + block - 1) / block;
-  if (grid > 0) {
-    bounce_kernel<Isect><<<grid, block, 0, (cudaStream_t)stream>>>(
+  if (grid > 0 && sc.mats_eval == sc.mats) {
+    bounce_kernel<Isect, false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out, thr_out, acc_out, alive_out,
+        rays_out, sc, isect, n, bounce, seed, flags, rr_scale);
+  } else if (grid > 0) {
+    bounce_kernel<Isect, true><<<grid, block, 0, (cudaStream_t)stream>>>(
         o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out, thr_out, acc_out, alive_out,
         rays_out, sc, isect, n, bounce, seed, flags, rr_scale);
   }

@@ -52,12 +52,13 @@ extern "C" int llr_bounce_bvh(const float* o_in, const float* d_in, const float*
                               const int32_t* lane_in, float* o_out, float* d_out, float* thr_out,
                               float* acc_out, uint8_t* alive_out, float* rays_out,
                               const float* nodes, const float* leaves, const int32_t* ids, int k,
-                              const float* sph, int ns, const float* mats, int nm,
-                              const float* lights, int nl, float total_area, int n, int bounce,
+                              const float* sph, int ns, const float* mats,
+                              const float* mats_eval, int nm, const float* lights, int nl,
+                              float total_area, int n, int bounce,
                               uint32_t seed, int flags, float rr_scale, float sky_r, float sky_g,
                               float sky_b, const float* ibl, int ibl_w, int ibl_h, float lon,
                               void* stream) {
-  const Scene sc{sph, ns, mats, nm, lights, nl, total_area, V3{sky_r, sky_g, sky_b},
+  const Scene sc{sph, ns, mats, mats_eval, nm, lights, nl, total_area, V3{sky_r, sky_g, sky_b},
                  ibl, ibl_w, ibl_h, lon};
   const BvhIsect isect{BvhTables{nodes, leaves, ids, k}, sph, ns};
   return launch_bounce(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out, thr_out,

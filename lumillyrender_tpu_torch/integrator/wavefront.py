@@ -1,4 +1,4 @@
-"""Wavefront path tracing (`pt` and `pt-direct`), forward only.
+"""Wavefront path tracing (`pt` and `pt-direct`), forward and differentiable.
 
 The whole wavefront (lane = pixel x sample) advances together through an
 iterative bounce loop (intersect, shade/NEE, sample next), with Russian
@@ -14,8 +14,19 @@ with sky radiance added for missed rays at every depth (`scene.rs:43`).
 is brute force or the plain BVH walk); `make_bounce_step` returns the step
 the render loop runs, which launches a fused bounce kernel on a CUDA device
 (ops/cuda_bounce.py: brute force or BVH) and is the plain step on the
-CPU. The loop is a Python loop with one host sync per bounce (the "any lane
-alive" test).
+CPU. The forward loop is a Python loop with one host sync per bounce (the
+"any lane alive" test).
+
+The differentiable loop (`differentiable=True` of `trace` and
+`trace_film`, which diff/render.py drives) takes a fixed number of steps
+per stage, with no host sync, and steps from
+`cuda_bounce.make_step_diff`. Two material tables then meet in the step:
+`scene.materials`, a detached copy that drives the sampling decisions (RR,
+the NEE emitter test, BSDF sampling), and `mats_eval`, the live parameters
+that every evaluated quantity reads (emission, BRDF, coef, NEE's f and
+l_e). Intermediates of masked lanes stay finite (a lane whose query was
+not asked, cap -inf, keeps its origin as position; coef's distance is 0
+off a hit), so autograd's zero cotangents on them never meet an inf.
 """
 
 from __future__ import annotations
@@ -99,6 +110,15 @@ def _sample_light_point(scene: SceneData, u_pick, u1, u2):
     return point, pdf
 
 
+def emit_flag(settings: RenderSettings, bounce: int) -> bool:
+    """Whether this bounce adds front-face emission (`scene.rs:175-179`):
+    with NEE only at bounce 0 (no MIS, quirk #3), and at bounce 0 only
+    without no-direct-emitter."""
+    if settings.integrator == "pt-direct":
+        return bounce == 0 and not settings.no_direct_emitter
+    return bounce != 0 or not settings.no_direct_emitter
+
+
 def _only(mask, cap):
     """The cap of a query whose answer only the `mask` lanes use: -inf on
     the others, which no hit beats, so a BVH walk takes no step for them
@@ -107,9 +127,13 @@ def _only(mask, cap):
 
 
 def _direct_light(scene, settings, sp, out_dir, m_gathered, lane, seed, ctr,
-                  alive):
+                  alive, mats_eval=None):
     """NEE contribution (`scene.rs:104-151`) of the `alive` lanes. Returns
-    (N,3) radiance."""
+    (N,3) radiance. `m_gathered` (the lanes' sampling rows) decides the
+    emitter early-out; f and l_e read `mats_eval` (default
+    `scene.materials`)."""
+    if mats_eval is None:
+        mats_eval = scene.materials
     u_pick, u1, u2, _ = rng.uniform4(seed, lane, ctr + _NEE)
     light_point, pdf = _sample_light_point(scene, u_pick, u1, u2)
 
@@ -140,10 +164,10 @@ def _direct_light(scene, settings, sp, out_dir, m_gathered, lane, seed, ctr,
 
     g = cos_p * light_cos / torch.clamp(vec.sqr_norm(path), min=1e-20)
     f = bsdf.eval_brdf(
-        bsdf.gather(scene.materials, sp.mat), out_dir, wi, point_normal,
+        bsdf.gather(mats_eval, sp.mat), out_dir, wi, point_normal,
         sp.position, present=settings.mat_types,
     )
-    l_e = bsdf.gather(scene.materials, shadow_sp.mat).emission
+    l_e = bsdf.gather(mats_eval, shadow_sp.mat).emission
     contrib = f * l_e * (g / pdf)[..., None]
     return torch.where(ok[..., None], contrib, torch.zeros_like(contrib))
 
@@ -154,12 +178,17 @@ def _masked(mask, x):
 
 
 def plain_bounce_step(scene: SceneData, settings: RenderSettings, seed,
-                      state: PathState) -> PathState:
+                      state: PathState, mats_eval=None) -> PathState:
     """One bounce transition over a PathState, in plain PyTorch: the plain
     version of the fused bounce kernel, and the step the CPU runs. Like the
     kernel it walks the BVH only for the queries whose answer it uses: the
     primary ray of a live lane, the shadow ray of a lane that survived
-    Russian roulette, faces its light and is not emissive."""
+    Russian roulette, faces its light and is not emissive. `scene.materials`
+    drives the sampling decisions and `mats_eval` (default: the same table)
+    the evaluated quantities; autograd through the step gives the gradients
+    of its outputs in the state, `mats_eval`, the sky and the geometry."""
+    if mats_eval is None:
+        mats_eval = scene.materials
     bounce = state.bounce
     lane = state.lane
     ctr = bounce * _SLOTS
@@ -179,17 +208,13 @@ def plain_bounce_step(scene: SceneData, settings: RenderSettings, seed,
     alive = state.alive & sp.hit
 
     m = bsdf.gather(scene.materials, sp.mat)
+    m_eval = bsdf.gather(mats_eval, sp.mat)
     out_dir = -state.d
 
-    # Emission (`scene.rs:175-179`): front faces only; depth-0 gated by
-    # no-direct-emitter; NEE kills it past depth 0 (no MIS, quirk #3).
-    if nee:
-        allow_e = bounce == 0 and not settings.no_direct_emitter
-    else:
-        allow_e = bounce != 0 or not settings.no_direct_emitter
-    if allow_e:
+    # Emission (`scene.rs:175-179`): front faces only.
+    if emit_flag(settings, bounce):
         front = vec.dot(out_dir, sp.normal) > 0.0
-        accum = accum + _masked(alive & front, state.throughput * m.emission)
+        accum = accum + _masked(alive & front, state.throughput * m_eval.emission)
 
     # One mixer call covers RR + all three BSDF-sampling draws.
     u_rr, r1, r2, r3 = rng.uniform4(seed, lane, ctr + _SCATTER)
@@ -202,16 +227,17 @@ def plain_bounce_step(scene: SceneData, settings: RenderSettings, seed,
     # NEE (`scene.rs:185-186`).
     if nee and settings.has_lights:
         direct = _direct_light(scene, settings, sp, out_dir, m, lane, seed, ctr,
-                               alive)
+                               alive, mats_eval)
         accum = accum + _masked(alive, throughput * direct)
         rays = rays + alive.sum(dtype=torch.float32)  # shadow rays
 
     # BSDF sampling + throughput update (`scene.rs:78-102`).
     s = bsdf.sample(m, out_dir, sp.normal, r1, r2, r3,
                     present=settings.mat_types)
-    f = bsdf.eval_brdf(m, out_dir, s.direction, sp.normal, sp.position,
+    f = bsdf.eval_brdf(m_eval, out_dir, s.direction, sp.normal, sp.position,
                        present=settings.mat_types)
-    cf = bsdf.coef(m, out_dir, sp.normal, hit.t, present=settings.mat_types)
+    t_hit = torch.where(sp.hit, hit.t, torch.zeros_like(hit.t))  # -inf on dead lanes
+    cf = bsdf.coef(m_eval, out_dir, sp.normal, t_hit, present=settings.mat_types)
     cos = vec.dot(s.direction, sp.normal)  # geometric n (`scene.rs:91`)
     safe_pdf = torch.where(s.pdf != 0.0, s.pdf, torch.ones_like(s.pdf))
     w = f * cf * (cos / safe_pdf)[..., None]
@@ -233,13 +259,84 @@ def plain_bounce_step(scene: SceneData, settings: RenderSettings, seed,
     )
 
 
-def make_bounce_step(scene: SceneData, settings: RenderSettings, seed):
+def make_bounce_step(scene: SceneData, settings: RenderSettings, seed,
+                     mats_eval=None, differentiable: bool = False):
     """The per-bounce transition the render loop runs: a fused bounce
     kernel for CUDA tensors (brute force or BVH), the plain step for CPU
-    tensors."""
+    tensors. With `differentiable`, the step of `cuda_bounce.make_step_diff`
+    (a kernel forward with the hand-written backward kernel, or with
+    autograd of the plain step; raises on the card for a scene no kernel
+    serves)."""
     from ..ops import cuda_bounce
 
-    return cuda_bounce.make_step(scene, settings, seed)
+    if differentiable:
+        return cuda_bounce.make_step_diff(scene, settings, seed, mats_eval)
+    return cuda_bounce.make_step(scene, settings, seed, mats_eval)
+
+
+def _checkpointed(step, state: PathState) -> PathState:
+    """`step(state)` under torch.utils.checkpoint: only the input state is
+    kept for the backward pass, which recomputes the bounce."""
+    from torch.utils.checkpoint import checkpoint
+
+    def run(o, d, thr, acc, alive, rays, lane):
+        s = step(PathState(state.bounce, o, d, thr, acc, alive, rays, lane))
+        return s.o, s.d, s.throughput, s.accum, s.alive, s.rays_traced
+
+    o, d, thr, acc, alive, rays = checkpoint(
+        run, state.o, state.d, state.throughput, state.accum, state.alive,
+        state.rays_traced, state.lane, use_reentrant=False)
+    return PathState(state.bounce + 1, o, d, thr, acc, alive, rays, state.lane)
+
+
+def _run_fixed(step, state: PathState, n_steps: int,
+               settings: RenderSettings) -> PathState:
+    """`n_steps` bounces of the differentiable loop, with no host sync (a
+    dead lane stays dead through the mask-correct step). The recompute
+    policy is `settings.bwd_remat`: "full" checkpoints every bounce, "none"
+    keeps every bounce's intermediates, "hybrid" keeps them on stages of at
+    most 48k lanes. A step with its own backward (`fused_diff`: the
+    hand-written backward or the hybrid's) keeps only its input state
+    anyway, so it is never checkpointed."""
+    mode = getattr(settings, "bwd_remat", "full")
+    if mode in ("isect", "isect+samp"):
+        raise NotImplementedError(
+            f"bwd_remat={mode!r} keeps named intersection outputs and needs "
+            "selective checkpointing, which comes in a later slice (queue 1 "
+            "of ROADMAP.md); use 'full', 'hybrid' or 'none'")
+    if mode not in ("none", "full", "hybrid"):
+        raise ValueError(f"unknown bwd_remat policy {mode!r}; expected one of "
+                         "'none', 'full', 'hybrid', 'isect', 'isect+samp'")
+    keep = (getattr(step, "fused_diff", False) or mode == "none"
+            or (mode == "hybrid" and state.o.shape[0] <= 48 * 1024))
+    for _ in range(n_steps):
+        state = step(state) if keep else _checkpointed(step, state)
+    return state
+
+
+def trace(scene: SceneData, settings: RenderSettings, o, d, lane, seed,
+          differentiable: bool = False, mats_eval=None):
+    """Trace radiance for a wavefront of rays (no compaction). Returns
+    (radiance (N,3), rays_traced ()). The forward loop stops when every
+    lane is dead; the differentiable one takes max_bounces steps."""
+    n = o.shape[0]
+    dev = o.device
+    state = PathState(
+        bounce=0, o=o, d=d,
+        throughput=torch.ones((n, 3), dtype=o.dtype, device=dev),
+        accum=torch.zeros((n, 3), dtype=o.dtype, device=dev),
+        alive=torch.ones((n,), dtype=torch.bool, device=dev),
+        rays_traced=torch.zeros((), dtype=torch.float32, device=dev),
+        lane=lane,
+    )
+    step = make_bounce_step(scene, settings, seed, mats_eval=mats_eval,
+                            differentiable=differentiable)
+    if differentiable:
+        state = _run_fixed(step, state, settings.max_bounces, settings)
+    else:
+        while state.bounce < settings.max_bounces and bool(state.alive.any()):
+            state = step(state)
+    return state.accum, state.rays_traced
 
 
 def aov(scene: SceneData, settings: RenderSettings, o, d):
@@ -333,20 +430,49 @@ def _compact(state: PathState, width: int, seed, ctr: int,
     alive = torch.where(overflow, torch.ones_like(j, dtype=torch.bool), j < a)
     alive = alive & (a > 0)
     scale = torch.clamp(ratio, min=1.0)
+    # index_select, not x[src]: without overflow every dead slot repeats the
+    # last live lane's index, and the backward pass of x[src] sorts the
+    # indices and adds each run of repeats serially (45 ms a 16-spp
+    # training step on the H100, PERF.md 6.3), where index_select's adds
+    # the rows at once. Only the dead slots repeat, and their cotangents
+    # are exact zeros, so the sum is the same on every run.
+    take = lambda x: torch.index_select(x, 0, src)
     return PathState(
         bounce=state.bounce,
-        o=state.o[src],
-        d=state.d[src],
-        throughput=state.throughput[src] * scale,
+        o=take(state.o),
+        d=take(state.d),
+        throughput=take(state.throughput) * scale,
         accum=torch.zeros((width, 3), dtype=state.accum.dtype, device=dev),
         alive=alive,
         rays_traced=state.rays_traced,
-        lane=state.lane[src],
+        lane=take(state.lane),
     )
 
 
+def _bank_rows(film, idx, lane, vals, deterministic: bool):
+    """film + vals added into the rows idx, out of place. With
+    `deterministic` (the differentiable loop, whose gradients must repeat
+    bit for bit) in the same order on every run: on CUDA index_add adds
+    with atomics, in an order that changes between runs, and index_put with
+    accumulate sorts the indices and adds each run of one index serially.
+    Compaction's padding slots all repeat the last live lane (each repeats
+    the row before it; live lanes are distinct) and stay dead with accum 0
+    and no gradient, so they go to rows of their own past the film, and no
+    run is long. The forward render keeps index_add, which on the CPU adds
+    in order."""
+    if film.device.type != "cuda" or not deterministic:
+        return film.index_add(0, idx, vals)
+    n_pix = film.shape[0]
+    pad = torch.zeros_like(idx, dtype=torch.bool)
+    pad[1:] = lane[1:] == lane[:-1]
+    idx = torch.where(pad, torch.arange(idx.shape[0], device=idx.device) + n_pix, idx)
+    big = torch.cat([film, film.new_zeros((idx.shape[0], film.shape[1]))])
+    return big.index_put((idx,), vals, accumulate=True)[:n_pix]
+
+
 def trace_film(scene: SceneData, settings: RenderSettings, o, d, lane, seed,
-               weight0, n_pixels: int, pixel_fn=None, step=None):
+               weight0, n_pixels: int, pixel_fn=None, step=None,
+               differentiable: bool = False, mats_eval=None):
     """Trace a wavefront and accumulate straight into a flat pixel buffer.
 
     `weight0` (N,) is the camera estimator weight, folded into the initial
@@ -357,7 +483,14 @@ def trace_film(scene: SceneData, settings: RenderSettings, o, d, lane, seed,
     Lane ids arrive in arange order, so the first bank is a reshape-sum.
     `pixel_fn(lane) -> pixel index` overrides
     `lane % n_pixels` (the tile decode). `step` defaults to
-    `make_bounce_step`.
+    `make_bounce_step(scene, settings, seed, mats_eval, differentiable)`.
+
+    `differentiable=True` is the inverse-rendering path: every stage takes
+    its fixed number of steps (`_run_fixed`, no host sync), and the stage
+    plan is the occupancy-matched one for every scene (the JAX package
+    keeps the aggressive ladder to forward rendering). Compaction and
+    banking are gathers, scalings and out-of-place index_adds, so
+    gradients flow through them to the camera rays and `weight0`.
     """
     n = o.shape[0]
     dev = o.device
@@ -373,7 +506,8 @@ def trace_film(scene: SceneData, settings: RenderSettings, o, d, lane, seed,
         lane=lane,
     )
     if step is None:
-        step = make_bounce_step(scene, settings, seed)
+        step = make_bounce_step(scene, settings, seed, mats_eval=mats_eval,
+                                differentiable=differentiable)
     film = torch.zeros((n_pixels, 3), dtype=o.dtype, device=dev)
 
     def to_pixel(lane_vals):
@@ -388,10 +522,12 @@ def trace_film(scene: SceneData, settings: RenderSettings, o, d, lane, seed,
             if pixel_fn is None:
                 return film + by_lane
             perm = to_pixel(torch.arange(n_pixels, device=dev))
-            return film.index_add(0, perm, by_lane)
-        return film.index_add(0, to_pixel(st.lane), st.accum)
+            return _bank_rows(film, perm, perm, by_lane, differentiable)
+        return _bank_rows(film, to_pixel(st.lane), st.lane, st.accum, differentiable)
 
     def run_stage(state, b1: int):
+        if differentiable:
+            return _run_fixed(step, state, b1 - state.bounce, settings)
         # One host sync per bounce: the loop ends when no lane is alive.
         while state.bounce < b1 and bool(state.alive.any()):
             state = step(state)
@@ -404,7 +540,8 @@ def trace_film(scene: SceneData, settings: RenderSettings, o, d, lane, seed,
     first = True
     plan = _stage_plan(
         n, settings,
-        aggressive=_use_brute(scene.geometry, settings.intersector),
+        aggressive=(not differentiable
+                    and _use_brute(scene.geometry, settings.intersector)),
     )
     for si, (width, b0, b1) in enumerate(plan):
         if width != state.alive.shape[0]:

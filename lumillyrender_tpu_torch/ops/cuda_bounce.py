@@ -1,26 +1,34 @@
-"""The forward path's kernels, hand-written CUDA C++ for Hopper (sm_90a).
+"""The render kernels' wrappers, hand-written CUDA C++ for Hopper (sm_90a).
 
 * `generate_rays` wraps `csrc/raygen.cu` (camera rays per lane); its plain
   version is `plain_generate_rays` (`rng.uniform4` + `camera.sample_rays`).
 * `bounce` wraps `csrc/bounce.cu` (one whole brute-force bounce) and
   `bounce_bvh` wraps `csrc/bounce_bvh.cu` (one whole bounce through the
   BVH); both are `csrc/bounce_body.cuh` with another intersector, and their
-  plain version is `integrator/wavefront.py:plain_bounce_step`.
+  plain version is `integrator/wavefront.py:plain_bounce_step`. Both read a
+  sampling and an evaluation material table (`pack_tables`).
+* `bounce_bwd` wraps `csrc/bounce_bwd.cu`, the closed-form backward pass of
+  one brute-force bounce on a Lambert scene; its plain version is
+  `ops/bounce_bwd.py:plain_bounce_bwd`.
 * The BVH nearest-triangle kernel, `csrc/bvh.cu`, is wrapped in
   `ops/cuda_bvh.py`.
+* `make_step_diff` builds the differentiable path's step: the bounce
+  kernel forward with the backward kernel (`diff_supported`), or with
+  autograd of the plain step (the hybrid, `hybrid_supported`).
 
 Each wrapper runs its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises. The launch itself is
-`raygen_launch` / `bounce_launch` / `bounce_bvh_launch` (preallocated
-outputs, nothing else on the device, so it can be timed alone). Each kernel
-has a launch counter, raised by one per launch and nowhere else;
-`counts()` reads all four and `reset_counts()` zeroes them. The kernels are
-built by `ops/cuda_build.py`.
+`raygen_launch` / `bounce_launch` / `bounce_bvh_launch` /
+`bounce_bwd_launch` (preallocated outputs, nothing else on the device, so
+it can be timed alone). Each kernel has a launch counter, raised by one per
+launch and nowhere else; `counts()` reads all five and `reset_counts()`
+zeroes them. The kernels are built by `ops/cuda_build.py`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -28,12 +36,15 @@ import torch
 from ..scene.data import (
     CAM_IDEAL_PINHOLE,
     CAM_OMNIDIRECTIONAL,
+    MAT_LAMBERT,
+    MaterialTable,
     RenderSettings,
     SKY_IBL,
     SKY_UNIFORM,
     SceneData,
 )
 from . import cuda_build, cuda_bvh
+from .bounce_bwd import BounceGrads, plain_bounce_bwd
 from .cuda_build import ptr as _ptr
 from .intersect import _use_brute
 
@@ -109,6 +120,50 @@ def supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
     return bounce_supported(scene, settings)
 
 
+def _diff_scene(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
+    """(ok, reason) for both differentiable steps on the card: what the
+    bounce kernels serve, restricted to brute force and a uniform sky."""
+    ok, why = bounce_supported(scene, settings)
+    if not ok:
+        return ok, why
+    if not _use_brute(scene.geometry, settings.intersector, scene.bvh):
+        return False, ("a differentiable BVH scene on the card comes in a later "
+                       "slice (queue 1 of ROADMAP.md); the JAX package runs it as "
+                       "autodiff of the XLA step with the BVH kernel's VJP")
+    if settings.sky_kind != SKY_UNIFORM:
+        return False, ("a differentiable scene under an IBL sky on the card comes "
+                       "in a later slice (queue 1 of ROADMAP.md); the JAX package "
+                       "runs it as autodiff of the XLA step")
+    return True, ""
+
+
+def _lambert_only(settings: RenderSettings) -> bool:
+    present = settings.mat_types
+    return present is not None and tuple(present) == (MAT_LAMBERT,)
+
+
+def diff_supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
+    """(ok, reason) for the hand-written backward kernel (bounce_bwd.cu,
+    the JAX package's `supported_diff`): a brute-force scene under a
+    uniform sky with Lambert materials only, whose bounce VJP is
+    closed-form. No cap on material rows."""
+    ok, why = _diff_scene(scene, settings)
+    if ok and not _lambert_only(settings):
+        return False, "the closed-form backward kernel is derived for Lambert materials only"
+    return ok, why
+
+
+def hybrid_supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
+    """(ok, reason) for the hybrid differentiable step (the JAX package's
+    `supported_diff_hybrid`): a brute-force scene under a uniform sky whose
+    materials are not Lambert-only; the bounce kernel forward, autograd of
+    the plain step backward."""
+    ok, why = _diff_scene(scene, settings)
+    if ok and _lambert_only(settings):
+        return False, "a Lambert-only scene takes the backward kernel"
+    return ok, why
+
+
 def _require(check):
     ok, why = check
     if not ok:
@@ -126,18 +181,21 @@ def require_supported(scene: SceneData, settings: RenderSettings):
 
 def _camera_row(scene: SceneData) -> list[float]:
     """The kernel's 24-float camera argument. Reading it from the card is a
-    host sync, so it is read once per CameraData and kept on it."""
+    host sync, so it is kept on the CameraData, keyed by the storage and
+    version counter of each camera tensor: an in-place update (an
+    optimizer step on the camera) or a new tensor reads it again."""
     cam = scene.camera
-    row = getattr(cam, "_kernel_row", None)
-    if row is None:
-        parts = [cam.position, cam.aperture_position, cam.right,
-                 cam.sensor_size[:2], cam.up, cam.forward,
-                 cam.aperture_radius.reshape(1), cam.focus_distance.reshape(1),
-                 cam.aperture_sensor_distance.reshape(1)]
-        vals = torch.cat([p.reshape(-1).to(torch.float32).cpu() for p in parts])
-        row = vals.tolist() + [0.0] * (24 - vals.numel())
-        cam._kernel_row = row
-    return row
+    src = [cam.position, cam.aperture_position, cam.right, cam.sensor_size,
+           cam.up, cam.forward, cam.aperture_radius, cam.focus_distance,
+           cam.aperture_sensor_distance]
+    key = tuple((t.data_ptr(), t._version) for t in src)
+    cached = getattr(cam, "_kernel_row", None)
+    if cached is None or cached[0] != key:
+        parts = src[:3] + [cam.sensor_size[:2]] + src[4:6] + [t.reshape(1) for t in src[6:]]
+        vals = torch.cat([p.detach().reshape(-1).to(torch.float32).cpu() for p in parts])
+        cached = (key, vals.tolist() + [0.0] * (24 - vals.numel()))
+        cam._kernel_row = cached
+    return cached[1]
 
 
 def plain_generate_rays(scene: SceneData, settings: RenderSettings, seed,
@@ -231,35 +289,55 @@ generate_rays.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def pack_tables(scene: SceneData, bvh: bool = False) -> dict:
-    """The bounce kernels' tables (layouts in csrc/bounce.cu and
-    csrc/bounce_body.cuh), on the scene's device; with `bvh`, also the BVH
-    kernel's (csrc/bvh_walk.cuh), which only the BVH bounce reads."""
-    g = scene.geometry
-    mt = scene.materials
-    lt = scene.lights
-    dev = g.tri_p0.device
+def _rows(parts, width: int) -> torch.Tensor:
+    """(R, width) float32 rows: the parts' columns side by side, then zeros.
+    Differentiable in the parts."""
     f32 = torch.float32
+    cols = [p.to(f32).reshape(p.shape[0], math.prod(p.shape[1:])) for p in parts]
+    t = torch.cat(cols, dim=1)
+    pad = torch.zeros((t.shape[0], width - t.shape[1]), dtype=f32, device=t.device)
+    return torch.cat([t, pad], dim=1).contiguous()
 
-    def rows(parts, width):
-        cols = [p.to(f32).reshape(p.shape[0], math.prod(p.shape[1:]))
-                for p in parts]
-        t = torch.cat(cols, dim=1)
-        pad = torch.zeros((t.shape[0], width - t.shape[1]), dtype=f32,
-                          device=dev)
-        return torch.cat([t, pad], dim=1).contiguous()
 
+def material_rows(mt: MaterialTable) -> torch.Tensor:
+    """The kernels' (nm, 16) material table: type | color 3 | emission 3 |
+    alpha | ior | absorbtance | pad 6. Differentiable in the float leaves,
+    so a gradient of the rows reaches the MaterialTable."""
+    return _rows([mt.type_id, mt.color, mt.emission, mt.alpha, mt.ior,
+                  mt.absorbtance], 16)
+
+
+def materials_of_rows(rows: torch.Tensor, type_id: torch.Tensor) -> MaterialTable:
+    """`material_rows` inverted (type ids given as the int32 tensor)."""
+    return MaterialTable(type_id=type_id, color=rows[:, 1:4], emission=rows[:, 4:7],
+                         alpha=rows[:, 7], ior=rows[:, 8], absorbtance=rows[:, 9])
+
+
+def pack_tables(scene: SceneData, bvh: bool = False,
+                mats_eval: MaterialTable | None = None) -> dict:
+    """The bounce kernels' tables (layouts in csrc/bounce_body.cuh), on the
+    scene's device: `mats` is the sampling table (scene.materials),
+    `mats_eval` the evaluation table (`mats_eval`, default the same rows);
+    with `bvh`, also the BVH kernel's tables (csrc/bvh_walk.cuh), which only
+    the BVH bounce reads. The sky colour and total light area are read to
+    the host here, once."""
+    g = scene.geometry
+    lt = scene.lights
+    f32 = torch.float32
+    mats = material_rows(scene.materials).detach()
     tables = dict(
-        tris=rows([g.tri_p0, g.tri_e1, g.tri_e2, g.tri_n, g.tri_mat], 16),
-        sph=rows([g.sph_c, g.sph_r, g.sph_mat], 8),
-        mats=rows([mt.type_id, mt.color, mt.emission, mt.alpha, mt.ior,
-                   mt.absorbtance], 16),
-        lights=rows([lt.is_tri, lt.p0, lt.e1, lt.e2, lt.c, lt.r, lt.cdf], 16),
-        total_area=float(lt.total_area),
-        sky=[float(x) for x in scene.sky.color.cpu()],
-        ibl=scene.sky.ibl.to(f32).contiguous(),
-        lon=float(scene.sky.longitude_offset),
+        tris=_rows([g.tri_p0, g.tri_e1, g.tri_e2, g.tri_n, g.tri_mat], 16),
+        sph=_rows([g.sph_c, g.sph_r, g.sph_mat], 8),
+        mats=mats,
+        mats_eval=mats if mats_eval is None else material_rows(mats_eval).detach(),
+        lights=_rows([lt.is_tri, lt.p0, lt.e1, lt.e2, lt.c, lt.r, lt.cdf], 16),
+        total_area=float(lt.total_area.detach()),
+        sky=[float(x) for x in scene.sky.color.detach().cpu()],
+        ibl=scene.sky.ibl.detach().to(f32).contiguous(),
+        lon=float(scene.sky.longitude_offset.detach()),
     )
+    if tables["mats_eval"].shape != mats.shape:
+        raise ValueError("the evaluation table must have the sampling table's rows")
     if bvh:
         tables["bvh"] = cuda_bvh.tables_of(scene.bvh)
     return tables
@@ -288,7 +366,7 @@ def _launch(kernel: str, scene: SceneData, settings: RenderSettings, seed,
     dev = state.o.device
     tensors = (state.o, state.d, state.throughput, state.accum, state.alive,
                state.lane, *out, tables["sph"], tables["mats"],
-               tables["lights"], tables["ibl"])
+               tables["mats_eval"], tables["lights"], tables["ibl"])
     if bvh:
         bt = tables["bvh"]
         tensors += (bt["nodes"], bt["leaves"], bt["ids"])
@@ -306,15 +384,8 @@ def _launch(kernel: str, scene: SceneData, settings: RenderSettings, seed,
     lane_in = state.lane.contiguous()
 
     b = state.bounce
-    nee = settings.integrator == "pt-direct"
-    if nee:
-        emit = b == 0 and not settings.no_direct_emitter
-    else:
-        emit = b != 0 or not settings.no_direct_emitter
-    flags = ((1 if nee and settings.has_lights else 0)
-             | (2 if emit else 0)
-             | (4 if b <= settings.depth else 0))
-    rr_scale = 0.5 ** max(b - settings.depth_limit, 0)
+    flags, rr_scale = _flags(settings, b)
+    _check_mats(tables)
     if bvh:
         # A scene without triangles has an empty BVH: no walk at all.
         has_tris = scene.geometry.tri_p0.shape[0] > 0
@@ -333,13 +404,33 @@ def _launch(kernel: str, scene: SceneData, settings: RenderSettings, seed,
         _ptr(o), _ptr(d), _ptr(thr), _ptr(acc), _ptr(alive), _ptr(rays),
         *isect,
         _ptr(tables["sph"]), tables["sph"].shape[0],
-        _ptr(tables["mats"]), tables["mats"].shape[0],
+        _ptr(tables["mats"]), _ptr(tables["mats_eval"]), tables["mats"].shape[0],
         _ptr(tables["lights"]), tables["lights"].shape[0],
         tables["total_area"], n, b, int(seed) & 0xFFFFFFFF, flags, rr_scale,
         sky[0], sky[1], sky[2], _ptr(tables["ibl"]) if ibl else None, w, h,
         tables["lon"], cuda_build.stream(),
     )
     cuda_build.check(rc, kernel)
+
+
+def _flags(settings: RenderSettings, bounce: int) -> tuple[int, float]:
+    """The bounce kernels' flags (csrc/bounce_body.cuh) and RR scale for
+    this bounce."""
+    from ..integrator.wavefront import emit_flag
+
+    nee = settings.integrator == "pt-direct"
+    flags = ((1 if nee and settings.has_lights else 0)
+             | (2 if emit_flag(settings, bounce) else 0)
+             | (4 if bounce <= settings.depth else 0))
+    return flags, 0.5 ** max(bounce - settings.depth_limit, 0)
+
+
+def _check_mats(tables: dict):
+    for name in ("mats", "mats_eval"):
+        t = tables[name]
+        if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 16
+                or not t.is_contiguous()):
+            raise ValueError(f"tables[{name!r}] must be a contiguous (nm, 16) float32 tensor")
 
 
 def _step_out(state):
@@ -362,18 +453,20 @@ def _next_state(state, out):
 
 
 def bounce(scene: SceneData, settings: RenderSettings, seed, state,
-           tables: dict | None = None):
-    """PathState -> PathState after one brute-force bounce. Launches the
-    bounce kernel for a state on a CUDA device (with `tables` from
-    `pack_tables`, packed here when not given); the plain step on the
-    CPU."""
+           tables: dict | None = None, mats_eval: MaterialTable | None = None):
+    """PathState -> PathState after one brute-force bounce, with
+    `mats_eval` as the evaluation table (default scene.materials). Launches
+    the bounce kernel for a state on a CUDA device (with `tables` from
+    `pack_tables(scene, mats_eval=mats_eval)`, packed here when not given);
+    the plain step on the CPU."""
     from ..integrator.wavefront import plain_bounce_step
 
     if state.o.device.type == "cpu":
-        return plain_bounce_step(scene, settings, seed, state)
+        return plain_bounce_step(scene, settings, seed, state, mats_eval)
     out = _step_out(state)
-    bounce_launch(scene, settings, seed, state,
-                  pack_tables(scene) if tables is None else tables, out)
+    if tables is None:
+        tables = pack_tables(scene, mats_eval=mats_eval)
+    bounce_launch(scene, settings, seed, state, tables, out)
     return _next_state(state, out)
 
 
@@ -391,17 +484,18 @@ bounce.launches = 0
 
 
 def bounce_bvh(scene: SceneData, settings: RenderSettings, seed, state,
-               tables: dict | None = None):
+               tables: dict | None = None, mats_eval: MaterialTable | None = None):
     """PathState -> PathState after one bounce through the BVH: the BVH
     bounce kernel for a state on a CUDA device, the plain step on the
     CPU. As `bounce` otherwise."""
     from ..integrator.wavefront import plain_bounce_step
 
     if state.o.device.type == "cpu":
-        return plain_bounce_step(scene, settings, seed, state)
+        return plain_bounce_step(scene, settings, seed, state, mats_eval)
     out = _step_out(state)
-    bounce_bvh_launch(scene, settings, seed, state,
-                      pack_tables(scene, bvh=True) if tables is None else tables, out)
+    if tables is None:
+        tables = pack_tables(scene, bvh=True, mats_eval=mats_eval)
+    bounce_bvh_launch(scene, settings, seed, state, tables, out)
     return _next_state(state, out)
 
 
@@ -415,19 +509,275 @@ def bounce_bvh_launch(scene: SceneData, settings: RenderSettings, seed, state,
 bounce_bvh.launches = 0
 
 
-def make_step(scene: SceneData, settings: RenderSettings, seed):
+def make_step(scene: SceneData, settings: RenderSettings, seed,
+              mats_eval: MaterialTable | None = None):
     """PathState -> PathState transition for the render loop: the bounce
     kernel on a CUDA device (brute force or BVH, as `_use_brute` picks;
-    tables packed once), the plain step on the CPU."""
+    tables packed once), the plain step on the CPU. `mats_eval` is the
+    evaluation table (default scene.materials)."""
     from ..integrator.wavefront import plain_bounce_step
 
     if scene.geometry.tri_p0.device.type == "cpu":
-        return lambda state: plain_bounce_step(scene, settings, seed, state)
+        return lambda state: plain_bounce_step(scene, settings, seed, state, mats_eval)
     _require(bounce_supported(scene, settings))
     brute = _use_brute(scene.geometry, settings.intersector, scene.bvh)
-    tables = pack_tables(scene, bvh=not brute)
+    tables = pack_tables(scene, bvh=not brute, mats_eval=mats_eval)
     kernel = bounce if brute else bounce_bvh
     return lambda state: kernel(scene, settings, seed, state, tables)
+
+
+# ---------------------------------------------------------------------------
+# Kernel E: the backward pass of one brute-force Lambert bounce
+# ---------------------------------------------------------------------------
+
+
+def bounce_bwd(scene: SceneData, settings: RenderSettings, seed, state,
+               g_o, g_d, g_t, g_a, tables: dict | None = None,
+               mats_eval: MaterialTable | None = None,
+               with_alive: bool = False) -> BounceGrads:
+    """The backward pass of one bounce (see ops/bounce_bwd.py) for the
+    cotangents g_o, g_d, g_t, g_a ((n,3) float32) of its outputs. Launches
+    the backward kernel for a state on a CUDA device (with `tables` from
+    `pack_tables(scene, mats_eval=mats_eval)`, packed here when not given)
+    and sums its per-block row table; runs `plain_bounce_bwd` on the CPU.
+    `with_alive` also returns the kernel's recomputed alive' (else
+    `alive` is None)."""
+    if state.o.device.type == "cpu":
+        grads = plain_bounce_bwd(scene, settings, seed, state, g_o, g_d, g_t, g_a,
+                                 mats_eval)
+        return grads if with_alive else grads._replace(alive=None)
+    if tables is None:
+        tables = pack_tables(scene, mats_eval=mats_eval)
+    n = state.o.shape[0]
+    dev = state.o.device
+    nm = tables["mats"].shape[0]
+    f3 = lambda: torch.empty((n, 3), dtype=torch.float32, device=dev)
+    out = (f3(), f3(), f3(),
+           torch.empty((bwd_blocks(n), 6 * nm + 3), dtype=torch.float32, device=dev),
+           torch.empty(n, dtype=torch.bool, device=dev) if with_alive else None)
+    bounce_bwd_launch(scene, settings, seed, state, (g_o, g_d, g_t, g_a), tables, out)
+    tot = out[3].sum(dim=0)
+    rows = tot[:6 * nm].reshape(nm, 6)
+    return BounceGrads(o=out[0], d=out[1], throughput=out[2], albedo=rows[:, :3],
+                       emission=rows[:, 3:], sky=tot[6 * nm:], alive=out[4])
+
+
+BWD_BLOCK = 128  # threads per block of csrc/bounce_bwd.cu
+
+
+def bwd_blocks(n: int) -> int:
+    """Rows of the backward kernel's partial table: its blocks."""
+    return (n + BWD_BLOCK - 1) // BWD_BLOCK
+
+
+def bounce_bwd_launch(scene: SceneData, settings: RenderSettings, seed, state,
+                      cot, tables: dict, out):
+    """The backward kernel alone: reads `state` and `cot` = (g_o, g_d, g_t,
+    g_a) and writes `out` = (o_bar, d_bar, t_bar (n,3) float32, partial
+    (bwd_blocks(n), 6*nm+3) float32, alive (n,) bool or None), all on the
+    card. `bounce_bwd` allocates these and sums the partial table; this is
+    the launch it counts."""
+    _require(diff_supported(scene, settings))
+    n = state.o.shape[0]
+    dev = state.o.device
+    nm = tables["mats"].shape[0]
+    o_bar, d_bar, t_bar, partial, alive_out = out
+    specs = [(name, getattr(state, name), (n, 3), torch.float32)
+             for name in ("o", "d", "throughput")]
+    specs += [("alive", state.alive, (n,), torch.bool), ("lane", state.lane, (n,), torch.int32)]
+    specs += [(f"cotangent {k}", t, (n, 3), torch.float32) for k, t in enumerate(cot)]
+    specs += [("o_bar", o_bar, (n, 3), torch.float32), ("d_bar", d_bar, (n, 3), torch.float32),
+              ("t_bar", t_bar, (n, 3), torch.float32),
+              ("partial", partial, (bwd_blocks(n), 6 * nm + 3), torch.float32),
+              ("tris", tables["tris"], tables["tris"].shape, torch.float32),
+              ("sph", tables["sph"], tables["sph"].shape, torch.float32),
+              ("lights", tables["lights"], tables["lights"].shape, torch.float32)]
+    if alive_out is not None:
+        specs.append(("alive_out", alive_out, (n,), torch.bool))
+    if dev.type != "cuda":
+        raise ValueError(f"the backward kernel takes CUDA tensors, not {dev}")
+    if n >= 2**31:
+        raise ValueError(f"{n} lanes do not fit the kernel's int32 lane index")
+    for name, t, shape, dtype in specs:
+        if (t.shape != shape or t.dtype != dtype or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {tuple(shape)} {dtype} "
+                             f"tensor on {dev}")
+    _check_mats(tables)
+    if tables["mats"].device != dev or tables["mats_eval"].device != dev:
+        raise ValueError("the material tables must lie on the state's device")
+    flags, rr_scale = _flags(settings, state.bounce)
+    sky = tables["sky"]
+    rc = cuda_build.fn("bounce_bwd")(
+        _ptr(state.o), _ptr(state.d), _ptr(state.throughput), _ptr(state.alive),
+        _ptr(state.lane), *(_ptr(t) for t in cot), _ptr(o_bar), _ptr(d_bar), _ptr(t_bar),
+        _ptr(partial), _ptr(alive_out), _ptr(tables["tris"]), tables["tris"].shape[0],
+        _ptr(tables["sph"]), tables["sph"].shape[0], _ptr(tables["mats"]),
+        _ptr(tables["mats_eval"]), nm, _ptr(tables["lights"]), tables["lights"].shape[0],
+        tables["total_area"], n, state.bounce, int(seed) & 0xFFFFFFFF, flags, rr_scale,
+        sky[0], sky[1], sky[2], cuda_build.stream(),
+    )
+    cuda_build.check(rc, "bounce_bwd")
+    bounce_bwd.launches += 1
+
+
+bounce_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The differentiable path's steps
+# ---------------------------------------------------------------------------
+
+
+class _Bounce:
+    """What one differentiable bounce needs besides its tensors: the scene
+    (sampling table, geometry, lights), settings, seed, bounce index and,
+    on the card, the packed tables."""
+
+    def __init__(self, scene, settings, seed, bounce, tables):
+        self.scene, self.settings, self.seed = scene, settings, seed
+        self.bounce, self.tables = bounce, tables
+
+    def scene_with(self, sky):
+        return dataclasses.replace(self.scene, sky=dataclasses.replace(
+            self.scene.sky, color=sky))
+
+    def mats(self, mt_eval):
+        return materials_of_rows(mt_eval, self.scene.materials.type_id)
+
+    def state(self, o, d, thr, acc, alive, lane):
+        from ..integrator.wavefront import PathState
+
+        return PathState(self.bounce, o, d, thr, acc, alive,
+                         torch.zeros((), dtype=torch.float32, device=o.device), lane)
+
+    def forward(self, state, mt_eval, sky):
+        """The bounce: the kernel with both tables on the card, the plain
+        step on the CPU."""
+        from ..integrator.wavefront import plain_bounce_step
+
+        if state.o.device.type == "cpu":
+            return plain_bounce_step(self.scene_with(sky), self.settings, self.seed,
+                                     state, self.mats(mt_eval))
+        tables = dict(self.tables, mats_eval=mt_eval.detach().contiguous())
+        return bounce(self.scene, self.settings, self.seed, state, tables)
+
+
+def _cotangents(like, grads):
+    return [torch.zeros_like(like) if g is None else g.contiguous() for g in grads]
+
+
+class _BounceFn(torch.autograd.Function):
+    """The forward of both differentiable steps: the bounce kernel with two
+    tables (the plain step on the CPU), saving only the input state, the
+    evaluation rows and the sky colour. Each subclass is one backward."""
+
+    @staticmethod
+    def forward(ctx, o, d, thr, acc, mt_eval, sky, alive, lane, run):
+        st = run.forward(run.state(o, d, thr, acc, alive, lane), mt_eval, sky)
+        ctx.save_for_backward(o, d, thr, acc, alive, lane, mt_eval, sky)
+        ctx.run = run
+        ctx.mark_non_differentiable(st.alive, st.rays_traced)
+        return st.o, st.d, st.throughput, st.accum, st.alive, st.rays_traced
+
+
+class _BounceDiff(_BounceFn):
+    """One bounce with the hand-written backward: the backward kernel and
+    the sum of its row table (`plain_bounce_bwd` on the CPU). Gradients go
+    to o, d, throughput, accum (passed through), the evaluation rows'
+    colours and emissions, and the sky colour."""
+
+    @staticmethod
+    def backward(ctx, g_o, g_d, g_t, g_a, _alive, _rays):
+        o, d, thr, _acc, alive, lane, mt_eval, sky = ctx.saved_tensors
+        run = ctx.run
+        g_o, g_d, g_t, g_a = _cotangents(o, (g_o, g_d, g_t, g_a))
+        state = run.state(o, d, thr, None, alive, lane)
+        if o.device.type == "cpu":
+            gr = plain_bounce_bwd(run.scene_with(sky), run.settings, run.seed, state,
+                                  g_o, g_d, g_t, g_a, run.mats(mt_eval))
+        else:
+            tables = dict(run.tables, mats_eval=mt_eval.detach().contiguous())
+            gr = bounce_bwd(run.scene, run.settings, run.seed, state, g_o, g_d, g_t, g_a,
+                            tables)
+        mt_bar = torch.zeros_like(mt_eval)
+        mt_bar[:, 1:4] = gr.albedo
+        mt_bar[:, 4:7] = gr.emission
+        return (gr.o, gr.d, gr.throughput, g_a, mt_bar, gr.sky.to(sky.dtype),
+                None, None, None)
+
+
+class _BounceHybrid(_BounceFn):
+    """One bounce of the hybrid step: backward autograd of the plain step
+    recomputed on the saved input state (the JAX package's
+    `make_step_diff_hybrid`)."""
+
+    @staticmethod
+    def backward(ctx, g_o, g_d, g_t, g_a, _alive, _rays):
+        from ..integrator.wavefront import plain_bounce_step
+
+        o, d, thr, acc, alive, lane, mt_eval, sky = ctx.saved_tensors
+        run = ctx.run
+        ins = [x.detach().requires_grad_() for x in (o, d, thr, acc, mt_eval, sky)]
+        with torch.enable_grad():
+            st = plain_bounce_step(run.scene_with(ins[5]), run.settings, run.seed,
+                                   run.state(*ins[:4], alive, lane), run.mats(ins[4]))
+            outs = (st.o, st.d, st.throughput, st.accum)
+            grads = torch.autograd.grad(outs, ins, _cotangents(o, (g_o, g_d, g_t, g_a)),
+                                        allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, ins)]
+        return (*grads, None, None, None)
+
+
+def make_step_diff(scene: SceneData, settings: RenderSettings, seed,
+                   mats_eval: MaterialTable | None = None):
+    """The differentiable path's PathState -> PathState step, as the JAX
+    package's `make_bounce_step` dispatches it: `scene.materials` is the
+    detached sampling table, `mats_eval` (default the same) the live
+    evaluation table, and `scene.sky.color` the live sky.
+
+    * a Lambert-only brute-force scene under a uniform sky
+      (`diff_supported`): the bounce kernel forward with the hand-written
+      backward kernel (`_BounceDiff`);
+    * any other brute-force scene under a uniform sky (`hybrid_supported`):
+      the bounce kernel forward with autograd of the plain step backward
+      (`_BounceHybrid`);
+    * anything else: autograd of the plain step on the CPU; on the card
+      it raises NotImplementedError with the reason (a later slice).
+    On the CPU the first two run the plain step forward. Both have their
+    own backward and keep only their input state, so the step carries
+    `fused_diff = True` and the loop does not checkpoint it."""
+    from ..integrator.wavefront import PathState, plain_bounce_step
+
+    if mats_eval is None:
+        mats_eval = scene.materials
+    on_card = scene.geometry.tri_p0.device.type != "cpu"
+    if diff_supported(scene, settings)[0]:
+        fn = _BounceDiff
+    elif hybrid_supported(scene, settings)[0]:
+        fn = _BounceHybrid
+    elif on_card:
+        _require(hybrid_supported(scene, settings))
+    else:
+        def plain(state):
+            return plain_bounce_step(scene, settings, seed, state, mats_eval)
+
+        plain.fused_diff = False
+        return plain
+    tables = pack_tables(scene) if on_card else None
+    mt_eval = material_rows(mats_eval)
+    sky = scene.sky.color
+
+    def step(state: PathState) -> PathState:
+        run = _Bounce(scene, settings, seed, state.bounce, tables)
+        o, d, thr, acc, alive, rays = fn.apply(
+            state.o, state.d, state.throughput, state.accum, mt_eval, sky,
+            state.alive, state.lane, run)
+        return PathState(state.bounce + 1, o, d, thr, acc, alive,
+                         state.rays_traced + rays, state.lane)
+
+    step.fused_diff = True
+    return step
 
 
 def reset_counts():
@@ -435,9 +785,10 @@ def reset_counts():
     bounce.launches = 0
     cuda_bvh.intersect_tris.launches = 0
     bounce_bvh.launches = 0
+    bounce_bwd.launches = 0
 
 
 def counts() -> dict:
     return {"raygen": generate_rays.launches, "bounce": bounce.launches,
             "bvh": cuda_bvh.intersect_tris.launches,
-            "bounce_bvh": bounce_bvh.launches}
+            "bounce_bvh": bounce_bvh.launches, "bounce_bwd": bounce_bwd.launches}

@@ -29,7 +29,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 # library name -> source; each exports `llr_<name>`.
 SOURCES = {"raygen": "raygen.cu", "bounce": "bounce.cu", "bvh": "bvh.cu",
-           "bounce_bvh": "bounce_bvh.cu"}
+           "bounce_bvh": "bounce_bvh.cu", "bounce_bwd": "bounce_bwd.cu"}
 HEADERS = ("common.cuh", "bounce_body.cuh", "bvh_walk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,14 +45,17 @@ _F = ctypes.c_float
 # longitude offset, then the stream.
 _SKY = [_F, _F, _F, _P, _I, _I, _F, _P]
 # The bounce entry points start with the PathState in and out (12 pointers)
-# and share this tail: spheres, materials, lights, total light area, lanes,
-# bounce, seed, flags, RR scale.
-_SHADE = [_P, _I, _P, _I, _P, _I, _F, _I, _I, _U, _I, _F]
+# and share this tail: spheres, the sampling and evaluation material tables,
+# lights, total light area, lanes, bounce, seed, flags, RR scale.
+_SHADE = [_P, _I, _P, _P, _I, _P, _I, _F, _I, _I, _U, _I, _F]
 ARGTYPES = {
     "llr_raygen": [_P, _P, _P, _P, _I, _U, _U, _I, _I, _I, _I, _I, _P, _P],
     "llr_bounce": [_P] * 12 + [_P, _I] + _SHADE + _SKY,
     "llr_bounce_bvh": [_P] * 12 + [_P, _P, _P, _I] + _SHADE + _SKY,
     "llr_bvh": [_P] * 7 + [_I, _I] + [_P] * 4 + [_P],
+    # state in (5), cotangents in (4), out (5), triangles, then _SHADE, the
+    # uniform sky colour and the stream.
+    "llr_bounce_bwd": [_P] * 14 + [_P, _I] + _SHADE + [_F, _F, _F, _P],
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -182,11 +182,14 @@ def _sphere_brute(o, d, geom: Geometry, best_t, best_p):
 
 def _finish(o, d, nt: int, ns: int, best_t, best_p, best_m, best_f):
     """(Hit, ShadePoint) from a fold's winner: its t, prim, material row and
-    face normal (triangles) or center (spheres)."""
+    face normal (triangles) or center (spheres). A lane whose query was
+    not asked (cap -inf) gets its origin as position: o + d * -inf would
+    put inf or NaN into the backward pass of every masked use of it."""
     hitmask = best_p >= 0
     hit = Hit(t=best_t, prim=torch.where(hitmask, best_p,
                                          torch.full_like(best_p, -1)))
-    pos = o + d * best_t[..., None]
+    t_pos = torch.where(torch.isfinite(best_t), best_t, torch.zeros_like(best_t))
+    pos = o + d * t_pos[..., None]
     if ns:
         sn = vec.safe_normalize(pos - best_f)
         normal = torch.where((best_p < nt)[..., None], best_f, sn)

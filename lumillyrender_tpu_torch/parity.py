@@ -85,3 +85,79 @@ def failures(m: dict, rtol: float = LIMITS["rtol"]) -> list[str]:
     if not abs(m["rays"][0] - m["rays"][1]) <= m["rays_allowed"]:
         f.append(f"rays {m['rays'][0]} vs {m['rays'][1]}")
     return f
+
+
+# ---------------------------------------------------------------------------
+# Backward passes of one bounce
+# ---------------------------------------------------------------------------
+
+# The JAX package's gate for its backward kernel
+# (tests/test_fused_bounce.py::_compare_bwd): a lane is comparable unless
+# its forward outputs show a flipped decision (tie: the hit point moved by
+# more than 1e-5 of the scene scale; checker texel; NEE verdict: accum off
+# by more than 1e-4 relative; throughput likewise) or its sampled direction
+# grazes the surface (|cos| < 3e-2, where autodiff's two cancelling cos/pdf
+# terms are noise and the closed form is exactly zero). At least 85% of
+# lanes must be comparable. Cotangents agree to 8e-3 of their largest
+# magnitude on comparable lanes, the table gradients to 5e-3.
+BWD_LIMITS = dict(tie=1e-5, flip=1e-4, grazing=3e-2, comparable=0.85,
+                  lanes=8e-3, tables=5e-3)
+# Two backward passes of the port are held tighter than the JAX gate.
+# The backward kernel follows plain_bounce_bwd formula for formula: its
+# cotangents measured bit-equal on the H100, its tables within 7e-7 (the
+# order of the sums). Autograd of the plain step differs from the closed
+# form where cos/pdf cancels: measured within 7.5e-6 on the H100 and 1.7e-5
+# against the JAX package's autodiff on the CPU.
+KERNEL_BWD_RTOL = 1e-5
+AUTOGRAD_BWD_RTOL = 1e-4
+
+
+def bwd_comparable(ref, got, normal) -> np.ndarray:
+    """(N,) bool: the lanes on which two backward passes of one bounce can
+    be compared. `ref` and `got` are the two forward outputs of the bounce
+    (PathStates or dicts of their fields) and `normal` the (N,3) hit normal
+    of its input rays."""
+    o_r, o_g = _np(ref, "o"), _np(got, "o")
+    scale = np.abs(o_r).max() + 1.0
+    tie = (np.abs(o_r - o_g).max(axis=1) / scale) > BWD_LIMITS["tie"]
+    ck = lambda o: bsdf.checker(torch.from_numpy(o[:, 0].copy()),
+                                torch.from_numpy(o[:, 2].copy())).numpy()
+    bad = tie | (ck(o_r) != ck(o_g))
+    for name in ("accum", "throughput"):
+        a, b = _np(ref, name), _np(got, name)
+        rel = np.abs(a - b) / np.maximum(np.abs(a), 1.0)
+        bad |= rel.max(axis=1) > BWD_LIMITS["flip"]
+    if isinstance(normal, torch.Tensor):
+        normal = normal.detach().cpu().numpy()
+    cos = np.abs(np.sum(_np(ref, "d") * normal, axis=1))
+    bad |= _np(ref, "alive") & (cos < BWD_LIMITS["grazing"])
+    return ~bad
+
+
+def bwd_errors(ref, got, keep) -> dict:
+    """Relative errors of `got`'s backward pass against `ref`'s (objects or
+    dicts with o, d, throughput ((N,3) lane cotangents), albedo, emission
+    ((nm,3)) and sky ((3,))): each lane cotangent's largest difference on
+    the `keep` lanes over its largest magnitude there, each table's over
+    its largest magnitude (floored at 1e-6)."""
+    out = {}
+    for name in ("o", "d", "throughput", "albedo", "emission", "sky"):
+        a = _np(ref, name).astype(np.float64)
+        b = _np(got, name).astype(np.float64)
+        if name in ("o", "d", "throughput"):
+            a, b = a[keep], b[keep]
+        out[name] = float(np.abs(a - b).max(initial=0.0)
+                          / max(np.abs(a).max(initial=0.0), 1e-6))
+    return out
+
+
+def bwd_failures(errs: dict, rtol: float | None = None) -> list[str]:
+    """The tolerances that `errs` (from `bwd_errors`) breaks: `rtol` on
+    every cotangent and table, or BWD_LIMITS' by default."""
+    f = []
+    for name, v in errs.items():
+        lim = rtol if rtol is not None else BWD_LIMITS[
+            "lanes" if name in ("o", "d", "throughput") else "tables"]
+        if not v < lim:
+            f.append(f"{name} rel {v:.2e} (limit {lim:g})")
+    return f

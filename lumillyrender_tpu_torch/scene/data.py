@@ -166,6 +166,15 @@ class RenderSettings:
     # Material type ids present in the scene's table: the BSDF code prunes
     # absent families (ops/bsdf.py). None = assume all five.
     mat_types: tuple | None = None
+    # Recompute policy of the differentiable bounce loop
+    # (integrator/wavefront.py::trace_film): "full" checkpoints every
+    # bounce (only its input state is kept, the bounce is recomputed in the
+    # backward pass), "none" keeps every bounce's intermediates, "hybrid"
+    # keeps them on stages of at most 48k lanes and checkpoints wider ones.
+    # It acts only on steps without a backward of their own (autograd of
+    # the plain step: BVH and IBL scenes, on the CPU until they reach the
+    # card, whose memory and recompute time will set the threshold).
+    bwd_remat: str = "full"
 
 
 _SCENE_TYPES = {

@@ -15,7 +15,11 @@ Tolerances: raygen's random bits and origins are exact, directions within
 division being compared with PyTorch's); the BVH kernel's prim ids and
 shadow verdicts exactly, its t within 1e-6 relative (its operations are the
 plain walk's, in the same order, without contraction); the bounces follow
-lumillyrender_tpu_torch/parity.py's lane rules.
+lumillyrender_tpu_torch/parity.py's lane rules; the backward kernel is
+compared on its backward rules' lanes (`bwd_comparable`) within
+`parity.KERNEL_BWD_RTOL` (1e-5) of each cotangent's and table's largest
+magnitude, with the recomputed alive' equal to the forward kernel's on
+every lane and two runs bit-equal.
 """
 
 from pathlib import Path
@@ -29,7 +33,8 @@ from lumillyrender_tpu_torch.convert import state_from_numpy
 from lumillyrender_tpu_torch.integrator import wavefront
 from lumillyrender_tpu_torch.constants import EPS, INF
 from lumillyrender_tpu_torch.ops import cuda_bounce, cuda_bvh
-from lumillyrender_tpu_torch.ops.intersect import _walk_tris
+from lumillyrender_tpu_torch.ops.bounce_bwd import plain_bounce_bwd
+from lumillyrender_tpu_torch.ops.intersect import _walk_tris, intersect_shade_brute
 from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
 
 ASSETS = Path(__file__).resolve().parents[1] / "assets"
@@ -166,3 +171,129 @@ def test_bounce_kernel_ibl_matches_plain(card):
     want = wavefront.plain_bounce_step(c.data, c.settings, 77, st)
     torch.cuda.synchronize()
     assert parity.failures(parity.agreement(want, got)) == []
+
+
+def _perturbed(mats, seed):
+    """A second material table: the colours and emissions of `mats` moved
+    by up to 20%."""
+    import dataclasses
+
+    g = torch.Generator().manual_seed(seed)
+    f = lambda t: t * (1.0 + 0.2 * (torch.rand(t.shape, generator=g) - 0.5)).to(t.device)
+    return dataclasses.replace(mats, color=f(mats.color), emission=f(mats.emission))
+
+
+@pytest.mark.cuda
+def test_two_table_bounce_kernel_matches_plain(card):
+    """The bounce kernel with an evaluation table that differs from the
+    sampling table, against the plain step given the same two tables."""
+    c = compile_scene_file(ASSETS / "new-cbox.toml", device=card)
+    me = _perturbed(c.data.materials, 1)
+    st = state_from_numpy(3, *_random_state(c.data, 65536, 21), device=card)
+    got = cuda_bounce.bounce(c.data, c.settings, 77, st, mats_eval=me)
+    want = wavefront.plain_bounce_step(c.data, c.settings, 77, st, me)
+    same = wavefront.plain_bounce_step(c.data, c.settings, 77, st)
+    torch.cuda.synchronize()
+    assert parity.failures(parity.agreement(want, got)) == []
+    assert not torch.equal(want.accum, same.accum)
+
+
+@pytest.mark.cuda
+def test_one_table_and_two_equal_tables_agree(card):
+    """The kernel loads a hit's row once when it is given one table twice
+    (the forward render) and twice when given two; with equal contents both
+    give the same bits."""
+    c = compile_scene_file(ASSETS / "new-cbox.toml", device=card)
+    st = state_from_numpy(3, *_random_state(c.data, 65536, 22), device=card)
+    tables = cuda_bounce.pack_tables(c.data)
+    assert tables["mats_eval"].data_ptr() == tables["mats"].data_ptr()
+    one = cuda_bounce.bounce(c.data, c.settings, 77, st, tables)
+    two = cuda_bounce.bounce(c.data, c.settings, 77, st,
+                             dict(tables, mats_eval=tables["mats"].clone()))
+    torch.cuda.synchronize()
+    for k in ("o", "d", "throughput", "accum", "alive", "rays_traced"):
+        assert torch.equal(getattr(one, k), getattr(two, k)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["new-cbox", "debug-nee", "primitive"])
+def test_bounce_bwd_kernel_matches_plain(card, name):
+    c = compile_scene_file(ASSETS / f"{name}.toml", device=card)
+    me = _perturbed(c.data.materials, 2)
+    n = 4096
+    st = state_from_numpy(6, *_random_state(c.data, n, 31), device=card)
+    rng = np.random.default_rng(32)
+    cot = [torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(card)
+           for _ in range(4)]
+    fwd_k = cuda_bounce.bounce(c.data, c.settings, 77, st, mats_eval=me)
+    fwd_p = wavefront.plain_bounce_step(c.data, c.settings, 77, st, me)
+    _, sp = intersect_shade_brute(st.o, st.d, c.data.geometry)
+    keep = parity.bwd_comparable(fwd_p, fwd_k, sp.normal)
+    assert keep.mean() > parity.BWD_LIMITS["comparable"]
+    cot = [g * torch.from_numpy(keep).to(card)[:, None] for g in cot]
+    got = cuda_bounce.bounce_bwd(c.data, c.settings, 77, st, *cot, mats_eval=me,
+                                 with_alive=True)
+    again = cuda_bounce.bounce_bwd(c.data, c.settings, 77, st, *cot, mats_eval=me)
+    want = plain_bounce_bwd(c.data, c.settings, 77, st, *cot, mats_eval=me)
+    torch.cuda.synchronize()
+    assert torch.equal(got.alive, fwd_k.alive)
+    errs = parity.bwd_errors(want, got, keep)
+    assert parity.bwd_failures(errs, parity.KERNEL_BWD_RTOL) == []
+    for k in ("o", "d", "throughput", "albedo", "emission", "sky"):
+        assert torch.equal(getattr(got, k), getattr(again, k)), k
+
+
+@pytest.mark.cuda
+def test_raygen_sees_an_in_place_camera_update(card):
+    """The raygen kernel's camera argument is cached on the CameraData; an
+    in-place update of a camera tensor (an optimizer step) must reach the
+    next launch."""
+    c = compile_scene_file(ASSETS / "new-cbox.toml", device=card)
+    n = 4096
+    o0, d0, _, _ = cuda_bounce.generate_rays(c.data, c.settings, 5, 0, n)
+    with torch.no_grad():
+        c.data.camera.position.add_(torch.tensor([3.0, -2.0, 1.0], device=card))
+    o, d, _, _ = cuda_bounce.generate_rays(c.data, c.settings, 5, 0, n)
+    o_p, d_p, _, _ = cuda_bounce.plain_generate_rays(c.data, c.settings, 5, 0, n)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_p)
+    assert (d - d_p).abs().max().item() < 2e-7
+    assert (d - d0).abs().max().item() > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["welcome-geo", "ibl-material"])
+def test_diff_step_refuses_what_no_kernel_serves(card, name):
+    """A differentiable BVH or IBL scene has no kernel path on the card yet:
+    the step raises with a reason instead of running the plain step."""
+    c = compile_scene_file(ASSETS / f"{name}.toml", device=card)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        cuda_bounce.make_step_diff(c.data, c.settings, 77)
+
+
+@pytest.mark.cuda
+def test_training_step_runs_the_kernels_and_repeats_bit_for_bit(card):
+    """film_and_grads on a small new-cbox: 80 bounce and 80 backward
+    launches per step, no raygen, and two runs give the same loss and
+    gradients bit for bit (no float atomics on the path)."""
+    import dataclasses
+
+    from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
+    from lumillyrender_tpu_torch.diff.render import leaves
+
+    c = compile_scene_file(ASSETS / "new-cbox.toml", device=card)
+    st = dataclasses.replace(c.settings, width=64, height=64)
+    p = params_of(c.data)
+    target = render_diff(c.data, st, p, 3, 4).detach()
+    p = p._replace(materials=dataclasses.replace(p.materials, color=p.materials.color * 0.8))
+    cuda_bounce.reset_counts()
+    l1, f1, g1 = film_and_grads(c.data, st, p, target, 3, 4)
+    launches = cuda_bounce.counts()
+    l2, f2, g2 = film_and_grads(c.data, st, p, target, 3, 4)
+    torch.cuda.synchronize()
+    assert launches["bounce"] == 80 and launches["bounce_bwd"] == 80, launches
+    assert launches["raygen"] == 0
+    assert torch.equal(l1, l2) and torch.equal(f1, f2)
+    for a, b in zip(leaves(g1), leaves(g2)):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+    assert g1.materials.color.abs().sum() > 0
