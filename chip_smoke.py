@@ -4,7 +4,7 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the five kernels from csrc/ (one nvcc per source, in parallel);
+  2. build the seven kernels from csrc/ (one nvcc per source, in parallel);
   3. raygen kernel vs its plain version: random bits equal, o/d/g errors;
   4. brute-force bounce kernel vs the plain step on random states of seven
      scenes at the main path's full width (2,097,152 lanes), bounces 0, 3,
@@ -49,8 +49,29 @@ Phases, in order; any failure exits non-zero:
  13. timing of the training step: fwd+bwd rays/s at 4 and 16 spp per step
      (rays counted as bench.py counts them), step time, idle share; the
      backward kernel's bare launch at each stage width of a 16-spp step
-     beside its bound and the plain backward's time; then one
-     `{"kernels": [...]}` line.
+     beside its bound and the plain backward's time;
+ 14. huge meshes: the packet walks' registers and spill (built in phase 2),
+     the native BVH builder, terrain-1m and terrain-1.5m written
+     (scene/terrain.py at 1M and 1.5M triangles, 256^2 x 64 spp pt-direct);
+ 15. the wide kernel (csrc/bvh_wide.cu) vs the plain walk on terrain-1m
+     (K=128, admitted as wide): camera rays of one 2,097,152-lane chunk,
+     random and axis-aligned rays at 2,097,152 lanes, with and without the
+     shade outputs, capped occlusion queries, sorted and unsorted; t
+     bit-equal, prims equal but on exact-t ties, verdicts equal;
+ 16. the streamed kernel (csrc/bvh_streamed.cu) the same way on
+     terrain-1.5m (K=128, not admitted as wide: the auto route) and on
+     terrain-1m built at K=32 with streamed=True;
+ 17. the BVH bounce kernel at K=128 vs the plain step on random states of
+     terrain-1m at 2,097,152 lanes, bounces 0, 3, 7, 70;
+ 18. through the CLI, with launch counts and no plain step or walk:
+     terrain-1m pt-direct at full size and its --aov depth and normal
+     renders (bvh_wide), terrain-1.5m --aov depth (bvh_streamed); 64^2 x 4
+     spp films of terrain-1m, kernel path twice and plain path once;
+ 19. timing on terrain-1m: forward rays/s and idle share; the BVH bounce
+     at K=128 at each stage width; the wide, streamed and per-thread walks
+     (and the streamed one on terrain-1.5m), sorted and unsorted, on camera
+     and random rays at 2,097,152 lanes beside their bounds and the plain
+     walk; the sort itself; then one `{"kernels": [...]}` line.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
@@ -1052,6 +1073,457 @@ def time_bwd_widths(cb, spp, p, target):
 
 
 
+# ---------------------------------------------------------------------------
+# Huge meshes (phases 14-19)
+# ---------------------------------------------------------------------------
+
+# The terrain scene of scene/terrain.py at 1M and 1.5M triangles; from
+# 650,000 triangles the compiler builds 128-wide leaves. Written where
+# nothing is copied back (the package's build directory).
+BIG_TRIS = {"terrain-1m": 1_000_000, "terrain-1.5m": 1_500_000}
+SCENES_DIR = REPO / "lumillyrender_tpu_torch" / "build" / "scenes"
+TIE_SHARE = 0.004  # parity.py's tie-flip limit
+RAY_BYTES = 40  # o, d, t_init, t_stop in; t, prim out
+SHADE_BYTES = 16  # mat and normal out
+
+
+def write_terrain(name, n_tris):
+    """terrain-<n>'s obj and TOML (pt-direct, 256^2 x 64 spp, uniform sky,
+    the camera that frames the terrain): (toml path, seconds)."""
+    from lumillyrender_tpu_torch.scene import terrain
+
+    t0 = time.monotonic()
+    d = SCENES_DIR / name
+    d.mkdir(parents=True, exist_ok=True)
+    terrain.write_obj(d / "terrain.obj", *terrain.make_terrain(n_tris)[:3])
+    (d / "scene.toml").write_text(terrain.terrain_scene_toml(
+        "pt-direct", resolution=(256, 256), samples=64, **terrain.TERRAIN_VIEW))
+    return d / "scene.toml", time.monotonic() - t0
+
+
+def terrain_rays(c, n):
+    """Ray sets at n lanes of a compiled terrain scene: the camera rays of
+    its first chunk, random rays (origins in the root box, uniform
+    directions) and axis-aligned rays from origins on node planes."""
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    cam_o, cam_d, _, _ = cuda_bounce.generate_rays(c.data, c.settings, SEED, 0, n)
+    (rnd_o, rnd_d), (ax_o, ax_d) = welcome_rays(c.data.bvh, n, 9)
+    return {"camera": (cam_o, cam_d), "random": (rnd_o, rnd_d), "axis-aligned": (ax_o, ax_d)}
+
+
+class PlainWalks:
+    """The plain walk on a BVH's ray sets, each run once on every lane, with
+    its node visits, triangle tests and distinct leaves counted and its
+    time kept (~2 s for 2,097,152 random rays of terrain-1m on an H100)."""
+
+    def __init__(self, bvh, n):
+        from lumillyrender_tpu_torch.constants import INF
+
+        self.bvh, self.n, self.runs = bvh, n, {}
+        self.inf = torch.full((n,), INF, device="cuda")
+        self.never = torch.full((n,), -INF, device="cuda")
+
+    def __call__(self, key, o, d, t0, ts, shade):
+        """(outputs, visits, tests, distinct leaves, ms) of the plain walk."""
+        from lumillyrender_tpu_torch.ops import intersect
+
+        if key not in self.runs:
+            torch.cuda.synchronize()
+            start = time.monotonic()
+            with intersect.count_work() as work:
+                outs = intersect._walk_tris(o, d, t0, ts, self.bvh, shade)
+            torch.cuda.synchronize()
+            ms = (time.monotonic() - start) * 1e3
+            seen = 0 if work["seen"] is None else int(work["seen"].sum())
+            self.runs[key] = (outs, float(work["visits"]), float(work["tests"]), seen, ms)
+        return self.runs[key]
+
+
+def compare_walk(tag, got, want, dist=None):
+    """A kernel's outputs against the plain walk's: t bit-equal, prim equal
+    but on exact-t ties (fewer than TIE_SHARE of the lanes), mat and normal
+    equal where prims are; with `dist` (a capped occlusion query) the
+    verdicts |t - dist| <= EPS equal on every lane. Fails otherwise;
+    returns the record."""
+    from lumillyrender_tpu_torch.constants import EPS
+
+    t_g, p_g = got[0], got[1]
+    t_w, p_w = want[0], want[1]
+    n = t_w.shape[0]
+    flip = p_g != p_w
+    rec = dict(lanes=n, hits=int((p_w >= 0).sum()), t_mismatch=int((t_g != t_w).sum()),
+               prim_ties=int((flip & (t_g == t_w)).sum()),
+               prim_off_ties=int((flip & (t_g != t_w)).sum()),
+               max_abs=(t_g - t_w).abs().max().item())
+    if len(got) > 2:
+        same = ~flip
+        rec["mat_mismatch"] = int((got[2] != want[2])[same].sum())
+        rec["n_max_abs"] = (got[3] - want[3])[same].abs().max().item()
+    if dist is not None:
+        verdict = lambda t, p: (p >= 0) & ((t - dist).abs() <= EPS)
+        rec["verdict_flips"] = int((verdict(t_g, p_g) != verdict(t_w, p_w)).sum())
+        rec["visible"] = int(verdict(t_w, p_w).sum())
+    print(f"{tag}: " + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                                 for k, v in rec.items()))
+    if (rec["t_mismatch"] or rec["prim_off_ties"] or rec["prim_ties"] >= TIE_SHARE * n
+            or rec.get("mat_mismatch") or rec.get("n_max_abs", 0.0) > 0.0
+            or rec.get("verdict_flips")):
+        fail(f"{tag}: the kernel disagrees with the plain walk: {rec}")
+    return rec
+
+
+def sorted_walk(fn, bvh, o, d, t0, ts, tables, shade):
+    """`fn` on the lanes sorted by the ray sort key, back in lane order."""
+    from lumillyrender_tpu_torch.ops import intersect
+
+    perm, inv = intersect.sort_rays(o, d, bvh)
+    outs = fn(o[perm], d[perm], t0[perm], ts[perm], tables, shade)
+    return tuple(x[inv] for x in outs)
+
+
+def check_walk_sets(tag, fn, bvh, rays, plain, tables, sets):
+    """Phases 15-16: `fn` (a kernel wrapper taking (o, d, t0, ts, tables,
+    shade)) unsorted and sorted against the plain walk on each of `sets`
+    ((name, ray set, shade, occlusion)); capped occlusion queries put half
+    the lanes' light on their nearest hit. Returns {case: record}."""
+    from lumillyrender_tpu_torch.constants import EPS
+
+    out = {}
+    for name, key, shade, occl in sets:
+        o, d = rays[key]
+        t0, ts, dist = plain.inf, plain.never, None
+        if occl:
+            near = plain(f"{key}|False|False", o, d, plain.inf, plain.never, False)[0]
+            rng = np.random.default_rng(8)
+            dist = torch.from_numpy(rng.uniform(0.5, 40.0, size=plain.n).astype(np.float32)).cuda()
+            on = (near[1] >= 0) & (torch.arange(plain.n, device="cuda") % 2 == 0)
+            dist = torch.where(on, near[0], dist)
+            t0 = dist + 2.0 * EPS
+            ts = t0 - 4.0 * EPS
+        want = plain(f"{key}|{shade}|{occl}", o, d, t0, ts, shade)[0]
+        for order in ("unsorted", "sorted"):
+            got = (fn(o, d, t0, ts, tables, shade) if order == "unsorted"
+                   else sorted_walk(fn, bvh, o, d, t0, ts, tables, shade))
+            torch.cuda.synchronize()
+            out[f"{name}, {order}"] = compare_walk(f"{tag}, {name}, {order}", got, want, dist)
+    return out
+
+
+def walk_bound(n, shade, visits, tests, leaves, k):
+    """(bound ms, bytes ms, operations ms) of a nearest-triangle query over
+    n rays: the rays in and out, each distinct leaf the walks visit read
+    once (nine geometry rows and the prim row of K floats), and the plain
+    walk's slab and triangle tests."""
+    b = n * (RAY_BYTES + (SHADE_BYTES if shade else 0)) + leaves * 10 * k * 4
+    bytes_ms = b / HBM_BYTES_PER_S * 1e3
+    ops_ms = (SLAB_FLOPS * visits + TRI_FLOPS * tests) / FP32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), bytes_ms, ops_ms
+
+
+def time_walk(tag, launch, bvh, o, d, plain, key, sort, tables):
+    """A walk kernel's bare launch (CUDA graph + events) at n lanes on the
+    rays, sorted or not, beside its bound and the plain walk's time and
+    counts (phases 15-16 ran the plain walk on these rays)."""
+    from lumillyrender_tpu_torch.ops import intersect
+
+    n = o.shape[0]
+    if sort:
+        perm, _ = intersect.sort_rays(o, d, bvh)
+        o, d = o[perm].contiguous(), d[perm].contiguous()
+    out = (torch.empty(n, dtype=torch.float32, device="cuda"),
+           torch.empty(n, dtype=torch.int32, device="cuda"))
+    ms = graph_ms(lambda: launch(o, d, plain.inf, plain.never, tables, out))
+    # The counts and the plain walk's time do not depend on the lanes' order.
+    _, visits, tests, leaves, plain_ms = plain(key, o, d, plain.inf, plain.never, False)
+    bound, b_ms, o_ms = walk_bound(n, False, visits, tests, leaves, tables["k"])
+    rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms,
+               bound_by="bytes" if b_ms >= o_ms else "operations", visits_per_ray=visits / n,
+               tests_per_ray=tests / n, leaves=leaves)
+    print(f"{tag}: {ms:.4f} ms/launch (bare launch), bound {bound:.4f} ms (bytes {b_ms:.4f}, "
+          f"operations {o_ms:.4f}: {visits / n:.2f} node visits, {tests / n:.1f} triangle "
+          f"tests per ray, {leaves} distinct leaves); plain walk {plain_ms:.1f} ms")
+    return rec
+
+
+def time_k128_bounce(c, spp_chunk):
+    """Kernel 4 on a K=128 scene: one chunk traced with the kernel alone,
+    the first state of each stage width kept; on each, the kernel against
+    the plain step (parity.py's rules), its bare launch beside the bound of
+    that launch (counted as bounce_bounds counts) and the plain step's time
+    (host clock, one run). Returns {width: record}."""
+    from lumillyrender_tpu_torch import parity
+    from lumillyrender_tpu_torch.integrator import wavefront
+    from lumillyrender_tpu_torch.ops import cuda_bounce, intersect
+
+    st = c.settings
+    tables = cuda_bounce.pack_tables(c.data, bvh=True)
+    first, per_width = {}, {}
+
+    def step(state):
+        w = state.o.shape[0]
+        first.setdefault(w, state)
+        per_width[w] = per_width.get(w, 0) + 1
+        return cuda_bounce.bounce_bvh(c.data, st, SEED, state, tables)
+
+    trace_chunk(c, 0, spp_chunk, cuda_bounce.generate_rays, step)
+    torch.cuda.synchronize()
+    recs = {}
+    for w, s0 in sorted(first.items(), reverse=True):
+        zero = dataclasses.replace(s0, rays_traced=torch.zeros_like(s0.rays_traced))
+        got = cuda_bounce.bounce_bvh(c.data, st, SEED, zero, tables)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with intersect.count_work() as work:
+            want = wavefront.plain_bounce_step(c.data, st, SEED, zero)
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t0) * 1e3
+        m = parity.agreement(want, got)
+        bad = parity.failures(m)
+        if bad:
+            fail(f"BVH bounce kernel at K=128 vs plain on the main path, width {w}: {bad}")
+        b = bounce_bounds(c, [(w, s0.alive.sum(), got.rays_traced, work["visits"],
+                               work["tests"])], brute=False)[w]
+        f3 = lambda: torch.empty((w, 3), dtype=torch.float32, device="cuda")
+        out = (f3(), f3(), f3(), f3(), torch.empty(w, dtype=torch.bool, device="cuda"),
+               torch.empty(w, dtype=torch.float32, device="cuda"))
+        ms = graph_ms(lambda: cuda_bounce.bounce_bvh_launch(c.data, st, SEED, s0, tables, out))
+        recs[w] = dict(launches_per_chunk=per_width[w], ms=ms, bound_ms=b["bound_ms"],
+                       bytes_ms=b["bytes_ms"], ops_ms=b["ops_ms"], plain_ms=plain_ms,
+                       live=float(s0.alive.sum()), rays=b["rays"], visits=b["visits"],
+                       tests=b["tests"], tie=m["tie"], accum_flip=m["accum_flip"])
+        print(f"BVH bounce at K=128, width {w} ({per_width[w]} launches/chunk; the stage's "
+              f"first state, {recs[w]['live']:.0f} live): kernel {ms:.4f} ms/launch (bare "
+              f"launch), bound {b['bound_ms']:.4f} ms (bytes {b['bytes_ms']:.4f}, operations "
+              f"{b['ops_ms']:.4f}); plain step {plain_ms:.1f} ms; tie {m['tie']:.4%}, accum "
+              f"flips {m['accum_flip']:.4%}")
+    return recs
+
+
+def huge_meshes(card, lap):
+    """Phases 14-19: huge meshes (terrain-1m, terrain-1.5m) through the
+    packet walks and the BVH bounce at K=128. Returns (report, the two new
+    kernels' entries)."""
+    from lumillyrender_tpu_torch.accel import native
+    from lumillyrender_tpu_torch.accel.pack import build_tri_bvh
+    from lumillyrender_tpu_torch.integrator import wavefront
+    from lumillyrender_tpu_torch.integrator.render import (
+        camera_lanes, default_spp_chunk, render,
+    )
+    from lumillyrender_tpu_torch.ops import cuda_bounce, cuda_build, cuda_bvh, intersect
+    from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
+    from lumillyrender_tpu_torch.scene.data import Bvh, tensor_of
+
+    dev = torch.device("cuda")
+    rep = {}
+
+    phase("14 build (the packet walks, the native BVH builder; the terrain scenes)")
+    t0 = time.monotonic()
+    for nm in ("bvh_wide", "bvh_streamed"):
+        lines = [ln.strip() for ln in cuda_build.LOGS.get(nm, "").splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"{nm} (built in phase 2): " + ("; ".join(lines) or "built before this run"))
+    t = time.monotonic()
+    native.build()
+    print(f"native BVH builder: {native.lib_path().name} in {time.monotonic() - t:.1f}s")
+    paths = {}
+    for name, n_tris in BIG_TRIS.items():
+        paths[name], secs = write_terrain(name, n_tris)
+        print(f"{name}: make_terrain({n_tris}) and its obj in {secs:.1f}s")
+    lap("huge-mesh build", t0)
+
+    def load(name):
+        t = time.monotonic()
+        c = compile_scene_file(paths[name], device=dev)
+        b = c.data.bvh
+        print(f"{name}: {c.stats['polygons']} triangles, compiled in "
+              f"{time.monotonic() - t:.1f}s (BVH {c.stats['bvh_seconds']:.1f}s): "
+              f"{b.node_min.shape[0]} nodes, {b.blk_p0.shape[0]} leaves of "
+              f"{b.blk_p0.shape[1]}, wide tables {cuda_bvh.wide_table_bytes(b)} B, "
+              f"route {intersect.bvh_route(b)}")
+        return c
+
+    sets = [("camera rays", "camera", False, False),
+            ("camera rays, shade", "camera", True, False),
+            ("random rays", "random", False, False),
+            ("random rays, shade", "random", True, False),
+            ("random rays, occlusion", "random", False, True),
+            ("axis-aligned rays, shade", "axis-aligned", True, False)]
+
+    phase("15 wide-leaf kernel vs the plain walk (terrain-1m, K=128, admitted as wide)")
+    t0 = time.monotonic()
+    c1 = load("terrain-1m")
+    bvh1 = c1.data.bvh
+    if intersect.bvh_route(bvh1) != ("wide", True):
+        fail(f"terrain-1m does not route to the wide walk: {intersect.bvh_route(bvh1)}")
+    spp_chunk = default_spp_chunk(c1.settings)
+    n = c1.settings.width * c1.settings.height * spp_chunk
+    rays1 = terrain_rays(c1, n)
+    tab1 = cuda_bvh.tables_of(bvh1)
+    plain1 = PlainWalks(bvh1, n)
+    rep["wide_checks"] = check_walk_sets("kernel 7", cuda_bvh.intersect_tris_wide, bvh1,
+                                         rays1, plain1, tab1, sets)
+    lap("wide parity", t0)
+
+    phase("16 streamed kernel vs the plain walk (terrain-1.5m, auto route; terrain-1m at "
+          "K=32, streamed=True)")
+    t0 = time.monotonic()
+    c15 = load("terrain-1.5m")
+    bvh15 = c15.data.bvh
+    if intersect.bvh_route(bvh15) != ("streamed", True):
+        fail(f"terrain-1.5m does not route to the streamed walk: {intersect.bvh_route(bvh15)}")
+    rays15 = terrain_rays(c15, n)
+    tab15 = cuda_bvh.tables_of(bvh15)
+    plain15 = PlainWalks(bvh15, n)
+
+    def auto(o, d, t0_, ts, tables, shade):
+        return intersect._walk_routed(o, d, t0_, ts, bvh15, shade, None, False)
+
+    cuda_bounce.reset_counts()
+    rep["streamed_checks"] = check_walk_sets("kernel 6, terrain-1.5m", auto, bvh15, rays15,
+                                             plain15, tab15, sets)
+    launches = cuda_bounce.counts()
+    if launches["bvh_streamed"] != 2 * len(sets) or launches["bvh_wide"] or launches["bvh"]:
+        fail(f"terrain-1.5m's auto route launched {launches}")
+    t = time.monotonic()
+    g = c1.data.geometry
+    arrays = build_tri_bvh(*(getattr(g, f).cpu().numpy() for f in (
+        "tri_p0", "tri_e1", "tri_e2", "tri_n", "tri_mat")), max_leaf=32)
+    bvh32 = Bvh(**{f: tensor_of(v).to(dev) for f, v in arrays.items()})
+    print(f"terrain-1m at K=32: built in {time.monotonic() - t:.1f}s, {bvh32.node_min.shape[0]} "
+          f"nodes, {bvh32.blk_p0.shape[0]} leaves, route with streamed=True "
+          f"{intersect.bvh_route(bvh32, streamed=True)}")
+    plain32 = PlainWalks(bvh32, n)
+
+    def streamed32(o, d, t0_, ts, tables, shade):
+        return intersect._walk_routed(o, d, t0_, ts, bvh32, shade, True, False)
+
+    rep["streamed_k32_checks"] = check_walk_sets(
+        "kernel 6, terrain-1m K=32", streamed32, bvh32, rays1, plain32,
+        cuda_bvh.tables_of(bvh32), [sets[0], sets[3], sets[4]])
+    lap("streamed parity", t0)
+
+    phase("17 BVH bounce kernel at K=128 vs the plain step (terrain-1m)")
+    t0 = time.monotonic()
+    rep["bounce_checks"] = {}
+    for b in (0, 3, 7, 70):
+        rep["bounce_checks"][b] = check_bounce(f"terrain-1m@b{b}", c1, cuda_bounce.bounce_bvh,
+                                               random_state(c1.data, n, 4000 * b + 11, b))
+    lap("K=128 bounce parity", t0)
+
+    phase("18 end-to-end renders (CLI: terrain-1m 256^2 x 64 spp pt-direct, --aov depth, "
+          "--aov normal; terrain-1.5m --aov depth)")
+    t0 = time.monotonic()
+    chunks = -(-c1.settings.spp // spp_chunk)
+    scene1, scene15 = str(paths["terrain-1m"]), str(paths["terrain-1.5m"])
+    pt, l_pt = run_main_path(
+        "terrain-1m", [scene1, "--out", str(OUT / "terrain-1m.png")],
+        want=("raygen", "bounce_bvh"), must_be_zero=("bounce", "bvh", "bvh_wide", "bvh_streamed"))
+    _, l_depth = run_main_path(
+        "terrain-1m --aov depth", [scene1, "--aov", "depth", "--out",
+                                   str(OUT / "terrain-1m-depth.png")],
+        want=("raygen", "bvh_wide"), must_be_zero=("bounce", "bounce_bvh", "bvh", "bvh_streamed"))
+    _, l_normal = run_main_path(
+        "terrain-1m --aov normal", [scene1, "--aov", "normal", "--out",
+                                    str(OUT / "terrain-1m-normal.png")],
+        want=("raygen", "bvh_wide"), must_be_zero=("bounce", "bounce_bvh", "bvh", "bvh_streamed"))
+    _, l_15 = run_main_path(
+        "terrain-1.5m --aov depth", [scene15, "--aov", "depth", "--out",
+                                     str(OUT / "terrain-1.5m-depth.png")],
+        want=("raygen", "bvh_streamed"), must_be_zero=("bounce", "bounce_bvh", "bvh", "bvh_wide"))
+    for tag, got, k in (("--aov depth", l_depth, "bvh_wide"), ("--aov normal", l_normal, "bvh_wide"),
+                        ("terrain-1.5m --aov depth", l_15, "bvh_streamed")):
+        if got[k] < chunks:
+            fail(f"{tag}: {got[k]} {k} launches for {chunks} chunks")
+    small = dataclasses.replace(c1, settings=dataclasses.replace(
+        c1.settings, width=64, height=64, spp=4))
+    f_k = render(small, seed=SEED, device=dev).film
+    f_k2 = render(small, seed=SEED, device=dev).film
+    f_p, _ = trace_chunk(
+        small, 0, 4, cuda_bounce.plain_generate_rays,
+        lambda s: wavefront.plain_bounce_step(small.data, small.settings, SEED, s))
+    f_p = f_p.reshape(64, 64, 3).cpu().numpy() / 4
+    films = check_films("terrain-1m 64^2x4", {
+        "kernel run vs kernel run": (f_k2, f_k), "kernel path vs plain path": (f_k, f_p)})
+    small_aov = dataclasses.replace(small, settings=dataclasses.replace(
+        small.settings, integrator="depth"))
+    a_k = render(small_aov, seed=SEED, device=dev).film
+    o, d, _, _ = cuda_bounce.generate_rays(small.data, small_aov.settings, SEED, 0, 64 * 64 * 4)
+    hit = intersect.intersect(o, d, small.data.geometry, small.data.bvh,
+                              c1.settings.intersector, plain=True)
+    _, px, py = camera_lanes(small_aov.settings, 0, o.shape[0], dev)
+    depth = torch.where(hit.prim >= 0, hit.t, torch.zeros_like(hit.t))
+    a_p = torch.zeros(64 * 64, dtype=torch.float32, device=dev)
+    a_p.index_add_(0, py * 64 + px, depth)
+    a_p = (a_p / 4).reshape(64, 64, 1).expand(64, 64, 3).cpu().numpy()
+    aov_films = check_films("terrain-1m depth 64^2x4", {"kernel path vs plain walk": (a_k, a_p)})
+    rep.update(cli=dict(pt_direct=dict(launches=l_pt, rays_per_s=pt.rays_per_second,
+                                       seconds=pt.seconds, chunks=chunks),
+                        depth_launches=l_depth, normal_launches=l_normal,
+                        terrain_15m_depth_launches=l_15),
+               film_checks=films, aov_film_checks=aov_films)
+    lap("huge-mesh renders", t0)
+
+    phase(f"19 timing (terrain-1m 256^2, {spp_chunk} spp per chunk; the walks at {n} lanes)")
+    t0 = time.monotonic()
+    rate, chunk_ms = chunk_rate(c1, spp_chunk, 2, 0)
+    print(f"forward: 2 chunks, {chunk_ms:.4f} ms each: {rate:.6e} rays/s  [{card}]")
+    idle, busy, _ = idle_share(c1, spp_chunk, chunk_ms, 10 * spp_chunk)
+    rep["forward"] = dict(rays_per_s=rate, chunk_ms=chunk_ms, idle_share=idle, busy_ms=busy)
+    rep["bounce_k128"] = {str(w): r for w, r in time_k128_bounce(c1, spp_chunk).items()}
+    t7, t6, t3, t6_15 = {}, {}, {}, {}
+    for key in ("camera", "random"):
+        for srt in (False, True):
+            case = f"{key} rays, {'sorted' if srt else 'unsorted'}"
+            t7[case] = time_walk(f"kernel 7 (bvh_wide), terrain-1m, {case}",
+                                 cuda_bvh.intersect_tris_wide_launch, bvh1, *rays1[key],
+                                 plain1, f"{key}|False|False", srt, tab1)
+            t6[case] = time_walk(f"kernel 6 (bvh_streamed), terrain-1m K=128, {case}",
+                                 cuda_bvh.intersect_tris_streamed_launch, bvh1, *rays1[key],
+                                 plain1, f"{key}|False|False", srt, tab1)
+            t3[case] = time_walk(f"kernel 3 (bvh, per thread), terrain-1m K=128, {case}",
+                                 cuda_bvh.intersect_tris_launch, bvh1, *rays1[key],
+                                 plain1, f"{key}|False|False", srt, tab1)
+            t6_15[case] = time_walk(f"kernel 6 (bvh_streamed), terrain-1.5m, {case}",
+                                    cuda_bvh.intersect_tris_streamed_launch, bvh15,
+                                    *rays15[key], plain15, f"{key}|False|False", srt, tab15)
+    sort_ms = {}
+    for key in ("camera", "random"):
+        o, d = rays1[key]
+
+        def sort_and_gather():
+            perm, inv = intersect.sort_rays(o, d, bvh1)
+            return o[perm], d[perm], plain1.inf[perm], plain1.never[perm], inv
+
+        sort_ms[key] = events_ms(sort_and_gather, 5)
+        print(f"sort of {n} {key} rays (key, stable argsort, inverse, four gathers): "
+              f"{sort_ms[key]:.4f} ms")
+    rep.update(wide_timing=t7, streamed_timing_1m=t6, per_thread_timing_1m=t3,
+               streamed_timing_15m=t6_15, sort_ms=sort_ms)
+    lap("huge-mesh timing", t0)
+
+    def err(checks):
+        return max(r["max_abs"] for r in checks.values())
+
+    main7, main6 = t7["camera rays, sorted"], t6_15["camera rays, sorted"]
+    kernels = [
+        dict(name="bvh_wide", route="cuda",
+             source="lumillyrender_tpu_torch/csrc/bvh_wide.cu",
+             replaces="lumillyrender_tpu/ops/pallas_bvh_wide.py:76",
+             launches=l_depth["bvh_wide"], max_abs_err=err(rep["wide_checks"]),
+             ms=main7["ms"], plain_ms=main7["plain_ms"], bound_ms=main7["bound_ms"],
+             bound_by=main7["bound_by"], library_ms=None),
+        dict(name="bvh_streamed", route="cuda",
+             source="lumillyrender_tpu_torch/csrc/bvh_streamed.cu",
+             replaces="lumillyrender_tpu/ops/pallas_bvh.py:264",
+             launches=l_15["bvh_streamed"],
+             max_abs_err=max(err(rep["streamed_checks"]), err(rep["streamed_k32_checks"])),
+             ms=main6["ms"], plain_ms=main6["plain_ms"], bound_ms=main6["bound_ms"],
+             bound_by=main6["bound_by"], library_ms=None),
+    ]
+    return rep, kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -1436,6 +1908,8 @@ def main() -> int:
     for spp in training:
         del training[spp]["params"], training[spp]["target"]
 
+    big_report, big_kernels = huge_meshes(card, lap)
+
     kernels = [
         dict(name="raygen", route="cuda",
              source="lumillyrender_tpu_torch/csrc/raygen.cu",
@@ -1467,7 +1941,7 @@ def main() -> int:
              launches=training[16]["launches"]["bounce_bwd"], max_abs_err=bwd_err,
              ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bwd_bound, bound_by=bwd_by,
              library_ms=None),
-    ]
+    ] + big_kernels
     report = dict(
         card=card, new_cbox=cbox_report,
         welcome_geo=dict(
@@ -1485,7 +1959,8 @@ def main() -> int:
                       timing={str(k): v for k, v in train_timing.items()},
                       backward_by_width={str(w): {k: v for k, v in r.items()}
                                          for w, r in bwd_widths.items()}),
-        kernels=kernels, phase_seconds=secs, seconds=time.monotonic() - t_start)
+        huge_meshes=big_report, kernels=kernels, phase_seconds=secs,
+        seconds=time.monotonic() - t_start)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"\ntotal {time.monotonic() - t_start:.1f}s")
     print(card)

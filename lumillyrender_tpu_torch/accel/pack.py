@@ -1,24 +1,26 @@
 """Treelet packing: SAH range-leaves -> fixed-K contiguous blocks.
 
-Host-side. Converts `sah.build_ranges` output over a triangle table into the
+Host-side. Converts the native SAH builder's ranges (`accel/native.py`;
+its plain version is `sah.build_ranges`) over a triangle table into the
 `scene.data.Bvh` array set (numpy): node arrays plus (L, K, 3) triangle
 blocks with -1-padded original prim ids. Degenerate zero triangles pad block
 tails (a zero triangle's MT determinant is 0 -> always missed).
 
-Only the numpy builder is used. The BVH kernels (csrc/bvh_walk.cuh) read
-these arrays repacked by `ops/cuda_bvh.py::pack_bvh`.
+The BVH kernels (csrc/bvh_walk.cuh, csrc/packet_walk.cuh) read these arrays
+repacked by `ops/cuda_bvh.py::pack_bvh`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from . import sah
+from . import native
 
 TREELET_K = 32
 
-# Triangle count past which the scene compiler builds 128-wide leaves (the
-# compiled layout the BVH kernels will have to traverse).
+# Triangle count from which the scene compiler builds 128-wide leaves, as
+# the JAX package's compiler does; `ops/intersect.py::intersect_bvh` routes
+# such BVHs to the packet walks. The compiler reads it at call time.
 WIDE_MIN_TRIS = 650000
 
 
@@ -55,28 +57,30 @@ def build_tri_bvh(tri_p0, tri_e1, tri_e2, tri_n=None, tri_mat=None,
     maxs = np.maximum(np.maximum(tri_p0, p1), p2)
     centers = (mins + maxs) / 2.0
 
-    rb = sah.build_ranges(mins, maxs, centers, max_leaf)
+    rb = native.build_ranges(mins, maxs, centers, max_leaf)
 
+    # Leaf b holds slots j < count of its range of the SAH permutation.
     leaves = np.nonzero(rb.leaf_start >= 0)[0]
     n_blocks = leaves.shape[0]
-    blk_p0 = np.zeros((n_blocks, k, 3), np.float32)
-    blk_e1 = np.zeros((n_blocks, k, 3), np.float32)
-    blk_e2 = np.zeros((n_blocks, k, 3), np.float32)
-    blk_n = np.zeros((n_blocks, k, 3), np.float32)
-    blk_prim = np.full((n_blocks, k), -1, np.int32)
-    blk_mat = np.full((n_blocks, k), -1, np.int32)
+    start = rb.leaf_start[leaves].astype(np.int64)
+    count = rb.leaf_count[leaves]
+    slot = np.arange(k)
+    used = slot[None, :] < count[:, None]  # (L, K)
+    ids = rb.perm[np.where(used, start[:, None] + slot[None, :], 0)]
+
+    def block(x, fill):
+        out = np.full((n_blocks, k) + x.shape[1:], fill, x.dtype)
+        out[used] = x[ids[used]]
+        return out
+
     node_leaf = np.full(rb.node_miss.shape[0], -1, np.int32)
-    for b, node in enumerate(leaves):
-        lo = rb.leaf_start[node]
-        n = rb.leaf_count[node]
-        ids = rb.perm[lo : lo + n]
-        blk_p0[b, :n] = tri_p0[ids]
-        blk_e1[b, :n] = tri_e1[ids]
-        blk_e2[b, :n] = tri_e2[ids]
-        blk_n[b, :n] = tri_n[ids]
-        blk_prim[b, :n] = ids
-        blk_mat[b, :n] = tri_mat[ids]
-        node_leaf[node] = b
+    node_leaf[leaves] = np.arange(n_blocks, dtype=np.int32)
+    blk_p0 = block(tri_p0.astype(np.float32), 0.0)
+    blk_e1 = block(tri_e1.astype(np.float32), 0.0)
+    blk_e2 = block(tri_e2.astype(np.float32), 0.0)
+    blk_n = block(tri_n.astype(np.float32), 0.0)
+    blk_prim = block(np.arange(t, dtype=np.int32), -1)
+    blk_mat = block(np.asarray(tri_mat, np.int32), -1)
 
     return dict(
         node_min=rb.node_min,

@@ -1,6 +1,7 @@
 // The per-thread stackless walk of the threaded treelet BVH, shared by the
 // standalone nearest-triangle kernel (bvh.cu) and the BVH bounce
-// (bounce_bvh.cu).
+// (bounce_bvh.cu), at any leaf width K; its slab test is also the packet
+// walks' (packet_walk.cuh).
 //
 // Replaces the TPU walk lumillyrender_tpu/ops/pallas_bvh.py::run_walk and
 // its leaf test _leaf_test. The TPU kernel walks a 2048-ray packet behind
@@ -19,7 +20,8 @@
 // explicitly.
 //
 // Tables (ops/cuda_bvh.py::pack_bvh), read from global memory (6.8 MB for
-// the 82k-triangle welcome-geo, resident in the 50 MB L2):
+// the 82k-triangle welcome-geo, resident in the 50 MB L2; ~82 MB for the
+// 1M-triangle terrain at K=128, which is not):
 //   nodes  (N, 8) float32: min 3 | max 3 | miss | leaf (links exact as floats)
 //   leaves (L, 12, K) float32, component-major: p0 3 | e1 3 | e2 3 | n 3
 //   ids    (L, 2, K) int32: prim | material row
@@ -64,6 +66,22 @@ __device__ __forceinline__ void leaf_test(const BvhTables& b, int leaf, V3 o, V3
   }
 }
 
+// The slab test of node row (r0, r1) = (min xyz, max x | max yz, miss, leaf)
+// against a ray: true when the ray meets the box ahead (tmin <= tmax,
+// tmax >= EPS, no NaN), with the entry distance in `tmin`. The caller
+// compares tmin with its own best t.
+__device__ __forceinline__ bool slab_hit(float4 r0, float4 r1, V3 o, float ix, float iy,
+                                         float iz, float& tmin) {
+  const float tax = (r0.x - o.x) * ix, tbx = (r0.w - o.x) * ix;
+  const float tay = (r0.y - o.y) * iy, tby = (r1.x - o.y) * iy;
+  const float taz = (r0.z - o.z) * iz, tbz = (r1.y - o.z) * iz;
+  const bool nan = isnan(tax) || isnan(tbx) || isnan(tay) || isnan(tby) || isnan(taz) ||
+                   isnan(tbz);
+  tmin = fmaxf(fmaxf(fminf(tax, tbx), fminf(tay, tby)), fminf(taz, tbz));
+  const float tmax = fminf(fminf(fmaxf(tax, tbx), fmaxf(tay, tby)), fmaxf(taz, tbz));
+  return !nan && tmin <= tmax && tmax >= LLR_EPS;
+}
+
 // Nearest triangle strictly closer than t_init; prim = -1 (t = t_init) when
 // none is.
 template <bool kShade>
@@ -75,14 +93,8 @@ __device__ __forceinline__ TriHit walk_tris(const BvhTables& b, V3 o, V3 d, floa
   while (cur >= 0 && h.t > t_stop) {
     const float4* row = reinterpret_cast<const float4*>(b.nodes + 8 * (size_t)cur);
     const float4 r0 = __ldg(row), r1 = __ldg(row + 1);  // min xyz, max x | max yz, miss, leaf
-    const float tax = (r0.x - o.x) * ix, tbx = (r0.w - o.x) * ix;
-    const float tay = (r0.y - o.y) * iy, tby = (r1.x - o.y) * iy;
-    const float taz = (r0.z - o.z) * iz, tbz = (r1.y - o.z) * iz;
-    const bool nan = isnan(tax) || isnan(tbx) || isnan(tay) || isnan(tby) || isnan(taz) ||
-                     isnan(tbz);
-    const float tmin = fmaxf(fmaxf(fminf(tax, tbx), fminf(tay, tby)), fminf(taz, tbz));
-    const float tmax = fminf(fminf(fmaxf(tax, tbx), fmaxf(tay, tby)), fmaxf(taz, tbz));
-    const bool box = !nan && tmin <= tmax && tmax >= LLR_EPS && tmin < h.t;
+    float tmin;
+    const bool box = slab_hit(r0, r1, o, ix, iy, iz, tmin) && tmin < h.t;
     const int miss = (int)r1.z, leaf = (int)r1.w;
     if (box && leaf >= 0) leaf_test<kShade>(b, leaf, o, d, h);
     cur = (box && leaf < 0) ? cur + 1 : miss;

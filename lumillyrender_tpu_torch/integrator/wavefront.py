@@ -342,7 +342,8 @@ def trace(scene: SceneData, settings: RenderSettings, o, d, lane, seed,
 def aov(scene: SceneData, settings: RenderSettings, o, d):
     """Debug AOV integrators (`scene.rs:48-62`): "normal" maps the hit
     normal to [0,1]^3, "depth" returns the hit distance (0 on miss). On a
-    BVH scene the triangle walk is the BVH kernel for CUDA tensors."""
+    BVH scene the triangle walk is the kernel `ops/intersect.py::bvh_route`
+    picks for CUDA tensors (per-thread, wide or streamed)."""
     hit = intersect(o, d, scene.geometry, scene.bvh, settings.intersector)
     sp = shade_point(o, d, hit, scene.geometry)
     if settings.integrator == "normal":

@@ -10,8 +10,8 @@
 * `bounce_bwd` wraps `csrc/bounce_bwd.cu`, the closed-form backward pass of
   one brute-force bounce on a Lambert scene; its plain version is
   `ops/bounce_bwd.py:plain_bounce_bwd`.
-* The BVH nearest-triangle kernel, `csrc/bvh.cu`, is wrapped in
-  `ops/cuda_bvh.py`.
+* The BVH nearest-triangle kernels, `csrc/bvh.cu`, `csrc/bvh_wide.cu` and
+  `csrc/bvh_streamed.cu`, are wrapped in `ops/cuda_bvh.py`.
 * `make_step_diff` builds the differentiable path's step: the bounce
   kernel forward with the backward kernel (`diff_supported`), or with
   autograd of the plain step (the hybrid, `hybrid_supported`).
@@ -21,7 +21,7 @@ tensors it launches its kernel or raises. The launch itself is
 `raygen_launch` / `bounce_launch` / `bounce_bvh_launch` /
 `bounce_bwd_launch` (preallocated outputs, nothing else on the device, so
 it can be timed alone). Each kernel has a launch counter, raised by one per
-launch and nowhere else; `counts()` reads all five and `reset_counts()`
+launch and nowhere else; `counts()` reads all seven and `reset_counts()`
 zeroes them. The kernels are built by `ops/cuda_build.py`.
 """
 
@@ -63,21 +63,6 @@ def raygen_supported(settings: RenderSettings) -> tuple[bool, str]:
     return True, ""
 
 
-def bvh_supported(scene: SceneData) -> tuple[bool, str]:
-    """(ok, reason) for the BVH kernels: treelets of TREELET_K (32)
-    triangles. The compiler builds 128-wide leaves for meshes of
-    WIDE_MIN_TRIS triangles or more; those need the wide-leaf kernel."""
-    from ..accel.pack import TREELET_K, WIDE_MIN_TRIS
-
-    k = scene.bvh.blk_p0.shape[1]
-    if k != TREELET_K:
-        return False, (f"a BVH of {k}-wide leaves (built for meshes of "
-                       f"{WIDE_MIN_TRIS} triangles or more) needs the "
-                       "wide-leaf BVH kernel, which comes in slice 4 "
-                       "(pallas_bvh_wide._kernel, queue 2 of ROADMAP.md)")
-    return True, ""
-
-
 def _shading_supported(settings: RenderSettings) -> tuple[bool, str]:
     """(ok, reason) for what both bounce kernels shade: pt or pt-direct
     under a uniform or IBL sky."""
@@ -93,30 +78,25 @@ def _shading_supported(settings: RenderSettings) -> tuple[bool, str]:
 
 def bounce_supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
     """(ok, reason) for the bounce kernels: pt or pt-direct under a uniform
-    or IBL sky, on a brute-force scene (bounce.cu) or a BVH scene of
-    32-wide leaves (bounce_bvh.cu). Lights and materials have no cap
-    (binary-search light pick, tables read from global memory)."""
-    ok, why = _shading_supported(settings)
-    if not ok:
-        return ok, why
-    if _use_brute(scene.geometry, settings.intersector, scene.bvh):
-        return True, ""
-    return bvh_supported(scene)
+    or IBL sky, on a brute-force scene (bounce.cu) or a BVH scene of any
+    leaf width (bounce_bvh.cu, whose per-thread walk serves the compiler's
+    32- and 128-wide leaves at any table size). Lights and materials have
+    no cap (binary-search light pick, tables read from global memory)."""
+    return _shading_supported(settings)
 
 
 def supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
     """(ok, reason): whether the card's forward path serves this scene:
     raygen, then the bounce kernels (pt, pt-direct) or, for the AOV
     integrators, `intersect` (PyTorch brute force, or the sphere pre-pass
-    and the BVH kernel). The reason names the later slice of the port that
+    and the BVH walk that `ops/intersect.py::bvh_route` picks: per-thread,
+    wide or streamed). The reason names the later slice of the port that
     will."""
     ok, why = raygen_supported(settings)
     if not ok:
         return ok, why
     if settings.integrator in ("normal", "depth"):
-        if _use_brute(scene.geometry, settings.intersector, scene.bvh):
-            return True, ""
-        return bvh_supported(scene)
+        return True, ""
     return bounce_supported(scene, settings)
 
 
@@ -350,7 +330,6 @@ def _launch(kernel: str, scene: SceneData, settings: RenderSettings, seed,
     _require(_shading_supported(settings))
     bvh = kernel == "bounce_bvh"
     if bvh:
-        _require(bvh_supported(scene))
         if "bvh" not in tables:
             raise ValueError("the BVH bounce needs pack_tables(scene, bvh=True)")
     n = state.o.shape[0]
@@ -784,6 +763,8 @@ def reset_counts():
     generate_rays.launches = 0
     bounce.launches = 0
     cuda_bvh.intersect_tris.launches = 0
+    cuda_bvh.intersect_tris_wide.launches = 0
+    cuda_bvh.intersect_tris_streamed.launches = 0
     bounce_bvh.launches = 0
     bounce_bwd.launches = 0
 
@@ -791,4 +772,6 @@ def reset_counts():
 def counts() -> dict:
     return {"raygen": generate_rays.launches, "bounce": bounce.launches,
             "bvh": cuda_bvh.intersect_tris.launches,
+            "bvh_wide": cuda_bvh.intersect_tris_wide.launches,
+            "bvh_streamed": cuda_bvh.intersect_tris_streamed.launches,
             "bounce_bvh": bounce_bvh.launches, "bounce_bwd": bounce_bwd.launches}

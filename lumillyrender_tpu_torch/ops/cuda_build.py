@@ -29,8 +29,9 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 # library name -> source; each exports `llr_<name>`.
 SOURCES = {"raygen": "raygen.cu", "bounce": "bounce.cu", "bvh": "bvh.cu",
-           "bounce_bvh": "bounce_bvh.cu", "bounce_bwd": "bounce_bwd.cu"}
-HEADERS = ("common.cuh", "bounce_body.cuh", "bvh_walk.cuh")
+           "bounce_bvh": "bounce_bvh.cu", "bounce_bwd": "bounce_bwd.cu",
+           "bvh_wide": "bvh_wide.cu", "bvh_streamed": "bvh_streamed.cu"}
+HEADERS = ("common.cuh", "bounce_body.cuh", "bvh_walk.cuh", "packet_walk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -53,12 +54,17 @@ ARGTYPES = {
     "llr_bounce": [_P] * 12 + [_P, _I] + _SHADE + _SKY,
     "llr_bounce_bvh": [_P] * 12 + [_P, _P, _P, _I] + _SHADE + _SKY,
     "llr_bvh": [_P] * 7 + [_I, _I] + [_P] * 4 + [_P],
+    "llr_bvh_wide": [_P] * 7 + [_I, _I] + [_P] * 4 + [_P],
+    "llr_bvh_streamed": [_P] * 7 + [_I, _I] + [_P] * 4 + [_P],
     # state in (5), cotangents in (4), out (5), triangles, then _SHADE, the
     # uniform sky colour and the stream.
     "llr_bounce_bwd": [_P] * 14 + [_P, _I] + _SHADE + [_F, _F, _F, _P],
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
+# nvcc's output of each source compiled by `build` in this process (with
+# `verbose`, ptxas's registers, shared memory and spills per kernel).
+LOGS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -101,6 +107,7 @@ def build(names=tuple(SOURCES), verbose: bool = False) -> dict:
     failed = []
     for nm, (p, tmp, out) in procs.items():
         log, _ = p.communicate()
+        LOGS[nm] = log
         seconds[nm] = time.monotonic() - t0
         if verbose and log:
             print(f"[nvcc {SOURCES[nm]}]\n{log}")

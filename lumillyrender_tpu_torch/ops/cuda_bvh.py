@@ -1,17 +1,27 @@
-"""Nearest-triangle queries through the BVH: the hand-written CUDA kernel
-csrc/bvh.cu (the counterpart of the JAX package's ops/pallas_bvh.py).
+"""Nearest-triangle queries through the BVH: three hand-written CUDA walks.
 
-* `pack_bvh(bvh)` builds the kernel's tables from a `Bvh`; `tables_of(bvh)`
-  packs once per Bvh object and keeps the result on it.
-* `intersect_tris(o, d, t_init, t_stop, tables, want_shade)` is the nearest
-  triangle strictly closer than `t_init` per lane, (t, prim[, mat, n]) with
-  prim = -1 (t = t_init) where none is. It launches the kernel for CUDA
-  tensors and runs the plain walk `ops/intersect.py::_walk_tris` for CPU
-  tensors, and is differentiable in o and d through the plane equation at
-  the detached winner (the JAX package's custom VJP,
-  `pallas_bvh.py::_make_diff_fn`).
-* `intersect_tris_launch` is the bare launch into preallocated outputs;
-  `intersect_tris.launches` counts launches.
+* `intersect_tris`: csrc/bvh.cu, one thread per ray with its own cursor
+  (the counterpart of the JAX package's `pallas_bvh._kernel`), any K.
+* `intersect_tris_wide`: csrc/bvh_wide.cu, a warp-packet walk over 128-wide
+  leaves staged in shared memory (the counterpart of
+  `pallas_bvh_wide._kernel`), K = 128.
+* `intersect_tris_streamed`: csrc/bvh_streamed.cu, the same packet walk
+  with each leaf copied by cp.async, double-buffered, while the walk goes on
+  (the counterpart of `pallas_bvh._kernel_streamed`), any K dividing 128.
+
+Each is the nearest triangle strictly closer than `t_init` per lane,
+stopping a lane once its best t is <= `t_stop`: (t, prim[, mat, n]) with
+prim = -1 (t = t_init) where none is. Each launches its kernel for CUDA
+tensors and runs the plain walk `ops/intersect.py::_walk_tris` for CPU
+tensors, and is differentiable in o and d through the plane equation at
+the detached winner (the JAX package's custom VJP,
+`pallas_bvh.py::_make_diff_fn`, `pallas_bvh_wide.py::_make_diff_fn`). Each
+has a bare launch into preallocated outputs (`*_launch`) and a launch
+counter (`.launches`), raised by that launch and nowhere else.
+
+`pack_bvh(bvh)` builds the kernels' tables from a `Bvh`; `tables_of(bvh)`
+packs once per Bvh object and keeps the result on it. `wide_admitted(bvh)`
+is the routing's "admitted as wide" (`ops/intersect.py::bvh_route`).
 """
 
 from __future__ import annotations
@@ -54,16 +64,41 @@ def tables_of(bvh: Bvh) -> dict:
     return tables
 
 
-def intersect_tris_launch(o, d, t_init, t_stop, tables: dict, out):
-    """The kernel alone: reads o, d (n,3), t_init, t_stop (n,) float32 and
-    writes `out` = (t (n,) float32, prim (n,) int32) or, for the shade
-    query, (t, prim, mat (n,) int32, n (n,3) float32), all contiguous on
-    one CUDA device. `intersect_tris` allocates these; this is the launch
-    it counts."""
+WIDE_K = 128
+# The JAX package's cap on the wide kernel's VMEM-resident tables
+# (`pallas_bvh_wide.WIDE_VMEM_BYTES`), kept so that a scene takes the same
+# walk in both packages. It is that package's routing on its TPU, not a
+# property of the H100; chip_smoke.py times both packet walks on both
+# terrains so that the card's own boundary can be set.
+WIDE_TABLE_BYTES = 96 * 1024 * 1024
+
+
+def wide_table_bytes(bvh: Bvh) -> int:
+    """The JAX package's `pallas_bvh_wide.table_vmem_bytes` of this BVH: its
+    chunk-major node table (8 rows of 128 nodes per chunk) and its leaf and
+    id tables (12 and 2 rows of 128 per leaf, each with 8 rows of tail
+    padding), in bytes."""
+    nn, nl = bvh.node_min.shape[0], bvh.blk_p0.shape[0]
+    return (-(-nn // 128) * 8 + (nl * 12 + 8) + (nl * 2 + 8)) * 128 * 4
+
+
+def wide_admitted(bvh: Bvh) -> bool:
+    """A K=128 BVH whose wide tables fit WIDE_TABLE_BYTES (the JAX package's
+    `pallas_bvh_wide.supported`)."""
+    return (bvh.blk_p0.shape[1] == WIDE_K
+            and wide_table_bytes(bvh) <= WIDE_TABLE_BYTES)
+
+
+_WALKS = {"bvh": "BVH", "bvh_wide": "wide BVH", "bvh_streamed": "streamed BVH"}
+
+
+def _launch(name: str, o, d, t_init, t_stop, tables: dict, out):
+    """Check the rays, outputs and tables, and launch `llr_<name>`."""
+    what = _WALKS[name]
     n = o.shape[0]
     dev = o.device
     if dev.type != "cuda":
-        raise ValueError(f"the BVH kernel takes CUDA tensors, not {dev}")
+        raise ValueError(f"the {what} kernel takes CUDA tensors, not {dev}")
     if n >= 2**31:
         raise ValueError(f"{n} lanes do not fit the kernel's int32 lane index")
     want_shade = len(out) == 4
@@ -78,18 +113,24 @@ def intersect_tris_launch(o, d, t_init, t_stop, tables: dict, out):
     elif len(out) != 2:
         raise ValueError("out is (t, prim) or (t, prim, mat, n)")
     k = tables["k"]
+    if name == "bvh_wide" and k != WIDE_K:
+        raise ValueError(f"the wide BVH kernel takes {WIDE_K}-wide leaves, not {k}")
+    if name == "bvh_streamed" and (k > 128 or 128 % k):
+        raise ValueError(f"the streamed BVH kernel takes leaves of a K that "
+                         f"divides 128, not {k}")
     nodes, leaves, ids = tables["nodes"], tables["leaves"], tables["ids"]
     specs += [("nodes", nodes, (nodes.shape[0], 8), torch.float32),
               ("leaves", leaves, (leaves.shape[0], 12, k), torch.float32),
               ("ids", ids, (leaves.shape[0], 2, k), torch.int32)]
-    for name, t, shape, dtype in specs:
+    for arg, t, shape, dtype in specs:
         if (t.shape != shape or t.dtype != dtype or t.device != dev
                 or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {shape} {dtype} "
+            raise ValueError(f"{arg} must be a contiguous {shape} {dtype} "
                              f"tensor on {dev}")
-    if nodes.data_ptr() % 16:
-        raise ValueError("the node table must be 16-byte aligned")
-    rc = cuda_build.fn("bvh")(
+    if nodes.data_ptr() % 16 or (name != "bvh" and (leaves.data_ptr() % 16
+                                                    or ids.data_ptr() % 16)):
+        raise ValueError("the BVH tables must be 16-byte aligned")
+    rc = cuda_build.fn(name)(
         cuda_build.ptr(o), cuda_build.ptr(d), cuda_build.ptr(t_init),
         cuda_build.ptr(t_stop), cuda_build.ptr(nodes), cuda_build.ptr(leaves),
         cuda_build.ptr(ids), k, n, cuda_build.ptr(out[0]),
@@ -98,11 +139,38 @@ def intersect_tris_launch(o, d, t_init, t_stop, tables: dict, out):
         cuda_build.ptr(out[3]) if want_shade else None,
         cuda_build.stream(),
     )
-    cuda_build.check(rc, "BVH")
+    cuda_build.check(rc, what)
+
+
+def intersect_tris_launch(o, d, t_init, t_stop, tables: dict, out):
+    """The per-thread kernel (csrc/bvh.cu) alone: reads o, d (n,3), t_init,
+    t_stop (n,) float32 and writes `out` = (t (n,) float32, prim (n,)
+    int32) or, for the shade query, (t, prim, mat (n,) int32, n (n,3)
+    float32), all contiguous on one CUDA device. `intersect_tris`
+    allocates these; this is the launch it counts."""
+    _launch("bvh", o, d, t_init, t_stop, tables, out)
     intersect_tris.launches += 1
 
 
-def _forward(o, d, t_init, t_stop, tables: dict, want_shade: bool):
+def intersect_tris_wide_launch(o, d, t_init, t_stop, tables: dict, out):
+    """The wide packet kernel (csrc/bvh_wide.cu) alone, as
+    `intersect_tris_launch`; K must be 128."""
+    _launch("bvh_wide", o, d, t_init, t_stop, tables, out)
+    intersect_tris_wide.launches += 1
+
+
+def intersect_tris_streamed_launch(o, d, t_init, t_stop, tables: dict, out):
+    """The streamed packet kernel (csrc/bvh_streamed.cu) alone, as
+    `intersect_tris_launch`; K must divide 128."""
+    _launch("bvh_streamed", o, d, t_init, t_stop, tables, out)
+    intersect_tris_streamed.launches += 1
+
+
+_LAUNCH = {"bvh": intersect_tris_launch, "bvh_wide": intersect_tris_wide_launch,
+           "bvh_streamed": intersect_tris_streamed_launch}
+
+
+def _forward(name, o, d, t_init, t_stop, tables: dict, want_shade: bool):
     if o.device.type == "cpu":
         return _walk_tris(o, d, t_init, t_stop, tables["bvh"], want_shade)
     n, dev = o.shape[0], o.device
@@ -111,8 +179,8 @@ def _forward(o, d, t_init, t_stop, tables: dict, want_shade: bool):
     if want_shade:
         out += (torch.empty(n, dtype=torch.int32, device=dev),
                 torch.empty((n, 3), dtype=torch.float32, device=dev))
-    intersect_tris_launch(o.contiguous(), d.contiguous(), t_init.contiguous(),
-                          t_stop.contiguous(), tables, out)
+    _LAUNCH[name](o.contiguous(), d.contiguous(), t_init.contiguous(),
+                  t_stop.contiguous(), tables, out)
     return out
 
 
@@ -124,8 +192,8 @@ class _TriHit(torch.autograd.Function):
     t_stop get no gradient (the JAX package's custom VJP)."""
 
     @staticmethod
-    def forward(ctx, o, d, t_init, t_stop, tables, want_shade):
-        outs = _forward(o, d, t_init, t_stop, tables, want_shade)
+    def forward(ctx, name, o, d, t_init, t_stop, tables, want_shade):
+        outs = _forward(name, o, d, t_init, t_stop, tables, want_shade)
         ctx.save_for_backward(d, outs[0], outs[1])
         ctx.tri_n = tables["tri_n"]
         ctx.mark_non_differentiable(*outs[1:])
@@ -142,15 +210,29 @@ class _TriHit(torch.autograd.Function):
                           torch.zeros_like(dn))
         o_bar = (-g_t * inv)[..., None] * nrm
         d_bar = (-g_t * t * inv)[..., None] * nrm
-        return o_bar, d_bar, None, None, None, None
+        return None, o_bar, d_bar, None, None, None, None
 
 
 def intersect_tris(o, d, t_init, t_stop, tables: dict, want_shade: bool = False):
     """Nearest triangle strictly closer than `t_init` per lane, stopping a
     lane once its best t is <= `t_stop`: (t, prim) or, with `want_shade`,
-    (t, prim, mat, n (N,3)). Launches the kernel for CUDA tensors (with
-    `tables` from `pack_bvh`); the plain walk for CPU tensors."""
-    return _TriHit.apply(o, d, t_init, t_stop, tables, want_shade)
+    (t, prim, mat, n (N,3)). Launches the per-thread kernel for CUDA
+    tensors (with `tables` from `pack_bvh`); the plain walk for CPU
+    tensors."""
+    return _TriHit.apply("bvh", o, d, t_init, t_stop, tables, want_shade)
+
+
+def intersect_tris_wide(o, d, t_init, t_stop, tables: dict, want_shade: bool = False):
+    """`intersect_tris` through the wide packet kernel (K = 128)."""
+    return _TriHit.apply("bvh_wide", o, d, t_init, t_stop, tables, want_shade)
+
+
+def intersect_tris_streamed(o, d, t_init, t_stop, tables: dict,
+                            want_shade: bool = False):
+    """`intersect_tris` through the streamed packet kernel (K divides 128)."""
+    return _TriHit.apply("bvh_streamed", o, d, t_init, t_stop, tables, want_shade)
 
 
 intersect_tris.launches = 0
+intersect_tris_wide.launches = 0
+intersect_tris_streamed.launches = 0

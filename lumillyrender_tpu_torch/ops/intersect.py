@@ -10,14 +10,38 @@ a strict `<`. That is the same winner as a sequential walk over the
 triangles in ascending order and then the spheres in ascending order.
 
 `intersect_bvh` is the JAX package's BVH contract: a brute sphere pre-pass
-seeds the best t, and the triangle walk (`_walk_tris`, the plain version of
-the CUDA kernel csrc/bvh.cu) keeps a triangle only when it is strictly
-closer, so a sphere wins a tie. The walk is a per-lane stackless walk of
-the threaded treelet BVH: every lane visits its own node sequence, in DFS
-order, and tests the triangles of each hit leaf in slot order with a
-strict `<`. That is the winner of the JAX package's XLA walk and packet
-kernel too: each of them visits a superset of a lane's leaves in the same
-order under the same rule.
+seeds the best t, and the triangle walk keeps a triangle only when it is
+strictly closer, so a sphere wins a tie. `_walk_tris` is the plain version
+of every BVH walk: a per-lane stackless walk of the threaded treelet BVH,
+where every lane visits its own node sequence, in DFS order, and tests the
+triangles of each hit leaf in slot order with a strict `<`. That is the
+winner of the JAX package's XLA walk and packet kernels too: each of them
+visits a superset of a lane's leaves in the same order under the same rule.
+
+The port's one routing rule for BVHs (`bvh_route`), for `intersect`,
+`intersect_shade` and `intersect_bvh` on any caller (the AOVs; the bounce
+kernels keep their own per-thread walk at every K):
+
+  =========================================  ===========================
+  BVH                                        triangle walk
+  =========================================  ===========================
+  K=32 (or any K but 128)                    csrc/bvh.cu (per-thread),
+                                             unsorted
+  K=128, admitted as wide                    csrc/bvh_wide.cu (packet),
+                                             sorted
+  K=128, not admitted as wide                csrc/bvh_streamed.cu
+                                             (packet), sorted
+  any K dividing 128, `streamed=True`        csrc/bvh_streamed.cu, sorted
+  =========================================  ===========================
+
+"Admitted as wide" is `cuda_bvh.wide_admitted`, the JAX package's own
+decision (`pallas_bvh_wide.supported`), kept so that a scene takes the same
+kernel in both packages. `streamed=False` keeps a K=128 BVH off the
+streamed walk (wide if admitted, else the per-thread walk). `reorder` means
+one thing everywhere: None sorts the rays by `_ray_sort_key` before a
+packet walk (wide, streamed) and not before the per-thread walk, True
+sorts, False does not. The sort changes only the order in which lanes are
+walked, never a lane's result.
 """
 
 from __future__ import annotations
@@ -223,10 +247,11 @@ _work: dict | None = None
 def count_work():
     """Sum the node visits (slab tests) and triangle tests of every plain
     BVH walk run inside the block into the yielded dict, as
-    {"visits": int, "tests": int or a 0-d tensor on the walk's device}; the
-    kernels' bounds count these."""
+    {"visits": int, "tests": int or a 0-d tensor on the walk's device,
+    "seen": None or a bool mask over the walked BVH's leaves, True for each
+    leaf some lane tested}; the kernels' bounds count these."""
     global _work
-    _work = {"visits": 0, "tests": 0}
+    _work = {"visits": 0, "tests": 0, "seen": None}
     try:
         yield _work
     finally:
@@ -235,7 +260,8 @@ def count_work():
 
 def _walk_tris(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool):
     """Nearest triangle strictly closer than `t_init` per lane, walking the
-    threaded BVH; the plain version of the CUDA kernel csrc/bvh.cu.
+    threaded BVH; the plain version of the CUDA walks csrc/bvh.cu,
+    csrc/bvh_wide.cu and csrc/bvh_streamed.cu, at any K.
 
     Each lane holds a node cursor (0 = root). A step runs the slab test of
     the cursor's box against the lane's own best t: a hit inner node moves
@@ -308,11 +334,90 @@ def _walk_tris(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool):
                                         best_n[lanes])
         if work is not None:
             work["tests"] += (prim >= 0).sum()
+            if work["seen"] is None:
+                work["seen"] = torch.zeros(bvh.blk_prim.shape[0], dtype=torch.bool,
+                                           device=dev)
+            work["seen"][blk] = True
     return (best_t, best_p) + ((best_m, best_n) if want_shade else ())
 
 
+def _spread3(x):
+    """Spread the low 10 bits of x (int64) so bit i lands at bit 3i (Morton
+    part1by2; the JAX package's `_spread3` on uint32)."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def _ray_sort_key(o, d, bvh: Bvh, bits: int = 6):
+    """Packet-coherence sort key (int64), bit for bit the JAX package's:
+    [direction octant (3 b) | Morton code of the origin's cell (3*bits b)]
+    over the root box. Rays that leave one cell in one octant walk nearly
+    the same nodes, so a warp of them shares its packet's boxes. The
+    quantisation divides by a tensor (IEEE on both devices; see
+    ops/sky.py::ibl_texel)."""
+    lo = bvh.node_min[0]
+    span = torch.clamp(bvh.node_max[0] - lo, min=1e-20)
+    q = torch.clamp((o - lo) / span * float(1 << bits), 0.0,
+                    float((1 << bits) - 1)).to(torch.int64)
+    m = _spread3(q[:, 0]) | (_spread3(q[:, 1]) << 1) | (_spread3(q[:, 2]) << 2)
+    octant = ((d[:, 0] > 0).long() * 4 + (d[:, 1] > 0).long() * 2
+              + (d[:, 2] > 0).long())
+    return (octant << (3 * bits)) | m
+
+
+def sort_rays(o, d, bvh: Bvh):
+    """(perm, inv): `perm` orders the lanes by `_ray_sort_key` (a stable
+    sort, as `jnp.argsort` is), and `x[perm][inv]` is x again."""
+    perm = torch.argsort(_ray_sort_key(o, d, bvh), stable=True)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    return perm, inv
+
+
+def bvh_route(bvh: Bvh, streamed: bool | None = None,
+              reorder: bool | None = None) -> tuple[str, bool]:
+    """(walk, sort) by the routing rule of this module's docstring: walk
+    is "thread" (csrc/bvh.cu), "wide" (csrc/bvh_wide.cu) or "streamed"
+    (csrc/bvh_streamed.cu)."""
+    from . import cuda_bvh
+
+    k = bvh.blk_p0.shape[1]
+    if streamed:
+        if k > 128 or 128 % k:
+            raise ValueError(f"the streamed walk takes leaves of a K that "
+                             f"divides 128, not {k}")
+        walk = "streamed"
+    elif k == cuda_bvh.WIDE_K:
+        walk = ("wide" if cuda_bvh.wide_admitted(bvh)
+                else "thread" if streamed is False else "streamed")
+    else:
+        walk = "thread"
+    return walk, (walk != "thread") if reorder is None else reorder
+
+
+def _walk_routed(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool,
+                 streamed, reorder):
+    """The triangle walk `bvh_route` picks, on the sorted lanes where it
+    sorts; the results in the callers' lane order."""
+    from . import cuda_bvh
+
+    walk, sort = bvh_route(bvh, streamed, reorder)
+    fn = {"thread": cuda_bvh.intersect_tris, "wide": cuda_bvh.intersect_tris_wide,
+          "streamed": cuda_bvh.intersect_tris_streamed}[walk]
+    tables = cuda_bvh.tables_of(bvh)
+    if not sort:
+        return fn(o, d, t_init, t_stop, tables, want_shade)
+    perm, inv = sort_rays(o.detach(), d.detach(), bvh)
+    outs = fn(o[perm], d[perm], t_init[perm], t_stop[perm], tables, want_shade)
+    return tuple(x[inv] for x in outs)
+
+
 def intersect_bvh(o, d, geom: Geometry, bvh: Bvh, want_shade: bool = False,
-                  t_cap=None, occlusion: bool = False, plain: bool = False):
+                  t_cap=None, occlusion: bool = False, plain: bool = False,
+                  streamed: bool | None = None, reorder: bool | None = None):
     """Nearest hit through the BVH (the JAX package's `intersect_bvh`
     contract). o,d: (N,3).
 
@@ -321,9 +426,10 @@ def intersect_bvh(o, d, geom: Geometry, bvh: Bvh, want_shade: bool = False,
     than that best. `occlusion=True` lets a lane stop once any hit lies
     below `t_cap - 4*EPS`: such a hit settles a shadow verdict (|t - dist|
     <= EPS with t_cap = dist + 2*EPS) as occluded, so its t need not be the
-    nearest. The walk is `cuda_bvh.intersect_tris` (the kernel for CUDA
-    tensors, differentiable through the plane equation) or, with `plain`,
-    the plain walk `_walk_tris` on any device.
+    nearest. The walk is the one `bvh_route(bvh, streamed, reorder)` picks
+    (a kernel for CUDA tensors, its plain version for CPU tensors; each
+    differentiable through the plane equation) or, with `plain`, the plain
+    walk `_walk_tris` on any device, unsorted.
 
     Returns Hit, or (Hit, ShadePoint) with `want_shade`."""
     n = o.shape[0]
@@ -340,11 +446,8 @@ def intersect_bvh(o, d, geom: Geometry, bvh: Bvh, want_shade: bool = False,
         if plain:
             outs = _walk_tris(o, d, best_t.detach(), stop, bvh, want_shade)
         else:
-            from . import cuda_bvh
-
-            outs = cuda_bvh.intersect_tris(o, d, best_t.detach(), stop,
-                                           cuda_bvh.tables_of(bvh),
-                                           want_shade)
+            outs = _walk_routed(o, d, best_t.detach(), stop, bvh, want_shade,
+                                streamed, reorder)
         won = outs[1] >= 0
         best_t = torch.where(won, outs[0], best_t)
         best_p = torch.where(won, outs[1], best_p)
@@ -367,22 +470,26 @@ def _use_brute(geom: Geometry, mode: str, bvh: Bvh | None = None) -> bool:
 
 
 def intersect(o, d, geom: Geometry, bvh: Bvh, mode: str = "auto",
-              plain: bool = False) -> Hit:
+              plain: bool = False, streamed: bool | None = None,
+              reorder: bool | None = None) -> Hit:
     """Nearest hit: brute force or the BVH, as `_use_brute` picks."""
     if _use_brute(geom, mode, bvh):
         return intersect_brute(o, d, geom)
-    return intersect_bvh(o, d, geom, bvh, plain=plain)
+    return intersect_bvh(o, d, geom, bvh, plain=plain, streamed=streamed,
+                         reorder=reorder)
 
 
 def intersect_shade(o, d, geom: Geometry, bvh: Bvh, mode: str = "auto",
-                    t_cap=None, occlusion: bool = False, plain: bool = False):
+                    t_cap=None, occlusion: bool = False, plain: bool = False,
+                    streamed: bool | None = None, reorder: bool | None = None):
     """(Hit, ShadePoint) fused; see `intersect_shade_brute` and
     `intersect_bvh` (brute force ignores `occlusion`: it tests every prim
     either way)."""
     if _use_brute(geom, mode, bvh):
         return intersect_shade_brute(o, d, geom, t_cap=t_cap)
     return intersect_bvh(o, d, geom, bvh, want_shade=True, t_cap=t_cap,
-                         occlusion=occlusion, plain=plain)
+                         occlusion=occlusion, plain=plain, streamed=streamed,
+                         reorder=reorder)
 
 
 def shade_point(o, d, hit: Hit, geom: Geometry) -> ShadePoint:

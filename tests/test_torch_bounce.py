@@ -120,6 +120,7 @@ def test_wrappers_take_the_plain_path_on_cpu(assets_dir):
         assert torch.equal(getattr(a, k), getattr(b, k)), k
     assert torch.equal(a.rays_traced, b.rays_traced)
     assert cuda_bounce.counts() == {"raygen": 0, "bounce": 0, "bvh": 0,
+                                    "bvh_wide": 0, "bvh_streamed": 0,
                                     "bounce_bvh": 0, "bounce_bwd": 0}
 
 

@@ -230,11 +230,14 @@ def test_intersect_tris_on_cpu_is_the_plain_walk():
 
 
 def test_wide_leaves_are_refused():
-    """A K=128 BVH (the compiler's layout from 650,000 triangles) is refused
-    on the card, naming the slice of the wide-leaf kernel."""
+    """A K=128 BVH (the compiler's layout from 650,000 triangles) is no
+    longer refused on the card: the bounce kernels serve it with their
+    per-thread walk and the AOVs with the wide packet walk. What is still
+    refused names its later slice: the simple sky."""
     import dataclasses
 
     from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
+    from lumillyrender_tpu_torch.scene.data import SKY_SIMPLE
 
     c = compile_scene_file(REPO / "assets" / "new-cbox.toml", spp=1, device="cpu")
     g = c.data.geometry
@@ -243,8 +246,12 @@ def test_wide_leaves_are_refused():
         g.tri_mat.numpy(), max_leaf=128).items()})
     st = dataclasses.replace(c.settings, intersector="bvh")
     assert cuda_bounce.supported(c.data, st) == (True, "")
-    ok, reason = cuda_bounce.supported(dataclasses.replace(c.data, bvh=wide), st)
-    assert not ok and "slice 4" in reason and "128" in reason
+    scene = dataclasses.replace(c.data, bvh=wide)
+    for integrator in ("pt", "pt-direct", "depth", "normal"):
+        assert cuda_bounce.supported(
+            scene, dataclasses.replace(st, integrator=integrator)) == (True, "")
+    ok, reason = cuda_bounce.supported(scene, dataclasses.replace(st, sky_kind=SKY_SIMPLE))
+    assert not ok and "simple sky" in reason and "slice" in reason
 
 
 # ---------------------------------------------------------------------------

@@ -8,13 +8,16 @@ comparisons at the main paths' own widths: the brute-force bounce on
 new-cbox at 2,097,152 lanes and on every launch of one chunk (2,097,152,
 32,768 and 4,096 lanes), the BVH kernels on welcome-geo at 2,072,576 lanes
 and on every launch of one chunk (2,072,576, 259,072, 32,512 and 4,096
-lanes).
+lanes), the packet walks and the K=128 bounce on the 1M- and
+1.5M-triangle terrains at 2,097,152 lanes.
 
 Tolerances: raygen's random bits and origins are exact, directions within
 2e-7 (one ulp of a unit vector's components, from the card's own sqrt and
 division being compared with PyTorch's); the BVH kernel's prim ids and
 shadow verdicts exactly, its t within 1e-6 relative (its operations are the
-plain walk's, in the same order, without contraction); the bounces follow
+plain walk's, in the same order, without contraction); the packet walks
+(csrc/bvh_wide.cu, csrc/bvh_streamed.cu) every output bit-equal (a thread
+tests exactly the plain walk's leaves in its order); the bounces follow
 lumillyrender_tpu_torch/parity.py's lane rules; the backward kernel is
 compared on its backward rules' lanes (`bwd_comparable`) within
 `parity.KERNEL_BWD_RTOL` (1e-5) of each cotangent's and table's largest
@@ -297,3 +300,160 @@ def test_training_step_runs_the_kernels_and_repeats_bit_for_bit(card):
     for a, b in zip(leaves(g1), leaves(g2)):
         assert torch.isfinite(a).all() and torch.equal(a, b)
     assert g1.materials.color.abs().sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# The packet walks (csrc/bvh_wide.cu, csrc/bvh_streamed.cu) on a terrain
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def terrain_bvhs():
+    """A 20k-triangle terrain's BVH at K=2, 32 and 128, on the card (K=2
+    takes the streamed kernel's 4-byte copies)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    from lumillyrender_tpu_torch.accel.pack import build_tri_bvh
+    from lumillyrender_tpu_torch.scene.data import Bvh, tensor_of
+    from lumillyrender_tpu_torch.scene.terrain import make_terrain
+
+    p0, e1, e2, n = make_terrain(20000)
+    return {k: Bvh(**{f: tensor_of(v).cuda() for f, v in build_tri_bvh(
+        p0, e1, e2, n, max_leaf=k).items()}) for k in (2, 32, 128)}
+
+
+def _terrain_rays(bvh, n, seed):
+    """_bvh_rays, and camera-like rays from above the terrain towards it."""
+    o, d = _bvh_rays(bvh, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    half = n // 2
+    tgt = rng.uniform([-10, -1, -10], [10, 1, 10], size=(n - half, 3)).astype(np.float32)
+    oc = np.tile(np.array([[0.0, 8.0, 30.0]], np.float32), (n - half, 1))
+    dc = tgt - oc
+    dc /= np.linalg.norm(dc, axis=1, keepdims=True)
+    o[half:] = torch.from_numpy(oc).cuda()
+    d[half:] = torch.from_numpy(dc).cuda()
+    return o, d
+
+
+PACKET_WALKS = [(128, cuda_bvh.intersect_tris_wide), (128, cuda_bvh.intersect_tris_streamed),
+                (32, cuda_bvh.intersect_tris_streamed), (2, cuda_bvh.intersect_tris_streamed)]
+PACKET_IDS = ["wide128", "streamed128", "streamed32", "streamed2"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,walk", PACKET_WALKS, ids=PACKET_IDS)
+@pytest.mark.parametrize("want_shade", [False, True])
+def test_packet_kernels_match_plain_walk(terrain_bvhs, k, walk, want_shade):
+    """Every output bit-equal to the plain walk: a thread tests a leaf only
+    when its own slab test passes against its own best t, as the plain walk
+    does (csrc/packet_walk.cuh)."""
+    bvh = terrain_bvhs[k]
+    tables = cuda_bvh.tables_of(bvh)
+    o, d = _terrain_rays(bvh, 8192 + 77, 11)  # a ragged last warp
+    t0 = torch.full((o.shape[0],), INF, device=o.device)
+    stop = torch.full_like(t0, -INF)
+    got = walk(o, d, t0, stop, tables, want_shade)
+    want = _walk_tris(o, d, t0, stop, bvh, want_shade)
+    torch.cuda.synchronize()
+    assert (want[1] >= 0).float().mean() > 0.3
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,walk", PACKET_WALKS, ids=PACKET_IDS)
+def test_packet_kernels_occlusion_and_t_init(terrain_bvhs, k, walk):
+    """Capped occlusion queries (t_stop) and pruning from t_init: t and prim
+    equal the plain walk's on every lane, so the verdicts do too."""
+    bvh = terrain_bvhs[k]
+    tables = cuda_bvh.tables_of(bvh)
+    o, d = _terrain_rays(bvh, 8192, 12)
+    rng = np.random.default_rng(13)
+    dist = torch.from_numpy(rng.uniform(0.5, 40.0, size=o.shape[0]).astype(np.float32)).cuda()
+    cap = dist + 2.0 * EPS
+    stop = cap - 4.0 * EPS
+    got = walk(o, d, cap, stop, tables)
+    want = _walk_tris(o, d, cap, stop, bvh, False)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert 0 < int((want[1] >= 0).sum()) < o.shape[0]
+
+
+@pytest.mark.cuda
+def test_packet_wrappers_raise_on_what_they_do_not_take(terrain_bvhs):
+    bvh = terrain_bvhs[128]
+    tables = cuda_bvh.tables_of(bvh)
+    n = 256
+    o, d = _terrain_rays(bvh, n, 14)
+    t0 = torch.full((n,), INF, device=o.device)
+    stop = torch.full_like(t0, -INF)
+    out = (torch.empty(n, device=o.device), torch.empty(n, dtype=torch.int32, device=o.device))
+    for launch in (cuda_bvh.intersect_tris_wide_launch, cuda_bvh.intersect_tris_streamed_launch):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            launch(o.cpu(), d.cpu(), t0.cpu(), stop.cpu(), tables, out)
+        with pytest.raises(ValueError, match="float32"):
+            launch(o.double(), d, t0, stop, tables, out)
+        with pytest.raises(ValueError, match="contiguous"):
+            launch(o[:, :2], d, t0, stop, tables, out)
+    with pytest.raises(ValueError, match="128-wide"):
+        cuda_bvh.intersect_tris_wide_launch(o, d, t0, stop,
+                                            cuda_bvh.tables_of(terrain_bvhs[32]), out)
+
+
+@pytest.mark.cuda
+def test_routing_launches_the_packet_kernels(terrain_bvhs):
+    """intersect on a K=128 BVH launches the wide kernel (admitted), the
+    streamed one with streamed=True or past the wide cap, and the
+    per-thread one on K=32; each count rises by one per launch."""
+    from lumillyrender_tpu_torch.ops import intersect as isect
+    from lumillyrender_tpu_torch.scene.data import Geometry
+
+    # Only the triangle count and the (absent) spheres of the geometry are read.
+    f3 = lambda n: torch.zeros((n, 3), device="cuda")
+    i1 = lambda n: torch.zeros(n, dtype=torch.int32, device="cuda")
+    geom = Geometry(tri_p0=f3(1), tri_e1=f3(1), tri_e2=f3(1), tri_n=f3(1), tri_mat=i1(1),
+                    sph_c=f3(0), sph_r=torch.zeros(0, device="cuda"), sph_mat=i1(0))
+    o, d = _terrain_rays(terrain_bvhs[128], 1024, 15)
+    cases = [(128, {}, "bvh_wide"), (128, dict(streamed=True), "bvh_streamed"),
+             (32, {}, "bvh"), (32, dict(streamed=True, reorder=False), "bvh_streamed")]
+    for k, kw, name in cases:
+        cuda_bounce.reset_counts()
+        hit = isect.intersect_bvh(o, d, geom, terrain_bvhs[k], **kw)
+        torch.cuda.synchronize()
+        c = cuda_bounce.counts()
+        assert c[name] == 1 and sum(c.values()) == 1, (k, kw, c)
+        want = _walk_tris(o, d, torch.full((1024,), INF, device="cuda"),
+                          torch.full((1024,), -INF, device="cuda"), terrain_bvhs[k], False)
+        assert torch.equal(hit.prim, want[1])
+    cap = cuda_bvh.WIDE_TABLE_BYTES
+    try:
+        cuda_bvh.WIDE_TABLE_BYTES = cuda_bvh.wide_table_bytes(terrain_bvhs[128]) - 1
+        cuda_bounce.reset_counts()
+        isect.intersect_bvh(o, d, geom, terrain_bvhs[128])
+        assert cuda_bounce.counts()["bvh_streamed"] == 1
+    finally:
+        cuda_bvh.WIDE_TABLE_BYTES = cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounce", [0, 3, 7, 70])
+def test_bvh_bounce_kernel_at_k128_matches_plain(welcome, bounce):
+    """The BVH bounce's per-thread walk on welcome-geo rebuilt with 128-wide
+    leaves, under parity.py's lane rules."""
+    import dataclasses
+
+    from lumillyrender_tpu_torch.accel.pack import build_tri_bvh
+    from lumillyrender_tpu_torch.scene.data import Bvh, tensor_of
+
+    g = welcome.data.geometry
+    arrays = build_tri_bvh(*(getattr(g, f).cpu().numpy() for f in (
+        "tri_p0", "tri_e1", "tri_e2", "tri_n", "tri_mat")), max_leaf=128)
+    scene = dataclasses.replace(welcome.data, bvh=Bvh(**{
+        f: tensor_of(v).cuda() for f, v in arrays.items()}))
+    parts = _random_state(scene, 16384, 200 + bounce)
+    st = state_from_numpy(bounce, *parts, device="cuda")
+    got = cuda_bounce.bounce_bvh(scene, welcome.settings, 77, st)
+    want = wavefront.plain_bounce_step(scene, welcome.settings, 77, st)
+    torch.cuda.synchronize()
+    assert parity.failures(parity.agreement(want, got)) == []

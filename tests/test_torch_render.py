@@ -15,7 +15,7 @@ from lumillyrender_tpu_torch.cli import main as cli_main
 from lumillyrender_tpu_torch.integrator.render import render
 from lumillyrender_tpu_torch.io.image import read_png
 from lumillyrender_tpu_torch.ops import cuda_bounce
-from lumillyrender_tpu_torch.ops.intersect import _use_brute
+from lumillyrender_tpu_torch.ops.intersect import _use_brute, bvh_route
 from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
 from lumillyrender_tpu_torch.scene.data import SKY_SIMPLE
 
@@ -160,10 +160,11 @@ def test_supported_rejects_later_slices(assets_dir, name, why):
 
 
 def test_supported_rejects_bvh_scenes(assets_dir):
-    """Past 8192 prims a scene takes the BVH path, on the card too; a BVH of
-    128-wide leaves (the compiler's layout from 650,000 triangles) is
-    refused, naming the slice of the wide-leaf kernel. The new-cbox tables
-    are tiled up to 8193 triangles, and its leaves widened, without a
+    """Past 8192 prims a scene takes the BVH path, on the card too, and so
+    does a BVH of 128-wide leaves (the compiler's layout from 650,000
+    triangles): the bounce kernels walk it per thread, the AOVs through
+    the wide packet walk, which `bvh_route` picks. The new-cbox tables are
+    tiled up to 8193 triangles, and its leaves widened, without a
     compile."""
     c = compile_scene_file(assets_dir / "new-cbox.toml", spp=1, device="cpu")
     assert cuda_bounce.supported(c.data, c.settings) == (True, "")
@@ -184,6 +185,7 @@ def test_supported_rejects_bvh_scenes(assets_dir):
         f: widen(getattr(b, f), -1 if f in ("blk_prim", "blk_mat") else 0)
         for f in ("blk_p0", "blk_e1", "blk_e2", "blk_n", "blk_prim", "blk_mat")
     })
-    ok, reason = cuda_bounce.supported(dataclasses.replace(scene, bvh=wide),
-                                       c.settings)
-    assert not ok and "BVH" in reason and "slice 4" in reason
+    assert cuda_bounce.supported(dataclasses.replace(scene, bvh=wide),
+                                 c.settings) == (True, "")
+    assert bvh_route(wide) == ("wide", True)
+    assert bvh_route(b) == ("thread", False)
