@@ -4,7 +4,10 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the seven kernels from csrc/ (one nvcc per source, in parallel);
+  2. build the kernels from csrc/ (one nvcc per source, in parallel): the
+     seven of the render and training paths and the 23 capability-probe
+     kernels of csrc/probes.cu, with each probe kernel's registers,
+     shared memory and spill from ptxas;
   3. raygen kernel vs its plain version: random bits equal, o/d/g errors;
   4. brute-force bounce kernel vs the plain step on random states of seven
      scenes at the main path's full width (2,097,152 lanes), bounces 0, 3,
@@ -71,7 +74,17 @@ Phases, in order; any failure exits non-zero:
      at K=128 at each stage width; the wide, streamed and per-thread walks
      (and the streamed one on terrain-1.5m), sorted and unsorted, on camera
      and random rays at 2,097,152 lanes beside their bounds and the plain
-     walk; the sort itself; then one `{"kernels": [...]}` line.
+     walk; the sort itself;
+ 20. the capability probes (lumillyrender_tpu_torch/probes/, the
+     counterparts of the JAX package's Mosaic probes): their entry point
+     once with every launch count zeroed just before and read just after
+     (each of the 23 probe kernels launched, smem_input refused by the card
+     exactly at the table sizes predicted past its opt-in shared memory);
+     each kernel bit-equal to its plain version; its bare launch (CUDA graph
+     replay) beside its bound, the plain version, the PyTorch call that
+     computes the same function where there is one (checked bit-equal to
+     the plain version first), and an empty kernel's launch; then
+     one `{"kernels": [...]}` line for all 30 kernels.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
@@ -1524,6 +1537,139 @@ def huge_meshes(card, lap):
     return rep, kernels
 
 
+# ---------------------------------------------------------------------------
+# The capability probes (phase 20)
+# ---------------------------------------------------------------------------
+
+# Launches captured per CUDA graph when a probe kernel is timed: the kernels
+# take microseconds, so a graph of one launch would time the events.
+PROBE_REPS = 200
+# A 128-triangle leaf as the BVH kernels stage it: nine geometry rows and the
+# prim row of 128 float32 or int32 each (csrc/packet_walk.cuh).
+LEAF_BYTES = 10 * 128 * 4
+
+
+def ptxas_kernels(log: str) -> dict:
+    """{kernel: "N registers, ... smem, spill ..."} from nvcc's -Xptxas -v
+    output."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1]
+            out[cur] = ""
+        elif cur and "spill" in ln:
+            out[cur] = ln.strip()
+        elif cur and "Used" in ln:
+            out[cur] = ln.split("Used", 1)[1].strip() + "; " + out[cur]
+            cur = None
+    return out
+
+
+def capability_probes(card, lap):
+    """Phase 20: the capability probes' kernels (csrc/probes.cu) through the
+    probe entry point, then each against its plain version and timed.
+    Returns (report, the 23 kernels' entries)."""
+    from lumillyrender_tpu_torch import probes
+    from lumillyrender_tpu_torch.probes import pallas
+    from lumillyrender_tpu_torch.probes.__main__ import main as probes_main
+
+    dev = torch.device("cuda")
+    phase("20 probe kernels vs plain (the Mosaic capability probes, csrc/probes.cu)")
+    t0 = time.monotonic()
+    limit = probes.smem_limit(dev)
+    # Each run's outcome, predicted from the card's opt-in limit; the card's
+    # own refusals are held against it below.
+    predicted = {tag: probe.fits(probe.inputs(dev, *params), limit)
+                 for tag, probe, params in probes.cases()}
+    print(f"opt-in shared memory per block: {limit} B; predicted to be refused: "
+          f"{[tag for tag, ok in predicted.items() if not ok]}")
+    probes.reset_counts()
+    rc = probes_main([])
+    launches = probes.counts()
+    print(f"entry point: exit {rc}; launches {json.dumps(launches)}")
+    if rc != 0:
+        fail(f"the probe entry point exited {rc}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail(f"the probe entry point launched no {missing} kernel")
+    for p in probes.PROBES:
+        want = sum(predicted[tag] for tag, q, _ in probes.cases() if q is p)
+        if launches[p.name] != want:
+            fail(f"{p.name} launched {launches[p.name]} times, predicted {want}")
+
+    floor_ms = graph_ms(probes.launch_empty, PROBE_REPS)
+    print(f"empty kernel (1 warp), graph-replayed: {floor_ms:.6f} ms per launch  [{card}]")
+    rows, timed = {}, {}
+    for tag, probe, params in probes.cases():
+        ins = probe.inputs(dev, *params)
+        outs = probe.outputs(dev)
+        if not predicted[tag]:
+            try:
+                probe.launch(ins, outs)
+            except probes.SharedMemoryLimit as e:
+                refusal = str(e)
+            else:
+                fail(f"{tag} launched past the card's {limit}-byte opt-in limit")
+            if f"{probe.smem(ins)} bytes" not in refusal or f"{limit} bytes" not in refusal:
+                fail(f"{tag} refused without naming both sizes: {refusal}")
+            print(f"{tag}: refused as predicted: {refusal}")
+            rows[tag] = dict(refused=refusal)
+            continue
+        probe.launch(ins, outs)
+        want = probe.compute(*ins)
+        torch.cuda.synchronize()
+        got = outs[0]
+        if got.shape != want.shape or not torch.equal(got.view(torch.int32),
+                                                      want.view(torch.int32)):
+            fail(f"{tag}: the kernel differs from its plain version "
+                 f"(max |diff| {(got - want).abs().max().item()})")
+        ms = graph_ms(lambda: probe.launch(ins, outs), PROBE_REPS)
+        plain_ms = events_ms(lambda: probe.compute(*ins), 5)
+        library_ms = None
+        if probe.library is not None:
+            if not probe.library_agrees(ins):
+                fail(f"{tag}: its library call differs from the plain version")
+            library_ms = graph_ms(probe.library(ins), PROBE_REPS)
+        nbytes, flops = probe.work(ins)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   bytes=nbytes, flops=flops, max_abs_err=0.0,
+                   first=got.reshape(-1)[:4].tolist())
+        print(f"{tag}: bit-equal {rec['first']}; kernel {ms:.6f} ms, bound "
+              f"{rec['bound_ms']:.3e} ms ({rec['bound_by']}), plain {plain_ms:.4f} ms, "
+              f"library " + ("none" if library_ms is None else f"{library_ms:.6f} ms"))
+        rows[tag] = timed[probe.name] = rec
+
+    steps = len(pallas.walk_path(pallas.packet_walk_core.inputs(dev)[0]))
+    walk_ms = timed["packet_walk_core"]["ms"]
+    links_ms = timed["while_walk_smem"]["ms"]
+    answers = dict(
+        empty_ms=floor_ms, smem_optin_bytes=limit, leaf_bytes=LEAF_BYTES,
+        leaves_per_block=limit // LEAF_BYTES, walk_steps=steps,
+        walk_step_us=walk_ms / steps * 1e3,
+        walk_step_over_floor_us=(walk_ms - floor_ms) / steps * 1e3,
+        smem_link_step_over_floor_us=(links_ms - floor_ms) / 100 * 1e3)
+    print(f"for the BVH kernels: a block's {limit} B of opt-in shared memory hold "
+          f"{answers['leaves_per_block']} leaves of 128 triangles ({LEAF_BYTES} B each); "
+          f"one step of the block-uniform walk (an L2 row read and a vote; "
+          f"{steps} steps) {answers['walk_step_us']:.4f} us "
+          f"({answers['walk_step_over_floor_us']:.4f} us over the empty launch); "
+          f"one dependent link read from shared memory (100 steps) "
+          f"{answers['smem_link_step_over_floor_us']:.4f} us over the empty launch")
+    lap("capability probes", t0)
+    kernels = [
+        dict(name=f"probe_{p.name}", route="cuda",
+             source="lumillyrender_tpu_torch/csrc/probes.cu", replaces=p.replaces,
+             launches=launches[p.name], max_abs_err=timed[p.name]["max_abs_err"],
+             ms=timed[p.name]["ms"], plain_ms=timed[p.name]["plain_ms"],
+             bound_ms=timed[p.name]["bound_ms"], bound_by=timed[p.name]["bound_by"],
+             library_ms=timed[p.name]["library_ms"])
+        for p in probes.PROBES]
+    return dict(cases=rows, launches=launches, **answers), kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -1563,6 +1709,8 @@ def main() -> int:
     built = cuda_build.build(verbose=True)
     print(f"built {sorted(built)} in {time.monotonic() - t0:.1f}s "
           f"(per source: {json.dumps({k: round(v, 1) for k, v in built.items()})})")
+    for kernel, props in ptxas_kernels(cuda_build.LOGS.get("probes", "")).items():
+        print(f"{kernel}: {props}")
     lap("build", t0)
 
     phase("3 raygen kernel vs plain")
@@ -1909,6 +2057,7 @@ def main() -> int:
         del training[spp]["params"], training[spp]["target"]
 
     big_report, big_kernels = huge_meshes(card, lap)
+    probe_report, probe_kernels = capability_probes(card, lap)
 
     kernels = [
         dict(name="raygen", route="cuda",
@@ -1941,7 +2090,7 @@ def main() -> int:
              launches=training[16]["launches"]["bounce_bwd"], max_abs_err=bwd_err,
              ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bwd_bound, bound_by=bwd_by,
              library_ms=None),
-    ] + big_kernels
+    ] + big_kernels + probe_kernels
     report = dict(
         card=card, new_cbox=cbox_report,
         welcome_geo=dict(
@@ -1959,7 +2108,8 @@ def main() -> int:
                       timing={str(k): v for k, v in train_timing.items()},
                       backward_by_width={str(w): {k: v for k, v in r.items()}
                                          for w, r in bwd_widths.items()}),
-        huge_meshes=big_report, kernels=kernels, phase_seconds=secs,
+        huge_meshes=big_report, probes=probe_report, kernels=kernels,
+        phase_seconds=secs,
         seconds=time.monotonic() - t_start)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"\ntotal {time.monotonic() - t_start:.1f}s")

@@ -5,7 +5,8 @@ A port of the JAX package `lumillyrender_tpu`, which stays the reference:
 the same TOML scenes, compiled scene tables, counter-based pcg4d RNG, BSDFs
 and wavefront bounce loop, with hand-written CUDA kernels for the camera
 rays, the fused bounce (brute force or BVH), the BVH walk and the bounce's
-backward pass (ops/cuda_bounce.py, ops/cuda_bvh.py). `render` renders a
+backward pass (ops/cuda_bounce.py, ops/cuda_bvh.py), and the JAX package's
+Mosaic capability probes as probe kernels (probes/). `render` renders a
 film; `render_diff`, `film_and_grads` and `pixel_grad` (diff/) give film
 gradients in material, camera and sky parameters. Entry points run on
 `cuda` unless the caller passes `device="cpu"`.

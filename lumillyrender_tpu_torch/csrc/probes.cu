@@ -1,0 +1,608 @@
+// Hopper counterparts of the Mosaic capability probes: one small kernel per
+// probe of tools/probe_mosaic.py, tools/pallas_probe.py and
+// tools/probe_wide.py, each computing what its Pallas probe computes on the
+// same inputs (lumillyrender_tpu_torch/probes/ builds them and holds the
+// plain PyTorch version of each).
+//
+// A TPU probe asks whether Mosaic lowers one access pattern; on the H100
+// the question is what the pattern costs. Memory spaces, translated:
+// * an input the Pallas probe puts in SMEM (the TPU's scalar memory, read
+//   uniformly by the whole tile) is read block-uniformly: one thread reads
+//   it, or every thread reads the same address (one broadcast load);
+// * a VMEM table that the probe reads at a dynamic index is staged into
+//   shared memory by the block when it fits (above 48 KB as opted-in
+//   dynamic shared memory), and read from there;
+// * `table` (2048 x 128 float32, 1 MiB) is read from global memory, where
+//   it stays in the 50 MB L2; an input read once at a fixed place goes
+//   straight to registers.
+// Every entry has the signature (a, b, scratch, out, n, stream): the probe's
+// inputs in its tool's order, a scratch buffer (the scatter only), the
+// output, one integer (the first input's row count), the stream. It
+// launches on the stream, does not synchronise and returns
+// cudaGetLastError().
+//
+// Bounds on an H100: each probe moves at most 3 MiB and does at most 4.2
+// Mflop, a few nanoseconds at 3.35 TB/s or 67 TFLOP/s, so every one sits on
+// the launch floor; chip_smoke.py times an empty kernel beside them
+// (llr_probe_empty). The per-kernel notes give the bytes and operations
+// that chip_smoke.py counts for each bound.
+//
+// Built with -fmad=false like every kernel of the port; the sums below add
+// in the probe's loop order, one operand at a time, so each output is bit
+// for bit its plain version's.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+#define PROBE_ENTRY(name)                                                                   \
+  extern "C" int llr_probe_##name(const void* a, const void* b, void* scratch, void* out, \
+                                  int n, void* stream)
+#define STREAM ((cudaStream_t)stream)
+
+namespace {
+
+constexpr int kM = 2048;  // pallas_probe.py's table rows
+constexpr int kS = 8;     // sublanes
+constexpr int kL = 128;   // lanes
+
+// The block copies n floats from global into shared memory.
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+  __syncthreads();
+}
+
+constexpr int kMaxDevices = 64;
+
+// Lets `kernel` take `bytes` of dynamic shared memory on the current device
+// (above 48 KB a kernel must opt in, device by device). `opted` remembers
+// the largest size set on each device, so a launch under CUDA graph capture
+// sets nothing. A size past the card's opt-in limit is refused here by the
+// runtime (cudaErrorInvalidValue): the error is returned, and cleared so
+// that the next launch's cudaGetLastError() does not report it.
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, int bytes, int (&opted)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= opted[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) {
+    opted[dev] = bytes;
+  } else {
+    cudaGetLastError();
+  }
+  return err;
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// tools/probe_mosaic.py
+// ---------------------------------------------------------------------------
+
+// 8a. probe_vmem_dyn_sublane_static_lane (tools/probe_mosaic.py:34): the sum
+// over i < 16 of tab[idx[i], 5]. tab (64,128) VMEM -> shared memory (32 KiB);
+// idx (1,16) SMEM -> read by thread 0. Bound: bytes (16 table reads, 16
+// indices, one output).
+extern "C" __global__ void probe_vmem_dyn_sublane_static_lane(const float* __restrict__ tab,
+                                                              const int32_t* __restrict__ idx,
+                                                              float* __restrict__ out) {
+  __shared__ float s_tab[64 * kL];
+  stage(s_tab, tab, 64 * kL);
+  if (threadIdx.x == 0) {
+    float acc = 0.0f;
+    for (int i = 0; i < 16; ++i) acc += s_tab[idx[i] * kL + 5];
+    out[0] = acc;
+  }
+}
+
+PROBE_ENTRY(vmem_dyn_sublane_static_lane) {
+  probe_vmem_dyn_sublane_static_lane<<<1, 256, 0, STREAM>>>(
+      (const float*)a, (const int32_t*)b, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8b. probe_vmem_dyn_lane (tools/probe_mosaic.py:55): tab[3, idx[0, 0]], a
+// dynamic lane. tab (64,128) VMEM -> shared memory; idx (1,1) SMEM -> thread
+// 0. Bound: bytes (one read, one index, one output).
+extern "C" __global__ void probe_vmem_dyn_lane(const float* __restrict__ tab,
+                                               const int32_t* __restrict__ idx,
+                                               float* __restrict__ out) {
+  __shared__ float s_tab[64 * kL];
+  stage(s_tab, tab, 64 * kL);
+  if (threadIdx.x == 0) out[0] = s_tab[3 * kL + idx[0]];
+}
+
+PROBE_ENTRY(vmem_dyn_lane) {
+  probe_vmem_dyn_lane<<<1, 256, 0, STREAM>>>((const float*)a, (const int32_t*)b, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8c. probe_smem_input(rows) (tools/probe_mosaic.py:73): the sum over i < 64
+// of tab[(977 i) % rows, i % 8], tab (rows,8). The probe asks how large a
+// table the fast scalar memory holds; here the whole table is staged in
+// dynamic shared memory (rows x 32 B) and thread 0 makes the 64 dynamic
+// reads. A table larger than the card's opt-in limit
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin) is refused by the runtime at the
+// opt-in, and the entry returns that error without a launch; it never reads
+// from global memory instead. Bound: bytes (64 table reads, one output).
+extern "C" __global__ void probe_smem_input(const float* __restrict__ tab, int rows,
+                                            float* __restrict__ out) {
+  extern __shared__ float s_tab[];
+  stage(s_tab, tab, rows * 8);
+  if (threadIdx.x == 0) {
+    float acc = 0.0f;
+    for (int i = 0; i < 64; ++i) acc += s_tab[((i * 977) % rows) * 8 + i % 8];
+    out[0] = acc;
+  }
+}
+
+PROBE_ENTRY(smem_input) {
+  static int opted[kMaxDevices] = {};
+  const int bytes = n * 8 * (int)sizeof(float);
+  const cudaError_t err = opt_in(probe_smem_input, bytes, opted);
+  if (err != cudaSuccess) return (int)err;
+  probe_smem_input<<<1, 1024, bytes, STREAM>>>((const float*)a, n, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8d. probe_while_walk_smem (tools/probe_mosaic.py:89): a cursor follows
+// links (n,1) from 0 until -1, and every element of out = rays gains the
+// cursor whenever its successor is >= 0. links SMEM -> shared memory, read
+// block-uniformly (one broadcast load per step); rays (8,128) VMEM ->
+// registers, one column of 8 per thread. Bound: bytes (rays in, out, the
+// links walked).
+extern "C" __global__ void probe_while_walk_smem(const int32_t* __restrict__ links, int n,
+                                                 const float* __restrict__ rays,
+                                                 float* __restrict__ out) {
+  extern __shared__ int32_t s_links[];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s_links[i] = links[i];
+  __syncthreads();
+  const int j = threadIdx.x;
+  float acc[kS];
+#pragma unroll
+  for (int s = 0; s < kS; ++s) acc[s] = rays[s * kL + j];
+  int cur = 0;
+  while (cur >= 0) {
+    const int nxt = s_links[cur];
+    if (nxt >= 0) {
+#pragma unroll
+      for (int s = 0; s < kS; ++s) acc[s] = acc[s] + (float)cur;
+    }
+    cur = nxt;
+  }
+#pragma unroll
+  for (int s = 0; s < kS; ++s) out[s * kL + j] = acc[s];
+}
+
+PROBE_ENTRY(while_walk_smem) {
+  probe_while_walk_smem<<<1, kL, n * (int)sizeof(int32_t), STREAM>>>(
+      (const int32_t*)a, n, (const float*)b, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// tools/pallas_probe.py (M, S, L = 2048, 8, 128)
+// ---------------------------------------------------------------------------
+
+// 8e. take_along_axis axis0 (tools/pallas_probe.py:53): out[i, j] =
+// table[idx[i, j], j], (2048,128). table global (L2), idx global, one thread
+// per output. Bound: bytes (table, idx and out, 1 MiB each).
+extern "C" __global__ void probe_take_along_axis_axis0(const float* __restrict__ table,
+                                                       const int32_t* __restrict__ idx,
+                                                       float* __restrict__ out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  out[t] = table[idx[t] * kL + t % kL];
+}
+
+PROBE_ENTRY(take_along_axis_axis0) {
+  probe_take_along_axis_axis0<<<kM * kL / 256, 256, 0, STREAM>>>(
+      (const float*)a, (const int32_t*)b, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8f. take_along_axis axis1 (tools/pallas_probe.py:67): out[s, l] =
+// table[s, idx[s, l] % 128], a per-lane lookup within a row. table[:8]
+// (8,128) VMEM -> shared memory (4 KiB); idx (8,128) VMEM -> registers.
+// Bound: bytes (the 8 rows, idx, out).
+extern "C" __global__ void probe_take_along_axis_axis1(const float* __restrict__ rows,
+                                                       const int32_t* __restrict__ idx,
+                                                       float* __restrict__ out) {
+  __shared__ float s_rows[kS * kL];
+  stage(s_rows, rows, kS * kL);
+  const int t = threadIdx.x;
+  int lane = idx[t] % kL;
+  if (lane < 0) lane += kL;  // the floor modulo of jnp and PyTorch
+  out[t] = s_rows[(t / kL) * kL + lane];
+}
+
+PROBE_ENTRY(take_along_axis_axis1) {
+  probe_take_along_axis_axis1<<<1, kS * kL, 0, STREAM>>>(
+      (const float*)a, (const int32_t*)b, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8g. jnp.take axis0 rowgather (tools/pallas_probe.py:76): out = table8[idx],
+// (128,8). table8 (2048,8) VMEM -> shared memory (64 KiB, opted in); idx
+// (128,) VMEM -> registers; one thread per output. Bound: bytes (the 128
+// rows gathered, idx, out).
+extern "C" __global__ void probe_take_rowgather(const float* __restrict__ table8,
+                                                const int32_t* __restrict__ idx,
+                                                float* __restrict__ out) {
+  extern __shared__ float s_t8[];
+  stage(s_t8, table8, kM * 8);
+  const int t = threadIdx.x;
+  out[t] = s_t8[idx[t / 8] * 8 + t % 8];
+}
+
+PROBE_ENTRY(take_rowgather) {
+  static int opted[kMaxDevices] = {};
+  const int bytes = kM * 8 * (int)sizeof(float);
+  const cudaError_t err = opt_in(probe_take_rowgather, bytes, opted);
+  if (err != cudaSuccess) return (int)err;
+  probe_take_rowgather<<<1, kL * 8, bytes, STREAM>>>((const float*)a, (const int32_t*)b,
+                                                     (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8h. vmem scalar dynamic read (tools/pallas_probe.py:83): the sum over
+// j < 4 of table8[idx[0, j], 0]. table8 VMEM -> shared memory (64 KiB,
+// opted in); idx (1,128) SMEM -> thread 0. Bound: bytes (4 reads, 4 indices,
+// one output).
+extern "C" __global__ void probe_vmem_scalar_dynamic_read(const float* __restrict__ table8,
+                                                          const int32_t* __restrict__ idx,
+                                                          float* __restrict__ out) {
+  extern __shared__ float s_t8[];
+  stage(s_t8, table8, kM * 8);
+  if (threadIdx.x == 0) {
+    float acc = 0.0f;
+    for (int j = 0; j < 4; ++j) acc += s_t8[idx[j] * 8];
+    out[0] = acc;
+  }
+}
+
+PROBE_ENTRY(vmem_scalar_dynamic_read) {
+  static int opted[kMaxDevices] = {};
+  const int bytes = kM * 8 * (int)sizeof(float);
+  const cudaError_t err = opt_in(probe_vmem_scalar_dynamic_read, bytes, opted);
+  if (err != cudaSuccess) return (int)err;
+  probe_vmem_scalar_dynamic_read<<<1, 1024, bytes, STREAM>>>(
+      (const float*)a, (const int32_t*)b, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8i. ref ds-row read (tools/pallas_probe.py:101): table8[i, :] broadcast to
+// (8,8). i (1,) SMEM -> every thread reads it (one broadcast load); table8
+// VMEM -> shared memory (64 KiB, opted in). Bound: bytes (one row, out).
+extern "C" __global__ void probe_ref_ds_row_read(const int32_t* __restrict__ i,
+                                                 const float* __restrict__ table8,
+                                                 float* __restrict__ out) {
+  extern __shared__ float s_t8[];
+  stage(s_t8, table8, kM * 8);
+  if (threadIdx.x < kS * 8) out[threadIdx.x] = s_t8[i[0] * 8 + threadIdx.x % 8];
+}
+
+PROBE_ENTRY(ref_ds_row_read) {
+  static int opted[kMaxDevices] = {};
+  const int bytes = kM * 8 * (int)sizeof(float);
+  const cudaError_t err = opt_in(probe_ref_ds_row_read, bytes, opted);
+  if (err != cudaSuccess) return (int)err;
+  probe_ref_ds_row_read<<<1, 1024, bytes, STREAM>>>((const int32_t*)a, (const float*)b,
+                                                    (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8j. one-hot matmul gather (tools/pallas_probe.py:117): onehot(idx, 2048)
+// (128 x 2048) @ table8, (128,8): every output is a 2,048-term dot product
+// in fp32 (not tensor cores), exact because one product is non-zero. One
+// block per column of table8, staged in shared memory (8 KiB); idx (128,)
+// VMEM -> registers, one output row per thread; the one-hot row is made in
+// the loop, never stored. Bound: operations (2 x 128 x 2048 x 8 flops).
+extern "C" __global__ void probe_onehot_matmul_gather(const float* __restrict__ table8,
+                                                      const int32_t* __restrict__ idx,
+                                                      float* __restrict__ out) {
+  __shared__ float s_col[kM];
+  const int c = blockIdx.x;
+  for (int k = threadIdx.x; k < kM; k += blockDim.x) s_col[k] = table8[k * 8 + c];
+  __syncthreads();
+  const int r = threadIdx.x;
+  const int hot = idx[r];
+  float acc = 0.0f;
+  for (int k = 0; k < kM; ++k) {
+    const float oh = k == hot ? 1.0f : 0.0f;
+    acc = acc + oh * s_col[k];
+  }
+  out[r * 8 + c] = acc;
+}
+
+PROBE_ENTRY(onehot_matmul_gather) {
+  probe_onehot_matmul_gather<<<8, kL, 0, STREAM>>>((const float*)a, (const int32_t*)b,
+                                                   (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8k. pltpu.prng_random_bits (tools/pallas_probe.py:130): (8,128) random
+// int32 bits >> 8 (arithmetic), as float32. The TPU's hardware generator
+// cannot be reproduced; this replaces it with the port's pcg4d counter
+// generator (common.cuh::uniform4, the renderer's own), seeded from seed[0]
+// (SMEM -> every thread reads it), one counter per output element on its
+// flat index: pcg4d(lane = index, ctr = 0, seed, salt), first word. uniform4
+// hands the word's top 24 bits as (w >> 8) / 2^24, exactly; scaling back and
+// sign-extending those 24 bits is the arithmetic shift of the int32 word.
+// Bound: bytes (the output; ~35 integer operations per element).
+extern "C" __global__ void probe_prng_random_bits(const int32_t* __restrict__ seed,
+                                                  float* __restrict__ out) {
+  const int t = threadIdx.x;
+  float u[4];
+  uniform4((uint32_t)seed[0], (uint32_t)t, 0u, u);
+  const uint32_t top = (uint32_t)(u[0] * 16777216.0f);  // w >> 8, exact
+  out[t] = (float)((int32_t)(top << 8) >> 8);
+}
+
+PROBE_ENTRY(prng_random_bits) {
+  probe_prng_random_bits<<<1, kS * kL, 0, STREAM>>>((const int32_t*)a, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8l. while_loop with vector state (tools/pallas_probe.py:144): ten times
+// acc += table[0:8], in order. table global (L2; the 1 MiB table does not
+// fit shared memory), one element per thread in a register. Bound: bytes
+// (8 rows in, out).
+extern "C" __global__ void probe_while_loop_vector_state(const float* __restrict__ table,
+                                                         float* __restrict__ out) {
+  const int t = threadIdx.x;
+  const float x = table[t];
+  float acc = 0.0f;
+  for (int i = 0; i < 10; ++i) acc = acc + x;
+  out[t] = acc;
+}
+
+PROBE_ENTRY(while_loop_vector_state) {
+  probe_while_loop_vector_state<<<1, kS * kL, 0, STREAM>>>((const float*)a, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8m. scatter-add (tools/pallas_probe.py:162): zeros (2048,128) with 1.0
+// added at (idx[s, l], 0) for every (s, l), rows 0:8 out. scratch (2048,128)
+// is zeroed by a memset on the stream, then one block adds with atomicAdd in
+// global memory and copies rows 0:8 after a barrier. The 1,024 indices
+// (7 k % 2048) are distinct, since 7 is prime to 2048, so no two atomics meet
+// and the result does not depend on their order. table (an input of the
+// probe) is not read. Bound: bytes (idx, out).
+extern "C" __global__ void probe_scatter_add(const int32_t* __restrict__ idx,
+                                             float* __restrict__ scratch,
+                                             float* __restrict__ out) {
+  const int t = threadIdx.x;
+  atomicAdd(&scratch[idx[t] * kL], 1.0f);
+  __syncthreads();
+  out[t] = __ldcg(&scratch[t]);
+}
+
+PROBE_ENTRY(scatter_add) {
+  const cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(float) * kM * kL, STREAM);
+  if (err != cudaSuccess) return (int)err;
+  probe_scatter_add<<<1, kS * kL, 0, STREAM>>>((const int32_t*)b, (float*)scratch,
+                                               (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8n. packet-walk core (tools/pallas_probe.py:171): one block-uniform cursor
+// walks the rows of table from 0: acc += row; the next cursor is +7 when any
+// lane of the row exceeds 131072 (a block vote, __syncthreads_or), else +1;
+// the walk stops at 2048. One block of 128 threads, a lane each; table
+// global (L2), one row per step. Each step's load waits on the previous
+// vote, so the kernel time over the step count is the cost of one step of a
+// block-uniform walk. Bound: bytes (the rows visited, out).
+extern "C" __global__ void probe_packet_walk_core(const float* __restrict__ table, int rows,
+                                                  float* __restrict__ out) {
+  const int j = threadIdx.x;
+  const float thresh = 0.5f * (float)(rows * kL);
+  float acc = 0.0f;
+  int cur = 0;
+  while (cur >= 0) {
+    const float v = table[cur * kL + j];
+    const int hit = __syncthreads_or(v > thresh);
+    acc = acc + v;
+    const int nxt = hit ? cur + 7 : cur + 1;
+    cur = nxt >= rows ? -1 : nxt;
+  }
+#pragma unroll
+  for (int s = 0; s < kS; ++s) out[s * kL + j] = acc;
+}
+
+PROBE_ENTRY(packet_walk_core) {
+  probe_packet_walk_core<<<1, kL, 0, STREAM>>>((const float*)a, n, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8o. wide 2D ops + argmin (tools/pallas_probe.py:197): per column of x
+// (16,256), its minimum plus the row of its first minimum. x VMEM ->
+// registers, a column per thread; a strict < keeps the first of equal
+// values, as jnp.argmin does. Bound: bytes (x, out).
+extern "C" __global__ void probe_wide_2d_argmin(const float* __restrict__ x,
+                                                float* __restrict__ out) {
+  const int j = threadIdx.x;
+  float best = x[j];
+  int arg = 0;
+  for (int r = 1; r < 16; ++r) {
+    const float v = x[r * 256 + j];
+    if (v < best) {
+      best = v;
+      arg = r;
+    }
+  }
+  out[j] = best + (float)arg;
+}
+
+PROBE_ENTRY(wide_2d_argmin) {
+  probe_wide_2d_argmin<<<1, 256, 0, STREAM>>>((const float*)a, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8p. scalar broadcast from a VMEM element (tools/pallas_probe.py:210):
+// table8[i, 3] broadcast to (8,128). i (1,) SMEM -> every thread reads it;
+// table8 VMEM -> shared memory (64 KiB, opted in). Bound: bytes (out).
+extern "C" __global__ void probe_scalar_broadcast(const int32_t* __restrict__ i,
+                                                  const float* __restrict__ table8,
+                                                  float* __restrict__ out) {
+  extern __shared__ float s_t8[];
+  stage(s_t8, table8, kM * 8);
+  out[threadIdx.x] = s_t8[i[0] * 8 + 3];
+}
+
+PROBE_ENTRY(scalar_broadcast) {
+  static int opted[kMaxDevices] = {};
+  const int bytes = kM * 8 * (int)sizeof(float);
+  const cudaError_t err = opt_in(probe_scalar_broadcast, bytes, opted);
+  if (err != cudaSuccess) return (int)err;
+  probe_scalar_broadcast<<<1, kS * kL, bytes, STREAM>>>((const int32_t*)a, (const float*)b,
+                                                        (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8q. dynamic row and lane scalar read (tools/pallas_probe.py:226):
+// table[i[0], i[1]] broadcast to (8,128). i (2,) SMEM -> every thread reads
+// both; table global (L2), one element. Bound: bytes (out).
+extern "C" __global__ void probe_dynamic_row_lane_scalar(const int32_t* __restrict__ i,
+                                                         const float* __restrict__ table,
+                                                         float* __restrict__ out) {
+  out[threadIdx.x] = table[i[0] * kL + i[1]];
+}
+
+PROBE_ENTRY(dynamic_row_lane_scalar) {
+  probe_dynamic_row_lane_scalar<<<1, kS * kL, 0, STREAM>>>((const int32_t*)a, (const float*)b,
+                                                           (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8r. while_loop + pl.when (tools/pallas_probe.py:243): for c < 20, add row
+// c % 2048 of table to out when any lane of it exceeds -1 (a block vote) and
+// c is even, in order. One block of 128 threads, a lane each; table global
+// (L2). Bound: bytes (20 rows, out).
+extern "C" __global__ void probe_while_loop_when(const float* __restrict__ table, int rows,
+                                                 float* __restrict__ out) {
+  const int j = threadIdx.x;
+  float acc = 0.0f;
+  for (int c = 0; c < 20; ++c) {
+    const float v = table[(c % rows) * kL + j];
+    const int hit = __syncthreads_or(v > -1.0f);
+    if (hit && c % 2 == 0) acc = acc + v;
+  }
+#pragma unroll
+  for (int s = 0; s < kS; ++s) out[s * kL + j] = acc;
+}
+
+PROBE_ENTRY(while_loop_when) {
+  probe_while_loop_when<<<1, kL, 0, STREAM>>>((const float*)a, n, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8s. int32 bit ops (tools/pallas_probe.py:265): u = uint32(int32(x)) for x
+// in table[:8]; out = float(int32(rotl(u, 13) >> 8)), the logical shift.
+// table[:8] VMEM -> registers, an element per thread. Bound: bytes (in, out).
+extern "C" __global__ void probe_int32_bit_ops(const float* __restrict__ rows,
+                                               float* __restrict__ out) {
+  const int t = threadIdx.x;
+  uint32_t u = (uint32_t)(int32_t)rows[t];
+  u = (u << 13) | (u >> 19);
+  out[t] = (float)(int32_t)(u >> 8);
+}
+
+PROBE_ENTRY(int32_bit_ops) {
+  probe_int32_bit_ops<<<1, kS * kL, 0, STREAM>>>((const float*)a, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// tools/probe_wide.py
+// ---------------------------------------------------------------------------
+
+// 8t. probe_dyn_row_vector_read (tools/probe_wide.py:34): the sum over i < 8
+// of the (1,128) row tab[idx[i], :], in order. tab (64,128) VMEM -> shared
+// memory (32 KiB); idx (1,8) SMEM -> every thread reads it; a lane per
+// thread. Bound: bytes (8 rows, out).
+extern "C" __global__ void probe_dyn_row_vector_read(const float* __restrict__ tab,
+                                                     const int32_t* __restrict__ idx,
+                                                     float* __restrict__ out) {
+  __shared__ float s_tab[64 * kL];
+  stage(s_tab, tab, 64 * kL);
+  const int j = threadIdx.x;
+  float acc = 0.0f;
+  for (int i = 0; i < 8; ++i) acc = acc + s_tab[idx[i] * kL + j];
+  out[j] = acc;
+}
+
+PROBE_ENTRY(dyn_row_vector_read) {
+  probe_dyn_row_vector_read<<<1, kL, 0, STREAM>>>((const float*)a, (const int32_t*)b,
+                                                  (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8u. probe_narrow_out_block (tools/probe_wide.py:58): the TPU grid (2,) of
+// (8,128) -> (8,8) blocks becomes two blocks that compute their own offsets:
+// out[r, c] = x[r, c] + 1 for c < 8. x (16,128) VMEM -> registers. Bound:
+// bytes (16 x 8 in, out).
+extern "C" __global__ void probe_narrow_out_block(const float* __restrict__ x,
+                                                  float* __restrict__ out) {
+  const int r = blockIdx.x * 8 + threadIdx.x / 8;
+  const int c = threadIdx.x % 8;
+  out[r * 8 + c] = x[r * kL + c] + 1.0f;
+}
+
+PROBE_ENTRY(narrow_out_block) {
+  probe_narrow_out_block<<<2, 64, 0, STREAM>>>((const float*)a, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8v. probe_lane_min_broadcast (tools/probe_wide.py:74): each row's minimum
+// of x (8,128), broadcast along the row. A warp per row: four elements per
+// lane, then a warp-shuffle minimum. x VMEM -> registers. Bound: bytes (in,
+// out).
+extern "C" __global__ void probe_lane_min_broadcast(const float* __restrict__ x,
+                                                    float* __restrict__ out) {
+  const int row = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float* xr = x + row * kL;
+  float m = fminf(fminf(xr[lane], xr[lane + 32]), fminf(xr[lane + 64], xr[lane + 96]));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
+#pragma unroll
+  for (int k = 0; k < 4; ++k) out[row * kL + lane + 32 * k] = m;
+}
+
+PROBE_ENTRY(lane_min_broadcast) {
+  probe_lane_min_broadcast<<<1, kS * 32, 0, STREAM>>>((const float*)a, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// 8w. probe_scalar_row_fill (tools/probe_wide.py:88): out[r, :] = r_in[r, 0],
+// an (8,128) tile from 8 scalars. r_in (8,8) VMEM -> every thread reads its
+// row's scalar (a broadcast load per row). Bound: bytes (8 scalars, out).
+extern "C" __global__ void probe_scalar_row_fill(const float* __restrict__ r_in,
+                                                 float* __restrict__ out) {
+  out[threadIdx.x] = r_in[(threadIdx.x / kL) * 8];
+}
+
+PROBE_ENTRY(scalar_row_fill) {
+  probe_scalar_row_fill<<<1, kS * kL, 0, STREAM>>>((const float*)a, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Not a probe: the launch floor the probes sit on, and the card's limit.
+// ---------------------------------------------------------------------------
+
+// An empty kernel of one warp. chip_smoke.py times its graph-replayed launch
+// beside the probes.
+extern "C" __global__ void probe_empty() {}
+
+PROBE_ENTRY(empty) {
+  probe_empty<<<1, 32, 0, STREAM>>>();
+  return (int)cudaGetLastError();
+}
+
+// The shared memory one block of `device` may opt in to, in bytes.
+extern "C" int llr_probe_smem_limit(int* bytes, int device) {
+  return (int)cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+}

@@ -27,10 +27,12 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-# library name -> source; each exports `llr_<name>`.
+# library name -> source; each exports `llr_<name>`, except probes.cu,
+# which exports one `llr_probe_<probe>` per capability probe (PROBE_ARGS).
 SOURCES = {"raygen": "raygen.cu", "bounce": "bounce.cu", "bvh": "bvh.cu",
            "bounce_bvh": "bounce_bvh.cu", "bounce_bwd": "bounce_bwd.cu",
-           "bvh_wide": "bvh_wide.cu", "bvh_streamed": "bvh_streamed.cu"}
+           "bvh_wide": "bvh_wide.cu", "bvh_streamed": "bvh_streamed.cu",
+           "probes": "probes.cu"}
 HEADERS = ("common.cuh", "bounce_body.cuh", "bvh_walk.cuh", "packet_walk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -59,9 +61,16 @@ ARGTYPES = {
     # state in (5), cotangents in (4), out (5), triangles, then _SHADE, the
     # uniform sky colour and the stream.
     "llr_bounce_bwd": [_P] * 14 + [_P, _I] + _SHADE + [_F, _F, _F, _P],
+    "llr_probe_smem_limit": [ctypes.POINTER(_I), _I],
 }
+# The signature of every capability probe's entry `llr_probe_<probe>` (two
+# inputs, a scratch buffer, the output, one integer, the stream; null or 0
+# where a probe has no use for them); each probe registers its entry in
+# ARGTYPES (lumillyrender_tpu_torch/probes/kernel.py).
+PROBE_ARGS = [_P, _P, _P, _P, _I, _P]
 
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, object] = {}  # entry name -> loaded C function
 # nvcc's output of each source compiled by `build` in this process (with
 # `verbose`, ptxas's registers, shared memory and spills per kernel).
 LOGS: dict[str, str] = {}
@@ -120,17 +129,20 @@ def build(names=tuple(SOURCES), verbose: bool = False) -> dict:
     return seconds
 
 
-def fn(name: str):
-    """The C entry point `llr_<name>` of the named library, built and
-    loaded at first use."""
-    if name not in _libs:
-        build((name,))
-        lib = ctypes.CDLL(str(lib_path(name)))
-        f = getattr(lib, f"llr_{name}")
-        f.argtypes = ARGTYPES[f"llr_{name}"]
+def fn(name: str, entry: str | None = None):
+    """The C entry point `entry` (default `llr_<name>`) of the named
+    library, built and loaded at first use, with the argument types
+    ARGTYPES[entry]."""
+    sym = entry or f"llr_{name}"
+    if sym not in _fns:
+        if name not in _libs:
+            build((name,))
+            _libs[name] = ctypes.CDLL(str(lib_path(name)))
+        f = getattr(_libs[name], sym)
+        f.argtypes = ARGTYPES[sym]
         f.restype = ctypes.c_int
-        _libs[name] = lib
-    return getattr(_libs[name], f"llr_{name}")
+        _fns[sym] = f
+    return _fns[sym]
 
 
 def check(rc: int, what: str):

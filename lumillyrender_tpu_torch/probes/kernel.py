@@ -1,0 +1,172 @@
+"""One capability probe: its inputs, its plain PyTorch version and its
+kernel in csrc/probes.cu.
+
+A `Probe` is called as `probe(device, *params)`: for a CPU device it runs
+the plain version; for a CUDA device it launches the kernel (`llr_probe_
+<name>`) or raises. `probe.launch(ins, outs)` is the bare launch into
+preallocated outputs, and the only place that raises `probe.launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable
+
+import torch
+
+from ..ops import cuda_build
+
+# cudaErrorInvalidValue: what the runtime returns when a kernel asks to opt
+# in to more shared memory than a block of the card may have.
+CUDA_ERROR_INVALID_VALUE = 1
+
+
+class SharedMemoryLimit(ValueError):
+    """The card refused a probe's table in shared memory: it is larger than
+    one block may opt in to. The kernel does not read global memory instead."""
+
+
+@functools.lru_cache(maxsize=None)
+def _optin_bytes(index: int) -> int:
+    v = ctypes.c_int()
+    rc = cuda_build.fn("probes", "llr_probe_smem_limit")(ctypes.byref(v), index)
+    if rc != 0:
+        raise RuntimeError(f"cudaDeviceGetAttribute failed: CUDA error {rc}")
+    return v.value
+
+
+def smem_limit(device) -> int | None:
+    """Bytes of shared memory one block may opt in to on a CUDA device
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin); None for the CPU, where the
+    plain versions know no such limit."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return _optin_bytes(dev.index if dev.index is not None else torch.cuda.current_device())
+
+
+def fits(need: int, limit: int | None) -> bool:
+    """Whether `need` bytes of shared memory lie within a block's opt-in
+    `limit` (None: no limit, the CPU): the prediction that the card's own
+    refusal is held against."""
+    return limit is None or need <= limit
+
+
+def _same(res: torch.Tensor, want: torch.Tensor) -> bool:
+    """`res` bit for bit `want`, broadcast to its shape (a library call may
+    leave the broadcast to a view)."""
+    return bool(torch.equal(res.expand(want.shape).contiguous().view(torch.int32),
+                            want.view(torch.int32)))
+
+
+class Probe:
+    """A capability probe and its kernel.
+
+    name      the kernel's entry is `llr_probe_<name>`;
+    label     the JAX probe's name in its tool (function name, or the
+              string `pallas_probe.py` prints);
+    replaces  the JAX probe's file:line;
+    inputs    (device, *params) -> the probe's input tensors, built as its
+              tool builds them;
+    compute   the plain PyTorch version on those inputs;
+    out_shape the float32 output's shape;
+    work      inputs -> (bytes, flops) the function needs on this data (for
+              the bound: each needed input byte read once, the output
+              written once);
+    library   inputs -> a function of no arguments that makes one PyTorch
+              call computing the same function and returns its result, or
+              None where there is none (timed as a yardstick only);
+    scratch   the shape of a float32 scratch buffer the kernel needs;
+    smem      inputs -> bytes of shared memory the kernel must opt in to.
+    """
+
+    def __init__(self, name: str, label: str, replaces: str, inputs: Callable,
+                 compute: Callable, out_shape: tuple, work: Callable,
+                 library: Callable | None = None, scratch: tuple | None = None,
+                 smem: Callable | None = None):
+        self.name, self.label, self.replaces = name, label, replaces
+        self.inputs, self.compute, self.out_shape = inputs, compute, out_shape
+        self.work, self.library = work, library
+        self.scratch, self.smem = scratch, smem
+        self.launches = 0
+        cuda_build.ARGTYPES[f"llr_probe_{name}"] = cuda_build.PROBE_ARGS
+
+    def plain(self, device, *params) -> torch.Tensor:
+        """The plain version on the probe's inputs, on `device`."""
+        return self.compute(*self.inputs(torch.device(device), *params))
+
+    def __call__(self, device, *params) -> torch.Tensor:
+        return self.run(self.inputs(torch.device(device), *params))
+
+    def run(self, ins) -> torch.Tensor:
+        """The probe on inputs `ins`: the plain version where they lie on
+        the CPU, else the kernel into new outputs."""
+        dev = ins[0].device
+        if dev.type == "cpu":
+            return self.compute(*ins)
+        outs = self.outputs(dev)
+        self.launch(ins, outs)
+        return outs[0]
+
+    def fits(self, ins, limit: int | None) -> bool:
+        """Whether the card should take this probe's shared memory on
+        inputs `ins`, given its opt-in `limit`."""
+        return self.smem is None or fits(self.smem(ins), limit)
+
+    def library_agrees(self, ins) -> bool:
+        """Whether the library call returns the plain version's output bit
+        for bit on `ins`."""
+        return _same(self.library(ins)(), self.compute(*ins))
+
+    def outputs(self, device) -> list:
+        """The output (and the scratch buffer, if any), uninitialised."""
+        outs = [torch.empty(self.out_shape, dtype=torch.float32, device=device)]
+        if self.scratch is not None:
+            outs.append(torch.empty(self.scratch, dtype=torch.float32, device=device))
+        return outs
+
+    def launch(self, ins, outs):
+        """The kernel alone: reads `ins`, writes `outs` (from `outputs`), all
+        on the card; the launch `launches` counts. Raises SharedMemoryLimit
+        where the card refuses the kernel's shared memory."""
+        dev = outs[0].device
+        if dev.type != "cuda":
+            raise ValueError(f"the {self.name} probe kernel takes CUDA tensors, not {dev}")
+        want = [self.out_shape] + ([self.scratch] if self.scratch is not None else [])
+        if [tuple(o.shape) for o in outs] != want or any(
+                o.dtype != torch.float32 for o in outs):
+            raise ValueError(f"{self.name}: outputs must be float32 of shapes {want}")
+        for t in (*ins, *outs):
+            if t.device != dev or not t.is_contiguous():
+                raise ValueError(f"{self.name}: every tensor must be contiguous on {dev}")
+        a = ins[0].data_ptr()
+        b = ins[1].data_ptr() if len(ins) > 1 else None
+        scratch = outs[1].data_ptr() if len(outs) > 1 else None
+        with torch.cuda.device(dev):
+            rc = cuda_build.fn("probes", f"llr_probe_{self.name}")(
+                a, b, scratch, outs[0].data_ptr(), ins[0].shape[0], cuda_build.stream())
+            self.check(rc, ins, lambda: smem_limit(dev))
+        self.launches += 1
+
+    def check(self, rc: int, ins, limit: Callable):
+        """Raise for an entry's return code `rc`: SharedMemoryLimit, naming
+        the table's bytes and the card's `limit()`, where the card refused
+        the kernel's shared memory; RuntimeError for any other error."""
+        if rc == CUDA_ERROR_INVALID_VALUE and self.smem is not None:
+            raise SharedMemoryLimit(
+                f"{self.name}: the card refused {self.smem(ins)} bytes of shared memory "
+                f"for the table (CUDA error {rc}); a block of this card may opt in to "
+                f"{limit()} bytes")
+        cuda_build.check(rc, f"{self.name} probe")
+
+
+cuda_build.ARGTYPES["llr_probe_empty"] = cuda_build.PROBE_ARGS
+
+
+def launch_empty():
+    """An empty kernel (csrc/probes.cu::probe_empty): the launch floor the
+    probes sit on. Counted nowhere."""
+    rc = cuda_build.fn("probes", "llr_probe_empty")(None, None, None, None, 0,
+                                                    cuda_build.stream())
+    cuda_build.check(rc, "empty probe")

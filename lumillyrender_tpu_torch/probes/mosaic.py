@@ -1,0 +1,127 @@
+"""The probes of the JAX package's `tools/probe_mosaic.py`: scalar reads at
+dynamic indices, how large a table the fast memory holds, and a
+link-following walk.
+
+Each probe `<name>(device)` launches its kernel (csrc/probes.cu) on a CUDA
+device and runs `plain_<name>(device)` on the CPU; inputs are built as the
+tool builds them. `smem_input` takes the table's row count as well.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .kernel import Probe
+
+F32, I32 = torch.float32, torch.int32
+TOOL = "tools/probe_mosaic.py"
+# The table sizes the tool tries: 32 KiB, 256 KiB, 1 MiB and 4 MiB.
+SMEM_ROWS = (1024, 8192, 32768, 131072)
+
+
+def _tab(device):
+    return torch.arange(64 * 128, dtype=F32, device=device).reshape(64, 128)
+
+
+def _in_order(vals: torch.Tensor) -> torch.Tensor:
+    """0.0 plus each value in turn, in float32: the probes' fori_loop sums."""
+    acc = torch.zeros((), dtype=F32, device=vals.device)
+    for v in vals:
+        acc = acc + v
+    return acc.reshape(1, 1)
+
+
+def _dyn_sublane_inputs(device):
+    return _tab(device), torch.arange(16, dtype=I32, device=device).reshape(1, 16)
+
+
+def _dyn_sublane(tab, idx):
+    return _in_order(tab[idx[0].long(), 5])
+
+
+vmem_dyn_sublane_static_lane = Probe(
+    "vmem_dyn_sublane_static_lane", "probe_vmem_dyn_sublane_static_lane", f"{TOOL}:34",
+    _dyn_sublane_inputs, _dyn_sublane, (1, 1),
+    work=lambda ins: (16 * 4 + 16 * 4 + 4, 16))
+plain_vmem_dyn_sublane_static_lane = vmem_dyn_sublane_static_lane.plain
+
+
+def _dyn_lane_inputs(device):
+    return _tab(device), torch.tensor([[7]], dtype=I32, device=device)
+
+
+def _dyn_lane(tab, idx):
+    return tab[3][idx[0].long()].reshape(1, 1)
+
+
+def _dyn_lane_call(tab, idx):
+    index = idx.reshape(1).long()
+    out = torch.empty(1, dtype=F32, device=tab.device)
+    return lambda: torch.index_select(tab[3], 0, index, out=out).view(1, 1)
+
+
+vmem_dyn_lane = Probe(
+    "vmem_dyn_lane", "probe_vmem_dyn_lane", f"{TOOL}:55",
+    _dyn_lane_inputs, _dyn_lane, (1, 1), work=lambda ins: (12, 0),
+    library=lambda ins: _dyn_lane_call(*ins))
+plain_vmem_dyn_lane = vmem_dyn_lane.plain
+
+
+def _smem_inputs(device, rows):
+    return (torch.arange(rows * 8, dtype=F32, device=device).reshape(rows, 8),)
+
+
+def _smem_sum(tab):
+    rows = tab.shape[0]
+    i = torch.arange(64, device=tab.device)
+    return _in_order(tab[(i * 977) % rows, i % 8])
+
+
+def smem_bytes(rows: int) -> int:
+    """Shared memory the smem_input kernel stages its (rows, 8) table in."""
+    return rows * 8 * 4
+
+
+smem_input = Probe(
+    "smem_input", "probe_smem_input", f"{TOOL}:73",
+    _smem_inputs, _smem_sum, (1, 1), work=lambda ins: (64 * 4 + 4, 64),
+    smem=lambda ins: smem_bytes(ins[0].shape[0]))
+plain_smem_input = smem_input.plain
+
+
+def _walk_inputs(device):
+    links = torch.cat([torch.arange(1, 100, dtype=I32, device=device),
+                       torch.tensor([-1], dtype=I32, device=device)]).reshape(100, 1)
+    return links, torch.ones((8, 128), dtype=F32, device=device)
+
+
+def _walk_cursors(links) -> list:
+    """The cursors the walk adds (those whose successor is >= 0), in order;
+    the links are scalar memory, read on the host."""
+    nxt = links[:, 0].tolist()
+    added, cur = [], 0
+    while cur >= 0:
+        if nxt[cur] >= 0:
+            added.append(cur)
+        cur = nxt[cur]
+    return added
+
+
+def _walk(links, rays):
+    out = rays.clone()
+    for cur in _walk_cursors(links):
+        out = out + cur
+    return out
+
+
+def _walk_work(ins):
+    steps = len(_walk_cursors(ins[0]))
+    return (4 * (steps + 1) + 2 * ins[1].numel() * 4, steps * ins[1].numel())
+
+
+while_walk_smem = Probe(
+    "while_walk_smem", "probe_while_walk_smem", f"{TOOL}:89",
+    _walk_inputs, _walk, (8, 128), work=_walk_work)
+plain_while_walk_smem = while_walk_smem.plain
+
+PROBES = (vmem_dyn_sublane_static_lane, vmem_dyn_lane, smem_input, while_walk_smem)

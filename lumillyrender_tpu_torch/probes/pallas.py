@@ -1,0 +1,341 @@
+"""The probes of the JAX package's `tools/pallas_probe.py`: gathers, a
+one-hot product, in-kernel random bits, loops with vector state, a
+scatter-add, the packet-walk core, reductions and scalar reads.
+
+Each probe `<name>(device)` launches its kernel (csrc/probes.cu) on a CUDA
+device and runs `plain_<name>(device)` on the CPU; inputs are built as the
+tool's `main` builds them (M, S, L = 2048, 8, 128; `table` (M, L) and
+`table8` (M, 8) float32 aranges, `idx` = 7 k % M over (S, L), `idx_flat` =
+13 k % M over (L,)).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import rng
+from .kernel import Probe
+
+F32, I32 = torch.float32, torch.int32
+M, S, L = 2048, 8, 128
+TOOL = "tools/pallas_probe.py"
+
+
+def _table(device):
+    return torch.arange(M * L, dtype=F32, device=device).reshape(M, L)
+
+
+def _table8(device):
+    return torch.arange(M * 8, dtype=F32, device=device).reshape(M, 8)
+
+
+def _idx(device):
+    return (torch.arange(S * L, dtype=I32, device=device).reshape(S, L) * 7) % M
+
+
+def _idx_flat(device):
+    return (torch.arange(L, dtype=I32, device=device) * 13) % M
+
+
+def _rows_bcast(row: torch.Tensor) -> torch.Tensor:
+    """A (L,) row broadcast to a contiguous (S, L) tile."""
+    return row.reshape(1, -1).expand(S, -1).contiguous()
+
+
+def _full(v: torch.Tensor) -> torch.Tensor:
+    """A one-element tensor broadcast to a contiguous (S, L) tile."""
+    return v.reshape(1, 1).expand(S, L).contiguous()
+
+
+_OUT = S * L * 4  # bytes of an (S, L) float32 output
+
+
+def _distinct_bytes(positions: torch.Tensor) -> int:
+    """Bytes of the distinct float32 elements at `positions`: what a gather
+    must read of its table."""
+    return 4 * torch.unique(positions).numel()
+
+
+# --- take_along_axis axis0: out[i, j] = table[idx_full[i, j], j] ---------
+
+
+def _gather_call(t, dim, index):
+    out = torch.empty(index.shape, dtype=t.dtype, device=t.device)
+    return lambda: torch.gather(t, dim, index, out=out)
+
+
+def _axis0_inputs(device):
+    rows = torch.arange(M, dtype=I32, device=device)[:, None] * 7
+    lanes = torch.arange(L, dtype=I32, device=device)[None, :]
+    return _table(device), (rows + lanes) % M
+
+
+take_along_axis_axis0 = Probe(
+    "take_along_axis_axis0", "take_along_axis axis0 full-shape (M,L)[idx (M,L)]",
+    f"{TOOL}:53", _axis0_inputs, lambda t, i: torch.gather(t, 0, i.long()), (M, L),
+    # Row (7 i + j) % M over i covers every row: the whole table is read.
+    work=lambda ins: (3 * M * L * 4, 0),
+    library=lambda ins: _gather_call(ins[0], 0, ins[1].long()))
+plain_take_along_axis_axis0 = take_along_axis_axis0.plain
+
+# --- take_along_axis axis1: out[s, l] = table[s, idx[s, l] % L] ----------
+
+take_along_axis_axis1 = Probe(
+    "take_along_axis_axis1", "take_along_axis axis1 lane-lookup (S,L)[idx (S,L)]",
+    f"{TOOL}:67", lambda device: (_table(device)[:S], _idx(device)),
+    lambda t, i: torch.gather(t, 1, (i % L).long()), (S, L),
+    work=lambda ins: (_distinct_bytes(
+        torch.arange(S, device=ins[1].device)[:, None] * L + ins[1] % L) + 2 * _OUT, 0),
+    library=lambda ins: _gather_call(ins[0], 1, (ins[1] % L).long()))
+plain_take_along_axis_axis1 = take_along_axis_axis1.plain
+
+# --- jnp.take rowgather: out = table8[idx_flat] ---------------------------
+
+
+def _index_select_call(t, index):
+    out = torch.empty((index.shape[0], t.shape[1]), dtype=t.dtype, device=t.device)
+    return lambda: torch.index_select(t, 0, index, out=out)
+
+
+take_rowgather = Probe(
+    "take_rowgather", "jnp.take axis0 rowgather (M,8)[idx (L,)]", f"{TOOL}:76",
+    lambda device: (_table8(device), _idx_flat(device)),
+    lambda t, i: torch.index_select(t, 0, i), (L, 8),
+    work=lambda ins: (_distinct_bytes(ins[1][:, None] * 8 + torch.arange(
+        8, device=ins[1].device)) + L * 4 + L * 32, 0),
+    library=lambda ins: _index_select_call(ins[0], ins[1]),
+    smem=lambda ins: ins[0].numel() * 4)
+plain_take_rowgather = take_rowgather.plain
+
+# --- vmem scalar dynamic read: sum over j < 4 of table8[idx[0, j], 0] -----
+
+
+def _sum4(t, i):
+    acc = torch.zeros((), dtype=F32, device=t.device)
+    for v in t[i[0, :4].long(), 0]:
+        acc = acc + v
+    return acc.reshape(1, 1)
+
+
+vmem_scalar_dynamic_read = Probe(
+    "vmem_scalar_dynamic_read", "vmem scalar dynamic read t_ref[i, 0]", f"{TOOL}:83",
+    lambda device: (_table8(device), _idx(device).reshape(1, -1)[:, :L].contiguous()),
+    _sum4, (1, 1), work=lambda ins: (4 * 4 + 4 * 4 + 4, 4),
+    smem=lambda ins: ins[0].numel() * 4)
+plain_vmem_scalar_dynamic_read = vmem_scalar_dynamic_read.plain
+
+# --- ref ds-row read: table8[i, :] broadcast to (S, 8) -------------------
+
+ref_ds_row_read = Probe(
+    "ref_ds_row_read", "ref ds-row read t_ref[pl.ds(i,1), :] (scalar from SMEM)",
+    f"{TOOL}:101",
+    lambda device: (torch.tensor([5], dtype=I32, device=device), _table8(device)),
+    lambda i, t: t[i.long()].expand(S, 8).contiguous(), (S, 8),
+    work=lambda ins: (4 + 32 + S * 8 * 4, 0),
+    library=lambda ins: _index_select_call(ins[1], ins[0].long().expand(S).contiguous()),
+    smem=lambda ins: ins[1].numel() * 4)
+plain_ref_ds_row_read = ref_ds_row_read.plain
+
+# --- one-hot matmul gather: onehot(idx_flat, M) @ table8 -----------------
+
+
+def _onehot(i):
+    return (torch.arange(M, device=i.device)[None, :] == i[:, None]).to(F32)
+
+
+def _matmul_call(t, i):
+    oh = _onehot(i)
+    out = torch.empty((L, 8), dtype=F32, device=t.device)
+    return lambda: torch.matmul(oh, t, out=out)
+
+
+onehot_matmul_gather = Probe(
+    "onehot_matmul_gather", "one-hot matmul gather (S*L onehot @ table8)", f"{TOOL}:117",
+    lambda device: (_table8(device), _idx_flat(device)),
+    lambda t, i: _onehot(i) @ t, (L, 8),
+    work=lambda ins: (ins[0].numel() * 4 + L * 4 + L * 32, 2 * L * M * 8),
+    library=lambda ins: _matmul_call(ins[0], ins[1]))
+plain_onehot_matmul_gather = onehot_matmul_gather.plain
+
+# --- prng_random_bits: pcg4d in place of the TPU's generator --------------
+
+
+def _prng(seed):
+    """(S, L) int32 random bits >> 8 (arithmetic), as float32: the first
+    word of the port's pcg4d (ops/rng.py) on the counters (lane = flat
+    index, ctr = 0, seed, the renderer's salt). This replaces the TPU's
+    hardware generator (`pltpu.prng_random_bits`) and does not reproduce its
+    bits; no CPU can."""
+    dev = seed.device
+    lane = torch.arange(S * L, dtype=torch.int64, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    salt = torch.tensor(rng._SALT, dtype=torch.int64, device=dev)
+    w = rng.pcg4d(lane, zero, rng.as_u32(seed[0]), salt)[0]
+    signed = torch.where(w >= 2**31, w - 2**32, w)
+    return (signed >> 8).to(F32).reshape(S, L)
+
+
+prng_random_bits = Probe(
+    "prng_random_bits", "pltpu.prng_random_bits (S,L)", f"{TOOL}:130",
+    lambda device: (torch.tensor([42], dtype=I32, device=device),), _prng, (S, L),
+    work=lambda ins: (4 + _OUT, 35 * S * L))
+plain_prng_random_bits = prng_random_bits.plain
+
+# --- while_loop with vector state: ten times acc += table[0:S] ------------
+
+
+def _ten_adds(t):
+    x = t[:S]
+    acc = torch.zeros((S, L), dtype=F32, device=t.device)
+    for _ in range(10):
+        acc = acc + x
+    return acc
+
+
+while_loop_vector_state = Probe(
+    "while_loop_vector_state", "while_loop with vector state in kernel", f"{TOOL}:144",
+    lambda device: (_table(device),), _ten_adds, (S, L),
+    work=lambda ins: (2 * _OUT, 10 * S * L))
+plain_while_loop_vector_state = while_loop_vector_state.plain
+
+# --- scatter-add: zeros (M, L) + 1.0 at (idx, 0), rows 0:S ---------------
+
+
+def _scatter(t, i):
+    buf = torch.zeros((M, L), dtype=F32, device=t.device)
+    flat = i.reshape(-1).long()
+    buf.index_put_((flat, torch.zeros_like(flat)),
+                   torch.ones(flat.shape, dtype=F32, device=t.device), accumulate=True)
+    return buf[:S].clone()
+
+
+def _index_put_call(t, i):
+    buf = torch.zeros((M, L), dtype=F32, device=t.device)
+    flat = i.reshape(-1).long()
+    where = (flat, torch.zeros_like(flat))
+    ones = torch.ones(flat.shape, dtype=F32, device=t.device)
+
+    def call():
+        buf.zero_()
+        return buf.index_put_(where, ones, accumulate=True)[:S]
+    return call
+
+
+scatter_add = Probe(
+    "scatter_add", "scatter-add o_ref[idx] += v (per-lane)", f"{TOOL}:162",
+    lambda device: (_table(device), _idx(device)), _scatter, (S, L),
+    work=lambda ins: (ins[1].numel() * 4 + _OUT, ins[1].numel()),
+    library=lambda ins: _index_put_call(*ins), scratch=(M, L))
+plain_scatter_add = scatter_add.plain
+
+# --- packet-walk core: a uniform cursor steered by an any-vote -----------
+
+
+def walk_path(t) -> list:
+    """The packet-walk core's cursors, in order: from 0, +7 after a row with
+    any lane above 0.5 M L, else +1, until the cursor reaches M."""
+    hit = (t > 0.5 * (M * L)).any(dim=1).tolist()
+    path, cur = [], 0
+    while cur >= 0:
+        path.append(cur)
+        nxt = cur + 7 if hit[cur] else cur + 1
+        cur = -1 if nxt >= M else nxt
+    return path
+
+
+def _walk(t):
+    acc = torch.zeros(L, dtype=F32, device=t.device)
+    for cur in walk_path(t):
+        acc = acc + t[cur]
+    return _rows_bcast(acc)
+
+
+packet_walk_core = Probe(
+    "packet_walk_core", "packet-walk core: SMEM cursor while_loop + dyn-slice + any()",
+    f"{TOOL}:171", lambda device: (_table(device),), _walk, (S, L),
+    work=lambda ins: (len(walk_path(ins[0])) * L * 4 + _OUT,
+                      2 * len(walk_path(ins[0])) * L))
+plain_packet_walk_core = packet_walk_core.plain
+
+# --- wide 2D ops + argmin: min over axis 0 of (16, 256), plus its argmin --
+
+
+def _min_argmin(x):
+    v, i = torch.min(x, dim=0)
+    return (v + i.to(F32)).reshape(1, 256)
+
+
+wide_2d_argmin = Probe(
+    "wide_2d_argmin", "wide 2D ops (16, 256) + argmin", f"{TOOL}:197",
+    lambda device: (torch.arange(16 * 256, dtype=F32, device=device).reshape(16, 256),),
+    _min_argmin, (1, 256), work=lambda ins: (16 * 256 * 4 + 256 * 4, 2 * 16 * 256))
+plain_wide_2d_argmin = wide_2d_argmin.plain
+
+# --- scalar broadcast from a VMEM element: table8[i, 3] ------------------
+
+
+def _take_call(t, index):
+    """torch.take of `t` at the flat positions `index` (S, L)."""
+    out = torch.empty((S, L), dtype=F32, device=t.device)
+    return lambda: torch.take(t, index, out=out)
+
+
+scalar_broadcast = Probe(
+    "scalar_broadcast", "scalar broadcast from VMEM element t_ref[i, j]", f"{TOOL}:210",
+    lambda device: (torch.tensor([5], dtype=I32, device=device), _table8(device)),
+    lambda i, t: _full(t[i.long(), 3]), (S, L),
+    work=lambda ins: (8 + _OUT, 0),
+    library=lambda ins: _take_call(ins[1], (ins[0].long() * 8 + 3).expand(S, L).contiguous()),
+    smem=lambda ins: ins[1].numel() * 4)
+plain_scalar_broadcast = scalar_broadcast.plain
+
+# --- dynamic row and lane scalar read: table[i[0], i[1]] -----------------
+
+dynamic_row_lane_scalar = Probe(
+    "dynamic_row_lane_scalar", "dynamic ROW+LANE scalar read t_ref[i, j] (both traced)",
+    f"{TOOL}:226",
+    lambda device: (torch.tensor([3, 77], dtype=I32, device=device), _table(device)),
+    lambda i, t: _full(t[i[0].long(), i[1].long()]), (S, L),
+    work=lambda ins: (12 + _OUT, 0),
+    library=lambda ins: _take_call(
+        ins[1], (ins[0][0].long() * L + ins[0][1]).expand(S, L).contiguous()))
+plain_dynamic_row_lane_scalar = dynamic_row_lane_scalar.plain
+
+# --- while_loop + pl.when: even rows c < 20 whose vote passes, in order ---
+
+
+def _when_loop(t):
+    hit = (t[:20] > -1.0).any(dim=1).tolist()
+    acc = torch.zeros(L, dtype=F32, device=t.device)
+    for c in range(20):
+        if hit[c % M] and c % 2 == 0:
+            acc = acc + t[c % M]
+    return _rows_bcast(acc)
+
+
+while_loop_when = Probe(
+    "while_loop_when", "while_loop(scalar carry) mutating out_ref via pl.when",
+    f"{TOOL}:243", lambda device: (_table(device),), _when_loop, (S, L),
+    work=lambda ins: (20 * L * 4 + _OUT, 30 * L))
+plain_while_loop_when = while_loop_when.plain
+
+# --- int32 bit ops: rotl(uint32(int32(x)), 13) >> 8 ----------------------
+
+
+def _bit_ops(x):
+    u = x.to(I32).to(torch.int64) & 0xFFFFFFFF
+    u = ((u << 13) | (u >> 19)) & 0xFFFFFFFF
+    return (u >> 8).to(F32)
+
+
+int32_bit_ops = Probe(
+    "int32_bit_ops", "int32 bit ops (threefry core)", f"{TOOL}:265",
+    lambda device: (_table(device)[:S],), _bit_ops, (S, L),
+    work=lambda ins: (2 * _OUT, 6 * S * L))
+plain_int32_bit_ops = int32_bit_ops.plain
+
+PROBES = (take_along_axis_axis0, take_along_axis_axis1, take_rowgather,
+          vmem_scalar_dynamic_read, ref_ds_row_read, onehot_matmul_gather,
+          prng_random_bits, while_loop_vector_state, scatter_add, packet_walk_core,
+          wide_2d_argmin, scalar_broadcast, dynamic_row_lane_scalar, while_loop_when,
+          int32_bit_ops)

@@ -9,7 +9,8 @@ new-cbox at 2,097,152 lanes and on every launch of one chunk (2,097,152,
 32,768 and 4,096 lanes), the BVH kernels on welcome-geo at 2,072,576 lanes
 and on every launch of one chunk (2,072,576, 259,072, 32,512 and 4,096
 lanes), the packet walks and the K=128 bounce on the 1M- and
-1.5M-triangle terrains at 2,097,152 lanes.
+1.5M-triangle terrains at 2,097,152 lanes. The capability probes' kernels
+run at their tools' own shapes here and there.
 
 Tolerances: raygen's random bits and origins are exact, directions within
 2e-7 (one ulp of a unit vector's components, from the card's own sqrt and
@@ -22,7 +23,8 @@ lumillyrender_tpu_torch/parity.py's lane rules; the backward kernel is
 compared on its backward rules' lanes (`bwd_comparable`) within
 `parity.KERNEL_BWD_RTOL` (1e-5) of each cotangent's and table's largest
 magnitude, with the recomputed alive' equal to the forward kernel's on
-every lane and two runs bit-equal.
+every lane and two runs bit-equal; the capability probes' kernels
+(csrc/probes.cu) every output bit-equal.
 """
 
 from pathlib import Path
@@ -31,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from lumillyrender_tpu_torch import parity
+from lumillyrender_tpu_torch import parity, probes
 from lumillyrender_tpu_torch.convert import state_from_numpy
 from lumillyrender_tpu_torch.integrator import wavefront
 from lumillyrender_tpu_torch.constants import EPS, INF
@@ -457,3 +459,51 @@ def test_bvh_bounce_kernel_at_k128_matches_plain(welcome, bounce):
     want = wavefront.plain_bounce_step(scene, welcome.settings, 77, st)
     torch.cuda.synchronize()
     assert parity.failures(parity.agreement(want, got)) == []
+
+
+PROBE_CASES = probes.cases()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,probe,params", PROBE_CASES, ids=[c[0] for c in PROBE_CASES])
+def test_probe_kernels_match_plain(card, tag, probe, params):
+    """Every capability probe's kernel (csrc/probes.cu) bit-equal to its
+    plain version; smem_input refused exactly where its table exceeds the
+    card's opt-in shared memory."""
+    before = probe.launches
+    ins = probe.inputs(card, *params)
+    limit = probes.smem_limit(card)
+    if not probe.fits(ins, limit):
+        with pytest.raises(probes.SharedMemoryLimit,
+                           match=f"{probe.smem(ins)} bytes.*{limit} bytes"):
+            probe.run(ins)
+        assert probe.launches == before
+        return
+    got = probe.run(ins)
+    want = probe.compute(*ins)
+    torch.cuda.synchronize()
+    assert probe.launches == before + 1
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+LIBRARY_PROBES = [p for p in probes.PROBES if p.library is not None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", LIBRARY_PROBES, ids=[p.name for p in LIBRARY_PROBES])
+def test_probe_library_calls_match_plain(card, probe):
+    """The PyTorch call each probe's kernel is timed against computes the
+    same function on the card, bit for bit."""
+    assert probe.library_agrees(probe.inputs(card))
+
+
+@pytest.mark.cuda
+def test_probe_entry_point_runs_on_the_card(card, capsys):
+    from lumillyrender_tpu_torch.probes.__main__ import main
+
+    probes.reset_counts()
+    assert main([]) == 0
+    assert set(probes.counts().values()) == {1}
+    out = capsys.readouterr().out
+    assert out.count("\nOK ") + out.count("\nFAIL ") == 26

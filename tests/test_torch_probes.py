@@ -1,0 +1,147 @@
+"""The port's capability probes (lumillyrender_tpu_torch/probes/) against
+the JAX package's Mosaic probes (tools/probe_mosaic.py, tools/pallas_probe.py,
+tools/probe_wide.py), run in interpret mode on the CPU.
+
+Every plain version is bit-equal to its JAX probe on the same inputs
+(tolerance 0: the sums add in the probes' loop order, one row at a time).
+`pltpu.prng_random_bits` has no CPU lowering; its counterpart draws the
+port's pcg4d instead and is held bit for bit against the JAX package's
+pcg4d on the same counters. The kernels themselves are held against the
+plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py
+phase 20).
+"""
+
+import functools
+import importlib.util
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from lumillyrender_tpu.ops import rng as jax_rng
+from lumillyrender_tpu_torch import probes
+from lumillyrender_tpu_torch.probes import mosaic
+from lumillyrender_tpu_torch.probes.__main__ import main, smem_input_sum
+
+REPO = Path(__file__).resolve().parents[1]
+_PALLAS_CALL = pl.pallas_call
+# An H100's cudaDevAttrMaxSharedMemoryPerBlockOptin (227 KB).
+H100_OPTIN = 232448
+
+# Every probe that runs in interpret mode, smem_input at its four sizes.
+CASES = [(tag, p.name, params) for tag, p, params in probes.cases()
+         if p.name != "prng_random_bits"]
+
+
+def _load_tool(name):
+    spec = importlib.util.spec_from_file_location(f"_tool_{name}", REPO / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def jax_probes():
+    """label -> the JAX probe (a function of the probe's params)."""
+    found = {}
+    mos, wid, pal = (_load_tool(n) for n in ("probe_mosaic", "probe_wide", "pallas_probe"))
+    for mod in (mos, wid):
+        found.update({k: v for k, v in vars(mod).items() if k.startswith("probe_")})
+
+    def collect(name):
+        def deco(fn):
+            found[name] = fn
+            return fn
+        return deco
+
+    pal.probe = collect  # main() decorates each probe's closure with `probe`
+    pal.main()
+    return found
+
+
+@pytest.mark.parametrize("tag,name,params", CASES, ids=[c[0] for c in CASES])
+def test_plain_probe_matches_jax_probe(jax_probes, monkeypatch, tag, name, params):
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(_PALLAS_CALL, interpret=True))
+    probe = next(p for p in probes.PROBES if p.name == name)
+    want = np.asarray(jax_probes[probe.label](*params))
+    got = probe.plain("cpu", *params)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    # On the CPU the wrapper is the plain version and launches nothing.
+    assert torch.equal(probe("cpu", *params), got) and probe.launches == 0
+
+
+def test_prng_counterpart_is_pcg4d_of_the_jax_package():
+    got = probes.pallas.plain_prng_random_bits("cpu")
+    lane = jnp.arange(8 * 128, dtype=jnp.uint32)
+    word = jax_rng.pcg4d(lane, jnp.uint32(0), jnp.uint32(42), jnp.uint32(0xB5297A4D))[0]
+    want = (np.asarray(word).view(np.int32) >> 8).astype(np.float32).reshape(8, 128)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    assert (want < 0).any() and (want > 0).any()  # the shift is arithmetic
+
+
+def test_smem_input_split_and_refusal():
+    smem = mosaic.smem_input
+    tables = [smem.inputs("cpu", rows) for rows in probes.SMEM_ROWS]
+    assert [smem.fits(ins, H100_OPTIN) for ins in tables] == [True, False, False, False]
+    assert all(smem.fits(ins, None) for ins in tables)
+    assert probes.fits(H100_OPTIN, H100_OPTIN) and not probes.fits(H100_OPTIN + 1, H100_OPTIN)
+    for rows in probes.SMEM_ROWS:
+        assert mosaic.plain_smem_input("cpu", rows).item() == smem_input_sum(rows)
+    # The card's refusal of the opt-in (cudaErrorInvalidValue) names both sizes;
+    # any other error is a failed launch.
+    limit = lambda: H100_OPTIN
+    smem.check(0, tables[0], limit)
+    with pytest.raises(probes.SharedMemoryLimit, match="262144 bytes.*232448 bytes"):
+        smem.check(1, tables[1], limit)
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        smem.check(2, tables[1], limit)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        mosaic.vmem_dyn_lane.check(1, mosaic.vmem_dyn_lane.inputs("cpu"), limit)
+
+
+LIBRARY_PROBES = [p for p in probes.PROBES if p.library is not None]
+
+
+@pytest.mark.parametrize("probe", LIBRARY_PROBES, ids=[p.name for p in LIBRARY_PROBES])
+def test_library_call_matches_plain(probe):
+    """The one PyTorch call each probe is timed against computes the same
+    function, bit for bit (here on the CPU; on the card in chip_smoke.py)."""
+    assert probe.library_agrees(probe.inputs(torch.device("cpu")))
+
+
+def test_entry_point_on_the_cpu(capsys):
+    probes.reset_counts()
+    assert main(["--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    ok = [ln for ln in lines if ln.startswith("OK ")]
+    assert len(ok) == 26 and not [ln for ln in lines if ln.startswith("FAIL")]
+    assert "OK smem_input(131072): [15757280.0]" in lines
+    assert set(probes.counts().values()) == {0}
+
+
+def test_entry_point_needs_a_card_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([])
+
+
+def test_wrappers_refuse_other_devices():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mosaic.vmem_dyn_lane.launch(mosaic.vmem_dyn_lane.inputs("cpu"),
+                                    mosaic.vmem_dyn_lane.outputs("cpu"))
+
+
+def test_probes_import_no_jax():
+    code = ("import sys, lumillyrender_tpu_torch.probes.__main__; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'lumillyrender_tpu')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
