@@ -80,11 +80,15 @@ Phases, in order; any failure exits non-zero:
      once with every launch count zeroed just before and read just after
      (each of the 23 probe kernels launched, smem_input refused by the card
      exactly at the table sizes predicted past its opt-in shared memory);
-     each kernel bit-equal to its plain version; its bare launch (CUDA graph
-     replay) beside its bound, the plain version, the PyTorch call that
-     computes the same function where there is one (checked bit-equal to
-     the plain version first), and an empty kernel's launch; then
-     one `{"kernels": [...]}` line for all 30 kernels.
+     the kernels that read their table straight from L2 use no shared
+     memory (cudaFuncGetAttributes, and ptxas's line where probes.cu is
+     built in the run); each kernel bit-equal to its plain version; its bare
+     launch (CUDA graph replay), median and range over replays taken in
+     turns with the PyTorch call that computes the same function where
+     there is one (checked bit-equal to the plain version first), beside
+     its bound, the plain version and an empty kernel's launch; the
+     probes whose median exceeds their call's, by factor; then one
+     `{"kernels": [...]}` line for all 30 kernels.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
@@ -92,6 +96,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -1544,6 +1550,14 @@ def huge_meshes(card, lap):
 # Launches captured per CUDA graph when a probe kernel is timed: the kernels
 # take microseconds, so a graph of one launch would time the events.
 PROBE_REPS = 200
+# Replays of each graph, the kernel's and its call's in turns: the verdict
+# kernel-vs-call rests on medians, since one replay's spread is as large as
+# the gaps between probes.
+PROBE_ROUNDS = 9
+# The probe kernels that read their table straight from global memory (L2)
+# and must use no shared memory: the loaded kernel reports its static
+# (cudaFuncGetAttributes), and their entries launch with no dynamic.
+DIRECT_PROBES = ("vmem_dyn_lane", "take_rowgather")
 # A 128-triangle leaf as the BVH kernels stage it: nine geometry rows and the
 # prim row of 128 float32 or int32 each (csrc/packet_walk.cuh).
 LEAF_BYTES = 10 * 128 * 4
@@ -1565,17 +1579,77 @@ def ptxas_kernels(log: str) -> dict:
     return out
 
 
+def alternating_ms(fns, reps: int, rounds: int) -> list:
+    """Device ms per call of each of `fns`: each warmed, then captured with
+    `reps` calls in its own CUDA graph; the graphs are replayed in turns,
+    the order reversed every other round (A B, B A, ...), each replay
+    between CUDA events. Returns, per fn, its `rounds` readings."""
+    graphs = []
+    for fn in fns:
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        graphs.append(g)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    out = [[] for _ in fns]
+    for r in range(rounds):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for k in order:
+            a.record()
+            graphs[k].replay()
+            b.record()
+            b.synchronize()
+            out[k].append(a.elapsed_time(b) / reps)
+    return out
+
+
+def spread(vals) -> tuple:
+    """(median, [min, max]) of some readings."""
+    return statistics.median(vals), [min(vals), max(vals)]
+
+
+def smem_bytes(props: str) -> int:
+    """Bytes of static shared memory in a ptxas "Used ..." line (ptxas
+    leaves the field out where there is none)."""
+    m = re.search(r"(\d+) bytes smem", props)
+    return int(m.group(1)) if m else 0
+
+
+def direct_probe_smem(log: str) -> dict:
+    """{name: (bytes of static shared memory, ptxas line)} for each of
+    DIRECT_PROBES: the bytes as the loaded kernel reports them (read on
+    every run, the library built in this process or before it), the line
+    from `log`, nvcc's -Xptxas -v output, or a note where it has none."""
+    from lumillyrender_tpu_torch import probes
+
+    ptxas = ptxas_kernels(log)
+    return {name: (probes.static_smem(name),
+                   ptxas.get(f"probe_{name}", "no line, probes.cu was built before this process"))
+            for name in DIRECT_PROBES}
+
+
 def capability_probes(card, lap):
     """Phase 20: the capability probes' kernels (csrc/probes.cu) through the
     probe entry point, then each against its plain version and timed.
     Returns (report, the 23 kernels' entries)."""
     from lumillyrender_tpu_torch import probes
+    from lumillyrender_tpu_torch.ops import cuda_build
     from lumillyrender_tpu_torch.probes import pallas
     from lumillyrender_tpu_torch.probes.__main__ import main as probes_main
 
     dev = torch.device("cuda")
     phase("20 probe kernels vs plain (the Mosaic capability probes, csrc/probes.cu)")
     t0 = time.monotonic()
+    for name, (static, props) in direct_probe_smem(cuda_build.LOGS.get("probes", "")).items():
+        print(f"probe_{name} (reads L2 directly): {static} bytes static shared memory "
+              f"(cudaFuncGetAttributes); ptxas: {props}")
+        if static != 0 or smem_bytes(props) != 0:
+            fail(f"probe_{name} uses shared memory: {static} bytes static; ptxas: {props}")
     limit = probes.smem_limit(dev)
     # Each run's outcome, predicted from the card's opt-in limit; the card's
     # own refusals are held against it below.
@@ -1597,8 +1671,10 @@ def capability_probes(card, lap):
         if launches[p.name] != want:
             fail(f"{p.name} launched {launches[p.name]} times, predicted {want}")
 
-    floor_ms = graph_ms(probes.launch_empty, PROBE_REPS)
-    print(f"empty kernel (1 warp), graph-replayed: {floor_ms:.6f} ms per launch  [{card}]")
+    floor_ms, floor_range = spread(
+        alternating_ms([probes.launch_empty], PROBE_REPS, PROBE_ROUNDS)[0])
+    print(f"empty kernel (1 warp), graph-replayed: {floor_ms:.6f} ms per launch "
+          f"[{floor_range[0]:.6f}, {floor_range[1]:.6f}]  [{card}]")
     rows, timed = {}, {}
     for tag, probe, params in probes.cases():
         ins = probe.inputs(dev, *params)
@@ -1623,32 +1699,48 @@ def capability_probes(card, lap):
                                                       want.view(torch.int32)):
             fail(f"{tag}: the kernel differs from its plain version "
                  f"(max |diff| {(got - want).abs().max().item()})")
-        ms = graph_ms(lambda: probe.launch(ins, outs), PROBE_REPS)
-        plain_ms = events_ms(lambda: probe.compute(*ins), 5)
-        library_ms = None
+        fns = [lambda: probe.launch(ins, outs)]
         if probe.library is not None:
             if not probe.library_agrees(ins):
                 fail(f"{tag}: its library call differs from the plain version")
-            library_ms = graph_ms(probe.library(ins), PROBE_REPS)
+            fns.append(probe.library(ins))
+        times = alternating_ms(fns, PROBE_REPS, PROBE_ROUNDS)
+        ms, ms_range = spread(times[0])
+        library_ms, library_ms_range = spread(times[1]) if len(times) > 1 else (None, None)
+        plain_ms = events_ms(lambda: probe.compute(*ins), 5)
         nbytes, flops = probe.work(ins)
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-        rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=max(bytes_ms, ops_ms),
+        rec = dict(ms=ms, ms_range=ms_range, plain_ms=plain_ms, library_ms=library_ms,
+                   library_ms_range=library_ms_range, bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                    bytes=nbytes, flops=flops, max_abs_err=0.0,
                    first=got.reshape(-1)[:4].tolist())
-        print(f"{tag}: bit-equal {rec['first']}; kernel {ms:.6f} ms, bound "
-              f"{rec['bound_ms']:.3e} ms ({rec['bound_by']}), plain {plain_ms:.4f} ms, "
-              f"library " + ("none" if library_ms is None else f"{library_ms:.6f} ms"))
+        print(f"{tag}: bit-equal {rec['first']}; kernel {ms:.6f} ms "
+              f"[{ms_range[0]:.6f}, {ms_range[1]:.6f}], bound {rec['bound_ms']:.3e} ms "
+              f"({rec['bound_by']}), plain {plain_ms:.4f} ms, library "
+              + ("none" if library_ms is None else
+                 f"{library_ms:.6f} ms [{library_ms_range[0]:.6f}, {library_ms_range[1]:.6f}]"))
         rows[tag] = timed[probe.name] = rec
+
+    # The order of the next redesigns: kernels slower than one PyTorch call
+    # for the same function, the largest factor first.
+    slower = sorted(({"name": name, "factor": r["ms"] / r["library_ms"], "ms": r["ms"],
+                      "library_ms": r["library_ms"]}
+                     for name, r in timed.items()
+                     if r["library_ms"] is not None and r["ms"] > r["library_ms"]),
+                    key=lambda e: -e["factor"])
+    print(f"slower than their PyTorch call (medians of {PROBE_ROUNDS} replays of "
+          f"{PROBE_REPS} launches, in turns), largest factor first: "
+          + (", ".join(f"{e['name']} {e['factor']:.2f}x ({e['ms']:.6f} vs "
+                       f"{e['library_ms']:.6f} ms)" for e in slower) or "none"))
 
     steps = len(pallas.walk_path(pallas.packet_walk_core.inputs(dev)[0]))
     walk_ms = timed["packet_walk_core"]["ms"]
     links_ms = timed["while_walk_smem"]["ms"]
     answers = dict(
-        empty_ms=floor_ms, smem_optin_bytes=limit, leaf_bytes=LEAF_BYTES,
+        empty_ms=floor_ms, empty_ms_range=floor_range, smem_optin_bytes=limit, leaf_bytes=LEAF_BYTES,
         leaves_per_block=limit // LEAF_BYTES, walk_steps=steps,
-        walk_step_us=walk_ms / steps * 1e3,
+        slower_than_call=slower, walk_step_us=walk_ms / steps * 1e3,
         walk_step_over_floor_us=(walk_ms - floor_ms) / steps * 1e3,
         smem_link_step_over_floor_us=(links_ms - floor_ms) / 100 * 1e3)
     print(f"for the BVH kernels: a block's {limit} B of opt-in shared memory hold "
@@ -1663,9 +1755,10 @@ def capability_probes(card, lap):
         dict(name=f"probe_{p.name}", route="cuda",
              source="lumillyrender_tpu_torch/csrc/probes.cu", replaces=p.replaces,
              launches=launches[p.name], max_abs_err=timed[p.name]["max_abs_err"],
-             ms=timed[p.name]["ms"], plain_ms=timed[p.name]["plain_ms"],
-             bound_ms=timed[p.name]["bound_ms"], bound_by=timed[p.name]["bound_by"],
-             library_ms=timed[p.name]["library_ms"])
+             ms=timed[p.name]["ms"], ms_range=timed[p.name]["ms_range"],
+             plain_ms=timed[p.name]["plain_ms"], bound_ms=timed[p.name]["bound_ms"],
+             bound_by=timed[p.name]["bound_by"], library_ms=timed[p.name]["library_ms"],
+             library_ms_range=timed[p.name]["library_ms_range"])
         for p in probes.PROBES]
     return dict(cases=rows, launches=launches, **answers), kernels
 

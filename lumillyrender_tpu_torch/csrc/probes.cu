@@ -9,9 +9,15 @@
 // * an input the Pallas probe puts in SMEM (the TPU's scalar memory, read
 //   uniformly by the whole tile) is read block-uniformly: one thread reads
 //   it, or every thread reads the same address (one broadcast load);
-// * a VMEM table that the probe reads at a dynamic index is staged into
-//   shared memory by the block when it fits (above 48 KB as opted-in
-//   dynamic shared memory), and read from there;
+// * a VMEM table that the kernel reads at a few places is read straight
+//   from global memory, where it stays in the 50 MB L2, with read-only
+//   loads (__ldg, ld.global.nc) of what the function needs: no shared
+//   memory, no barrier (8b, 8g). Only a table that the kernel reads wholly
+//   or repeatedly is staged into shared memory by the block (above 48 KB
+//   as opted-in dynamic shared memory): a round of 4-byte loads and stores
+//   per thread, then __syncthreads, costs more than a few L2 round trips.
+//   8a, 8h, 8i, 8p and 8t still stage a table they read at a few places;
+//   they are to be redesigned as 8b and 8g were (ROADMAP.md, item 5.1);
 // * `table` (2048 x 128 float32, 1 MiB) is read from global memory, where
 //   it stays in the 50 MB L2; an input read once at a fixed place goes
 //   straight to registers.
@@ -105,18 +111,18 @@ PROBE_ENTRY(vmem_dyn_sublane_static_lane) {
 }
 
 // 8b. probe_vmem_dyn_lane (tools/probe_mosaic.py:55): tab[3, idx[0, 0]], a
-// dynamic lane. tab (64,128) VMEM -> shared memory; idx (1,1) SMEM -> thread
-// 0. Bound: bytes (one read, one index, one output).
+// dynamic lane. tab (64,128) VMEM and idx (1,1) SMEM are read by thread 0 of
+// one warp straight from global memory (L2): the index, then the one
+// element at it, two dependent read-only loads; nothing is staged. Bound:
+// bytes (one read, one index, one output).
 extern "C" __global__ void probe_vmem_dyn_lane(const float* __restrict__ tab,
                                                const int32_t* __restrict__ idx,
                                                float* __restrict__ out) {
-  __shared__ float s_tab[64 * kL];
-  stage(s_tab, tab, 64 * kL);
-  if (threadIdx.x == 0) out[0] = s_tab[3 * kL + idx[0]];
+  if (threadIdx.x == 0) out[0] = __ldg(&tab[3 * kL + __ldg(idx)]);
 }
 
 PROBE_ENTRY(vmem_dyn_lane) {
-  probe_vmem_dyn_lane<<<1, 256, 0, STREAM>>>((const float*)a, (const int32_t*)b, (float*)out);
+  probe_vmem_dyn_lane<<<1, 32, 0, STREAM>>>((const float*)a, (const int32_t*)b, (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -225,25 +231,28 @@ PROBE_ENTRY(take_along_axis_axis1) {
 }
 
 // 8g. jnp.take axis0 rowgather (tools/pallas_probe.py:76): out = table8[idx],
-// (128,8). table8 (2048,8) VMEM -> shared memory (64 KiB, opted in); idx
-// (128,) VMEM -> registers; one thread per output. Bound: bytes (the 128
-// rows gathered, idx, out).
-extern "C" __global__ void probe_take_rowgather(const float* __restrict__ table8,
+// (128,8). A row of table8 (2048,8) VMEM is 32 B, two float4s: thread t of
+// 256 loads idx[t / 2] (idx (128,) VMEM; a warp's index loads coalesce),
+// then half t % 2 of that row with one read-only 16-byte load
+// (ld.global.nc.v4.f32, from L2), and writes float4 t of out. Only the 128
+// rows gathered are read; nothing is staged. The 16-byte loads and stores
+// need table8 and out 16-byte aligned: the entry returns
+// cudaErrorMisalignedAddress without a launch where either is not, and
+// never falls back to 4-byte loads. Bound: bytes (the 128 rows gathered,
+// idx, out).
+extern "C" __global__ void probe_take_rowgather(const float4* __restrict__ table8,
                                                 const int32_t* __restrict__ idx,
-                                                float* __restrict__ out) {
-  extern __shared__ float s_t8[];
-  stage(s_t8, table8, kM * 8);
+                                                float4* __restrict__ out) {
   const int t = threadIdx.x;
-  out[t] = s_t8[idx[t / 8] * 8 + t % 8];
+  out[t] = __ldg(&table8[__ldg(&idx[t / 2]) * 2 + t % 2]);
 }
 
 PROBE_ENTRY(take_rowgather) {
-  static int opted[kMaxDevices] = {};
-  const int bytes = kM * 8 * (int)sizeof(float);
-  const cudaError_t err = opt_in(probe_take_rowgather, bytes, opted);
-  if (err != cudaSuccess) return (int)err;
-  probe_take_rowgather<<<1, kL * 8, bytes, STREAM>>>((const float*)a, (const int32_t*)b,
-                                                     (float*)out);
+  if (((uintptr_t)a | (uintptr_t)out) % sizeof(float4) != 0) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  probe_take_rowgather<<<1, kL * 2, 0, STREAM>>>((const float4*)a, (const int32_t*)b,
+                                                 (float4*)out);
   return (int)cudaGetLastError();
 }
 
@@ -606,3 +615,18 @@ PROBE_ENTRY(empty) {
 extern "C" int llr_probe_smem_limit(int* bytes, int device) {
   return (int)cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
 }
+
+// The static shared memory, in bytes, of a kernel that reads its table
+// straight from L2 (cudaFuncGetAttributes' sharedSizeBytes, read from the
+// loaded library, so the answer holds however long ago it was built); their
+// entries launch with no dynamic shared memory.
+#define PROBE_STATIC_SMEM(name)                                           \
+  extern "C" int llr_probe_static_smem_##name(int* bytes) {              \
+    cudaFuncAttributes attr;                                              \
+    const cudaError_t err = cudaFuncGetAttributes(&attr, probe_##name);   \
+    if (err == cudaSuccess) *bytes = (int)attr.sharedSizeBytes;           \
+    return (int)err;                                                      \
+  }
+
+PROBE_STATIC_SMEM(vmem_dyn_lane)
+PROBE_STATIC_SMEM(take_rowgather)

@@ -12,7 +12,8 @@ each per JAX probe, named as there; run them all with
 from __future__ import annotations
 
 from . import mosaic, pallas, wide
-from .kernel import Probe, SharedMemoryLimit, fits, launch_empty, smem_limit
+from .kernel import (Probe, SharedMemoryLimit, fits, launch_empty, smem_limit,
+                     static_smem)
 from .mosaic import SMEM_ROWS
 
 PROBES: tuple[Probe, ...] = mosaic.PROBES + pallas.PROBES + wide.PROBES
@@ -40,4 +41,4 @@ def counts() -> dict:
 
 
 __all__ = ["PROBES", "Probe", "SMEM_ROWS", "SharedMemoryLimit", "cases", "counts", "fits",
-           "launch_empty", "reset_counts", "smem_limit"]
+           "launch_empty", "reset_counts", "smem_limit", "static_smem"]

@@ -170,3 +170,16 @@ def launch_empty():
     rc = cuda_build.fn("probes", "llr_probe_empty")(None, None, None, None, 0,
                                                     cuda_build.stream())
     cuda_build.check(rc, "empty probe")
+
+
+def static_smem(name: str) -> int:
+    """Bytes of static shared memory the kernel of probe `name` declares, as
+    the loaded library reports it (cudaFuncGetAttributes); exported by
+    csrc/probes.cu for the probes that read their table straight from L2."""
+    entry = f"llr_probe_static_smem_{name}"
+    cuda_build.ARGTYPES[entry] = [ctypes.POINTER(ctypes.c_int)]
+    v = ctypes.c_int()
+    rc = cuda_build.fn("probes", entry)(ctypes.byref(v))
+    if rc != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed for {name}: CUDA error {rc}")
+    return v.value

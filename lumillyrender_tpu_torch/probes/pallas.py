@@ -11,6 +11,7 @@ tool's `main` builds them (M, S, L = 2048, 8, 128; `table` (M, L) and
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import rng
@@ -103,9 +104,17 @@ take_rowgather = Probe(
     lambda t, i: torch.index_select(t, 0, i), (L, 8),
     work=lambda ins: (_distinct_bytes(ins[1][:, None] * 8 + torch.arange(
         8, device=ins[1].device)) + L * 4 + L * 32, 0),
-    library=lambda ins: _index_select_call(ins[0], ins[1]),
-    smem=lambda ins: ins[0].numel() * 4)
+    library=lambda ins: _index_select_call(ins[0], ins[1]))
 plain_take_rowgather = take_rowgather.plain
+
+
+def seeded_rows(device="cpu") -> torch.Tensor:
+    """128 int32 row indices into table8, drawn from a numpy seed, with its
+    first row and its last: rows that the tool's `idx_flat` (13 k % M) never
+    reaches, for take_rowgather's tests on the card and here."""
+    idx = np.random.default_rng(6).integers(0, M, L).astype(np.int32)
+    idx[0], idx[-1] = 0, M - 1
+    return torch.from_numpy(idx).to(device)
 
 # --- vmem scalar dynamic read: sum over j < 4 of table8[idx[0, j], 0] -----
 

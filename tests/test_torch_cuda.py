@@ -487,6 +487,68 @@ def test_probe_kernels_match_plain(card, tag, probe, params):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+@pytest.mark.cuda
+def test_dyn_lane_kernel_matches_plain_at_every_lane(card):
+    """vmem_dyn_lane reads tab[3, idx] straight from L2: bit-equal at each
+    lane 0..127."""
+    probe = probes.mosaic.vmem_dyn_lane
+    tab, _ = probe.inputs(card)
+    before = probe.launches
+    for lane in range(128):
+        ins = (tab, torch.tensor([[lane]], dtype=torch.int32, device=card))
+        got = probe.run(ins)
+        want = probe.compute(*ins)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), lane
+    assert probe.launches == before + 128
+
+
+@pytest.mark.cuda
+def test_rowgather_kernel_matches_plain_on_seeded_rows(card):
+    """take_rowgather's 16-byte half-row loads, bit-equal on 128 seeded rows
+    with the table's first and last."""
+    probe = probes.pallas.take_rowgather
+    table8, _ = probe.inputs(card)
+    ins = (table8, probes.pallas.seeded_rows(card))
+    before = probe.launches
+    got = probe.run(ins)
+    want = probe.compute(*ins)
+    torch.cuda.synchronize()
+    assert probe.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_direct_probes_declare_no_shared_memory(card):
+    """vmem_dyn_lane and take_rowgather read their table straight from L2:
+    the loaded kernels report no static shared memory."""
+    assert {name: probes.static_smem(name) for name in ("vmem_dyn_lane", "take_rowgather")} \
+        == {"vmem_dyn_lane": 0, "take_rowgather": 0}
+
+
+@pytest.mark.cuda
+def test_rowgather_kernel_raises_on_a_misaligned_table(card):
+    """A table8 4 bytes off a 16-byte boundary: the entry refuses it
+    (cudaErrorMisalignedAddress), the launch raises, nothing is written and
+    nothing is counted, and the next launch on an aligned table is right."""
+    probe = probes.pallas.take_rowgather
+    table8, idx = probe.inputs(card)
+    buf = torch.empty(table8.numel() + 1, dtype=torch.float32, device=card)
+    buf[1:] = table8.reshape(-1)
+    bad = buf[1:].view(2048, 8)
+    assert bad.data_ptr() % 16 == 4
+    outs = probe.outputs(card)
+    outs[0].fill_(float("nan"))
+    before = probe.launches
+    with pytest.raises(RuntimeError, match="CUDA error 716"):
+        probe.launch((bad, idx), outs)
+    torch.cuda.synchronize()
+    assert probe.launches == before and torch.isnan(outs[0]).all()
+    probe.launch((table8, idx), outs)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0].view(torch.int32), probe.compute(table8, idx).view(torch.int32))
+
+
 LIBRARY_PROBES = [p for p in probes.PROBES if p.library is not None]
 
 

@@ -105,6 +105,46 @@ def test_smem_input_split_and_refusal():
         mosaic.vmem_dyn_lane.check(1, mosaic.vmem_dyn_lane.inputs("cpu"), limit)
 
 
+def test_dyn_lane_plain_version_is_numpy_indexing_at_every_lane():
+    """The plain version the vmem_dyn_lane kernel is held against on the
+    card, at each lane index 0..127 of row 3."""
+    probe = mosaic.vmem_dyn_lane
+    tab, _ = probe.inputs("cpu")
+    want = tab.numpy()[3]
+    for lane in range(128):
+        got = probe.compute(tab, torch.tensor([[lane]], dtype=torch.int32))
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      want[lane].reshape(1, 1).view(np.int32))
+
+
+def test_rowgather_plain_version_is_numpy_indexing():
+    """The plain version the take_rowgather kernel is held against on the
+    card, on seeded rows with both ends of the table."""
+    probe = probes.pallas.take_rowgather
+    table8, _ = probe.inputs("cpu")
+    idx = probes.pallas.seeded_rows().numpy()
+    assert idx.shape == (128,) and {0, 2047} <= set(idx.tolist())
+    got = probe.compute(table8, torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  table8.numpy()[idx].view(np.int32))
+
+
+def test_rowgather_takes_no_shared_memory_and_raises_on_misalignment():
+    """take_rowgather reads its table straight from L2: it declares no shared
+    memory, so no opt-in limit refuses it, and its entry's
+    cudaErrorMisalignedAddress (716) for a table or output off 16 bytes is a
+    failed launch."""
+    probe = probes.pallas.take_rowgather
+    ins = probe.inputs("cpu")
+    assert probe.smem is None and probe.fits(ins, 0)
+    limit = lambda: H100_OPTIN
+    probe.check(0, ins, limit)
+    for rc in (716, 1):
+        with pytest.raises(RuntimeError, match=f"CUDA error {rc}"):
+            probe.check(rc, ins, limit)
+
+
 LIBRARY_PROBES = [p for p in probes.PROBES if p.library is not None]
 
 
