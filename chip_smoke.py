@@ -82,11 +82,14 @@ Phases, in order; any failure exits non-zero:
      exactly at the table sizes predicted past its opt-in shared memory);
      the kernels that read their table straight from L2 use no shared
      memory (cudaFuncGetAttributes, and ptxas's line where probes.cu is
-     built in the run); each kernel bit-equal to its plain version; its bare
-     launch (CUDA graph replay), median and range over replays taken in
-     turns with the PyTorch call that computes the same function where
-     there is one (checked bit-equal to the plain version first), beside
-     its bound, the plain version and an empty kernel's launch; the
+     built in the run); onehot_matmul_gather's grid, cluster size and
+     static shared memory beside its ptxas line; each kernel bit-equal to
+     its plain version; its bare launch (CUDA graph replay), median and
+     range over replays taken in turns with the PyTorch call that
+     computes the same function where there is one (checked bit-equal to
+     the plain version first), beside its bound, the plain version and an
+     empty kernel's launch (and, for onehot_matmul_gather, an empty kernel
+     of its grid and clusters, without and with a cluster barrier); the
      probes whose median exceeds their call's, by factor; then one
      `{"kernels": [...]}` line for all 30 kernels.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -1554,10 +1557,6 @@ PROBE_REPS = 200
 # kernel-vs-call rests on medians, since one replay's spread is as large as
 # the gaps between probes.
 PROBE_ROUNDS = 9
-# The probe kernels that read their table straight from global memory (L2)
-# and must use no shared memory: the loaded kernel reports its static
-# (cudaFuncGetAttributes), and their entries launch with no dynamic.
-DIRECT_PROBES = ("vmem_dyn_lane", "take_rowgather")
 # A 128-triangle leaf as the BVH kernels stage it: nine geometry rows and the
 # prim row of 128 float32 or int32 each (csrc/packet_walk.cuh).
 LEAF_BYTES = 10 * 128 * 4
@@ -1620,17 +1619,22 @@ def smem_bytes(props: str) -> int:
     return int(m.group(1)) if m else 0
 
 
+def ptxas_line(ptxas: dict, kernel: str) -> str:
+    """`kernel`'s line in `ptxas` (from `ptxas_kernels`), or a note where
+    nvcc did not build probes.cu in this process."""
+    return ptxas.get(kernel, "no line, probes.cu was built before this process")
+
+
 def direct_probe_smem(log: str) -> dict:
     """{name: (bytes of static shared memory, ptxas line)} for each of
-    DIRECT_PROBES: the bytes as the loaded kernel reports them (read on
-    every run, the library built in this process or before it), the line
-    from `log`, nvcc's -Xptxas -v output, or a note where it has none."""
+    probes.DIRECT_PROBES: the bytes as the loaded kernel reports them (read
+    on every run, the library built in this process or before it), the
+    line from `log`, nvcc's -Xptxas -v output, or a note where it has none."""
     from lumillyrender_tpu_torch import probes
 
     ptxas = ptxas_kernels(log)
-    return {name: (probes.static_smem(name),
-                   ptxas.get(f"probe_{name}", "no line, probes.cu was built before this process"))
-            for name in DIRECT_PROBES}
+    return {name: (probes.static_smem(name), ptxas_line(ptxas, f"probe_{name}"))
+            for name in probes.DIRECT_PROBES}
 
 
 def capability_probes(card, lap):
@@ -1645,11 +1649,20 @@ def capability_probes(card, lap):
     dev = torch.device("cuda")
     phase("20 probe kernels vs plain (the Mosaic capability probes, csrc/probes.cu)")
     t0 = time.monotonic()
-    for name, (static, props) in direct_probe_smem(cuda_build.LOGS.get("probes", "")).items():
+    log = cuda_build.LOGS.get("probes", "")
+    for name, (static, props) in direct_probe_smem(log).items():
         print(f"probe_{name} (reads L2 directly): {static} bytes static shared memory "
               f"(cudaFuncGetAttributes); ptxas: {props}")
         if static != 0 or smem_bytes(props) != 0:
             fail(f"probe_{name} uses shared memory: {static} bytes static; ptxas: {props}")
+    geometry = probes.onehot_geometry()
+    print(f"probe_onehot_matmul_gather: grid {geometry['grid']} blocks of {geometry['block']} "
+          f"threads in clusters of {geometry['cluster']} (on up to {geometry['grid']} SMs; the "
+          f"card holds {geometry['max_active_clusters']} such clusters at once), "
+          f"{geometry['smem_bytes']} bytes static shared memory (cudaFuncGetAttributes); "
+          f"ptxas: {ptxas_line(ptxas_kernels(log), 'probe_onehot_matmul_gather')}")
+    if geometry["grid"] <= 8 or geometry["cluster"] < 2:
+        fail(f"probe_onehot_matmul_gather is not spread over the card: {geometry}")
     limit = probes.smem_limit(dev)
     # Each run's outcome, predicted from the card's opt-in limit; the card's
     # own refusals are held against it below.
@@ -1675,6 +1688,14 @@ def capability_probes(card, lap):
         alternating_ms([probes.launch_empty], PROBE_REPS, PROBE_ROUNDS)[0])
     print(f"empty kernel (1 warp), graph-replayed: {floor_ms:.6f} ms per launch "
           f"[{floor_range[0]:.6f}, {floor_range[1]:.6f}]  [{card}]")
+    # onehot_matmul_gather's floor: an empty kernel of its grid and clusters,
+    # without and with one cluster barrier, timed in turns.
+    cluster_ms, sync_ms = (spread(t) for t in alternating_ms(
+        [lambda: probes.launch_empty_cluster(False), lambda: probes.launch_empty_cluster(True)],
+        PROBE_REPS, PROBE_ROUNDS))
+    print(f"empty kernel of {geometry['grid']} blocks in clusters of {geometry['cluster']}: "
+          f"{cluster_ms[0]:.6f} ms [{cluster_ms[1][0]:.6f}, {cluster_ms[1][1]:.6f}]; with one "
+          f"cluster barrier {sync_ms[0]:.6f} ms [{sync_ms[1][0]:.6f}, {sync_ms[1][1]:.6f}]")
     rows, timed = {}, {}
     for tag, probe, params in probes.cases():
         ins = probe.inputs(dev, *params)
@@ -1734,11 +1755,19 @@ def capability_probes(card, lap):
           + (", ".join(f"{e['name']} {e['factor']:.2f}x ({e['ms']:.6f} vs "
                        f"{e['library_ms']:.6f} ms)" for e in slower) or "none"))
 
+    onehot_ms = timed["onehot_matmul_gather"]["ms"]
+    print(f"onehot_matmul_gather's {onehot_ms:.6f} ms: the launch of its grid and clusters "
+          f"{cluster_ms[0]:.6f} ms, one cluster barrier {sync_ms[0] - cluster_ms[0]:.6f} ms more, "
+          f"the rest (index and slice loads, products, shuffle tree, remote writes, the second "
+          f"barrier, the combine) {onehot_ms - sync_ms[0]:.6f} ms")
     steps = len(pallas.walk_path(pallas.packet_walk_core.inputs(dev)[0]))
     walk_ms = timed["packet_walk_core"]["ms"]
     links_ms = timed["while_walk_smem"]["ms"]
     answers = dict(
         empty_ms=floor_ms, empty_ms_range=floor_range, smem_optin_bytes=limit, leaf_bytes=LEAF_BYTES,
+        onehot_geometry=geometry, empty_cluster_ms=cluster_ms[0],
+        empty_cluster_ms_range=cluster_ms[1], empty_cluster_barrier_ms=sync_ms[0],
+        empty_cluster_barrier_ms_range=sync_ms[1],
         leaves_per_block=limit // LEAF_BYTES, walk_steps=steps,
         slower_than_call=slower, walk_step_us=walk_ms / steps * 1e3,
         walk_step_over_floor_us=(walk_ms - floor_ms) / steps * 1e3,

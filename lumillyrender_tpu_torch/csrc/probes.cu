@@ -12,12 +12,13 @@
 // * a VMEM table that the kernel reads at a few places is read straight
 //   from global memory, where it stays in the 50 MB L2, with read-only
 //   loads (__ldg, ld.global.nc) of what the function needs: no shared
-//   memory, no barrier (8b, 8g). Only a table that the kernel reads wholly
-//   or repeatedly is staged into shared memory by the block (above 48 KB
-//   as opted-in dynamic shared memory): a round of 4-byte loads and stores
-//   per thread, then __syncthreads, costs more than a few L2 round trips.
-//   8a, 8h, 8i, 8p and 8t still stage a table they read at a few places;
-//   they are to be redesigned as 8b and 8g were (ROADMAP.md, item 5.1);
+//   memory, no barrier (8b, 8g, 8p). Only a table that the kernel reads
+//   wholly or repeatedly is staged into shared memory by the block (above
+//   48 KB as opted-in dynamic shared memory): a round of 4-byte loads and
+//   stores per thread, then __syncthreads, costs more than a few L2 round
+//   trips. 8a, 8h, 8i and 8t still stage a table they read at a few
+//   places; they are to be redesigned as 8b, 8g and 8p were (ROADMAP.md,
+//   item 5.1);
 // * `table` (2048 x 128 float32, 1 MiB) is read from global memory, where
 //   it stays in the 50 MB L2; an input read once at a fixed place goes
 //   straight to registers.
@@ -35,7 +36,13 @@
 //
 // Built with -fmad=false like every kernel of the port; the sums below add
 // in the probe's loop order, one operand at a time, so each output is bit
-// for bit its plain version's.
+// for bit its plain version's. The one exception is 8j, whose sums add in
+// another order than its plain version's matrix product: there every
+// output row has one non-zero product, the hot value x, every other
+// product is +-0, and x + +-0 = x for a finite x != 0 (a sum of zeros is
+// -0 only where every term is), so every partial sum, in any order, is the
+// hot value or a zero, and the whole sum is exactly the hot value.
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -305,31 +312,119 @@ PROBE_ENTRY(ref_ds_row_read) {
 
 // 8j. one-hot matmul gather (tools/pallas_probe.py:117): onehot(idx, 2048)
 // (128 x 2048) @ table8, (128,8): every output is a 2,048-term dot product
-// in fp32 (not tensor cores), exact because one product is non-zero. One
-// block per column of table8, staged in shared memory (8 KiB); idx (128,)
-// VMEM -> registers, one output row per thread; the one-hot row is made in
-// the loop, never stored. Bound: operations (2 x 128 x 2048 x 8 flops).
-extern "C" __global__ void probe_onehot_matmul_gather(const float* __restrict__ table8,
-                                                      const int32_t* __restrict__ idx,
-                                                      float* __restrict__ out) {
-  __shared__ float s_col[kM];
-  const int c = blockIdx.x;
-  for (int k = threadIdx.x; k < kM; k += blockDim.x) s_col[k] = table8[k * 8 + c];
+// in fp32 (not tensor cores), exact in any order because one product is
+// non-zero (see the top of this file). The one-hot is made in the kernel
+// (iota == idx) and never stored; all 2 x 128 x 2048 x 8 products and sums
+// are formed, each as one fmaf, which rounds as the product (exact: 0 or
+// the table's value) and then the sum would. Bound: operations (4.2 Mflop,
+// 0.06 us at 67 TFLOP/s); the time goes to latency, so the product is
+// spread over 64 blocks and each thread's chain is short:
+// * 64 blocks: 8 row tiles of 16 output rows, each a cluster of 8 blocks
+//   (__cluster_dims__, so a plain <<<>>> launch and its graph capture take
+//   it) over 8 K slices of 256 table rows. A block reads its 8 KiB slice
+//   once, with 16-byte loads, into shared memory: each row of it is read
+//   by the 16 output rows of the tile;
+// * 256 threads a block: output row r of the tile and k-group g (16 each);
+//   the thread sums its row's products over the slice's rows g + 16 j
+//   (j < 16) into 8 independent accumulators, one per column (a chain of
+//   16), then a warp-shuffle tree over the 16 k-groups (4 steps);
+// * the k-group-0 thread of each row writes its 8 partial sums into the
+//   shared memory of the cluster's block of rank 0 (distributed shared
+//   memory); after the cluster barrier, rank 0 adds the 8 slices' partials
+//   in rank order and writes the tile. No atomics, one launch.
+// table8 is read as float4: the entry refuses a table off 16 bytes with
+// cudaErrorMisalignedAddress, without a launch.
+constexpr int kOhRows = 16;                          // output rows per tile
+constexpr int kOhSlices = 8;                         // K slices: a cluster's blocks
+constexpr int kOhK = kM / kOhSlices;                 // table rows per slice
+constexpr int kOhGroups = 16;                        // k-groups per output row
+constexpr int kOhThreads = kOhRows * kOhGroups;      // 256
+constexpr int kOhGrid = (kL / kOhRows) * kOhSlices;  // 64 blocks
+
+extern "C" __global__ void __cluster_dims__(kOhSlices, 1, 1) __launch_bounds__(kOhThreads)
+    probe_onehot_matmul_gather(const float4* __restrict__ table8,
+                               const int32_t* __restrict__ idx, float* __restrict__ out) {
+  // The slice, its two 16-byte halves apart, so that the 16 k-groups of a
+  // warp read 16 consecutive float4s.
+  __shared__ float4 s_half[2][kOhK];
+  // The cluster's partial sums, [slice][row * 8 + column]; used in rank 0.
+  __shared__ __align__(16) float s_part[kOhSlices][kOhRows * 8];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int slice = (int)cluster.block_rank();
+  const int tile = blockIdx.x / kOhSlices;
+  const int t = threadIdx.x;
+  // This block has started (its shared memory exists): waited on before
+  // any block writes into another's.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int k0 = slice * kOhK;
+  const float4* src = table8 + k0 * 2;
+  for (int q = t; q < 2 * kOhK; q += kOhThreads) s_half[q % 2][q / 2] = __ldg(&src[q]);
+  const int r = t / kOhGroups, g = t % kOhGroups;
+  const int hot = __ldg(&idx[tile * kOhRows + r]);
   __syncthreads();
-  const int r = threadIdx.x;
-  const int hot = idx[r];
-  float acc = 0.0f;
-  for (int k = 0; k < kM; ++k) {
-    const float oh = k == hot ? 1.0f : 0.0f;
-    acc = acc + oh * s_col[k];
+  float acc[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) acc[c] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kOhK / kOhGroups; ++j) {
+    const int k = g + kOhGroups * j;
+    const float oh = k0 + k == hot ? 1.0f : 0.0f;
+    const float4 lo = s_half[0][k], hi = s_half[1][k];
+    acc[0] = fmaf(oh, lo.x, acc[0]);
+    acc[1] = fmaf(oh, lo.y, acc[1]);
+    acc[2] = fmaf(oh, lo.z, acc[2]);
+    acc[3] = fmaf(oh, lo.w, acc[3]);
+    acc[4] = fmaf(oh, hi.x, acc[4]);
+    acc[5] = fmaf(oh, hi.y, acc[5]);
+    acc[6] = fmaf(oh, hi.z, acc[6]);
+    acc[7] = fmaf(oh, hi.w, acc[7]);
   }
-  out[r * 8 + c] = acc;
+  // The 16 k-groups of a row are lanes that differ in their low 4 bits.
+#pragma unroll
+  for (int off = kOhGroups / 2; off > 0; off >>= 1) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[c] = acc[c] + __shfl_xor_sync(0xffffffffu, acc[c], off);
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (g == 0) {
+    float4* dst = reinterpret_cast<float4*>(cluster.map_shared_rank(&s_part[slice][r * 8], 0));
+    dst[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    dst[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  }
+  cluster.sync();
+  if (slice == 0 && t < kOhRows * 8) {
+    float sum = s_part[0][t];
+#pragma unroll
+    for (int s = 1; s < kOhSlices; ++s) sum = sum + s_part[s][t];
+    out[tile * kOhRows * 8 + t] = sum;
+  }
 }
 
 PROBE_ENTRY(onehot_matmul_gather) {
-  probe_onehot_matmul_gather<<<8, kL, 0, STREAM>>>((const float*)a, (const int32_t*)b,
-                                                   (float*)out);
+  if ((uintptr_t)a % sizeof(float4) != 0) return (int)cudaErrorMisalignedAddress;
+  probe_onehot_matmul_gather<<<kOhGrid, kOhThreads, 0, STREAM>>>(
+      (const float4*)a, (const int32_t*)b, (float*)out);
   return (int)cudaGetLastError();
+}
+
+// 8j's launch geometry, as phase 20 of chip_smoke.py records it: v[0] the
+// grid, v[1] the block, v[2] the cluster size and v[3] the static shared
+// memory in bytes, both as the loaded kernel reports them
+// (cudaFuncGetAttributes), and v[4] how many such clusters the card holds
+// at once (cudaOccupancyMaxActiveClusters).
+extern "C" int llr_probe_geometry_onehot_matmul_gather(int* v) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, probe_onehot_matmul_gather);
+  if (err != cudaSuccess) return (int)err;
+  v[0] = kOhGrid;
+  v[1] = kOhThreads;
+  v[2] = attr.requiredClusterWidth;
+  v[3] = (int)attr.sharedSizeBytes;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kOhGrid);
+  cfg.blockDim = dim3(kOhThreads);
+  return (int)cudaOccupancyMaxActiveClusters(&v[4], probe_onehot_matmul_gather, &cfg);
 }
 
 // 8k. pltpu.prng_random_bits (tools/pallas_probe.py:130): (8,128) random
@@ -451,23 +546,24 @@ PROBE_ENTRY(wide_2d_argmin) {
 }
 
 // 8p. scalar broadcast from a VMEM element (tools/pallas_probe.py:210):
-// table8[i, 3] broadcast to (8,128). i (1,) SMEM -> every thread reads it;
-// table8 VMEM -> shared memory (64 KiB, opted in). Bound: bytes (out).
+// table8[i, 3] broadcast to (8,128). i (1,) SMEM -> every thread reads it
+// (one broadcast load); then every thread reads the one element straight
+// from L2 (two dependent read-only loads, the same address across the
+// block) and writes one float4 of the output: 256 threads, no shared
+// memory, no barrier. The entry refuses an output off 16 bytes with
+// cudaErrorMisalignedAddress, without a launch. Bound: bytes (index,
+// element, out).
 extern "C" __global__ void probe_scalar_broadcast(const int32_t* __restrict__ i,
                                                   const float* __restrict__ table8,
-                                                  float* __restrict__ out) {
-  extern __shared__ float s_t8[];
-  stage(s_t8, table8, kM * 8);
-  out[threadIdx.x] = s_t8[i[0] * 8 + 3];
+                                                  float4* __restrict__ out) {
+  const float v = __ldg(&table8[__ldg(i) * 8 + 3]);
+  out[threadIdx.x] = make_float4(v, v, v, v);
 }
 
 PROBE_ENTRY(scalar_broadcast) {
-  static int opted[kMaxDevices] = {};
-  const int bytes = kM * 8 * (int)sizeof(float);
-  const cudaError_t err = opt_in(probe_scalar_broadcast, bytes, opted);
-  if (err != cudaSuccess) return (int)err;
-  probe_scalar_broadcast<<<1, kS * kL, bytes, STREAM>>>((const int32_t*)a, (const float*)b,
-                                                        (float*)out);
+  if ((uintptr_t)out % sizeof(float4) != 0) return (int)cudaErrorMisalignedAddress;
+  probe_scalar_broadcast<<<1, kS * kL / 4, 0, STREAM>>>((const int32_t*)a, (const float*)b,
+                                                        (float4*)out);
   return (int)cudaGetLastError();
 }
 
@@ -611,6 +707,20 @@ PROBE_ENTRY(empty) {
   return (int)cudaGetLastError();
 }
 
+// An empty kernel with 8j's launch geometry (64 blocks of 256 threads in
+// clusters of 8) that, for n != 0, passes one cluster barrier: chip_smoke.py
+// times both beside 8j, which splits 8j's time into the cluster launch, a
+// barrier and the rest.
+extern "C" __global__ void __cluster_dims__(kOhSlices, 1, 1) __launch_bounds__(kOhThreads)
+    probe_empty_cluster(int barrier) {
+  if (barrier) cooperative_groups::this_cluster().sync();
+}
+
+PROBE_ENTRY(empty_cluster) {
+  probe_empty_cluster<<<kOhGrid, kOhThreads, 0, STREAM>>>(n);
+  return (int)cudaGetLastError();
+}
+
 // The shared memory one block of `device` may opt in to, in bytes.
 extern "C" int llr_probe_smem_limit(int* bytes, int device) {
   return (int)cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -630,3 +740,4 @@ extern "C" int llr_probe_smem_limit(int* bytes, int device) {
 
 PROBE_STATIC_SMEM(vmem_dyn_lane)
 PROBE_STATIC_SMEM(take_rowgather)
+PROBE_STATIC_SMEM(scalar_broadcast)

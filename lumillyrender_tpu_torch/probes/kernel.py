@@ -172,6 +172,32 @@ def launch_empty():
     cuda_build.check(rc, "empty probe")
 
 
+cuda_build.ARGTYPES["llr_probe_empty_cluster"] = cuda_build.PROBE_ARGS
+
+
+def launch_empty_cluster(barrier: bool):
+    """An empty kernel with onehot_matmul_gather's grid and clusters
+    (csrc/probes.cu::probe_empty_cluster), passing one cluster barrier if
+    `barrier`: the floor that kernel sits on. Counted nowhere."""
+    rc = cuda_build.fn("probes", "llr_probe_empty_cluster")(None, None, None, None,
+                                                            int(barrier), cuda_build.stream())
+    cuda_build.check(rc, "empty cluster probe")
+
+
+def onehot_geometry() -> dict:
+    """The launch geometry of onehot_matmul_gather's kernel: its grid and
+    block, its cluster size and static shared memory as the loaded kernel
+    reports them (cudaFuncGetAttributes), and how many of its clusters the
+    card holds at once (cudaOccupancyMaxActiveClusters)."""
+    entry = "llr_probe_geometry_onehot_matmul_gather"
+    cuda_build.ARGTYPES[entry] = [ctypes.POINTER(ctypes.c_int)]
+    v = (ctypes.c_int * 5)()
+    rc = cuda_build.fn("probes", entry)(v)
+    if rc != 0:
+        raise RuntimeError(f"onehot_matmul_gather's geometry: CUDA error {rc}")
+    return dict(zip(("grid", "block", "cluster", "smem_bytes", "max_active_clusters"), v))
+
+
 def static_smem(name: str) -> int:
     """Bytes of static shared memory the kernel of probe `name` declares, as
     the loaded library reports it (cudaFuncGetAttributes); exported by

@@ -111,10 +111,20 @@ plain_take_rowgather = take_rowgather.plain
 def seeded_rows(device="cpu") -> torch.Tensor:
     """128 int32 row indices into table8, drawn from a numpy seed, with its
     first row and its last: rows that the tool's `idx_flat` (13 k % M) never
-    reaches, for take_rowgather's tests on the card and here."""
+    reaches, for the tests of take_rowgather, onehot_matmul_gather and
+    scalar_broadcast on the card and here."""
     idx = np.random.default_rng(6).integers(0, M, L).astype(np.int32)
     idx[0], idx[-1] = 0, M - 1
     return torch.from_numpy(idx).to(device)
+
+
+def seeded_table8(device="cpu") -> torch.Tensor:
+    """A (M, 8) float32 table of seeded normal values: no zeros, both signs,
+    full mantissas, where the tools' arange table has one zero and
+    integers; for the tests of onehot_matmul_gather and scalar_broadcast."""
+    t = np.random.default_rng(8).standard_normal((M, 8)).astype(np.float32)
+    return torch.from_numpy(t).to(device)
+
 
 # --- vmem scalar dynamic read: sum over j < 4 of table8[idx[0, j], 0] -----
 
@@ -294,8 +304,7 @@ scalar_broadcast = Probe(
     lambda device: (torch.tensor([5], dtype=I32, device=device), _table8(device)),
     lambda i, t: _full(t[i.long(), 3]), (S, L),
     work=lambda ins: (8 + _OUT, 0),
-    library=lambda ins: _take_call(ins[1], (ins[0].long() * 8 + 3).expand(S, L).contiguous()),
-    smem=lambda ins: ins[1].numel() * 4)
+    library=lambda ins: _take_call(ins[1], (ins[0].long() * 8 + 3).expand(S, L).contiguous()))
 plain_scalar_broadcast = scalar_broadcast.plain
 
 # --- dynamic row and lane scalar read: table[i[0], i[1]] -----------------

@@ -520,10 +520,88 @@ def test_rowgather_kernel_matches_plain_on_seeded_rows(card):
 
 @pytest.mark.cuda
 def test_direct_probes_declare_no_shared_memory(card):
-    """vmem_dyn_lane and take_rowgather read their table straight from L2:
-    the loaded kernels report no static shared memory."""
-    assert {name: probes.static_smem(name) for name in ("vmem_dyn_lane", "take_rowgather")} \
-        == {"vmem_dyn_lane": 0, "take_rowgather": 0}
+    """The probes of probes.DIRECT_PROBES (vmem_dyn_lane, take_rowgather,
+    scalar_broadcast; the list chip_smoke.py's phase 20 checks) read their
+    table straight from L2: the loaded kernels report no static shared
+    memory."""
+    assert "scalar_broadcast" in probes.DIRECT_PROBES
+    assert {name: probes.static_smem(name) for name in probes.DIRECT_PROBES} \
+        == dict.fromkeys(probes.DIRECT_PROBES, 0)
+
+
+@pytest.mark.cuda
+def test_onehot_kernel_matches_plain_on_a_random_table(card):
+    """onehot_matmul_gather's cluster kernel (partial sums over 8 K slices,
+    combined in rank order) bit-equal to its plain version and to the row
+    gather, on a seeded table with no zeros, both signs and full mantissas
+    at seeded rows with both ends of it, and on the probe's own inputs."""
+    probe = probes.pallas.onehot_matmul_gather
+    before = probe.launches
+    for ins in ((probes.pallas.seeded_table8(card), probes.pallas.seeded_rows(card)),
+                probe.inputs(card)):
+        got = probe.run(ins)
+        want = probe.compute(*ins)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(got.view(torch.int32), ins[0][ins[1].long()].view(torch.int32))
+    assert probe.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_onehot_kernel_spans_the_card(card):
+    """onehot_matmul_gather runs 64 blocks in clusters of 8, all of them at
+    once: more than the 8 blocks of its first design."""
+    geometry = probes.onehot_geometry()
+    assert geometry["grid"] == 64 and geometry["cluster"] == 8
+    assert geometry["max_active_clusters"] >= geometry["grid"] // geometry["cluster"]
+
+
+@pytest.mark.cuda
+def test_scalar_broadcast_kernel_matches_plain_on_seeded_rows(card):
+    """scalar_broadcast reads table8[i, 3] straight from L2: bit-equal at each
+    of 128 seeded rows, 0 and 2047 among them, of the seeded table."""
+    probe = probes.pallas.scalar_broadcast
+    table8 = probes.pallas.seeded_table8(card)
+    rows = probes.pallas.seeded_rows().tolist()
+    before = probe.launches
+    for i in rows:
+        ins = (torch.tensor([i], dtype=torch.int32, device=card), table8)
+        got = probe.run(ins)
+        want = probe.compute(*ins)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), i
+    assert probe.launches == before + len(rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,which", [("scalar_broadcast", "out"),
+                                        ("onehot_matmul_gather", "table")])
+def test_float4_probe_kernels_raise_when_misaligned(card, name, which):
+    """scalar_broadcast writes float4s and onehot_matmul_gather reads its
+    table as float4s: a tensor 4 bytes off a 16-byte boundary is refused by
+    the entry (cudaErrorMisalignedAddress), the launch raises, nothing is
+    written or counted, and the next aligned launch is right."""
+    probe = next(p for p in probes.PROBES if p.name == name)
+    ins = probe.inputs(card)
+    outs = probe.outputs(card)
+    off = ins[0] if which == "table" else outs[0]  # onehot's table is its first input
+    buf = torch.empty(off.numel() + 1, dtype=off.dtype, device=card)
+    bad = buf[1:].view(off.shape)
+    assert bad.data_ptr() % 16 == 4
+    if which == "table":
+        bad.copy_(off)
+        bad_ins, bad_outs = (bad, *ins[1:]), probe.outputs(card)
+    else:
+        bad_ins, bad_outs = ins, [bad]
+    bad_outs[0].fill_(float("nan"))
+    before = probe.launches
+    with pytest.raises(RuntimeError, match="CUDA error 716"):
+        probe.launch(bad_ins, bad_outs)
+    torch.cuda.synchronize()
+    assert probe.launches == before and torch.isnan(bad_outs[0]).all()
+    probe.launch(ins, outs)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0].view(torch.int32), probe.compute(*ins).view(torch.int32))
 
 
 @pytest.mark.cuda

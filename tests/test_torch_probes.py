@@ -145,6 +145,53 @@ def test_rowgather_takes_no_shared_memory_and_raises_on_misalignment():
             probe.check(rc, ins, limit)
 
 
+def test_onehot_plain_version_is_numpy_indexing():
+    """The plain version the onehot_matmul_gather kernel is held against on
+    the card is numpy's row gather, bit for bit, on a table with no zeros,
+    both signs and full mantissas, at seeded rows with both ends of it:
+    every output row has one non-zero product, so the sum is exact in any
+    order."""
+    probe = probes.pallas.onehot_matmul_gather
+    table8 = probes.pallas.seeded_table8()
+    idx = probes.pallas.seeded_rows()
+    t = table8.numpy()
+    assert (t != 0).all() and (t < 0).any() and (t > 0).any()
+    assert (t.view(np.int32) & 0xFFFF != 0).mean() > 0.99  # low mantissa bits in use
+    assert {0, 2047} <= set(idx.tolist())
+    got = probe.compute(table8, idx)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), t[idx.numpy()].view(np.int32))
+
+
+def test_scalar_broadcast_plain_version_is_numpy_indexing():
+    """The plain version the scalar_broadcast kernel is held against on the
+    card: table8[i, 3] in every element, for each seeded row i (0 and 2047
+    among them) of the seeded table."""
+    probe = probes.pallas.scalar_broadcast
+    table8 = probes.pallas.seeded_table8()
+    rows = probes.pallas.seeded_rows().tolist()
+    assert {0, 2047} <= set(rows)
+    for i in rows:
+        got = probe.compute(torch.tensor([i], dtype=torch.int32), table8)
+        assert got.dtype == torch.float32 and tuple(got.shape) == (8, 128)
+        want = np.full((8, 128), table8.numpy()[i, 3], np.float32)
+        np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("name", probes.DIRECT_PROBES)
+def test_direct_probes_take_no_shared_memory_and_raise_on_misalignment(name):
+    """The probes that read their table straight from L2 (scalar_broadcast
+    among them) declare no shared memory, so no opt-in limit refuses them,
+    and an entry's cudaErrorMisalignedAddress (716) is a failed launch."""
+    probe = next(p for p in probes.PROBES if p.name == name)
+    ins = probe.inputs("cpu")
+    assert probe.smem is None and probe.fits(ins, 0)
+    limit = lambda: H100_OPTIN
+    probe.check(0, ins, limit)
+    for rc in (716, 1):
+        with pytest.raises(RuntimeError, match=f"CUDA error {rc}"):
+            probe.check(rc, ins, limit)
+
+
 LIBRARY_PROBES = [p for p in probes.PROBES if p.library is not None]
 
 

@@ -6,18 +6,19 @@ turns on one card.
 builds DIR's `lumillyrender_tpu_torch/csrc/probes.cu` (a checkout of an
 earlier commit of the port) with this tree's nvcc flags into this tree's
 `lumillyrender_tpu_torch/build/`, beside this tree's own probes, and loads
-both. For each probe that reads its table straight from L2
-(`chip_smoke.DIRECT_PROBES`), on this tree's inputs: the earlier kernel,
-this tree's kernel and the probe's one PyTorch call must each equal the
-plain version bit for bit; then the three are captured in CUDA graphs of
-`chip_smoke.PROBE_REPS` launches and replayed in turns,
+both. For every run of the probe entry point (`probes.cases()`: each
+probe, smem_input at each table size), on this tree's inputs: the earlier
+kernel, this tree's kernel and the probe's one PyTorch call, where it has
+one, must each equal the plain version bit for bit; then they are captured
+in CUDA graphs of `chip_smoke.PROBE_REPS` launches and replayed in turns,
 `chip_smoke.PROBE_ROUNDS` replays each with the order reversed every other
 round (`chip_smoke.alternating_ms`), as phase 20 of chip_smoke.py times
-them. Prints each kernel's shared memory (the earlier one's ptxas line;
-this tree's as the loaded kernel reports it, and its ptxas line where it is
-built in this run), the card's name and power limit, and one JSON line: per
-probe the median and [min, max] ms per launch of each, and an empty
-kernel's launch timed the same way.
+them. A run that the card refuses (past its opt-in shared memory) is
+timed in neither tree. Prints each kernel's ptxas line of both trees (this
+tree's where it is built in this run), the shared memory of the kernels
+that read L2 directly as the loaded library reports it, the card's name
+and power limit, and one JSON line: per run the median and [min, max] ms
+per launch of each, and an empty kernel's launch timed the same way.
 """
 
 from __future__ import annotations
@@ -66,45 +67,55 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     cuda_build.build(("probes",), verbose=True)
     lib, log = build_parent(args.parent.resolve())
-    mine = chip_smoke.direct_probe_smem(cuda_build.LOGS.get("probes", ""))
+    mine = chip_smoke.ptxas_kernels(cuda_build.LOGS.get("probes", ""))
     theirs = chip_smoke.ptxas_kernels(log)
+    for name in probes.DIRECT_PROBES:
+        print(f"probe_{name} (reads L2 directly): change {probes.static_smem(name)} bytes "
+              f"static shared memory (cudaFuncGetAttributes)")
     card = chip_smoke.gpu_line()
     print(card)
-    rounds = chip_smoke.PROBE_ROUNDS
-    res = {"card": card, "rounds": rounds, "reps": chip_smoke.PROBE_REPS}
+    rounds, reps = chip_smoke.PROBE_ROUNDS, chip_smoke.PROBE_REPS
+    res = {"card": card, "rounds": rounds, "reps": reps}
     res["empty"] = chip_smoke.spread(chip_smoke.alternating_ms(
-        [probes.launch_empty], chip_smoke.PROBE_REPS, rounds)[0])
-    by_name = {p.name: p for p in probes.PROBES}
-    for name in chip_smoke.DIRECT_PROBES:
-        probe = by_name[name]
-        static, props = mine[name]
-        print(f"probe_{name}: parent (ptxas) {theirs.get(f'probe_{name}')}; change "
-              f"{static} bytes static shared memory (cudaFuncGetAttributes), ptxas {props}")
-        entry = getattr(lib, f"llr_probe_{name}")
+        [probes.launch_empty], reps, rounds)[0])
+    limit = probes.smem_limit(dev)
+    for tag, probe, params in probes.cases():
+        kernel = f"probe_{probe.name}"
+        print(f"{tag}: ptxas parent {theirs.get(kernel)}; change "
+              f"{chip_smoke.ptxas_line(mine, kernel)}")
+        ins = probe.inputs(dev, *params)
+        if not probe.fits(ins, limit):
+            print(f"{tag}: past the card's {limit}-byte opt-in shared memory; not timed")
+            continue
+        entry = getattr(lib, f"llr_probe_{probe.name}")
         entry.argtypes, entry.restype = cuda_build.PROBE_ARGS, ctypes.c_int
-        ins = probe.inputs(dev)
         outs, outs_parent = probe.outputs(dev), probe.outputs(dev)
         b = ins[1].data_ptr() if len(ins) > 1 else None
+        scratch = outs_parent[1].data_ptr() if len(outs_parent) > 1 else None
 
-        def parent():
-            rc = entry(ins[0].data_ptr(), b, None, outs_parent[0].data_ptr(),
-                       ins[0].shape[0], cuda_build.stream())
-            cuda_build.check(rc, f"parent {name}")
+        def parent(entry=entry, ins=ins, b=b, scratch=scratch, out=outs_parent[0], tag=tag):
+            rc = entry(ins[0].data_ptr(), b, scratch, out.data_ptr(), ins[0].shape[0],
+                       cuda_build.stream())
+            cuda_build.check(rc, f"parent {tag}")
 
-        fns = [parent, lambda: probe.launch(ins, outs), probe.library(ins)]
+        fns = {"parent": parent, "change": lambda probe=probe, ins=ins, outs=outs:
+               probe.launch(ins, outs)}
+        if probe.library is not None:
+            fns["library"] = probe.library(ins)
         want = probe.compute(*ins).view(torch.int32)
         parent()
         probe.launch(ins, outs)
-        got = dict(parent=outs_parent[0], change=outs[0], library=fns[2]())
+        got = dict(parent=outs_parent[0], change=outs[0])
+        if "library" in fns:
+            got["library"] = fns["library"]()
         torch.cuda.synchronize()
-        for tag, t in got.items():
+        for who, t in got.items():
             if not torch.equal(t.expand(want.shape).contiguous().view(torch.int32), want):
-                raise SystemExit(f"torch_probe_ab: {tag} {name} differs from the plain version")
-        times = chip_smoke.alternating_ms(fns, chip_smoke.PROBE_REPS, rounds)
-        res[name] = {tag: chip_smoke.spread(t)
-                     for tag, t in zip(("parent", "change", "library"), times)}
-        print(f"{name}: " + ", ".join(f"{tag} {m:.6f} ms [{lo:.6f}, {hi:.6f}]"
-                                      for tag, (m, (lo, hi)) in res[name].items()))
+                raise SystemExit(f"torch_probe_ab: {who} {tag} differs from the plain version")
+        times = chip_smoke.alternating_ms(list(fns.values()), reps, rounds)
+        res[tag] = {who: chip_smoke.spread(t) for who, t in zip(fns, times)}
+        print(f"{tag}: " + ", ".join(f"{who} {m:.6f} ms [{lo:.6f}, {hi:.6f}]"
+                                     for who, (m, (lo, hi)) in res[tag].items()))
     print(json.dumps(res))
     return 0
 
