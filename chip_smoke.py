@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero:
   2. build the kernels from csrc/ (one nvcc per source, in parallel): the
      seven of the render and training paths and the 23 capability-probe
      kernels of csrc/probes.cu, with each probe kernel's registers,
-     shared memory and spill from ptxas;
+     shared memory and spill from ptxas, and the BVH bounce's (kernel 4);
   3. raygen kernel vs its plain version: random bits equal, o/d/g errors;
   4. brute-force bounce kernel vs the plain step on random states of seven
      scenes at the main path's full width (2,097,152 lanes), bounces 0, 3,
@@ -1833,6 +1833,11 @@ def main() -> int:
           f"(per source: {json.dumps({k: round(v, 1) for k, v in built.items()})})")
     for kernel, props in ptxas_kernels(cuda_build.LOGS.get("probes", "")).items():
         print(f"{kernel}: {props}")
+    # Kernel 4's two instances (one material table, two): its warp walk
+    # (csrc/bvh_warp_walk.cuh) uses no shared memory, so its registers set
+    # its occupancy.
+    for kernel, props in ptxas_kernels(cuda_build.LOGS.get("bounce_bvh", "")).items():
+        print(f"kernel 4 (bounce_bvh.cu) {kernel}: {props or 'no ptxas line'}")
     lap("build", t0)
 
     phase("3 raygen kernel vs plain")

@@ -10,7 +10,8 @@
 // argument: `Hit isect(o, d, t_init, t_stop)`, the nearest hit closer than
 // t_init; t_stop lets a BVH walk stop early on shadow rays. bounce.cu
 // instantiates it with brute force (llr_bounce), bounce_bvh.cu with the
-// sphere pre-pass and the BVH walk (llr_bounce_bvh). The plain version is
+// sphere pre-pass and the BVH walk (llr_bounce_bvh; its warp walk is asked
+// by every lane at once, `Isect::kWarpQueries`). The plain version is
 // integrator/wavefront.py::plain_bounce_step, followed operation for
 // operation.
 //
@@ -117,6 +118,7 @@ struct BruteIsect {
   int nt;
   const float* sph;
   int ns;
+  static constexpr bool kWarpQueries = false;  // queries asked inside the lanes' branches
 
   __device__ Hit operator()(V3 o, V3 d, float t_init, float /*t_stop*/) const {
     float best_t = t_init;
@@ -462,6 +464,43 @@ __device__ V3 direct_light(const Scene& sc, const Isect& isect, const Hit& sp, V
   return scale(mul(f, le), g / pdf);
 }
 
+// NEE for the warp walk (`Isect::kWarpQueries`): nee_geometry and
+// direct_light cut at the shadow query, which the kernel asks outside the
+// lanes' branches, with the same operations. `nee_setup` fills the
+// geometry and returns whether the lane asks the query (from sp.pos along
+// wi, t_init e.dist + 0.002f); `nee_verdict` takes its hit; `nee_light`
+// gives the contribution. The per-thread instances keep nee_geometry and
+// direct_light whole: built from these helpers instead, their code
+// changed (kernel 4's per-thread instances 116 / 113 registers against
+// 117 / 114) and kernels 2 and 4 ran 1.1-1.5% slower at full width (H100,
+// tools/torch_bounce_ab.py in turns, ranges disjoint).
+__device__ __forceinline__ bool nee_setup(const Scene& sc, const Hit& sp, V3 out, const Mat& ms,
+                                          uint32_t seed, uint32_t lane, uint32_t ctr, Nee& e) {
+  e.path = sub(light_point(sc, seed, lane, ctr), sp.pos);
+  e.dist = norm(e.path);
+  e.wi = divs(e.path, fmaxf(e.dist, 1e-20f));
+  e.pn = orienting(out, sp.n);
+  e.cos_p = dot(e.wi, e.pn);
+  return e.cos_p > 0.f && dot(ms.emi, ms.emi) <= 0.f;
+}
+
+__device__ __forceinline__ void nee_verdict(Nee& e, const Hit& s) {
+  e.s = s;
+  if (!(e.s.hit && fabsf(e.s.t - e.dist) <= LLR_EPS)) return;
+  e.light_cos = dot(neg(e.wi), e.s.n);
+  e.ok = e.light_cos > 0.f;
+}
+
+__device__ __forceinline__ V3 nee_light(const Scene& sc, const Nee& e, const Hit& sp, V3 out,
+                                         const Mat& me) {
+  if (!e.ok) return v3(0.f, 0.f, 0.f);
+  const float pdf = 1.0f / sc.total_area;
+  const float g = e.cos_p * e.light_cos / fmaxf(dot(e.path, e.path), 1e-20f);
+  const V3 f = eval_brdf(me, out, e.wi, e.pn, sp.pos);
+  const V3 le = load_mat(sc.mats_eval, sc.nm, e.s.mat).emi;
+  return scale(mul(f, le), g / pdf);
+}
+
 // BSDF sampling and the throughput weight (`scene.rs:78-102`): direction
 // `sd` sampled from the sampling row with r[1..3], w = f * coef * cos / pdf
 // from the evaluation row. False where the lane dies (w == 0 or pdf == 0).
@@ -476,9 +515,17 @@ __device__ __forceinline__ bool scatter(const Mat& ms, const Mat& me, const Hit&
   return (w.x != 0.f || w.y != 0.f || w.z != 0.f) && pdf != 0.f;
 }
 
-// One bounce per lane; `isect(o, d, t_init, t_stop)` is the intersector.
-// `kSplit`: the two material tables differ; without it (the forward
-// render's one table passed twice) a hit's row is loaded once.
+// One bounce per lane; `isect(o, d, t_init, t_stop)` is the intersector,
+// asked inside the branch that needs it. Where `Isect::kWarpQueries` (the
+// BVH bounce's warp walk, bvh_warp_walk.cuh), both queries, the primary ray
+// and the NEE shadow ray, are asked instead at points outside the lanes'
+// branches by every lane still running, as `isect(ask, o, d, t_init,
+// t_stop)` with `ask` false where a lane has nothing to ask, so that the
+// warp has all its lanes to test a leaf; the locals that cross those
+// points live outside the branches in that body only. Both bodies make the
+// same operations on every lane. `kSplit`: the two material tables differ;
+// without it (the forward render's one table passed twice) a hit's row is
+// loaded once.
 template <class Isect, bool kSplit>
 __global__ void __launch_bounds__(128) bounce_kernel(
     const float* __restrict__ o_in, const float* __restrict__ d_in,
@@ -496,39 +543,87 @@ __global__ void __launch_bounds__(128) bounce_kernel(
   bool alive = false;
   V3 new_o = o, new_d = d, new_thr = thr;
 
-  if (alive_entry) {
-    const Hit hp = isect(o, d, LLR_INF, -LLR_INF);
-    if (!hp.hit) {  // sky on miss, at every depth
-      acc = add(acc, mul(thr, sky_radiance(sc, d)));
-    } else {
-      const Mat ms = load_mat(sc.mats, sc.nm, hp.mat);
-      const Mat me = kSplit ? load_mat(sc.mats_eval, sc.nm, hp.mat) : ms;
-      const V3 out = neg(d);
-      if ((flags & FLAG_EMIT) && dot(out, hp.n) > 0.f) acc = add(acc, mul(thr, me.emi));
+  if constexpr (!Isect::kWarpQueries) {
+    if (alive_entry) {
+      const Hit hp = isect(o, d, LLR_INF, -LLR_INF);
+      if (!hp.hit) {  // sky on miss, at every depth
+        acc = add(acc, mul(thr, sky_radiance(sc, d)));
+      } else {
+        const Mat ms = load_mat(sc.mats, sc.nm, hp.mat);
+        const Mat me = kSplit ? load_mat(sc.mats_eval, sc.nm, hp.mat) : ms;
+        const V3 out = neg(d);
+        if ((flags & FLAG_EMIT) && dot(out, hp.n) > 0.f) acc = add(acc, mul(thr, me.emi));
 
-      const uint32_t lane = (uint32_t)lane_in[i];
-      const uint32_t ctr = (uint32_t)bounce * 8u;
-      float r[4];
-      uniform4(seed, lane, ctr, r);
+        const uint32_t lane = (uint32_t)lane_in[i];
+        const uint32_t ctr = (uint32_t)bounce * 8u;
+        float r[4];
+        uniform4(seed, lane, ctr, r);
 
-      // Russian roulette (`scene.rs:180-183`).
-      const float prob = rr_prob(ms, flags, rr_scale);
-      alive = prob == 1.0f || r[0] < prob;
-      if (alive) {
-        const float pc = fmaxf(prob, 1e-12f);
-        V3 t2 = v3(thr.x / pc, thr.y / pc, thr.z / pc);
-        if (flags & FLAG_NEE) {
-          const V3 dl = direct_light(sc, isect, hp, out, ms, me, seed, lane, ctr);
-          acc = add(acc, mul(t2, dl));
-          rays += 1.0f;  // the shadow ray
-        }
-        V3 sd, w;
-        alive = scatter(ms, me, hp, out, r, sd, w);
+        // Russian roulette (`scene.rs:180-183`).
+        const float prob = rr_prob(ms, flags, rr_scale);
+        alive = prob == 1.0f || r[0] < prob;
         if (alive) {
-          new_o = hp.pos;
-          new_d = sd;
-          new_thr = mul(t2, w);
+          const float pc = fmaxf(prob, 1e-12f);
+          V3 t2 = v3(thr.x / pc, thr.y / pc, thr.z / pc);
+          if (flags & FLAG_NEE) {
+            const V3 dl = direct_light(sc, isect, hp, out, ms, me, seed, lane, ctr);
+            acc = add(acc, mul(t2, dl));
+            rays += 1.0f;  // the shadow ray
+          }
+          V3 sd, w;
+          alive = scatter(ms, me, hp, out, r, sd, w);
+          if (alive) {
+            new_o = hp.pos;
+            new_d = sd;
+            new_thr = mul(t2, w);
+          }
         }
+      }
+    }
+  } else {
+    const V3 out = neg(d);
+    Mat ms{}, me{};
+    float r[4] = {0.f, 0.f, 0.f, 0.f};
+    V3 t2 = v3(0.f, 0.f, 0.f);
+    Nee e{};
+    bool ask = false;  // the lane asks a shadow query
+    const Hit hp = isect(alive_entry, o, d, LLR_INF, -LLR_INF);
+    if (alive_entry) {
+      if (!hp.hit) {  // sky on miss, at every depth
+        acc = add(acc, mul(thr, sky_radiance(sc, d)));
+      } else {
+        ms = load_mat(sc.mats, sc.nm, hp.mat);
+        me = kSplit ? load_mat(sc.mats_eval, sc.nm, hp.mat) : ms;
+        if ((flags & FLAG_EMIT) && dot(out, hp.n) > 0.f) acc = add(acc, mul(thr, me.emi));
+
+        const uint32_t lane = (uint32_t)lane_in[i];
+        const uint32_t ctr = (uint32_t)bounce * 8u;
+        uniform4(seed, lane, ctr, r);
+
+        // Russian roulette (`scene.rs:180-183`).
+        const float prob = rr_prob(ms, flags, rr_scale);
+        alive = prob == 1.0f || r[0] < prob;
+        if (alive) {
+          const float pc = fmaxf(prob, 1e-12f);
+          t2 = v3(thr.x / pc, thr.y / pc, thr.z / pc);
+          if (flags & FLAG_NEE) ask = nee_setup(sc, hp, out, ms, seed, lane, ctr, e);
+        }
+      }
+    }
+    const float cap = e.dist + 0.002f;
+    const Hit shadow = isect(ask, hp.pos, e.wi, cap, cap - 0.004f);
+    if (ask) nee_verdict(e, shadow);
+    if (alive) {
+      if (flags & FLAG_NEE) {
+        acc = add(acc, mul(t2, nee_light(sc, e, hp, out, me)));
+        rays += 1.0f;  // the shadow ray
+      }
+      V3 sd, w;
+      alive = scatter(ms, me, hp, out, r, sd, w);
+      if (alive) {
+        new_o = hp.pos;
+        new_d = sd;
+        new_thr = mul(t2, w);
       }
     }
   }

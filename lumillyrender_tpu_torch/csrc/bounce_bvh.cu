@@ -1,6 +1,6 @@
 // One whole bounce per lane on a BVH scene (bounce_body.cuh with the
-// sphere pre-pass and the BVH walk of bvh_walk.cuh, for the primary ray and
-// the NEE shadow ray). One thread per lane.
+// sphere pre-pass and the warp-cooperative BVH walk of bvh_warp_walk.cuh,
+// for the primary ray and the NEE shadow ray). One thread per lane.
 //
 // Replaces the TPU kernel lumillyrender_tpu/ops/pallas_bounce.py::
 // _bounce_kernel_bvh (sphere pre-pass _sphere_pass, packet walk
@@ -11,23 +11,44 @@
 //
 // Bound on an H100: operations at full width. The state is 106 B/lane each
 // way as in bounce.cu, but each live lane walks tens to hundreds of nodes
-// (~25 flops each) and tests a few 32-triangle leaves (~54 flops per
-// triangle) for its primary ray and again for its shadow ray, counted by
-// chip_smoke.py from the plain walk of the same launch. The design: one
-// thread per lane with its own cursor (no packet union of boxes, which the
-// TPU needed), the node and leaf tables in global memory (6.8 MB for
-// welcome-geo, held by the L2), the shading code shared with bounce.cu.
+// (~25 flops each) and tests a few leaves (~54 flops per triangle) for its
+// primary ray and again for its shadow ray, counted by chip_smoke.py from
+// the plain walk of the same launch. The design: each lane keeps its own
+// node cursor (no packet union of boxes, which the TPU needed), and the
+// warp tests each leaf together, one requester at a time, each lane its
+// share of the K slots, read as whole 128-byte lines (bvh_warp_walk.cuh):
+// at K = 128 (terrain-1m, 82 MB of tables past the 50 MB L2) a leaf is
+// read once per request instead of ~10 scattered sectors per slot per
+// thread, and a request costs K/32 slots a lane instead of K serial slots
+// on one lane while its warp waits. The node and leaf tables stay in
+// global memory (6.8 MB for welcome-geo, held by the L2); the shading code
+// is shared with bounce.cu.
+//
+// The walk by leaf width, decided in llr_bounce_bvh: K > 32 takes the warp
+// walk; K <= 32 keeps the per-thread walk (walk_tris, bvh_walk.cuh), each
+// lane testing its own leaf's slots. At K = 32 a request gives each lane
+// one slot, and the per-request broadcasts and reductions cost more than
+// the serial loop saves: on an H100 (NVIDIA H100 80GB HBM3, 700 W;
+// tools/torch_bounce_ab.py, medians of 9 launches in turns) welcome-geo
+// (K = 32, tables in the L2) took 0.627 ms per 2,072,576-lane launch with
+// the warp walk against 0.470 ms with the per-thread walk, while terrain-1m
+// (K = 128) took 10.33 ms against 42.09.
 //
 // Intersection contract (ops/intersect.py::intersect_bvh): spheres first,
 // from t_init, then a triangle wins only when strictly closer, so a sphere
 // wins a tie.
 #include "bounce_body.cuh"
-#include "bvh_walk.cuh"
+#include "bvh_warp_walk.cuh"
 
+// Leaf widths from which the warp walk serves the BVH bounce.
+constexpr int kWarpWalkMinK = 33;
+
+// The per-thread walk (K <= 32): each lane that asks walks alone.
 struct BvhIsect {
   BvhTables b;
   const float* sph;
   int ns;
+  static constexpr bool kWarpQueries = false;
 
   __device__ Hit operator()(V3 o, V3 d, float t_init, float t_stop) const {
     float best_t = t_init;
@@ -36,6 +57,33 @@ struct BvhIsect {
     fold_spheres(sph, ns, o, d, best_t, kind, best_m, best_f);
     if (b.nodes != nullptr) {  // null: no triangles, an empty BVH
       const TriHit w = walk_tris<true>(b, o, d, best_t, t_stop);
+      if (w.prim >= 0) {
+        best_t = w.t;
+        kind = 1;
+        best_m = w.mat;
+        best_f = w.n;
+      }
+    }
+    return make_hit(o, d, best_t, kind != 0, kind == 1, best_m, best_f);
+  }
+};
+
+// The warp walk (K > 32): every lane of the warp still running calls it
+// (bounce_body.cuh); a lane that does not `ask` helps test the others'
+// leaves.
+struct BvhWarpIsect {
+  BvhTables b;
+  const float* sph;
+  int ns;
+  static constexpr bool kWarpQueries = true;
+
+  __device__ Hit operator()(bool ask, V3 o, V3 d, float t_init, float t_stop) const {
+    float best_t = t_init;
+    int kind = 0, best_m = -1;  // kind: 0 miss, 1 triangle, 2 sphere
+    V3 best_f = v3(0.f, 0.f, 0.f);
+    if (ask) fold_spheres(sph, ns, o, d, best_t, kind, best_m, best_f);
+    if (b.nodes != nullptr) {  // null: no triangles, an empty BVH
+      const TriHit w = walk_tris_warp(b, ask, o, d, best_t, t_stop);
       if (w.prim >= 0) {
         best_t = w.t;
         kind = 1;
@@ -60,8 +108,13 @@ extern "C" int llr_bounce_bvh(const float* o_in, const float* d_in, const float*
                               void* stream) {
   const Scene sc{sph, ns, mats, mats_eval, nm, lights, nl, total_area, V3{sky_r, sky_g, sky_b},
                  ibl, ibl_w, ibl_h, lon};
-  const BvhIsect isect{BvhTables{nodes, leaves, ids, k}, sph, ns};
+  const BvhTables b{nodes, leaves, ids, k};
+  if (k >= kWarpWalkMinK) {
+    return launch_bounce(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out, thr_out,
+                         acc_out, alive_out, rays_out, sc, BvhWarpIsect{b, sph, ns}, n, bounce,
+                         seed, flags, rr_scale, stream);
+  }
   return launch_bounce(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out, thr_out,
-                       acc_out, alive_out, rays_out, sc, isect, n, bounce, seed, flags, rr_scale,
-                       stream);
+                       acc_out, alive_out, rays_out, sc, BvhIsect{b, sph, ns}, n, bounce,
+                       seed, flags, rr_scale, stream);
 }

@@ -12,13 +12,13 @@
 // * a VMEM table that the kernel reads at a few places is read straight
 //   from global memory, where it stays in the 50 MB L2, with read-only
 //   loads (__ldg, ld.global.nc) of what the function needs: no shared
-//   memory, no barrier (8b, 8g, 8p). Only a table that the kernel reads
-//   wholly or repeatedly is staged into shared memory by the block (above
-//   48 KB as opted-in dynamic shared memory): a round of 4-byte loads and
-//   stores per thread, then __syncthreads, costs more than a few L2 round
-//   trips. 8a, 8h, 8i and 8t still stage a table they read at a few
-//   places; they are to be redesigned as 8b, 8g and 8p were (ROADMAP.md,
-//   item 5.1);
+//   memory, no barrier (8b, 8g, 8i, 8p). Only a table that the kernel
+//   reads wholly or repeatedly is staged into shared memory by the block
+//   (above 48 KB as opted-in dynamic shared memory): a round of 4-byte
+//   loads and stores per thread, then __syncthreads, costs more than a few
+//   L2 round trips. 8a, 8h and 8t still stage a table they read at a few
+//   places; they are to be redesigned as 8b, 8g, 8i and 8p were
+//   (ROADMAP.md, item 5.1);
 // * `table` (2048 x 128 float32, 1 MiB) is read from global memory, where
 //   it stays in the 50 MB L2; an input read once at a fixed place goes
 //   straight to registers.
@@ -290,23 +290,26 @@ PROBE_ENTRY(vmem_scalar_dynamic_read) {
 }
 
 // 8i. ref ds-row read (tools/pallas_probe.py:101): table8[i, :] broadcast to
-// (8,8). i (1,) SMEM -> every thread reads it (one broadcast load); table8
-// VMEM -> shared memory (64 KiB, opted in). Bound: bytes (one row, out).
+// (8,8). A row of table8 (2048,8) VMEM is 32 B, two float4s: each of 16
+// threads (one warp) reads i (1,) SMEM (one broadcast load), then half t % 2
+// of row i with one read-only 16-byte load (ld.global.nc.v4.f32, from L2),
+// and writes float4 t of out. Only the one row is read; nothing is staged,
+// no shared memory, no barrier. The entry refuses a table or output off 16
+// bytes with cudaErrorMisalignedAddress, without a launch. Bound: bytes
+// (index, one row, out).
 extern "C" __global__ void probe_ref_ds_row_read(const int32_t* __restrict__ i,
-                                                 const float* __restrict__ table8,
-                                                 float* __restrict__ out) {
-  extern __shared__ float s_t8[];
-  stage(s_t8, table8, kM * 8);
-  if (threadIdx.x < kS * 8) out[threadIdx.x] = s_t8[i[0] * 8 + threadIdx.x % 8];
+                                                 const float4* __restrict__ table8,
+                                                 float4* __restrict__ out) {
+  const int t = threadIdx.x;
+  out[t] = __ldg(&table8[__ldg(i) * 2 + t % 2]);
 }
 
 PROBE_ENTRY(ref_ds_row_read) {
-  static int opted[kMaxDevices] = {};
-  const int bytes = kM * 8 * (int)sizeof(float);
-  const cudaError_t err = opt_in(probe_ref_ds_row_read, bytes, opted);
-  if (err != cudaSuccess) return (int)err;
-  probe_ref_ds_row_read<<<1, 1024, bytes, STREAM>>>((const int32_t*)a, (const float*)b,
-                                                    (float*)out);
+  if (((uintptr_t)b | (uintptr_t)out) % sizeof(float4) != 0) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  probe_ref_ds_row_read<<<1, kS * 8 / 4, 0, STREAM>>>((const int32_t*)a, (const float4*)b,
+                                                      (float4*)out);
   return (int)cudaGetLastError();
 }
 
@@ -740,4 +743,5 @@ extern "C" int llr_probe_smem_limit(int* bytes, int device) {
 
 PROBE_STATIC_SMEM(vmem_dyn_lane)
 PROBE_STATIC_SMEM(take_rowgather)
+PROBE_STATIC_SMEM(ref_ds_row_read)
 PROBE_STATIC_SMEM(scalar_broadcast)

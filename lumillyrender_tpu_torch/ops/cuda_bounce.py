@@ -79,9 +79,10 @@ def _shading_supported(settings: RenderSettings) -> tuple[bool, str]:
 def bounce_supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
     """(ok, reason) for the bounce kernels: pt or pt-direct under a uniform
     or IBL sky, on a brute-force scene (bounce.cu) or a BVH scene of any
-    leaf width (bounce_bvh.cu, whose per-thread walk serves the compiler's
-    32- and 128-wide leaves at any table size). Lights and materials have
-    no cap (binary-search light pick, tables read from global memory)."""
+    leaf width (bounce_bvh.cu: the compiler's 128-wide leaves through the
+    warp walk, its 32-wide ones through the per-thread walk, at any table
+    size). Lights and materials have no cap (binary-search light pick,
+    tables read from global memory)."""
     return _shading_supported(settings)
 
 

@@ -19,8 +19,9 @@ winner of the JAX package's XLA walk and packet kernels too: each of them
 visits a superset of a lane's leaves in the same order under the same rule.
 
 The port's one routing rule for BVHs (`bvh_route`), for `intersect`,
-`intersect_shade` and `intersect_bvh` on any caller (the AOVs; the bounce
-kernels keep their own per-thread walk at every K):
+`intersect_shade` and `intersect_bvh` on any caller (the AOVs; the BVH
+bounce kernel keeps its own walk: per thread up to K=32, the warp walk of
+csrc/bvh_warp_walk.cuh above):
 
   =========================================  ===========================
   BVH                                        triangle walk

@@ -111,8 +111,8 @@ plain_take_rowgather = take_rowgather.plain
 def seeded_rows(device="cpu") -> torch.Tensor:
     """128 int32 row indices into table8, drawn from a numpy seed, with its
     first row and its last: rows that the tool's `idx_flat` (13 k % M) never
-    reaches, for the tests of take_rowgather, onehot_matmul_gather and
-    scalar_broadcast on the card and here."""
+    reaches, for the tests of take_rowgather, onehot_matmul_gather,
+    ref_ds_row_read and scalar_broadcast on the card and here."""
     idx = np.random.default_rng(6).integers(0, M, L).astype(np.int32)
     idx[0], idx[-1] = 0, M - 1
     return torch.from_numpy(idx).to(device)
@@ -151,8 +151,7 @@ ref_ds_row_read = Probe(
     lambda device: (torch.tensor([5], dtype=I32, device=device), _table8(device)),
     lambda i, t: t[i.long()].expand(S, 8).contiguous(), (S, 8),
     work=lambda ins: (4 + 32 + S * 8 * 4, 0),
-    library=lambda ins: _index_select_call(ins[1], ins[0].long().expand(S).contiguous()),
-    smem=lambda ins: ins[1].numel() * 4)
+    library=lambda ins: _index_select_call(ins[1], ins[0].long().expand(S).contiguous()))
 plain_ref_ds_row_read = ref_ds_row_read.plain
 
 # --- one-hot matmul gather: onehot(idx_flat, M) @ table8 -----------------

@@ -12,6 +12,10 @@
   against the JAX package's XLA step and one bounce of its TPU kernel
   `make_step_bvh` (interpret mode), under tests/test_fused_bounce.py's
   lane rules.
+* Ties inside a leaf: three identical triangles in slots of one lane's
+  rounds or of different lanes of the BVH bounce's warp walk (TIE_LAYOUTS
+  of tests/torch_tie_leaves.py); the plain walk and the JAX package's walk
+  both keep the first slot's prim, material and normal.
 The CUDA kernels against these plain versions: tests/test_torch_cuda.py.
 """
 
@@ -25,12 +29,14 @@ import numpy as np
 import pytest
 import torch
 
+from lumillyrender_tpu.accel.pack import _pack_kernel_tables
 from lumillyrender_tpu.accel.pack import build_tri_bvh as jax_build_bvh
 from lumillyrender_tpu.integrator.wavefront import make_bounce_step as jax_step
 from lumillyrender_tpu.ops import intersect as jax_isect
 from lumillyrender_tpu.ops import pallas_bounce
 from lumillyrender_tpu.scene.compiler import compile_scene as jax_compile_scene
 from lumillyrender_tpu.scene.data import Bvh as JaxBvh
+from lumillyrender_tpu.scene.data import Geometry as JaxGeometry
 from lumillyrender_tpu.scene.loader import parse_config as jax_parse
 from lumillyrender_tpu_torch.accel.pack import build_tri_bvh
 from lumillyrender_tpu_torch.constants import EPS
@@ -42,6 +48,7 @@ from lumillyrender_tpu_torch.convert import (
 from lumillyrender_tpu_torch.integrator import wavefront
 from lumillyrender_tpu_torch.ops import cuda_bounce, cuda_bvh
 from lumillyrender_tpu_torch.ops.intersect import (
+    _tri_t,
     _walk_tris,
     intersect_bvh,
     intersect_shade_brute,
@@ -50,6 +57,7 @@ from lumillyrender_tpu_torch.scene import terrain
 from lumillyrender_tpu_torch.scene.data import Bvh, Geometry, tensor_of
 from test_fused_bounce import _assert_states_close, _mk_state, _random_state
 from test_pallas import _rays, _scene
+from torch_tie_leaves import TIE_LAYOUTS, tie_bvh, tie_rays
 
 torch.set_num_threads(2)
 
@@ -253,6 +261,48 @@ def test_wide_leaves_are_refused():
     ok, reason = cuda_bounce.supported(scene, dataclasses.replace(st, sky_kind=SKY_SIMPLE))
     assert not ok and "simple sky" in reason and "slice" in reason
 
+
+
+@pytest.mark.parametrize("case", list(TIE_LAYOUTS))
+def test_tie_leaf_keeps_the_first_slot(case):
+    """On the hand-written tie BVHs over new-cbox (the root one K=128 leaf
+    with the ties in one lane's rounds or in three lanes, a K=32 twin, and
+    the 128 slots as four K=32 leaves), `_walk_tris` and
+    the JAX package's walk pick the first tie slot's prim (0), material row
+    and normal on every lane that hits the tie, and agree with each other
+    on every lane: the rule "smaller t, then the earlier slot" that the
+    BVH bounce's warp walk implements."""
+    from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
+
+    g = compile_scene_file(REPO / "assets" / "new-cbox.toml", device="cpu").data.geometry
+    arrays = tie_bvh(g, case)
+    pbvh = Bvh(**{f: tensor_of(v) for f, v in arrays.items()})
+    jbvh = JaxBvh(**{f: jnp.asarray(v) for f, v in {
+        **arrays, **_pack_kernel_tables(**arrays)}.items()})
+    jgeom = JaxGeometry(**{f: jnp.asarray(getattr(g, f).numpy())
+                           for f in Geometry.__dataclass_fields__})
+    o, d = tie_rays(g, 2048, 11)
+    n = o.shape[0]
+    h_p, sp_p = intersect_bvh(_t(o), _t(d), g, pbvh, want_shade=True, plain=True)
+    t, prim, mat, nrm = h_p.t, h_p.prim, sp_p.mat, sp_p.normal
+    h_j, sp_j = jax_isect.intersect_bvh(jnp.asarray(o), jnp.asarray(d), jgeom, jbvh,
+                                        want_shade=True)
+    # The lanes whose nearest triangle is the tie: triangle 0 alone gives t.
+    _, _, ties, _ = TIE_LAYOUTS[case]
+    t0 = _tri_t(_t(o), _t(d), g.tri_p0[:1], g.tri_e1[:1], g.tri_e2[:1])[0]
+    tie = (prim >= 0) & (t == t0)
+    assert int(tie.sum()) > n // 8
+    first = ties[0]
+    want_n = arrays["blk_n"].reshape(-1, 3)[first]
+    want_m = arrays["blk_mat"].reshape(-1)[first]
+    for tag, p_, m_, n_ in (("plain walk", prim, mat, nrm),
+                            ("jax walk", _t(h_j.prim), _t(sp_j.mat), _t(sp_j.normal))):
+        assert (p_[tie] == 0).all(), tag
+        assert (m_[tie] == int(want_m)).all(), tag
+        assert torch.equal(n_[tie], torch.from_numpy(want_n).expand(int(tie.sum()), 3)), tag
+    # The two walks agree on every lane.
+    np.testing.assert_array_equal(_np(h_j.prim), prim.numpy())
+    _assert_hits_agree((h_j, sp_j), (h_p, sp_p), f"tie {case}")
 
 # ---------------------------------------------------------------------------
 # The bounce on the terrain scene

@@ -19,7 +19,10 @@ shadow verdicts exactly, its t within 1e-6 relative (its operations are the
 plain walk's, in the same order, without contraction); the packet walks
 (csrc/bvh_wide.cu, csrc/bvh_streamed.cu) every output bit-equal (a thread
 tests exactly the plain walk's leaves in its order); the bounces follow
-lumillyrender_tpu_torch/parity.py's lane rules; the backward kernel is
+lumillyrender_tpu_torch/parity.py's lane rules, and the BVH bounce on the
+hand-written tie leaves and on warps of chosen leaf requests also has its
+new origins, directions, alive and ray count bit-equal to the plain step's,
+with no tie and no accum flip (`assert_walks_agree`); the backward kernel is
 compared on its backward rules' lanes (`bwd_comparable`) within
 `parity.KERNEL_BWD_RTOL` (1e-5) of each cotangent's and table's largest
 magnitude, with the recomputed alive' equal to the forward kernel's on
@@ -41,6 +44,7 @@ from lumillyrender_tpu_torch.ops import cuda_bounce, cuda_bvh
 from lumillyrender_tpu_torch.ops.bounce_bwd import plain_bounce_bwd
 from lumillyrender_tpu_torch.ops.intersect import _walk_tris, intersect_shade_brute
 from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
+from torch_tie_leaves import TIE_LAYOUTS, tie_bvh, tie_rays
 
 ASSETS = Path(__file__).resolve().parents[1] / "assets"
 
@@ -65,6 +69,19 @@ def _random_state(scene, n, seed):
     lane = rng.integers(0, 2**32, size=n, dtype=np.uint32)
     return o, d, thr, acc, alive, lane
 
+
+
+def assert_walks_agree(want, got):
+    """A bounce kernel's state against the plain step's where the walk
+    decides it: the new origins (the hit points, o + d t), the new
+    directions (sampled about the winner's normal), alive and the ray count
+    bit-equal; throughput and accum, whose shading arithmetic differs from
+    the plain step's in its last bits (max rel 2.4e-7 in every earlier
+    run), under parity.py's rules with no tie and no accum flip."""
+    for name in ("o", "d", "alive", "rays_traced"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    m = parity.agreement(want, got)
+    assert parity.failures(m) == [] and m["tie"] == 0.0 and m["accum_flip"] == 0.0, m
 
 @pytest.mark.cuda
 def test_raygen_kernel_matches_plain(card):
@@ -441,7 +458,7 @@ def test_routing_launches_the_packet_kernels(terrain_bvhs):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bounce", [0, 3, 7, 70])
 def test_bvh_bounce_kernel_at_k128_matches_plain(welcome, bounce):
-    """The BVH bounce's per-thread walk on welcome-geo rebuilt with 128-wide
+    """The BVH bounce's warp walk on welcome-geo rebuilt with 128-wide
     leaves, under parity.py's lane rules."""
     import dataclasses
 
@@ -460,6 +477,86 @@ def test_bvh_bounce_kernel_at_k128_matches_plain(welcome, bounce):
     torch.cuda.synchronize()
     assert parity.failures(parity.agreement(want, got)) == []
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TIE_LAYOUTS))
+@pytest.mark.parametrize("bounce", [0, 3])
+def test_bvh_bounce_kernel_on_tie_leaves(card, case, bounce):
+    """The BVH bounce on three identical triangles in one leaf
+    (TIE_LAYOUTS): at K=128 the warp walk with the ties in one lane's
+    rounds and in three lanes, the first slot in the highest; at K=32 the
+    per-thread walk. The first slot's triangle wins, as in the plain step
+    (tests/test_torch_bvh.py holds the plain walk and the JAX package's
+    walk to that), for the primary and the shadow rays, with dead lanes
+    among the live ones."""
+    import dataclasses
+
+    from lumillyrender_tpu_torch.scene.data import Bvh, tensor_of
+
+    c = compile_scene_file(ASSETS / "new-cbox.toml", device=card)
+    g = c.data.geometry
+    scene = dataclasses.replace(c.data, bvh=Bvh(**{
+        f: tensor_of(v).cuda() for f, v in tie_bvh(g, case).items()}))
+    settings = dataclasses.replace(c.settings, intersector="bvh")
+    n = 8192
+    o, d = tie_rays(g, n, 300 + bounce)
+    _, _, thr, acc, alive, lane = _random_state(c.data, n, 310 + bounce)
+    st = state_from_numpy(bounce, o, d, thr, acc, alive, lane, device=card)
+    before = cuda_bounce.bounce_bvh.launches
+    got = cuda_bounce.bounce_bvh(scene, settings, 77, st)
+    want = wavefront.plain_bounce_step(scene, settings, 77, st)
+    torch.cuda.synchronize()
+    assert cuda_bounce.bounce_bvh.launches == before + 1
+    assert_walks_agree(want, got)
+    # The tie is exercised: many aimed lanes go on from triangle 0's plane.
+    on_tie = got.alive[::2] & ((got.o[::2] - g.tri_p0[0]) @ g.tri_n[0]).abs().lt(1e-2)
+    assert int(on_tie.sum()) > n // 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2048, 2048 + 13])
+@pytest.mark.parametrize("pattern", ["same leaf", "different leaves", "mixed"])
+def test_bvh_bounce_kernel_at_k128_warp_patterns(welcome, pattern, n):
+    """The warp walk at K=128 on welcome-geo rebuilt with 128-wide leaves,
+    on warps whose lanes request the same leaf (one origin, directions a
+    hair apart), different leaves (each lane from another leaf's centre)
+    or a mix (alternating lanes), with every fifth lane dead; at 2048 + 13
+    lanes the last warp runs 13 lanes, which test each leaf's slots with a
+    stride of 13."""
+    import dataclasses
+
+    from lumillyrender_tpu_torch.accel.pack import build_tri_bvh
+    from lumillyrender_tpu_torch.scene.data import Bvh, tensor_of
+
+    g = welcome.data.geometry
+    arrays = build_tri_bvh(*(getattr(g, f).cpu().numpy() for f in (
+        "tri_p0", "tri_e1", "tri_e2", "tri_n", "tri_mat")), max_leaf=128)
+    scene = dataclasses.replace(welcome.data, bvh=Bvh(**{
+        f: tensor_of(v).cuda() for f, v in arrays.items()}))
+    leaf_nodes = np.flatnonzero(arrays["node_leaf"] >= 0)
+    centres = (arrays["node_min"][leaf_nodes] + arrays["node_max"][leaf_nodes]) / 2
+    rng = np.random.default_rng(400)
+    warps = -(-n // 32)
+    warp = np.arange(n) // 32
+    same_o = centres[rng.integers(0, len(centres), size=warps)][warp]
+    same_d = rng.normal(size=(warps, 3))[warp] + rng.normal(scale=1e-4, size=(n, 3))
+    perm = np.concatenate([rng.permutation(len(centres)) for _ in range(n // len(centres) + 1)])
+    diff_o = centres[perm[:n]]
+    diff_d = rng.normal(size=(n, 3))
+    pick = {"same leaf": np.ones(n, bool), "different leaves": np.zeros(n, bool),
+            "mixed": np.arange(n) % 2 == 0}[pattern]
+    o = np.where(pick[:, None], same_o, diff_o).astype(np.float32)
+    d = np.where(pick[:, None], same_d, diff_d)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    _, _, thr, acc, _, lane = _random_state(scene, n, 401)
+    alive = np.arange(n) % 5 != 4
+    for bounce in (0, 3):
+        st = state_from_numpy(bounce, o, d, thr, acc, alive, lane, device="cuda")
+        got = cuda_bounce.bounce_bvh(scene, welcome.settings, 77, st)
+        want = wavefront.plain_bounce_step(scene, welcome.settings, 77, st)
+        torch.cuda.synchronize()
+        assert_walks_agree(want, got)
 
 PROBE_CASES = probes.cases()
 
@@ -572,6 +669,36 @@ def test_scalar_broadcast_kernel_matches_plain_on_seeded_rows(card):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), i
     assert probe.launches == before + len(rows)
 
+
+
+@pytest.mark.cuda
+def test_ref_ds_row_read_kernel_matches_plain_on_seeded_rows(card):
+    """ref_ds_row_read reads row i of table8 straight from L2 (two 16-byte
+    loads, no shared memory): bit-equal at each of 128 seeded rows, 0 and
+    2047 among them, of the seeded table; its kernel declares no static
+    shared memory; an output 4 bytes off a 16-byte boundary is refused
+    (cudaErrorMisalignedAddress) with nothing written or counted."""
+    probe = probes.pallas.ref_ds_row_read
+    assert "ref_ds_row_read" in probes.DIRECT_PROBES and probes.static_smem(probe.name) == 0
+    table8 = probes.pallas.seeded_table8(card)
+    rows = probes.pallas.seeded_rows().tolist()
+    assert {0, 2047} <= set(rows)
+    before = probe.launches
+    for i in rows:
+        ins = (torch.tensor([i], dtype=torch.int32, device=card), table8)
+        got = probe.run(ins)
+        want = probe.compute(*ins)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), i
+    assert probe.launches == before + len(rows)
+    buf = torch.empty(8 * 8 + 1, dtype=torch.float32, device=card)
+    bad = buf[1:].view(8, 8)
+    assert bad.data_ptr() % 16 == 4
+    bad.fill_(float("nan"))
+    with pytest.raises(RuntimeError, match="CUDA error 716"):
+        probe.launch(ins, [bad])
+    torch.cuda.synchronize()
+    assert probe.launches == before + len(rows) and torch.isnan(bad).all()
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,which", [("scalar_broadcast", "out"),

@@ -177,6 +177,20 @@ def test_scalar_broadcast_plain_version_is_numpy_indexing():
         np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
 
 
+def test_ref_ds_row_read_plain_version_is_numpy_indexing_at_every_row():
+    """The plain version the ref_ds_row_read kernel is held against on the
+    card: row i of table8 in each of the 8 output rows, at every row
+    0..2047 of the tool's table and of the seeded table."""
+    probe = probes.pallas.ref_ds_row_read
+    for table8 in (probe.inputs("cpu")[1], probes.pallas.seeded_table8()):
+        t = table8.numpy()
+        for i in range(t.shape[0]):
+            got = probe.compute(torch.tensor([i], dtype=torch.int32), table8)
+            assert got.dtype == torch.float32 and tuple(got.shape) == (8, 8)
+            want = np.broadcast_to(t[i], (8, 8))
+            np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
 @pytest.mark.parametrize("name", probes.DIRECT_PROBES)
 def test_direct_probes_take_no_shared_memory_and_raise_on_misalignment(name):
     """The probes that read their table straight from L2 (scalar_broadcast
