@@ -53,7 +53,8 @@ Phases, in order; any failure exits non-zero:
      (rays counted as bench.py counts them), step time, idle share; the
      backward kernel's bare launch at each stage width of a 16-spp step
      beside its bound and the plain backward's time;
- 14. huge meshes: the packet walks' registers and spill (built in phase 2),
+ 14. huge meshes: the AOV walks' ptxas lines (registers, shared memory,
+     spill; built in phase 2) and the blocks per SM they allow,
      the native BVH builder, terrain-1m and terrain-1.5m written
      (scene/terrain.py at 1M and 1.5M triangles, 256^2 x 64 spp pt-direct);
  15. the wide kernel (csrc/bvh_wide.cu) vs the plain walk on terrain-1m
@@ -74,7 +75,8 @@ Phases, in order; any failure exits non-zero:
      at K=128 at each stage width; the wide, streamed and per-thread walks
      (and the streamed one on terrain-1.5m), sorted and unsorted, on camera
      and random rays at 2,097,152 lanes beside their bounds and the plain
-     walk; the sort itself;
+     walk; the sort itself, and whether the sorted walk plus the sort
+     beats the unsorted walk;
  20. the capability probes (lumillyrender_tpu_torch/probes/, the
      counterparts of the JAX package's Mosaic probes): their entry point
      once with every launch count zeroed just before and read just after
@@ -1324,7 +1326,7 @@ def time_k128_bounce(c, spp_chunk):
 
 def huge_meshes(card, lap):
     """Phases 14-19: huge meshes (terrain-1m, terrain-1.5m) through the
-    packet walks and the BVH bounce at K=128. Returns (report, the two new
+    AOV walks and the BVH bounce at K=128. Returns (report, the two new
     kernels' entries)."""
     from lumillyrender_tpu_torch.accel import native
     from lumillyrender_tpu_torch.accel.pack import build_tri_bvh
@@ -1339,12 +1341,17 @@ def huge_meshes(card, lap):
     dev = torch.device("cuda")
     rep = {}
 
-    phase("14 build (the packet walks, the native BVH builder; the terrain scenes)")
+    phase("14 build (the AOV walks, the native BVH builder; the terrain scenes)")
     t0 = time.monotonic()
-    for nm in ("bvh_wide", "bvh_streamed"):
-        lines = [ln.strip() for ln in cuda_build.LOGS.get(nm, "").splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"{nm} (built in phase 2): " + ("; ".join(lines) or "built before this run"))
+    rep["ptxas"] = {}
+    for num, nm in ((7, "bvh_wide"), (6, "bvh_streamed")):
+        ptxas = ptxas_kernels(cuda_build.LOGS.get(nm, ""))
+        if not ptxas:
+            print(f"kernel {num} ({nm}.cu, built in phase 2): built before this run")
+        for kernel, props in ptxas.items():
+            blocks = blocks_per_sm(props)
+            rep["ptxas"][kernel] = dict(ptxas=props, blocks_per_sm=blocks)
+            print(f"kernel {num} ({nm}.cu) {kernel}: {props}; {blocks} blocks of 128 per SM")
     t = time.monotonic()
     native.build()
     print(f"native BVH builder: {native.lib_path().name} in {time.monotonic() - t:.1f}s")
@@ -1520,8 +1527,19 @@ def huge_meshes(card, lap):
         sort_ms[key] = events_ms(sort_and_gather, 5)
         print(f"sort of {n} {key} rays (key, stable argsort, inverse, four gathers): "
               f"{sort_ms[key]:.4f} ms")
+    # Whether the route's default sort pays for itself: the walk on sorted
+    # rays plus the sort (timed on terrain-1m's rays; the same work on
+    # terrain-1.5m's) against the walk on unsorted rays.
+    sort_pays = {}
+    for tag, timing in (("kernel 7, terrain-1m", t7), ("kernel 6, terrain-1.5m", t6_15)):
+        for key in ("camera", "random"):
+            unsorted = timing[f"{key} rays, unsorted"]["ms"]
+            with_sort = timing[f"{key} rays, sorted"]["ms"] + sort_ms[key]
+            pays = sort_pays[f"{tag}, {key} rays"] = with_sort < unsorted
+            print(f"{tag}, {key} rays: unsorted {unsorted:.4f} ms; sorted plus the sort "
+                  f"{with_sort:.4f} ms: the sort {'pays' if pays else 'does not pay'}")
     rep.update(wide_timing=t7, streamed_timing_1m=t6, per_thread_timing_1m=t3,
-               streamed_timing_15m=t6_15, sort_ms=sort_ms)
+               streamed_timing_15m=t6_15, sort_ms=sort_ms, sort_pays=sort_pays)
     lap("huge-mesh timing", t0)
 
     def err(checks):
@@ -1557,8 +1575,8 @@ PROBE_REPS = 200
 # kernel-vs-call rests on medians, since one replay's spread is as large as
 # the gaps between probes.
 PROBE_ROUNDS = 9
-# A 128-triangle leaf as the BVH kernels stage it: nine geometry rows and the
-# prim row of 128 float32 or int32 each (csrc/packet_walk.cuh).
+# A 128-triangle leaf as a kernel would stage it: nine geometry rows and the
+# prim row of 128 float32 or int32 each (ops/cuda_bvh.py::pack_bvh).
 LEAF_BYTES = 10 * 128 * 4
 
 
@@ -1610,6 +1628,19 @@ def alternating_ms(fns, reps: int, rounds: int) -> list:
 def spread(vals) -> tuple:
     """(median, [min, max]) of some readings."""
     return statistics.median(vals), [min(vals), max(vals)]
+
+
+def blocks_per_sm(props: str) -> int | None:
+    """Blocks of 128 threads an H100 SM holds for a kernel with the
+    registers and static shared memory of ptxas line `props`: 65,536
+    registers, allocated per warp in units of 256; 233,472 B of shared
+    memory, 1 KB of it reserved per block; at most 2,048 threads. None
+    where the line gives no registers."""
+    m = re.search(r"(\d+) registers", props)
+    if not m:
+        return None
+    per_warp = -(-int(m.group(1)) * 32 // 256) * 256
+    return min(2048 // 128, 65536 // (4 * per_warp), 233472 // (smem_bytes(props) + 1024))
 
 
 def smem_bytes(props: str) -> int:

@@ -6,7 +6,7 @@ its plain version is `sah.build_ranges`) over a triangle table into the
 blocks with -1-padded original prim ids. Degenerate zero triangles pad block
 tails (a zero triangle's MT determinant is 0 -> always missed).
 
-The BVH kernels (csrc/bvh_walk.cuh, csrc/packet_walk.cuh) read these arrays
+The BVH kernels (csrc/bvh_walk.cuh, csrc/bvh_warp_walk.cuh) read these arrays
 repacked by `ops/cuda_bvh.py::pack_bvh`.
 """
 

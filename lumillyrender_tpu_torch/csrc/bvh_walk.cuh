@@ -1,7 +1,7 @@
 // The per-thread stackless walk of the threaded treelet BVH, shared by the
 // standalone nearest-triangle kernel (bvh.cu) and the BVH bounce
-// (bounce_bvh.cu), at any leaf width K; its slab test is also the packet
-// walks' (packet_walk.cuh).
+// (bounce_bvh.cu), at any leaf width K; its slab test is also the warp
+// walk's (bvh_warp_walk.cuh).
 //
 // Replaces the TPU walk lumillyrender_tpu/ops/pallas_bvh.py::run_walk and
 // its leaf test _leaf_test. The TPU kernel walks a 2048-ray packet behind

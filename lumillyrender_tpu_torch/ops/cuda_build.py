@@ -34,7 +34,7 @@ SOURCES = {"raygen": "raygen.cu", "bounce": "bounce.cu", "bvh": "bvh.cu",
            "bvh_wide": "bvh_wide.cu", "bvh_streamed": "bvh_streamed.cu",
            "probes": "probes.cu"}
 HEADERS = ("common.cuh", "bounce_body.cuh", "bvh_walk.cuh", "bvh_warp_walk.cuh",
-           "packet_walk.cuh")
+           "bvh_aov_walk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

@@ -2,12 +2,12 @@
 
 * `intersect_tris`: csrc/bvh.cu, one thread per ray with its own cursor
   (the counterpart of the JAX package's `pallas_bvh._kernel`), any K.
-* `intersect_tris_wide`: csrc/bvh_wide.cu, a warp-packet walk over 128-wide
-  leaves staged in shared memory (the counterpart of
-  `pallas_bvh_wide._kernel`), K = 128.
-* `intersect_tris_streamed`: csrc/bvh_streamed.cu, the same packet walk
-  with each leaf copied by cp.async, double-buffered, while the walk goes on
-  (the counterpart of `pallas_bvh._kernel_streamed`), any K dividing 128.
+* `intersect_tris_wide`: csrc/bvh_wide.cu, the AOV walk of
+  csrc/bvh_aov_walk.cuh over 128-wide leaves (the counterpart of
+  `pallas_bvh_wide._kernel`), K = 128: every ray keeps its own cursor and
+  the warp tests each leaf together.
+* `intersect_tris_streamed`: csrc/bvh_streamed.cu, the same walk (the
+  counterpart of `pallas_bvh._kernel_streamed`), any K dividing 128.
 
 Each is the nearest triangle strictly closer than `t_init` per lane,
 stopping a lane once its best t is <= `t_stop`: (t, prim[, mat, n]) with
@@ -68,7 +68,7 @@ WIDE_K = 128
 # The JAX package's cap on the wide kernel's VMEM-resident tables
 # (`pallas_bvh_wide.WIDE_VMEM_BYTES`), kept so that a scene takes the same
 # walk in both packages. It is that package's routing on its TPU, not a
-# property of the H100; chip_smoke.py times both packet walks on both
+# property of the H100; chip_smoke.py times both AOV walks on both
 # terrains so that the card's own boundary can be set.
 WIDE_TABLE_BYTES = 96 * 1024 * 1024
 
@@ -153,14 +153,14 @@ def intersect_tris_launch(o, d, t_init, t_stop, tables: dict, out):
 
 
 def intersect_tris_wide_launch(o, d, t_init, t_stop, tables: dict, out):
-    """The wide packet kernel (csrc/bvh_wide.cu) alone, as
+    """The wide kernel (csrc/bvh_wide.cu) alone, as
     `intersect_tris_launch`; K must be 128."""
     _launch("bvh_wide", o, d, t_init, t_stop, tables, out)
     intersect_tris_wide.launches += 1
 
 
 def intersect_tris_streamed_launch(o, d, t_init, t_stop, tables: dict, out):
-    """The streamed packet kernel (csrc/bvh_streamed.cu) alone, as
+    """The streamed kernel (csrc/bvh_streamed.cu) alone, as
     `intersect_tris_launch`; K must divide 128."""
     _launch("bvh_streamed", o, d, t_init, t_stop, tables, out)
     intersect_tris_streamed.launches += 1
@@ -223,13 +223,13 @@ def intersect_tris(o, d, t_init, t_stop, tables: dict, want_shade: bool = False)
 
 
 def intersect_tris_wide(o, d, t_init, t_stop, tables: dict, want_shade: bool = False):
-    """`intersect_tris` through the wide packet kernel (K = 128)."""
+    """`intersect_tris` through the wide kernel (K = 128)."""
     return _TriHit.apply("bvh_wide", o, d, t_init, t_stop, tables, want_shade)
 
 
 def intersect_tris_streamed(o, d, t_init, t_stop, tables: dict,
                             want_shade: bool = False):
-    """`intersect_tris` through the streamed packet kernel (K divides 128)."""
+    """`intersect_tris` through the streamed kernel (K divides 128)."""
     return _TriHit.apply("bvh_streamed", o, d, t_init, t_stop, tables, want_shade)
 
 

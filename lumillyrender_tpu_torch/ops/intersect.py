@@ -28,21 +28,24 @@ csrc/bvh_warp_walk.cuh above):
   =========================================  ===========================
   K=32 (or any K but 128)                    csrc/bvh.cu (per-thread),
                                              unsorted
-  K=128, admitted as wide                    csrc/bvh_wide.cu (packet),
-                                             sorted
-  K=128, not admitted as wide                csrc/bvh_streamed.cu
-                                             (packet), sorted
+  K=128, admitted as wide                    csrc/bvh_wide.cu, sorted
+  K=128, not admitted as wide                csrc/bvh_streamed.cu, sorted
   any K dividing 128, `streamed=True`        csrc/bvh_streamed.cu, sorted
   =========================================  ===========================
 
-"Admitted as wide" is `cuda_bvh.wide_admitted`, the JAX package's own
-decision (`pallas_bvh_wide.supported`), kept so that a scene takes the same
-kernel in both packages. `streamed=False` keeps a K=128 BVH off the
-streamed walk (wide if admitted, else the per-thread walk). `reorder` means
-one thing everywhere: None sorts the rays by `_ray_sort_key` before a
-packet walk (wide, streamed) and not before the per-thread walk, True
-sorts, False does not. The sort changes only the order in which lanes are
-walked, never a lane's result.
+The wide and streamed entry points run one kernel (csrc/bvh_aov_walk.cuh,
+the bounce's warp walk: every ray keeps its own cursor and the warp tests
+each leaf together, each slot read from the tables); they keep the JAX
+package's two names and their K checks. "Admitted as wide" is
+`cuda_bvh.wide_admitted`, the JAX package's own decision
+(`pallas_bvh_wide.supported`), kept so that a scene takes the same entry
+point in both packages. `streamed=False` keeps a K=128 BVH off the
+streamed walk (wide if admitted, else the per-thread walk). `reorder`
+means one thing everywhere: None sorts the rays by `_ray_sort_key` before
+the wide or streamed walk and not before the per-thread walk, True sorts,
+False does not. The sort changes only the order in which lanes are
+walked, never a lane's result; before these walks it no longer pays for
+itself (PERF.md §6.9, ROADMAP 5.6).
 """
 
 from __future__ import annotations
@@ -382,7 +385,9 @@ def bvh_route(bvh: Bvh, streamed: bool | None = None,
               reorder: bool | None = None) -> tuple[str, bool]:
     """(walk, sort) by the routing rule of this module's docstring: walk
     is "thread" (csrc/bvh.cu), "wide" (csrc/bvh_wide.cu) or "streamed"
-    (csrc/bvh_streamed.cu)."""
+    (csrc/bvh_streamed.cu). On the card "wide" and "streamed" launch the
+    same kernel: between those two, `streamed=` and the wide cap only
+    choose its name."""
     from . import cuda_bvh
 
     k = bvh.blk_p0.shape[1]

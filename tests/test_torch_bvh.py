@@ -240,7 +240,7 @@ def test_intersect_tris_on_cpu_is_the_plain_walk():
 def test_wide_leaves_are_refused():
     """A K=128 BVH (the compiler's layout from 650,000 triangles) is no
     longer refused on the card: the bounce kernels serve it with their
-    per-thread walk and the AOVs with the wide packet walk. What is still
+    per-thread walk and the AOVs with the wide walk. What is still
     refused names its later slice: the simple sky."""
     import dataclasses
 

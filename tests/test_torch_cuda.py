@@ -8,7 +8,7 @@ comparisons at the main paths' own widths: the brute-force bounce on
 new-cbox at 2,097,152 lanes and on every launch of one chunk (2,097,152,
 32,768 and 4,096 lanes), the BVH kernels on welcome-geo at 2,072,576 lanes
 and on every launch of one chunk (2,072,576, 259,072, 32,512 and 4,096
-lanes), the packet walks and the K=128 bounce on the 1M- and
+lanes), the AOV walks and the K=128 bounce on the 1M- and
 1.5M-triangle terrains at 2,097,152 lanes. The capability probes' kernels
 run at their tools' own shapes here and there.
 
@@ -16,9 +16,11 @@ Tolerances: raygen's random bits and origins are exact, directions within
 2e-7 (one ulp of a unit vector's components, from the card's own sqrt and
 division being compared with PyTorch's); the BVH kernel's prim ids and
 shadow verdicts exactly, its t within 1e-6 relative (its operations are the
-plain walk's, in the same order, without contraction); the packet walks
-(csrc/bvh_wide.cu, csrc/bvh_streamed.cu) every output bit-equal (a thread
-tests exactly the plain walk's leaves in its order); the bounces follow
+plain walk's, in the same order, without contraction); the AOV walks
+(csrc/bvh_wide.cu, csrc/bvh_streamed.cu) every output bit-equal (each lane
+tests exactly the plain walk's leaves in its order, and the warp's
+reduction keeps the plain walk's slot among equal t), on tie leaves,
+partial warps and warps that mix capped and open queries; the bounces follow
 lumillyrender_tpu_torch/parity.py's lane rules, and the BVH bounce on the
 hand-written tie leaves and on warps of chosen leaf requests also has its
 new origins, directions, alive and ray count bit-equal to the plain step's,
@@ -322,7 +324,7 @@ def test_training_step_runs_the_kernels_and_repeats_bit_for_bit(card):
 
 
 # ---------------------------------------------------------------------------
-# The packet walks (csrc/bvh_wide.cu, csrc/bvh_streamed.cu) on a terrain
+# The AOV walks (csrc/bvh_wide.cu, csrc/bvh_streamed.cu) on a terrain
 # ---------------------------------------------------------------------------
 
 
@@ -355,18 +357,18 @@ def _terrain_rays(bvh, n, seed):
     return o, d
 
 
-PACKET_WALKS = [(128, cuda_bvh.intersect_tris_wide), (128, cuda_bvh.intersect_tris_streamed),
-                (32, cuda_bvh.intersect_tris_streamed), (2, cuda_bvh.intersect_tris_streamed)]
-PACKET_IDS = ["wide128", "streamed128", "streamed32", "streamed2"]
+AOV_WALKS = [(128, cuda_bvh.intersect_tris_wide), (128, cuda_bvh.intersect_tris_streamed),
+             (32, cuda_bvh.intersect_tris_streamed), (2, cuda_bvh.intersect_tris_streamed)]
+AOV_IDS = ["wide128", "streamed128", "streamed32", "streamed2"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,walk", PACKET_WALKS, ids=PACKET_IDS)
+@pytest.mark.parametrize("k,walk", AOV_WALKS, ids=AOV_IDS)
 @pytest.mark.parametrize("want_shade", [False, True])
-def test_packet_kernels_match_plain_walk(terrain_bvhs, k, walk, want_shade):
-    """Every output bit-equal to the plain walk: a thread tests a leaf only
-    when its own slab test passes against its own best t, as the plain walk
-    does (csrc/packet_walk.cuh)."""
+def test_aov_kernels_match_plain_walk(terrain_bvhs, k, walk, want_shade):
+    """Every output bit-equal to the plain walk: each lane tests the plain
+    walk's leaves in its order against its own best t, and the warp keeps
+    the smaller t, then the smaller slot (csrc/bvh_warp_walk.cuh)."""
     bvh = terrain_bvhs[k]
     tables = cuda_bvh.tables_of(bvh)
     o, d = _terrain_rays(bvh, 8192 + 77, 11)  # a ragged last warp
@@ -381,8 +383,8 @@ def test_packet_kernels_match_plain_walk(terrain_bvhs, k, walk, want_shade):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,walk", PACKET_WALKS, ids=PACKET_IDS)
-def test_packet_kernels_occlusion_and_t_init(terrain_bvhs, k, walk):
+@pytest.mark.parametrize("k,walk", AOV_WALKS, ids=AOV_IDS)
+def test_aov_kernels_occlusion_and_t_init(terrain_bvhs, k, walk):
     """Capped occlusion queries (t_stop) and pruning from t_init: t and prim
     equal the plain walk's on every lane, so the verdicts do too."""
     bvh = terrain_bvhs[k]
@@ -400,7 +402,7 @@ def test_packet_kernels_occlusion_and_t_init(terrain_bvhs, k, walk):
 
 
 @pytest.mark.cuda
-def test_packet_wrappers_raise_on_what_they_do_not_take(terrain_bvhs):
+def test_aov_wrappers_raise_on_what_they_do_not_take(terrain_bvhs):
     bvh = terrain_bvhs[128]
     tables = cuda_bvh.tables_of(bvh)
     n = 256
@@ -421,7 +423,7 @@ def test_packet_wrappers_raise_on_what_they_do_not_take(terrain_bvhs):
 
 
 @pytest.mark.cuda
-def test_routing_launches_the_packet_kernels(terrain_bvhs):
+def test_routing_launches_the_aov_kernels(terrain_bvhs):
     """intersect on a K=128 BVH launches the wide kernel (admitted), the
     streamed one with streamed=True or past the wide cap, and the
     per-thread one on K=32; each count rises by one per launch."""
@@ -453,6 +455,94 @@ def test_routing_launches_the_packet_kernels(terrain_bvhs):
         assert cuda_bounce.counts()["bvh_streamed"] == 1
     finally:
         cuda_bvh.WIDE_TABLE_BYTES = cap
+
+
+TIE_WALKS = [("k128", cuda_bvh.intersect_tris_wide), ("k128x", cuda_bvh.intersect_tris_wide),
+             ("k128", cuda_bvh.intersect_tris_streamed),
+             ("k128x", cuda_bvh.intersect_tris_streamed),
+             ("k32", cuda_bvh.intersect_tris_streamed),
+             ("k32x4", cuda_bvh.intersect_tris_streamed)]
+TIE_WALK_IDS = ["wide-k128", "wide-k128x", "streamed-k128", "streamed-k128x",
+                "streamed-k32", "streamed-k32x4"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,walk", TIE_WALKS, ids=TIE_WALK_IDS)
+def test_aov_walks_on_tie_leaves(card, case, walk):
+    """The AOV walks on three identical triangles (TIE_LAYOUTS): at K=128
+    with the ties in one lane's slots and across three lanes, the first
+    slot in the highest; at K=32 in one leaf and across three leaves. Every
+    output bit-equal to the plain walk's, which keeps the first tie slot:
+    prim 0, material row 0, triangle 0's normal."""
+    from lumillyrender_tpu_torch.scene.data import Bvh, tensor_of
+
+    c = compile_scene_file(ASSETS / "new-cbox.toml", device=card)
+    g = c.data.geometry
+    bvh = Bvh(**{f: tensor_of(v).cuda() for f, v in tie_bvh(g, case).items()})
+    n = 4096 + 7
+    o, d = (torch.from_numpy(x).cuda() for x in tie_rays(g, n, 320))
+    t0 = torch.full((n,), INF, device=card)
+    stop = torch.full_like(t0, -INF)
+    before = walk.launches
+    got = walk(o, d, t0, stop, cuda_bvh.tables_of(bvh), True)
+    want = _walk_tris(o, d, t0, stop, bvh, True)
+    torch.cuda.synchronize()
+    assert walk.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # The tie is exercised: most aimed lanes win on triangle 0's first slot.
+    assert int((got[1][::2] == 0).sum()) > n // 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 1000])
+@pytest.mark.parametrize("k,walk", AOV_WALKS, ids=AOV_IDS)
+def test_aov_walks_on_partial_warps(terrain_bvhs, k, walk, n):
+    """A launch of n lanes leaves its last warp partial (all of it at 1 and
+    31 lanes): the threads past the last ray ask nothing and help test. The
+    shade outputs bit-equal to the plain walk's."""
+    bvh = terrain_bvhs[k]
+    o, d = _terrain_rays(bvh, 2048, 16)
+    # Every lane from the camera half, so that most of them hit.
+    o, d = o[-n:].contiguous(), d[-n:].contiguous()
+    t0 = torch.full((n,), INF, device=o.device)
+    stop = torch.full_like(t0, -INF)
+    got = walk(o, d, t0, stop, cuda_bvh.tables_of(bvh), True)
+    want = _walk_tris(o, d, t0, stop, bvh, True)
+    torch.cuda.synchronize()
+    assert int((want[1] >= 0).sum()) >= (n + 1) // 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,walk", AOV_WALKS, ids=AOV_IDS)
+def test_aov_walks_mix_capped_and_open_lanes(terrain_bvhs, k, walk):
+    """In every warp the even lanes ask a capped occlusion query (light on
+    the lane's nearest hit where it has one, t_stop 4 EPS below the cap) and
+    the odd lanes an open nearest-hit query: a capped lane leaves the walk
+    at its first hit under t_stop while its warp goes on. Every output
+    bit-equal to the plain walk's, so the verdicts are too."""
+    bvh = terrain_bvhs[k]
+    tables = cuda_bvh.tables_of(bvh)
+    n = 4096
+    o, d = _terrain_rays(bvh, n, 17)
+    inf = torch.full((n,), INF, device=o.device)
+    never = torch.full_like(inf, -INF)
+    near = _walk_tris(o, d, inf, never, bvh, False)
+    rng = np.random.default_rng(18)
+    dist = torch.from_numpy(rng.uniform(0.5, 40.0, size=n).astype(np.float32)).cuda()
+    dist = torch.where(near[1] >= 0, near[0], dist)
+    capped = torch.arange(n, device=o.device) % 2 == 0
+    t0 = torch.where(capped, dist + 2.0 * EPS, inf)
+    stop = torch.where(capped, t0 - 4.0 * EPS, never)
+    got = walk(o, d, t0, stop, tables, True)
+    want = _walk_tris(o, d, t0, stop, bvh, True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    verdict = (want[1] >= 0) & ((want[0] - dist).abs() <= EPS)
+    assert int(verdict[capped].sum()) > n // 8 and int((want[1][~capped] >= 0).sum()) > n // 8
 
 
 @pytest.mark.cuda

@@ -163,7 +163,7 @@ def test_supported_rejects_bvh_scenes(assets_dir):
     """Past 8192 prims a scene takes the BVH path, on the card too, and so
     does a BVH of 128-wide leaves (the compiler's layout from 650,000
     triangles): the bounce kernels walk it per thread, the AOVs through
-    the wide packet walk, which `bvh_route` picks. The new-cbox tables are
+    the wide walk, which `bvh_route` picks. The new-cbox tables are
     tiled up to 8193 triangles, and its leaves widened, without a
     compile."""
     c = compile_scene_file(assets_dir / "new-cbox.toml", spp=1, device="cpu")

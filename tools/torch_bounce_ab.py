@@ -43,13 +43,14 @@ CASES = (("bounce_bvh", "terrain-1m"), ("bounce_bvh", "welcome-geo"), ("bounce",
 REPS = 5  # launches per CUDA graph
 
 
-def build_parent(src: Path, name: str) -> tuple:
-    """The earlier tree's source of library `name` built into this tree's
-    build directory: (its entry point, nvcc's -Xptxas -v output)."""
+def build_parent(src: Path, name: str, tag: str = "parent") -> tuple:
+    """The source of library `name` in the tree at `src` (the earlier tree
+    unless told otherwise) built into this tree's build directory as
+    lib<name>-<tag>.so: (its entry point, nvcc's -Xptxas -v output)."""
     from lumillyrender_tpu_torch.ops import cuda_build
 
     cu = src / "lumillyrender_tpu_torch" / "csrc" / cuda_build.SOURCES[name]
-    out = cuda_build.BUILD_DIR / f"lib{name}-parent.so"
+    out = cuda_build.BUILD_DIR / f"lib{name}-{tag}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     r = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
                         "-o", str(out), str(cu)], capture_output=True, text=True, timeout=600)
@@ -67,32 +68,32 @@ def entry_point(name: str, fn):
     from lumillyrender_tpu_torch.ops import cuda_build
 
     entry = f"llr_{name}"
-    saved = cuda_build._fns[entry]
+    saved = cuda_build._fns.get(entry)
     cuda_build._fns[entry] = fn
     try:
         yield
     finally:
-        cuda_build._fns[entry] = saved
+        if saved is None:
+            del cuda_build._fns[entry]
+        else:
+            cuda_build._fns[entry] = saved
 
 
-def kernel_lines(log: str) -> dict:
-    """{kernel: ptxas line, blocks of 128 threads per SM its registers
-    allow} for the bounce kernels in nvcc's -Xptxas -v output (65,536
-    registers an SM, allocated per warp in units of 256, at most 16
-    blocks)."""
+def kernel_lines(log: str, match: str = "bounce_kernel") -> dict:
+    """{kernel: ptxas line, registers, blocks of 128 threads per SM it
+    allows (chip_smoke.blocks_per_sm)} for the kernels whose name holds
+    `match` in nvcc's -Xptxas -v output."""
     import re
 
     import chip_smoke
 
     out = {}
     for name, props in chip_smoke.ptxas_kernels(log).items():
-        if "bounce_kernel" not in name:
+        if match not in name:
             continue
         m = re.search(r"(\d+) registers", props)
-        regs = int(m.group(1)) if m else 0
-        per_warp = -(-regs * 32 // 256) * 256
-        blocks = min(16, 65536 // (4 * per_warp)) if regs else None
-        out[name] = dict(ptxas=props, registers=regs, blocks_per_sm=blocks)
+        out[name] = dict(ptxas=props, registers=int(m.group(1)) if m else 0,
+                         blocks_per_sm=chip_smoke.blocks_per_sm(props))
     return out
 
 
