@@ -7,11 +7,16 @@ Phases, in order; any failure exits non-zero:
   2. build the kernels from csrc/ (one nvcc per source, in parallel): the
      seven of the render and training paths and the 23 capability-probe
      kernels of csrc/probes.cu, with each probe kernel's registers,
-     shared memory and spill from ptxas, and the BVH bounce's (kernel 4);
+     shared memory and spill from ptxas, and every instance's of the
+     bounce kernels 2, 4 and 5 (sweep, tables, families);
   3. raygen kernel vs its plain version: random bits equal, o/d/g errors;
   4. brute-force bounce kernel vs the plain step on random states of seven
      scenes at the main path's full width (2,097,152 lanes), bounces 0, 3,
-     7, 70, under the lane rules of lumillyrender_tpu_torch/parity.py;
+     7, 70, under the lane rules of lumillyrender_tpu_torch/parity.py, each
+     scene's instance named (small or general sweep, Lambert or all
+     families); then the instances of the narrower launches on each scene
+     (the small sweep at 262,144 lanes where the scene fits, the group
+     sweep at 16,384), bounce 3;
   5. the full-size new-cbox render (256^2, 64 spp in two 2M-lane chunks)
      through the CLI, with the launch counts of that run; then 64^2 x 8 spp
      films: the kernel path twice, and the plain path, all on the card;
@@ -19,7 +24,8 @@ Phases, in order; any failure exits non-zero:
      each stage width (2,097,152 -> 32,768 -> 4,096 lanes), is checked
      against the plain step on the same state; timing: forward rays/s, each
      kernel's bare launch time at each width beside its bound, launches per
-     chunk, the card's idle share;
+     chunk, the card's idle share; each width's instance named (threads
+     per lane at the narrow stages);
   7. BVH kernel vs the plain walk on welcome-geo (81,932 triangles): camera
      rays of one chunk and random rays at 2,072,576 lanes, with and without
      the shade outputs, capped occlusion queries and axis-aligned rays;
@@ -50,9 +56,11 @@ Phases, in order; any failure exits non-zero:
      runs, and against the plain path's (autograd of the plain step) on the
      card;
  13. timing of the training step: fwd+bwd rays/s at 4 and 16 spp per step
-     (rays counted as bench.py counts them), step time, idle share; the
-     backward kernel's bare launch at each stage width of a 16-spp step
-     beside its bound and the plain backward's time;
+     (rays counted as bench.py counts them), step time, idle share and
+     PyTorch's reduce_kernel launches a step (the backward kernel sums its
+     own row table); the backward kernel's bare launch at each stage width
+     of a 16-spp step, with its instance, beside its bound and the plain
+     backward's time;
  14. huge meshes: the AOV walks' ptxas lines (registers, shared memory,
      spill; built in phase 2) and the blocks per SM they allow,
      the native BVH builder, terrain-1m and terrain-1.5m written
@@ -622,6 +630,7 @@ def time_bounce_widths(c, kernel, launch, tables, first_state, by_width):
     """Bare launch, wrapper and plain-step times at each stage width, on
     that stage's first state."""
     from lumillyrender_tpu_torch.integrator import wavefront
+    from lumillyrender_tpu_torch.ops import cuda_bounce
 
     st = c.settings
     dev = torch.device("cuda")
@@ -637,7 +646,11 @@ def time_bounce_widths(c, kernel, launch, tables, first_state, by_width):
             lambda: wavefront.plain_bounce_step(c.data, st, SEED, s0), 2)
     for w, a in sorted(by_width.items(), reverse=True):
         k = a["launches"]
-        print(f"bounce width {w}: {k} launches/chunk, kernel {a['ms']:.4f} "
+        if kernel is cuda_bounce.bounce:  # the brute-force kernel's instance
+            inst, group = cuda_bounce.launch_instance(tables, w)
+            a["instance"] = inst.label(group)
+        print(f"bounce width {w}" + (f" ({a['instance']})" if "instance" in a else "")
+              + f": {k} launches/chunk, kernel {a['ms']:.4f} "
               f"ms/launch (bare launch, CUDA graph + events), bound "
               f"{a['bound_ms'] / k:.4f} ms (bytes {a['bytes_ms'] / k:.4f}, "
               f"operations {a['ops_ms'] / k:.4f}); wrapper with allocation "
@@ -1017,8 +1030,12 @@ def time_train_step(cb, spp, p, target, steps):
           f"{busy:.4f} ms: idle share {idle:.4f}")
     for name, (t, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:8]:
         print(f"  {t:9.4f} ms/step {n:6d} launches/step  {name[:70]}")
+    # PyTorch's reductions (the loss, the ray counts); the backward kernel
+    # sums its own row table, so none is its.
+    reduce_launches = sum(n for name, (_, n) in by_name.items() if "reduce_kernel" in name)
+    print(f"  reduce_kernel launches per step: {reduce_launches}")
     return dict(rays_per_s=total / window, step_ms=step_ms, rays_per_step=total / steps,
-                busy_ms=busy, idle_share=idle,
+                busy_ms=busy, idle_share=idle, reduce_launches=reduce_launches,
                 top_kernels={k[:70]: v for k, v in sorted(by_name.items(),
                                                           key=lambda x: -x[1][0])[:8]})
 
@@ -1028,8 +1045,8 @@ def time_bwd_widths(cb, spp, p, target):
     first launch's state, cotangents and tables at each width are kept;
     each is checked against plain_bounce_bwd, its bare launch timed (CUDA
     graph + events) beside its bound (bytes: BWD_HIT_BYTES, BWD_MISS_BYTES or
-    BWD_DEAD_BYTES a lane by what this state's lane needs, plus the partial
-    table; operations: this state's live lanes and shadow rays) and the
+    BWD_DEAD_BYTES a lane by what this state's lane needs, plus the row
+    table out; operations: this state's live lanes and shadow rays) and the
     plain backward's time. Returns {width: record}."""
     from lumillyrender_tpu_torch.diff import film_and_grads
     from lumillyrender_tpu_torch.ops import cuda_bounce, intersect
@@ -1067,8 +1084,8 @@ def time_bwd_widths(cb, spp, p, target):
                         state, cot, me)
         nm = tables["mats"].shape[0]
         bufs = (torch.empty_like(state.o), torch.empty_like(state.o), torch.empty_like(state.o),
-                torch.empty((cuda_bounce.bwd_blocks(w), 6 * nm + 3), dtype=torch.float32,
-                            device=state.o.device), None)
+                torch.empty(6 * nm + 3, dtype=torch.float32, device=state.o.device), None)
+        rec["instance"] = cuda_bounce.launch_instance(tables, w, backward=True)[0].label()
         rec["ms"] = graph_ms(lambda: cuda_bounce.bounce_bwd_launch(scene, st, SEED, state, cot,
                                                                    tables, bufs))
         rec["plain_ms"] = events_ms(lambda: plain_bounce_bwd(scene, st, SEED, state, *cot,
@@ -1080,14 +1097,14 @@ def time_bwd_widths(cb, spp, p, target):
         _, sp = intersect.intersect_shade_brute(state.o, state.d, geom)
         missed = float((state.alive & ~sp.hit).sum())
         bytes_ = ((live - missed) * BWD_HIT_BYTES + missed * BWD_MISS_BYTES
-                  + (w - live) * BWD_DEAD_BYTES
-                  + cuda_bounce.bwd_blocks(w) * (6 * nm + 3) * 4)
+                  + (w - live) * BWD_DEAD_BYTES + (6 * nm + 3) * 4)
         ops = ((live + shadow) * (TRI_FLOPS * nt + SPH_FLOPS * ns)
                + (live - missed) * BWD_SHADE_FLOPS)
         rec.update(launches=k["launches"], live=live, missed=missed, shadow_rays=shadow,
                    bytes_ms=bytes_ / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_FLOPS_PER_S * 1e3)
         rec["bound_ms"] = max(rec["bytes_ms"], rec["ops_ms"])
-        print(f"backward width {w}: {k['launches']} launches/step, kernel {rec['ms']:.4f} "
+        print(f"backward width {w} ({rec['instance']}): {k['launches']} launches/step, "
+              f"kernel {rec['ms']:.4f} "
               f"ms/launch (bare launch, CUDA graph + events), bound {rec['bound_ms']:.4f} ms "
               f"(bytes {rec['bytes_ms']:.4f}, operations {rec['ops_ms']:.4f}; {live:.0f} live "
               f"lanes, {missed:.0f} of them missing, {shadow:.0f} shadow rays); plain "
@@ -1596,6 +1613,22 @@ def ptxas_kernels(log: str) -> dict:
     return out
 
 
+def kernel_instance(mangled: str) -> str:
+    """A bounce kernel's instance from its mangled name: the intersector,
+    and for bounce_kernel the tables (one or two) and the families shaded
+    (bounce_body.cuh: FAM_LAMBERT 1, FAM_ALL 31)."""
+    m = re.search(r"I\d+(\w*?Isect)(?:Lb([01])E)?(?:Li(\d+)E)?E", mangled)
+    if not m:
+        return mangled
+    label = m.group(1)
+    if m.group(2) is not None:
+        label += ", two tables" if m.group(2) == "1" else ", one table"
+    if m.group(3) is not None:
+        label += {"1": ", Lambert", "31": ", all families"}.get(m.group(3),
+                                                                f", families {m.group(3)}")
+    return label
+
+
 def alternating_ms(fns, reps: int, rounds: int) -> list:
     """Device ms per call of each of `fns`: each warmed, then captured with
     `reps` calls in its own CUDA graph; the graphs are replayed in turns,
@@ -1864,11 +1897,16 @@ def main() -> int:
           f"(per source: {json.dumps({k: round(v, 1) for k, v in built.items()})})")
     for kernel, props in ptxas_kernels(cuda_build.LOGS.get("probes", "")).items():
         print(f"{kernel}: {props}")
-    # Kernel 4's two instances (one material table, two): its warp walk
-    # (csrc/bvh_warp_walk.cuh) uses no shared memory, so its registers set
-    # its occupancy.
-    for kernel, props in ptxas_kernels(cuda_build.LOGS.get("bounce_bvh", "")).items():
-        print(f"kernel 4 (bounce_bvh.cu) {kernel}: {props or 'no ptxas line'}")
+    # Every instance of kernels 2, 4 and 5 (sweep, tables, families): their
+    # registers and stack (kernel 5's row tables are dynamic shared memory)
+    # set their occupancy.
+    ptxas_report = {}
+    for num, lib in ((2, "bounce"), (4, "bounce_bvh"), (5, "bounce_bwd")):
+        for kernel, props in ptxas_kernels(cuda_build.LOGS.get(lib, "")).items():
+            label = kernel_instance(kernel)
+            ptxas_report[f"{num} {label}"] = props
+            print(f"kernel {num} ({lib}.cu) {label}: {props or 'no ptxas line'} "
+                  f"({blocks_per_sm(props)} blocks of 128 per SM by registers)")
     lap("build", t0)
 
     phase("3 raygen kernel vs plain")
@@ -1920,9 +1958,25 @@ def main() -> int:
     n_cmp = 1 << 21  # the main path's full width
     bounce_err = 0.0
     for name, c in scenes.items():
+        tables = cuda_bounce.pack_tables(c.data)
+        inst = cuda_bounce.launch_instance(tables, n_cmp)
         for b in (0, 3, 7, 70):
-            m = check_bounce(f"{name}@b{b}", c, cuda_bounce.bounce,
+            m = check_bounce(f"{name} ({inst[0].label(inst[1])})@b{b}", c, cuda_bounce.bounce,
                              random_state(c.data, n_cmp, 1000 * b + len(name), b))
+            if name == "new-cbox":
+                bounce_err = max(bounce_err, *m["max_abs"].values())
+        # The instances the narrower launches take: the small sweep (where
+        # the scene fits) and the group sweep, each at the widest launch
+        # that takes it.
+        for sweep, n_inst, group in (("small", cuda_bounce.SMALL_MAX_LANES, 1),
+                                     ("general", 1 << 14, 4)):
+            if sweep == "small" and tables["small"] is None:
+                continue
+            forced = dict(tables, instance=cuda_bounce.Instance(sweep, inst[0].shading),
+                          group=group)
+            m = check_bounce(f"{name} ({forced['instance'].label(group)})@b3", c,
+                             lambda *a, t=forced: cuda_bounce.bounce(*a, t),
+                             random_state(c.data, n_inst, 3000 + len(name), 3))
             if name == "new-cbox":
                 bounce_err = max(bounce_err, *m["max_abs"].values())
     del scenes
@@ -2266,7 +2320,7 @@ def main() -> int:
                       timing={str(k): v for k, v in train_timing.items()},
                       backward_by_width={str(w): {k: v for k, v in r.items()}
                                          for w, r in bwd_widths.items()}),
-        huge_meshes=big_report, probes=probe_report, kernels=kernels,
+        huge_meshes=big_report, probes=probe_report, kernels=kernels, ptxas=ptxas_report,
         phase_seconds=secs,
         seconds=time.monotonic() - t_start)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -49,6 +49,7 @@ struct BvhIsect {
   const float* sph;
   int ns;
   static constexpr bool kWarpQueries = false;
+  static constexpr int kLog2Group = 0;  // one thread per lane
 
   __device__ Hit operator()(V3 o, V3 d, float t_init, float t_stop) const {
     float best_t = t_init;
@@ -76,6 +77,7 @@ struct BvhWarpIsect {
   const float* sph;
   int ns;
   static constexpr bool kWarpQueries = true;
+  static constexpr int kLog2Group = 0;
 
   __device__ Hit operator()(bool ask, V3 o, V3 d, float t_init, float t_stop) const {
     float best_t = t_init;
@@ -110,11 +112,12 @@ extern "C" int llr_bounce_bvh(const float* o_in, const float* d_in, const float*
                  ibl, ibl_w, ibl_h, lon};
   const BvhTables b{nodes, leaves, ids, k};
   if (k >= kWarpWalkMinK) {
-    return launch_bounce(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out, thr_out,
-                         acc_out, alive_out, rays_out, sc, BvhWarpIsect{b, sph, ns}, n, bounce,
-                         seed, flags, rr_scale, stream);
+    return launch_bounce<FAM_ALL>(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out,
+                                  thr_out, acc_out, alive_out, rays_out, sc,
+                                  BvhWarpIsect{b, sph, ns}, n, bounce, seed, flags, rr_scale,
+                                  stream);
   }
-  return launch_bounce(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out, thr_out,
-                       acc_out, alive_out, rays_out, sc, BvhIsect{b, sph, ns}, n, bounce,
-                       seed, flags, rr_scale, stream);
+  return launch_bounce<FAM_ALL>(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out,
+                                thr_out, acc_out, alive_out, rays_out, sc, BvhIsect{b, sph, ns},
+                                n, bounce, seed, flags, rr_scale, stream);
 }

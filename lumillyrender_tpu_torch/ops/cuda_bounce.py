@@ -8,8 +8,13 @@
   plain version is `integrator/wavefront.py:plain_bounce_step`. Both read a
   sampling and an evaluation material table (`pack_tables`).
 * `bounce_bwd` wraps `csrc/bounce_bwd.cu`, the closed-form backward pass of
-  one brute-force bounce on a Lambert scene; its plain version is
-  `ops/bounce_bwd.py:plain_bounce_bwd`.
+  one brute-force bounce on a Lambert scene, which sums its row table
+  inside the launch; its plain version is `ops/bounce_bwd.py:plain_bounce_bwd`.
+* Both brute-force kernels come in instances specialised to the scene, as
+  the TPU kernel is: `launch_instance` picks, from the table shapes, the
+  material families and the launch's width, the small sweep (prim rows in
+  the kernel's parameters) or the general one, Lambert-only or all-family
+  shading, and for the narrow forward launches the threads per lane.
 * The BVH nearest-triangle kernels, `csrc/bvh.cu`, `csrc/bvh_wide.cu` and
   `csrc/bvh_streamed.cu`, are wrapped in `ops/cuda_bvh.py`.
 * `make_step_diff` builds the differentiable path's step: the bounce
@@ -30,7 +35,9 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..scene.data import (
@@ -123,14 +130,24 @@ def _lambert_only(settings: RenderSettings) -> bool:
     return present is not None and tuple(present) == (MAT_LAMBERT,)
 
 
+# Material rows the backward kernel takes: each of its four warps keeps a
+# (6 nm + 3)-float row table in shared memory, within the 232,448 B a block
+# may opt in to (csrc/bounce_bwd.cu).
+BWD_MAX_ROWS = (232448 // 16 - 1 - 3) // 6
+
+
 def diff_supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
     """(ok, reason) for the hand-written backward kernel (bounce_bwd.cu,
     the JAX package's `supported_diff`): a brute-force scene under a
     uniform sky with Lambert materials only, whose bounce VJP is
-    closed-form. No cap on material rows."""
+    closed-form, of at most BWD_MAX_ROWS material rows (the JAX kernel's
+    cap was 15)."""
     ok, why = _diff_scene(scene, settings)
     if ok and not _lambert_only(settings):
         return False, "the closed-form backward kernel is derived for Lambert materials only"
+    if ok and scene.materials.type_id.shape[0] > BWD_MAX_ROWS:
+        return False, (f"the backward kernel's row tables take at most {BWD_MAX_ROWS} "
+                       "material rows (shared memory)")
     return ok, why
 
 
@@ -294,14 +311,86 @@ def materials_of_rows(rows: torch.Tensor, type_id: torch.Tensor) -> MaterialTabl
                          alpha=rows[:, 7], ior=rows[:, 8], absorbtance=rows[:, 9])
 
 
+# The small sweep's caps (csrc/bounce_body.cuh kSmallTris, kSmallSpheres):
+# its rows go by value in the kernel's parameters, 16 * 64 + 8 * 32 B.
+SMALL_TRIS = 16
+SMALL_SPHERES = 8
+# Lanes up to which a small scene takes the small sweep: about two waves of
+# blocks on an H100. Past them the general sweep's compact loop was faster
+# (new-cbox at 1,048,576 and 2,097,152 lanes; PERF.md 6.10).
+SMALL_MAX_LANES = 1 << 18
+
+
+class Instance(NamedTuple):
+    """A brute-force kernel instance: `sweep` "small" (the prim rows in the
+    kernel's parameters, an unrolled sweep) or "general" (any size, rows
+    read from the tables); `shading` "lambert" (Lambert's code alone) or
+    "all" (every family)."""
+
+    sweep: str
+    shading: str
+
+    @property
+    def code(self) -> int:
+        """The `instance` bits of llr_bounce and llr_bounce_bwd."""
+        return (1 if self.sweep == "small" else 0) | (2 if self.shading == "lambert" else 0)
+
+    def label(self, group: int = 1) -> str:
+        return f"{self.sweep}/{self.shading}" + (f"/group{group}" if group > 1 else "")
+
+
+def bounce_instance(nt: int, ns: int, families, n: int) -> Instance:
+    """The brute-force instance of a launch of `n` lanes on `nt` triangles,
+    `ns` spheres and the material `families` (type ids) present: the small
+    sweep up to SMALL_TRIS and SMALL_SPHERES at up to SMALL_MAX_LANES
+    lanes, Lambert-only shading where every row is Lambert."""
+    small = nt <= SMALL_TRIS and ns <= SMALL_SPHERES and n <= SMALL_MAX_LANES
+    lambert = tuple(sorted(set(families))) == (MAT_LAMBERT,)
+    return Instance("small" if small else "general", "lambert" if lambert else "all")
+
+
+# Threads a narrow forward launch is spread over (csrc/bounce_body.cuh
+# GroupIsect): its lanes' sweeps are split over groups of threads until
+# the launch has about this many.
+TAIL_THREADS = 1 << 16
+
+
+def tail_group(n: int) -> int:
+    """Threads per lane for a forward brute-force launch of `n` lanes: the
+    power of two, at most 16, that brings it near TAIL_THREADS threads; 1
+    (one thread a lane) where that is under 4, at widths whose grid
+    already fills the card."""
+    g = 1
+    while g < 16 and n * g * 2 <= TAIL_THREADS:
+        g *= 2
+    return g if g >= 4 else 1
+
+
+def _small_rows(tris: torch.Tensor, sph: torch.Tensor):
+    """The small sweep's parameter block (csrc/bounce_body.cuh SmallPrims):
+    the tris and sph rows, zero-padded to the caps, as a host float array
+    (read from the card once, here)."""
+    block = np.zeros(SMALL_TRIS * 16 + SMALL_SPHERES * 8, dtype=np.float32)
+    t = tris.detach().cpu().numpy().reshape(-1)
+    block[:t.size] = t
+    sp = sph.detach().cpu().numpy().reshape(-1)
+    block[SMALL_TRIS * 16:SMALL_TRIS * 16 + sp.size] = sp
+    return (ctypes.c_float * block.size).from_buffer_copy(block.tobytes())
+
+
 def pack_tables(scene: SceneData, bvh: bool = False,
                 mats_eval: MaterialTable | None = None) -> dict:
     """The bounce kernels' tables (layouts in csrc/bounce_body.cuh), on the
     scene's device: `mats` is the sampling table (scene.materials),
     `mats_eval` the evaluation table (`mats_eval`, default the same rows);
     with `bvh`, also the BVH kernel's tables (csrc/bvh_walk.cuh), which only
-    the BVH bounce reads. The sky colour and total light area are read to
-    the host here, once."""
+    the BVH bounce reads. For the brute-force kernels' instances, the
+    material `families` present and, for a scene within the small sweep's
+    caps, the host copy of its prim rows (`small`). The sky colour, total
+    light area, material types and small prim rows are read to the host
+    here, once: a launch reads nothing from the card. A test or a tool may
+    add "instance" (an Instance) and "group" (threads per lane) to fix
+    what every launch takes."""
     g = scene.geometry
     lt = scene.lights
     f32 = torch.float32
@@ -316,12 +405,37 @@ def pack_tables(scene: SceneData, bvh: bool = False,
         sky=[float(x) for x in scene.sky.color.detach().cpu()],
         ibl=scene.sky.ibl.detach().to(f32).contiguous(),
         lon=float(scene.sky.longitude_offset.detach()),
+        families=tuple(sorted(set(scene.materials.type_id.tolist()))),
     )
     if tables["mats_eval"].shape != mats.shape:
         raise ValueError("the evaluation table must have the sampling table's rows")
+    nt, ns = tables["tris"].shape[0], tables["sph"].shape[0]
+    fits = nt <= SMALL_TRIS and ns <= SMALL_SPHERES
+    tables["small"] = _small_rows(tables["tris"], tables["sph"]) if fits else None
     if bvh:
         tables["bvh"] = cuda_bvh.tables_of(scene.bvh)
     return tables
+
+
+def launch_instance(tables: dict, n: int, backward: bool = False) -> tuple[Instance, int]:
+    """The brute-force instance and threads per lane of a launch of `n`
+    lanes: `bounce_instance` of the tables and `tail_group(n)` (one thread
+    a lane for the backward kernel), or tables["instance"] and
+    tables["group"] where given."""
+    nt, ns = tables["tris"].shape[0], tables["sph"].shape[0]
+    inst = tables.get("instance") or bounce_instance(nt, ns, tables["families"], n)
+    if inst.sweep == "small" and tables.get("small") is None:
+        raise ValueError("the small instance needs the prim rows of pack_tables")
+    group = tables.get("group") or (1 if backward else tail_group(n))
+    if group not in ((1,) if backward else (1, 2, 4, 8, 16)):
+        raise ValueError(f"threads per lane must be 1, 2, 4, 8 or 16 (1 backward), not {group}")
+    return inst, group
+
+
+def _aligned(*tensors):
+    """The kernels read table rows as float4s."""
+    if any(t.numel() and t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the bounce kernels' tables must be 16-byte aligned")
 
 
 def _launch(kernel: str, scene: SceneData, settings: RenderSettings, seed,
@@ -373,8 +487,14 @@ def _launch(kernel: str, scene: SceneData, settings: RenderSettings, seed,
             raise ValueError("the node table must be 16-byte aligned")
         isect = [_ptr(bt["nodes"]) if has_tris else None, _ptr(bt["leaves"]),
                  _ptr(bt["ids"]), bt["k"]]
+        extra = []
     else:
         isect = [_ptr(tables["tris"]), tables["tris"].shape[0]]
+        inst, group = launch_instance(tables, n)
+        small = tables.get("small")
+        extra = [inst.code, group, None if small is None else ctypes.addressof(small)]
+    _aligned(tables["tris"], tables["sph"], tables["mats"], tables["mats_eval"],
+             tables["lights"])
     ibl = settings.sky_kind == SKY_IBL
     h, w = tables["ibl"].shape[:2]
     sky = tables["sky"]
@@ -388,7 +508,7 @@ def _launch(kernel: str, scene: SceneData, settings: RenderSettings, seed,
         _ptr(tables["lights"]), tables["lights"].shape[0],
         tables["total_area"], n, b, int(seed) & 0xFFFFFFFF, flags, rr_scale,
         sky[0], sky[1], sky[2], _ptr(tables["ibl"]) if ibl else None, w, h,
-        tables["lon"], cuda_build.stream(),
+        tables["lon"], *extra, cuda_build.stream(),
     )
     cuda_build.check(rc, kernel)
 
@@ -518,8 +638,8 @@ def bounce_bwd(scene: SceneData, settings: RenderSettings, seed, state,
     """The backward pass of one bounce (see ops/bounce_bwd.py) for the
     cotangents g_o, g_d, g_t, g_a ((n,3) float32) of its outputs. Launches
     the backward kernel for a state on a CUDA device (with `tables` from
-    `pack_tables(scene, mats_eval=mats_eval)`, packed here when not given)
-    and sums its per-block row table; runs `plain_bounce_bwd` on the CPU.
+    `pack_tables(scene, mats_eval=mats_eval)`, packed here when not given),
+    which sums the row table itself; runs `plain_bounce_bwd` on the CPU.
     `with_alive` also returns the kernel's recomputed alive' (else
     `alive` is None)."""
     if state.o.device.type == "cpu":
@@ -532,43 +652,61 @@ def bounce_bwd(scene: SceneData, settings: RenderSettings, seed, state,
     dev = state.o.device
     nm = tables["mats"].shape[0]
     f3 = lambda: torch.empty((n, 3), dtype=torch.float32, device=dev)
-    out = (f3(), f3(), f3(),
-           torch.empty((bwd_blocks(n), 6 * nm + 3), dtype=torch.float32, device=dev),
+    out = (f3(), f3(), f3(), torch.empty(6 * nm + 3, dtype=torch.float32, device=dev),
            torch.empty(n, dtype=torch.bool, device=dev) if with_alive else None)
     bounce_bwd_launch(scene, settings, seed, state, (g_o, g_d, g_t, g_a), tables, out)
-    tot = out[3].sum(dim=0)
-    rows = tot[:6 * nm].reshape(nm, 6)
+    rows = out[3][:6 * nm].reshape(nm, 6)
     return BounceGrads(o=out[0], d=out[1], throughput=out[2], albedo=rows[:, :3],
-                       emission=rows[:, 3:], sky=tot[6 * nm:], alive=out[4])
+                       emission=rows[:, 3:], sky=out[3][6 * nm:], alive=out[4])
 
 
 BWD_BLOCK = 128  # threads per block of csrc/bounce_bwd.cu
+# Blocks of the backward kernel's persistent grid an SM can hold at most
+# (2,048 threads of 128), which bounds the partial table's columns.
+BWD_BLOCKS_PER_SM = 16
+
+_tickets: dict = {}  # device index -> the backward kernel's zero uint32 ticket
 
 
-def bwd_blocks(n: int) -> int:
-    """Rows of the backward kernel's partial table: its blocks."""
-    return (n + BWD_BLOCK - 1) // BWD_BLOCK
+def bwd_blocks(n: int, device: torch.device) -> int:
+    """Columns of the backward kernel's partial table for `n` lanes: at
+    most one a 128-lane tile and BWD_BLOCKS_PER_SM an SM (the kernel
+    launches as many blocks as the card holds at once)."""
+    tiles = -(-n // BWD_BLOCK)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(tiles, BWD_BLOCKS_PER_SM * sms))
+
+
+def _ticket(device: torch.device) -> torch.Tensor:
+    """The backward kernel's ticket on `device`: zeroed once, and left zero
+    by every launch (the last block resets it). The launches of one device
+    share it, so they must run on one stream, as the port's do."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _tickets:
+        _tickets[idx] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _tickets[idx]
 
 
 def bounce_bwd_launch(scene: SceneData, settings: RenderSettings, seed, state,
                       cot, tables: dict, out):
     """The backward kernel alone: reads `state` and `cot` = (g_o, g_d, g_t,
-    g_a) and writes `out` = (o_bar, d_bar, t_bar (n,3) float32, partial
-    (bwd_blocks(n), 6*nm+3) float32, alive (n,) bool or None), all on the
-    card. `bounce_bwd` allocates these and sums the partial table; this is
+    g_a) and writes `out` = (o_bar, d_bar, t_bar (n,3) float32, rows
+    (6*nm+3,) float32, alive (n,) bool or None), all on the card, the row
+    table summed over every lane in the launch (its partial table is
+    scratch allocated here). `bounce_bwd` allocates the outputs; this is
     the launch it counts."""
     _require(diff_supported(scene, settings))
     n = state.o.shape[0]
     dev = state.o.device
     nm = tables["mats"].shape[0]
-    o_bar, d_bar, t_bar, partial, alive_out = out
+    o_bar, d_bar, t_bar, rows, alive_out = out
     specs = [(name, getattr(state, name), (n, 3), torch.float32)
              for name in ("o", "d", "throughput")]
     specs += [("alive", state.alive, (n,), torch.bool), ("lane", state.lane, (n,), torch.int32)]
     specs += [(f"cotangent {k}", t, (n, 3), torch.float32) for k, t in enumerate(cot)]
     specs += [("o_bar", o_bar, (n, 3), torch.float32), ("d_bar", d_bar, (n, 3), torch.float32),
               ("t_bar", t_bar, (n, 3), torch.float32),
-              ("partial", partial, (bwd_blocks(n), 6 * nm + 3), torch.float32),
+              ("rows", rows, (6 * nm + 3,), torch.float32),
               ("tris", tables["tris"], tables["tris"].shape, torch.float32),
               ("sph", tables["sph"], tables["sph"].shape, torch.float32),
               ("lights", tables["lights"], tables["lights"].shape, torch.float32)]
@@ -586,16 +724,26 @@ def bounce_bwd_launch(scene: SceneData, settings: RenderSettings, seed, state,
     _check_mats(tables)
     if tables["mats"].device != dev or tables["mats_eval"].device != dev:
         raise ValueError("the material tables must lie on the state's device")
+    _aligned(tables["tris"], tables["sph"], tables["mats"], tables["mats_eval"],
+             tables["lights"])
+    inst, _ = launch_instance(tables, n, backward=True)
+    if inst.shading != "lambert":
+        raise ValueError("the backward kernel shades Lambert rows only")
+    blocks = bwd_blocks(n, dev)
+    partial = torch.empty((6 * nm + 3) * blocks, dtype=torch.float32, device=dev)
+    small = tables.get("small")
     flags, rr_scale = _flags(settings, state.bounce)
     sky = tables["sky"]
     rc = cuda_build.fn("bounce_bwd")(
         _ptr(state.o), _ptr(state.d), _ptr(state.throughput), _ptr(state.alive),
         _ptr(state.lane), *(_ptr(t) for t in cot), _ptr(o_bar), _ptr(d_bar), _ptr(t_bar),
-        _ptr(partial), _ptr(alive_out), _ptr(tables["tris"]), tables["tris"].shape[0],
+        _ptr(rows), _ptr(alive_out), _ptr(tables["tris"]), tables["tris"].shape[0],
         _ptr(tables["sph"]), tables["sph"].shape[0], _ptr(tables["mats"]),
         _ptr(tables["mats_eval"]), nm, _ptr(tables["lights"]), tables["lights"].shape[0],
         tables["total_area"], n, state.bounce, int(seed) & 0xFFFFFFFF, flags, rr_scale,
-        sky[0], sky[1], sky[2], cuda_build.stream(),
+        sky[0], sky[1], sky[2], inst.code,
+        None if small is None else ctypes.addressof(small), _ptr(partial), blocks,
+        _ptr(_ticket(dev)), cuda_build.stream(),
     )
     cuda_build.check(rc, "bounce_bwd")
     bounce_bwd.launches += 1
@@ -662,8 +810,8 @@ class _BounceFn(torch.autograd.Function):
 
 
 class _BounceDiff(_BounceFn):
-    """One bounce with the hand-written backward: the backward kernel and
-    the sum of its row table (`plain_bounce_bwd` on the CPU). Gradients go
+    """One bounce with the hand-written backward: the backward kernel
+    (`plain_bounce_bwd` on the CPU). Gradients go
     to o, d, throughput, accum (passed through), the evaluation rows'
     colours and emissions, and the sky colour."""
 

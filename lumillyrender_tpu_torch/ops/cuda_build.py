@@ -54,14 +54,17 @@ _SKY = [_F, _F, _F, _P, _I, _I, _F, _P]
 _SHADE = [_P, _I, _P, _P, _I, _P, _I, _F, _I, _I, _U, _I, _F]
 ARGTYPES = {
     "llr_raygen": [_P, _P, _P, _P, _I, _U, _U, _I, _I, _I, _I, _I, _P, _P],
-    "llr_bounce": [_P] * 12 + [_P, _I] + _SHADE + _SKY,
+    # ... then the instance bits, threads per lane and the host copy of the
+    # small scene's prim rows (csrc/bounce.cu), and the stream.
+    "llr_bounce": [_P] * 12 + [_P, _I] + _SHADE + _SKY[:-1] + [_I, _I, _P, _P],
     "llr_bounce_bvh": [_P] * 12 + [_P, _P, _P, _I] + _SHADE + _SKY,
     "llr_bvh": [_P] * 7 + [_I, _I] + [_P] * 4 + [_P],
     "llr_bvh_wide": [_P] * 7 + [_I, _I] + [_P] * 4 + [_P],
     "llr_bvh_streamed": [_P] * 7 + [_I, _I] + [_P] * 4 + [_P],
     # state in (5), cotangents in (4), out (5), triangles, then _SHADE, the
-    # uniform sky colour and the stream.
-    "llr_bounce_bwd": [_P] * 14 + [_P, _I] + _SHADE + [_F, _F, _F, _P],
+    # uniform sky colour, the instance bits, the small scene's prim rows,
+    # the partial table and its columns, the ticket and the stream.
+    "llr_bounce_bwd": [_P] * 14 + [_P, _I] + _SHADE + [_F, _F, _F, _I, _P, _P, _I, _P, _P],
     "llr_probe_smem_limit": [ctypes.POINTER(_I), _I],
 }
 # The signature of every capability probe's entry `llr_probe_<probe>` (two

@@ -30,6 +30,7 @@ from lumillyrender_tpu_torch.convert import (
 )
 from lumillyrender_tpu_torch.integrator import wavefront
 from lumillyrender_tpu_torch.ops import cuda_bounce
+from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
 from test_fused_bounce import (
     GGX_REFR_SCENE,
     _assert_states_close,
@@ -188,3 +189,83 @@ def test_pack_tables_layout(assets_dir, name):
     np.testing.assert_array_equal(t["lights"][:, 14].numpy(), np.asarray(lt.cdf))
     assert t["mats"].shape == (np.asarray(ref.data.materials.type_id).shape[0], 16)
     assert t["total_area"] == float(lt.total_area)
+
+
+@pytest.mark.parametrize("nt,ns,families,n,want", [
+    (16, 8, (0,), 4096, ("small", "lambert")),            # at the caps
+    (17, 8, (0,), 4096, ("general", "lambert")),          # one triangle past
+    (16, 9, (0, 0), 4096, ("general", "lambert")),        # one sphere past
+    (12, 2, (0,), 1 << 18, ("small", "lambert")),         # at the lane cap
+    (12, 2, (0,), (1 << 18) + 1, ("general", "lambert")),  # one lane past
+    (12, 2, (0,), 1 << 21, ("general", "lambert")),       # new-cbox at full width
+    (0, 2, (0,), 32768, ("small", "lambert")),            # primitive
+    (6, 5, (0, 3), 32768, ("small", "all")),              # brdf
+    (256, 2, (0,), 4096, ("general", "lambert")),         # many-light
+    (4, 4, (0, 1, 2, 3, 4), 4096, ("small", "all")),      # ibl-material
+    (12, 2, (3,), 4096, ("small", "all")),                # one family, not Lambert
+    (81932, 0, (0, 4), 4096, ("general", "all")),
+])
+def test_bounce_instance_choice(nt, ns, families, n, want):
+    """The brute-force kernels' instance: the small sweep up to 16
+    triangles and 8 spheres and up to SMALL_MAX_LANES lanes, Lambert-only
+    shading where every row is Lambert."""
+    inst = cuda_bounce.bounce_instance(nt, ns, families, n)
+    assert tuple(inst) == want
+    assert inst.code == (1 if want[0] == "small" else 0) | (2 if want[1] == "lambert" else 0)
+
+
+@pytest.mark.parametrize("n,group", [(1, 16), (4096, 16), (8192, 8), (16384, 4),
+                                     (32768, 1), (1 << 20, 1), (1 << 21, 1)])
+def test_tail_group(n, group):
+    """Threads per lane: groups of 4-16 at the narrow stages, one thread a
+    lane where the grid fills the card."""
+    assert cuda_bounce.tail_group(n) == group
+
+
+@pytest.mark.parametrize("name,want", [("new-cbox", ("small", "lambert")),
+                                       ("brdf", ("small", "all")),
+                                       ("many-light", ("general", "lambert"))])
+def test_pack_tables_instance(assets_dir, name, want):
+    """pack_tables keeps the families present and, for a scene within the
+    small sweep's caps, its prim rows laid out as csrc/bounce_body.cuh's
+    SmallPrims (16 rows of 16 floats, then 8 of 8, zero-padded);
+    launch_instance picks from them, and takes a fixed instance and group
+    where the tables carry one (one thread a lane backward)."""
+    c = compile_scene_file(assets_dir / f"{name}.toml", device="cpu")
+    t = cuda_bounce.pack_tables(c.data)
+    assert t["families"] == c.settings.mat_types
+    inst, group = cuda_bounce.launch_instance(t, 4096)
+    assert tuple(inst) == want and group == 16
+    assert cuda_bounce.launch_instance(t, 4096, backward=True) == (inst, 1)
+    assert cuda_bounce.launch_instance(t, 1 << 21)[0].sweep == "general"
+    forced = dict(t, instance=cuda_bounce.Instance("general", "all"), group=1)
+    assert cuda_bounce.launch_instance(forced, 4096) == (cuda_bounce.Instance("general", "all"), 1)
+    with pytest.raises(ValueError):
+        cuda_bounce.launch_instance(dict(t, group=4), 4096, backward=True)
+    if want[0] == "general":
+        assert t["small"] is None
+        with pytest.raises(ValueError, match="small instance"):
+            cuda_bounce.launch_instance(dict(t, instance=cuda_bounce.Instance("small", "all")), 8)
+        return
+    block = np.frombuffer(bytes(t["small"]), dtype=np.float32)
+    assert block.size == 16 * 16 + 8 * 8
+    nt, ns = t["tris"].shape[0], t["sph"].shape[0]
+    np.testing.assert_array_equal(block[:nt * 16], t["tris"].numpy().reshape(-1))
+    np.testing.assert_array_equal(block[256:256 + ns * 8], t["sph"].numpy().reshape(-1))
+    assert not block[nt * 16:256].any() and not block[256 + ns * 8:].any()
+
+
+def test_diff_supported_caps_material_rows(assets_dir):
+    """The backward kernel keeps a row table a warp in shared memory: past
+    BWD_MAX_ROWS material rows the scene has no kernel backward."""
+    import dataclasses
+
+    c = compile_scene_file(assets_dir / "new-cbox.toml", device="cpu")
+    assert cuda_bounce.diff_supported(c.data, c.settings)[0]
+    mt = c.data.materials
+    k = cuda_bounce.BWD_MAX_ROWS + 1
+    rep = lambda t: t[:1].expand(k, *t.shape[1:]).contiguous()
+    big = dataclasses.replace(mt, **{f.name: rep(getattr(mt, f.name))
+                                     for f in dataclasses.fields(mt)})
+    ok, why = cuda_bounce.diff_supported(dataclasses.replace(c.data, materials=big), c.settings)
+    assert not ok and "row" in why

@@ -267,6 +267,235 @@ def test_bounce_bwd_kernel_matches_plain(card, name):
         assert torch.equal(getattr(got, k), getattr(again, k)), k
 
 
+# Every brute-force instance (bounce_body.cuh: the small sweep or the
+# general one, Lambert-only or all-family shading, one table or two), forced
+# through the tables on scenes it serves: each against the plain step, and
+# bit-equal to the general all-family instance on every output (the same
+# operations).
+INSTANCE_CASES = (
+    [("new-cbox", sw, sh, two) for sw in ("small", "general") for sh in ("lambert", "all")
+     for two in (False, True)]
+    + [("brdf", sw, "all", two) for sw in ("small", "general") for two in (False, True)]
+    + [("many-light", "general", sh, two) for sh in ("lambert", "all") for two in (False, True)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,sweep,shading,two", INSTANCE_CASES,
+                         ids=[f"{n}-{sw}-{sh}-{'two' if t else 'one'}"
+                              for n, sw, sh, t in INSTANCE_CASES])
+def test_bounce_instances_match_plain(card, name, sweep, shading, two):
+    c = compile_scene_file(ASSETS / f"{name}.toml", device=card)
+    me = _perturbed(c.data.materials, 3) if two else None
+    st = state_from_numpy(3, *_random_state(c.data, 65536, 23), device=card)
+    tables = dict(cuda_bounce.pack_tables(c.data, mats_eval=me), group=1)
+    got = cuda_bounce.bounce(c.data, c.settings, 77, st,
+                             dict(tables, instance=cuda_bounce.Instance(sweep, shading)))
+    ref = cuda_bounce.bounce(c.data, c.settings, 77, st,
+                             dict(tables, instance=cuda_bounce.Instance("general", "all")))
+    want = wavefront.plain_bounce_step(c.data, c.settings, 77, st, me)
+    torch.cuda.synchronize()
+    assert parity.failures(parity.agreement(want, got)) == []
+    for k in ("o", "d", "throughput", "accum", "alive", "rays_traced"):
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+
+
+@pytest.mark.cuda
+def test_small_instance_needs_a_small_scene(card):
+    """many-light (256 triangles) takes the general sweep; the small one
+    has no prim rows for it and refuses."""
+    c = compile_scene_file(ASSETS / "many-light.toml", device=card)
+    tables = cuda_bounce.pack_tables(c.data)
+    assert cuda_bounce.launch_instance(tables, 256)[0] == cuda_bounce.Instance("general", "lambert")
+    assert tables["small"] is None
+    st = state_from_numpy(3, *_random_state(c.data, 256, 24), device=card)
+    with pytest.raises(ValueError, match="small instance"):
+        cuda_bounce.bounce(c.data, c.settings, 77, st,
+                           dict(tables, instance=cuda_bounce.Instance("small", "lambert")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 4096])
+@pytest.mark.parametrize("group", [4, 16])
+@pytest.mark.parametrize("name", ["new-cbox", "brdf"])
+def test_group_sweep_matches_one_thread_a_lane(card, name, n, group):
+    """GroupIsect (a group of threads per lane splitting the sweep) gives
+    every output of one thread a lane bit for bit, on partial warps too,
+    with one table and two, Lambert-only and with every family."""
+    c = compile_scene_file(ASSETS / f"{name}.toml", device=card)
+    st = state_from_numpy(3, *_random_state(c.data, n, 25 + n), device=card)
+    for me in (None, _perturbed(c.data.materials, 4)):
+        tables = cuda_bounce.pack_tables(c.data, mats_eval=me)
+        one = cuda_bounce.bounce(c.data, c.settings, 77, st, dict(tables, group=1))
+        grp = cuda_bounce.bounce(c.data, c.settings, 77, st, dict(tables, group=group))
+        want = wavefront.plain_bounce_step(c.data, c.settings, 77, st, me)
+        torch.cuda.synchronize()
+        for k in ("o", "d", "throughput", "accum", "alive", "rays_traced"):
+            assert torch.equal(getattr(one, k), getattr(grp, k)), k
+        assert parity.failures(parity.agreement(want, grp)) == []
+
+
+def _bwd_against_plain(c, st, tables, me, seed):
+    """The backward kernel with `tables` against plain_bounce_bwd on its
+    comparable lanes, within KERNEL_BWD_RTOL; its alive' equal to the
+    forward kernel's; two runs bit-equal."""
+    n = st.o.shape[0]
+    dev = st.o.device
+    rng = np.random.default_rng(seed)
+    cot = [torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
+           for _ in range(4)]
+    fwd_k = cuda_bounce.bounce(c.data, c.settings, 77, st, tables)
+    fwd_p = wavefront.plain_bounce_step(c.data, c.settings, 77, st, me)
+    _, sp = intersect_shade_brute(st.o, st.d, c.data.geometry)
+    keep = parity.bwd_comparable(fwd_p, fwd_k, sp.normal)
+    assert keep.mean() > parity.BWD_LIMITS["comparable"]
+    cot = [g * torch.from_numpy(keep).to(dev)[:, None] for g in cot]
+    got = cuda_bounce.bounce_bwd(c.data, c.settings, 77, st, *cot, tables=tables,
+                                 with_alive=True)
+    again = cuda_bounce.bounce_bwd(c.data, c.settings, 77, st, *cot, tables=tables)
+    want = plain_bounce_bwd(c.data, c.settings, 77, st, *cot, mats_eval=me)
+    torch.cuda.synchronize()
+    assert torch.equal(got.alive, fwd_k.alive)
+    errs = parity.bwd_errors(want, got, keep)
+    assert parity.bwd_failures(errs, parity.KERNEL_BWD_RTOL) == []
+    for k in ("o", "d", "throughput", "albedo", "emission", "sky"):
+        assert torch.equal(getattr(got, k), getattr(again, k)), k
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweep", ["small", "general"])
+def test_bounce_bwd_kernel_with_few_live_lanes(card, sweep):
+    """The training step's tail: 4,096 lanes of which 14 live."""
+    c = compile_scene_file(ASSETS / "new-cbox.toml", device=card)
+    me = _perturbed(c.data.materials, 5)
+    parts = list(_random_state(c.data, 4096, 33))
+    alive = np.zeros(4096, dtype=bool)
+    alive[np.random.default_rng(34).choice(4096, size=14, replace=False)] = True
+    parts[4] = alive
+    st = state_from_numpy(9, *parts, device=card)
+    tables = dict(cuda_bounce.pack_tables(c.data, mats_eval=me),
+                  instance=cuda_bounce.Instance(sweep, "lambert"))
+    got, _ = _bwd_against_plain(c, st, tables, me, 35)
+    assert int(got.alive.sum()) <= 14
+
+
+@pytest.mark.cuda
+def test_bounce_bwd_kernel_on_no_lanes(card):
+    """A backward launch of no lanes gives empty cotangents and a zero row
+    table (the kernel writes the table only when it has blocks)."""
+    c = compile_scene_file(ASSETS / "new-cbox.toml", device=card)
+    z = np.zeros((0, 3), np.float32)
+    st = state_from_numpy(3, z, z, z, z, np.zeros(0, bool), np.zeros(0, np.uint32), device=card)
+    cot = [torch.zeros((0, 3), device=card) for _ in range(4)]
+    tables = cuda_bounce.pack_tables(c.data)
+    rows = torch.full((6 * tables["mats"].shape[0] + 3,), float("nan"), device=card)
+    got = cuda_bounce.bounce_bwd(c.data, c.settings, 77, st, *cot, tables=tables)
+    cuda_bounce.bounce_bwd_launch(c.data, c.settings, 77, st, cot, tables,
+                                  (*(torch.empty((0, 3), device=card) for _ in range(3)), rows,
+                                   None))
+    torch.cuda.synchronize()
+    assert got.o.shape == (0, 3)
+    for k in ("albedo", "emission", "sky"):
+        assert torch.equal(getattr(got, k), torch.zeros_like(getattr(got, k))), k
+    assert torch.equal(rows, torch.zeros_like(rows))
+
+
+# A Lambert scene of 11 named material rows (the compiler adds one more):
+# six quads (12 triangles) and five spheres, one a lamp, each with its own
+# row, so that the row table has 6 * 12 + 3 = 75 entries.
+MANY_ROWS_SCENE = """
+[renderer]
+samples = 4
+integrator = "pt-direct"
+depth = 3
+depth-limit = 8
+
+[film]
+resolution = [16, 16]
+output = "png"
+
+[sky]
+type = "uniform"
+color = [0.3, 0.4, 0.5]
+
+[camera]
+type = "ideal-pinhole"
+fov = 45
+[[camera.transform]]
+type = "look-at"
+origin = [0, 4, 12]
+target = [0, 2, 0]
+up = [0, 1, 0]
+
+[[light]]
+type = "area"
+object = "lamp"
+emission = [8, 7, 6]
+
+[[object]]
+name = "lamp"
+mesh = "ball"
+material = "m0"
+[[object.transform]]
+type = "translate"
+vector = [0, 7, 0]
+""" + "".join(f"""
+[[object]]
+mesh = "quad"
+material = "m{k}"
+[[object.transform]]
+type = "scale"
+vector = [3, 3, 3]
+[[object.transform]]
+type = "translate"
+vector = [{(k % 3) * 2 - 2}, {k - 1}, {-(k % 2)}]
+""" for k in range(1, 7)) + "".join(f"""
+[[object]]
+mesh = "ball"
+material = "m{k}"
+[[object.transform]]
+type = "translate"
+vector = [{(k - 8) * 1.5}, {(k % 3) + 0.5}, 1]
+""" for k in range(7, 11)) + "".join(f"""
+[[material]]
+name = "m{k}"
+type = "lambert"
+albedo = [{0.3 + 0.05 * k:.2f}, {0.8 - 0.04 * k:.2f}, 0.5]
+""" for k in range(11)) + """
+[[mesh]]
+name = "quad"
+type = "obj"
+path = "models/simple/quad.obj"
+
+[[mesh]]
+name = "ball"
+type = "sphere"
+radius = 0.7
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweep", ["small", "general"])
+def test_bounce_bwd_kernel_past_64_table_entries(card, sweep):
+    """Kernel 5 on a Lambert scene whose row table (75 entries) passes 64,
+    the per-warp chunk of the earlier kernel."""
+    from lumillyrender_tpu_torch.scene.compiler import compile_scene
+    from lumillyrender_tpu_torch.scene.loader import parse_config
+
+    c = compile_scene(parse_config(MANY_ROWS_SCENE, base_dir=ASSETS), device=card)
+    assert c.data.materials.type_id.shape[0] >= 11
+    assert cuda_bounce.diff_supported(c.data, c.settings)[0]
+    me = _perturbed(c.data.materials, 6)
+    tables = cuda_bounce.pack_tables(c.data, mats_eval=me)
+    assert cuda_bounce.launch_instance(tables, 16384, backward=True) == (
+        cuda_bounce.Instance("small", "lambert"), 1)
+    st = state_from_numpy(4, *_random_state(c.data, 16384, 36), device=card)
+    got, want = _bwd_against_plain(c, st, dict(tables, instance=cuda_bounce.Instance(
+        sweep, "lambert")), me, 37)
+    touched = (want.albedo.abs().sum(1) > 0).sum().item()
+    assert touched >= 9, touched
+
+
 @pytest.mark.cuda
 def test_raygen_sees_an_in_place_camera_update(card):
     """The raygen kernel's camera argument is cached on the CameraData; an

@@ -3,26 +3,43 @@ states, in turns on one card.
 
     python tools/torch_bounce_ab.py --parent DIR
 
-builds DIR's `lumillyrender_tpu_torch/csrc/bounce_bvh.cu` and `bounce.cu`
-(a checkout of an earlier commit of the port; its own headers beside them)
-with this tree's nvcc flags into this tree's `lumillyrender_tpu_torch/
-build/` under other library names, beside this tree's kernels, and loads
-them. The BVH bounce (kernel 4) runs on terrain-1m (scene/terrain.py at 1M
-triangles, K=128 leaves, written as chip_smoke.py writes it) and on
-welcome-geo (K=32), the brute-force bounce (kernel 2, whose body
-csrc/bounce_body.cuh it shares) on new-cbox. On each scene one chunk is
-traced with this tree's kernel and the first state of each stage width
-kept (2,097,152 / 262,144 / 32,768 / 4,096 lanes on terrain-1m; 2,072,576
-/ 259,072 / 32,512 / 4,096 on welcome-geo; 2,097,152 / 32,768 / 4,096 on
-new-cbox). On each, both trees' kernels write their own outputs, which
-must be bit-equal on every tensor (o, d, throughput, accum, alive, rays);
-then both bare launches are captured in CUDA graphs of `REPS` launches
-and replayed in turns, `chip_smoke.PROBE_ROUNDS` replays each with the
-order reversed every other round (`chip_smoke.alternating_ms`). Prints
-both trees' ptxas lines of the kernels (registers, shared memory, spills)
-and the blocks per SM their registers allow, the card's name and power
-limit, per width the median and [min, max] ms per launch of each, and one
-JSON line of all of it.
+builds DIR's `lumillyrender_tpu_torch/csrc/bounce_bvh.cu`, `bounce.cu` and
+`bounce_bwd.cu` (a checkout of an earlier commit of the port; its own
+headers beside them) with this tree's nvcc flags into this tree's
+`lumillyrender_tpu_torch/build/` under other library names, beside this
+tree's kernels, and loads them (an entry point of the earlier signature,
+before the brute-force kernels took an instance, is called with it).
+
+Forward cases, on one chunk traced with this tree's kernel, the first state
+of each stage width kept:
+  * kernel 4 (the BVH bounce) on terrain-1m (scene/terrain.py at 1M
+    triangles, K=128 leaves, written as chip_smoke.py writes it; 2,097,152
+    / 262,144 / 32,768 / 4,096 lanes) and welcome-geo (K=32; 2,072,576 /
+    259,072 / 32,512 / 4,096): it shares csrc/bounce_body.cuh;
+  * kernel 2 (the brute-force bounce, one table) on new-cbox (2,097,152 /
+    32,768 / 4,096).
+Training cases, on the first state of each stage width of one new-cbox
+256^2 film_and_grads at 16 spp (1,048,576 / 131,072 / 16,384 / 4,096
+lanes) and at 4 spp (262,144 / 32,768 / 4,096), with the tables and
+cotangents of that launch:
+  * kernel 2's two-table instance;
+  * kernel 5 (the backward): the parent's kernel plus its wrapper's
+    `sum(dim=0)` of the per-block table against this tree's one launch.
+On each, both trees write their own outputs: kernel 2's and 4's must be
+bit-equal on every tensor (o, d, throughput, accum, alive, rays); kernel
+5's per-lane cotangents and recomputed alive' bit-equal, its row table
+within parity.KERNEL_BWD_RTOL of the parent's largest magnitude. Then the
+bare launches are captured in CUDA graphs of `REPS` launches and replayed
+in turns, `chip_smoke.PROBE_ROUNDS` replays each with the order reversed
+every other round (`chip_smoke.alternating_ms`): the parent, this tree as
+it chooses (`cuda_bounce.launch_instance`), and for kernels 2 and 5 this
+tree's other instances (each element of the redesign alone: the small
+sweep against the general one, Lambert-only shading against all
+families, one thread a lane where the choice takes a group), each checked
+bit-equal first. Prints both trees' ptxas lines of every instance
+(registers, stack, spills) and the blocks per SM their registers allow,
+the card's name and power limit, per case the median and [min, max] ms
+per launch of each, and one JSON line of all of it.
 """
 
 from __future__ import annotations
@@ -30,6 +47,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -38,27 +56,58 @@ from pathlib import Path
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-# (kernel library, scene) in the order they run.
+# (kernel library, scene) of the forward cases, in the order they run.
 CASES = (("bounce_bvh", "terrain-1m"), ("bounce_bvh", "welcome-geo"), ("bounce", "new-cbox"))
+TRAIN_SPP = (16, 4)
 REPS = 5  # launches per CUDA graph
 
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+_SHADE = [_P, _I, _P, _P, _I, _P, _I, _F, _I, _I, _U, _I, _F]
+# The entry points before the brute-force kernels took an instance (the
+# last three arguments before the stream) and kernel 5 summed its row table.
+EARLIER_ARGTYPES = {
+    "llr_bounce": [_P] * 12 + [_P, _I] + _SHADE + [_F, _F, _F, _P, _I, _I, _F, _P],
+    "llr_bounce_bwd": [_P] * 14 + [_P, _I] + _SHADE + [_F, _F, _F, _P],
+}
 
-def build_parent(src: Path, name: str, tag: str = "parent") -> tuple:
-    """The source of library `name` in the tree at `src` (the earlier tree
-    unless told otherwise) built into this tree's build directory as
-    lib<name>-<tag>.so: (its entry point, nvcc's -Xptxas -v output)."""
+
+def earlier_signature(src: Path, name: str) -> bool:
+    """Whether the parent's entry of library `name` has the earlier
+    signature (EARLIER_ARGTYPES)."""
     from lumillyrender_tpu_torch.ops import cuda_build
 
-    cu = src / "lumillyrender_tpu_torch" / "csrc" / cuda_build.SOURCES[name]
-    out = cuda_build.BUILD_DIR / f"lib{name}-{tag}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    r = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
-                        "-o", str(out), str(cu)], capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {cu}:\n{r.stdout}{r.stderr}")
-    fn = getattr(ctypes.CDLL(str(out)), f"llr_{name}")
-    fn.argtypes, fn.restype = cuda_build.ARGTYPES[f"llr_{name}"], ctypes.c_int
-    return fn, r.stdout + r.stderr
+    if f"llr_{name}" not in EARLIER_ARGTYPES:
+        return False
+    cu = (src / "lumillyrender_tpu_torch" / "csrc" / cuda_build.SOURCES[name]).read_text()
+    return "small_rows" not in cu
+
+
+def build_parents(src: Path, names, tag: str = "parent") -> dict:
+    """The sources of libraries `names` in the tree at `src` built into this
+    tree's build directory as lib<name>-<tag>.so, one nvcc each, all at
+    once: {name: (its entry point, nvcc's -Xptxas -v output, earlier
+    signature)}."""
+    from lumillyrender_tpu_torch.ops import cuda_build
+
+    procs = {}
+    for name in names:
+        cu = src / "lumillyrender_tpu_torch" / "csrc" / cuda_build.SOURCES[name]
+        out = cuda_build.BUILD_DIR / f"lib{name}-{tag}.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        procs[name] = (subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out, cu)
+    built = {}
+    for name, (p, out, cu) in procs.items():
+        log, _ = p.communicate(timeout=900)
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {cu}:\n{log}")
+        earlier = earlier_signature(src, name)
+        fn = getattr(ctypes.CDLL(str(out)), f"llr_{name}")
+        fn.argtypes = (EARLIER_ARGTYPES if earlier else cuda_build.ARGTYPES)[f"llr_{name}"]
+        fn.restype = ctypes.c_int
+        built[name] = (fn, log, earlier)
+    return built
 
 
 @contextlib.contextmanager
@@ -79,8 +128,15 @@ def entry_point(name: str, fn):
             cuda_build._fns[entry] = saved
 
 
-def kernel_lines(log: str, match: str = "bounce_kernel") -> dict:
-    """{kernel: ptxas line, registers, blocks of 128 threads per SM it
+def forward_entry(parent: tuple):
+    """The parent's forward entry as this tree's wrapper calls it: an
+    earlier llr_bounce drops the instance, group and small rows."""
+    fn, _, earlier = parent
+    return (lambda *a: fn(*a[:-4], a[-1])) if earlier else fn
+
+
+def kernel_lines(log: str, match: str = "bounce") -> dict:
+    """{instance: ptxas line, registers, blocks of 128 threads per SM it
     allows (chip_smoke.blocks_per_sm)} for the kernels whose name holds
     `match` in nvcc's -Xptxas -v output."""
     import re
@@ -92,8 +148,9 @@ def kernel_lines(log: str, match: str = "bounce_kernel") -> dict:
         if match not in name:
             continue
         m = re.search(r"(\d+) registers", props)
-        out[name] = dict(ptxas=props, registers=int(m.group(1)) if m else 0,
-                         blocks_per_sm=chip_smoke.blocks_per_sm(props))
+        out[chip_smoke.kernel_instance(name)] = dict(
+            ptxas=props, registers=int(m.group(1)) if m else 0,
+            blocks_per_sm=chip_smoke.blocks_per_sm(props))
     return out
 
 
@@ -115,6 +172,40 @@ def stage_states(c, spp_chunk: int, name: str, tables: dict) -> dict:
     return first
 
 
+def training_states(c, spp: int) -> tuple[dict, dict]:
+    """One new-cbox film_and_grads at `spp` from a perturbed albedo
+    (as chip_smoke.py's phase 12): ({width: (first forward state, its
+    tables)}, {width: (first backward state, cotangents, tables)}). The
+    backward runs from the last bounce to the first, so its last launch at
+    a width is its stage's first."""
+    import chip_smoke
+    from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    p = params_of(c.data)
+    with torch.no_grad():
+        target = render_diff(c.data, c.settings, p, chip_smoke.SEED, spp)
+    p = p._replace(materials=dataclasses.replace(p.materials, color=p.materials.color * 0.8))
+    fwd, bwd = {}, {}
+    launch, launch_bwd = cuda_bounce.bounce_launch, cuda_bounce.bounce_bwd_launch
+
+    def keep_fwd(scene, settings, seed, state, tables, out):
+        fwd.setdefault(state.o.shape[0], (state, tables))
+        return launch(scene, settings, seed, state, tables, out)
+
+    def keep_bwd(scene, settings, seed, state, cot, tables, out):
+        bwd[state.o.shape[0]] = (state, [g.clone() for g in cot], tables)
+        return launch_bwd(scene, settings, seed, state, cot, tables, out)
+
+    cuda_bounce.bounce_launch, cuda_bounce.bounce_bwd_launch = keep_fwd, keep_bwd
+    try:
+        film_and_grads(c.data, c.settings, p, target, chip_smoke.SEED, spp)
+        torch.cuda.synchronize()
+    finally:
+        cuda_bounce.bounce_launch, cuda_bounce.bounce_bwd_launch = launch, launch_bwd
+    return fwd, bwd
+
+
 def outputs(n: int) -> tuple:
     f3 = lambda: torch.empty((n, 3), dtype=torch.float32, device="cuda")
     return (f3(), f3(), f3(), f3(), torch.empty(n, dtype=torch.bool, device="cuda"),
@@ -123,6 +214,148 @@ def outputs(n: int) -> tuple:
 
 def bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def variants(name: str, tables: dict, width: int) -> dict:
+    """{label: tables} of this tree's instances to time beside the parent:
+    its choice first (`cuda_bounce.launch_instance`), then, for the
+    brute-force kernels, every other sweep and shading the scene allows
+    at one thread a lane (each element alone: the small sweep against
+    the general one, Lambert-only shading against all families, and one
+    thread a lane where the choice takes a group)."""
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    if name == "bounce_bvh":
+        return {"change": tables}
+    backward = name == "bounce_bwd"
+    inst, group = cuda_bounce.launch_instance(tables, width, backward)
+    out = {f"change ({inst.label(group)})": tables}
+    sweeps = ("small", "general") if tables.get("small") is not None else ("general",)
+    shadings = ("lambert",) if backward else (
+        ("lambert", "all") if inst.shading == "lambert" else ("all",))
+    for sweep in sweeps:
+        for shading in shadings:
+            alt = cuda_bounce.Instance(sweep, shading)
+            if (alt, 1) != (inst, group):
+                out[alt.label()] = dict(tables, instance=alt, group=1)
+    return out
+
+
+def time_case(tag: str, fns: dict, res: dict, card: str):
+    """Replay `fns` ({label: launch}) in turns and print and keep the
+    medians and ranges, each against the parent's."""
+    import chip_smoke
+
+    labels = list(fns)
+    times = chip_smoke.alternating_ms([fns[k] for k in labels], REPS, chip_smoke.PROBE_ROUNDS)
+    rec = {k: chip_smoke.spread(t) for k, t in zip(labels, times)}
+    parent = rec["parent"][0]
+    line = "; ".join(f"{k} {v[0]:.4f} ms [{v[1][0]:.4f}, {v[1][1]:.4f}] {v[0] / parent:.3f}x"
+                     for k, v in rec.items())
+    print(f"{tag}: {line}  [{card}]", flush=True)
+    res[tag] = dict(res.get(tag, {}), ms=rec)
+
+
+def forward_case(tag, c, settings, state, tables, name, parent, res, card):
+    """Kernel 2 or 4 on one state: every instance bit-equal to the parent on
+    every output, then timed in turns."""
+    import chip_smoke
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    w = state.o.shape[0]
+    launch_fn = getattr(cuda_bounce, f"{name}_launch")
+    pfn = forward_entry(parent)
+    runs = {"parent": (pfn, tables), **{k: (None, t) for k, t in
+                                         variants(name, tables, w).items()}}
+    outs = {k: outputs(w) for k in runs}
+
+    def launch(k):
+        fn, t = runs[k]
+        if fn is None:
+            launch_fn(c.data, settings, chip_smoke.SEED, state, t, outs[k])
+        else:
+            with entry_point(name, fn):
+                launch_fn(c.data, settings, chip_smoke.SEED, state, t, outs[k])
+
+    for k in runs:
+        launch(k)
+    torch.cuda.synchronize()
+    for k in runs:
+        same = [torch.equal(bits(a), bits(b)) for a, b in zip(outs["parent"], outs[k])]
+        if not all(same):
+            raise SystemExit(f"torch_bounce_ab: {tag}, {k}: the outputs differ from the "
+                             f"parent's (o, d, throughput, accum, alive, rays equal: {same})")
+    res[tag] = dict(live=float(state.alive.sum()), bit_equal=True)
+    time_case(tag, {k: (lambda k=k: launch(k)) for k in runs}, res, card)
+
+
+def backward_case(tag, c, settings, state, cot, tables, parent, res, card):
+    """Kernel 5 on one state: the parent's kernel and its sum(dim=0)
+    against each of this tree's instances; per-lane cotangents and alive'
+    bit-equal, the row table within KERNEL_BWD_RTOL; timed in turns."""
+    import chip_smoke
+    from lumillyrender_tpu_torch import parity
+    from lumillyrender_tpu_torch.ops import cuda_bounce, cuda_build
+    from lumillyrender_tpu_torch.ops.cuda_build import ptr
+
+    w = state.o.shape[0]
+    dev = state.o.device
+    nm = tables["mats"].shape[0]
+    fn, _, earlier = parent
+    f3 = lambda: torch.empty((w, 3), dtype=torch.float32, device=dev)
+    mine = {k: (t, (f3(), f3(), f3(), torch.empty(6 * nm + 3, dtype=torch.float32, device=dev),
+                    torch.empty(w, dtype=torch.bool, device=dev)))
+            for k, t in variants("bounce_bwd", tables, w).items()}
+    p_out = (f3(), f3(), f3(), torch.empty(w, dtype=torch.bool, device=dev))
+    p_blocks = -(-w // 128)
+    p_partial = torch.empty((p_blocks, 6 * nm + 3), dtype=torch.float32, device=dev)
+    p_rows = torch.empty(6 * nm + 3, dtype=torch.float32, device=dev)
+    flags, rr_scale = cuda_bounce._flags(settings, state.bounce)
+    sky = tables["sky"]
+
+    def launch_parent():
+        if not earlier:
+            with entry_point("bounce_bwd", fn):
+                cuda_bounce.bounce_bwd_launch(c.data, settings, chip_smoke.SEED, state, cot,
+                                              tables, (*p_out[:3], p_rows, p_out[3]))
+            return
+        rc = fn(ptr(state.o), ptr(state.d), ptr(state.throughput), ptr(state.alive),
+                ptr(state.lane), *(ptr(g) for g in cot), *(ptr(t) for t in p_out[:3]),
+                ptr(p_partial), ptr(p_out[3]), ptr(tables["tris"]), tables["tris"].shape[0],
+                ptr(tables["sph"]), tables["sph"].shape[0], ptr(tables["mats"]),
+                ptr(tables["mats_eval"]), nm, ptr(tables["lights"]),
+                tables["lights"].shape[0], tables["total_area"], w, state.bounce,
+                chip_smoke.SEED & 0xFFFFFFFF, flags, rr_scale, sky[0], sky[1], sky[2],
+                cuda_build.stream())
+        cuda_build.check(rc, "parent bounce_bwd")
+        torch.sum(p_partial, dim=0, out=p_rows)
+
+    def launch(k):
+        t, out = mine[k]
+        cuda_bounce.bounce_bwd_launch(c.data, settings, chip_smoke.SEED, state, cot, t, out)
+
+    launch_parent()
+    for k in mine:
+        launch(k)
+    torch.cuda.synchronize()
+    scale = p_rows.abs().max().clamp(min=1e-30)
+    rec = dict(live=float(state.alive.sum()), bit_equal_lanes=True, rows_rel={})
+    for k, (_, out) in mine.items():
+        same = [torch.equal(bits(a), bits(b)) for a, b in zip(p_out, (*out[:3], out[4]))]
+        if not all(same):
+            raise SystemExit(f"torch_bounce_ab: {tag}, {k}: the per-lane outputs differ from "
+                             f"the parent's (o, d, throughput, alive equal: {same})")
+        rel = float((out[3] - p_rows).abs().max() / scale)
+        rec["rows_rel"][k] = rel
+        if not rel < parity.KERNEL_BWD_RTOL:
+            raise SystemExit(f"torch_bounce_ab: {tag}, {k}: the row table differs from the "
+                             f"parent's by {rel:.2e} of its largest magnitude")
+    print(f"{tag} ({rec['live']:.0f} live): per-lane cotangents and alive' bit-equal; row "
+          "table vs the parent's, max |diff| / max |parent|: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rec["rows_rel"].items()), flush=True)
+    res[tag] = rec
+    time_case(tag, {"parent": launch_parent, **{k: (lambda k=k: launch(k)) for k in mine}},
+              res, card)
 
 
 def main(argv=None) -> int:
@@ -139,65 +372,44 @@ def main(argv=None) -> int:
     from lumillyrender_tpu_torch.ops import cuda_bounce, cuda_build
     from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
 
-    names = sorted({name for name, _ in CASES})
-    cuda_build.build(tuple(names), verbose=True)
-    mine = {name: cuda_build.fn(name) for name in names}
-    parent, logs = {}, {}
-    for name in names:
-        parent[name], logs[name] = build_parent(args.parent.resolve(), name)
+    names = ("bounce", "bounce_bvh", "bounce_bwd")
+    cuda_build.build(names, verbose=True)
+    parent = build_parents(args.parent.resolve(), names)
     card = chip_smoke.gpu_line()
     res = {"card": card, "rounds": chip_smoke.PROBE_ROUNDS, "reps": REPS,
            "ptxas": {who: {name: kernel_lines(log) for name, log in by_name.items()}
-                     for who, by_name in (("parent", logs), ("change", {
-                         name: cuda_build.LOGS.get(name, "") for name in names}))}}
+                     for who, by_name in (("parent", {n: p[1] for n, p in parent.items()}),
+                                          ("change", {n: cuda_build.LOGS.get(n, "")
+                                                      for n in names}))}}
     for who, by_name in res["ptxas"].items():
-        for lines in by_name.values():
+        for name, lines in by_name.items():
             for kernel, rec in lines.items():
-                print(f"{who} {kernel}: {rec['ptxas']} ({rec['blocks_per_sm']} blocks of 128 "
-                      "per SM by registers)")
+                print(f"{who} {name}.cu {kernel}: {rec['ptxas']} ({rec['blocks_per_sm']} "
+                      "blocks of 128 per SM by registers)")
     print(card)
     paths = {"terrain-1m": chip_smoke.write_terrain("terrain-1m", chip_smoke.BIG_TRIS[
         "terrain-1m"])[0], "welcome-geo": REPO / "assets" / "welcome-geo.toml",
         "new-cbox": REPO / "assets" / "new-cbox.toml"}
     for name, scene in CASES:
         c = compile_scene_file(paths[scene], device="cuda")
-        st = c.settings
         bvh = name == "bounce_bvh"
         tables = cuda_bounce.pack_tables(c.data, bvh=bvh)
-        launch_fn = getattr(cuda_bounce, f"{name}_launch")
         tag = f"{name} {scene}" + (f" K={tables['bvh']['k']}" if bvh else "")
-        res[tag] = {}
-        for w, s0 in sorted(stage_states(c, default_spp_chunk(st), name, tables).items(),
-                            reverse=True):
-            outs = {"parent": outputs(w), "change": outputs(w)}
-
-            def launch(who, s0=s0):
-                fn = parent[name] if who == "parent" else mine[name]
-                with entry_point(name, fn):
-                    launch_fn(c.data, st, chip_smoke.SEED, s0, tables, outs[who])
-
-            launch("parent")
-            launch("change")
-            torch.cuda.synchronize()
-            same = [torch.equal(bits(a), bits(b)) for a, b in zip(outs["parent"],
-                                                                  outs["change"])]
-            if not all(same):
-                raise SystemExit(f"torch_bounce_ab: {tag} width {w}: the outputs differ "
-                                 f"(o, d, throughput, accum, alive, rays equal: {same})")
-            times = chip_smoke.alternating_ms([lambda: launch("parent"),
-                                               lambda: launch("change")],
-                                              REPS, chip_smoke.PROBE_ROUNDS)
-            rec = {who: chip_smoke.spread(t) for who, t in zip(("parent", "change"), times)}
-            rec.update(live=float(s0.alive.sum()), bit_equal=True,
-                       ratio=rec["change"][0] / rec["parent"][0])
-            res[tag][str(w)] = rec
-            print(f"{tag}, width {w} ({rec['live']:.0f} live), every output bit-equal: "
-                  f"parent {rec['parent'][0]:.4f} ms [{rec['parent'][1][0]:.4f}, "
-                  f"{rec['parent'][1][1]:.4f}], change {rec['change'][0]:.4f} ms "
-                  f"[{rec['change'][1][0]:.4f}, {rec['change'][1][1]:.4f}]: "
-                  f"{rec['ratio']:.3f}x  [{card}]", flush=True)
+        for w, s0 in sorted(stage_states(c, default_spp_chunk(c.settings), name,
+                                         tables).items(), reverse=True):
+            forward_case(f"{tag}, width {w}", c, c.settings, s0, tables, name,
+                         parent[name], res, card)
         del c, tables
         torch.cuda.empty_cache()
+    c = compile_scene_file(paths["new-cbox"], device="cuda")
+    for spp in TRAIN_SPP:
+        fwd, bwd = training_states(c, spp)
+        for w, (s0, tables) in sorted(fwd.items(), reverse=True):
+            forward_case(f"bounce new-cbox two tables (training step, {spp} spp), width {w}",
+                         c, c.settings, s0, tables, "bounce", parent["bounce"], res, card)
+        for w, (s0, cot, tables) in sorted(bwd.items(), reverse=True):
+            backward_case(f"bounce_bwd new-cbox (training step, {spp} spp), width {w}", c,
+                          c.settings, s0, cot, tables, parent["bounce_bwd"], res, card)
     print(json.dumps(res))
     return 0
 
