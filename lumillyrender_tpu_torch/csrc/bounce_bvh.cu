@@ -25,14 +25,18 @@
 // is shared with bounce.cu.
 //
 // The walk by leaf width, decided in llr_bounce_bvh: K > 32 takes the warp
-// walk; K <= 32 keeps the per-thread walk (walk_tris, bvh_walk.cuh), each
-// lane testing its own leaf's slots. At K = 32 a request gives each lane
-// one slot, and the per-request broadcasts and reductions cost more than
-// the serial loop saves: on an H100 (NVIDIA H100 80GB HBM3, 700 W;
-// tools/torch_bounce_ab.py, medians of 9 launches in turns) welcome-geo
-// (K = 32, tables in the L2) took 0.627 ms per 2,072,576-lane launch with
-// the warp walk against 0.470 ms with the per-thread walk, while terrain-1m
-// (K = 128) took 10.33 ms against 42.09.
+// walk; K <= 32 the per-thread walk of the nearest-triangle kernel
+// (walk_tris_rows, bvh_walk.cuh: scalar slots, each leaf up to its last
+// valid slot, while-while), each lane testing its own leaf's slots. At
+// K = 32 a warp request gives each lane one slot, and
+// the per-request broadcasts and reductions cost more than the serial loop
+// saves: on an H100 (NVIDIA H100 80GB HBM3, 700 W; tools/torch_bounce_ab.py,
+// medians of 9 launches in turns) welcome-geo (K = 32, tables in the L2)
+// took 0.627 ms per 2,072,576-lane launch with the warp walk against 0.470
+// ms with the earlier per-thread walk (all K slots, one node step between
+// leaf tests), and 0.252 ms with walk_tris_rows (0.284 with its rows read
+// four slots a 16-byte load, more registers; PERF.md §6.11), while
+// terrain-1m (K = 128) took 10.33 ms with the warp walk against 42.09.
 //
 // Intersection contract (ops/intersect.py::intersect_bvh): spheres first,
 // from t_init, then a triangle wins only when strictly closer, so a sphere
@@ -43,9 +47,16 @@
 // Leaf widths from which the warp walk serves the BVH bounce.
 constexpr int kWarpWalkMinK = 33;
 
-// The per-thread walk (K <= 32): each lane that asks walks alone.
+// The per-thread walk (K <= 32): each lane that asks walks alone, with the
+// nearest-triangle kernel's walk (walk_tris_rows, bvh_walk.cuh), scalar
+// slots, each leaf up to its last valid slot. K = 32 has an instance of
+// its own: on welcome-geo it took 0.874x / 0.883x / 0.941x / 0.931x the
+// runtime-K instance's time at the four stage widths, in turns on an H100
+// (tools/torch_bounce_ab.py; PERF.md §6.11).
+template <int K>
 struct BvhIsect {
   BvhTables b;
+  const int32_t* counts;
   const float* sph;
   int ns;
   static constexpr bool kWarpQueries = false;
@@ -57,7 +68,9 @@ struct BvhIsect {
     V3 best_f = v3(0.f, 0.f, 0.f);
     fold_spheres(sph, ns, o, d, best_t, kind, best_m, best_f);
     if (b.nodes != nullptr) {  // null: no triangles, an empty BVH
-      const TriHit w = walk_tris<true>(b, o, d, best_t, t_stop);
+      const float4* root = reinterpret_cast<const float4*>(b.nodes);
+      const TriHit w = walk_tris_rows<K, 1, true>(b, counts, __ldg(root), __ldg(root + 1), o, d,
+                                                  best_t, t_stop);
       if (w.prim >= 0) {
         best_t = w.t;
         kind = 1;
@@ -101,7 +114,8 @@ extern "C" int llr_bounce_bvh(const float* o_in, const float* d_in, const float*
                               const float* acc_in, const uint8_t* alive_in,
                               const int32_t* lane_in, float* o_out, float* d_out, float* thr_out,
                               float* acc_out, uint8_t* alive_out, float* rays_out,
-                              const float* nodes, const float* leaves, const int32_t* ids, int k,
+                              const float* nodes, const float* leaves, const int32_t* ids,
+                              const int32_t* counts, int k,
                               const float* sph, int ns, const float* mats,
                               const float* mats_eval, int nm, const float* lights, int nl,
                               float total_area, int n, int bounce,
@@ -117,7 +131,14 @@ extern "C" int llr_bounce_bvh(const float* o_in, const float* d_in, const float*
                                   BvhWarpIsect{b, sph, ns}, n, bounce, seed, flags, rr_scale,
                                   stream);
   }
+  if (k == 32) {
+    return launch_bounce<FAM_ALL>(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out,
+                                  thr_out, acc_out, alive_out, rays_out, sc,
+                                  BvhIsect<32>{b, counts, sph, ns}, n, bounce, seed, flags,
+                                  rr_scale, stream);
+  }
   return launch_bounce<FAM_ALL>(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out,
-                                thr_out, acc_out, alive_out, rays_out, sc, BvhIsect{b, sph, ns},
-                                n, bounce, seed, flags, rr_scale, stream);
+                                thr_out, acc_out, alive_out, rays_out, sc,
+                                BvhIsect<0>{b, counts, sph, ns}, n, bounce, seed, flags,
+                                rr_scale, stream);
 }

@@ -1,20 +1,20 @@
 // The BVH walk of the BVH bounce (bounce_bvh.cu, kernel 4): every ray keeps
-// its own node cursor, as in walk_tris (bvh_walk.cuh), but the lanes of a
-// warp test each leaf together.
+// its own node cursor, as in walk_tris_rows (bvh_walk.cuh), but the lanes
+// of a warp test each leaf together.
 //
 // Replaces, inside kernel 4, the TPU walk lumillyrender_tpu/ops/
 // pallas_bvh.py::run_walk and its leaf test _leaf_test. Its plain version
 // is ops/intersect.py::_walk_tris.
 //
 // Why: on terrain-1m (K = 128 leaves, 82 MB of tables, past the 50 MB L2)
-// a ray tests ~1.5 leaves of 128 slots. In walk_tris each lane runs its own
-// leaf's 128 slots serially while the rest of its warp waits or runs
-// another leaf, and each of the ten loads per slot (component-major rows
-// 4K bytes apart) touches up to 32 sectors across the warp, ~320 B of
+// a ray tests ~1.5 leaves of 128 slots. In a per-thread walk each lane runs
+// its own leaf's 128 slots serially while the rest of its warp waits or
+// runs another leaf, and each of the ten loads per slot (component-major
+// rows 4K bytes apart) touches up to 32 sectors across the warp, ~320 B of
 // sectors per triangle test for the 40 B it uses.
 //
 // The design (the lanes that call at one query site, `mask`):
-//   * while-while: each lane steps its own cursor exactly as walk_tris does
+//   * while-while: each lane steps its own cursor as walk_tris_rows does
 //     (slab_hit against its own best t, the t_stop check between node
 //     steps) until it reaches a leaf it must test, or ends;
 //   * service: while any lane has a pending leaf, the warp takes the lowest
@@ -43,10 +43,10 @@
 // A lane that asks nothing (`ask` false: a dead lane, or one without a
 // shadow ray) has no cursor and helps test the others' leaves.
 //
-// Bit-equal to walk_tris and to _walk_tris: tri_test makes the same
+// Bit-equal to walk_tris_rows and to _walk_tris: tri_test makes the same
 // operations per triangle, so every t has the same bits. "Smaller t, then
 // smaller slot" is _walk_tris's torch.min(t, dim=1) (the first of equal
-// minima) followed by its strict < against the best t, and walk_tris's
+// minima) followed by its strict < against the best t, and walk_tris_rows'
 // serial strict < in ascending slot order keeps the same slot. Each ray
 // tests the same leaves in the same order (a leaf is tested before its
 // lane steps on, against the best t of all its earlier leaves), and t_stop

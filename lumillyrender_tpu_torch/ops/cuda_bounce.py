@@ -15,8 +15,8 @@
   material families and the launch's width, the small sweep (prim rows in
   the kernel's parameters) or the general one, Lambert-only or all-family
   shading, and for the narrow forward launches the threads per lane.
-* The BVH nearest-triangle kernels, `csrc/bvh.cu`, `csrc/bvh_wide.cu` and
-  `csrc/bvh_streamed.cu`, are wrapped in `ops/cuda_bvh.py`.
+* The BVH nearest-triangle kernels, `csrc/bvh.cu` and `csrc/bvh_aov.cu`
+  (the wide and streamed entry points), are wrapped in `ops/cuda_bvh.py`.
 * `make_step_diff` builds the differentiable path's step: the bounce
   kernel forward with the backward kernel (`diff_supported`), or with
   autograd of the plain step (the hybrid, `hybrid_supported`).
@@ -153,12 +153,13 @@ def diff_supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, st
 
 def hybrid_supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
     """(ok, reason) for the hybrid differentiable step (the JAX package's
-    `supported_diff_hybrid`): a brute-force scene under a uniform sky whose
-    materials are not Lambert-only; the bounce kernel forward, autograd of
-    the plain step backward."""
+    `supported_diff_hybrid`): a brute-force scene under a uniform sky that
+    the backward kernel does not take (`diff_supported`: materials other
+    than Lambert, or more than BWD_MAX_ROWS material rows); the bounce
+    kernel forward, autograd of the plain step backward."""
     ok, why = _diff_scene(scene, settings)
-    if ok and _lambert_only(settings):
-        return False, "a Lambert-only scene takes the backward kernel"
+    if ok and diff_supported(scene, settings)[0]:
+        return False, "the scene takes the backward kernel (diff_supported)"
     return ok, why
 
 
@@ -463,7 +464,7 @@ def _launch(kernel: str, scene: SceneData, settings: RenderSettings, seed,
                tables["mats_eval"], tables["lights"], tables["ibl"])
     if bvh:
         bt = tables["bvh"]
-        tensors += (bt["nodes"], bt["leaves"], bt["ids"])
+        tensors += (bt["nodes"], bt["leaves"], bt["ids"], bt["counts"])
     else:
         tensors += (tables["tris"],)
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -483,10 +484,10 @@ def _launch(kernel: str, scene: SceneData, settings: RenderSettings, seed,
     if bvh:
         # A scene without triangles has an empty BVH: no walk at all.
         has_tris = scene.geometry.tri_p0.shape[0] > 0
-        if has_tris and bt["nodes"].data_ptr() % 16:
-            raise ValueError("the node table must be 16-byte aligned")
+        if has_tris and any(bt[t].data_ptr() % 16 for t in ("nodes", "leaves", "ids")):
+            raise ValueError("the BVH tables must be 16-byte aligned")
         isect = [_ptr(bt["nodes"]) if has_tris else None, _ptr(bt["leaves"]),
-                 _ptr(bt["ids"]), bt["k"]]
+                 _ptr(bt["ids"]), _ptr(bt["counts"]), bt["k"]]
         extra = []
     else:
         isect = [_ptr(tables["tris"]), tables["tris"].shape[0]]
@@ -867,8 +868,9 @@ def make_step_diff(scene: SceneData, settings: RenderSettings, seed,
     * a Lambert-only brute-force scene under a uniform sky
       (`diff_supported`): the bounce kernel forward with the hand-written
       backward kernel (`_BounceDiff`);
-    * any other brute-force scene under a uniform sky (`hybrid_supported`):
-      the bounce kernel forward with autograd of the plain step backward
+    * any other brute-force scene under a uniform sky (`hybrid_supported`:
+      other materials, or Lambert rows past BWD_MAX_ROWS): the bounce
+      kernel forward with autograd of the plain step backward
       (`_BounceHybrid`);
     * anything else: autograd of the plain step on the CPU; on the card
       it raises NotImplementedError with the reason (a later slice).

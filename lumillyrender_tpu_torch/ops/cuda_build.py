@@ -27,14 +27,13 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-# library name -> source; each exports `llr_<name>`, except probes.cu,
-# which exports one `llr_probe_<probe>` per capability probe (PROBE_ARGS).
+# library name -> source; each exports `llr_<name>`, except bvh_aov.cu,
+# which exports `llr_bvh_wide` and `llr_bvh_streamed`, and probes.cu, which
+# exports one `llr_probe_<probe>` per capability probe (PROBE_ARGS).
 SOURCES = {"raygen": "raygen.cu", "bounce": "bounce.cu", "bvh": "bvh.cu",
            "bounce_bvh": "bounce_bvh.cu", "bounce_bwd": "bounce_bwd.cu",
-           "bvh_wide": "bvh_wide.cu", "bvh_streamed": "bvh_streamed.cu",
-           "probes": "probes.cu"}
-HEADERS = ("common.cuh", "bounce_body.cuh", "bvh_walk.cuh", "bvh_warp_walk.cuh",
-           "bvh_aov_walk.cuh")
+           "bvh_aov": "bvh_aov.cu", "probes": "probes.cu"}
+HEADERS = ("common.cuh", "bounce_body.cuh", "bvh_walk.cuh", "bvh_warp_walk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -57,8 +56,10 @@ ARGTYPES = {
     # ... then the instance bits, threads per lane and the host copy of the
     # small scene's prim rows (csrc/bounce.cu), and the stream.
     "llr_bounce": [_P] * 12 + [_P, _I] + _SHADE + _SKY[:-1] + [_I, _I, _P, _P],
-    "llr_bounce_bvh": [_P] * 12 + [_P, _P, _P, _I] + _SHADE + _SKY,
-    "llr_bvh": [_P] * 7 + [_I, _I] + [_P] * 4 + [_P],
+    # ... then nodes, leaves, ids, the leaves' valid counts and K.
+    "llr_bounce_bvh": [_P] * 12 + [_P, _P, _P, _P, _I] + _SHADE + _SKY,
+    # rays (4), nodes, leaves, ids, [counts,] K, lanes, outputs (4), stream.
+    "llr_bvh": [_P] * 8 + [_I, _I] + [_P] * 4 + [_P],
     "llr_bvh_wide": [_P] * 7 + [_I, _I] + [_P] * 4 + [_P],
     "llr_bvh_streamed": [_P] * 7 + [_I, _I] + [_P] * 4 + [_P],
     # state in (5), cotangents in (4), out (5), triangles, then _SHADE, the

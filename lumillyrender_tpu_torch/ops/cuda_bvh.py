@@ -1,13 +1,16 @@
 """Nearest-triangle queries through the BVH: three hand-written CUDA walks.
 
 * `intersect_tris`: csrc/bvh.cu, one thread per ray with its own cursor
-  (the counterpart of the JAX package's `pallas_bvh._kernel`), any K.
-* `intersect_tris_wide`: csrc/bvh_wide.cu, the AOV walk of
-  csrc/bvh_aov_walk.cuh over 128-wide leaves (the counterpart of
-  `pallas_bvh_wide._kernel`), K = 128: every ray keeps its own cursor and
-  the warp tests each leaf together.
-* `intersect_tris_streamed`: csrc/bvh_streamed.cu, the same walk (the
-  counterpart of `pallas_bvh._kernel_streamed`), any K dividing 128.
+  (the counterpart of the JAX package's `pallas_bvh._kernel`), any K: a
+  leaf read up to its last valid slot (`counts`), its rows four slots a
+  16-byte load at K = 128, scalar slots at any other K.
+* `intersect_tris_wide`: entry `llr_bvh_wide` of csrc/bvh_aov.cu, the AOV
+  walk over 128-wide leaves (the counterpart of `pallas_bvh_wide._kernel`),
+  K = 128: every ray keeps its own cursor and the warp tests each leaf
+  together.
+* `intersect_tris_streamed`: entry `llr_bvh_streamed` of the same library,
+  the same walk (the counterpart of `pallas_bvh._kernel_streamed`), any K
+  dividing 128.
 
 Each is the nearest triangle strictly closer than `t_init` per lane,
 stopping a lane once its best t is <= `t_stop`: (t, prim[, mat, n]) with
@@ -37,8 +40,11 @@ def pack_bvh(bvh: Bvh) -> dict:
     """The kernel's tables (layouts in csrc/bvh_walk.cuh), on the BVH's
     device: nodes (N, 8) float32 [min3 | max3 | miss | leaf]; leaves
     (L, 12, K) float32, component-major (p0, e1, e2, n); ids (L, 2, K) int32
-    (prim, mat); tri_n (T, 3), each prim's face normal for the backward
-    pass; k; and the Bvh itself for the plain walk."""
+    (prim, mat); counts (L,) int32, each leaf's last slot with prim >= 0
+    plus one (0 for a leaf of padding only), computed from blk_prim so that
+    padding inside a leaf stays possible; tri_n (T, 3), each prim's face
+    normal for the backward pass; k; and the Bvh itself for the plain
+    walk."""
     f32 = torch.float32
     nodes = torch.cat([bvh.node_min, bvh.node_max,
                        bvh.node_miss.to(f32)[:, None],
@@ -47,12 +53,15 @@ def pack_bvh(bvh: Bvh) -> dict:
                        dim=2).transpose(1, 2).contiguous()
     ids = torch.stack([bvh.blk_prim, bvh.blk_mat], dim=1).to(torch.int32)
     valid = bvh.blk_prim >= 0
+    k = bvh.blk_p0.shape[1]
+    slot = torch.arange(1, k + 1, dtype=torch.int32, device=valid.device)
+    counts = torch.where(valid, slot, torch.zeros_like(slot)).amax(dim=1)
     prim = bvh.blk_prim[valid].long()
     n_tris = int(prim.max()) + 1 if prim.numel() else 0
     tri_n = torch.zeros((n_tris, 3), dtype=f32, device=nodes.device)
     tri_n[prim] = bvh.blk_n[valid]
-    return dict(nodes=nodes, leaves=leaves, ids=ids.contiguous(), tri_n=tri_n,
-                k=bvh.blk_p0.shape[1], bvh=bvh)
+    return dict(nodes=nodes, leaves=leaves, ids=ids.contiguous(),
+                counts=counts.contiguous(), tri_n=tri_n, k=k, bvh=bvh)
 
 
 def tables_of(bvh: Bvh) -> dict:
@@ -90,6 +99,8 @@ def wide_admitted(bvh: Bvh) -> bool:
 
 
 _WALKS = {"bvh": "BVH", "bvh_wide": "wide BVH", "bvh_streamed": "streamed BVH"}
+# entry -> the library that exports it (ops/cuda_build.py::SOURCES).
+_LIBS = {"bvh": "bvh", "bvh_wide": "bvh_aov", "bvh_streamed": "bvh_aov"}
 
 
 def _launch(name: str, o, d, t_init, t_stop, tables: dict, out):
@@ -122,18 +133,23 @@ def _launch(name: str, o, d, t_init, t_stop, tables: dict, out):
     specs += [("nodes", nodes, (nodes.shape[0], 8), torch.float32),
               ("leaves", leaves, (leaves.shape[0], 12, k), torch.float32),
               ("ids", ids, (leaves.shape[0], 2, k), torch.int32)]
+    counts = []
+    if name == "bvh":
+        specs.append(("counts", tables["counts"], (leaves.shape[0],), torch.int32))
+        counts = [cuda_build.ptr(tables["counts"])]
     for arg, t, shape, dtype in specs:
         if (t.shape != shape or t.dtype != dtype or t.device != dev
                 or not t.is_contiguous()):
             raise ValueError(f"{arg} must be a contiguous {shape} {dtype} "
                              f"tensor on {dev}")
-    if nodes.data_ptr() % 16 or (name != "bvh" and (leaves.data_ptr() % 16
-                                                    or ids.data_ptr() % 16)):
+    # Node rows are read as two float4s, leaf and id rows as float4 / int4
+    # groups of slots: misaligned tables raise, nothing falls back.
+    if any(t.data_ptr() % 16 for t in (nodes, leaves, ids)):
         raise ValueError("the BVH tables must be 16-byte aligned")
-    rc = cuda_build.fn(name)(
+    rc = cuda_build.fn(_LIBS[name], f"llr_{name}")(
         cuda_build.ptr(o), cuda_build.ptr(d), cuda_build.ptr(t_init),
         cuda_build.ptr(t_stop), cuda_build.ptr(nodes), cuda_build.ptr(leaves),
-        cuda_build.ptr(ids), k, n, cuda_build.ptr(out[0]),
+        cuda_build.ptr(ids), *counts, k, n, cuda_build.ptr(out[0]),
         cuda_build.ptr(out[1]),
         cuda_build.ptr(out[2]) if want_shade else None,
         cuda_build.ptr(out[3]) if want_shade else None,
@@ -153,14 +169,14 @@ def intersect_tris_launch(o, d, t_init, t_stop, tables: dict, out):
 
 
 def intersect_tris_wide_launch(o, d, t_init, t_stop, tables: dict, out):
-    """The wide kernel (csrc/bvh_wide.cu) alone, as
+    """The wide kernel (`llr_bvh_wide`, csrc/bvh_aov.cu) alone, as
     `intersect_tris_launch`; K must be 128."""
     _launch("bvh_wide", o, d, t_init, t_stop, tables, out)
     intersect_tris_wide.launches += 1
 
 
 def intersect_tris_streamed_launch(o, d, t_init, t_stop, tables: dict, out):
-    """The streamed kernel (csrc/bvh_streamed.cu) alone, as
+    """The streamed kernel (`llr_bvh_streamed`, csrc/bvh_aov.cu) alone, as
     `intersect_tris_launch`; K must divide 128."""
     _launch("bvh_streamed", o, d, t_init, t_stop, tables, out)
     intersect_tris_streamed.launches += 1

@@ -24,28 +24,28 @@ bounce kernel keeps its own walk: per thread up to K=32, the warp walk of
 csrc/bvh_warp_walk.cuh above):
 
   =========================================  ===========================
-  BVH                                        triangle walk
+  BVH                                        triangle walk (unsorted)
   =========================================  ===========================
-  K=32 (or any K but 128)                    csrc/bvh.cu (per-thread),
-                                             unsorted
-  K=128, admitted as wide                    csrc/bvh_wide.cu, sorted
-  K=128, not admitted as wide                csrc/bvh_streamed.cu, sorted
-  any K dividing 128, `streamed=True`        csrc/bvh_streamed.cu, sorted
+  K=32 (or any K but 128)                    csrc/bvh.cu (per-thread)
+  K=128, admitted as wide                    llr_bvh_wide (bvh_aov.cu)
+  K=128, not admitted as wide                llr_bvh_streamed (bvh_aov.cu)
+  any K dividing 128, `streamed=True`        llr_bvh_streamed (bvh_aov.cu)
   =========================================  ===========================
 
-The wide and streamed entry points run one kernel (csrc/bvh_aov_walk.cuh,
-the bounce's warp walk: every ray keeps its own cursor and the warp tests
+The wide and streamed entry points run one kernel (csrc/bvh_aov.cu, the
+bounce's warp walk: every ray keeps its own cursor and the warp tests
 each leaf together, each slot read from the tables); they keep the JAX
 package's two names and their K checks. "Admitted as wide" is
 `cuda_bvh.wide_admitted`, the JAX package's own decision
 (`pallas_bvh_wide.supported`), kept so that a scene takes the same entry
 point in both packages. `streamed=False` keeps a K=128 BVH off the
 streamed walk (wide if admitted, else the per-thread walk). `reorder`
-means one thing everywhere: None sorts the rays by `_ray_sort_key` before
-the wide or streamed walk and not before the per-thread walk, True sorts,
-False does not. The sort changes only the order in which lanes are
-walked, never a lane's result; before these walks it no longer pays for
-itself (PERF.md §6.9, ROADMAP 5.6).
+means one thing everywhere: True sorts the rays by `_ray_sort_key` before
+the walk, None and False do not. The sort changes only the order in which
+lanes are walked, never a lane's result. The JAX package sorts by default
+before its packet walks; the port's walks give each ray its own cursor,
+and on an H100 the sort of 2M rays costs more than it saves before any of
+them (PERF.md §6.1-6.9, §6.11).
 """
 
 from __future__ import annotations
@@ -264,8 +264,8 @@ def count_work():
 
 def _walk_tris(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool):
     """Nearest triangle strictly closer than `t_init` per lane, walking the
-    threaded BVH; the plain version of the CUDA walks csrc/bvh.cu,
-    csrc/bvh_wide.cu and csrc/bvh_streamed.cu, at any K.
+    threaded BVH; the plain version of the CUDA walks csrc/bvh.cu and
+    csrc/bvh_aov.cu, at any K.
 
     Each lane holds a node cursor (0 = root). A step runs the slab test of
     the cursor's box against the lane's own best t: a hit inner node moves
@@ -384,10 +384,10 @@ def sort_rays(o, d, bvh: Bvh):
 def bvh_route(bvh: Bvh, streamed: bool | None = None,
               reorder: bool | None = None) -> tuple[str, bool]:
     """(walk, sort) by the routing rule of this module's docstring: walk
-    is "thread" (csrc/bvh.cu), "wide" (csrc/bvh_wide.cu) or "streamed"
-    (csrc/bvh_streamed.cu). On the card "wide" and "streamed" launch the
-    same kernel: between those two, `streamed=` and the wide cap only
-    choose its name."""
+    is "thread" (csrc/bvh.cu), "wide" (`llr_bvh_wide`) or "streamed"
+    (`llr_bvh_streamed`, both csrc/bvh_aov.cu). On the card "wide" and
+    "streamed" launch the same kernel: between those two, `streamed=` and
+    the wide cap only choose its name. `sort` is `reorder is True`."""
     from . import cuda_bvh
 
     k = bvh.blk_p0.shape[1]
@@ -401,7 +401,7 @@ def bvh_route(bvh: Bvh, streamed: bool | None = None,
                 else "thread" if streamed is False else "streamed")
     else:
         walk = "thread"
-    return walk, (walk != "thread") if reorder is None else reorder
+    return walk, bool(reorder)
 
 
 def _walk_routed(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool,

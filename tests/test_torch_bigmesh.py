@@ -273,7 +273,8 @@ def test_wide_admission_is_the_jax_packages(monkeypatch):
         monkeypatch.setattr(cuda_bvh, "WIDE_TABLE_BYTES", cap)
         assert cuda_bvh.wide_admitted(pbvh) == pallas_bvh_wide.supported(jbvh) == (cap >= size)
         want = "wide" if cap >= size else "streamed"
-        assert isect.bvh_route(pbvh) == (want, True)
+        assert isect.bvh_route(pbvh) == (want, False)
+        assert isect.bvh_route(pbvh, reorder=True) == (want, True)
         assert isect.bvh_route(pbvh, streamed=False)[0] == ("wide" if cap >= size else "thread")
 
 

@@ -37,6 +37,7 @@ from test_fused_bounce import (
     _mk_state,
     _random_state,
 )
+from torch_many_rows import bounce_grads, tiled_scene
 
 torch.set_num_threads(2)
 
@@ -269,3 +270,29 @@ def test_diff_supported_caps_material_rows(assets_dir):
                                      for f in dataclasses.fields(mt)})
     ok, why = cuda_bounce.diff_supported(dataclasses.replace(c.data, materials=big), c.settings)
     assert not ok and "row" in why
+
+
+def test_hybrid_takes_a_lambert_scene_past_the_row_cap(assets_dir):
+    """A Lambert-only scene that the backward kernel refuses for its rows
+    (new-cbox with its material table tiled to BWD_MAX_ROWS + 1 rows, rows
+    0 .. nm-1 unchanged) takes the hybrid step, as the JAX package's
+    `supported_diff_hybrid` takes every scene that `supported_diff` refuses:
+    make_step_diff on the CPU returns a step with its own backward
+    (`fused_diff`), and one bounce's gradients equal autograd of the plain
+    step's."""
+    c = compile_scene_file(assets_dir / "new-cbox.toml", device="cpu")
+    scene = tiled_scene(c.data, cuda_bounce.BWD_MAX_ROWS + 1)
+    assert not cuda_bounce.diff_supported(scene, c.settings)[0]
+    assert cuda_bounce.hybrid_supported(scene, c.settings) == (True, "")
+    ok, why = cuda_bounce.hybrid_supported(c.data, c.settings)
+    assert not ok and "backward kernel" in why
+    rng = np.random.default_rng(5)
+    st = _port_state(_random_state(rng, scene, 256), 3)
+    assert cuda_bounce.make_step_diff(scene, c.settings, SEED, scene.materials).fused_diff
+    cot = [torch.from_numpy(rng.normal(size=(256, 3)).astype(np.float32)) for _ in range(4)]
+    grads = [bounce_grads(step_of, scene, st, cot) for step_of in (
+        lambda m: cuda_bounce.make_step_diff(scene, c.settings, SEED, m),
+        lambda m: lambda s: wavefront.plain_bounce_step(scene, c.settings, SEED, s, m))]
+    assert grads[0][3].abs().max() > 0
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)

@@ -16,6 +16,10 @@
   rounds or of different lanes of the BVH bounce's warp walk (TIE_LAYOUTS
   of tests/torch_tie_leaves.py); the plain walk and the JAX package's walk
   both keep the first slot's prim, material and normal.
+* Each leaf's valid count (`cuda_bvh.pack_bvh`'s `counts`, where the
+  per-thread kernel stops reading a leaf): the native and the numpy SAH
+  builders, leaves with padding inside and at the end, and the plain
+  walk's result, which nothing stored past a leaf's count changes.
 The CUDA kernels against these plain versions: tests/test_torch_cuda.py.
 """
 
@@ -57,7 +61,7 @@ from lumillyrender_tpu_torch.scene import terrain
 from lumillyrender_tpu_torch.scene.data import Bvh, Geometry, tensor_of
 from test_fused_bounce import _assert_states_close, _mk_state, _random_state
 from test_pallas import _rays, _scene
-from torch_tie_leaves import TIE_LAYOUTS, tie_bvh, tie_rays
+from torch_tie_leaves import TIE_LAYOUTS, tie_bvh, tie_rays, with_live_padding
 
 torch.set_num_threads(2)
 
@@ -303,6 +307,77 @@ def test_tie_leaf_keeps_the_first_slot(case):
     # The two walks agree on every lane.
     np.testing.assert_array_equal(_np(h_j.prim), prim.numpy())
     _assert_hits_agree((h_j, sp_j), (h_p, sp_p), f"tie {case}")
+
+def _last_valid(prim: np.ndarray) -> np.ndarray:
+    """Each leaf's last slot with prim >= 0, plus one (0 for none)."""
+    k = prim.shape[1]
+    valid = prim >= 0
+    return np.where(valid.any(1), k - np.argmax(valid[:, ::-1], axis=1), 0)
+
+
+@pytest.mark.parametrize("builder", ["native", "sah"])
+@pytest.mark.parametrize("k", [32, 8])
+def test_leaf_counts_of_both_builders(builder, k, monkeypatch):
+    """pack_bvh's counts are each leaf's last valid slot plus one, for the
+    native builder and its plain version (accel/sah.py); both fill a leaf
+    from slot 0, so the count is the leaf's number of triangles."""
+    from lumillyrender_tpu_torch.accel import pack, sah
+
+    if builder == "sah":
+        monkeypatch.setattr(pack.native, "build_ranges", sah.build_ranges)
+    arrays = build_tri_bvh(*terrain.make_terrain(3000, seed=4), max_leaf=k)
+    counts = cuda_bvh.pack_bvh(Bvh(**{f: tensor_of(v) for f, v in arrays.items()}))["counts"]
+    prim = arrays["blk_prim"]
+    assert counts.dtype == torch.int32 and counts.shape == (prim.shape[0],)
+    np.testing.assert_array_equal(counts.numpy(), _last_valid(prim))
+    np.testing.assert_array_equal(counts.numpy(), (prim >= 0).sum(1))
+    assert int(counts.min()) >= 1 and int(counts.max()) == k
+
+
+@pytest.mark.parametrize("case,want", [("k32x4", [6, 9, 27, 32]), ("k32", [32]),
+                                       ("k8x16", [6, 0, 0, 0, 6, 1, 0, 0, 7, 0, 0, 3, 6, 7,
+                                                  0, 8])])
+def test_leaf_counts_with_padding_inside(case, want):
+    """Padding inside a leaf (prim -1 before its last triangle) does not
+    end its count; a leaf of padding only counts 0."""
+    from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
+
+    g = compile_scene_file(REPO / "assets" / "new-cbox.toml", device="cpu").data.geometry
+    arrays = tie_bvh(g, case)
+    counts = cuda_bvh.pack_bvh(Bvh(**{f: tensor_of(v) for f, v in arrays.items()}))["counts"]
+    assert counts.tolist() == want
+    np.testing.assert_array_equal(counts.numpy(), _last_valid(arrays["blk_prim"]))
+
+
+@pytest.mark.parametrize("case,drop", [("k32x4", (110, 127)), ("k128", (110, 127)),
+                                       ("k8x16", (40,))])
+def test_plain_walk_never_takes_a_padding_slot(case, drop):
+    """Slots past a leaf's count hold padding only, and the nearest-hit
+    rule never takes a padding slot, whatever it stores: on the tie BVHs
+    with every padding slot holding the aimed-at tie triangle (prim -1),
+    the plain walk gives the result of the same BVH with zero padding, so
+    a walk that stops at each leaf's count gives it too."""
+    from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
+
+    g = compile_scene_file(REPO / "assets" / "new-cbox.toml", device="cpu").data.geometry
+    base = with_live_padding(tie_bvh(g, case), drop)
+    zero = {f: v.copy() for f, v in base.items()}
+    pad = zero["blk_prim"] < 0
+    for f in ("p0", "e1", "e2", "n"):
+        zero[f"blk_{f}"][pad] = 0.0
+    live, plain = (Bvh(**{f: tensor_of(v) for f, v in a.items()}) for a in (base, zero))
+    counts = cuda_bvh.pack_bvh(live)["counts"].numpy()
+    k = base["blk_prim"].shape[1]
+    assert (counts < k).any() and base["blk_e1"][pad].any(axis=-1).all()
+    o, d = (_t(x) for x in tie_rays(g, 2048, 12))
+    t0 = torch.full((o.shape[0],), 1e5)
+    stop = torch.full_like(t0, -1e5)
+    got = _walk_tris(o, d, t0, stop, live, True)
+    want = _walk_tris(o, d, t0, stop, plain, True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int((got[1] == 0).sum()) > o.shape[0] // 8
+
 
 # ---------------------------------------------------------------------------
 # The bounce on the terrain scene

@@ -14,13 +14,15 @@ run at their tools' own shapes here and there.
 
 Tolerances: raygen's random bits and origins are exact, directions within
 2e-7 (one ulp of a unit vector's components, from the card's own sqrt and
-division being compared with PyTorch's); the BVH kernel's prim ids and
-shadow verdicts exactly, its t within 1e-6 relative (its operations are the
-plain walk's, in the same order, without contraction); the AOV walks
-(csrc/bvh_wide.cu, csrc/bvh_streamed.cu) every output bit-equal (each lane
-tests exactly the plain walk's leaves in its order, and the warp's
-reduction keeps the plain walk's slot among equal t), on tie leaves,
-partial warps and warps that mix capped and open queries; the bounces follow
+division being compared with PyTorch's); the BVH walks, per thread
+(csrc/bvh.cu, its K=32, K=128 and runtime-K instances) and the AOV walks
+(csrc/bvh_aov.cu, wide and streamed), every output bit-equal (their
+operations are the plain walk's, in the same order, without contraction;
+each lane tests exactly the plain walk's leaves in its order, slot by slot
+with a strict <, and the warp's reduction keeps the plain walk's slot among
+equal t), on camera, random and axis-aligned rays, tie leaves, leaves with
+padding inside and at the end that holds live triangles, partial warps and
+warps that mix capped and open queries; the bounces follow
 lumillyrender_tpu_torch/parity.py's lane rules, and the BVH bounce on the
 hand-written tie leaves and on warps of chosen leaf requests also has its
 new origins, directions, alive and ray count bit-equal to the plain step's,
@@ -46,7 +48,8 @@ from lumillyrender_tpu_torch.ops import cuda_bounce, cuda_bvh
 from lumillyrender_tpu_torch.ops.bounce_bwd import plain_bounce_bwd
 from lumillyrender_tpu_torch.ops.intersect import _walk_tris, intersect_shade_brute
 from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
-from torch_tie_leaves import TIE_LAYOUTS, tie_bvh, tie_rays
+from torch_tie_leaves import TIE_LAYOUTS, tie_bvh, tie_rays, with_live_padding
+from torch_many_rows import bounce_grads, tiled_scene
 
 ASSETS = Path(__file__).resolve().parents[1] / "assets"
 
@@ -136,20 +139,29 @@ def _bvh_rays(bvh, n, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rays", ["random and axis-aligned", "camera"])
 @pytest.mark.parametrize("want_shade", [False, True])
-def test_bvh_kernel_matches_plain_walk(welcome, want_shade):
+def test_bvh_kernel_matches_plain_walk(welcome, want_shade, rays):
+    """Kernel 3's K=32 instance on welcome-geo: random rays with a quarter
+    axis-aligned from origins on node planes (the slab test's 0 * inf), or
+    the camera rays of a chunk's first lanes; every output bit-equal to the
+    plain walk's."""
     bvh = welcome.data.bvh
     tables = cuda_bvh.tables_of(bvh)
-    o, d = _bvh_rays(bvh, 8192, 3)
+    if rays == "camera":
+        o, d, _, _ = cuda_bounce.generate_rays(welcome.data, welcome.settings, 5, 0, 65536)
+    else:
+        o, d = _bvh_rays(bvh, 8192, 3)
     t0 = torch.full((o.shape[0],), INF, device=o.device)
     stop = torch.full_like(t0, -INF)
+    before = cuda_bvh.intersect_tris.launches
     got = cuda_bvh.intersect_tris(o, d, t0, stop, tables, want_shade)
     want = _walk_tris(o, d, t0, stop, bvh, want_shade)
     torch.cuda.synchronize()
-    assert torch.equal(got[1], want[1])
-    assert ((got[0] - want[0]).abs() <= 1e-6 * want[0].abs().clamp(min=1.0)).all()
-    if want_shade:
-        assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    assert cuda_bvh.intersect_tris.launches == before + 1
+    assert int((want[1] >= 0).sum()) > o.shape[0] // 8
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -170,7 +182,7 @@ def test_bvh_kernel_occlusion_verdicts(welcome):
     torch.cuda.synchronize()
     assert torch.equal(verdict(got), verdict(want))
     assert torch.equal(verdict(got), verdict(exact))
-    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda
@@ -553,14 +565,16 @@ def test_training_step_runs_the_kernels_and_repeats_bit_for_bit(card):
 
 
 # ---------------------------------------------------------------------------
-# The AOV walks (csrc/bvh_wide.cu, csrc/bvh_streamed.cu) on a terrain
+# The BVH walks (per thread, csrc/bvh.cu; the AOV walks, csrc/bvh_aov.cu) on
+# a terrain
 # ---------------------------------------------------------------------------
 
 
 @pytest.fixture(scope="module")
 def terrain_bvhs():
-    """A 20k-triangle terrain's BVH at K=2, 32 and 128, on the card (K=2
-    takes the streamed kernel's 4-byte copies)."""
+    """A 20k-triangle terrain's BVH at K=2, 8, 32 and 128, on the card (K=2
+    and 8 take the per-thread kernel's runtime-K instance, K=2 the streamed
+    kernel's 4-byte rows)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc")
     from lumillyrender_tpu_torch.accel.pack import build_tri_bvh
@@ -569,7 +583,7 @@ def terrain_bvhs():
 
     p0, e1, e2, n = make_terrain(20000)
     return {k: Bvh(**{f: tensor_of(v).cuda() for f, v in build_tri_bvh(
-        p0, e1, e2, n, max_leaf=k).items()}) for k in (2, 32, 128)}
+        p0, e1, e2, n, max_leaf=k).items()}) for k in (2, 8, 32, 128)}
 
 
 def _terrain_rays(bvh, n, seed):
@@ -586,9 +600,14 @@ def _terrain_rays(bvh, n, seed):
     return o, d
 
 
+# The AOV walks, then kernel 3's instances: K=32 and K=128, and the
+# runtime-K one at K=8 and K=2.
 AOV_WALKS = [(128, cuda_bvh.intersect_tris_wide), (128, cuda_bvh.intersect_tris_streamed),
-             (32, cuda_bvh.intersect_tris_streamed), (2, cuda_bvh.intersect_tris_streamed)]
-AOV_IDS = ["wide128", "streamed128", "streamed32", "streamed2"]
+             (32, cuda_bvh.intersect_tris_streamed), (2, cuda_bvh.intersect_tris_streamed),
+             (32, cuda_bvh.intersect_tris), (128, cuda_bvh.intersect_tris),
+             (8, cuda_bvh.intersect_tris), (2, cuda_bvh.intersect_tris)]
+AOV_IDS = ["wide128", "streamed128", "streamed32", "streamed2", "thread32", "thread128",
+           "thread8", "thread2"]
 
 
 @pytest.mark.cuda
@@ -596,8 +615,9 @@ AOV_IDS = ["wide128", "streamed128", "streamed32", "streamed2"]
 @pytest.mark.parametrize("want_shade", [False, True])
 def test_aov_kernels_match_plain_walk(terrain_bvhs, k, walk, want_shade):
     """Every output bit-equal to the plain walk: each lane tests the plain
-    walk's leaves in its order against its own best t, and the warp keeps
-    the smaller t, then the smaller slot (csrc/bvh_warp_walk.cuh)."""
+    walk's leaves in its order against its own best t, slot by slot with a
+    strict < (per thread), or the warp keeps the smaller t, then the
+    smaller slot (csrc/bvh_warp_walk.cuh)."""
     bvh = terrain_bvhs[k]
     tables = cuda_bvh.tables_of(bvh)
     o, d = _terrain_rays(bvh, 8192 + 77, 11)  # a ragged last warp
@@ -639,7 +659,8 @@ def test_aov_wrappers_raise_on_what_they_do_not_take(terrain_bvhs):
     t0 = torch.full((n,), INF, device=o.device)
     stop = torch.full_like(t0, -INF)
     out = (torch.empty(n, device=o.device), torch.empty(n, dtype=torch.int32, device=o.device))
-    for launch in (cuda_bvh.intersect_tris_wide_launch, cuda_bvh.intersect_tris_streamed_launch):
+    for launch in (cuda_bvh.intersect_tris_wide_launch, cuda_bvh.intersect_tris_streamed_launch,
+                   cuda_bvh.intersect_tris_launch):
         with pytest.raises(ValueError, match="CUDA tensors"):
             launch(o.cpu(), d.cpu(), t0.cpu(), stop.cpu(), tables, out)
         with pytest.raises(ValueError, match="float32"):
@@ -690,19 +711,23 @@ TIE_WALKS = [("k128", cuda_bvh.intersect_tris_wide), ("k128x", cuda_bvh.intersec
              ("k128", cuda_bvh.intersect_tris_streamed),
              ("k128x", cuda_bvh.intersect_tris_streamed),
              ("k32", cuda_bvh.intersect_tris_streamed),
-             ("k32x4", cuda_bvh.intersect_tris_streamed)]
+             ("k32x4", cuda_bvh.intersect_tris_streamed),
+             ("k8x16", cuda_bvh.intersect_tris_streamed)] + [
+    (case, cuda_bvh.intersect_tris) for case in TIE_LAYOUTS]
 TIE_WALK_IDS = ["wide-k128", "wide-k128x", "streamed-k128", "streamed-k128x",
-                "streamed-k32", "streamed-k32x4"]
+                "streamed-k32", "streamed-k32x4", "streamed-k8x16"] + [
+    f"thread-{case}" for case in TIE_LAYOUTS]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case,walk", TIE_WALKS, ids=TIE_WALK_IDS)
 def test_aov_walks_on_tie_leaves(card, case, walk):
-    """The AOV walks on three identical triangles (TIE_LAYOUTS): at K=128
+    """The BVH walks on three identical triangles (TIE_LAYOUTS): at K=128
     with the ties in one lane's slots and across three lanes, the first
-    slot in the highest; at K=32 in one leaf and across three leaves. Every
-    output bit-equal to the plain walk's, which keeps the first tie slot:
-    prim 0, material row 0, triangle 0's normal."""
+    slot in the highest; at K=32 in one leaf and across three leaves; at
+    K=8 across three of sixteen leaves. Every output bit-equal to the
+    plain walk's, which keeps the first tie slot: prim 0, material row 0,
+    triangle 0's normal."""
     from lumillyrender_tpu_torch.scene.data import Bvh, tensor_of
 
     c = compile_scene_file(ASSETS / "new-cbox.toml", device=card)
@@ -721,6 +746,94 @@ def test_aov_walks_on_tie_leaves(card, case, walk):
         assert torch.equal(a, b)
     # The tie is exercised: most aimed lanes win on triangle 0's first slot.
     assert int((got[1][::2] == 0).sum()) > n // 4
+
+
+PADDED = [("k32x4", (110, 127)), ("k128", (110, 127)), ("k8x16", (40,))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,drop", PADDED, ids=[c for c, _ in PADDED])
+@pytest.mark.parametrize("walk", [cuda_bvh.intersect_tris, cuda_bvh.intersect_tris_streamed],
+                         ids=["thread", "streamed"])
+def test_bvh_walks_skip_live_padding(card, case, drop, walk):
+    """Leaves with padding inside and at the end (valid counts 6, 9, 27, 6
+    at K=32; 102 at K=128; several leaves of padding only at K=8), every
+    padding slot holding the aimed-at tie triangle under prim -1
+    (tests/torch_tie_leaves.py::with_live_padding): a walk that read a
+    padding slot as a triangle, or a slot past a leaf's count, would take
+    it. Every output bit-equal to the plain walk's."""
+    from lumillyrender_tpu_torch.scene.data import Bvh, tensor_of
+
+    c = compile_scene_file(ASSETS / "new-cbox.toml", device=card)
+    g = c.data.geometry
+    bvh = Bvh(**{f: tensor_of(v).cuda() for f, v in with_live_padding(
+        tie_bvh(g, case), drop).items()})
+    n = 4096 + 5
+    o, d = (torch.from_numpy(x).cuda() for x in tie_rays(g, n, 330))
+    t0 = torch.full((n,), INF, device=card)
+    stop = torch.full_like(t0, -INF)
+    got = walk(o, d, t0, stop, cuda_bvh.tables_of(bvh), True)
+    want = _walk_tris(o, d, t0, stop, bvh, True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int((got[1][::2] == 0).sum()) > n // 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["leaves", "ids", "nodes"])
+def test_bvh_kernel_raises_on_misaligned_tables(welcome, table):
+    """Kernel 3 reads node rows as float4s and, at K=128, leaf and id rows
+    four slots a load: a table off 16 bytes raises before any launch, with
+    no fallback."""
+    tables = dict(cuda_bvh.tables_of(welcome.data.bvh))
+    t = tables[table]
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    tables[table] = buf[1:].view(t.shape).copy_(t)
+    assert tables[table].is_contiguous() and tables[table].data_ptr() % 16
+    n = 256
+    o, d = _bvh_rays(welcome.data.bvh, n, 6)
+    t0 = torch.full((n,), INF, device=o.device)
+    out = (torch.empty(n, device=o.device), torch.empty(n, dtype=torch.int32, device=o.device))
+    before = cuda_bvh.intersect_tris.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_bvh.intersect_tris_launch(o, d, t0, torch.full_like(t0, -INF), tables, out)
+    assert cuda_bvh.intersect_tris.launches == before
+
+
+@pytest.mark.cuda
+def test_hybrid_step_past_the_row_cap_matches_plain_autograd(card):
+    """A Lambert-only scene the backward kernel refuses for its rows
+    (new-cbox, its material table tiled to BWD_MAX_ROWS + 1 rows) runs on
+    the card through make_step_diff's hybrid step: one bounce kernel
+    launch, no backward kernel. Its gradients against autograd of the
+    plain step on the same state: the per-lane ones bit-equal (the hybrid's
+    backward is that autograd, recomputed on the same input state), the
+    albedo rows (sums over lanes) within parity.KERNEL_BWD_RTOL of their
+    largest magnitude."""
+    c = compile_scene_file(ASSETS / "new-cbox.toml", device=card)
+    scene = tiled_scene(c.data, cuda_bounce.BWD_MAX_ROWS + 1)
+    assert not cuda_bounce.diff_supported(scene, c.settings)[0]
+    assert cuda_bounce.hybrid_supported(scene, c.settings)[0]
+    n = 16384
+    st = state_from_numpy(3, *_random_state(c.data, n, 21), device=card)
+    rng = np.random.default_rng(22)
+    cot = [torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(card)
+           for _ in range(4)]
+    cuda_bounce.reset_counts()
+    got = bounce_grads(lambda m: cuda_bounce.make_step_diff(scene, c.settings, 77, m), scene,
+                       st, cot)
+    torch.cuda.synchronize()
+    launches = cuda_bounce.counts()
+    want = bounce_grads(
+        lambda m: lambda s: wavefront.plain_bounce_step(scene, c.settings, 77, s, m), scene, st,
+        cot)
+    torch.cuda.synchronize()
+    assert launches["bounce"] == 1 and launches["bounce_bwd"] == 0, launches
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert want[3].abs().max() > 0
+    assert (got[3] - want[3]).abs().max() <= parity.KERNEL_BWD_RTOL * want[3].abs().max()
 
 
 @pytest.mark.cuda
@@ -798,17 +911,12 @@ def test_bvh_bounce_kernel_at_k128_matches_plain(welcome, bounce):
 
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", list(TIE_LAYOUTS))
-@pytest.mark.parametrize("bounce", [0, 3])
-def test_bvh_bounce_kernel_on_tie_leaves(card, case, bounce):
-    """The BVH bounce on three identical triangles in one leaf
-    (TIE_LAYOUTS): at K=128 the warp walk with the ties in one lane's
-    rounds and in three lanes, the first slot in the highest; at K=32 the
-    per-thread walk. The first slot's triangle wins, as in the plain step
-    (tests/test_torch_bvh.py holds the plain walk and the JAX package's
-    walk to that), for the primary and the shadow rays, with dead lanes
-    among the live ones."""
+def _bvh_bounce_on_tie_leaves(card, arrays_of, bounce):
+    """One BVH bounce on new-cbox with the hand-written BVH
+    `arrays_of(geometry)` (tests/torch_tie_leaves.py) against the plain
+    step: one kernel launch, every output as the plain step's
+    (assert_walks_agree), and many aimed lanes going on from triangle 0's
+    plane."""
     import dataclasses
 
     from lumillyrender_tpu_torch.scene.data import Bvh, tensor_of
@@ -816,7 +924,7 @@ def test_bvh_bounce_kernel_on_tie_leaves(card, case, bounce):
     c = compile_scene_file(ASSETS / "new-cbox.toml", device=card)
     g = c.data.geometry
     scene = dataclasses.replace(c.data, bvh=Bvh(**{
-        f: tensor_of(v).cuda() for f, v in tie_bvh(g, case).items()}))
+        f: tensor_of(v).cuda() for f, v in arrays_of(g).items()}))
     settings = dataclasses.replace(c.settings, intersector="bvh")
     n = 8192
     o, d = tie_rays(g, n, 300 + bounce)
@@ -831,6 +939,35 @@ def test_bvh_bounce_kernel_on_tie_leaves(card, case, bounce):
     # The tie is exercised: many aimed lanes go on from triangle 0's plane.
     on_tie = got.alive[::2] & ((got.o[::2] - g.tri_p0[0]) @ g.tri_n[0]).abs().lt(1e-2)
     assert int(on_tie.sum()) > n // 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TIE_LAYOUTS))
+@pytest.mark.parametrize("bounce", [0, 3])
+def test_bvh_bounce_kernel_on_tie_leaves(card, case, bounce):
+    """The BVH bounce on three identical triangles in one leaf
+    (TIE_LAYOUTS): at K=128 the warp walk with the ties in one lane's
+    rounds and in three lanes, the first slot in the highest; at K=32 the
+    per-thread walk. The first slot's triangle wins, as in the plain step
+    (tests/test_torch_bvh.py holds the plain walk and the JAX package's
+    walk to that), for the primary and the shadow rays, with dead lanes
+    among the live ones."""
+    _bvh_bounce_on_tie_leaves(card, lambda g: tie_bvh(g, case), bounce)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,drop", PADDED, ids=[c for c, _ in PADDED])
+@pytest.mark.parametrize("bounce", [0, 3])
+def test_bvh_bounce_kernel_skips_live_padding(card, case, drop, bounce):
+    """The BVH bounce on test_bvh_walks_skip_live_padding's leaves: padding
+    inside and at the end of leaves, every padding slot holding the
+    aimed-at tie triangle under prim -1. At K=32 and K=8 the per-thread
+    walk reads each leaf up to its valid count (pack_bvh's `counts`), at
+    K=128 the warp walk reads every slot; a walk that took a padding slot,
+    or a slot past a leaf's count, for a triangle would differ from the
+    plain step, for the primary or the shadow rays."""
+    _bvh_bounce_on_tie_leaves(card, lambda g: with_live_padding(tie_bvh(g, case), drop),
+                              bounce)
 
 
 @pytest.mark.cuda

@@ -187,5 +187,5 @@ def test_supported_rejects_bvh_scenes(assets_dir):
     })
     assert cuda_bounce.supported(dataclasses.replace(scene, bvh=wide),
                                  c.settings) == (True, "")
-    assert bvh_route(wide) == ("wide", True)
+    assert bvh_route(wide) == ("wide", False)
     assert bvh_route(b) == ("thread", False)

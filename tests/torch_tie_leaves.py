@@ -18,12 +18,16 @@ import numpy as np
 # slot in the highest lane (slots 2, 33, 96 in lanes 2, 1, 0: the second
 # warp reduction, the smaller slot among equal t, keeps it). K <= 32 takes
 # the per-thread walk; "k32x4" puts the ties in leaves 0, 1 and 3 of four
-# under an inner root.
+# under an inner root, with padding inside leaves 1-3 and at the end of
+# leaves 0-2 (each leaf's valid count, ops/cuda_bvh.py::pack_bvh: 6, 9,
+# 27, 32); "k8x16" cuts the same slots into sixteen leaves of 8 (a leaf
+# width without an instance of its own in the per-thread kernel).
 TIE_LAYOUTS = {
     "k128": (128, 128, (5, 37, 101), (0, 1, 2, 3, 4, 40, 64, 70, 90, 110, 127)),
     "k128x": (128, 128, (2, 33, 96), (0, 1, 3, 4, 5, 40, 64, 70, 90, 110, 127)),
     "k32": (32, 32, (5, 13, 29), (0, 1, 2, 3, 4, 8, 16, 20, 24, 30, 31)),
     "k32x4": (32, 128, (5, 37, 101), (0, 1, 2, 3, 4, 40, 64, 70, 90, 110, 127)),
+    "k8x16": (8, 128, (5, 37, 101), (0, 1, 2, 3, 4, 40, 64, 70, 90, 110, 127)),
 }
 
 
@@ -54,6 +58,8 @@ def tie_bvh(geom, case: str) -> dict:
 
     def box(sl):
         c = corners[sl][prim[sl] >= 0].reshape(-1, 3)
+        if not c.size:  # a leaf of padding only
+            return corners[0, 0], corners[0, 0]
         return c.min(0), c.max(0)
 
     lo, hi = box(slice(0, total))
@@ -87,3 +93,24 @@ def tie_rays(geom, n: int, seed: int):
     d[::2] = aim - o[::2]
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return o, d.astype(np.float32)
+
+
+def with_live_padding(arrays: dict, drop=()) -> dict:
+    """tie_bvh's `arrays` with the slots in `drop` (numbered over the whole
+    leaf table) made padding too, and every padding slot (prim -1) holding
+    the first tie slot's triangle: a walk that took a padding slot for a
+    triangle would hit it where the aimed rays hit the tie. The nearest-hit
+    rule never takes a padding slot, so the result is the tie BVH's less
+    the dropped triangles."""
+    out = {f: v.copy() for f, v in arrays.items()}
+    k = out["blk_prim"].shape[1]
+    prim = out["blk_prim"].reshape(-1)
+    prim[list(drop)] = -1
+    out["blk_mat"].reshape(-1)[list(drop)] = -1
+    first = int(np.argmax(prim == 0))
+    pad = prim < 0
+    for f in ("p0", "e1", "e2", "n"):
+        rows = out[f"blk_{f}"].reshape(-1, 3)
+        rows[pad] = rows[first]
+        out[f"blk_{f}"] = rows.reshape(-1, k, 3)
+    return out

@@ -7,8 +7,9 @@ builds DIR's `lumillyrender_tpu_torch/csrc/bounce_bvh.cu`, `bounce.cu` and
 `bounce_bwd.cu` (a checkout of an earlier commit of the port; its own
 headers beside them) with this tree's nvcc flags into this tree's
 `lumillyrender_tpu_torch/build/` under other library names, beside this
-tree's kernels, and loads them (an entry point of the earlier signature,
-before the brute-force kernels took an instance, is called with it).
+tree's kernels, and loads them (an entry point of an earlier signature,
+before the brute-force kernels took an instance or kernel 4 the leaves'
+valid counts, is called with it).
 
 Forward cases, on one chunk traced with this tree's kernel, the first state
 of each stage width kept:
@@ -64,11 +65,16 @@ REPS = 5  # launches per CUDA graph
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SHADE = [_P, _I, _P, _P, _I, _P, _I, _F, _I, _I, _U, _I, _F]
 # The entry points before the brute-force kernels took an instance (the
-# last three arguments before the stream) and kernel 5 summed its row table.
+# last three arguments before the stream), kernel 5 summed its row table
+# and kernel 4 took the leaves' valid counts (the argument after ids).
 EARLIER_ARGTYPES = {
     "llr_bounce": [_P] * 12 + [_P, _I] + _SHADE + [_F, _F, _F, _P, _I, _I, _F, _P],
     "llr_bounce_bwd": [_P] * 14 + [_P, _I] + _SHADE + [_F, _F, _F, _P],
+    "llr_bounce_bvh": [_P] * 12 + [_P, _P, _P, _I] + _SHADE + [_F, _F, _F, _P, _I, _I, _F, _P],
 }
+# What a source of the current signature holds and an earlier one lacks.
+CURRENT_MARK = {"bounce": "small_rows", "bounce_bwd": "small_rows",
+                "bounce_bvh": "const int32_t* counts"}
 
 
 def earlier_signature(src: Path, name: str) -> bool:
@@ -76,34 +82,47 @@ def earlier_signature(src: Path, name: str) -> bool:
     signature (EARLIER_ARGTYPES)."""
     from lumillyrender_tpu_torch.ops import cuda_build
 
-    if f"llr_{name}" not in EARLIER_ARGTYPES:
+    if name not in CURRENT_MARK:
         return False
     cu = (src / "lumillyrender_tpu_torch" / "csrc" / cuda_build.SOURCES[name]).read_text()
-    return "small_rows" not in cu
+    return CURRENT_MARK[name] not in cu
 
 
-def build_parents(src: Path, names, tag: str = "parent") -> dict:
-    """The sources of libraries `names` in the tree at `src` built into this
-    tree's build directory as lib<name>-<tag>.so, one nvcc each, all at
-    once: {name: (its entry point, nvcc's -Xptxas -v output, earlier
-    signature)}."""
+def build_sources(jobs: dict) -> dict:
+    """{label: (source, extra nvcc flags)} built with this tree's nvcc flags
+    into this tree's build directory, one nvcc each, all at once: {label:
+    (the loaded library, nvcc's -Xptxas -v output)}."""
     from lumillyrender_tpu_torch.ops import cuda_build
 
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        cu = src / "lumillyrender_tpu_torch" / "csrc" / cuda_build.SOURCES[name]
-        out = cuda_build.BUILD_DIR / f"lib{name}-{tag}.so"
-        out.parent.mkdir(parents=True, exist_ok=True)
-        procs[name] = (subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out, cu)
+    for i, (label, (cu, flags)) in enumerate(jobs.items()):
+        out = cuda_build.BUILD_DIR / f"libab{i}-{Path(cu).stem}.so"
+        procs[label] = (subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-o",
+             str(out), str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            out, cu)
     built = {}
-    for name, (p, out, cu) in procs.items():
+    for label, (p, out, cu) in procs.items():
         log, _ = p.communicate(timeout=900)
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {cu}:\n{log}")
+            raise RuntimeError(f"nvcc failed on {cu} ({label}):\n{log}")
+        built[label] = (ctypes.CDLL(str(out)), log)
+    return built
+
+
+def build_parents(src: Path, names) -> dict:
+    """The sources of libraries `names` in the tree at `src`, built by
+    `build_sources`: {name: (its entry point, nvcc's -Xptxas -v output,
+    earlier signature)}."""
+    from lumillyrender_tpu_torch.ops import cuda_build
+
+    libs = build_sources({name: (src / "lumillyrender_tpu_torch" / "csrc" /
+                                 cuda_build.SOURCES[name], []) for name in names})
+    built = {}
+    for name, (lib, log) in libs.items():
         earlier = earlier_signature(src, name)
-        fn = getattr(ctypes.CDLL(str(out)), f"llr_{name}")
+        fn = getattr(lib, f"llr_{name}")
         fn.argtypes = (EARLIER_ARGTYPES if earlier else cuda_build.ARGTYPES)[f"llr_{name}"]
         fn.restype = ctypes.c_int
         built[name] = (fn, log, earlier)
@@ -128,11 +147,16 @@ def entry_point(name: str, fn):
             cuda_build._fns[entry] = saved
 
 
-def forward_entry(parent: tuple):
+def forward_entry(name: str, parent: tuple):
     """The parent's forward entry as this tree's wrapper calls it: an
-    earlier llr_bounce drops the instance, group and small rows."""
+    earlier llr_bounce drops the instance, group and small rows, an earlier
+    llr_bounce_bvh the leaves' valid counts."""
     fn, _, earlier = parent
-    return (lambda *a: fn(*a[:-4], a[-1])) if earlier else fn
+    if not earlier:
+        return fn
+    if name == "bounce_bvh":
+        return lambda *a: fn(*a[:15], *a[16:])
+    return lambda *a: fn(*a[:-4], a[-1])
 
 
 def kernel_lines(log: str, match: str = "bounce") -> dict:
@@ -264,7 +288,7 @@ def forward_case(tag, c, settings, state, tables, name, parent, res, card):
 
     w = state.o.shape[0]
     launch_fn = getattr(cuda_bounce, f"{name}_launch")
-    pfn = forward_entry(parent)
+    pfn = forward_entry(name, parent)
     runs = {"parent": (pfn, tables), **{k: (None, t) for k, t in
                                          variants(name, tables, w).items()}}
     outs = {k: outputs(w) for k in runs}
