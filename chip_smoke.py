@@ -21,12 +21,17 @@ Phases, in order; any failure exits non-zero:
   5. the full-size new-cbox render (256^2, 64 spp in two 2M-lane chunks)
      through the CLI, with the launch counts of that run; then 64^2 x 8 spp
      films: the kernel path twice, and the plain path, all on the card;
+     then the CLI again with --checkpoint, --telemetry and --profile (the
+     chunk lines, the summary, the checkpoint, the trace's bounce kernels
+     from inside the graph replays, and a rerun that resumes at the end);
   6. one new-cbox chunk (256^2 x 32 spp) in which every bounce launch, at
      each stage width (2,097,152 -> 32,768 -> 4,096 lanes), is checked
-     against the plain step on the same state; timing: forward rays/s, each
-     kernel's bare launch time at each width beside its bound, launches per
-     chunk, the card's idle share; each width's instance named (threads
-     per lane at the narrow stages);
+     against the plain step on the same state; timing of the captured
+     stage plan (a ChunkRenderer's graph replays): forward rays/s, launches
+     per chunk, the capture's seconds and the graph pool's bytes, the
+     card's idle share; each kernel's bare launch time at each width beside
+     its bound; each width's instance named (threads per lane at the
+     narrow stages);
   7. BVH kernel vs the plain walk on welcome-geo (81,932 triangles): camera
      rays of one chunk and random rays at 2,072,576 lanes, with and without
      the shade outputs, capped occlusion queries and axis-aligned rays;
@@ -39,7 +44,7 @@ Phases, in order; any failure exits non-zero:
      path once;
  10. one welcome-geo chunk (2,072,576 lanes) in which every bounce launch
      (2,072,576 -> 259,072 -> 32,512 -> 4,096 lanes) is checked against the
-     plain step; timing as in phase 6, with the bounds counted from the
+     plain step; timing as in phase 6 (the captured plan), with the bounds counted from the
      plain walk's node visits and triangle tests; kernel 3 on the chunk's
      camera rays without and with the shade outputs, beside its bytes and
      operations bounds, with the node visits and triangle tests per ray;
@@ -86,7 +91,8 @@ Phases, in order; any failure exits non-zero:
      terrain-1m pt-direct at full size and its --aov depth and normal
      renders (bvh_wide), terrain-1.5m --aov depth (bvh_streamed); 64^2 x 4
      spp films of terrain-1m, kernel path twice and plain path once;
- 19. timing on terrain-1m: forward rays/s and idle share; the BVH bounce
+ 19. timing on terrain-1m: forward rays/s, launches per chunk, the
+     capture and the idle share of the captured plan; the BVH bounce
      at K=128 at each stage width; the wide, streamed and per-thread walks
      (and the streamed one on terrain-1.5m), sorted and unsorted, on camera
      and random rays at 2,097,152 lanes beside their bounds and the plain
@@ -107,7 +113,15 @@ Phases, in order; any failure exits non-zero:
      the plain version first), beside its bound, the plain version and an
      empty kernel's launch (and, for onehot_matmul_gather, an empty kernel
      of its grid and clusters, without and with a cluster barrier); the
-     probes whose median exceeds their call's, by factor; then one
+     probes whose median exceeds their call's, by factor;
+ 21. the captured forward stage loop against the host loop on new-cbox,
+     welcome-geo and terrain-1m at full chunks: a fresh ChunkRenderer's
+     eager first chunk and its first graph replay against the host loop
+     (one read of the card per bounce) over the same kernels, every
+     stage-end state (o, d, throughput, accum, alive, lane) and the ray
+     count bit-equal, the films through check_films' gate; beside phases
+     6, 10 and 19's chunk ms, busy ms, idle share, launches per chunk,
+     capture seconds and pool bytes, the host loop's ms per chunk; then one
      `{"kernels": [...]}` line for all 30 kernels.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
@@ -540,6 +554,63 @@ def run_main_path(tag, argv, want, must_be_zero=()):
     return result, launches
 
 
+def cli_checkpoint_telemetry_profile(scene):
+    """The CLI on `scene` at full size with --checkpoint, --telemetry and
+    --profile: one JSON chunk line per chunk on stderr, the summary JSON
+    on stdout, the checkpoint at the last sample, and a Chrome trace that
+    holds the bounce kernels' records from inside the graph replays; then
+    the same command again, which resumes at the end and renders nothing."""
+    import contextlib
+    import io
+
+    from lumillyrender_tpu_torch import cli
+    from lumillyrender_tpu_torch.utils import checkpoint as ckpt
+    from lumillyrender_tpu_torch.utils.telemetry import TRACE_FILE
+
+    ck, prof = OUT / "new-cbox.ckpt.npz", OUT / "new-cbox-profile"
+    ck.unlink(missing_ok=True)
+    (prof / TRACE_FILE).unlink(missing_ok=True)
+    argv = [str(scene), "--out", str(OUT / "new-cbox-cli.png"), "--checkpoint", str(ck),
+            "--telemetry", "--profile", str(prof)]
+    runs = []
+    for args in (argv, argv[:-2]):  # the rerun writes no trace
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            result = cli.run(args)
+        torch.cuda.synchronize()
+        runs.append((result, out.getvalue(), err.getvalue()))
+    (result, out, err), (_, out2, _) = runs
+    chunks = [json.loads(x) for x in err.splitlines() if x.startswith('{"ts"')]
+    summary = json.loads([x for x in out.splitlines() if x.startswith('{"chunks"')][-1])
+    settings = result_settings(scene)
+    spp = settings.spp
+    saved = ckpt.load(ck, settings, 0)
+    trace = json.loads((prof / TRACE_FILE).read_text())
+    kernels = [e for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    bounce_records = sum(1 for e in kernels if "bounce" in e.get("name", ""))
+    rec = dict(chunk_lines=len(chunks), summary=summary,
+               checkpoint_samples=None if saved is None else saved[1],
+               trace_bytes=(prof / TRACE_FILE).stat().st_size, trace_kernels=len(kernels),
+               trace_bounce_kernels=bounce_records,
+               resumed=f"resumed at {spp}/{spp} spp" in out2)
+    print(f"CLI --checkpoint --telemetry --profile: {rec}")
+    if (not chunks or [e["done"] for e in chunks][-1] != spp or summary["chunks"] != len(chunks)
+            or abs(summary["rays"] - result.rays) > 1e-6 * result.rays):
+        fail(f"the CLI's telemetry lines disagree with its render: {rec}")
+    if saved is None or saved[1] != spp or saved[2] != result.rays:
+        fail(f"the CLI's checkpoint does not hold the render: {rec}")
+    if not bounce_records or not rec["resumed"]:
+        fail(f"the CLI's profile holds no bounce kernel, or the rerun did not resume: {rec}")
+    return rec
+
+
+def result_settings(scene):
+    """The RenderSettings the CLI renders `scene` with (no overrides)."""
+    from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
+
+    return compile_scene_file(scene, device="cpu").settings
+
+
 def instrumented_chunk(c, spp_chunk, kernel, tables):
     """Trace one chunk of `c` with the bounce kernel `kernel` (cuda_bounce.
     bounce or bounce_bvh), checking every launch against the plain step on
@@ -676,55 +747,187 @@ def weighted(by_width):
     return n, ms, bound, plain, by
 
 
-def chunk_rate(c, spp_chunk, timed, first_offset):
-    """Forward rays/s over `timed` chunks after one warm-up chunk (host clock
-    around work that ends in a synchronize): (rays/s, ms per chunk)."""
-    from lumillyrender_tpu_torch.integrator.render import render_chunk
+def chunk_rate(renderer, spp_chunk, timed, first_offset):
+    """Forward rays/s over `timed` chunks of `renderer` (a ChunkRenderer)
+    after one warm-up chunk, the one that captures the stage plan's CUDA
+    graph (host clock around work that ends in a synchronize): (rays/s, ms
+    per chunk, launches per chunk by kernel)."""
+    from lumillyrender_tpu_torch.ops import cuda_bounce
 
-    dev = torch.device("cuda")
-    render_chunk(c.data, c.settings, SEED, first_offset, spp_chunk, device=dev)
+    renderer.chunk(first_offset, spp_chunk)
     torch.cuda.synchronize()
+    cuda_bounce.reset_counts()
     t0 = time.monotonic()
     rays = []
     for k in range(timed):
-        _, r = render_chunk(c.data, c.settings, SEED, first_offset + (k + 1) * spp_chunk,
-                            spp_chunk, device=dev)
+        _, r = renderer.chunk(first_offset + (k + 1) * spp_chunk, spp_chunk)
         rays.append(r)
     torch.cuda.synchronize()
     window = time.monotonic() - t0
-    return float(sum(float(r) for r in rays)) / window, window / timed * 1e3
+    launches = {k: v / timed for k, v in cuda_bounce.counts().items() if v}
+    return float(sum(float(r) for r in rays)) / window, window / timed * 1e3, launches
 
 
-def idle_share(c, spp_chunk, chunk_ms, offset):
+def idle_share(renderer, spp_chunk, chunk_ms, offset):
     """Device busy time per chunk from the profiler's kernel records over two
-    chunks, against the unprofiled chunk time: (idle share or None, busy ms,
-    {kernel name: (ms, launches) per chunk})."""
+    chunks (graph replays, once the renderer has captured its plan),
+    against the unprofiled chunk time: (idle share or None, busy ms,
+    {kernel name: (ms, launches) per chunk}). Also prints the replay's span
+    between CUDA events (first node's start to last node's end)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from lumillyrender_tpu_torch.integrator.render import render_chunk
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for k in range(2):
-            render_chunk(c.data, c.settings, SEED, offset + k * spp_chunk, spp_chunk,
-                         device=torch.device("cuda"))
+            renderer.chunk(offset + k * spp_chunk, spp_chunk)
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
         if getattr(e, "device_type", None) == DeviceType.CUDA:
             t, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us() / 2e3, n + 0.5)
+    plan = renderer.plans.get(spp_chunk)
+    if plan is not None and plan.graph is not None:
+        span = events_ms(plan.graph.replay, 5)
+        print(f"graph replay span (CUDA events, no raygen): {span:.4f} ms")
     if not by_name:
         print("idle share: not measured (the profiler recorded no kernels)")
         return None, None, {}
     busy = sum(t for t, _ in by_name.values())
     idle = 1.0 - busy / chunk_ms
     print(f"device busy {busy:.4f} ms per chunk of {chunk_ms:.4f} ms: "
-          f"idle share {idle:.4f}")
+          f"idle share {idle:.4f}; {sum(n for _, n in by_name.values()):.1f} kernel "
+          f"records per chunk (the profiler sees the kernels inside the graph replays)")
     for name, (t, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:8]:
         print(f"  {t:9.4f} ms/chunk {n:7.1f} launches/chunk  {name[:70]}")
     return idle, busy, by_name
+
+
+def plan_cost(renderer, spp_chunk) -> dict:
+    """The capture's seconds and the graph pool's bytes of a renderer's
+    plan for `spp_chunk`, printed."""
+    plan = renderer.plans[spp_chunk]
+    print(f"stage plan of {plan.n} lanes captured in {plan.capture_seconds:.3f} s; graph "
+          f"pool {plan.pool_bytes} B ({plan.pool_bytes / plan.n:.1f} B a lane); launches "
+          f"per replay {plan.launches}")
+    return dict(capture_seconds=plan.capture_seconds, pool_bytes=plan.pool_bytes,
+                launches_per_replay=plan.launches)
+
+
+def host_loop_chunk(c, step, spp, offset):
+    """One chunk with the stage loop on the host, as the port ran it before
+    the loop was captured (one read of the card per bounce, stopping where
+    no lane is alive), over the same raygen, lane ids, step, `_compact` and
+    banks as the captured plan: (each stage's end state, film_flat, rays)."""
+    from lumillyrender_tpu_torch.integrator import wavefront
+    from lumillyrender_tpu_torch.integrator.render import global_lanes, tile_decode
+    from lumillyrender_tpu_torch.ops import cuda_bounce, rng
+    from lumillyrender_tpu_torch.ops.intersect import _use_brute
+
+    st = c.settings
+    w, h = st.width, st.height
+    n, n_pix = w * h * spp, w * h
+    o, d, pdf, g = cuda_bounce.generate_rays(c.data, st, SEED, offset, n)
+    lane = global_lanes(st, offset, n, o.device)
+    weight = g * c.data.camera.sensor_sensitivity / pdf
+    state = wavefront.PathState(
+        0, o, d, torch.ones_like(o) * weight[..., None], torch.zeros_like(o),
+        torch.ones(n, dtype=torch.bool, device=o.device),
+        torch.zeros((), device=o.device), lane)
+    decode = tile_decode(st)
+
+    def to_pixel(lanes):
+        lanes = rng.as_u32(lanes) % n_pix
+        if decode is None:
+            return lanes
+        px, py = decode(lanes)
+        return py * w + px
+
+    def bank(film, s, ordered):
+        if ordered and s.accum.shape[0] % n_pix == 0:
+            by_lane = s.accum.reshape(-1, n_pix, 3).sum(dim=0)
+            if decode is None:
+                return film + by_lane
+            return film.index_add(0, to_pixel(torch.arange(n_pix, device=o.device)), by_lane)
+        return film.index_add(0, to_pixel(s.lane), s.accum)
+
+    film = torch.zeros((n_pix, 3), device=o.device)
+    ends, first = [], True
+    plan = wavefront._stage_plan(n, st, aggressive=_use_brute(c.data.geometry, st.intersector))
+    for si, (width, _, b1) in enumerate(plan):
+        if width != state.alive.shape[0]:
+            film = bank(film, state, first)
+            first = False
+            state = wavefront._compact(state, width, SEED, 0x50000000 + si, salt=lane[0])
+        while state.bounce < b1 and bool(state.alive.any()):
+            state = step(state)
+        ends.append(state)
+    return ends, bank(film, state, first), state.rays_traced
+
+
+STATE_FIELDS = ("o", "d", "throughput", "accum", "alive", "lane", "rays_traced")
+
+
+def graphed_vs_host_loop(tag, c, spp_chunk):
+    """A fresh ChunkRenderer's first chunk (run eagerly, then captured) and
+    second (a graph replay), each stage's end state recorded, against the
+    host loop on the same offsets: every field of every stage-end state and
+    the ray counts bit-equal, the films through check_films' gate (banks
+    after the first add with atomics). Then the host loop's ms per chunk
+    (host clock to a synchronize, one chunk after these). Returns a record."""
+    from lumillyrender_tpu_torch.integrator import wavefront
+    from lumillyrender_tpu_torch.integrator.render import ChunkRenderer
+
+    st = c.settings
+    n = st.width * st.height * spp_chunk
+    ends = []
+    run_stage = wavefront.run_stage
+
+    def recorded(step, state, b1):
+        out = run_stage(step, state, b1)
+        ends.append([getattr(out, k).clone() for k in STATE_FIELDS])
+        return out
+
+    wavefront.run_stage = recorded
+    try:
+        renderer = ChunkRenderer(c.data, st, SEED, "cuda")
+        film0, rays0 = renderer.chunk(0, spp_chunk)
+        stages = len(ends) // 2
+        film1, rays1 = renderer.chunk(spp_chunk, spp_chunk)
+        torch.cuda.synchronize()
+    finally:
+        wavefront.run_stage = run_stage
+    got = {0: (ends[:stages], film0, rays0), spp_chunk: (ends[stages:], film1, rays1)}
+    step = renderer.step
+    rec = dict(lanes=n, stages=stages)
+    films = {}
+    for offset, (g_ends, film, rays) in got.items():
+        w_ends, w_film, w_rays = host_loop_chunk(c, step, spp_chunk, offset)
+        torch.cuda.synchronize()
+        if len(w_ends) != stages:
+            fail(f"{tag}: {stages} stages captured, {len(w_ends)} in the host loop")
+        for si, (g_state, w_state) in enumerate(zip(g_ends, w_ends)):
+            for k, t in zip(STATE_FIELDS, g_state):
+                if not torch.equal(t, getattr(w_state, k)):
+                    fail(f"{tag}, chunk at sample {offset}: stage {si}'s {k} differs "
+                         "between the captured loop and the host loop")
+        if not torch.equal(rays, w_rays + float(n)):
+            fail(f"{tag}: rays {float(rays)} (captured) vs {float(w_rays) + n} (host loop)")
+        label = "eager first chunk" if offset == 0 else "graph replay"
+        films[f"{label} vs host loop"] = (film.reshape(-1, 3).cpu().numpy(),
+                                          w_film.cpu().numpy())
+        rec[f"rays_{offset}"] = float(rays)
+    print(f"{tag}: {stages} stages, every stage-end state (o, d, throughput, accum, alive, "
+          f"lane) and the ray count bit-equal to the host loop's on the eager first chunk "
+          f"and on a graph replay")
+    rec["film_checks"] = check_films(f"{tag} graphed vs host loop", films)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    host_loop_chunk(c, step, spp_chunk, 3 * spp_chunk)
+    torch.cuda.synchronize()
+    rec["host_loop_chunk_ms"] = (time.monotonic() - t0) * 1e3
+    return rec
 
 
 def welcome_rays(bvh, n, seed):
@@ -1421,7 +1624,7 @@ def huge_meshes(card, lap):
     from lumillyrender_tpu_torch.accel.pack import build_tri_bvh
     from lumillyrender_tpu_torch.integrator import wavefront
     from lumillyrender_tpu_torch.integrator.render import (
-        camera_lanes, default_spp_chunk, render,
+        ChunkRenderer, camera_lanes, default_spp_chunk, render,
     )
     from lumillyrender_tpu_torch.ops import cuda_bounce, cuda_build, cuda_bvh, intersect
     from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
@@ -1588,10 +1791,14 @@ def huge_meshes(card, lap):
 
     phase(f"19 timing (terrain-1m 256^2, {spp_chunk} spp per chunk; the walks at {n} lanes)")
     t0 = time.monotonic()
-    rate, chunk_ms = chunk_rate(c1, spp_chunk, 2, 0)
-    print(f"forward: 2 chunks, {chunk_ms:.4f} ms each: {rate:.6e} rays/s  [{card}]")
-    idle, busy, _ = idle_share(c1, spp_chunk, chunk_ms, 10 * spp_chunk)
-    rep["forward"] = dict(rays_per_s=rate, chunk_ms=chunk_ms, idle_share=idle, busy_ms=busy)
+    r1 = ChunkRenderer(c1.data, c1.settings, SEED, dev)
+    rate, chunk_ms, per_chunk = chunk_rate(r1, spp_chunk, 3, 0)
+    print(f"forward (the captured stage plan, replayed): 3 chunks, {chunk_ms:.4f} ms each: "
+          f"{rate:.6e} rays/s; launches per chunk {per_chunk}  [{card}]")
+    idle, busy, _ = idle_share(r1, spp_chunk, chunk_ms, 10 * spp_chunk)
+    rep["forward"] = dict(rays_per_s=rate, chunk_ms=chunk_ms, idle_share=idle, busy_ms=busy,
+                          launches_per_chunk=per_chunk, **plan_cost(r1, spp_chunk))
+    del r1
     rep["bounce_k128"] = {str(w): r for w, r in time_k128_bounce(c1, spp_chunk).items()}
     t7, t6, t3, t6_15 = {}, {}, {}, {}
     for key in ("camera", "random"):
@@ -1658,7 +1865,7 @@ def huge_meshes(card, lap):
              ms=main6["ms"], plain_ms=main6["plain_ms"], bound_ms=main6["bound_ms"],
              bound_by=main6["bound_by"], library_ms=None),
     ]
-    return rep, kernels
+    return rep, kernels, c1
 
 
 # ---------------------------------------------------------------------------
@@ -1955,7 +2162,7 @@ def main() -> int:
     from lumillyrender_tpu_torch.constants import EPS, INF
     from lumillyrender_tpu_torch.integrator import wavefront
     from lumillyrender_tpu_torch.integrator.render import (
-        default_spp_chunk, global_lanes, render,
+        ChunkRenderer, default_spp_chunk, global_lanes, render,
     )
     from lumillyrender_tpu_torch.ops import cuda_bounce, cuda_build, cuda_bvh, intersect, rng
     from lumillyrender_tpu_torch.scene import terrain
@@ -2087,6 +2294,7 @@ def main() -> int:
     f_p = f_p.reshape(64, 64, 3).cpu().numpy() / 8
     cbox_films = check_films("new-cbox 64^2x8", {
         "kernel run vs kernel run": (f_k2, f_k), "kernel path vs plain path": (f_k, f_p)})
+    cli_files = cli_checkpoint_telemetry_profile(assets / "new-cbox.toml")
     lap("new-cbox render", t0)
 
     phase("6 timing (new-cbox 256^2, 32 spp per chunk)")
@@ -2094,8 +2302,11 @@ def main() -> int:
     st = cbox.settings
     spp_chunk = 32
     n = st.width * st.height * spp_chunk
-    rays_per_s, chunk_ms = chunk_rate(cbox, spp_chunk, 8, 0)
-    print(f"forward: 8 chunks, {chunk_ms:.4f} ms each: {rays_per_s:.6e} rays/s  [{card}]")
+    cbox_renderer = ChunkRenderer(cbox.data, st, SEED, dev)
+    rays_per_s, chunk_ms, cbox_per_chunk = chunk_rate(cbox_renderer, spp_chunk, 8, 0)
+    print(f"forward (the captured stage plan, replayed): 8 chunks, {chunk_ms:.4f} ms each: "
+          f"{rays_per_s:.6e} rays/s; launches per chunk {cbox_per_chunk}  [{card}]")
+    cbox_plan = plan_cost(cbox_renderer, spp_chunk)
     tables = cuda_bounce.pack_tables(cbox.data)
     checks, per_launch, first_state = instrumented_chunk(cbox, spp_chunk, cuda_bounce.bounce,
                                                          tables)
@@ -2118,8 +2329,10 @@ def main() -> int:
           f"bound {raygen_bound:.4f} ms (bytes); wrapper with allocation and "
           f"pdf/g fill {raygen_host_ms:.4f} ms with the host; plain "
           f"{raygen_plain_ms:.3f} ms")
-    cbox_idle, _, _ = idle_share(cbox, spp_chunk, chunk_ms, 10 * spp_chunk)
+    cbox_idle, cbox_busy, _ = idle_share(cbox_renderer, spp_chunk, chunk_ms, 10 * spp_chunk)
+    del cbox_renderer
     cbox_report = dict(rays_per_s=rays_per_s, chunk_ms=chunk_ms, idle_share=cbox_idle,
+                       busy_ms=cbox_busy, launches_per_chunk=cbox_per_chunk, **cbox_plan,
                        bounce_by_width={str(w): a for w, a in by_width.items()},
                        main_path_checks={str(w): c for w, c in checks.items()},
                        film_checks=cbox_films)
@@ -2253,8 +2466,11 @@ def main() -> int:
 
     phase(f"10 timing (welcome-geo 512x368, {geo_chunk} spp per chunk)")
     t0 = time.monotonic()
-    geo_rate, geo_chunk_ms = chunk_rate(geo, geo_chunk, 3, 0)
-    print(f"forward: 3 chunks, {geo_chunk_ms:.4f} ms each: {geo_rate:.6e} rays/s  [{card}]")
+    geo_renderer = ChunkRenderer(geo.data, gst, SEED, dev)
+    geo_rate, geo_chunk_ms, geo_per_chunk = chunk_rate(geo_renderer, geo_chunk, 4, 0)
+    print(f"forward (the captured stage plan, replayed): 4 chunks, {geo_chunk_ms:.4f} ms "
+          f"each: {geo_rate:.6e} rays/s; launches per chunk {geo_per_chunk}  [{card}]")
+    geo_plan = plan_cost(geo_renderer, geo_chunk)
     gtables = cuda_bounce.pack_tables(geo.data, bvh=True)
     g_checks, g_per_launch, g_first = instrumented_chunk(geo, geo_chunk, cuda_bounce.bounce_bvh,
                                                          gtables)
@@ -2292,7 +2508,10 @@ def main() -> int:
               f"plain walk {plain_ms:.3f} ms  [{card}]")
     k3_ms, k3_plain_ms, k3_bound, k3_by = (k3[False][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by"))
-    geo_idle, _, _ = idle_share(geo, geo_chunk, geo_chunk_ms, 40 * geo_chunk)
+    geo_idle, geo_busy, _ = idle_share(geo_renderer, geo_chunk, geo_chunk_ms, 40 * geo_chunk)
+    geo_timing = dict(chunk_ms=geo_chunk_ms, busy_ms=geo_busy, idle_share=geo_idle,
+                      launches_per_chunk=geo_per_chunk, **geo_plan)
+    del geo_renderer
     lap("welcome-geo timing", t0)
 
     phase("11 backward kernel vs plain (new-cbox, debug-nee, primitive)")
@@ -2371,8 +2590,33 @@ def main() -> int:
     for spp in training:
         del training[spp]["params"], training[spp]["target"]
 
-    big_report, big_kernels = huge_meshes(card, lap)
+    big_report, big_kernels, terrain_1m = huge_meshes(card, lap)
     probe_report, probe_kernels = capability_probes(card, lap)
+
+    phase("21 the captured stage loop vs the host loop (new-cbox, welcome-geo, terrain-1m; "
+          "full chunks)")
+    t0 = time.monotonic()
+    stage_loop = {}
+    for tag, c, spp, graphed, ph in (
+            ("new-cbox", cbox, spp_chunk, cbox_report, 6),
+            ("welcome-geo", geo, geo_chunk, geo_timing, 10),
+            ("terrain-1m", terrain_1m, default_spp_chunk(terrain_1m.settings),
+             big_report["forward"], 19)):
+        rec = graphed_vs_host_loop(tag, c, spp)
+        rec["graphed"] = {k: graphed[k] for k in (
+            "chunk_ms", "busy_ms", "idle_share", "launches_per_chunk", "capture_seconds",
+            "pool_bytes")}
+        g = rec["graphed"]
+        busy = "not measured" if g["busy_ms"] is None else f"{g['busy_ms']:.4f} ms"
+        idle = "not measured" if g["idle_share"] is None else f"{g['idle_share']:.4f}"
+        print(f"{tag}, {rec['lanes']} lanes a chunk: captured plan (phase {ph}) "
+              f"{g['chunk_ms']:.4f} ms per chunk, device busy {busy}, idle share {idle}, "
+              f"launches per chunk {g['launches_per_chunk']}, capture {g['capture_seconds']:.3f} "
+              f"s, graph pool {g['pool_bytes']} B; the host loop {rec['host_loop_chunk_ms']:.4f} "
+              f"ms per chunk  [{card}]")
+        stage_loop[tag] = rec
+    del terrain_1m
+    lap("stage loop", t0)
 
     kernels = [
         dict(name="raygen", route="cuda",
@@ -2409,7 +2653,8 @@ def main() -> int:
     report = dict(
         card=card, new_cbox=cbox_report,
         welcome_geo=dict(
-            rays_per_s=geo_rate, chunk_ms=geo_chunk_ms, idle_share=geo_idle,
+            rays_per_s=geo_rate, chunk_ms=geo_chunk_ms, idle_share=geo_idle, busy_ms=geo_busy,
+            launches_per_chunk=geo_per_chunk, **geo_plan,
             cli_rays_per_s=geo_result.rays_per_second, cli_seconds=geo_result.seconds,
             launches=geo_launches, aov_launches=aov_launches,
             bounce_by_width={str(w): a for w, a in g_by_width.items()},
@@ -2422,7 +2667,8 @@ def main() -> int:
                       timing={str(k): v for k, v in train_timing.items()},
                       backward_by_width={str(w): {k: v for k, v in r.items()}
                                          for w, r in bwd_widths.items()}),
-        huge_meshes=big_report, probes=probe_report, kernels=kernels, ptxas=ptxas_report,
+        huge_meshes=big_report, probes=probe_report, stage_loop=stage_loop, cli_files=cli_files,
+        kernels=kernels, ptxas=ptxas_report,
         phase_seconds=secs,
         seconds=time.monotonic() - t_start)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -8,6 +8,7 @@ unless `--device cpu` is given.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 from pathlib import Path
@@ -38,17 +39,14 @@ def run(argv=None):
     parser.add_argument("--aov", choices=("normal", "depth"), default=None,
                         help="Render a debug AOV instead of radiance")
     parser.add_argument("--checkpoint", default=None,
-                        help="Checkpoint file (not ported yet)")
+                        help="Checkpoint file: saves film+sample counter; resumes if present")
     parser.add_argument("--checkpoint-every", type=int, default=0,
-                        help="Checkpoint every N samples (not ported yet)")
+                        help="Checkpoint every N samples (default: every chunk)")
     parser.add_argument("--telemetry", action="store_true",
-                        help="Per-chunk metrics on stderr (not ported yet)")
+                        help="Emit structured per-chunk metrics on stderr")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="Write a torch.profiler Chrome trace into DIR")
     args = parser.parse_args(argv)
-    if args.checkpoint or args.checkpoint_every or args.telemetry:
-        raise NotImplementedError(
-            "checkpoint/resume and telemetry (utils/) come in a later slice "
-            "of the port"
-        )
 
     t0 = time.time()
     print(f"start: {time.strftime('%Y-%m-%dT%H:%M:%S%z')}")
@@ -59,6 +57,7 @@ def run(argv=None):
     from .integrator.render import render
     from .io.image import to_color, write_hdr, write_png
     from .scene.compiler import compile_scene_file
+    from .utils.telemetry import RenderTelemetry, profiler_trace
 
     compiled = compile_scene_file(args.scene, spp=args.spp, device=args.device)
     if args.intersector != "auto":
@@ -79,8 +78,13 @@ def run(argv=None):
     print(f"polygons: {compiled.stats['polygons']}")
     print(f"bvh construction: {compiled.stats['bvh_seconds']:.3f}s")
 
-    result = render(compiled, seed=args.seed, spp_chunk=args.spp_chunk,
-                    progress=True, device=args.device)
+    telemetry = RenderTelemetry() if args.telemetry else None
+    with profiler_trace(args.profile):
+        result = render(compiled, seed=args.seed, spp_chunk=args.spp_chunk,
+                        progress=True, device=args.device, checkpoint=args.checkpoint,
+                        checkpoint_every=args.checkpoint_every, telemetry=telemetry)
+    if telemetry is not None:
+        print(json.dumps(telemetry.summary()))
 
     print("saving...")
     fmt = compiled.config.film.output

@@ -5,6 +5,13 @@ accumulated on the device in float32 and divided by spp at the end. The
 estimator matches `main.rs:92-121`:
   pixel = mean_spp( L * g_term * sensitivity / pdf ).
 Rays are counted as camera rays + live bounce rays + NEE shadow rays.
+
+On a CUDA device a forward chunk reads nothing from the card: raygen writes
+into a `ForwardPlan`'s buffers, and the plan replays the chunk's whole stage
+plan (every bounce, `_compact` and bank) as one CUDA graph, captured at its
+first chunk: the counterpart of the JAX package's jitted chunk with its
+`lax.while_loop` stages. `render` submits chunks with no host sync between
+them unless telemetry times each one.
 """
 
 from __future__ import annotations
@@ -16,8 +23,8 @@ import numpy as np
 import torch
 
 from ..scene.compiler import CompiledScene
-from ..scene.data import RenderSettings, SceneData, resolve_device
-from .wavefront import aov, trace_film, u32_to_i32
+from ..scene.data import CAM_IDEAL_PINHOLE, RenderSettings, SceneData, resolve_device
+from .wavefront import aov, make_bounce_step, trace_film, u32_to_i32
 
 TILE = 32  # max camera-lane tile side
 
@@ -85,44 +92,163 @@ def camera_lanes(settings: RenderSettings, sample_offset: int, n: int,
     return glane, px, py
 
 
+def _pixel_fn(settings: RenderSettings):
+    """Lane id -> film row, tile decode (None in raster order)."""
+    decode = tile_decode(settings)
+    if decode is None:
+        return None
+    w, h = settings.width, settings.height
+
+    def pixel_fn(lane_vals):
+        px, py = decode(lane_vals % (w * h))
+        return py * w + px
+
+    return pixel_fn
+
+
+class ForwardPlan:
+    """One forward chunk size of a scene on a CUDA device: raygen writes the
+    camera rays into `o`, `d` (and `g`), and the chunk's stage plan, from
+    the lane ids to the film, runs with no host read. The first chunk runs
+    it eagerly (which also loads every kernel) and captures it as a CUDA
+    graph; every later chunk replays the graph, which adds its launches to
+    the kernels' counts. `capture_seconds` and `pool_bytes` (the device
+    memory the capture reserved) say what the graph cost. A capture or
+    replay that fails raises."""
+
+    def __init__(self, scene: SceneData, settings: RenderSettings, seed, step,
+                 spp_chunk: int):
+        self.scene, self.settings, self.seed, self.step = scene, settings, seed, step
+        w, h = settings.width, settings.height
+        self.n = n = w * h * spp_chunk
+        dev = scene.camera.position.device
+        f32 = torch.float32
+        self.o = torch.empty((n, 3), dtype=f32, device=dev)
+        self.d = torch.empty((n, 3), dtype=f32, device=dev)
+        ideal = settings.camera_kind == CAM_IDEAL_PINHOLE
+        self.g = None if ideal else torch.empty(n, dtype=f32, device=dev)
+        self.lane_base = torch.arange(n, dtype=torch.int64, device=dev)
+        self.lane_offset = torch.zeros((), dtype=torch.int64, device=dev)
+        self.pixel_fn = _pixel_fn(settings)
+        self.graph = None
+        self.out = None  # the graph's film_flat and rays
+        self.launches = {}  # per replay, by counts() name
+        self.capture_seconds = None
+        self.pool_bytes = None
+
+    def _trace(self):
+        """The captured work: lane ids from the offset, camera weights,
+        then trace_film's stages, as `ChunkRenderer.chunk` computes them on
+        the CPU."""
+        from ..ops.camera import aperture_pdf
+
+        st, scene, n = self.settings, self.scene, self.n
+        lane = u32_to_i32((self.lane_base + self.lane_offset) & 0xFFFFFFFF)
+        if self.g is None:
+            g = torch.ones(n, dtype=torch.float32, device=self.o.device)
+            pdf = torch.ones(n, dtype=torch.float32, device=self.o.device)
+        else:
+            g = self.g
+            pdf = aperture_pdf(scene.camera, st.width, st.height).expand(n).contiguous()
+        weight = g * scene.camera.sensor_sensitivity / pdf
+        return trace_film(scene, st, self.o, self.d, lane, self.seed, weight,
+                          n_pixels=st.width * st.height, pixel_fn=self.pixel_fn,
+                          step=self.step)
+
+    def _capture(self):
+        from ..ops import cuda_bounce
+
+        before = cuda_bounce.counts()
+        dev = self.o.device
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.monotonic()
+        with torch.cuda.graph(graph):
+            self.out = self._trace()
+        self.capture_seconds = time.monotonic() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        after = cuda_bounce.counts()
+        self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        # The capture launched nothing: take its calls back.
+        cuda_bounce.add_counts({k: -v for k, v in self.launches.items()})
+        self.graph = graph
+
+    def __call__(self, sample_offset: int):
+        """(film_flat (w*h, 3) sum, rays ()) of the chunk at `sample_offset`;
+        both stay on the device, and the plan's next chunk overwrites them."""
+        from ..ops import cuda_bounce
+
+        st = self.settings
+        cuda_bounce.raygen_launch(self.scene, st, self.seed, sample_offset,
+                                  self.o, self.d, self.g)
+        self.lane_offset.fill_((sample_offset * st.width * st.height) & 0xFFFFFFFF)
+        if self.graph is None:
+            out = self._trace()
+            self._capture()
+            return out
+        self.graph.replay()
+        cuda_bounce.add_counts(self.launches)
+        return self.out
+
+
+class ChunkRenderer:
+    """What a render keeps across its chunks: the scene on the device
+    (checked once for the card), the bounce step with its tables packed
+    once, and on a CUDA device one `ForwardPlan` per chunk size."""
+
+    def __init__(self, scene: SceneData, settings: RenderSettings, seed, device=None):
+        from ..ops import cuda_bounce
+
+        self.device = dev = resolve_device(device)
+        self.scene = scene.to(dev)
+        self.settings, self.seed = settings, seed
+        self.aov = settings.integrator in ("normal", "depth")
+        if dev.type == "cuda":
+            cuda_bounce.require_supported(self.scene, settings)
+        self.step = None if self.aov else make_bounce_step(self.scene, settings, seed)
+        self.plans: dict[int, ForwardPlan] = {}
+
+    def chunk(self, sample_offset: int, spp_chunk: int):
+        """Render `spp_chunk` samples for every pixel -> (film_sum (h,w,3),
+        rays () f32), both on the device."""
+        from ..ops import cuda_bounce
+
+        scene, settings, seed, dev = self.scene, self.settings, self.seed, self.device
+        w, h = settings.width, settings.height
+        n = w * h * spp_chunk
+        if dev.type == "cuda" and not self.aov:
+            plan = self.plans.get(spp_chunk)
+            if plan is None:
+                plan = self.plans[spp_chunk] = ForwardPlan(scene, settings, seed, self.step,
+                                                           spp_chunk)
+            film_flat, rays = plan(sample_offset)
+            return film_flat.reshape(h, w, 3).clone(), rays + float(n)
+
+        o, d, pdf, g = cuda_bounce.generate_rays(scene, settings, seed, sample_offset, n)
+        if self.aov:
+            _, px, py = camera_lanes(settings, sample_offset, n, dev)
+            val = aov(scene, settings, o, d)
+            film = torch.zeros((w * h, 3), dtype=val.dtype, device=dev)
+            film.index_add_(0, py * w + px, val)
+            return film.reshape(h, w, 3), torch.full((), float(n), device=dev)
+        lane = global_lanes(settings, sample_offset, n, dev)
+        weight = g * scene.camera.sensor_sensitivity / pdf
+        film_flat, rays = trace_film(
+            scene, settings, o, d, lane, seed, weight, n_pixels=w * h,
+            pixel_fn=_pixel_fn(settings), step=self.step,
+        )
+        return film_flat.reshape(h, w, 3), rays + float(n)  # + camera rays
+
+
 def render_chunk(scene: SceneData, settings: RenderSettings, seed,
                  sample_offset: int, spp_chunk: int, device=None):
     """Render `spp_chunk` samples for every pixel -> (film_sum (h,w,3),
     rays () f32), both on the device. Runs on `cuda` unless `device` says
-    otherwise."""
-    from ..ops import cuda_bounce
-
-    dev = resolve_device(device)
-    scene = scene.to(dev)
-    if dev.type == "cuda":
-        cuda_bounce.require_supported(scene, settings)
-    w, h = settings.width, settings.height
-    n = w * h * spp_chunk
-
-    o, d, pdf, g = cuda_bounce.generate_rays(scene, settings, seed,
-                                             sample_offset, n)
-
-    if settings.integrator in ("normal", "depth"):
-        _, px, py = camera_lanes(settings, sample_offset, n, dev)
-        val = aov(scene, settings, o, d)
-        film = torch.zeros((w * h, 3), dtype=val.dtype, device=dev)
-        film.index_add_(0, py * w + px, val)
-        return film.reshape(h, w, 3), torch.tensor(float(n), device=dev)
-
-    lane = global_lanes(settings, sample_offset, n, dev)
-    decode = tile_decode(settings)
-    pixel_fn = None
-    if decode is not None:
-        def pixel_fn(lane_vals):
-            px_, py_ = decode(lane_vals % (w * h))
-            return py_ * w + px_
-
-    weight = g * scene.camera.sensor_sensitivity / pdf
-    film_flat, rays = trace_film(
-        scene, settings, o, d, lane, seed, weight, n_pixels=w * h,
-        pixel_fn=pixel_fn,
-    )
-    return film_flat.reshape(h, w, 3), rays + float(n)  # + camera rays
+    otherwise. Each call packs the tables (and on the card captures the
+    chunk's graph) anew: a caller of many chunks keeps a `ChunkRenderer`."""
+    return ChunkRenderer(scene, settings, seed, device).chunk(sample_offset, spp_chunk)
 
 
 @dataclass
@@ -142,31 +268,64 @@ def default_spp_chunk(settings: RenderSettings, budget_lanes: int = 1 << 21) -> 
 
 
 def render(compiled: CompiledScene, seed: int = 0, spp_chunk: int | None = None,
-           progress: bool = False, device=None) -> RenderResult:
+           progress: bool = False, device=None, checkpoint: str | None = None,
+           checkpoint_every: int = 0, telemetry=None) -> RenderResult:
     """Render the film on `device` (default `cuda`; raises without a card).
-    The film and the ray count stay on the device until the end."""
-    dev = resolve_device(device)
+
+    Chunks are submitted with no host sync between them: the film and the
+    ray count stay on the device until the end, or until a checkpoint.
+    With `checkpoint`, the film sum, the sample counter and the ray count
+    are saved every `checkpoint_every` samples (default every chunk) and at
+    the end, and a matching checkpoint resumes exactly (counter-based RNG;
+    utils/checkpoint.py). With `telemetry` (utils/telemetry.py's
+    RenderTelemetry), each chunk is timed to a synchronize and logged, as
+    the JAX package does."""
+    from ..utils import checkpoint as ckpt
+
     settings = compiled.settings
-    scene = compiled.data.to(dev)
+    renderer = ChunkRenderer(compiled.data, settings, seed, device)
+    dev = renderer.device
     if spp_chunk is None:
         spp_chunk = default_spp_chunk(settings)
 
     film = torch.zeros((settings.height, settings.width, 3),
                        dtype=torch.float32, device=dev)
     rays = torch.zeros((), dtype=torch.float64, device=dev)
+    total_rays = 0.0  # what the host holds: a checkpoint's, telemetry's
     done = 0
+    if checkpoint:
+        saved = ckpt.load(checkpoint, settings, seed)
+        if saved is not None:
+            film_sum, done, total_rays = saved
+            film = torch.from_numpy(film_sum).to(dev)
+            if progress:
+                print(f"  resumed at {done}/{settings.spp} spp")
+    since_ckpt = 0
     t0 = time.monotonic()
     while done < settings.spp:
+        t_chunk = time.monotonic()
         cur = min(spp_chunk, settings.spp - done)
-        part, chunk_rays = render_chunk(scene, settings, seed, done, cur,
-                                        device=dev)
+        part, chunk_rays = renderer.chunk(done, cur)
         film += part
-        rays += chunk_rays
         done += cur
+        since_ckpt += cur
+        if telemetry is not None:
+            chunk_rays = float(chunk_rays)  # waits for the chunk
+            total_rays += chunk_rays
+            telemetry.log("chunk", spp=cur, done=done, rays=chunk_rays,
+                          seconds=time.monotonic() - t_chunk)
+        else:
+            rays += chunk_rays
+        if checkpoint and (since_ckpt >= max(checkpoint_every, spp_chunk)
+                           or done >= settings.spp):
+            total_rays += float(rays)
+            rays.zero_()
+            ckpt.save(checkpoint, film.cpu().numpy(), done, seed, settings, total_rays)
+            since_ckpt = 0
         if progress:
             print(f"\r  {done}/{settings.spp} spp", end="", flush=True)
     film_np = film.cpu().numpy()
-    total_rays = float(rays)
+    total_rays += float(rays)
     seconds = time.monotonic() - t0
     if progress:
         print()

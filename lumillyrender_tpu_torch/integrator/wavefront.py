@@ -14,8 +14,11 @@ with sky radiance added for missed rays at every depth (`scene.rs:43`).
 is brute force or the plain BVH walk); `make_bounce_step` returns the step
 the render loop runs, which launches a fused bounce kernel on a CUDA device
 (ops/cuda_bounce.py: brute force or BVH) and is the plain step on the
-CPU. The forward loop is a Python loop with one host sync per bounce (the
-"any lane alive" test).
+CPU. The forward stage loop (`run_stage`) is a Python loop with one host
+sync per bounce (the "any lane alive" test) on the CPU, and a fixed number
+of steps with no host read on a CUDA device, which a CUDA graph captures
+(integrator/render.py, `ChunkRenderer`): a bounce leaves a dead lane as it
+is, so the steps past the last live lane change nothing.
 
 The differentiable loop (`differentiable=True` of `trace` and
 `trace_film`, which diff/render.py drives) takes a fixed number of steps
@@ -314,11 +317,29 @@ def _run_fixed(step, state: PathState, n_steps: int,
     return state
 
 
+def run_stage(step, state: PathState, b1: int) -> PathState:
+    """The forward loop of one stage, up to bounce `b1`, as the JAX
+    package's `lax.while_loop` (condition `any(alive) & bounce < b1`)
+    computes it. On the CPU it is that loop, with one host read per bounce.
+    On a CUDA device it takes all `b1 - bounce` steps and reads nothing: a
+    bounce leaves a dead lane's o, d, throughput and accum as they are and
+    counts no ray for it (csrc/bounce_body.cuh), so the steps past the last
+    live lane change neither the state nor the ray count, and a CUDA graph
+    can hold the stage."""
+    if state.o.device.type == "cuda":
+        for _ in range(b1 - state.bounce):
+            state = step(state)
+        return state
+    while state.bounce < b1 and bool(state.alive.any()):
+        state = step(state)
+    return state
+
+
 def trace(scene: SceneData, settings: RenderSettings, o, d, lane, seed,
           differentiable: bool = False, mats_eval=None):
     """Trace radiance for a wavefront of rays (no compaction). Returns
-    (radiance (N,3), rays_traced ()). The forward loop stops when every
-    lane is dead; the differentiable one takes max_bounces steps."""
+    (radiance (N,3), rays_traced ()). The forward loop is one stage of
+    `run_stage`; the differentiable one takes max_bounces steps."""
     n = o.shape[0]
     dev = o.device
     state = PathState(
@@ -334,8 +355,7 @@ def trace(scene: SceneData, settings: RenderSettings, o, d, lane, seed,
     if differentiable:
         state = _run_fixed(step, state, settings.max_bounces, settings)
     else:
-        while state.bounce < settings.max_bounces and bool(state.alive.any()):
-            state = step(state)
+        state = run_stage(step, state, settings.max_bounces)
     return state.accum, state.rays_traced
 
 
@@ -412,7 +432,7 @@ def _compact(state: PathState, width: int, seed, ctr: int,
     # start at 1).
     rank_pos = torch.zeros(n + 1, dtype=torch.int64, device=dev)
     rank_pos[torch.where(state.alive, s, 0).long()] = torch.arange(n, device=dev)
-    rank_pos[0] = 0
+    rank_pos[0].zero_()  # a fill: a CUDA graph can capture it
 
     overflow = a > width
     j = torch.arange(width, dtype=torch.int32, device=dev)
@@ -420,7 +440,9 @@ def _compact(state: PathState, width: int, seed, ctr: int,
         salt = state.lane[0]
     salt = rng.as_u32(salt, dev) ^ 0x5EED5EED
     u = rng.uniform(seed, salt, ctr)
-    ratio = af / torch.tensor(float(width), dtype=torch.float32, device=dev)
+    # A fill, not a copy from the host: a CUDA graph can capture it. (A
+    # host scalar divisor would be a multiply by its reciprocal on CUDA.)
+    ratio = af / torch.full((), float(width), dtype=torch.float32, device=dev)
     g = (j.to(torch.float32) + u) * ratio
     r_over = torch.ceil(g).to(torch.int32)
     r = torch.where(overflow, r_over, j + 1)
@@ -526,16 +548,13 @@ def trace_film(scene: SceneData, settings: RenderSettings, o, d, lane, seed,
             return _bank_rows(film, perm, perm, by_lane, differentiable)
         return _bank_rows(film, to_pixel(st.lane), st.lane, st.accum, differentiable)
 
-    def run_stage(state, b1: int):
+    def stage(state, b1: int):
         if differentiable:
             return _run_fixed(step, state, b1 - state.bounce, settings)
-        # One host sync per bounce: the loop ends when no lane is alive.
-        while state.bounce < b1 and bool(state.alive.any()):
-            state = step(state)
-        return state
+        return run_stage(step, state, b1)
 
     if settings.compaction != "pop-rr":
-        state = run_stage(state, settings.max_bounces)
+        state = stage(state, settings.max_bounces)
         return bank(film, state, ordered=True), state.rays_traced
 
     first = True
@@ -550,6 +569,6 @@ def trace_film(scene: SceneData, settings: RenderSettings, o, d, lane, seed,
             first = False
             state = _compact(state, width, seed, 0x50000000 + si,
                              salt=lane[0])
-        state = run_stage(state, b1)
+        state = stage(state, b1)
     film = bank(film, state, ordered=first)
     return film, state.rays_traced

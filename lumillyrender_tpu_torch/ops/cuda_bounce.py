@@ -27,7 +27,9 @@ tensors it launches its kernel or raises. The launch itself is
 `bounce_bwd_launch` (preallocated outputs, nothing else on the device, so
 it can be timed alone). Each kernel has a launch counter, raised by one per
 launch and nowhere else; `counts()` reads all seven and `reset_counts()`
-zeroes them. The kernels are built by `ops/cuda_build.py`.
+zeroes them. A CUDA graph's replay adds the launches it holds
+(`add_counts`, integrator/render.py), since it runs them without their
+wrappers. The kernels are built by `ops/cuda_build.py`.
 """
 
 from __future__ import annotations
@@ -910,19 +912,27 @@ def make_step_diff(scene: SceneData, settings: RenderSettings, seed,
     return step
 
 
+def _counted() -> dict:
+    """The seven counted wrappers by the names `counts()` gives them."""
+    return {"raygen": generate_rays, "bounce": bounce, "bvh": cuda_bvh.intersect_tris,
+            "bvh_wide": cuda_bvh.intersect_tris_wide,
+            "bvh_streamed": cuda_bvh.intersect_tris_streamed,
+            "bounce_bvh": bounce_bvh, "bounce_bwd": bounce_bwd}
+
+
 def reset_counts():
-    generate_rays.launches = 0
-    bounce.launches = 0
-    cuda_bvh.intersect_tris.launches = 0
-    cuda_bvh.intersect_tris_wide.launches = 0
-    cuda_bvh.intersect_tris_streamed.launches = 0
-    bounce_bvh.launches = 0
-    bounce_bwd.launches = 0
+    for f in _counted().values():
+        f.launches = 0
 
 
 def counts() -> dict:
-    return {"raygen": generate_rays.launches, "bounce": bounce.launches,
-            "bvh": cuda_bvh.intersect_tris.launches,
-            "bvh_wide": cuda_bvh.intersect_tris_wide.launches,
-            "bvh_streamed": cuda_bvh.intersect_tris_streamed.launches,
-            "bounce_bvh": bounce_bvh.launches, "bounce_bwd": bounce_bwd.launches}
+    return {name: f.launches for name, f in _counted().items()}
+
+
+def add_counts(launched: dict):
+    """Add what a CUDA graph's replay launched ({name: launches}, the keys
+    of `counts()`) to the counts: a replay runs the captured launches
+    without their wrappers (integrator/render.py, `ForwardPlan`); a
+    capture, which launches nothing, takes its calls back."""
+    for name, v in launched.items():
+        _counted()[name].launches += v

@@ -22,10 +22,12 @@ _U24 = 1.0 / (1 << 24)
 
 
 def as_u32(x, device=None) -> torch.Tensor:
-    """Python int / int tensor (uint32 bit pattern) -> int64 in [0, 2^32)."""
+    """Python int / int tensor (uint32 bit pattern) -> int64 in [0, 2^32).
+    A Python int becomes a fill on the device, not a copy from the host, so
+    a CUDA graph can capture it."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & _MASK
-    return torch.tensor(int(x) & _MASK, dtype=torch.int64, device=device)
+    return torch.full((), int(x) & _MASK, dtype=torch.int64, device=device)
 
 
 def pcg4d(a, b, c, d):
@@ -55,7 +57,7 @@ def uniform4(seed, lane, ctr):
     dev = lane.device
     s = as_u32(seed, dev)
     c = as_u32(ctr, dev)
-    salt = torch.tensor(_SALT, dtype=torch.int64, device=dev)
+    salt = as_u32(_SALT, dev)
     x0, x1, x2, x3 = pcg4d(lane, c, s, salt)
     return _to_f32(x0), _to_f32(x1), _to_f32(x2), _to_f32(x3)
 

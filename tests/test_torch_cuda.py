@@ -31,7 +31,10 @@ compared on its backward rules' lanes (`bwd_comparable`) within
 `parity.KERNEL_BWD_RTOL` (1e-5) of each cotangent's and table's largest
 magnitude, with the recomputed alive' equal to the forward kernel's on
 every lane and two runs bit-equal; the capability probes' kernels
-(csrc/probes.cu) every output bit-equal.
+(csrc/probes.cu) every output bit-equal; the forward stage loop captured
+as a CUDA graph, every stage-end state and the ray count bit-equal to a
+host loop over the same kernels, the films within chip_smoke.py's film
+gate (the banks add with atomics).
 """
 
 from pathlib import Path
@@ -1230,3 +1233,183 @@ def test_probe_entry_point_runs_on_the_card(card, capsys):
     assert set(probes.counts().values()) == {1}
     out = capsys.readouterr().out
     assert out.count("\nOK ") + out.count("\nFAIL ") == 26
+
+
+# ---------------------------------------------------------------------------
+# The forward stage loop captured as a CUDA graph (integrator/render.py)
+# ---------------------------------------------------------------------------
+
+STATE_FIELDS = ("o", "d", "throughput", "accum", "alive", "lane", "rays_traced")
+
+
+def _films_agree(a, b):
+    """chip_smoke.check_films' gate: |mean| rel < 1e-4 and 99% of pixels
+    within 1e-4 of the film max. Banks after the first add with atomics
+    (index_add), so two runs of one loop differ in the last bits."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    mean_rel = abs(a.mean() - b.mean()) / b.mean()
+    within = (np.abs(a - b) <= 1e-4 * np.abs(b).max()).mean()
+    return mean_rel < 1e-4 and within >= 0.99
+
+
+def _host_loop_chunk(c, step, spp, offset):
+    """One chunk as trace_film ran it with the stage loop on the host (one
+    read of the card per bounce, stopping where no lane is alive), over the
+    same raygen, lane ids, step, `_compact` and banks: (each stage's end
+    state, film_flat, rays)."""
+    from lumillyrender_tpu_torch.integrator.render import global_lanes, tile_decode
+    from lumillyrender_tpu_torch.ops import rng
+    from lumillyrender_tpu_torch.ops.intersect import _use_brute
+
+    st = c.settings
+    w, h = st.width, st.height
+    n, n_pix = w * h * spp, w * h
+    o, d, pdf, g = cuda_bounce.generate_rays(c.data, st, SEED_LOOP, offset, n)
+    lane = global_lanes(st, offset, n, o.device)
+    weight = g * c.data.camera.sensor_sensitivity / pdf
+    state = wavefront.PathState(
+        0, o, d, torch.ones_like(o) * weight[..., None], torch.zeros_like(o),
+        torch.ones(n, dtype=torch.bool, device=o.device),
+        torch.zeros((), device=o.device), lane)
+    decode = tile_decode(st)
+
+    def to_pixel(lanes):
+        lanes = rng.as_u32(lanes) % n_pix
+        if decode is None:
+            return lanes
+        px, py = decode(lanes)
+        return py * w + px
+
+    def bank(film, s, ordered):
+        if ordered and s.accum.shape[0] % n_pix == 0:
+            by_lane = s.accum.reshape(-1, n_pix, 3).sum(dim=0)
+            if decode is None:
+                return film + by_lane
+            return film.index_add(0, to_pixel(torch.arange(n_pix, device=o.device)), by_lane)
+        return film.index_add(0, to_pixel(s.lane), s.accum)
+
+    film = torch.zeros((n_pix, 3), device=o.device)
+    ends, first = [], True
+    plan = wavefront._stage_plan(n, st, aggressive=_use_brute(c.data.geometry, st.intersector))
+    for si, (width, _, b1) in enumerate(plan):
+        if width != state.alive.shape[0]:
+            film = bank(film, state, first)
+            first = False
+            state = wavefront._compact(state, width, SEED_LOOP, 0x50000000 + si, salt=lane[0])
+        while state.bounce < b1 and bool(state.alive.any()):
+            state = step(state)
+        ends.append(state)
+    return ends, bank(film, state, first), state.rays_traced
+
+
+SEED_LOOP = 1234
+LOOP_SCENES = [("new-cbox", 64, 64, 4), ("welcome-geo", 64, 48, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,w,h,spp", LOOP_SCENES, ids=[s[0] for s in LOOP_SCENES])
+def test_graphed_stage_loop_matches_the_host_loop(card, monkeypatch, name, w, h, spp):
+    """A ChunkRenderer's first chunk (eager, then captured) and its second
+    (a graph replay) against the host loop over the same kernels: each
+    stage's end state (o, d, throughput, accum, alive, lane) and the ray
+    count bit-equal, the films within the film gate; the replay adds the
+    captured launches to the counts."""
+    import dataclasses
+
+    from lumillyrender_tpu_torch.integrator.render import ChunkRenderer
+
+    c = compile_scene_file(ASSETS / f"{name}.toml", device=card)
+    c.settings = dataclasses.replace(c.settings, width=w, height=h)
+    ends = []
+    run_stage = wavefront.run_stage
+
+    def recorded(step, state, b1):
+        out = run_stage(step, state, b1)
+        ends.append([getattr(out, k).clone() for k in STATE_FIELDS])
+        return out
+
+    monkeypatch.setattr(wavefront, "run_stage", recorded)
+    renderer = ChunkRenderer(c.data, c.settings, SEED_LOOP, card)
+    film0, rays0 = renderer.chunk(0, spp)
+    stages = len(ends) // 2  # the eager run's, then the capture's
+    eager = [[t.clone() for t in e] for e in ends[:stages]]
+    cuda_bounce.reset_counts()
+    film1, rays1 = renderer.chunk(spp, spp)
+    torch.cuda.synchronize()
+    replayed = [[t.clone() for t in e] for e in ends[stages:]]
+    plan = renderer.plans[spp]
+    assert plan.graph is not None and plan.launches["bounce" if name == "new-cbox"
+                                                   else "bounce_bvh"] > 0
+    assert cuda_bounce.counts() == dict(
+        {k: 0 for k in cuda_bounce.counts()}, raygen=1, **plan.launches)
+    monkeypatch.setattr(wavefront, "run_stage", run_stage)
+
+    step = wavefront.make_bounce_step(renderer.scene, c.settings, SEED_LOOP)
+    n = w * h * spp
+    for got_ends, film, rays, offset in ((eager, film0, rays0, 0),
+                                         (replayed, film1, rays1, spp)):
+        want_ends, want_film, want_rays = _host_loop_chunk(c, step, spp, offset)
+        assert len(got_ends) == len(want_ends) == stages
+        for got, want in zip(got_ends, want_ends):
+            for k, t in zip(STATE_FIELDS, got):
+                assert torch.equal(t, getattr(want, k)), (offset, k)
+        assert torch.equal(rays, want_rays + float(n))
+        assert _films_agree(film.reshape(-1, 3).cpu(), want_film.cpu())
+
+
+@pytest.mark.cuda
+def test_render_reads_nothing_from_the_card_inside_a_chunk(card, monkeypatch):
+    """A four-chunk render under set_sync_debug_mode("error") from its
+    second chunk up to the final copy of the film: no chunk reads the card."""
+    import dataclasses
+    import sys
+
+    from lumillyrender_tpu_torch.integrator import render as render_mod
+
+    c = compile_scene_file(ASSETS / "new-cbox.toml", spp=8, device=card)
+    c.settings = dataclasses.replace(c.settings, width=64, height=64)
+    chunk, cpu = render_mod.ChunkRenderer.chunk, torch.Tensor.cpu
+    seen = {"chunks": 0, "copies": []}
+
+    def counted_chunk(self, offset, spp):
+        seen["chunks"] += 1
+        if seen["chunks"] == 2:
+            torch.cuda.set_sync_debug_mode("error")
+        return chunk(self, offset, spp)
+
+    def final_copy(self, *args, **kwargs):
+        if seen["chunks"] >= 2:  # the first chunk reads the camera, once
+            seen["copies"].append((sys._getframe(1).f_code.co_name, seen["chunks"]))
+            torch.cuda.set_sync_debug_mode(0)
+        return cpu(self, *args, **kwargs)
+
+    monkeypatch.setattr(render_mod.ChunkRenderer, "chunk", counted_chunk)
+    monkeypatch.setattr(torch.Tensor, "cpu", final_copy)
+    try:
+        result = render_mod.render(c, seed=SEED_LOOP, spp_chunk=2, device=card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert seen["chunks"] == 4 and seen["copies"][0] == ("render", 4)
+    assert np.isfinite(result.film).all() and result.film.max() > 0
+
+
+@pytest.mark.cuda
+def test_resume_on_the_card(card, tmp_path):
+    """8 spp at chunk 2 against 4 spp, checkpointed, then resumed to 8."""
+    import dataclasses
+
+    from lumillyrender_tpu_torch.integrator.render import render
+    from lumillyrender_tpu_torch.utils import checkpoint as ckpt
+
+    def scene(spp):
+        c = compile_scene_file(ASSETS / "new-cbox.toml", spp=spp, device=card)
+        c.settings = dataclasses.replace(c.settings, width=64, height=64)
+        return c
+
+    ref = render(scene(8), seed=SEED_LOOP, spp_chunk=2, device=card)
+    ck = tmp_path / "r.ckpt.npz"
+    render(scene(4), seed=SEED_LOOP, spp_chunk=2, device=card, checkpoint=str(ck))
+    assert ckpt.load(ck, scene(8).settings, SEED_LOOP)[1] == 4
+    resumed = render(scene(8), seed=SEED_LOOP, spp_chunk=2, device=card, checkpoint=str(ck))
+    assert resumed.rays == ref.rays
+    assert _films_agree(resumed.film, ref.film)
