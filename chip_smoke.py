@@ -121,8 +121,30 @@ Phases, in order; any failure exits non-zero:
      stage-end state (o, d, throughput, accum, alive, lane) and the ray
      count bit-equal, the films through check_films' gate; beside phases
      6, 10 and 19's chunk ms, busy ms, idle share, launches per chunk,
-     capture seconds and pool bytes, the host loop's ms per chunk; then one
-     `{"kernels": [...]}` line for all 30 kernels.
+     capture seconds and pool bytes, the host loop's ms per chunk;
+ 22. data parallelism over ranks (lumillyrender_tpu_torch/parallel/shard.py):
+     a world-size-1 NCCL group runs render_sharded on new-cbox at full size
+     (32 and 16 spp a chunk) against render in chunks of the same size
+     (launch counts and ray count equal, no plain step, the film within
+     1e-5 of its max: the banks add with atomics, so not bit for bit),
+     with its all-reduce's ms a chunk and rays/s beside phase 6's; then
+     sharded_train_step at 4 spp against film_and_grads on the same
+     offsets (loss and every gradient bit-equal, 80 bounce and 80
+     bounce_bwd launches); then two ranks in two processes of this script
+     (`--dp-rank`) sharing the card over gloo, which all-reduces the CUDA
+     tensors: each rank's launches half the one-rank run's, the film
+     within 1e-5 of its max;
+ 23. vr.toml on the card: the omnidirectional raygen against its plain
+     version at 2,097,152 lanes (random bits equal, g = pdf = 1), timed
+     beside its bound; the full-size render (256x128, 16 spp) through the
+     CLI with its launch counts and no plain step; 64x32 x 8 spp films,
+     kernel path twice and plain path once;
+ 24. the simple sky (meridian and horizon blended by |d.y|) in kernels 2
+     and 4: new-cbox and welcome-geo under it, against the plain step on
+     random states at full width, bounces 0, 3, 7, 70, timed beside the
+     scene's own sky on one state; small films of each, kernel path twice
+     and plain path once; then one `{"kernels": [...]}` line for all 30
+     kernels.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
@@ -130,6 +152,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -1622,7 +1645,6 @@ def huge_meshes(card, lap):
     kernels' entries)."""
     from lumillyrender_tpu_torch.accel import native
     from lumillyrender_tpu_torch.accel.pack import build_tri_bvh
-    from lumillyrender_tpu_torch.integrator import wavefront
     from lumillyrender_tpu_torch.integrator.render import (
         ChunkRenderer, camera_lanes, default_spp_chunk, render,
     )
@@ -1760,16 +1782,8 @@ def huge_meshes(card, lap):
                         ("terrain-1.5m --aov depth", l_15, "bvh_streamed")):
         if got[k] < chunks:
             fail(f"{tag}: {got[k]} {k} launches for {chunks} chunks")
-    small = dataclasses.replace(c1, settings=dataclasses.replace(
-        c1.settings, width=64, height=64, spp=4))
-    f_k = render(small, seed=SEED, device=dev).film
-    f_k2 = render(small, seed=SEED, device=dev).film
-    f_p, _ = trace_chunk(
-        small, 0, 4, cuda_bounce.plain_generate_rays,
-        lambda s: wavefront.plain_bounce_step(small.data, small.settings, SEED, s))
-    f_p = f_p.reshape(64, 64, 3).cpu().numpy() / 4
-    films = check_films("terrain-1m 64^2x4", {
-        "kernel run vs kernel run": (f_k2, f_k), "kernel path vs plain path": (f_k, f_p)})
+    small = resized(c1, 64, 64, 4)
+    films = kernel_vs_plain_films("terrain-1m 64^2x4", small)
     small_aov = dataclasses.replace(small, settings=dataclasses.replace(
         small.settings, integrator="depth"))
     a_k = render(small_aov, seed=SEED, device=dev).film
@@ -2153,6 +2167,299 @@ def capability_probes(card, lap):
     return dict(cases=rows, launches=launches, **answers), kernels
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism, vr.toml and the simple sky (phases 22-24)
+# ---------------------------------------------------------------------------
+
+# The films of two ranks against one rank's, which sums the same samples in
+# another order: within 1e-5 of the film's max (and of 1).
+DP_FILM_TOL = 1e-5
+DP_RANKS = 2
+DP_SPP_PER_RANK = 16  # phase 22's one-rank reference renders chunks of this too
+# A simple sky whose horizon is not zero (tests/test_camera.py's colours).
+SIMPLE_MERIDIAN = (0.1, 0.2, 0.9)
+SIMPLE_HORIZON = (0.9, 0.8, 0.7)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_rank(rank: int, world: int, port: int, out: Path) -> int:
+    """One of phase 22's ranks, started as `chip_smoke.py --dp-rank R
+    --dp-world N --dp-port P --dp-out FILE`: the new-cbox film over a gloo
+    group whose ranks share the card, its launch counts zeroed just before
+    and read just after; writes what it measured to FILE (.npz)."""
+    if not torch.cuda.is_available():
+        return 2
+    sys.path.insert(0, str(REPO))
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+    from lumillyrender_tpu_torch.parallel import shard
+    from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
+
+    shard.init_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    try:
+        cbox = compile_scene_file(REPO / "assets" / "new-cbox.toml", device="cuda")
+        with PlainCalls() as plain:
+            cuda_bounce.reset_counts()
+            r = shard.render_sharded(cbox, seed=SEED, spp_per_device=DP_SPP_PER_RANK)
+            torch.cuda.synchronize()
+            launches = cuda_bounce.counts()
+    finally:
+        shard.dist.destroy_process_group()
+    np.savez(out, film=r.film, rays=r.rays, seconds=r.seconds, reduce_ms=r.reduce_ms,
+             plain_calls=plain.calls,
+             launches=json.dumps(launches))
+    return 0
+
+
+def with_simple_sky(c):
+    """`c` (a CompiledScene on the card) under the simple sky."""
+    dev = c.data.sky.color.device
+    sky = dataclasses.replace(c.data.sky, color=torch.tensor(SIMPLE_MERIDIAN, device=dev),
+                              color2=torch.tensor(SIMPLE_HORIZON, device=dev))
+    from lumillyrender_tpu_torch.scene.data import SKY_SIMPLE
+
+    return dataclasses.replace(c, data=dataclasses.replace(c.data, sky=sky),
+                               settings=dataclasses.replace(c.settings, sky_kind=SKY_SIMPLE))
+
+
+def resized(c, w, h, spp):
+    """`c` at a w x h film of `spp` samples."""
+    return dataclasses.replace(c, settings=dataclasses.replace(
+        c.settings, width=w, height=h, spp=spp))
+
+
+def kernel_vs_plain_films(tag, small):
+    """`small` (a CompiledScene at a small film): the kernel path twice and
+    the plain path once, all on the card, through check_films."""
+    from lumillyrender_tpu_torch.integrator import wavefront
+    from lumillyrender_tpu_torch.integrator.render import render
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    st = small.settings
+    f_k = render(small, seed=SEED, device="cuda").film
+    f_k2 = render(small, seed=SEED, device="cuda").film
+    f_p, _ = trace_chunk(
+        small, 0, st.spp, cuda_bounce.plain_generate_rays,
+        lambda s: wavefront.plain_bounce_step(small.data, st, SEED, s))
+    f_p = f_p.reshape(st.height, st.width, 3).cpu().numpy() / st.spp
+    return check_films(tag, {
+        "kernel run vs kernel run": (f_k2, f_k), "kernel path vs plain path": (f_k, f_p)})
+
+
+def data_parallel(card, lap, cbox, phase6_rate) -> dict:
+    """Phase 22: render_sharded and sharded_train_step on the card."""
+    from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
+    from lumillyrender_tpu_torch.diff.render import leaves
+    from lumillyrender_tpu_torch.integrator.render import render
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+    from lumillyrender_tpu_torch.parallel import shard
+
+    phase("22 data parallelism over ranks (parallel/shard.py; new-cbox 256^2 x 64 spp)")
+    t0 = time.monotonic()
+    st = cbox.settings
+    report = {}
+    if not shard.init_distributed(f"127.0.0.1:{free_port()}", 1, 0):
+        fail("init_distributed did not join a group")
+    try:
+        print(f"one rank: backend {shard.dist.get_backend()}, world {shard.ranks()[1]}")
+        for spd in (32, DP_SPP_PER_RANK):
+            with PlainCalls() as plain:
+                cuda_bounce.reset_counts()
+                dp = shard.render_sharded(cbox, seed=SEED, spp_per_device=spd)
+                torch.cuda.synchronize()
+                dp_launches = cuda_bounce.counts()
+            cuda_bounce.reset_counts()
+            ref = render(cbox, seed=SEED, spp_chunk=spd, device="cuda")
+            torch.cuda.synchronize()
+            ref_launches = cuda_bounce.counts()
+            bit_equal = bool(np.array_equal(dp.film, ref.film))
+            max_abs = float(np.abs(dp.film - ref.film).max())
+            # Not bit-equal: the banks add with atomics (two renders differ so).
+            tol = DP_FILM_TOL * max(1.0, float(np.abs(ref.film).max()))
+            print(f"render_sharded, 1 rank (NCCL), {spd} spp a chunk: launches {dp_launches}, "
+                  f"plain calls {plain.calls}; render's launches {ref_launches}; rays "
+                  f"{dp.rays:.0f} vs {ref.rays:.0f}; film bit-equal {bit_equal}, max |diff| "
+                  f"{max_abs:.3e} (limit {tol:.1e}); all-reduce {dp.reduce_ms:.4f} ms a chunk; "
+                  f"rays/s over the film {dp.rays_per_second:.4e} (render "
+                  f"{ref.rays_per_second:.4e}; phase 6, captured chunks alone "
+                  f"{phase6_rate:.4e})  [{card}]")
+            if (dp_launches != ref_launches or plain.calls or dp.rays != ref.rays
+                    or dp_launches["bounce"] < 1 or dp_launches["raygen"] < 1
+                    or not max_abs <= tol):
+                fail(f"render_sharded on one rank is not render ({spd} spp a chunk)")
+            report[f"one_rank_{spd}"] = dict(
+                launches=dp_launches, render_launches=ref_launches, rays=dp.rays,
+                film_bit_equal=bit_equal, film_max_abs=max_abs, film_tol=tol,
+                reduce_ms=dp.reduce_ms, rays_per_s=dp.rays_per_second,
+                render_rays_per_s=ref.rays_per_second, seconds=dp.seconds)
+            if spd == DP_SPP_PER_RANK:
+                one_rank = (dp.film, dp_launches)
+
+        spp = 4
+        p_true = params_of(cbox.data)
+        with torch.no_grad():
+            target = render_diff(cbox.data, st, p_true, 0, spp)
+        p = p_true._replace(materials=dataclasses.replace(
+            p_true.materials, color=p_true.materials.color * 0.8))
+        with PlainCalls() as plain:
+            cuda_bounce.reset_counts()
+            loss, grads = shard.sharded_train_step(cbox.data, st, p, target, np.arange(spp))
+            torch.cuda.synchronize()
+            step_launches = cuda_bounce.counts()
+        cuda_bounce.reset_counts()
+        loss_ref, _, grads_ref = film_and_grads(cbox.data, st, p, target, 0, spp)
+        torch.cuda.synchronize()
+        ref_launches = cuda_bounce.counts()
+        step_equal = bool(torch.equal(loss, loss_ref) and all(
+            torch.equal(a, b) for a, b in zip(leaves(grads), leaves(grads_ref))))
+        print(f"sharded_train_step, 1 rank, 256^2 x {spp} spp: loss {float(loss):.6e} vs "
+              f"film_and_grads {float(loss_ref):.6e}; loss and every gradient bit-equal "
+              f"{step_equal}; launches {step_launches} (film_and_grads {ref_launches}), plain "
+              f"calls {plain.calls}")
+        if (not step_equal or step_launches["bounce"] != 80 or step_launches["bounce_bwd"] != 80
+                or step_launches != ref_launches or plain.calls):
+            fail("sharded_train_step on one rank is not film_and_grads")
+        report["train_step"] = dict(loss=float(loss), bit_equal=step_equal,
+                                    launches=step_launches)
+    finally:
+        shard.dist.destroy_process_group()
+
+    port = free_port()
+    outs = [OUT / f"dp_rank{r}.npz" for r in range(DP_RANKS)]
+    logs = [open(OUT / f"dp_rank{r}.log", "w") for r in range(DP_RANKS)]
+    # gloo's ranks meet on the loopback device: the machine may have no other.
+    env = dict(os.environ, GLOO_SOCKET_IFNAME=os.environ.get("GLOO_SOCKET_IFNAME", "lo"))
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank",
+                               str(r), "--dp-world", str(DP_RANKS), "--dp-port", str(port),
+                               "--dp-out", str(outs[r])], stdout=logs[r],
+                              stderr=subprocess.STDOUT, cwd=str(REPO), env=env)
+             for r in range(DP_RANKS)]
+    try:
+        codes = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if any(codes):
+        print("\n".join((OUT / f"dp_rank{r}.log").read_text()[-3000:] for r in range(DP_RANKS)))
+        fail(f"the {DP_RANKS} gloo ranks exited with {codes}")
+    film1, launches1 = one_rank
+    ranks = []
+    for r, path in enumerate(outs):
+        got = np.load(path)
+        launches = json.loads(str(got["launches"]))
+        gap = float(np.abs(got["film"] - film1).max())
+        tol = DP_FILM_TOL * max(1.0, float(np.abs(film1).max()))
+        rec = dict(launches=launches, film_max_abs=gap, rays=float(got["rays"]),
+                   seconds=float(got["seconds"]), reduce_ms=float(got["reduce_ms"]),
+                   plain_calls=int(got["plain_calls"]))
+        ranks.append(rec)
+        half = {k: v / DP_RANKS for k, v in launches1.items()}
+        print(f"rank {r} of {DP_RANKS} (gloo, one card shared): launches {launches} (half of "
+              f"one rank's: {half}), plain calls {rec['plain_calls']}; film max |diff| from one "
+              f"rank's {gap:.3e} (limit {tol:.1e}); all-reduce {rec['reduce_ms']:.4f} ms a chunk; "
+              f"rays/s "
+              f"{rec['rays'] / rec['seconds']:.4e}  [{card}]")
+        if launches != half or rec["plain_calls"] or gap > tol:
+            fail(f"rank {r} of the gloo group: {rec}")
+    report["gloo_ranks"] = ranks
+    lap("data parallelism", t0)
+    return report
+
+
+def vr_on_card(card, lap, raygen_err) -> tuple[dict, float]:
+    """Phase 23: the omnidirectional camera (vr.toml) on the card."""
+    from lumillyrender_tpu_torch.integrator.render import global_lanes
+    from lumillyrender_tpu_torch.ops import cuda_bounce, rng
+    from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
+
+    phase("23 vr.toml on the card (the omnidirectional camera: raygen's equirect branch)")
+    t0 = time.monotonic()
+    dev = torch.device("cuda")
+    assets = REPO / "assets"
+    vr = compile_scene_file(assets / "vr.toml", device=dev)
+    st = vr.settings
+    n = 1 << 21
+    spp = n // (st.width * st.height)
+    uni = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    o, d, pdf, g = cuda_bounce.generate_rays(vr.data, st, SEED, 0, n, uniforms=uni)
+    o_p, d_p, pdf_p, g_p = cuda_bounce.plain_generate_rays(vr.data, st, SEED, 0, n)
+    u_p = torch.stack(rng.uniform4(SEED, global_lanes(st, 0, n, dev), 0x40000000), 1)
+    torch.cuda.synchronize()
+    bits_equal = torch.equal(uni.view(torch.int32), u_p.view(torch.int32))
+    rel = lambda a, b: ((a - b).abs() / b.abs().clamp(min=1.0)).max().item()
+    errs = dict(o=rel(o, o_p), d=rel(d, d_p), g=rel(g, g_p), pdf=rel(pdf, pdf_p))
+    raygen_err = max(raygen_err, (o - o_p).abs().max().item(), (d - d_p).abs().max().item())
+    unit = bool((g == 1).all() and (pdf == 1).all())
+    print(f"vr 256x128x{spp} omnidirectional: lanes {n}, rng bits equal {bits_equal}, g = pdf = "
+          f"1 {unit}, max rel err " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    # As phase 3: the card's sinf/cosf against PyTorch's, an ulp apart.
+    if not bits_equal or not unit or max(errs.values()) > 1e-5:
+        fail(f"the omnidirectional raygen disagrees with its plain version: {errs}")
+    ms = graph_ms(lambda: cuda_bounce.raygen_launch(vr.data, st, SEED, 0, o, d))
+    plain_ms = events_ms(lambda: cuda_bounce.plain_generate_rays(vr.data, st, SEED, 0, n), 3)
+    bound = 24 * n / HBM_BYTES_PER_S * 1e3
+    print(f"omnidirectional raygen at {n} lanes: {ms:.4f} ms/launch (bare launch), bound "
+          f"{bound:.4f} ms (bytes), plain {plain_ms:.3f} ms  [{card}]")
+    del o, d, uni, o_p, d_p, u_p
+    result, launches = run_main_path(
+        "vr", [str(assets / "vr.toml"), "--out", str(OUT / "vr.png")],
+        want=("raygen", "bounce"), must_be_zero=("bvh", "bounce_bvh"))
+    if result.film.shape != (128, 256, 3):
+        fail(f"vr film shape {result.film.shape}")
+    films = kernel_vs_plain_films("vr 64x32x8", resized(vr, 64, 32, 8))
+    lap("vr", t0)
+    return dict(raygen=dict(errs=errs, bits_equal=bits_equal, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound, lanes=n),
+                cli_launches=launches, cli_rays_per_s=result.rays_per_second,
+                film_checks=films), raygen_err
+
+
+def simple_sky(card, lap, cbox, geo) -> tuple[dict, float, float]:
+    """Phase 24: kernels 2 and 4 under the simple sky."""
+    from lumillyrender_tpu_torch.integrator.render import default_spp_chunk
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    phase("24 the simple sky in kernels 2 and 4 (new-cbox, welcome-geo)")
+    t0 = time.monotonic()
+    report, errs = {}, {}
+    for name, c, kernel, launch, bvh in (
+            ("new-cbox", cbox, cuda_bounce.bounce, cuda_bounce.bounce_launch, False),
+            ("welcome-geo", geo, cuda_bounce.bounce_bvh, cuda_bounce.bounce_bvh_launch, True)):
+        cs = with_simple_sky(c)
+        n = cs.settings.width * cs.settings.height * default_spp_chunk(cs.settings)
+        err = 0.0
+        for b in (0, 3, 7, 70):
+            state = random_state(cs.data, n, 4000 * b + len(name), b)
+            m = check_bounce(f"{name} simple sky@b{b}", cs, kernel, state)
+            err = max(err, *m["max_abs"].values())
+        errs[name] = err
+        # The bare launch at full width under the simple sky and under the
+        # scene's own sky, on the same state.
+        state = random_state(cs.data, n, 4100, 3)
+        times = {}
+        for tag, cc in (("simple", cs), ("own sky", c)):
+            tables = cuda_bounce.pack_tables(cc.data, bvh=bvh)
+            out = cuda_bounce._step_out(state)
+            times[tag] = graph_ms(lambda: launch(cc.data, cc.settings, SEED, state, tables, out))
+        print(f"{name} at {n} lanes, bounce 3: {times['simple']:.4f} ms/launch under the simple "
+              f"sky, {times['own sky']:.4f} under its own sky (bare launch)  [{card}]")
+        w, h, spp = (64, 64, 8) if name == "new-cbox" else (64, 48, 4)
+        report[name] = dict(lanes=n, ms=times, max_abs=err, film_checks=kernel_vs_plain_films(
+            f"{name} simple sky {w}x{h}x{spp}", resized(cs, w, h, spp)))
+    lap("simple sky", t0)
+    return report, errs["new-cbox"], errs["welcome-geo"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -2160,7 +2467,6 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from lumillyrender_tpu_torch import cli
     from lumillyrender_tpu_torch.constants import EPS, INF
-    from lumillyrender_tpu_torch.integrator import wavefront
     from lumillyrender_tpu_torch.integrator.render import (
         ChunkRenderer, default_spp_chunk, global_lanes, render,
     )
@@ -2284,16 +2590,7 @@ def main() -> int:
     _, cbox_launches = run_main_path(
         "new-cbox", [str(assets / "new-cbox.toml"), "--out", str(OUT / "new-cbox.png")],
         want=("raygen", "bounce"), must_be_zero=("bvh", "bounce_bvh"))
-    small = dataclasses.replace(cbox, settings=dataclasses.replace(
-        cbox.settings, width=64, height=64, spp=8))
-    f_k = render(small, seed=SEED, device=dev).film
-    f_k2 = render(small, seed=SEED, device=dev).film
-    f_p, _ = trace_chunk(
-        small, 0, 8, cuda_bounce.plain_generate_rays,
-        lambda s: wavefront.plain_bounce_step(small.data, small.settings, SEED, s))
-    f_p = f_p.reshape(64, 64, 3).cpu().numpy() / 8
-    cbox_films = check_films("new-cbox 64^2x8", {
-        "kernel run vs kernel run": (f_k2, f_k), "kernel path vs plain path": (f_k, f_p)})
+    cbox_films = kernel_vs_plain_films("new-cbox 64^2x8", resized(cbox, 64, 64, 8))
     cli_files = cli_checkpoint_telemetry_profile(assets / "new-cbox.toml")
     lap("new-cbox render", t0)
 
@@ -2438,16 +2735,8 @@ def main() -> int:
         want=("raygen", "bvh"), must_be_zero=("bounce", "bounce_bvh"))
     if not normal_result.film.max() <= 1.0:
         fail("the normal AOV leaves [0, 1]")
-    small = dataclasses.replace(geo, settings=dataclasses.replace(
-        gst, width=64, height=48, spp=4))
-    f_k = render(small, seed=SEED, device=dev).film
-    f_k2 = render(small, seed=SEED, device=dev).film
-    f_p, _ = trace_chunk(
-        small, 0, 4, cuda_bounce.plain_generate_rays,
-        lambda s: wavefront.plain_bounce_step(small.data, small.settings, SEED, s))
-    f_p = f_p.reshape(48, 64, 3).cpu().numpy() / 4
-    geo_films = check_films("welcome-geo 64x48x4", {
-        "kernel run vs kernel run": (f_k2, f_k), "kernel path vs plain path": (f_k, f_p)})
+    small = resized(geo, 64, 48, 4)
+    geo_films = kernel_vs_plain_films("welcome-geo 64x48x4", small)
     # The depth AOV: the kernel path's film against the plain walk's.
     small_aov = dataclasses.replace(small, settings=dataclasses.replace(
         small.settings, integrator="depth"))
@@ -2618,6 +2907,12 @@ def main() -> int:
     del terrain_1m
     lap("stage loop", t0)
 
+    dp_report = data_parallel(card, lap, cbox, rays_per_s)
+    vr_report, raygen_err = vr_on_card(card, lap, raygen_err)
+    sky_report, sky_err, sky_bvh_err = simple_sky(card, lap, cbox, geo)
+    bounce_err = max(bounce_err, sky_err)
+    bvh_bounce_err = max(bvh_bounce_err, sky_bvh_err)
+
     kernels = [
         dict(name="raygen", route="cuda",
              source="lumillyrender_tpu_torch/csrc/raygen.cu",
@@ -2668,6 +2963,7 @@ def main() -> int:
                       backward_by_width={str(w): {k: v for k, v in r.items()}
                                          for w, r in bwd_widths.items()}),
         huge_meshes=big_report, probes=probe_report, stage_loop=stage_loop, cli_files=cli_files,
+        data_parallel=dp_report, vr=vr_report, simple_sky=sky_report,
         kernels=kernels, ptxas=ptxas_report,
         phase_seconds=secs,
         seconds=time.monotonic() - t_start)
@@ -2681,5 +2977,18 @@ def main() -> int:
     return 0
 
 
+def dp_rank_args(argv) -> int:
+    """Phase 22's rank mode: `--dp-rank R --dp-world N --dp-port P --dp-out
+    FILE` (started by phase 22 itself)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(prog="chip_smoke.py")
+    for flag, kind in (("--dp-rank", int), ("--dp-world", int), ("--dp-port", int),
+                       ("--dp-out", Path)):
+        parser.add_argument(flag, type=kind, required=True)
+    a = parser.parse_args(argv)
+    return dp_rank(a.dp_rank, a.dp_world, a.dp_port, a.dp_out)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dp_rank_args(sys.argv[1:]) if sys.argv[1:] else main())

@@ -82,9 +82,10 @@ extern "C" int llr_bounce(const float* o_in, const float* d_in, const float* thr
                           float total_area, int n, int bounce,
                           uint32_t seed, int flags, float rr_scale, float sky_r, float sky_g,
                           float sky_b, const float* ibl, int ibl_w, int ibl_h, float lon,
+                          float hor_r, float hor_g, float hor_b, int simple,
                           int instance, int group, const float* small_rows, void* stream) {
   const Scene sc{sph, ns, mats, mats_eval, nm, lights, nl, total_area, V3{sky_r, sky_g, sky_b},
-                 ibl, ibl_w, ibl_h, lon};
+                 ibl, ibl_w, ibl_h, lon, V3{hor_r, hor_g, hor_b}, simple != 0};
   const bool small = (instance & INSTANCE_SMALL) != 0;
   if ((small && (small_rows == nullptr || nt > kSmallTris || ns > kSmallSpheres)) ||
       !(group == 1 || group == 2 || group == 4 || group == 8 || group == 16)) {

@@ -1,5 +1,5 @@
 // The body of one bounce per lane, written once for both intersectors:
-// nearest hit, sky on miss (uniform or IBL), front-face emission, Russian
+// nearest hit, sky on miss (uniform, IBL or simple), front-face emission, Russian
 // roulette, next-event estimation (CDF light pick, point on light, capped
 // shadow ray, no-MIS contribution), BSDF sample/eval/coef for the five
 // families, and the throughput / accum / alive update. One thread per lane,
@@ -84,10 +84,12 @@ struct Scene {
   const float* lights;
   int nl;
   float total_area;
-  V3 sky;           // uniform sky radiance
+  V3 sky;           // uniform sky radiance; the simple sky's meridian colour
   const float* ibl;  // (h*w, 3) equirect texture, or null for the uniform sky
   int ibl_w, ibl_h;
   float lon;  // IBL longitude offset, radians
+  V3 horizon;   // the simple sky's horizon colour
+  bool simple;  // the simple sky: meridian and horizon blended by |d.y|
 };
 
 struct Hit {
@@ -311,7 +313,13 @@ __device__ __forceinline__ float floor_mod(float a, float b) {
   return m;
 }
 
+// The simple sky, ops/sky.py::simple_radiance in its order of operations:
+// meridian * w + horizon * (1 - w), w = |d.y|.
 __device__ __forceinline__ V3 sky_radiance(const Scene& sc, V3 d) {
+  if (sc.simple) {
+    const float w = fabsf(d.y);
+    return add(scale(sc.sky, w), scale(sc.horizon, 1.0f - w));
+  }
   if (sc.ibl == nullptr) return sc.sky;
   const float theta = acosf(fminf(fmaxf(d.y, -1.0f), 1.0f));
   const float phi = atan2f(d.z, d.x);

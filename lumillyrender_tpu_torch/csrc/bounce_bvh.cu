@@ -121,9 +121,10 @@ extern "C" int llr_bounce_bvh(const float* o_in, const float* d_in, const float*
                               float total_area, int n, int bounce,
                               uint32_t seed, int flags, float rr_scale, float sky_r, float sky_g,
                               float sky_b, const float* ibl, int ibl_w, int ibl_h, float lon,
+                              float hor_r, float hor_g, float hor_b, int simple,
                               void* stream) {
   const Scene sc{sph, ns, mats, mats_eval, nm, lights, nl, total_area, V3{sky_r, sky_g, sky_b},
-                 ibl, ibl_w, ibl_h, lon};
+                 ibl, ibl_w, ibl_h, lon, V3{hor_r, hor_g, hor_b}, simple != 0};
   const BvhTables b{nodes, leaves, ids, k};
   if (k >= kWarpWalkMinK) {
     return launch_bounce<FAM_ALL>(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out,

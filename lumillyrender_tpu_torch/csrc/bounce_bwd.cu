@@ -383,7 +383,7 @@ extern "C" int llr_bounce_bwd(const float* o_in, const float* d_in, const float*
                               int instance, const float* small_rows, float* partial,
                               int max_blocks, unsigned* ticket, void* stream) {
   const Scene sc{sph, ns, mats, mats_eval, nm, lights, nl, total_area, V3{sky_r, sky_g, sky_b},
-                 nullptr, 0, 0, 0.f};
+                 nullptr, 0, 0, 0.f, V3{0.f, 0.f, 0.f}, false};
   const bool small = (instance & INSTANCE_SMALL) != 0;
   if ((small && (small_rows == nullptr || nt > kSmallTris || ns > kSmallSpheres)) ||
       max_blocks < 1) {

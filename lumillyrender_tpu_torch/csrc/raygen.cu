@@ -2,16 +2,20 @@
 //
 // Replaces the TPU kernel lumillyrender_tpu/ops/pallas_bounce.py::_raygen_kernel.
 // Per lane: the tile (or raster) pixel decode of integrator/render.py, pcg4d
-// at counter 0x40000000, and the sensor/aperture math of ops/camera.py for
-// the ideal pinhole, the thin lens and the realistic pinhole. Outputs o, d
+// at counter 0x40000000, and the camera math of ops/camera.py for all four
+// kinds: the ideal pinhole, the thin lens, the realistic pinhole and the
+// omnidirectional camera (an equirect direction from the aperture position
+// that ignores the camera basis, quirk #13 of ops/camera.py). Outputs o, d
 // (N,3), for the finite-aperture kinds the geometry term g (N,), and, when
-// asked, the lane's four random numbers (N,4).
+// asked, the lane's four random numbers (N,4). The ideal pinhole and the
+// omnidirectional camera have g = pdf = 1 and write no g.
 //
 // Bound on an H100: a pure store. 24 B/lane (28 with g) written, nothing
 // read; the arithmetic (one pcg4d, a few divisions, a sqrt, sin/cos for
-// the aperture kinds) is far below the FP32 rate. The design keeps the
-// stores coalesced (consecutive threads write consecutive 12-byte rows)
-// and reads the camera as a kernel argument, so no load reaches memory.
+// the aperture and omnidirectional kinds) is far below the FP32 rate. The
+// design keeps the stores coalesced (consecutive threads write consecutive
+// 12-byte rows) and reads the camera as a kernel argument, so no load
+// reaches memory.
 //
 // Rounding: built with -fmad=false and IEEE division and sqrt, and the
 // direction is normalised by dividing by the norm, as the plain version
@@ -24,7 +28,7 @@ struct CameraRow {
                 // aperture_radius | focus_distance | aperture_sensor_distance | pad
 };
 
-enum { CAM_IDEAL_PINHOLE = 0, CAM_THIN_LENS = 1, CAM_PINHOLE = 3 };
+enum { CAM_IDEAL_PINHOLE = 0, CAM_THIN_LENS = 1, CAM_OMNIDIRECTIONAL = 2, CAM_PINHOLE = 3 };
 
 __global__ void __launch_bounds__(256) raygen_kernel(
     float* __restrict__ o_out, float* __restrict__ d_out, float* __restrict__ g_out,
@@ -56,8 +60,17 @@ __global__ void __launch_bounds__(256) raygen_kernel(
     ul[3] = v2;
   }
 
-  const V3 pos = v3(cam.v[0], cam.v[1], cam.v[2]);
   const V3 ap = v3(cam.v[3], cam.v[4], cam.v[5]);
+  if (kind == CAM_OMNIDIRECTIONAL) {
+    // Longitude p over [0, 2pi), colatitude t over [0, pi), z up.
+    const float p = ((float)px + u) / (float)w * LLR_TWO_PI;
+    const float t = ((float)py + v) / (float)h * LLR_PI;
+    const float st = sinf(t), ct = cosf(t);
+    store3(o_out, lane, ap);
+    store3(d_out, lane, v3(st * cosf(p), st * sinf(p), ct));
+    return;
+  }
+  const V3 pos = v3(cam.v[0], cam.v[1], cam.v[2]);
   const V3 right = v3(cam.v[6], cam.v[7], cam.v[8]);
   const V3 up = v3(cam.v[11], cam.v[12], cam.v[13]);
   const V3 fwd = v3(cam.v[14], cam.v[15], cam.v[16]);

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from ..scene.compiler import CompiledScene
-from ..scene.data import CAM_IDEAL_PINHOLE, RenderSettings, SceneData, resolve_device
+from ..ops.camera import aperture_pdf, samples_aperture
+from ..scene.data import RenderSettings, SceneData, resolve_device
 from .wavefront import aov, make_bounce_step, trace_film, u32_to_i32
 
 TILE = 32  # max camera-lane tile side
@@ -125,8 +126,8 @@ class ForwardPlan:
         f32 = torch.float32
         self.o = torch.empty((n, 3), dtype=f32, device=dev)
         self.d = torch.empty((n, 3), dtype=f32, device=dev)
-        ideal = settings.camera_kind == CAM_IDEAL_PINHOLE
-        self.g = None if ideal else torch.empty(n, dtype=f32, device=dev)
+        aperture = samples_aperture(settings.camera_kind)
+        self.g = torch.empty(n, dtype=f32, device=dev) if aperture else None
         self.lane_base = torch.arange(n, dtype=torch.int64, device=dev)
         self.lane_offset = torch.zeros((), dtype=torch.int64, device=dev)
         self.pixel_fn = _pixel_fn(settings)
@@ -140,8 +141,6 @@ class ForwardPlan:
         """The captured work: lane ids from the offset, camera weights,
         then trace_film's stages, as `ChunkRenderer.chunk` computes them on
         the CPU."""
-        from ..ops.camera import aperture_pdf
-
         st, scene, n = self.settings, self.scene, self.n
         lane = u32_to_i32((self.lane_base + self.lane_offset) & 0xFFFFFFFF)
         if self.g is None:
@@ -269,7 +268,7 @@ def default_spp_chunk(settings: RenderSettings, budget_lanes: int = 1 << 21) -> 
 
 def render(compiled: CompiledScene, seed: int = 0, spp_chunk: int | None = None,
            progress: bool = False, device=None, checkpoint: str | None = None,
-           checkpoint_every: int = 0, telemetry=None) -> RenderResult:
+           checkpoint_every: int = 0, telemetry=None, chunk_fn=None) -> RenderResult:
     """Render the film on `device` (default `cuda`; raises without a card).
 
     Chunks are submitted with no host sync between them: the film and the
@@ -279,7 +278,10 @@ def render(compiled: CompiledScene, seed: int = 0, spp_chunk: int | None = None,
     the end, and a matching checkpoint resumes exactly (counter-based RNG;
     utils/checkpoint.py). With `telemetry` (utils/telemetry.py's
     RenderTelemetry), each chunk is timed to a synchronize and logged, as
-    the JAX package does."""
+    the JAX package does. With `chunk_fn(renderer, done)`, each chunk is
+    what it returns for the `spp_chunk` samples from `done` on, the tail
+    chunk padded to full size and the film divided by the samples rendered
+    (parallel/shard.py: this rank's block, summed over the ranks)."""
     from ..utils import checkpoint as ckpt
 
     settings = compiled.settings
@@ -304,8 +306,12 @@ def render(compiled: CompiledScene, seed: int = 0, spp_chunk: int | None = None,
     t0 = time.monotonic()
     while done < settings.spp:
         t_chunk = time.monotonic()
-        cur = min(spp_chunk, settings.spp - done)
-        part, chunk_rays = renderer.chunk(done, cur)
+        if chunk_fn is None:
+            cur = min(spp_chunk, settings.spp - done)
+            part, chunk_rays = renderer.chunk(done, cur)
+        else:
+            cur = spp_chunk
+            part, chunk_rays = chunk_fn(renderer, done)
         film += part
         done += cur
         since_ckpt += cur

@@ -20,6 +20,14 @@ from ..scene.data import (
 from . import vec
 
 
+def samples_aperture(kind: int) -> bool:
+    """Whether camera `kind` samples a sensor point and an aperture point,
+    so that its rays carry `aperture_pdf` and a geometry term g: the thin
+    lens and the realistic pinhole. The ideal pinhole and the
+    omnidirectional camera have g = pdf = 1."""
+    return kind not in (CAM_IDEAL_PINHOLE, CAM_OMNIDIRECTIONAL)
+
+
 def aperture_pdf(cam: CameraData, width: int, height: int) -> torch.Tensor:
     """Constant sampling pdf of the finite-aperture kinds: sensor area per
     pixel times aperture disk (`camera.rs:411-445`). A 0-d tensor."""

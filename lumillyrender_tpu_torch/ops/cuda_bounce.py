@@ -43,12 +43,11 @@ import numpy as np
 import torch
 
 from ..scene.data import (
-    CAM_IDEAL_PINHOLE,
-    CAM_OMNIDIRECTIONAL,
     MAT_LAMBERT,
     MaterialTable,
     RenderSettings,
     SKY_IBL,
+    SKY_SIMPLE,
     SKY_UNIFORM,
     SceneData,
 )
@@ -63,22 +62,9 @@ from .intersect import _use_brute
 # ---------------------------------------------------------------------------
 
 
-def raygen_supported(settings: RenderSettings) -> tuple[bool, str]:
-    """(ok, reason) for the raygen kernel: every camera but the
-    omnidirectional one."""
-    if settings.camera_kind == CAM_OMNIDIRECTIONAL:
-        return False, ("the omnidirectional camera on the card comes in a "
-                       "later slice (queue 1 of ROADMAP.md)")
-    return True, ""
-
-
 def _shading_supported(settings: RenderSettings) -> tuple[bool, str]:
     """(ok, reason) for what both bounce kernels shade: pt or pt-direct
-    under a uniform or IBL sky."""
-    if settings.sky_kind not in (SKY_UNIFORM, SKY_IBL):
-        return False, ("the simple sky on the card comes in a later slice "
-                       "(queue 1 of ROADMAP.md); the card serves uniform "
-                       "and IBL skies")
+    under any sky (uniform, IBL or simple)."""
     if settings.integrator not in ("pt", "pt-direct"):
         return False, (f"integrator {settings.integrator!r} has no bounce "
                        "kernel: the AOVs run intersect and shade_point")
@@ -86,8 +72,8 @@ def _shading_supported(settings: RenderSettings) -> tuple[bool, str]:
 
 
 def bounce_supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
-    """(ok, reason) for the bounce kernels: pt or pt-direct under a uniform
-    or IBL sky, on a brute-force scene (bounce.cu) or a BVH scene of any
+    """(ok, reason) for the bounce kernels: pt or pt-direct under any sky,
+    on a brute-force scene (bounce.cu) or a BVH scene of any
     leaf width (bounce_bvh.cu: the compiler's 128-wide leaves through the
     warp walk, its 32-wide ones through the per-thread walk, at any table
     size). Lights and materials have no cap (binary-search light pick,
@@ -97,14 +83,10 @@ def bounce_supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, 
 
 def supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
     """(ok, reason): whether the card's forward path serves this scene:
-    raygen, then the bounce kernels (pt, pt-direct) or, for the AOV
-    integrators, `intersect` (PyTorch brute force, or the sphere pre-pass
-    and the BVH walk that `ops/intersect.py::bvh_route` picks: per-thread,
-    wide or streamed). The reason names the later slice of the port that
-    will."""
-    ok, why = raygen_supported(settings)
-    if not ok:
-        return ok, why
+    raygen (every camera kind), then the bounce kernels (pt, pt-direct) or,
+    for the AOV integrators, `intersect` (PyTorch brute force, or the
+    sphere pre-pass and the BVH walk that `ops/intersect.py::bvh_route`
+    picks: per-thread, wide or streamed)."""
     if settings.integrator in ("normal", "depth"):
         return True, ""
     return bounce_supported(scene, settings)
@@ -121,10 +103,14 @@ def _diff_scene(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
                        "slice (queue 1 of ROADMAP.md); the JAX package runs it as "
                        "autodiff of the XLA step with the BVH kernel's VJP")
     if settings.sky_kind != SKY_UNIFORM:
-        return False, ("a differentiable scene under an IBL sky on the card comes "
+        sky = SKY_NAMES.get(settings.sky_kind, f"sky kind {settings.sky_kind}")
+        return False, (f"a differentiable scene under {sky} on the card comes "
                        "in a later slice (queue 1 of ROADMAP.md); the JAX package "
                        "runs it as autodiff of the XLA step")
     return True, ""
+
+
+SKY_NAMES = {SKY_IBL: "an IBL sky", SKY_SIMPLE: "the simple sky"}
 
 
 def _lambert_only(settings: RenderSettings) -> bool:
@@ -223,17 +209,17 @@ def generate_rays(scene: SceneData, settings: RenderSettings, seed,
     on a CUDA device; the plain version on the CPU. A float32 (n, 4)
     `uniforms` tensor on the card receives the kernel's four random numbers
     per lane (for checking them against `rng.uniform4`)."""
-    from .camera import aperture_pdf
+    from .camera import aperture_pdf, samples_aperture
 
     dev = scene.camera.position.device
     if dev.type == "cpu":
         return plain_generate_rays(scene, settings, seed, sample_offset, n)
     o = torch.empty((n, 3), dtype=torch.float32, device=dev)
     d = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    ideal = settings.camera_kind == CAM_IDEAL_PINHOLE
-    g = None if ideal else torch.empty(n, dtype=torch.float32, device=dev)
+    aperture = samples_aperture(settings.camera_kind)
+    g = torch.empty(n, dtype=torch.float32, device=dev) if aperture else None
     raygen_launch(scene, settings, seed, sample_offset, o, d, g, uniforms)
-    if ideal:
+    if not aperture:
         g = torch.ones(n, dtype=torch.float32, device=dev)
         pdf = torch.ones(n, dtype=torch.float32, device=dev)
     else:
@@ -248,11 +234,12 @@ def raygen_launch(scene: SceneData, settings: RenderSettings, seed,
                   uniforms: torch.Tensor | None = None):
     """The raygen kernel alone, for o.shape[0] lanes: writes `o` and `d`
     ((n,3) float32 on the card) and, for the aperture cameras, `g` ((n,)
-    float32; None for the ideal pinhole, whose g is 1). `generate_rays`
-    allocates these and adds pdf and g; this is the launch it counts."""
+    float32; None for the ideal pinhole and the omnidirectional camera,
+    whose g is 1). `generate_rays` allocates these and adds pdf and g; this
+    is the launch it counts."""
     from ..integrator.render import tile_dims
+    from .camera import samples_aperture
 
-    _require(raygen_supported(settings))
     n = o.shape[0]
     dev = o.device
     if dev.type != "cuda":
@@ -266,8 +253,7 @@ def raygen_launch(scene: SceneData, settings: RenderSettings, seed,
                               or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous {shape} float32 "
                              f"tensor on {dev}")
-    ideal = settings.camera_kind == CAM_IDEAL_PINHOLE
-    if (g is None) != ideal:
+    if (g is None) == samples_aperture(settings.camera_kind):
         raise ValueError("g is written for the aperture cameras only")
     w, h = settings.width, settings.height
     tw, th = tile_dims(settings) or (0, 0)
@@ -389,7 +375,7 @@ def pack_tables(scene: SceneData, bvh: bool = False,
     with `bvh`, also the BVH kernel's tables (csrc/bvh_walk.cuh), which only
     the BVH bounce reads. For the brute-force kernels' instances, the
     material `families` present and, for a scene within the small sweep's
-    caps, the host copy of its prim rows (`small`). The sky colour, total
+    caps, the host copy of its prim rows (`small`). The sky colours, total
     light area, material types and small prim rows are read to the host
     here, once: a launch reads nothing from the card. A test or a tool may
     add "instance" (an Instance) and "group" (threads per lane) to fix
@@ -406,6 +392,7 @@ def pack_tables(scene: SceneData, bvh: bool = False,
         lights=_rows([lt.is_tri, lt.p0, lt.e1, lt.e2, lt.c, lt.r, lt.cdf], 16),
         total_area=float(lt.total_area.detach()),
         sky=[float(x) for x in scene.sky.color.detach().cpu()],
+        horizon=[float(x) for x in scene.sky.color2.detach().cpu()],
         ibl=scene.sky.ibl.detach().to(f32).contiguous(),
         lon=float(scene.sky.longitude_offset.detach()),
         families=tuple(sorted(set(scene.materials.type_id.tolist()))),
@@ -500,7 +487,7 @@ def _launch(kernel: str, scene: SceneData, settings: RenderSettings, seed,
              tables["lights"])
     ibl = settings.sky_kind == SKY_IBL
     h, w = tables["ibl"].shape[:2]
-    sky = tables["sky"]
+    sky, hor = tables["sky"], tables["horizon"]
     rc = cuda_build.fn(kernel)(
         _ptr(state.o), _ptr(state.d), _ptr(state.throughput),
         _ptr(state.accum), _ptr(alive_in), _ptr(lane_in),
@@ -511,7 +498,8 @@ def _launch(kernel: str, scene: SceneData, settings: RenderSettings, seed,
         _ptr(tables["lights"]), tables["lights"].shape[0],
         tables["total_area"], n, b, int(seed) & 0xFFFFFFFF, flags, rr_scale,
         sky[0], sky[1], sky[2], _ptr(tables["ibl"]) if ibl else None, w, h,
-        tables["lon"], *extra, cuda_build.stream(),
+        tables["lon"], hor[0], hor[1], hor[2], int(settings.sky_kind == SKY_SIMPLE),
+        *extra, cuda_build.stream(),
     )
     cuda_build.check(rc, kernel)
 

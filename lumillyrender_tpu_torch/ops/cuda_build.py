@@ -43,10 +43,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
-# The sky arguments every bounce entry point ends with: uniform colour,
-# equirect texture (null for a uniform sky), its width and height, the
-# longitude offset, then the stream.
-_SKY = [_F, _F, _F, _P, _I, _I, _F, _P]
+# The sky arguments the forward bounce entry points end with: uniform (or
+# the simple sky's meridian) colour, equirect texture (null for a uniform
+# or simple sky), its width and height, the longitude offset, the simple
+# sky's horizon colour and whether the sky is the simple one, then the
+# stream.
+_SKY = [_F, _F, _F, _P, _I, _I, _F, _F, _F, _F, _I, _P]
 # The bounce entry points start with the PathState in and out (12 pointers)
 # and share this tail: spheres, the sampling and evaluation material tables,
 # lights, total light area, lanes, bounce, seed, flags, RR scale.

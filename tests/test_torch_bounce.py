@@ -11,6 +11,7 @@
 The CUDA kernels against their plain versions: tests/test_torch_cuda.py.
 """
 
+import dataclasses
 import types
 
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ from lumillyrender_tpu.integrator.wavefront import make_bounce_step as jax_step
 from lumillyrender_tpu.ops import pallas_bounce
 from lumillyrender_tpu.scene.compiler import compile_scene as jax_compile_scene
 from lumillyrender_tpu.scene.compiler import compile_scene_file as jax_compile
+from lumillyrender_tpu.scene.data import SKY_SIMPLE
 from lumillyrender_tpu.scene.loader import parse_config as jax_parse
 from lumillyrender_tpu_torch.convert import (
     scene_from_numpy,
@@ -43,12 +45,21 @@ torch.set_num_threads(2)
 
 SEED = 77
 BOUNCES = (0, 3, 7, 70)
-SCENES = ["new-cbox", "primitive", "debug-nee", "brdf", "families"]
+# "simple-sky" is new-cbox under a simple sky (meridian and horizon
+# blended by |d.y|), which the compiler gives no asset of its own.
+SCENES = ["new-cbox", "primitive", "debug-nee", "brdf", "families", "simple-sky"]
 
 
 def _jax_compiled(assets_dir, name):
     if name == "families":
         return jax_compile_scene(jax_parse(GGX_REFR_SCENE), spp=1)
+    if name == "simple-sky":
+        c = jax_compile(assets_dir / "new-cbox.toml", spp=1)
+        c.data = dataclasses.replace(c.data, sky=dataclasses.replace(
+            c.data.sky, color=jnp.asarray([0.1, 0.2, 0.9], jnp.float32),
+            color2=jnp.asarray([0.9, 0.8, 0.7], jnp.float32)))
+        c.settings = dataclasses.replace(c.settings, sky_kind=SKY_SIMPLE)
+        return c
     return jax_compile(assets_dir / f"{name}.toml", spp=1)
 
 

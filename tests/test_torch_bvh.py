@@ -244,8 +244,8 @@ def test_intersect_tris_on_cpu_is_the_plain_walk():
 def test_wide_leaves_are_refused():
     """A K=128 BVH (the compiler's layout from 650,000 triangles) is no
     longer refused on the card: the bounce kernels serve it with their
-    per-thread walk and the AOVs with the wide walk. What is still
-    refused names its later slice: the simple sky."""
+    per-thread walk and the AOVs with the wide walk, under every sky: the
+    simple sky too."""
     import dataclasses
 
     from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
@@ -262,8 +262,9 @@ def test_wide_leaves_are_refused():
     for integrator in ("pt", "pt-direct", "depth", "normal"):
         assert cuda_bounce.supported(
             scene, dataclasses.replace(st, integrator=integrator)) == (True, "")
-    ok, reason = cuda_bounce.supported(scene, dataclasses.replace(st, sky_kind=SKY_SIMPLE))
-    assert not ok and "simple sky" in reason and "slice" in reason
+    for integrator in ("pt", "pt-direct", "depth", "normal"):
+        simple = dataclasses.replace(st, sky_kind=SKY_SIMPLE, integrator=integrator)
+        assert cuda_bounce.supported(scene, simple) == (True, "")
 
 
 
@@ -399,9 +400,13 @@ def test_terrain_generator_matches_tools():
         np.testing.assert_array_equal(a, b)
 
 
+# A simple sky (tests/test_camera.py's): meridian and horizon blended by |d.y|.
+SIMPLE_SKY = 'type = "simple"\nmeridian = [0.1, 0.2, 0.9]\nhorizon = [0.9, 0.8, 0.7]'
+
+
 def _terrain(terrain_dir, integrator, sky_kind, assets_dir):
-    sky = (terrain.UNIFORM_SKY if sky_kind == "uniform" else
-           terrain.ibl_sky(assets_dir / "models" / "ibl" / "test_sky.hdr"))
+    sky = {"uniform": terrain.UNIFORM_SKY, "simple": SIMPLE_SKY}.get(sky_kind) or \
+        terrain.ibl_sky(assets_dir / "models" / "ibl" / "test_sky.hdr")
     toml = terrain.terrain_scene_toml(integrator, sky)
     return jax_compile_scene(jax_parse(toml, base_dir=terrain_dir))
 
@@ -412,6 +417,7 @@ def _port_state(parts, bounce):
 
 @pytest.mark.parametrize("integrator,sky", [
     ("pt-direct", "uniform"), ("pt", "uniform"), ("pt-direct", "ibl"), ("pt", "ibl"),
+    ("pt-direct", "simple"),
 ])
 def test_plain_step_matches_jax_step_on_terrain(terrain_dir, assets_dir, integrator, sky):
     ref = _terrain(terrain_dir, integrator, sky, assets_dir)

@@ -1413,3 +1413,83 @@ def test_resume_on_the_card(card, tmp_path):
     resumed = render(scene(8), seed=SEED_LOOP, spp_chunk=2, device=card, checkpoint=str(ck))
     assert resumed.rays == ref.rays
     assert _films_agree(resumed.film, ref.film)
+
+
+@pytest.mark.cuda
+def test_raygen_omnidirectional_matches_plain(card):
+    """vr.toml's omnidirectional camera: the kernel's equirect branch
+    against camera.sample_rays; random bits and origins exact, directions
+    within 2e-7 plus the card's sinf/cosf against PyTorch's (1e-6), and
+    g = pdf = 1 on both sides."""
+    c = compile_scene_file(ASSETS / "vr.toml", device=card)
+    n = c.settings.width * c.settings.height * 4
+    uni = torch.empty((n, 4), dtype=torch.float32, device=card)
+    o, d, pdf, g = cuda_bounce.generate_rays(c.data, c.settings, 5, 8, n, uniforms=uni)
+    o_p, d_p, pdf_p, g_p = cuda_bounce.plain_generate_rays(c.data, c.settings, 5, 8, n)
+    torch.cuda.synchronize()
+    assert cuda_bounce.counts()["raygen"] >= 1
+    assert torch.equal(o, o_p)
+    assert (d - d_p).abs().max().item() < 1e-6
+    assert torch.equal(pdf, pdf_p) and torch.equal(g, g_p) and bool((g == 1).all())
+
+
+def _simple_sky(c):
+    """`c` under a simple sky with a horizon colour that is not zero."""
+    import dataclasses
+
+    from lumillyrender_tpu_torch.scene.data import SKY_SIMPLE
+
+    dev = c.data.sky.color.device
+    c.data = dataclasses.replace(c.data, sky=dataclasses.replace(
+        c.data.sky, color=torch.tensor([0.1, 0.2, 0.9], device=dev),
+        color2=torch.tensor([0.9, 0.8, 0.7], device=dev)))
+    c.settings = dataclasses.replace(c.settings, sky_kind=SKY_SIMPLE)
+    return c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kernel", [("new-cbox", "bounce"), ("welcome-geo", "bounce_bvh")])
+@pytest.mark.parametrize("bounce", [0, 7])
+def test_simple_sky_bounce_kernels_match_plain(card, name, kernel, bounce):
+    """Kernels 2 and 4 under the simple sky against the plain step."""
+    c = _simple_sky(compile_scene_file(ASSETS / f"{name}.toml", device=card))
+    st = state_from_numpy(bounce, *_random_state(c.data, 65536, 40 + bounce), device=card)
+    got = getattr(cuda_bounce, kernel)(c.data, c.settings, 77, st)
+    want = wavefront.plain_bounce_step(c.data, c.settings, 77, st)
+    torch.cuda.synchronize()
+    m = parity.agreement(want, got)
+    assert parity.failures(m) == [], m
+    missed = ~want.alive & st.alive
+    assert bool(missed.any())  # lanes that escaped to the sky
+
+
+@pytest.mark.cuda
+def test_render_sharded_on_one_rank_is_render(card):
+    """A world-size-1 NCCL group: render_sharded's ray count bit-equal to
+    `render`'s in chunks of the same size, with the same launches, and its
+    film within 1e-5 of the film's max (the forward banks add with atomics,
+    so two runs of `render` itself may differ in the last bits)."""
+    import dataclasses
+    import socket
+
+    from lumillyrender_tpu_torch.integrator.render import render
+    from lumillyrender_tpu_torch.parallel import shard
+
+    c = compile_scene_file(ASSETS / "new-cbox.toml", spp=8, device=card)
+    c.settings = dataclasses.replace(c.settings, width=64, height=64)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert shard.init_distributed(f"127.0.0.1:{port}", 1, 0, device=card)
+    try:
+        cuda_bounce.reset_counts()
+        got = shard.render_sharded(c, seed=SEED_LOOP, spp_per_device=2, device=card)
+        sharded_counts = cuda_bounce.counts()
+    finally:
+        shard.dist.destroy_process_group()
+    cuda_bounce.reset_counts()
+    want = render(c, seed=SEED_LOOP, spp_chunk=2, device=card)
+    assert cuda_bounce.counts() == sharded_counts and sharded_counts["bounce"] > 0
+    assert got.world == 1 and got.reduce_ms is not None
+    assert got.rays == want.rays
+    assert np.abs(got.film - want.film).max() <= 1e-5 * max(1.0, np.abs(want.film).max())

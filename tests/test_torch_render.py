@@ -17,7 +17,7 @@ from lumillyrender_tpu_torch.io.image import read_png
 from lumillyrender_tpu_torch.ops import cuda_bounce
 from lumillyrender_tpu_torch.ops.intersect import _use_brute, bvh_route
 from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
-from lumillyrender_tpu_torch.scene.data import SKY_SIMPLE
+from lumillyrender_tpu_torch.scene.data import SKY_IBL, SKY_SIMPLE
 
 torch.set_num_threads(2)
 
@@ -120,7 +120,8 @@ def test_import_pulls_in_no_jax():
         "import sys, lumillyrender_tpu_torch, lumillyrender_tpu_torch.cli, "
         "lumillyrender_tpu_torch.convert, lumillyrender_tpu_torch.parity, "
         "lumillyrender_tpu_torch.ops.cuda_bounce, lumillyrender_tpu_torch.ops.cuda_bvh, "
-        "lumillyrender_tpu_torch.ops.cuda_build, lumillyrender_tpu_torch.scene.terrain\n"
+        "lumillyrender_tpu_torch.ops.cuda_build, lumillyrender_tpu_torch.scene.terrain, "
+        "lumillyrender_tpu_torch.parallel.shard\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'lumillyrender_tpu' or m.startswith('lumillyrender_tpu.')]\n"
         "print(bad)\n"
@@ -146,17 +147,33 @@ def test_default_device_needs_a_card(assets_dir):
     ("vr", "omnidirectional"),
 ])
 def test_supported_rejects_later_slices(assets_dir, name, why):
-    """The card serves uniform and IBL skies (ibl-material is on the card),
-    not the simple sky, whose reason names the skies it does serve; nor the
-    omnidirectional camera."""
+    """The card's forward path refuses none of the scenes it once left to
+    later slices: the omnidirectional camera of vr.toml (raygen's
+    equirect branch) and the simple sky (the bounce kernels' blend), here
+    under ibl-material's IBL scene and vr's."""
     c = compile_scene_file(assets_dir / f"{name}.toml", spp=1, device="cpu")
-    if name == "ibl-material":
-        assert cuda_bounce.supported(c.data, c.settings) == (True, "")
-        c.settings = dataclasses.replace(c.settings, sky_kind=SKY_SIMPLE)
-    ok, reason = cuda_bounce.supported(c.data, c.settings)
-    assert not ok and why in reason and "slice" in reason
-    with pytest.raises(NotImplementedError, match="slice"):
-        cuda_bounce.require_supported(c.data, c.settings)
+    for sky in (c.settings.sky_kind, SKY_SIMPLE):
+        st = dataclasses.replace(c.settings, sky_kind=sky)
+        for integrator in ("pt", "pt-direct", "depth", "normal"):
+            st = dataclasses.replace(st, integrator=integrator)
+            assert cuda_bounce.supported(c.data, st) == (True, ""), (why, sky, integrator)
+            cuda_bounce.require_supported(c.data, st)
+
+
+@pytest.mark.parametrize("sky,words", [(SKY_IBL, "an IBL sky"),
+                                       (SKY_SIMPLE, "the simple sky")])
+def test_diff_scene_names_the_sky_it_refuses(assets_dir, sky, words):
+    """The differentiable steps on the card take the uniform sky alone; the
+    reason for any other names that sky."""
+    c = compile_scene_file(assets_dir / "new-cbox.toml", spp=1, device="cpu")
+    assert cuda_bounce.diff_supported(c.data, c.settings) == (True, "")
+    st = dataclasses.replace(c.settings, sky_kind=sky)
+    for check in (cuda_bounce._diff_scene, cuda_bounce.diff_supported,
+                  cuda_bounce.hybrid_supported):
+        ok, reason = check(c.data, st)
+        assert not ok and words in reason and "slice" in reason, (check, reason)
+    other = "the simple sky" if sky == SKY_IBL else "an IBL sky"
+    assert other not in cuda_bounce._diff_scene(c.data, st)[1]
 
 
 def test_supported_rejects_bvh_scenes(assets_dir):

@@ -9,7 +9,8 @@ headers beside them) with this tree's nvcc flags into this tree's
 `lumillyrender_tpu_torch/build/` under other library names, beside this
 tree's kernels, and loads them (an entry point of an earlier signature,
 before the brute-force kernels took an instance or kernel 4 the leaves'
-valid counts, is called with it).
+valid counts, or the forward entries the simple sky's arguments, is called
+with it).
 
 Forward cases, on one chunk traced with this tree's kernel, the first state
 of each stage width kept:
@@ -72,6 +73,10 @@ EARLIER_ARGTYPES = {
     "llr_bounce_bwd": [_P] * 14 + [_P, _I] + _SHADE + [_F, _F, _F, _P],
     "llr_bounce_bvh": [_P] * 12 + [_P, _P, _P, _I] + _SHADE + [_F, _F, _F, _P, _I, _I, _F, _P],
 }
+# The simple sky's four arguments (horizon colour, the flag) of the forward
+# entries, by position; a source without `hor_r` predates them and is called
+# without them.
+SIMPLE_SKY_ARGS = {"bounce": range(34, 38), "bounce_bvh": range(37, 41)}
 # What a source of the current signature holds and an earlier one lacks.
 CURRENT_MARK = {"bounce": "small_rows", "bounce_bwd": "small_rows",
                 "bounce_bvh": "const int32_t* counts"}
@@ -125,6 +130,12 @@ def build_parents(src: Path, names) -> dict:
         fn = getattr(lib, f"llr_{name}")
         fn.argtypes = (EARLIER_ARGTYPES if earlier else cuda_build.ARGTYPES)[f"llr_{name}"]
         fn.restype = ctypes.c_int
+        cu = (src / "lumillyrender_tpu_torch" / "csrc" / cuda_build.SOURCES[name]).read_text()
+        if not earlier and name in SIMPLE_SKY_ARGS and "hor_r" not in cu:
+            drop = SIMPLE_SKY_ARGS[name]
+            fn.argtypes = [t for i, t in enumerate(fn.argtypes) if i not in drop]
+            fn = (lambda f, drop: lambda *a: f(*(x for i, x in enumerate(a) if i not in drop)))(
+                fn, drop)
         built[name] = (fn, log, earlier)
     return built
 
