@@ -143,8 +143,28 @@ Phases, in order; any failure exits non-zero:
      and 4: new-cbox and welcome-geo under it, against the plain step on
      random states at full width, bounces 0, 3, 7, 70, timed beside the
      scene's own sky on one state; small films of each, kernel path twice
-     and plain path once; then one `{"kernels": [...]}` line for all 30
-     kernels.
+     and plain path once;
+ 25. differentiable BVH, IBL and simple-sky scenes (cuda_bounce.
+     make_step_hybrid: kernel 4 or 2 forward, autograd of the plain step
+     recomputed on the input state backward, its walk kernel 3 or 7
+     through the plane-equation VJP): FD vs AD on welcome-geo at 64x48 x 4
+     spp (the albedo, the IBL texel the paths reach most, the thin lens's
+     focus distance); film_and_grads on welcome-geo at 512x368 x 4 spp with
+     its counts zeroed just before and read just after (80 bounce_bvh and
+     160 bvh launches, the plain step only inside the 80 recomputes, no
+     plain walk), two runs bit-equal, against the plain path (the plain
+     walk) within TRAIN_PLAIN_RTOL; its step timed at 4 and 16 spp (ms, rays/s,
+     busy and idle share, peak memory, kernel 3's launches and ms in the
+     backward, the row gathers' gradient scatters) and those scatters
+     alone at full width (autograd's index_put_, index_add_ and the
+     port's table.scatter_rows); ibl-material at
+     320x240 x 4 spp (kernel 2, all families), new-cbox and welcome-geo
+     under the simple sky (the gradients in its two colours) and terrain-1m
+     at 64x64 x 1 spp (kernel 4 at K=128 forward, kernel 7 in the
+     backward), each against the plain path; the example
+     examples/invert_materials_torch.py at its defaults (the albedo error
+     falls by more than 2x); then one `{"kernels": [...]}` line for all
+     30 kernels.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
@@ -527,19 +547,34 @@ def check_films(tag, films):
 
 class PlainCalls:
     """Counts calls of the plain step, the plain backward and the plain BVH
-    walk while open, so a kernel-path run can show that it ran none."""
+    walk while open, so a kernel-path run can show that it ran none
+    (`calls`). The hybrid step's backward runs the plain step by design,
+    once a bounce, inside `cuda_bounce.recompute`: those calls are counted
+    apart (`recomputes`, one a recompute), and a plain walk counts in
+    `calls` wherever it runs."""
 
     def __enter__(self):
         from lumillyrender_tpu_torch.integrator import wavefront
         from lumillyrender_tpu_torch.ops import cuda_bounce, intersect
 
         self.calls = 0
+        self.recomputes = 0
+        self.inside = 0
         self.saved = [(m, name, getattr(m, name)) for m, name in (
             (wavefront, "plain_bounce_step"), (intersect, "_walk_tris"),
-            (cuda_bounce, "plain_bounce_bwd"))]
+            (cuda_bounce, "plain_bounce_bwd"), (cuda_bounce, "recompute"))]
         for mod, name, fn in self.saved:
-            def counted(*a, _fn=fn, **k):
-                self.calls += 1
+            def counted(*a, _fn=fn, _name=name, **k):
+                if _name == "recompute":
+                    self.inside += 1
+                    try:
+                        return _fn(*a, **k)
+                    finally:
+                        self.inside -= 1
+                if _name == "plain_bounce_step" and self.inside:
+                    self.recomputes += 1
+                else:
+                    self.calls += 1
                 return _fn(*a, **k)
             setattr(mod, name, counted)
         return self
@@ -1097,27 +1132,60 @@ def set_leaf(p, part, field, idx, v):
     return p._replace(**{part: dataclasses.replace(getattr(p, part), **{field: t})})
 
 
-def fd_vs_ad(tag, c, part, field, idx, eps, atol, rtol):
-    """tests/test_diff.py's gate on the card: central differences at three
-    steps (the median) against pixel_grad of the mean film, sampling
-    pinned at theta0."""
+def fd_vs_ad(c, cases, device="cuda") -> dict:
+    """tests/test_diff.py's gate on the card: for each case {tag: (part,
+    field, index, eps, atol, rtol[, interior])}, central differences at
+    three steps (the median) against pixel_grad of the mean film, sampling
+    pinned at theta0 (one AD gradient for the cases of the whole film). An
+    index of None takes the element whose AD gradient is largest (an IBL
+    texel that the paths reach most). With `interior`, both sides take the
+    mean over the pixels whose three central differences agree within 10%
+    (no edge or texel border crossed inside the steps), where the
+    detached-sampling gradient, which leaves such boundary terms out, and
+    FD measure the same thing; at least half the pixels must be kept."""
     from lumillyrender_tpu_torch.diff import params_of, pixel_grad, render_diff
 
     p0 = params_of(c.data)
     spp = c.settings.spp
-    f = lambda p: float(render_diff(c.data, c.settings, p, 21, spp, params_sample=p0).mean())
-    g = pixel_grad(c.data, c.settings, p0, 21, spp, lambda film: film.mean(), params_sample=p0)
-    g_ad = float(getattr(getattr(g, part), field)[idx])
-    v0 = float(getattr(getattr(p0, part), field)[idx])
-    central = lambda e: (f(set_leaf(p0, part, field, idx, v0 + e))
-                         - f(set_leaf(p0, part, field, idx, v0 - e))) / (2 * e)
-    g_fd = float(np.median([central(eps / 2), central(eps), central(2 * eps)]))
-    ok = np.isfinite(g_ad) and np.isfinite(g_fd) and abs(g_ad - g_fd) < atol + rtol * abs(g_fd)
-    print(f"FD vs AD, {tag}: AD {g_ad:.7g}, FD {g_fd:.7g}, rel {abs(g_ad - g_fd) / max(abs(g_fd), 1e-30):.2e}"
-          f" (limit {atol:g} + {rtol:g} |FD|)" + ("" if ok else "  FAIL"))
-    if not ok:
-        fail(f"FD vs AD on the kernel path, {tag}")
-    return dict(ad=g_ad, fd=g_fd)
+    film = lambda p: render_diff(c.data, c.settings, p, 21, spp, params_sample=p0,
+                                 device=device)
+    grad = lambda select: pixel_grad(c.data, c.settings, p0, 21, spp, select,
+                                     params_sample=p0, device=device)
+    g_all = grad(lambda f: f.mean())
+    out = {}
+    for tag, (part, field, idx, eps, atol, rtol, *interior) in cases.items():
+        g = g_all
+        if idx is None:
+            ga = getattr(getattr(g, part), field)
+            idx = tuple(int(i) for i in np.unravel_index(int(ga.argmax()), tuple(ga.shape)))
+        idx = idx if isinstance(idx, tuple) else (idx,)
+        v0 = float(getattr(getattr(p0, part), field)[idx])
+        fd = torch.stack([(film(set_leaf(p0, part, field, idx, v0 + e))
+                           - film(set_leaf(p0, part, field, idx, v0 - e))) / (2 * e)
+                          for e in (eps / 2, eps, 2 * eps)])
+        med = fd.median(dim=0).values
+        keep = torch.ones(med.shape[:2], dtype=torch.bool, device=med.device)
+        if interior and interior[0]:
+            spread = fd.max(dim=0).values - fd.min(dim=0).values
+            keep = (spread <= 0.1 * med.abs() + 1e-4 * med.abs().max()).all(dim=-1)
+            mask = keep[..., None].to(med.dtype)
+            g = grad(lambda f: (f * mask).sum() / (mask.sum() * 3))
+            g_fd = float((med * mask).sum() / (mask.sum() * 3))
+        else:
+            g_fd = float(np.median([float(fd[k].mean()) for k in range(3)]))
+        g_ad = float(getattr(getattr(g, part), field)[idx])
+        kept = float(keep.float().mean())
+        ok = (np.isfinite(g_ad) and np.isfinite(g_fd) and abs(g_ad - g_fd) < atol + rtol * abs(g_fd)
+              and kept >= 0.5)
+        rel = abs(g_ad - g_fd) / max(abs(g_fd), 1e-30)
+        print(f"FD vs AD, {tag} ({part}.{field}{list(idx)}): AD {g_ad:.7g}, FD {g_fd:.7g}, rel "
+              f"{rel:.2e} (limit {atol:g} + {rtol:g} |FD|)"
+              + (f", over the {kept:.2%} of pixels without a boundary crossed" if kept < 1 else "")
+              + ("" if ok else "  FAIL"))
+        if not ok:
+            fail(f"FD vs AD on the kernel path, {tag}")
+        out[tag] = dict(ad=g_ad, fd=g_fd, rel=rel, index=list(idx), pixels_kept=kept)
+    return out
 
 
 class PlainDiffStep:
@@ -1275,12 +1343,14 @@ def train_new_cbox(cb, spp):
 
 def device_busy(fn):
     """(busy device ms of one `fn()`, {kernel name: (ms, launches)}) from
-    the profiler's kernel records."""
+    the profiler's kernel records. Only the card's activity is traced: a
+    training step runs tens of thousands of PyTorch ops, whose host-side
+    records cost the profiler far more time than the step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     by_name = {}
@@ -1288,15 +1358,19 @@ def device_busy(fn):
         if getattr(e, "device_type", None) == DeviceType.CUDA:
             t, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    if not by_name:
+        fail("the profiler recorded no kernel on the card")
     return sum(t for t, _ in by_name.values()), by_name
 
 
-def time_train_step(cb, spp, p, target, steps):
+def time_train_step(cb, spp, p, target, steps, tag="256^2", top=8):
     """fwd+bwd rays/s of the training step at `spp` per step, counted as
     bench.py counts them (camera, live bounce and NEE shadow rays of the
     forward sweep), over `steps` steps after a warm-up (host clock around
     work that ends in a synchronize), each step at its own seed; the step
-    time; the idle share of one profiled step."""
+    time; the peak device memory of one step (max_memory_allocated past
+    what was held before it); the idle share of one profiled step and its
+    kernels by name ({name: (ms, launches)})."""
     from lumillyrender_tpu_torch.diff import render_diff
     from lumillyrender_tpu_torch.diff.render import leaves, map_params
 
@@ -1312,18 +1386,21 @@ def time_train_step(cb, spp, p, target, steps):
 
     step(SEED + 50)
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     rays = [step(SEED + 51 + k) for k in range(steps)]
     torch.cuda.synchronize()
     window = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() - held
     total = sum(float(r) for r in rays)
     step_ms = window / steps * 1e3
     busy, by_name = device_busy(lambda: step(SEED + 99))
     idle = 1.0 - busy / step_ms
-    print(f"training step 256^2 x {spp} spp: {step_ms:.4f} ms per step (mean of {steps}), "
+    print(f"training step {tag} x {spp} spp: {step_ms:.4f} ms per step (mean of {steps}), "
           f"{total / steps:.0f} rays per step: {total / window:.6e} fwd+bwd rays/s; device busy "
-          f"{busy:.4f} ms: idle share {idle:.4f}")
-    for name, (t, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:8]:
+          f"{busy:.4f} ms: idle share {idle:.4f}; peak memory {peak / 2**30:.3f} GiB")
+    for name, (t, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:top]:
         print(f"  {t:9.4f} ms/step {n:6d} launches/step  {name[:70]}")
     # PyTorch's reductions (the loss, the ray counts); the backward kernel
     # sums its own row table, so none is its.
@@ -1331,8 +1408,9 @@ def time_train_step(cb, spp, p, target, steps):
     print(f"  reduce_kernel launches per step: {reduce_launches}")
     return dict(rays_per_s=total / window, step_ms=step_ms, rays_per_step=total / steps,
                 busy_ms=busy, idle_share=idle, reduce_launches=reduce_launches,
+                peak_bytes=peak, by_name=by_name,
                 top_kernels={k[:70]: v for k, v in sorted(by_name.items(),
-                                                          key=lambda x: -x[1][0])[:8]})
+                                                          key=lambda x: -x[1][0])[:top]})
 
 
 def time_bwd_widths(cb, spp, p, target):
@@ -2460,6 +2538,270 @@ def simple_sky(card, lap, cbox, geo) -> tuple[dict, float, float]:
     return report, errs["new-cbox"], errs["welcome-geo"]
 
 
+# ---------------------------------------------------------------------------
+# Differentiable BVH, IBL and simple-sky scenes (phase 25)
+# ---------------------------------------------------------------------------
+
+# FD vs AD on welcome-geo through the hybrid step (kernel 4 forward, kernel
+# 3 in the backward's recompute), sampling pinned at theta0: {tag: (part,
+# field, index (None: the texel whose AD gradient is largest), FD step,
+# atol, rtol[, interior])}. The albedo's and the texel's films are
+# polynomial and linear in them (tests/test_diff.py's steps and
+# tolerances). The focus distance moves every camera ray across the
+# bunny's and the box's edges and the IBL's texel borders: the
+# detached-sampling gradient leaves those boundary terms out (on the CPU at
+# 16x12 x 1 spp, AD 0.00309 against FD 0.00723 over the whole film, 0.01339
+# against 0.01344 over the 172 of 192 pixels where no boundary is crossed;
+# at 64x48 x 4 spp -1.290e-5 against -1.270e-5 over 73.6% of the pixels),
+# so it is compared over those pixels (`interior`), at the camera's rtol of
+# tests/test_diff.py (its atol fits that scene's scale, not this one's).
+GEO_FD = {
+    "albedo": ("materials", "color", (0, 0), 2e-2, 1e-2, 0.08),
+    "ibl texel": ("sky", "ibl", None, 0.1, 1e-5, 0.01),
+    "focus distance": ("camera", "focus_distance", (), 16.0, 1e-8, 0.25, True),
+}
+def hybrid_film_and_grads(tag, c, spp, want):
+    """film_and_grads on `c` (a CompiledScene on the card) from the albedo
+    at 0.8 of its value toward the film at the true one, through
+    make_step_diff's hybrid step, with the counts zeroed just before and
+    read just after: each kernel of `want` ({name: launches}) exactly so
+    often and no other, the plain step once a bounce and only inside the
+    recomputes, the plain walk never, the scene's tables packed once and the
+    BVH's at most once; every gradient finite; a second run bit-equal; then
+    against the plain path (PlainDiffStep, the plain walk): the films
+    through check_films' gate and every gradient within TRAIN_PLAIN_RTOL of
+    its largest magnitude (kernel 4's forward flips a lane's decision now
+    and then against the plain step, and such a lane takes another path:
+    at welcome-geo's full width the largest gap was 2.5e-6, PERF.md §6.14).
+    Returns (record, params, target, gradients)."""
+    from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
+    from lumillyrender_tpu_torch.diff.render import leaves
+    from lumillyrender_tpu_torch.ops import cuda_bounce, cuda_bvh
+
+    st = c.settings
+    if cuda_bounce.diff_step_kind(c.data, st, on_card=True) != "hybrid":
+        fail(f"{tag}: make_step_diff does not take the hybrid step")
+    p_true = params_of(c.data)
+    with torch.no_grad():
+        target = render_diff(c.data, st, p_true, SEED, spp)
+    p = p_true._replace(materials=dataclasses.replace(
+        p_true.materials, color=p_true.materials.color * 0.8))
+    packs = dict(pack_tables=0, pack_bvh=0)
+    saved = [(m, name, getattr(m, name)) for m, name in ((cuda_bounce, "pack_tables"),
+                                                         (cuda_bvh, "pack_bvh"))]
+    for mod, name, fn in saved:
+        def counted(*a, _fn=fn, _name=name, **k):
+            packs[_name] += 1
+            return _fn(*a, **k)
+        setattr(mod, name, counted)
+    try:
+        with PlainCalls() as calls:
+            cuda_bounce.reset_counts()
+            t0 = time.monotonic()
+            loss, film, grads = film_and_grads(c.data, st, p, target, SEED, spp)
+            torch.cuda.synchronize()
+            seconds = time.monotonic() - t0
+            launches = cuda_bounce.counts()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    l2, f2, g2 = film_and_grads(c.data, st, p, target, SEED, spp)
+    torch.cuda.synchronize()
+    bit_equal = (torch.equal(loss, l2) and torch.equal(film, f2)
+                 and all(torch.equal(a, b) for a, b in zip(leaves(grads), leaves(g2))))
+    finite = all(bool(torch.isfinite(t).all()) for t in leaves(grads))
+    bounces = st.max_bounces
+    rec = dict(lanes=st.width * st.height * spp, launches=launches, plain_calls=calls.calls,
+               recomputes=calls.recomputes, seconds=seconds, bit_equal=bit_equal,
+               finite=finite, loss=float(loss), packs=packs)
+    print(f"{tag} x {spp} spp, film_and_grads on the card: launches {launches}; plain forward "
+          f"steps or walks {calls.calls}, recomputes {calls.recomputes}; tables packed {packs}; "
+          f"{seconds:.3f} s (first call); two runs bit-equal {bit_equal}; every gradient finite "
+          f"{finite}")
+    bad = [k for k, v in launches.items() if v != want.get(k, 0)]
+    # The step packs the scene's tables once, and a BVH's tables are packed
+    # at most once per Bvh and kept on it: never in a bounce.
+    if (bad or calls.calls or calls.recomputes != bounces or not bit_equal or not finite
+            or packs["pack_tables"] != 1 or packs["pack_bvh"] > 1):
+        fail(f"{tag}: the hybrid training step: {rec} (expected launches {want})")
+    t0 = time.monotonic()
+    with PlainDiffStep():
+        _, f_plain, g_plain = film_and_grads(c.data, st, p, target, SEED, spp)
+    torch.cuda.synchronize()
+    rec["plain_seconds"] = time.monotonic() - t0
+    rec["film_checks"] = check_films(f"{tag} x {spp} spp training", {
+        "kernel path vs plain path": (film.cpu().numpy(), f_plain.cpu().numpy())})
+    rec["vs_plain"] = grads_gap(grads, g_plain)
+    print(f"{tag}: kernel path vs plain path (autograd of the plain step, plain walk; "
+          f"{rec['plain_seconds']:.3f} s), max |diff| over max |plain| per gradient: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rec["vs_plain"].items())
+          + f" (held to {TRAIN_PLAIN_RTOL:g})")
+    if not max(rec["vs_plain"].values()) < TRAIN_PLAIN_RTOL:
+        fail(f"{tag}: kernel-path gradients disagree with the plain path's: {rec['vs_plain']}")
+    return rec, p, target, grads
+
+
+def scatter_ms(geo, n):
+    """The row gathers' gradient scatters of the plain step at a training
+    step's full width, as the hybrid's backward runs them: every lane's
+    cotangent row added into a table row. The plain step gathers the sky
+    for every lane (and masks after), so the IBL texture gets n rows, and
+    so does each live material field (welcome-geo: 2 rows). Timed with
+    CUDA events: autograd's own backward of a gather, index_put_(accumulate)
+    (sorted; each row's run added serially), index_add_ (atomics, in no
+    fixed order) and the port's `table.scatter_rows` (blocks of lanes, then
+    a fixed-order sum), on the texels of welcome-geo's camera rays (bounce
+    0: a few hundred texels behind the box), of random directions (a
+    scattered bounce), and on random material rows; with the longest run
+    of one row and each result's largest difference from index_put_'s.
+    Returns {case: record}."""
+    from lumillyrender_tpu_torch.ops import cuda_bounce, sky as sky_ops
+    from lumillyrender_tpu_torch.ops.table import scatter_rows
+
+    sky = geo.data.sky
+    _, d_cam, _, _ = cuda_bounce.plain_generate_rays(geo.data, geo.settings, SEED, 0, n)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    d_rnd = torch.nn.functional.normalize(torch.randn((n, 3), generator=g, device="cuda"), dim=1)
+    texels = sky.ibl.shape[0] * sky.ibl.shape[1]
+    nm = geo.data.materials.type_id.shape[0]
+    rows = torch.randn((n, 3), generator=g, device="cuda")
+    out = {}
+    for tag, idx, m in (("IBL texels, camera rays", sky_ops.ibl_texel(sky, d_cam), texels),
+                        ("IBL texels, random rays", sky_ops.ibl_texel(sky, d_rnd), texels),
+                        (f"material rows ({nm})",
+                         torch.randint(0, nm, (n,), generator=g, device="cuda"), nm)):
+        runs = torch.bincount(idx, minlength=m)
+        zero = lambda: torch.zeros((m, 3), device="cuda")
+        fns = dict(index_put=lambda: zero().index_put_((idx,), rows, accumulate=True),
+                   index_add=lambda: zero().index_add_(0, idx, rows),
+                   scatter_rows=lambda: scatter_rows(idx, rows, m))
+        ref = fns["index_put"]()
+        scale = ref.abs().max()
+        rec = dict(rows_read=int((runs > 0).sum()), longest_run=int(runs.max()))
+        for name, fn in fns.items():
+            rec[f"{name}_ms"] = events_ms(fn, 5)
+            rec[f"{name}_max_rel"] = ((fn() - ref).abs().max() / scale).item()
+        rec["scatter_rows_repeats"] = bool(torch.equal(fns["scatter_rows"](),
+                                                       fns["scatter_rows"]()))
+        print(f"scatter of {n} rows, {tag} into {m} ({rec['rows_read']} read, longest run "
+              f"{rec['longest_run']}): index_put_(accumulate) {rec['index_put_ms']:.4f} ms, "
+              f"index_add_ {rec['index_add_ms']:.4f} ms (max |diff| / max "
+              f"{rec['index_add_max_rel']:.1e}), scatter_rows {rec['scatter_rows_ms']:.4f} ms "
+              f"({rec['scatter_rows_max_rel']:.1e}; repeats bit for bit "
+              f"{rec['scatter_rows_repeats']})")
+        if not (rec["scatter_rows_repeats"] and rec["scatter_rows_max_rel"] < 1e-5):
+            fail(f"scatter_rows: {rec}")
+        out[tag] = rec
+    return out
+
+
+def run_example():
+    """examples/invert_materials_torch.py at its defaults on the card, with
+    the counts zeroed just before and read just after: the bounce and
+    backward kernels launched, no plain step or walk; fails unless the
+    albedo error falls by more than 2x."""
+    import importlib.util
+
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    spec = importlib.util.spec_from_file_location(
+        "invert_materials_torch", REPO / "examples" / "invert_materials_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with PlainCalls() as calls:
+        cuda_bounce.reset_counts()
+        t0 = time.monotonic()
+        err0, err = example.main([])
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = cuda_bounce.counts()
+    rec = dict(err0=err0, err=err, seconds=seconds, launches=launches, plain_calls=calls.calls)
+    print(f"the example at its defaults: max albedo error {err0:.4f} -> {err:.4f} in "
+          f"{seconds:.2f} s; launches {launches}; plain calls {calls.calls}")
+    if (not err < 0.5 * err0 or calls.calls or launches["bounce"] < 1
+            or launches["bounce_bwd"] < 1):
+        fail(f"the inverse-rendering example: {rec}")
+    return rec
+
+
+def diff_scenes(card, lap, cbox, geo, ibl, terrain_1m):
+    """Phase 25: differentiable BVH, IBL and simple-sky scenes on the card
+    (make_step_hybrid). Returns (report, kernel 3's launch-weighted ms in
+    the welcome-geo step's backward)."""
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    phase("25 differentiable BVH, IBL and simple-sky scenes (make_step_hybrid)")
+    t0 = t_part = time.monotonic()
+    report = {}
+
+    def part(name):
+        nonlocal t_part
+        lap(f"25 {name}", t_part)
+        t_part = time.monotonic()
+
+    small = resized(geo, 64, 48, 4)
+    with PlainCalls() as calls:
+        cuda_bounce.reset_counts()
+        report["fd_vs_ad"] = fd_vs_ad(small, GEO_FD)
+        torch.cuda.synchronize()
+        launches = cuda_bounce.counts()
+    print(f"FD vs AD on welcome-geo 64x48x4: launches {launches}; plain forward steps or walks "
+          f"{calls.calls}, recomputes {calls.recomputes}")
+    if (calls.calls or not calls.recomputes or launches["bounce_bvh"] < 1
+            or launches["bvh"] < 1 or launches["bounce"] or launches["bounce_bwd"]):
+        fail(f"the welcome-geo FD gates left the kernel path: {launches}, {calls.calls} calls")
+    part("FD vs AD")
+    n_lights = lambda c: 2 if c.settings.integrator == "pt-direct" and c.settings.has_lights else 1
+    geo_want = {"bounce_bvh": 80, "bvh": 80 * n_lights(geo)}
+    full = resized(geo, geo.settings.width, geo.settings.height, 4)
+    rec, p_geo, t_geo, _ = hybrid_film_and_grads("welcome-geo 512x368", full, 4, geo_want)
+    report["welcome-geo"] = rec
+    part("welcome-geo against the plain path")
+    timing = {}
+    for spp in (4, 16):
+        target = t_geo
+        if spp != 4:
+            from lumillyrender_tpu_torch.diff import params_of, render_diff
+
+            with torch.no_grad():
+                target = render_diff(geo.data, geo.settings, params_of(geo.data), SEED, spp)
+        timing[spp] = time_train_step(geo, spp, p_geo, target, 3 if spp == 4 else 2,
+                                      tag="welcome-geo 512x368", top=12)
+        by_name = timing[spp].pop("by_name")
+        k3 = [(t, n) for name, (t, n) in by_name.items() if "k3::kernel" in name]
+        scatter = [(t, n) for name, (t, n) in by_name.items() if "indexing_backward" in name]
+        timing[spp]["k3"] = [sum(t for t, _ in k3), sum(n for _, n in k3)]
+        timing[spp]["index_put_backward"] = [sum(t for t, _ in scatter), sum(n for _, n in scatter)]
+        print(f"  kernel 3 in the backward: {timing[spp]['k3'][1]} launches, "
+              f"{timing[spp]['k3'][0]:.4f} ms; index_put_(accumulate) kernels (the row "
+              f"gathers' gradients through table.scatter_rows, the film banks): "
+              f"{timing[spp]['index_put_backward'][1]} launches, "
+              f"{timing[spp]['index_put_backward'][0]:.4f} ms  [{card}]")
+    report["timing"] = {str(k): v for k, v in timing.items()}
+    report["scatter"] = scatter_ms(geo, geo.settings.width * geo.settings.height * 4)
+    k3_ms, k3_n = timing[4]["k3"]
+    part("timing")
+    report["ibl-material"], _, _, _ = hybrid_film_and_grads(
+        "ibl-material 320x240", ibl, 4, {"bounce": 80})
+    part("ibl-material")
+    for name, c, want in (("new-cbox", cbox, {"bounce": 80}), ("welcome-geo", geo, geo_want)):
+        w, h = (64, 64) if name == "new-cbox" else (64, 48)
+        r, _, _, _ = hybrid_film_and_grads(f"{name} simple sky {w}x{h}",
+                                           resized(with_simple_sky(c), w, h, 4), 4, want)
+        if not (r["vs_plain"].get("SkyData.color", 1.0) < TRAIN_PLAIN_RTOL
+                and r["vs_plain"].get("SkyData.color2", 1.0) < TRAIN_PLAIN_RTOL):
+            fail(f"{name} simple sky: no gradient in the sky's colours, or off the plain path's")
+        report[f"{name} simple sky"] = r
+    part("the simple sky")
+    report["terrain-1m"], _, _, _ = hybrid_film_and_grads(
+        "terrain-1m 64x64", resized(terrain_1m, 64, 64, 1), 1,
+        {"bounce_bvh": 80, "bvh_wide": 80 * n_lights(terrain_1m)})
+    part("terrain-1m")
+    report["example"] = run_example()
+    lap("differentiable BVH, IBL and simple-sky scenes", t0)
+    return report, (k3_ms / k3_n if k3_n else None)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -2837,7 +3179,7 @@ def main() -> int:
                 "sky": ("sky", "color", 1, 5e-2, 1e-5, 0.05, 5),
                 "camera": ("camera", "aperture_position", 2, 5e-2, 2e-3, 0.25, 3)}.items():
             c = dataclasses.replace(lam, settings=dataclasses.replace(lam.settings, max_bounces=mb))
-            fd[tag] = fd_vs_ad(tag, c, part, field, idx, eps, atol, rtol)
+            fd.update(fd_vs_ad(c, {tag: (part, field, idx, eps, atol, rtol)}))
         fd_launches = cuda_bounce.counts()
     print(f"FD vs AD launches: {fd_launches}; plain step or backward calls: {plain.calls}")
     if fd_launches["bounce_bwd"] < 1 or plain.calls:
@@ -2904,12 +3246,14 @@ def main() -> int:
               f"s, graph pool {g['pool_bytes']} B; the host loop {rec['host_loop_chunk_ms']:.4f} "
               f"ms per chunk  [{card}]")
         stage_loop[tag] = rec
-    del terrain_1m
     lap("stage loop", t0)
 
     dp_report = data_parallel(card, lap, cbox, rays_per_s)
     vr_report, raygen_err = vr_on_card(card, lap, raygen_err)
     sky_report, sky_err, sky_bvh_err = simple_sky(card, lap, cbox, geo)
+    diff_report, k3_bwd_ms = diff_scenes(card, lap, cbox, geo, ibl, terrain_1m)
+    diff_report["k3_backward_ms_per_launch"] = k3_bwd_ms
+    del terrain_1m
     bounce_err = max(bounce_err, sky_err)
     bvh_bounce_err = max(bvh_bounce_err, sky_bvh_err)
 
@@ -2964,6 +3308,7 @@ def main() -> int:
                                          for w, r in bwd_widths.items()}),
         huge_meshes=big_report, probes=probe_report, stage_loop=stage_loop, cli_files=cli_files,
         data_parallel=dp_report, vr=vr_report, simple_sky=sky_report,
+        differentiable_scenes=diff_report,
         kernels=kernels, ptxas=ptxas_report,
         phase_seconds=secs,
         seconds=time.monotonic() - t_start)

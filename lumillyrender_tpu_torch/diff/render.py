@@ -12,13 +12,19 @@ agree with its autograd up to truncation (tests/test_torch_diff.py).
 
 The bounce loop is the differentiable `trace_film`: a fixed number of
 steps per stage, with the step `cuda_bounce.make_step_diff` picks. On the
-card a Lambert-only brute-force scene runs the bounce kernel forward and
-the hand-written backward kernel (csrc/bounce_bwd.cu); other brute-force
-scenes under a uniform sky run the bounce kernel forward and autograd of
-the plain step backward; any other scene raises there (a later slice) and
-runs autograd of the plain step on the CPU. Camera rays come from
-`ops/camera.py::sample_rays`, so that camera gradients exist; the raygen
-kernel is not on this path.
+card a Lambert-only brute-force scene under a uniform sky runs the bounce
+kernel forward and the hand-written backward kernel (csrc/bounce_bwd.cu);
+every other scene (other materials, BVH scenes of any leaf width, the IBL
+and the simple sky) runs the hybrid step, `cuda_bounce.make_step_hybrid`:
+the bounce kernel forward (brute force or BVH) and backward autograd of
+the plain step recomputed on the bounce's input state, whose BVH walk is a
+kernel (kernel 3, or the wide walk at K=128) with the plane-equation VJP;
+an IBL texture gets its texels' gradients through that recompute's
+nearest-texel gather. On the CPU the BVH, IBL and simple-sky scenes run
+autograd of the plain step. Either way each step keeps only its input
+state on the card, so `RenderSettings.bwd_remat` acts only on the CPU's
+plain path. Camera rays come from `ops/camera.py::sample_rays`, so that
+camera gradients exist; the raygen kernel is not on this path.
 """
 
 from __future__ import annotations

@@ -130,11 +130,11 @@ def _only(mask, cap):
 
 
 def _direct_light(scene, settings, sp, out_dir, m_gathered, lane, seed, ctr,
-                  alive, mats_eval=None):
+                  alive, mats_eval=None, plain_walk: bool = True):
     """NEE contribution (`scene.rs:104-151`) of the `alive` lanes. Returns
     (N,3) radiance. `m_gathered` (the lanes' sampling rows) decides the
     emitter early-out; f and l_e read `mats_eval` (default
-    `scene.materials`)."""
+    `scene.materials`); `plain_walk` as in `plain_bounce_step`."""
     if mats_eval is None:
         mats_eval = scene.materials
     u_pick, u1, u2, _ = rng.uniform4(seed, lane, ctr + _NEE)
@@ -157,7 +157,7 @@ def _direct_light(scene, settings, sp, out_dir, m_gathered, lane, seed, ctr,
     # any hit below the cap - 4*EPS: it settles the verdict as occluded.
     shadow, shadow_sp = intersect_shade(
         sp.position, wi, scene.geometry, scene.bvh, settings.intersector,
-        t_cap=_only(ok, dist + 2.0 * EPS), occlusion=True, plain=True,
+        t_cap=_only(ok, dist + 2.0 * EPS), occlusion=True, plain=plain_walk,
     )
     visible = shadow_sp.hit & (torch.abs(shadow.t - dist) <= EPS)
     ok = ok & visible
@@ -181,7 +181,8 @@ def _masked(mask, x):
 
 
 def plain_bounce_step(scene: SceneData, settings: RenderSettings, seed,
-                      state: PathState, mats_eval=None) -> PathState:
+                      state: PathState, mats_eval=None,
+                      plain_walk: bool = True) -> PathState:
     """One bounce transition over a PathState, in plain PyTorch: the plain
     version of the fused bounce kernel, and the step the CPU runs. Like the
     kernel it walks the BVH only for the queries whose answer it uses: the
@@ -189,7 +190,14 @@ def plain_bounce_step(scene: SceneData, settings: RenderSettings, seed,
     Russian roulette, faces its light and is not emissive. `scene.materials`
     drives the sampling decisions and `mats_eval` (default: the same table)
     the evaluated quantities; autograd through the step gives the gradients
-    of its outputs in the state, `mats_eval`, the sky and the geometry."""
+    of its outputs in the state, `mats_eval`, the sky and the geometry.
+
+    A BVH scene's queries take the plain walk (`_walk_tris`, autograd
+    through its triangle tests), or with `plain_walk=False` the walk
+    `ops/intersect.py::bvh_route` picks (a kernel for CUDA tensors, the plain
+    walk for CPU ones) with the plane-equation VJP of `cuda_bvh._TriHit`:
+    the same values, and the JAX package's gradient of the walk. The
+    hybrid step's backward recomputes the bounce that way."""
     if mats_eval is None:
         mats_eval = scene.materials
     bounce = state.bounce
@@ -200,7 +208,7 @@ def plain_bounce_step(scene: SceneData, settings: RenderSettings, seed,
     inf = torch.full_like(state.o[:, 0], INF)
     hit, sp = intersect_shade(
         state.o, state.d, scene.geometry, scene.bvh, settings.intersector,
-        t_cap=_only(state.alive, inf), plain=True,
+        t_cap=_only(state.alive, inf), plain=plain_walk,
     )
     rays = state.rays_traced + state.alive.sum(dtype=torch.float32)
 
@@ -230,7 +238,7 @@ def plain_bounce_step(scene: SceneData, settings: RenderSettings, seed,
     # NEE (`scene.rs:185-186`).
     if nee and settings.has_lights:
         direct = _direct_light(scene, settings, sp, out_dir, m, lane, seed, ctr,
-                               alive, mats_eval)
+                               alive, mats_eval, plain_walk)
         accum = accum + _masked(alive, throughput * direct)
         rays = rays + alive.sum(dtype=torch.float32)  # shadow rays
 
@@ -268,8 +276,8 @@ def make_bounce_step(scene: SceneData, settings: RenderSettings, seed,
     kernel for CUDA tensors (brute force or BVH), the plain step for CPU
     tensors. With `differentiable`, the step of `cuda_bounce.make_step_diff`
     (a kernel forward with the hand-written backward kernel, or with
-    autograd of the plain step; raises on the card for a scene no kernel
-    serves)."""
+    autograd of the plain step recomputed on the input state; raises on the
+    card only for a scene no bounce kernel serves)."""
     from ..ops import cuda_bounce
 
     if differentiable:
@@ -300,7 +308,10 @@ def _run_fixed(step, state: PathState, n_steps: int,
     keeps every bounce's intermediates, "hybrid" keeps them on stages of at
     most 48k lanes. A step with its own backward (`fused_diff`: the
     hand-written backward or the hybrid's) keeps only its input state
-    anyway, so it is never checkpointed."""
+    anyway, so it is never checkpointed, as the JAX package's `run_stage`
+    skips `jax.checkpoint` for its fused steps. Every step on the card has
+    its own backward, so the policies act only on the CPU's plain
+    autograd path (BVH, IBL and simple-sky scenes there)."""
     mode = getattr(settings, "bwd_remat", "full")
     if mode in ("isect", "isect+samp"):
         raise NotImplementedError(

@@ -19,7 +19,9 @@
   (the wide and streamed entry points), are wrapped in `ops/cuda_bvh.py`.
 * `make_step_diff` builds the differentiable path's step: the bounce
   kernel forward with the backward kernel (`diff_supported`), or with
-  autograd of the plain step (the hybrid, `hybrid_supported`).
+  autograd of the plain step recomputed on the input state
+  (`make_step_hybrid`: every other scene on the card, BVH, IBL and
+  simple-sky scenes included).
 
 Each wrapper runs its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises. The launch itself is
@@ -93,24 +95,30 @@ def supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
 
 
 def _diff_scene(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
-    """(ok, reason) for both differentiable steps on the card: what the
-    bounce kernels serve, restricted to brute force and a uniform sky."""
+    """(ok, reason) for the brute-force differentiable steps (the backward
+    kernel's and the JAX package's fused hybrid): what the bounce kernels
+    serve, restricted to brute force and a uniform sky. Every other scene
+    the bounce kernels serve takes `make_step_hybrid` on the card."""
     ok, why = bounce_supported(scene, settings)
     if not ok:
         return ok, why
     if not _use_brute(scene.geometry, settings.intersector, scene.bvh):
-        return False, ("a differentiable BVH scene on the card comes in a later "
-                       "slice (queue 1 of ROADMAP.md); the JAX package runs it as "
-                       "autodiff of the XLA step with the BVH kernel's VJP")
+        return False, ("a BVH scene: the brute-force steps do not walk a BVH (on "
+                       "the card it takes make_step_hybrid's BVH bounce)")
     if settings.sky_kind != SKY_UNIFORM:
         sky = SKY_NAMES.get(settings.sky_kind, f"sky kind {settings.sky_kind}")
-        return False, (f"a differentiable scene under {sky} on the card comes "
-                       "in a later slice (queue 1 of ROADMAP.md); the JAX package "
-                       "runs it as autodiff of the XLA step")
+        return False, (f"a scene under {sky}: the brute-force steps' backward takes "
+                       "the uniform sky's one colour (on the card it takes "
+                       "make_step_hybrid)")
     return True, ""
 
 
 SKY_NAMES = {SKY_IBL: "an IBL sky", SKY_SIMPLE: "the simple sky"}
+# The sky's leaves that its radiance reads, which a differentiable step
+# takes as inputs: the uniform colour, the simple sky's meridian and
+# horizon, the IBL texture (its longitude offset reaches the radiance only
+# through the texel pick, which has no gradient).
+SKY_LEAVES = {SKY_UNIFORM: ("color",), SKY_SIMPLE: ("color", "color2"), SKY_IBL: ("ibl",)}
 
 
 def _lambert_only(settings: RenderSettings) -> bool:
@@ -751,15 +759,19 @@ bounce_bwd.launches = 0
 class _Bounce:
     """What one differentiable bounce needs besides its tensors: the scene
     (sampling table, geometry, lights), settings, seed, bounce index and,
-    on the card, the packed tables."""
+    on the card, the forward kernel (`bounce` or `bounce_bvh`) and its
+    packed tables."""
 
-    def __init__(self, scene, settings, seed, bounce, tables):
+    def __init__(self, scene, settings, seed, bounce, kernel, tables):
         self.scene, self.settings, self.seed = scene, settings, seed
-        self.bounce, self.tables = bounce, tables
+        self.bounce, self.kernel, self.tables = bounce, kernel, tables
 
     def scene_with(self, sky):
+        """The scene with `sky`, the sky's SKY_LEAVES in order, in place of
+        its own."""
+        names = SKY_LEAVES[self.settings.sky_kind]
         return dataclasses.replace(self.scene, sky=dataclasses.replace(
-            self.scene.sky, color=sky))
+            self.scene.sky, **dict(zip(names, sky))))
 
     def mats(self, mt_eval):
         return materials_of_rows(mt_eval, self.scene.materials.type_id)
@@ -779,7 +791,18 @@ class _Bounce:
             return plain_bounce_step(self.scene_with(sky), self.settings, self.seed,
                                      state, self.mats(mt_eval))
         tables = dict(self.tables, mats_eval=mt_eval.detach().contiguous())
-        return bounce(self.scene, self.settings, self.seed, state, tables)
+        return self.kernel(self.scene, self.settings, self.seed, state, tables)
+
+
+def recompute(run: _Bounce, o, d, thr, acc, mt_eval, sky, alive, lane):
+    """The hybrid step's recompute of one bounce for its backward: the
+    plain step on the saved input state, its BVH queries through the walk
+    `bvh_route` picks (a kernel on the card) with the plane-equation VJP."""
+    from ..integrator.wavefront import plain_bounce_step
+
+    return plain_bounce_step(run.scene_with(sky), run.settings, run.seed,
+                             run.state(o, d, thr, acc, alive, lane), run.mats(mt_eval),
+                             plain_walk=False)
 
 
 def _cotangents(like, grads):
@@ -789,12 +812,13 @@ def _cotangents(like, grads):
 class _BounceFn(torch.autograd.Function):
     """The forward of both differentiable steps: the bounce kernel with two
     tables (the plain step on the CPU), saving only the input state, the
-    evaluation rows and the sky colour. Each subclass is one backward."""
+    evaluation rows and the sky's leaves (`sky`: SKY_LEAVES of the
+    settings' sky). Each subclass is one backward."""
 
     @staticmethod
-    def forward(ctx, o, d, thr, acc, mt_eval, sky, alive, lane, run):
+    def forward(ctx, run, alive, lane, o, d, thr, acc, mt_eval, *sky):
         st = run.forward(run.state(o, d, thr, acc, alive, lane), mt_eval, sky)
-        ctx.save_for_backward(o, d, thr, acc, alive, lane, mt_eval, sky)
+        ctx.save_for_backward(o, d, thr, acc, alive, lane, mt_eval, *sky)
         ctx.run = run
         ctx.mark_non_differentiable(st.alive, st.rays_traced)
         return st.o, st.d, st.throughput, st.accum, st.alive, st.rays_traced
@@ -804,7 +828,7 @@ class _BounceDiff(_BounceFn):
     """One bounce with the hand-written backward: the backward kernel
     (`plain_bounce_bwd` on the CPU). Gradients go
     to o, d, throughput, accum (passed through), the evaluation rows'
-    colours and emissions, and the sky colour."""
+    colours and emissions, and the sky colour (a uniform sky)."""
 
     @staticmethod
     def backward(ctx, g_o, g_d, g_t, g_a, _alive, _rays):
@@ -813,7 +837,7 @@ class _BounceDiff(_BounceFn):
         g_o, g_d, g_t, g_a = _cotangents(o, (g_o, g_d, g_t, g_a))
         state = run.state(o, d, thr, None, alive, lane)
         if o.device.type == "cpu":
-            gr = plain_bounce_bwd(run.scene_with(sky), run.settings, run.seed, state,
+            gr = plain_bounce_bwd(run.scene_with((sky,)), run.settings, run.seed, state,
                                   g_o, g_d, g_t, g_a, run.mats(mt_eval))
         else:
             tables = dict(run.tables, mats_eval=mt_eval.detach().contiguous())
@@ -822,82 +846,123 @@ class _BounceDiff(_BounceFn):
         mt_bar = torch.zeros_like(mt_eval)
         mt_bar[:, 1:4] = gr.albedo
         mt_bar[:, 4:7] = gr.emission
-        return (gr.o, gr.d, gr.throughput, g_a, mt_bar, gr.sky.to(sky.dtype),
-                None, None, None)
+        return (None, None, None, gr.o, gr.d, gr.throughput, g_a, mt_bar,
+                gr.sky.to(sky.dtype))
 
 
 class _BounceHybrid(_BounceFn):
-    """One bounce of the hybrid step: backward autograd of the plain step
-    recomputed on the saved input state (the JAX package's
-    `make_step_diff_hybrid`)."""
+    """One bounce of the hybrid step: backward autograd of `recompute`,
+    the plain step on the saved input state (the JAX package's
+    `make_step_diff_hybrid`, and its autodiff of the XLA step with the BVH
+    walk's VJP). Gradients go to o, d, throughput, accum, the evaluation
+    rows and the sky's leaves (an IBL texture's through the texel
+    gather)."""
 
     @staticmethod
     def backward(ctx, g_o, g_d, g_t, g_a, _alive, _rays):
-        from ..integrator.wavefront import plain_bounce_step
-
-        o, d, thr, acc, alive, lane, mt_eval, sky = ctx.saved_tensors
-        run = ctx.run
-        ins = [x.detach().requires_grad_() for x in (o, d, thr, acc, mt_eval, sky)]
+        o, d, thr, acc, alive, lane, mt_eval, *sky = ctx.saved_tensors
+        ins = [x.detach().requires_grad_() for x in (o, d, thr, acc, mt_eval, *sky)]
         with torch.enable_grad():
-            st = plain_bounce_step(run.scene_with(ins[5]), run.settings, run.seed,
-                                   run.state(*ins[:4], alive, lane), run.mats(ins[4]))
+            st = recompute(ctx.run, *ins[:5], ins[5:], alive, lane)
             outs = (st.o, st.d, st.throughput, st.accum)
             grads = torch.autograd.grad(outs, ins, _cotangents(o, (g_o, g_d, g_t, g_a)),
                                         allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, ins)]
-        return (*grads, None, None, None)
+        return (None, None, None, *grads)
 
 
-def make_step_diff(scene: SceneData, settings: RenderSettings, seed,
-                   mats_eval: MaterialTable | None = None):
-    """The differentiable path's PathState -> PathState step, as the JAX
-    package's `make_bounce_step` dispatches it: `scene.materials` is the
-    detached sampling table, `mats_eval` (default the same) the live
-    evaluation table, and `scene.sky.color` the live sky.
-
-    * a Lambert-only brute-force scene under a uniform sky
-      (`diff_supported`): the bounce kernel forward with the hand-written
-      backward kernel (`_BounceDiff`);
-    * any other brute-force scene under a uniform sky (`hybrid_supported`:
-      other materials, or Lambert rows past BWD_MAX_ROWS): the bounce
-      kernel forward with autograd of the plain step backward
-      (`_BounceHybrid`);
-    * anything else: autograd of the plain step on the CPU; on the card
-      it raises NotImplementedError with the reason (a later slice).
-    On the CPU the first two run the plain step forward. Both have their
-    own backward and keep only their input state, so the step carries
-    `fused_diff = True` and the loop does not checkpoint it."""
-    from ..integrator.wavefront import PathState, plain_bounce_step
-
-    if mats_eval is None:
-        mats_eval = scene.materials
-    on_card = scene.geometry.tri_p0.device.type != "cpu"
+def diff_step_kind(scene: SceneData, settings: RenderSettings, on_card: bool) -> str:
+    """Which differentiable step `make_step_diff` builds for the scene, on
+    the card or on the CPU: "bwd" (the backward kernel, `diff_supported`),
+    "hybrid" (`make_step_hybrid`: on the CPU only where `hybrid_supported`,
+    on the card for every other scene) or "plain" (autograd of the plain
+    step, the CPU's path for BVH, IBL and simple-sky scenes)."""
     if diff_supported(scene, settings)[0]:
-        fn = _BounceDiff
-    elif hybrid_supported(scene, settings)[0]:
-        fn = _BounceHybrid
-    elif on_card:
-        _require(hybrid_supported(scene, settings))
-    else:
-        def plain(state):
-            return plain_bounce_step(scene, settings, seed, state, mats_eval)
+        return "bwd"
+    if on_card or hybrid_supported(scene, settings)[0]:
+        return "hybrid"
+    return "plain"
 
-        plain.fused_diff = False
-        return plain
-    tables = pack_tables(scene) if on_card else None
+
+def _make_step(fn, scene: SceneData, settings: RenderSettings, seed,
+               mats_eval: MaterialTable):
+    """The PathState -> PathState step that applies `fn` (`_BounceDiff` or
+    `_BounceHybrid`) to each bounce: on the card with the bounce kernel that
+    `_use_brute` picks and its tables, packed once here from detached
+    values; on the CPU with the plain step forward."""
+    from ..integrator.wavefront import PathState
+
+    on_card = scene.geometry.tri_p0.device.type != "cpu"
+    kernel = tables = None
+    if on_card:
+        _require(bounce_supported(scene, settings))
+        brute = _use_brute(scene.geometry, settings.intersector, scene.bvh)
+        tables = pack_tables(scene, bvh=not brute)
+        kernel = bounce if brute else bounce_bvh
     mt_eval = material_rows(mats_eval)
-    sky = scene.sky.color
+    sky = [getattr(scene.sky, name) for name in SKY_LEAVES[settings.sky_kind]]
 
     def step(state: PathState) -> PathState:
-        run = _Bounce(scene, settings, seed, state.bounce, tables)
+        run = _Bounce(scene, settings, seed, state.bounce, kernel, tables)
         o, d, thr, acc, alive, rays = fn.apply(
-            state.o, state.d, state.throughput, state.accum, mt_eval, sky,
-            state.alive, state.lane, run)
+            run, state.alive, state.lane, state.o, state.d, state.throughput,
+            state.accum, mt_eval, *sky)
         return PathState(state.bounce + 1, o, d, thr, acc, alive,
                          state.rays_traced + rays, state.lane)
 
     step.fused_diff = True
     return step
+
+
+def make_step_hybrid(scene: SceneData, settings: RenderSettings, seed,
+                     mats_eval: MaterialTable | None = None):
+    """The hybrid differentiable step for any scene the bounce kernels
+    serve: forward, the bounce kernel (`bounce` on brute force, `bounce_bvh`
+    on a BVH of any leaf width) on the card, the plain step on the CPU;
+    backward, autograd of `recompute` on the saved input state, whose BVH
+    walk is the one `bvh_route` picks (kernel 3, or the AOV walks at
+    K=128) through `cuda_bvh._TriHit`'s plane-equation VJP. Arguments as
+    `make_step_diff`; the sky's live leaves are SKY_LEAVES of its kind."""
+    if mats_eval is None:
+        mats_eval = scene.materials
+    return _make_step(_BounceHybrid, scene, settings, seed, mats_eval)
+
+
+def make_step_diff(scene: SceneData, settings: RenderSettings, seed,
+                   mats_eval: MaterialTable | None = None):
+    """The differentiable path's PathState -> PathState step, as the JAX
+    package's `make_bounce_step` dispatches it (`diff_step_kind`):
+    `scene.materials` is the detached sampling table, `mats_eval` (default
+    the same) the live evaluation table, and `scene.sky` the live sky.
+
+    * a Lambert-only brute-force scene under a uniform sky
+      (`diff_supported`): the bounce kernel forward with the hand-written
+      backward kernel (`_BounceDiff`);
+    * any other brute-force scene under a uniform sky (`hybrid_supported`:
+      other materials, or Lambert rows past BWD_MAX_ROWS), and on the card
+      every other scene the bounce kernels serve (BVH scenes of any leaf
+      width, the IBL and the simple sky): `make_step_hybrid`;
+    * anything else on the CPU: autograd of the plain step.
+    On the CPU the first two run the plain step forward. Both have their
+    own backward and keep only their input state, so the step carries
+    `fused_diff = True` and the loop does not checkpoint it. On the card
+    it raises only for a scene no bounce kernel serves."""
+    from ..integrator.wavefront import plain_bounce_step
+
+    if mats_eval is None:
+        mats_eval = scene.materials
+    on_card = scene.geometry.tri_p0.device.type != "cpu"
+    kind = diff_step_kind(scene, settings, on_card)
+    if kind == "bwd":
+        return _make_step(_BounceDiff, scene, settings, seed, mats_eval)
+    if kind == "hybrid":
+        return make_step_hybrid(scene, settings, seed, mats_eval)
+
+    def plain(state):
+        return plain_bounce_step(scene, settings, seed, state, mats_eval)
+
+    plain.fused_diff = False
+    return plain
 
 
 def _counted() -> dict:

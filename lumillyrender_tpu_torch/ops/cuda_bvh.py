@@ -203,9 +203,10 @@ def _forward(name, o, d, t_init, t_stop, tables: dict, want_shade: bool):
 class _TriHit(torch.autograd.Function):
     """The walk forward; backward through the plane equation of the
     winner, t = ((p0 - o) . n) / (d . n): dt/do = -n / (d . n),
-    dt/dd = -t n / (d . n), zero on lanes no triangle won and where
-    |d . n| <= 1e-20. prim, mat and n are piecewise constant; t_init and
-    t_stop get no gradient (the JAX package's custom VJP)."""
+    dt/dd = -t n / (d . n), zero on lanes no triangle won (an unasked
+    query's t of -inf included) and where |d . n| <= 1e-20. prim, mat and
+    n are piecewise constant; t_init and t_stop get no gradient (the JAX
+    package's custom VJP)."""
 
     @staticmethod
     def forward(ctx, name, o, d, t_init, t_stop, tables, want_shade):
@@ -225,7 +226,9 @@ class _TriHit(torch.autograd.Function):
         inv = torch.where(safe, 1.0 / torch.where(safe, dn, torch.ones_like(dn)),
                           torch.zeros_like(dn))
         o_bar = (-g_t * inv)[..., None] * nrm
-        d_bar = (-g_t * t * inv)[..., None] * nrm
+        # A lane whose query was not asked keeps t_init = -inf: 0 * -inf
+        # would put NaN into its zero cotangent.
+        d_bar = (-g_t * torch.where(safe, t, torch.zeros_like(t)) * inv)[..., None] * nrm
         return None, o_bar, d_bar, None, None, None, None
 
 

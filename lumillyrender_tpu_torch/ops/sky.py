@@ -7,6 +7,7 @@ import torch
 
 from ..constants import PI
 from ..scene.data import SKY_IBL, SKY_SIMPLE, SkyData
+from .table import take_rows
 
 
 def radiance(sky: SkyData, kind: int, d) -> torch.Tensor:
@@ -15,7 +16,7 @@ def radiance(sky: SkyData, kind: int, d) -> torch.Tensor:
         return simple_radiance(sky.color, sky.color2, d)
     if kind != SKY_IBL:
         return sky.color.expand_as(d)
-    return sky.ibl.reshape(-1, 3)[ibl_texel(sky, d)]
+    return take_rows(sky.ibl.reshape(-1, 3), ibl_texel(sky, d))
 
 
 def ibl_texel(sky: SkyData, d) -> torch.Tensor:

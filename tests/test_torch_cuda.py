@@ -34,7 +34,12 @@ every lane and two runs bit-equal; the capability probes' kernels
 (csrc/probes.cu) every output bit-equal; the forward stage loop captured
 as a CUDA graph, every stage-end state and the ray count bit-equal to a
 host loop over the same kernels, the films within chip_smoke.py's film
-gate (the banks add with atomics).
+gate (the banks add with atomics); the hybrid training step on BVH and
+IBL scenes (make_step_diff's `make_step_hybrid`: kernel 4 or 2 forward,
+kernel 3 in the backward's recompute) against autograd of the plain step
+with the plain walk, within `parity.AUTOGRAD_BWD_RTOL` on the lanes
+`parity.bwd_comparable` keeps, and its film_and_grads repeating bit for
+bit.
 """
 
 from pathlib import Path
@@ -49,7 +54,7 @@ from lumillyrender_tpu_torch.integrator import wavefront
 from lumillyrender_tpu_torch.constants import EPS, INF
 from lumillyrender_tpu_torch.ops import cuda_bounce, cuda_bvh
 from lumillyrender_tpu_torch.ops.bounce_bwd import plain_bounce_bwd
-from lumillyrender_tpu_torch.ops.intersect import _walk_tris, intersect_shade_brute
+from lumillyrender_tpu_torch.ops.intersect import _walk_tris, intersect_shade, intersect_shade_brute
 from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
 from torch_tie_leaves import TIE_LAYOUTS, tie_bvh, tie_rays, with_live_padding
 from torch_many_rows import bounce_grads, tiled_scene
@@ -529,14 +534,118 @@ def test_raygen_sees_an_in_place_camera_update(card):
     assert (d - d0).abs().max().item() > 1e-3
 
 
+class _PlainCalls:
+    """While open (a monkeypatch), counts the plain walk's calls, the plain
+    step's and the hybrid's recomputes of a bounce (each of which runs the
+    plain step once, for its backward)."""
+
+    def __init__(self, monkeypatch):
+        from lumillyrender_tpu_torch.ops import intersect
+
+        self.n = dict(walk=0, step=0, recompute=0)
+        for mod, name, key in ((intersect, "_walk_tris", "walk"),
+                               (wavefront, "plain_bounce_step", "step"),
+                               (cuda_bounce, "recompute", "recompute")):
+            fn = getattr(mod, name)
+
+            def counted(*a, _fn=fn, _key=key, **k):
+                self.n[_key] += 1
+                return _fn(*a, **k)
+
+            monkeypatch.setattr(mod, name, counted)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["welcome-geo", "ibl-material"])
-def test_diff_step_refuses_what_no_kernel_serves(card, name):
-    """A differentiable BVH or IBL scene has no kernel path on the card yet:
-    the step raises with a reason instead of running the plain step."""
+def test_diff_step_runs_the_kernels_on_bvh_and_ibl_scenes(card, name, monkeypatch):
+    """make_step_diff takes a BVH scene (welcome-geo: K=32, IBL sky, thin
+    lens) and a brute-force IBL scene with every family (ibl-material) on
+    the card through the hybrid step: a small film_and_grads launches the
+    BVH bounce (welcome-geo) or the brute-force bounce forward, 80 of them,
+    kernel 3 twice a bounce in the backward's recompute on welcome-geo (the
+    bounce's walk and NEE's), no backward kernel and no raygen; it runs the
+    plain step only inside the 80 recomputes and the plain walk never; and
+    two runs give the loss, the film and every gradient bit for bit."""
+    import dataclasses
+
+    from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
+    from lumillyrender_tpu_torch.diff.render import leaves
+
     c = compile_scene_file(ASSETS / f"{name}.toml", device=card)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        cuda_bounce.make_step_diff(c.data, c.settings, 77)
+    st = dataclasses.replace(c.settings, width=32, height=24)
+    assert cuda_bounce.diff_step_kind(c.data, st, on_card=True) == "hybrid"
+    p = params_of(c.data)
+    with torch.no_grad():
+        target = render_diff(c.data, st, p, 3, 2)
+    p = p._replace(materials=dataclasses.replace(p.materials, color=p.materials.color * 0.8))
+    plain = _PlainCalls(monkeypatch)
+    cuda_bounce.reset_counts()
+    l1, f1, g1 = film_and_grads(c.data, st, p, target, 3, 2)
+    torch.cuda.synchronize()
+    launches = cuda_bounce.counts()
+    calls = dict(plain.n)
+    l2, f2, g2 = film_and_grads(c.data, st, p, target, 3, 2)
+    torch.cuda.synchronize()
+    fwd = "bounce_bvh" if name == "welcome-geo" else "bounce"
+    assert launches[fwd] == 80 and launches["bounce_bwd"] == 0, launches
+    assert launches["raygen"] == 0 and launches["bvh_wide"] == launches["bvh_streamed"] == 0
+    assert launches["bvh"] == (2 * 80 if name == "welcome-geo" else 0), launches
+    assert calls == dict(walk=0, step=80, recompute=80), calls
+    assert torch.equal(l1, l2) and torch.equal(f1, f2)
+    for a, b in zip(leaves(g1), leaves(g2)):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+    assert g1.materials.color.abs().sum() > 0 and g1.sky.ibl.abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["welcome-geo", "ibl-material"])
+def test_hybrid_step_matches_plain_autograd_on_bvh_and_ibl_scenes(card, name):
+    """One bounce of make_step_diff's hybrid on a random bounce-3 state of
+    65,536 lanes (welcome-geo: the BVH bounce forward, kernel 3 in the
+    recompute; ibl-material: the brute-force bounce forward) against
+    autograd of the plain step with the plain walk, all on the card: the
+    forward under parity.py's lane rules, and the gradients in o, d,
+    throughput, the colours, emissions and the IBL texture on the lanes
+    `parity.bwd_comparable` keeps (cotangents zeroed on the others) within
+    `parity.AUTOGRAD_BWD_RTOL` of each one's largest magnitude; the
+    backward's recompute takes the kernel forward's input state, so only
+    the walk's VJP (plane equation against autograd of the triangle test)
+    and the sums' order differ."""
+    from torch_diff_steps import step_grads
+
+    c = compile_scene_file(ASSETS / f"{name}.toml", device=card)
+    n = 1 << 16
+    state = state_from_numpy(3, *_random_state(c.data, n, 31), device=card)
+    rng = np.random.default_rng(32)
+    cot = [torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(card)
+           for _ in range(4)]
+    fwd_k = cuda_bounce.make_step(c.data, c.settings, 77)(state)
+    fwd_p = wavefront.plain_bounce_step(c.data, c.settings, 77, state)
+    m = parity.agreement(fwd_p, fwd_k)
+    assert not parity.failures(m), m
+    _, sp = intersect_shade(state.o, state.d, c.data.geometry, c.data.bvh,
+                            c.settings.intersector, plain=True)
+    keep = parity.bwd_comparable(fwd_p, fwd_k, sp.normal)
+    assert keep.mean() > parity.BWD_LIMITS["comparable"]
+    kt = torch.from_numpy(keep).to(card)[:, None]
+    cot = [g * kt for g in cot]
+    cuda_bounce.reset_counts()
+    _, got = step_grads(lambda live, mats: cuda_bounce.make_step_diff(
+        live, c.settings, 77, mats), c.data, c.settings, state, cot)
+    torch.cuda.synchronize()
+    launches = cuda_bounce.counts()
+    _, want = step_grads(lambda live, mats: lambda s: wavefront.plain_bounce_step(
+        live, c.settings, 77, s, mats), c.data, c.settings, state, cot)
+    torch.cuda.synchronize()
+    fwd = "bounce_bvh" if name == "welcome-geo" else "bounce"
+    assert launches[fwd] == 1 and launches["bounce_bwd"] == 0, launches
+    assert launches["bvh"] == (2 if name == "welcome-geo" else 0), launches
+    names = ("o", "d", "throughput", "albedo", "emission", "sky")
+    errs = parity.bwd_errors(dict(zip(names, want[:3] + want[4:7])),
+                             dict(zip(names, got[:3] + got[4:7])), keep)
+    assert not parity.bwd_failures(errs, parity.AUTOGRAD_BWD_RTOL), errs
+    assert torch.equal(got[3], want[3])  # accum passes through
+    assert want[6].abs().sum() > 0  # the texels the missed lanes read
 
 
 @pytest.mark.cuda

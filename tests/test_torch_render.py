@@ -121,9 +121,13 @@ def test_import_pulls_in_no_jax():
         "lumillyrender_tpu_torch.convert, lumillyrender_tpu_torch.parity, "
         "lumillyrender_tpu_torch.ops.cuda_bounce, lumillyrender_tpu_torch.ops.cuda_bvh, "
         "lumillyrender_tpu_torch.ops.cuda_build, lumillyrender_tpu_torch.scene.terrain, "
-        "lumillyrender_tpu_torch.parallel.shard\n"
+        "lumillyrender_tpu_torch.parallel.shard, importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('invert', "
+        "'examples/invert_materials_torch.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-        "or m == 'lumillyrender_tpu' or m.startswith('lumillyrender_tpu.')]\n"
+        "or m == 'lumillyrender_tpu' or m.startswith('lumillyrender_tpu.') "
+        "or m == 'optax' or m.startswith('optax.')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -163,17 +167,23 @@ def test_supported_rejects_later_slices(assets_dir, name, why):
 @pytest.mark.parametrize("sky,words", [(SKY_IBL, "an IBL sky"),
                                        (SKY_SIMPLE, "the simple sky")])
 def test_diff_scene_names_the_sky_it_refuses(assets_dir, sky, words):
-    """The differentiable steps on the card take the uniform sky alone; the
-    reason for any other names that sky."""
+    """The brute-force differentiable steps (the backward kernel's and the
+    JAX package's fused hybrid) take the uniform sky alone, and the reason
+    for any other names that sky; on the card such a scene takes the
+    hybrid step of make_step_hybrid, on the CPU autograd of the plain
+    step."""
     c = compile_scene_file(assets_dir / "new-cbox.toml", spp=1, device="cpu")
     assert cuda_bounce.diff_supported(c.data, c.settings) == (True, "")
+    assert cuda_bounce.diff_step_kind(c.data, c.settings, on_card=True) == "bwd"
     st = dataclasses.replace(c.settings, sky_kind=sky)
     for check in (cuda_bounce._diff_scene, cuda_bounce.diff_supported,
                   cuda_bounce.hybrid_supported):
         ok, reason = check(c.data, st)
-        assert not ok and words in reason and "slice" in reason, (check, reason)
+        assert not ok and words in reason, (check, reason)
     other = "the simple sky" if sky == SKY_IBL else "an IBL sky"
     assert other not in cuda_bounce._diff_scene(c.data, st)[1]
+    assert cuda_bounce.diff_step_kind(c.data, st, on_card=True) == "hybrid"
+    assert cuda_bounce.diff_step_kind(c.data, st, on_card=False) == "plain"
 
 
 def test_supported_rejects_bvh_scenes(assets_dir):
