@@ -163,8 +163,24 @@ Phases, in order; any failure exits non-zero:
      at 64x64 x 1 spp (kernel 4 at K=128 forward, kernel 7 in the
      backward), each against the plain path; the example
      examples/invert_materials_torch.py at its defaults (the albedo error
-     falls by more than 2x); then one `{"kernels": [...]}` line for all
-     30 kernels.
+     falls by more than 2x);
+ 26. remat_policies: `fused="off"` (autograd of the plain step on the
+     card, kernel 3 its walk) on welcome-geo's training step at 512x368 x
+     4 spp under the recompute policies full, hybrid, isect and
+     isect+samp: each film_and_grads with kernel 3's launches counted in
+     the forward and the backward pass apart (160 forward; 160 backward
+     under full, twice the bounces of the stages wider than 48k lanes
+     under hybrid, none under the isect ones), no plain walk and no other
+     kernel; the loss, film and every gradient bit-equal across the four,
+     and within TRAIN_PLAIN_RTOL of phase 25's default dispatch (the
+     hybrid); each policy's step ms (3 steps, the policies in turns),
+     device busy ms and idle share, peak memory, device launches a step;
+     terrain-1m at 64x64 x 1 spp under full and isect (kernel 7 the walk:
+     160 launches forward, 160 and 0 backward, the gradients bit-equal);
+     then new-cbox's 256^2 x 64 spp film under `fused="off"` (the plain
+     step's brute force in the host loop) through check_films against
+     the kernels' film at the same chunk width, its chunk ms beside phase
+     6's; then one `{"kernels": [...]}` line for all 30 kernels.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
@@ -1191,7 +1207,10 @@ def fd_vs_ad(c, cases, device="cuda") -> dict:
 class PlainDiffStep:
     """While open, the differentiable loop steps with autograd of the plain
     step (the plain path) instead of `cuda_bounce.make_step_diff`'s
-    kernels, for a comparison at the same seed."""
+    kernels, for a comparison at the same seed. It is the oracle of the
+    walk as well: its BVH queries take the plain walk (`_walk_tris`,
+    autograd through its triangle tests), where `fused="off"` takes the
+    walk kernels through their plane-equation VJP (phase 26)."""
 
     def __enter__(self):
         from lumillyrender_tpu_torch.integrator import wavefront
@@ -1345,7 +1364,9 @@ def device_busy(fn):
     """(busy device ms of one `fn()`, {kernel name: (ms, launches)}) from
     the profiler's kernel records. Only the card's activity is traced: a
     training step runs tens of thousands of PyTorch ops, whose host-side
-    records cost the profiler far more time than the step."""
+    records cost the profiler far more time than the step; and the records
+    are read raw, since building the profiler's event list takes seconds a
+    step of 100,000 launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1354,10 +1375,10 @@ def device_busy(fn):
         fn()
         torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if getattr(e, "device_type", None) == DeviceType.CUDA:
-            t, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            t, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (t + e.duration_ns() / 1e6, n + 1)
     if not by_name:
         fail("the profiler recorded no kernel on the card")
     return sum(t for t, _ in by_name.values()), by_name
@@ -2727,7 +2748,8 @@ def run_example():
 def diff_scenes(card, lap, cbox, geo, ibl, terrain_1m):
     """Phase 25: differentiable BVH, IBL and simple-sky scenes on the card
     (make_step_hybrid). Returns (report, kernel 3's launch-weighted ms in
-    the welcome-geo step's backward)."""
+    the welcome-geo step's backward, (the welcome-geo step's parameters,
+    target and gradients at 512x368 x 4 spp))."""
     from lumillyrender_tpu_torch.ops import cuda_bounce
 
     phase("25 differentiable BVH, IBL and simple-sky scenes (make_step_hybrid)")
@@ -2754,7 +2776,7 @@ def diff_scenes(card, lap, cbox, geo, ibl, terrain_1m):
     n_lights = lambda c: 2 if c.settings.integrator == "pt-direct" and c.settings.has_lights else 1
     geo_want = {"bounce_bvh": 80, "bvh": 80 * n_lights(geo)}
     full = resized(geo, geo.settings.width, geo.settings.height, 4)
-    rec, p_geo, t_geo, _ = hybrid_film_and_grads("welcome-geo 512x368", full, 4, geo_want)
+    rec, p_geo, t_geo, g_geo = hybrid_film_and_grads("welcome-geo 512x368", full, 4, geo_want)
     report["welcome-geo"] = rec
     part("welcome-geo against the plain path")
     timing = {}
@@ -2799,7 +2821,216 @@ def diff_scenes(card, lap, cbox, geo, ibl, terrain_1m):
     part("terrain-1m")
     report["example"] = run_example()
     lap("differentiable BVH, IBL and simple-sky scenes", t0)
-    return report, (k3_ms / k3_n if k3_n else None)
+    return report, (k3_ms / k3_n if k3_n else None), (p_geo, t_geo, g_geo)
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's own differentiable path on the card (phase 26)
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("full", "hybrid", "isect", "isect+samp")
+REMAT_STEPS = 3  # timed steps a policy, after its counted film_and_grads
+
+
+class Phases:
+    """While open, counts the kernels' launches inside `torch.autograd.grad`
+    (`backward`, by `cuda_bounce.counts()` name: a training step's
+    backward pass) apart from the rest, and the plain walk's calls
+    (`plain_walks`)."""
+
+    def __enter__(self):
+        from lumillyrender_tpu_torch.ops import cuda_bounce, intersect
+
+        self.backward = {k: 0 for k in cuda_bounce.counts()}
+        self.plain_walks = 0
+        self.saved = [(torch.autograd, "grad", torch.autograd.grad),
+                      (intersect, "_walk_tris", intersect._walk_tris)]
+
+        def grad(*a, _fn=torch.autograd.grad, **k):
+            before = cuda_bounce.counts()
+            try:
+                return _fn(*a, **k)
+            finally:
+                for name, v in cuda_bounce.counts().items():
+                    self.backward[name] += v - before[name]
+
+        def walk(*a, _fn=intersect._walk_tris, **k):
+            self.plain_walks += 1
+            return _fn(*a, **k)
+
+        torch.autograd.grad, intersect._walk_tris = grad, walk
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def remat_policies(card, lap, cbox, geo, terrain_1m, geo_step, phase6_chunk_ms) -> dict:
+    """Phase 26: `fused="off"`, the JAX package's own differentiable path
+    (autograd of the plain step, kernel 3 as its walk), on welcome-geo's
+    training step at 512x368 x 4 spp under each recompute policy; kernel 7
+    as its walk on terrain-1m; and the plain step's forward film on
+    new-cbox against the kernels'."""
+    from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
+    from lumillyrender_tpu_torch.diff.render import leaves, map_params
+    from lumillyrender_tpu_torch.integrator import wavefront
+    from lumillyrender_tpu_torch.integrator.render import ChunkRenderer, render
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    phase('26 remat_policies: fused="off" (autograd of the plain step, kernel 3 its walk) '
+          "on welcome-geo 512x368 x 4 spp under full, hybrid, isect, isect+samp")
+    t0 = time.monotonic()
+    p, target, g_auto = geo_step
+    spp = 4
+    base = resized(geo, geo.settings.width, geo.settings.height, spp)
+    st_off = dataclasses.replace(base.settings, fused="off")
+    if cuda_bounce.diff_step_kind(base.data, st_off, on_card=True) != "plain":
+        fail('fused="off" does not take the plain step on the card')
+    n = st_off.width * st_off.height * spp
+    bounces = st_off.max_bounces
+    wide = sum(b1 - b0 for w, b0, b1 in wavefront._stage_plan(n, st_off) if w > 48 * 1024)
+    want_bwd = {"full": 2 * bounces, "hybrid": 2 * wide, "isect": 0, "isect+samp": 0}
+    report, runs, steps = {}, {}, {}
+    for mode in REMAT_POLICIES:
+        st = dataclasses.replace(st_off, bwd_remat=mode)
+        with Phases() as ph:
+            cuda_bounce.reset_counts()
+            t = time.monotonic()
+            loss, film, grads = film_and_grads(base.data, st, p, target, SEED, spp)
+            torch.cuda.synchronize()
+            first_s = time.monotonic() - t
+            launches = cuda_bounce.counts()
+        k3_bwd = ph.backward["bvh"]
+        k3_fwd = launches["bvh"] - k3_bwd
+        others = {k: v for k, v in launches.items() if k != "bvh" and v}
+        report[mode] = dict(k3_forward=k3_fwd, k3_backward=k3_bwd,
+                            k3_backward_want=want_bwd[mode], plain_walks=ph.plain_walks,
+                            other_launches=others, first_call_s=first_s)
+        print(f"{mode}: film_and_grads {first_s:.2f} s (first call); kernel 3 {k3_fwd} "
+              f"launches forward, {k3_bwd} backward (want {2 * bounces} and "
+              f"{want_bwd[mode]}); plain walks {ph.plain_walks}; other kernels "
+              f"{others or 'none'}")
+        if (k3_fwd != 2 * bounces or k3_bwd != want_bwd[mode] or ph.plain_walks
+                or others):
+            fail(f'{mode}: the fused="off" training step\'s launches: {report[mode]}')
+        runs[mode] = [loss, film] + leaves(grads)
+        if mode == "full":
+            g_full = grads
+
+        def step(seed, st=st):
+            live = map_params(p, lambda x: x.detach().requires_grad_(x.is_floating_point()))
+            f = render_diff(base.data, st, live, seed, spp)
+            torch.autograd.grad(torch.mean((f - target) ** 2),
+                                [x for x in leaves(live) if x.requires_grad], allow_unused=True)
+
+        steps[mode] = step
+    # Timing: REMAT_STEPS rounds, the policies in turn (in reverse every
+    # other round), so that the host's drift spreads over all of them.
+    ms = {mode: [] for mode in REMAT_POLICIES}
+    peak = dict.fromkeys(REMAT_POLICIES, 0)
+    for k in range(REMAT_STEPS):
+        for mode in (REMAT_POLICIES if k % 2 == 0 else REMAT_POLICIES[::-1]):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.monotonic()
+            steps[mode](SEED + 51 + k)
+            torch.cuda.synchronize()
+            ms[mode].append((time.monotonic() - t) * 1e3)
+            peak[mode] = max(peak[mode], torch.cuda.max_memory_allocated() - held)
+    for mode in REMAT_POLICIES:
+        t = time.monotonic()
+        busy, by_name = device_busy(lambda: steps[mode](SEED + 99))
+        step_ms = statistics.mean(ms[mode])
+        rec = report[mode]
+        rec.update(step_ms=step_ms, step_ms_each=ms[mode], busy_ms=busy,
+                   idle_share=1.0 - busy / step_ms, peak_bytes=peak[mode],
+                   device_launches=sum(c for _, c in by_name.values()),
+                   k3_ms=sum(v for name, (v, _) in by_name.items() if "k3::kernel" in name),
+                   profiled_s=time.monotonic() - t)
+        print(f"{mode}: {step_ms:.4f} ms per step (mean of {REMAT_STEPS}, in turns: "
+              + ", ".join(f"{v:.1f}" for v in ms[mode])
+              + f"), device busy {busy:.4f} ms: idle share {rec['idle_share']:.4f}; peak "
+              f"memory {peak[mode] / 2**30:.3f} GiB; kernel 3 {rec['k3_forward']} + "
+              f"{rec['k3_backward']} launches, {rec['k3_ms']:.4f} ms a step; "
+              f"{rec['device_launches']} device launches a step  [{card}]")
+    # Every policy computes the same function in the same order.
+    for mode in REMAT_POLICIES[1:]:
+        if not all(torch.equal(a, b) for a, b in zip(runs[mode], runs["full"])):
+            fail(f"{mode}: the loss, film or gradients differ from full's")
+    report["vs_default"] = grads_gap(g_full, g_auto)
+    full, isect = report["full"]["device_launches"], report["isect"]["device_launches"]
+    report["search_launch_share"] = (full - isect) / full
+    print(f"the four policies bit-equal (loss, film, every gradient); against the default "
+          f"dispatch (make_step_hybrid), max |diff| over max per gradient: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in report["vs_default"].items())
+          + f" (held to {TRAIN_PLAIN_RTOL:g}); the recompute's searches are "
+          f"{report['search_launch_share']:.4f} of full's device launches a step")
+    if not max(report["vs_default"].values()) < TRAIN_PLAIN_RTOL:
+        fail(f'fused="off" gradients disagree with the default dispatch: {report["vs_default"]}')
+    lap("26 welcome-geo policies", t0)
+
+    # Kernel 7 as the walk: terrain-1m at K=128 (phase 25's 64x64 x 1 spp).
+    t1 = time.monotonic()
+    small = resized(terrain_1m, 64, 64, 1)
+    p_t = params_of(small.data)
+    with torch.no_grad():
+        target_t = render_diff(small.data, small.settings, p_t, SEED, 1)
+    p_t = p_t._replace(materials=dataclasses.replace(
+        p_t.materials, color=p_t.materials.color * 0.8))
+    terrain = {}
+    for mode in ("full", "isect"):
+        st = dataclasses.replace(small.settings, fused="off", bwd_remat=mode)
+        with Phases() as ph:
+            cuda_bounce.reset_counts()
+            _, _, g = film_and_grads(small.data, st, p_t, target_t, SEED, 1)
+            torch.cuda.synchronize()
+            launches = cuda_bounce.counts()
+        wide_bwd = ph.backward["bvh_wide"]
+        terrain[mode] = dict(k7_forward=launches["bvh_wide"] - wide_bwd, k7_backward=wide_bwd,
+                             plain_walks=ph.plain_walks, launches=launches, grads=g)
+        print(f'terrain-1m 64x64 x 1 spp, fused="off", {mode}: kernel 7 '
+              f"{launches['bvh_wide'] - wide_bwd} launches forward, {wide_bwd} backward; "
+              f"launches {launches}; plain walks {ph.plain_walks}")
+        others = {k: v for k, v in launches.items() if k != "bvh_wide" and v}
+        if (launches["bvh_wide"] - wide_bwd != 2 * bounces or ph.plain_walks or others
+                or wide_bwd != (2 * bounces if mode == "full" else 0)):
+            fail(f'terrain-1m fused="off" {mode}: {terrain[mode]}')
+    if not all(torch.equal(a, b) for a, b in zip(leaves(terrain["full"].pop("grads")),
+                                                 leaves(terrain["isect"].pop("grads")))):
+        fail('terrain-1m fused="off": isect\'s gradients differ from full\'s')
+    report["terrain-1m"] = terrain
+    lap("26 terrain-1m", t1)
+
+    # The plain step's forward film, brute force on the card, at the kernel
+    # film's chunk width: the brute-force ladder resamples within a chunk,
+    # so a film depends on the chunk width.
+    t1 = time.monotonic()
+    chunk = 32
+    off = dataclasses.replace(cbox, settings=dataclasses.replace(cbox.settings, fused="off"))
+    with Phases() as ph:
+        cuda_bounce.reset_counts()
+        f_off = render(off, seed=SEED, spp_chunk=chunk, device="cuda").film
+        torch.cuda.synchronize()
+        launches = cuda_bounce.counts()
+    f_kernel = render(cbox, seed=SEED, spp_chunk=chunk, device="cuda").film
+    films = check_films('new-cbox 256^2 x 64 spp, fused="off"',
+                        {"plain step vs kernel path": (f_off, f_kernel)})
+    renderer = ChunkRenderer(off.data, off.settings, SEED, "cuda")
+    _, chunk_ms, per_chunk = chunk_rate(renderer, chunk, 2, 0)
+    where = "the captured plan" if renderer.graphed else "the host loop"
+    print(f'new-cbox fused="off": {chunk_ms:.4f} ms a {chunk}-spp chunk in {where} (phase 6, '
+          f"the kernels in the captured plan: {phase6_chunk_ms:.4f} ms); launches {launches}, "
+          f"per chunk {per_chunk}; plain walks {ph.plain_walks}  [{card}]")
+    if launches["raygen"] != 2 or any(launches[k] for k in launches if k != "raygen"):
+        fail(f'new-cbox fused="off" launched {launches}: raygen twice and nothing else')
+    report["new-cbox"] = dict(chunk_ms=chunk_ms, phase6_chunk_ms=phase6_chunk_ms, loop=where,
+                              launches=launches, film_checks=films)
+    lap("26 new-cbox film", t1)
+    lap("remat policies", t0)
+    return report
 
 
 def main() -> int:
@@ -3251,8 +3482,10 @@ def main() -> int:
     dp_report = data_parallel(card, lap, cbox, rays_per_s)
     vr_report, raygen_err = vr_on_card(card, lap, raygen_err)
     sky_report, sky_err, sky_bvh_err = simple_sky(card, lap, cbox, geo)
-    diff_report, k3_bwd_ms = diff_scenes(card, lap, cbox, geo, ibl, terrain_1m)
+    diff_report, k3_bwd_ms, geo_step = diff_scenes(card, lap, cbox, geo, ibl, terrain_1m)
     diff_report["k3_backward_ms_per_launch"] = k3_bwd_ms
+    remat_report = remat_policies(card, lap, cbox, geo, terrain_1m, geo_step,
+                                  cbox_report["chunk_ms"])
     del terrain_1m
     bounce_err = max(bounce_err, sky_err)
     bvh_bounce_err = max(bvh_bounce_err, sky_bvh_err)
@@ -3308,7 +3541,7 @@ def main() -> int:
                                          for w, r in bwd_widths.items()}),
         huge_meshes=big_report, probes=probe_report, stage_loop=stage_loop, cli_files=cli_files,
         data_parallel=dp_report, vr=vr_report, simple_sky=sky_report,
-        differentiable_scenes=diff_report,
+        differentiable_scenes=diff_report, remat_policies=remat_report,
         kernels=kernels, ptxas=ptxas_report,
         phase_seconds=secs,
         seconds=time.monotonic() - t_start)

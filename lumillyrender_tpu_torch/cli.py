@@ -39,9 +39,19 @@ def run(argv=None):
     parser.add_argument("--out", default=None, help="Output file (default images/...)")
     parser.add_argument("--spp-chunk", type=int, default=None)
     parser.add_argument(
-        "--intersector", choices=("auto", "brute", "bvh"), default="auto",
+        "--intersector", choices=("auto", "brute", "bvh", "pallas"), default="auto",
         help="Intersection backend: auto picks brute force up to 8192 prims "
-             "and the BVH past them",
+             "and the BVH past them; brute and bvh force one (the BVH walk is "
+             "a kernel on the card, the plain walk on the CPU); pallas forces "
+             "the BVH through a walk kernel (the card only; leaves of a K that "
+             "divides 128)",
+    )
+    parser.add_argument(
+        "--fused", choices=("auto", "on", "off"), default="auto",
+        help="Fused bounce kernels: auto runs them on the card; off forces "
+             "the plain PyTorch bounce step (on the card with the BVH walk "
+             "kernels; a forward chunk then runs in the host loop); on forces "
+             "the kernels and refuses the CPU",
     )
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="cuda runs the kernels; cpu runs the plain "
@@ -115,6 +125,8 @@ def _render(args, distributed: bool, t0: float):
         compiled.settings = dataclasses.replace(
             compiled.settings, intersector=args.intersector
         )
+    if args.fused != "auto":
+        compiled.settings = dataclasses.replace(compiled.settings, fused=args.fused)
     if args.resolution:
         compiled.settings = dataclasses.replace(
             compiled.settings, width=args.resolution[0], height=args.resolution[1]

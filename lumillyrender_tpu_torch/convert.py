@@ -6,7 +6,8 @@ or dataclass of arrays with the JAX package's field names, such as its
 `compile_scene_file(p).data` after `np.asarray` of each leaf),
 `state_from_numpy` / `state_to_numpy` move a `PathState` either way, and
 `params_from_numpy` / `params_to_numpy` move the differentiable parameters
-(`diff.DiffParams`) and their gradients.
+(`diff.DiffParams`) and their gradients, and `settings_from` the render
+settings.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from .integrator.wavefront import PathState
 from .scene.data import (
     CameraData,
     MaterialTable,
+    RenderSettings,
     SceneData,
     SkyData,
     scene_from_tree,
@@ -99,3 +101,13 @@ def params_to_numpy(params) -> dict:
             out[name][f.name] = (x.numpy() if x.is_floating_point()
                                  else np.zeros(tuple(x.shape), np.float32))
     return out
+
+
+def settings_from(settings) -> RenderSettings:
+    """The port's RenderSettings with the values of `settings` (the JAX
+    package's RenderSettings, or any object with its field names), its
+    `fused` switch and `bwd_remat` policy included; a field `settings`
+    lacks keeps the port's default."""
+    return RenderSettings(**{f.name: getattr(settings, f.name)
+                             for f in dataclasses.fields(RenderSettings)
+                             if hasattr(settings, f.name)})

@@ -21,9 +21,12 @@ the plain step recomputed on the bounce's input state, whose BVH walk is a
 kernel (kernel 3, or the wide walk at K=128) with the plane-equation VJP;
 an IBL texture gets its texels' gradients through that recompute's
 nearest-texel gather. On the CPU the BVH, IBL and simple-sky scenes run
-autograd of the plain step. Either way each step keeps only its input
-state on the card, so `RenderSettings.bwd_remat` acts only on the CPU's
-plain path. Camera rays come from `ops/camera.py::sample_rays`, so that
+autograd of the plain step, and so does every scene on either device under
+`RenderSettings.fused = "off"` (on the card with kernel 3 or 7 as its
+walk), as the JAX package's `render_diff` always does. The kernels' steps
+keep only their input state; `RenderSettings.bwd_remat` sets what the
+plain step's autograd keeps and recomputes (integrator/wavefront.py::
+_run_fixed). Camera rays come from `ops/camera.py::sample_rays`, so that
 camera gradients exist; the raygen kernel is not on this path.
 """
 

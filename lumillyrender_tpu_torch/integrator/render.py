@@ -10,8 +10,11 @@ On a CUDA device a forward chunk reads nothing from the card: raygen writes
 into a `ForwardPlan`'s buffers, and the plan replays the chunk's whole stage
 plan (every bounce, `_compact` and bank) as one CUDA graph, captured at its
 first chunk: the counterpart of the JAX package's jitted chunk with its
-`lax.while_loop` stages. `render` submits chunks with no host sync between
-them unless telemetry times each one.
+`lax.while_loop` stages. Under `fused="off"` the plain step runs in the
+host loop instead (kernel 1's rays, then `trace_film` launching the plain
+step's PyTorch ops, every stage to its full step count): it makes tensors
+from host values, which a capture refuses. `render` submits chunks with no
+host sync between them unless telemetry times each one.
 """
 
 from __future__ import annotations
@@ -195,7 +198,8 @@ class ForwardPlan:
 class ChunkRenderer:
     """What a render keeps across its chunks: the scene on the device
     (checked once for the card), the bounce step with its tables packed
-    once, and on a CUDA device one `ForwardPlan` per chunk size."""
+    once, and on a CUDA device one `ForwardPlan` per chunk size (`graphed`;
+    not under `fused="off"`, whose plain step runs in the host loop)."""
 
     def __init__(self, scene: SceneData, settings: RenderSettings, seed, device=None):
         from ..ops import cuda_bounce
@@ -207,6 +211,8 @@ class ChunkRenderer:
         if dev.type == "cuda":
             cuda_bounce.require_supported(self.scene, settings)
         self.step = None if self.aov else make_bounce_step(self.scene, settings, seed)
+        self.graphed = (dev.type == "cuda" and not self.aov
+                        and cuda_bounce.fused_mode(settings, True) != "off")
         self.plans: dict[int, ForwardPlan] = {}
 
     def chunk(self, sample_offset: int, spp_chunk: int):
@@ -217,7 +223,7 @@ class ChunkRenderer:
         scene, settings, seed, dev = self.scene, self.settings, self.seed, self.device
         w, h = settings.width, settings.height
         n = w * h * spp_chunk
-        if dev.type == "cuda" and not self.aov:
+        if self.graphed:
             plan = self.plans.get(spp_chunk)
             if plan is None:
                 plan = self.plans[spp_chunk] = ForwardPlan(scene, settings, seed, self.step,

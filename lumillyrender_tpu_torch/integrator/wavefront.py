@@ -14,20 +14,22 @@ with sky radiance added for missed rays at every depth (`scene.rs:43`).
 is brute force or the plain BVH walk); `make_bounce_step` returns the step
 the render loop runs, which launches a fused bounce kernel on a CUDA device
 (ops/cuda_bounce.py: brute force or BVH) and is the plain step on the
-CPU. The forward stage loop (`run_stage`) is a Python loop with one host
-sync per bounce (the "any lane alive" test) on the CPU, and a fixed number
-of steps with no host read on a CUDA device, which a CUDA graph captures
+CPU (and on the card under `fused="off"`). The forward stage loop
+(`run_stage`) is a Python loop with one host sync per bounce (the "any
+lane alive" test) on the CPU, and a fixed number of steps with no host
+read on a CUDA device, which a CUDA graph captures for the kernels' step
 (integrator/render.py, `ChunkRenderer`): a bounce leaves a dead lane as it
 is, so the steps past the last live lane change nothing.
 
 The differentiable loop (`differentiable=True` of `trace` and
 `trace_film`, which diff/render.py drives) takes a fixed number of steps
 per stage, with no host sync, and steps from
-`cuda_bounce.make_step_diff`. Two material tables then meet in the step:
-`scene.materials`, a detached copy that drives the sampling decisions (RR,
-the NEE emitter test, BSDF sampling), and `mats_eval`, the live parameters
-that every evaluated quantity reads (emission, BRDF, coef, NEE's f and
-l_e). Intermediates of masked lanes stay finite (a lane whose query was
+`cuda_bounce.make_step_diff`, under the recompute policy
+`settings.bwd_remat` (`_run_fixed`, `Remat`). Two material tables then
+meet in the step: `scene.materials`, a detached copy that drives the
+sampling decisions (RR, the NEE emitter test, BSDF sampling), and
+`mats_eval`, the live parameters that every evaluated quantity reads
+(emission, BRDF, coef, NEE's f and l_e). Intermediates of masked lanes stay finite (a lane whose query was
 not asked, cap -inf, keeps its origin as position; coef's distance is 0
 off a hit), so autograd's zero cotangents on them never meet an inf.
 """
@@ -130,15 +132,20 @@ def _only(mask, cap):
 
 
 def _direct_light(scene, settings, sp, out_dir, m_gathered, lane, seed, ctr,
-                  alive, mats_eval=None, plain_walk: bool = True):
+                  alive, mats_eval=None, plain_walk: bool = True,
+                  remat: Remat | None = None):
     """NEE contribution (`scene.rs:104-151`) of the `alive` lanes. Returns
     (N,3) radiance. `m_gathered` (the lanes' sampling rows) decides the
     emitter early-out; f and l_e read `mats_eval` (default
-    `scene.materials`); `plain_walk` as in `plain_bounce_step`."""
+    `scene.materials`); `plain_walk` and `remat` as in `plain_bounce_step`."""
     if mats_eval is None:
         mats_eval = scene.materials
-    u_pick, u1, u2, _ = rng.uniform4(seed, lane, ctr + _NEE)
-    light_point, pdf = _sample_light_point(scene, u_pick, u1, u2)
+
+    def light_sample():
+        u_pick, u1, u2, _ = rng.uniform4(seed, lane, ctr + _NEE)
+        return _sample_light_point(scene, u_pick, u1, u2)
+
+    light_point, pdf = light_sample() if remat is None else remat.sampled(light_sample)
 
     path = light_point - sp.position
     dist = vec.norm(path)
@@ -158,6 +165,7 @@ def _direct_light(scene, settings, sp, out_dir, m_gathered, lane, seed, ctr,
     shadow, shadow_sp = intersect_shade(
         sp.position, wi, scene.geometry, scene.bvh, settings.intersector,
         t_cap=_only(ok, dist + 2.0 * EPS), occlusion=True, plain=plain_walk,
+        keep=None if remat is None else remat.isect,
     )
     visible = shadow_sp.hit & (torch.abs(shadow.t - dist) <= EPS)
     ok = ok & visible
@@ -181,8 +189,8 @@ def _masked(mask, x):
 
 
 def plain_bounce_step(scene: SceneData, settings: RenderSettings, seed,
-                      state: PathState, mats_eval=None,
-                      plain_walk: bool = True) -> PathState:
+                      state: PathState, mats_eval=None, plain_walk: bool = True,
+                      remat: Remat | None = None) -> PathState:
     """One bounce transition over a PathState, in plain PyTorch: the plain
     version of the fused bounce kernel, and the step the CPU runs. Like the
     kernel it walks the BVH only for the queries whose answer it uses: the
@@ -195,9 +203,15 @@ def plain_bounce_step(scene: SceneData, settings: RenderSettings, seed,
     A BVH scene's queries take the plain walk (`_walk_tris`, autograd
     through its triangle tests), or with `plain_walk=False` the walk
     `ops/intersect.py::bvh_route` picks (a kernel for CUDA tensors, the plain
-    walk for CPU ones) with the plane-equation VJP of `cuda_bvh._TriHit`:
+    walk for CPU ones) with the plane-equation VJP of `cuda_bvh.plane_t`:
     the same values, and the JAX package's gradient of the walk. The
-    hybrid step's backward recomputes the bounce that way."""
+    hybrid step's backward recomputes the bounce that way, and so does the
+    card's step under `fused="off"`.
+
+    `remat` (the loop's `bwd_remat` "isect" and "isect+samp" policies)
+    keeps both queries' searches, and under "isect+samp" the BSDF and
+    light samples, in the forward pass and hands them back in the
+    checkpoint's recompute (`Remat`)."""
     if mats_eval is None:
         mats_eval = scene.materials
     bounce = state.bounce
@@ -209,6 +223,7 @@ def plain_bounce_step(scene: SceneData, settings: RenderSettings, seed,
     hit, sp = intersect_shade(
         state.o, state.d, scene.geometry, scene.bvh, settings.intersector,
         t_cap=_only(state.alive, inf), plain=plain_walk,
+        keep=None if remat is None else remat.isect,
     )
     rays = state.rays_traced + state.alive.sum(dtype=torch.float32)
 
@@ -238,13 +253,16 @@ def plain_bounce_step(scene: SceneData, settings: RenderSettings, seed,
     # NEE (`scene.rs:185-186`).
     if nee and settings.has_lights:
         direct = _direct_light(scene, settings, sp, out_dir, m, lane, seed, ctr,
-                               alive, mats_eval, plain_walk)
+                               alive, mats_eval, plain_walk, remat)
         accum = accum + _masked(alive, throughput * direct)
         rays = rays + alive.sum(dtype=torch.float32)  # shadow rays
 
     # BSDF sampling + throughput update (`scene.rs:78-102`).
-    s = bsdf.sample(m, out_dir, sp.normal, r1, r2, r3,
-                    present=settings.mat_types)
+    def bsdf_sample():
+        return bsdf.sample(m, out_dir, sp.normal, r1, r2, r3,
+                           present=settings.mat_types)
+
+    s = bsdf_sample() if remat is None else remat.sampled(bsdf_sample)
     f = bsdf.eval_brdf(m_eval, out_dir, s.direction, sp.normal, sp.position,
                        present=settings.mat_types)
     t_hit = torch.where(sp.hit, hit.t, torch.zeros_like(hit.t))  # -inf on dead lanes
@@ -285,13 +303,73 @@ def make_bounce_step(scene: SceneData, settings: RenderSettings, seed,
     return cuda_bounce.make_step(scene, settings, seed, mats_eval)
 
 
-def _checkpointed(step, state: PathState) -> PathState:
-    """`step(state)` under torch.utils.checkpoint: only the input state is
-    kept for the backward pass, which recomputes the bounce."""
+def _keep_saved(x):
+    return x
+
+
+class Remat:
+    """What one checkpointed bounce keeps besides its input state under
+    `bwd_remat` "isect" (both queries' searches, `ops/intersect.py::Found`)
+    or "isect+samp" (also the BSDF sample and the light sample), in the
+    order the bounce asks for them. The checkpoint runs the bounce twice:
+    in the forward pass each `isect` / `sampled` call runs its function and
+    keeps the result; in the recompute for the backward pass it hands the
+    kept result back and runs nothing.
+
+    The backward pass walks the forward pass's autograd graph; the
+    recompute only regenerates the tensors that graph saved, matched by
+    their order (torch.utils.checkpoint, non-reentrant). A search runs
+    under no_grad and saves nothing, so skipping it leaves that order as
+    it was. A BSDF sample is differentiable (its direction follows the
+    incoming direction and a sphere's normal), so in the forward pass it
+    runs under saved-tensor hooks of its own: its graph keeps what it
+    saved, the checkpoint does not track it, and the recompute need not
+    regenerate it. A kept tensor comes back detached, requiring grad as
+    the original did, so the ops after it save what they saved before.
+    The gradients are those of "full" and "none" bit for bit."""
+
+    def __init__(self, samp: bool):
+        self.samp = samp
+        self.kept = []  # (kind of tuple, tensors detached, requires_grad flags)
+        self.at = None  # the next kept result's index in a recompute
+
+    def start(self):
+        """Called as the bounce starts: a recompute once the forward pass
+        has kept its results."""
+        self.at = 0 if self.kept else None
+
+    def isect(self, find):
+        return self._take(find)
+
+    def sampled(self, draw):
+        return self._take(draw) if self.samp else draw()
+
+    def _take(self, compute):
+        if self.at is None:
+            with torch.autograd.graph.saved_tensors_hooks(_keep_saved, _keep_saved):
+                out = compute()
+            self.kept.append((type(out), tuple(x.detach() for x in out),
+                              tuple(x.requires_grad for x in out)))
+            return out
+        kind, vals, grads = self.kept[self.at]
+        self.at += 1
+        vals = [x.detach().requires_grad_(g) if g else x.detach() for x, g in zip(vals, grads)]
+        return kind._make(vals) if hasattr(kind, "_make") else kind(vals)
+
+
+def _checkpointed(step, state: PathState, remat: Remat | None = None) -> PathState:
+    """`step(state)` under torch.utils.checkpoint: only the input state
+    (and with `remat` what it keeps) is kept for the backward pass, which
+    recomputes the bounce."""
     from torch.utils.checkpoint import checkpoint
 
     def run(o, d, thr, acc, alive, rays, lane):
-        s = step(PathState(state.bounce, o, d, thr, acc, alive, rays, lane))
+        st = PathState(state.bounce, o, d, thr, acc, alive, rays, lane)
+        if remat is None:
+            s = step(st)
+        else:
+            remat.start()
+            s = step(st, remat=remat)
         return s.o, s.d, s.throughput, s.accum, s.alive, s.rays_traced
 
     o, d, thr, acc, alive, rays = checkpoint(
@@ -300,31 +378,37 @@ def _checkpointed(step, state: PathState) -> PathState:
     return PathState(state.bounce + 1, o, d, thr, acc, alive, rays, state.lane)
 
 
+REMAT_POLICIES = ("none", "full", "hybrid", "isect", "isect+samp")
+
+
 def _run_fixed(step, state: PathState, n_steps: int,
                settings: RenderSettings) -> PathState:
     """`n_steps` bounces of the differentiable loop, with no host sync (a
     dead lane stays dead through the mask-correct step). The recompute
-    policy is `settings.bwd_remat`: "full" checkpoints every bounce, "none"
-    keeps every bounce's intermediates, "hybrid" keeps them on stages of at
-    most 48k lanes. A step with its own backward (`fused_diff`: the
-    hand-written backward or the hybrid's) keeps only its input state
-    anyway, so it is never checkpointed, as the JAX package's `run_stage`
-    skips `jax.checkpoint` for its fused steps. Every step on the card has
-    its own backward, so the policies act only on the CPU's plain
-    autograd path (BVH, IBL and simple-sky scenes there)."""
+    policy is `settings.bwd_remat`, the JAX package's `run_stage`'s:
+    "full" checkpoints every bounce, "none" keeps every bounce's
+    intermediates, "hybrid" keeps them on stages of at most 48k lanes and
+    checkpoints wider ones, "isect" checkpoints every bounce keeping both
+    queries' searches (the recompute walks nothing), "isect+samp" also the
+    BSDF and light samples (`Remat`); a step without its own backward
+    takes `remat=` for those two. A step with its own backward
+    (`fused_diff`: the hand-written backward or the hybrid's) keeps only
+    its input state anyway, so it is never checkpointed, as the JAX
+    package's `run_stage` skips `jax.checkpoint` for its fused steps."""
     mode = getattr(settings, "bwd_remat", "full")
-    if mode in ("isect", "isect+samp"):
-        raise NotImplementedError(
-            f"bwd_remat={mode!r} keeps named intersection outputs and needs "
-            "selective checkpointing, which comes in a later slice (queue 1 "
-            "of ROADMAP.md); use 'full', 'hybrid' or 'none'")
-    if mode not in ("none", "full", "hybrid"):
+    if mode not in REMAT_POLICIES:
         raise ValueError(f"unknown bwd_remat policy {mode!r}; expected one of "
-                         "'none', 'full', 'hybrid', 'isect', 'isect+samp'")
-    keep = (getattr(step, "fused_diff", False) or mode == "none"
-            or (mode == "hybrid" and state.o.shape[0] <= 48 * 1024))
+                         + ", ".join(repr(m) for m in REMAT_POLICIES))
+    if getattr(step, "fused_diff", False):
+        mode = "none"
+    keep = mode == "none" or (mode == "hybrid" and state.o.shape[0] <= 48 * 1024)
     for _ in range(n_steps):
-        state = step(state) if keep else _checkpointed(step, state)
+        if keep:
+            state = step(state)
+        elif mode in ("full", "hybrid"):
+            state = _checkpointed(step, state)
+        else:
+            state = _checkpointed(step, state, Remat(samp=mode == "isect+samp"))
     return state
 
 

@@ -21,7 +21,8 @@
   kernel forward with the backward kernel (`diff_supported`), or with
   autograd of the plain step recomputed on the input state
   (`make_step_hybrid`: every other scene on the card, BVH, IBL and
-  simple-sky scenes included).
+  simple-sky scenes included), or under `fused="off"` (`fused_mode`, as
+  `make_step` for the forward render) autograd of the plain step itself.
 
 Each wrapper runs its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises. The launch itself is
@@ -56,7 +57,7 @@ from ..scene.data import (
 from . import cuda_build, cuda_bvh
 from .bounce_bwd import BounceGrads, plain_bounce_bwd
 from .cuda_build import ptr as _ptr
-from .intersect import _use_brute
+from .intersect import _use_brute, check_pallas
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +168,14 @@ def _require(check):
 
 def require_supported(scene: SceneData, settings: RenderSettings):
     _require(supported(scene, settings))
+
+
+def _require_kernels(scene: SceneData, settings: RenderSettings):
+    """Raise unless the bounce kernels serve the scene; under intersector
+    "pallas", also unless a walk kernel serves its BVH's leaves."""
+    _require(bounce_supported(scene, settings))
+    if settings.intersector == "pallas":
+        check_pallas(scene.bvh)
 
 
 # ---------------------------------------------------------------------------
@@ -608,17 +617,43 @@ def bounce_bvh_launch(scene: SceneData, settings: RenderSettings, seed, state,
 bounce_bvh.launches = 0
 
 
+FUSED_MODES = ("auto", "on", "off")
+
+
+def fused_mode(settings: RenderSettings, on_card: bool) -> str:
+    """`settings.fused`, the JAX package's switch between the fused kernels
+    and the plain step: "auto" and "on" take the bounce kernels on the card
+    (they serve every scene the card renders), "off" the plain step,
+    forward and differentiable, on any device. "on" raises on the CPU,
+    where no kernel runs."""
+    mode = getattr(settings, "fused", "auto")
+    if mode not in FUSED_MODES:
+        raise ValueError(f"unknown fused mode {mode!r}; expected 'auto', 'on' or 'off'")
+    if mode == "on" and not on_card:
+        raise ValueError("fused='on' asks for the bounce kernels, which run only on a "
+                         "CUDA device; use 'auto' or 'off' on the CPU")
+    return mode
+
+
+def _on_card(scene: SceneData) -> bool:
+    return scene.geometry.tri_p0.device.type != "cpu"
+
+
 def make_step(scene: SceneData, settings: RenderSettings, seed,
               mats_eval: MaterialTable | None = None):
     """PathState -> PathState transition for the render loop: the bounce
     kernel on a CUDA device (brute force or BVH, as `_use_brute` picks;
-    tables packed once), the plain step on the CPU. `mats_eval` is the
-    evaluation table (default scene.materials)."""
+    tables packed once), the plain step on the CPU and, with `fused="off"`
+    (`fused_mode`), on the card too, its BVH walk there a kernel (the walk
+    `bvh_route` picks). `mats_eval` is the evaluation table (default
+    scene.materials)."""
     from ..integrator.wavefront import plain_bounce_step
 
-    if scene.geometry.tri_p0.device.type == "cpu":
-        return lambda state: plain_bounce_step(scene, settings, seed, state, mats_eval)
-    _require(bounce_supported(scene, settings))
+    on_card = _on_card(scene)
+    if fused_mode(settings, on_card) == "off" or not on_card:
+        return lambda state: plain_bounce_step(scene, settings, seed, state, mats_eval,
+                                               plain_walk=not on_card)
+    _require_kernels(scene, settings)
     brute = _use_brute(scene.geometry, settings.intersector, scene.bvh)
     tables = pack_tables(scene, bvh=not brute, mats_eval=mats_eval)
     kernel = bounce if brute else bounce_bvh
@@ -873,10 +908,15 @@ class _BounceHybrid(_BounceFn):
 
 def diff_step_kind(scene: SceneData, settings: RenderSettings, on_card: bool) -> str:
     """Which differentiable step `make_step_diff` builds for the scene, on
-    the card or on the CPU: "bwd" (the backward kernel, `diff_supported`),
+    the card or on the CPU: "plain" (autograd of the plain step) under
+    `fused="off"` on either, as the JAX package's `render_diff` always
+    runs, and otherwise "bwd" (the backward kernel, `diff_supported`),
     "hybrid" (`make_step_hybrid`: on the CPU only where `hybrid_supported`,
-    on the card for every other scene) or "plain" (autograd of the plain
-    step, the CPU's path for BVH, IBL and simple-sky scenes)."""
+    on the card for every other scene) or "plain" (the CPU's path for BVH,
+    IBL and simple-sky scenes). `fused="on"` raises on the CPU
+    (`fused_mode`)."""
+    if fused_mode(settings, on_card) == "off":
+        return "plain"
     if diff_supported(scene, settings)[0]:
         return "bwd"
     if on_card or hybrid_supported(scene, settings)[0]:
@@ -892,10 +932,10 @@ def _make_step(fn, scene: SceneData, settings: RenderSettings, seed,
     values; on the CPU with the plain step forward."""
     from ..integrator.wavefront import PathState
 
-    on_card = scene.geometry.tri_p0.device.type != "cpu"
+    on_card = _on_card(scene)
     kernel = tables = None
     if on_card:
-        _require(bounce_supported(scene, settings))
+        _require_kernels(scene, settings)
         brute = _use_brute(scene.geometry, settings.intersector, scene.bvh)
         tables = pack_tables(scene, bvh=not brute)
         kernel = bounce if brute else bounce_bvh
@@ -921,7 +961,7 @@ def make_step_hybrid(scene: SceneData, settings: RenderSettings, seed,
     on a BVH of any leaf width) on the card, the plain step on the CPU;
     backward, autograd of `recompute` on the saved input state, whose BVH
     walk is the one `bvh_route` picks (kernel 3, or the AOV walks at
-    K=128) through `cuda_bvh._TriHit`'s plane-equation VJP. Arguments as
+    K=128) through `cuda_bvh.plane_t`'s plane-equation VJP. Arguments as
     `make_step_diff`; the sky's live leaves are SKY_LEAVES of its kind."""
     if mats_eval is None:
         mats_eval = scene.materials
@@ -942,24 +982,30 @@ def make_step_diff(scene: SceneData, settings: RenderSettings, seed,
       other materials, or Lambert rows past BWD_MAX_ROWS), and on the card
       every other scene the bounce kernels serve (BVH scenes of any leaf
       width, the IBL and the simple sky): `make_step_hybrid`;
-    * anything else on the CPU: autograd of the plain step.
+    * under `fused="off"` on either device, and for anything else on the
+      CPU: autograd of the plain step, whose BVH walk is a kernel on the
+      card (kernel 3, or kernel 7 at K=128, through `cuda_bvh.plane_t`)
+      and the plain walk on the CPU.
     On the CPU the first two run the plain step forward. Both have their
     own backward and keep only their input state, so the step carries
-    `fused_diff = True` and the loop does not checkpoint it. On the card
-    it raises only for a scene no bounce kernel serves."""
+    `fused_diff = True` and the loop does not checkpoint it. The plain step
+    carries `fused_diff = False` and takes the loop's `remat` (the `isect`
+    policies, integrator/wavefront.py::Remat). On the card it raises only
+    for a scene no bounce kernel serves."""
     from ..integrator.wavefront import plain_bounce_step
 
     if mats_eval is None:
         mats_eval = scene.materials
-    on_card = scene.geometry.tri_p0.device.type != "cpu"
+    on_card = _on_card(scene)
     kind = diff_step_kind(scene, settings, on_card)
     if kind == "bwd":
         return _make_step(_BounceDiff, scene, settings, seed, mats_eval)
     if kind == "hybrid":
         return make_step_hybrid(scene, settings, seed, mats_eval)
 
-    def plain(state):
-        return plain_bounce_step(scene, settings, seed, state, mats_eval)
+    def plain(state, remat=None):
+        return plain_bounce_step(scene, settings, seed, state, mats_eval,
+                                 plain_walk=not on_card, remat=remat)
 
     plain.fused_diff = False
     return plain

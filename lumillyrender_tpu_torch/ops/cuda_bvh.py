@@ -16,11 +16,12 @@ Each is the nearest triangle strictly closer than `t_init` per lane,
 stopping a lane once its best t is <= `t_stop`: (t, prim[, mat, n]) with
 prim = -1 (t = t_init) where none is. Each launches its kernel for CUDA
 tensors and runs the plain walk `ops/intersect.py::_walk_tris` for CPU
-tensors, and is differentiable in o and d through the plane equation at
-the detached winner (the JAX package's custom VJP,
-`pallas_bvh.py::_make_diff_fn`, `pallas_bvh_wide.py::_make_diff_fn`). Each
-has a bare launch into preallocated outputs (`*_launch`) and a launch
-counter (`.launches`), raised by that launch and nowhere else.
+tensors (`walk`, the search alone), and is differentiable in o and d
+through the plane equation at the detached winner (`plane_t`, the JAX
+package's custom VJP, `pallas_bvh.py::_make_diff_fn`,
+`pallas_bvh_wide.py::_make_diff_fn`). Each has a bare launch into
+preallocated outputs (`*_launch`) and a launch counter (`.launches`),
+raised by that launch and nowhere else.
 
 `pack_bvh(bvh)` builds the kernels' tables from a `Bvh`; `tables_of(bvh)`
 packs once per Bvh object and keeps the result on it. `wide_admitted(bvh)`
@@ -186,7 +187,10 @@ _LAUNCH = {"bvh": intersect_tris_launch, "bvh_wide": intersect_tris_wide_launch,
            "bvh_streamed": intersect_tris_streamed_launch}
 
 
-def _forward(name, o, d, t_init, t_stop, tables: dict, want_shade: bool):
+def walk(name: str, o, d, t_init, t_stop, tables: dict, want_shade: bool):
+    """The search alone, with no gradient: `llr_<name>` ("bvh", "bvh_wide"
+    or "bvh_streamed") for CUDA tensors, the plain walk `_walk_tris` for
+    CPU ones: (t, prim[, mat, n])."""
     if o.device.type == "cpu":
         return _walk_tris(o, d, t_init, t_stop, tables["bvh"], want_shade)
     n, dev = o.shape[0], o.device
@@ -200,27 +204,21 @@ def _forward(name, o, d, t_init, t_stop, tables: dict, want_shade: bool):
     return out
 
 
-class _TriHit(torch.autograd.Function):
-    """The walk forward; backward through the plane equation of the
-    winner, t = ((p0 - o) . n) / (d . n): dt/do = -n / (d . n),
-    dt/dd = -t n / (d . n), zero on lanes no triangle won (an unasked
-    query's t of -inf included) and where |d . n| <= 1e-20. prim, mat and
-    n are piecewise constant; t_init and t_stop get no gradient (the JAX
-    package's custom VJP)."""
+class _PlaneT(torch.autograd.Function):
+    """A walk's t, differentiable through the plane equation of the
+    winner, t = ((p0 - o) . n) / (d . n): dt/do = -n / (d . n), dt/dd = -t n
+    / (d . n), zero on lanes no triangle won (`won` false; an unasked
+    query's t of -inf included) and where |d . n| <= 1e-20 (the JAX
+    package's custom VJP). `n` (N, 3) is each lane's winning face normal."""
 
     @staticmethod
-    def forward(ctx, name, o, d, t_init, t_stop, tables, want_shade):
-        outs = _forward(name, o, d, t_init, t_stop, tables, want_shade)
-        ctx.save_for_backward(d, outs[0], outs[1])
-        ctx.tri_n = tables["tri_n"]
-        ctx.mark_non_differentiable(*outs[1:])
-        return outs
+    def forward(ctx, o, d, t, won, n):
+        ctx.save_for_backward(d, t, won, n)
+        return t
 
     @staticmethod
-    def backward(ctx, g_t, *_):
-        d, t, prim = ctx.saved_tensors
-        won = prim >= 0
-        nrm = ctx.tri_n[torch.clamp(prim, min=0).long()]
+    def backward(ctx, g_t):
+        d, t, won, nrm = ctx.saved_tensors
         dn = (d * nrm).sum(dim=-1)
         safe = won & (torch.abs(dn) > 1e-20)
         inv = torch.where(safe, 1.0 / torch.where(safe, dn, torch.ones_like(dn)),
@@ -229,7 +227,22 @@ class _TriHit(torch.autograd.Function):
         # A lane whose query was not asked keeps t_init = -inf: 0 * -inf
         # would put NaN into its zero cotangent.
         d_bar = (-g_t * torch.where(safe, t, torch.zeros_like(t)) * inv)[..., None] * nrm
-        return None, o_bar, d_bar, None, None, None, None
+        return o_bar, d_bar, None, None, None
+
+
+def plane_t(o, d, t, won, n):
+    """`t` (a walk's, detached) as a function of o and d through the plane
+    equation of each lane's winning triangle (`won`, its face normal `n`);
+    see `_PlaneT`."""
+    return _PlaneT.apply(o, d, t, won, n)
+
+
+def _walk_diff(name, o, d, t_init, t_stop, tables: dict, want_shade: bool):
+    with torch.no_grad():
+        outs = walk(name, o, d, t_init, t_stop, tables, want_shade)
+    won = outs[1] >= 0
+    nrm = tables["tri_n"][torch.clamp(outs[1], min=0).long()]
+    return (plane_t(o, d, outs[0], won, nrm),) + tuple(outs[1:])
 
 
 def intersect_tris(o, d, t_init, t_stop, tables: dict, want_shade: bool = False):
@@ -237,19 +250,19 @@ def intersect_tris(o, d, t_init, t_stop, tables: dict, want_shade: bool = False)
     lane once its best t is <= `t_stop`: (t, prim) or, with `want_shade`,
     (t, prim, mat, n (N,3)). Launches the per-thread kernel for CUDA
     tensors (with `tables` from `pack_bvh`); the plain walk for CPU
-    tensors."""
-    return _TriHit.apply("bvh", o, d, t_init, t_stop, tables, want_shade)
+    tensors. t is differentiable in o and d (`plane_t`)."""
+    return _walk_diff("bvh", o, d, t_init, t_stop, tables, want_shade)
 
 
 def intersect_tris_wide(o, d, t_init, t_stop, tables: dict, want_shade: bool = False):
     """`intersect_tris` through the wide kernel (K = 128)."""
-    return _TriHit.apply("bvh_wide", o, d, t_init, t_stop, tables, want_shade)
+    return _walk_diff("bvh_wide", o, d, t_init, t_stop, tables, want_shade)
 
 
 def intersect_tris_streamed(o, d, t_init, t_stop, tables: dict,
                             want_shade: bool = False):
     """`intersect_tris` through the streamed kernel (K divides 128)."""
-    return _TriHit.apply("bvh_streamed", o, d, t_init, t_stop, tables, want_shade)
+    return _walk_diff("bvh_streamed", o, d, t_init, t_stop, tables, want_shade)
 
 
 intersect_tris.launches = 0

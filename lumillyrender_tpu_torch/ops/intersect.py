@@ -4,12 +4,19 @@ Parity: Möller-Trumbore triangles (`triangle.rs:69-100`), quadratic spheres
 (`sphere.rs:42-63`), both with the reference's exact EPS semantics
 (t < EPS -> miss, |det| < EPS -> miss).
 
-`intersect_brute` streams the prim table in chunks: every chunk is one
+Every query is two halves: `search` finds each ray's winner with no
+gradient (`Found`: its t, prim and material), and `evaluate` re-derives
+the winner's t, position and normal from its prim, differentiable in the
+rays, by the same test that found it. The `isect` recompute policies keep
+the first half's result and run only the second again
+(integrator/wavefront.py::Remat).
+
+Brute force streams the prim table in chunks (`_fold`): every chunk is one
 dense (C, N) test, its first minimum is folded into the running best with
 a strict `<`. That is the same winner as a sequential walk over the
 triangles in ascending order and then the spheres in ascending order.
 
-`intersect_bvh` is the JAX package's BVH contract: a brute sphere pre-pass
+The BVH follows the JAX package's contract: a brute sphere pre-pass
 seeds the best t, and the triangle walk keeps a triangle only when it is
 strictly closer, so a sphere wins a tie. `_walk_tris` is the plain version
 of every BVH walk: a per-lane stackless walk of the threaded treelet BVH,
@@ -138,95 +145,69 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def _sph_t(o, d, c, r):
-    """Sphere test of rays o,d (N,3) against centers c (C,3), radii r (C,)
-    -> t (C, N) with misses as +INF. Note the reference's asymmetric
+def _sph(o3, d3, c3, r):
+    """The sphere test on broadcastable components (o3, d3, c3 are (x, y,
+    z) tuples, r the radii): (t, ok). Note the reference's asymmetric
     comparisons: triangles miss at t < EPS, spheres select `t1 > EPS`."""
-    ox, oy, oz = _rows(o)
-    dx, dy, dz = _rows(d)
-    cx, cy, cz = _cols(c)
-    r1 = r[:, None]
+    ox, oy, oz = o3
+    dx, dy, dz = d3
+    cx, cy, cz = c3
     cox, coy, coz = ox - cx, oy - cy, oz - cz
     cod = cox * dx + coy * dy + coz * dz
-    det = _fma(cod, cod, -(cox * cox + coy * coy + coz * coz)) + r1 * r1
+    det = _fma(cod, cod, -(cox * cox + coy * coy + coz * coz)) + r * r
     sq = torch.sqrt(torch.where(det > 0.0, det, torch.ones_like(det)))
     t1 = -cod - sq
     t2 = -cod + sq
     t = torch.where(t1 > EPS, t1, t2)
-    ok = (det > 0.0) & (t > EPS)
+    return t, (det > 0.0) & (t > EPS)
+
+
+def _sph_t(o, d, c, r):
+    """Sphere test of rays o,d (N,3) against centers c (C,3), radii r (C,)
+    -> t (C, N) with misses as +INF."""
+    t, ok = _sph(_rows(o), _rows(d), _cols(c), r[:, None])
     return torch.where(ok, t, torch.full_like(t, INF))
 
 
-def _fold(o, d, geom: Geometry, best_t, payload=None, spheres_only=False):
-    """Fold every prim into the running best. Returns (best_t, best_p) or,
-    with `payload=True`, (best_t, best_p, best_mat, best_f) where best_f is
-    the winner's face normal (triangles) or center (spheres)."""
+def _fold(o, d, geom: Geometry, best_t, spheres_only=False):
+    """Fold every prim (or every sphere) into the running best t: (best_t,
+    best_p, best_m), the winner's t, prim id and material row, with prim
+    and material -1 where nothing beat the initial best_t."""
     n = o.shape[0]
     nt = geom.tri_p0.shape[0]
     ns = geom.sph_c.shape[0]
     dev = o.device
     best_p = torch.full((n,), -1, dtype=torch.int32, device=dev)
     best_m = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    best_f = torch.zeros((n, 3), dtype=o.dtype, device=dev)
 
-    def merge(t, base, mat, attr):
-        nonlocal best_t, best_p, best_m, best_f
+    def merge(t, base, mat):
+        nonlocal best_t, best_p, best_m
         tmin, j = torch.min(t, dim=0)
         upd = tmin < best_t
         best_t = torch.where(upd, tmin, best_t)
         best_p = torch.where(upd, (j + base).to(torch.int32), best_p)
-        if payload:
-            best_m = torch.where(upd, mat[j], best_m)
-            best_f = torch.where(upd[:, None], attr[j], best_f)
+        best_m = torch.where(upd, mat[j], best_m)
 
     if not spheres_only:
         for s in range(0, nt, CHUNK):
             sl = slice(s, min(s + CHUNK, nt))
-            t = _tri_t(o, d, geom.tri_p0[sl], geom.tri_e1[sl], geom.tri_e2[sl])
-            merge(t, s, geom.tri_mat[sl], geom.tri_n[sl])
+            merge(_tri_t(o, d, geom.tri_p0[sl], geom.tri_e1[sl], geom.tri_e2[sl]), s,
+                  geom.tri_mat[sl])
     for s in range(0, ns, CHUNK):
         sl = slice(s, min(s + CHUNK, ns))
-        t = _sph_t(o, d, geom.sph_c[sl], geom.sph_r[sl])
-        merge(t, nt + s, geom.sph_mat[sl], geom.sph_c[sl])
-    if payload:
-        return best_t, best_p, best_m, best_f
-    return best_t, best_p
-
-
-def intersect_brute(o, d, geom: Geometry) -> Hit:
-    """Nearest hit over the whole prim table. o,d: (N,3)."""
-    best_t = torch.full((o.shape[0],), INF, dtype=o.dtype, device=o.device)
-    best_t, best_p = _fold(o, d, geom, best_t)
-    best_p = torch.where(best_t < INF, best_p, torch.full_like(best_p, -1))
-    return Hit(t=best_t, prim=best_p)
+        merge(_sph_t(o, d, geom.sph_c[sl], geom.sph_r[sl]), nt + s, geom.sph_mat[sl])
+    return best_t, best_p, best_m
 
 
 def _sphere_brute(o, d, geom: Geometry, best_t, best_p):
     """Fold all spheres into the running (best_t, best_p)."""
-    t, p = _fold(o, d, geom, best_t, spheres_only=True)
-    upd = p >= 0
-    return t, torch.where(upd, p, best_p)
+    t, p, _ = _fold(o, d, geom, best_t, spheres_only=True)
+    return t, torch.where(p >= 0, p, best_p)
 
 
-def _finish(o, d, nt: int, ns: int, best_t, best_p, best_m, best_f):
-    """(Hit, ShadePoint) from a fold's winner: its t, prim, material row and
-    face normal (triangles) or center (spheres). A lane whose query was
-    not asked (cap -inf) gets its origin as position: o + d * -inf would
-    put inf or NaN into the backward pass of every masked use of it."""
-    hitmask = best_p >= 0
-    hit = Hit(t=best_t, prim=torch.where(hitmask, best_p,
-                                         torch.full_like(best_p, -1)))
-    t_pos = torch.where(torch.isfinite(best_t), best_t, torch.zeros_like(best_t))
-    pos = o + d * t_pos[..., None]
-    if ns:
-        sn = vec.safe_normalize(pos - best_f)
-        normal = torch.where((best_p < nt)[..., None], best_f, sn)
-    else:
-        normal = best_f
-    normal = torch.where(hitmask[..., None], normal,
-                         normal.new_tensor([0.0, 0.0, 1.0]))
-    mat = torch.where(hitmask, best_m, torch.full_like(best_m, -1))
-    return hit, ShadePoint(position=pos, normal=normal, mat=mat, hit=hitmask)
+def intersect_brute(o, d, geom: Geometry) -> Hit:
+    """Nearest hit over the whole prim table. o,d: (N,3)."""
+    return intersect(o, d, geom, None, "brute")
 
 
 def intersect_shade_brute(o, d, geom: Geometry, t_cap=None):
@@ -235,11 +216,7 @@ def intersect_shade_brute(o, d, geom: Geometry, t_cap=None):
     `t_cap` (N,) caps the search: hits at t >= t_cap are misses (and the
     returned t is then t_cap). Returns (Hit, ShadePoint), the same as
     `intersect_brute` followed by `shade_point`."""
-    best_t = (torch.full((o.shape[0],), INF, dtype=o.dtype, device=o.device)
-              if t_cap is None else t_cap)
-    best_t, best_p, best_m, best_f = _fold(o, d, geom, best_t, payload=True)
-    return _finish(o, d, geom.tri_p0.shape[0], geom.sph_c.shape[0],
-                   best_t, best_p, best_m, best_f)
+    return intersect_shade(o, d, geom, None, "brute", t_cap=t_cap)
 
 
 # While `count_work()` is open: the node visits and triangle tests of every
@@ -262,7 +239,7 @@ def count_work():
         _work = None
 
 
-def _walk_tris(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool):
+def _walk_tris(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool, want_slot: bool = False):
     """Nearest triangle strictly closer than `t_init` per lane, walking the
     threaded BVH; the plain version of the CUDA walks csrc/bvh.cu and
     csrc/bvh_aov.cu, at any K.
@@ -277,9 +254,11 @@ def _walk_tris(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool):
     NaN from inf * 0 (an origin on a box plane) propagates through
     minimum/maximum and misses the box.
 
-    Returns (t, prim[, mat, n (N,3)]): prim = -1 and t = t_init where no
-    triangle beat t_init. Inside `count_work()` the walk adds its node
-    visits and triangle tests to the open count.
+    Returns (t, prim[, mat, n (N,3)][, slot]): prim = -1 and t = t_init
+    where no triangle beat t_init; with `want_slot`, the winner's leaf slot
+    (leaf * K + slot, int64; -1 where none), the row `evaluate` re-derives
+    it from. Inside `count_work()` the walk adds its node visits and
+    triangle tests to the open count.
     """
     n = o.shape[0]
     dev = o.device
@@ -288,6 +267,8 @@ def _walk_tris(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool):
     best_p = torch.full((n,), -1, dtype=torch.int32, device=dev)
     best_m = torch.full((n,), -1, dtype=torch.int32, device=dev)
     best_n = torch.zeros((n, 3), dtype=o.dtype, device=dev)
+    best_s = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    k = bvh.blk_prim.shape[1]
     work = _work
     miss_of = bvh.node_miss.long()
     leaf_of = bvh.node_leaf.long()
@@ -336,13 +317,16 @@ def _walk_tris(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool):
                 upd, bvh.blk_mat[blk].gather(1, jj)[:, 0], best_m[lanes])
             best_n[lanes] = torch.where(upd[:, None], bvh.blk_n[blk, j],
                                         best_n[lanes])
+        if want_slot:
+            best_s[lanes] = torch.where(upd, blk * k + j, best_s[lanes])
         if work is not None:
             work["tests"] += (prim >= 0).sum()
             if work["seen"] is None:
                 work["seen"] = torch.zeros(bvh.blk_prim.shape[0], dtype=torch.bool,
                                            device=dev)
             work["seen"][blk] = True
-    return (best_t, best_p) + ((best_m, best_n) if want_shade else ())
+    return ((best_t, best_p) + ((best_m, best_n) if want_shade else ())
+            + ((best_s,) if want_slot else ()))
 
 
 def _spread3(x):
@@ -404,69 +388,48 @@ def bvh_route(bvh: Bvh, streamed: bool | None = None,
     return walk, bool(reorder)
 
 
+_ENTRY = {"thread": "bvh", "wide": "bvh_wide", "streamed": "bvh_streamed"}
+
+
 def _walk_routed(o, d, t_init, t_stop, bvh: Bvh, want_shade: bool,
                  streamed, reorder):
-    """The triangle walk `bvh_route` picks, on the sorted lanes where it
-    sorts; the results in the callers' lane order."""
+    """The triangle walk `bvh_route` picks (`cuda_bvh.walk`, no gradient),
+    on the sorted lanes where it sorts; the results in the callers' lane
+    order."""
     from . import cuda_bvh
 
     walk, sort = bvh_route(bvh, streamed, reorder)
-    fn = {"thread": cuda_bvh.intersect_tris, "wide": cuda_bvh.intersect_tris_wide,
-          "streamed": cuda_bvh.intersect_tris_streamed}[walk]
     tables = cuda_bvh.tables_of(bvh)
     if not sort:
-        return fn(o, d, t_init, t_stop, tables, want_shade)
-    perm, inv = sort_rays(o.detach(), d.detach(), bvh)
-    outs = fn(o[perm], d[perm], t_init[perm], t_stop[perm], tables, want_shade)
+        return cuda_bvh.walk(_ENTRY[walk], o, d, t_init, t_stop, tables, want_shade)
+    perm, inv = sort_rays(o, d, bvh)
+    outs = cuda_bvh.walk(_ENTRY[walk], o[perm], d[perm], t_init[perm], t_stop[perm],
+                         tables, want_shade)
     return tuple(x[inv] for x in outs)
 
 
-def intersect_bvh(o, d, geom: Geometry, bvh: Bvh, want_shade: bool = False,
-                  t_cap=None, occlusion: bool = False, plain: bool = False,
-                  streamed: bool | None = None, reorder: bool | None = None):
-    """Nearest hit through the BVH (the JAX package's `intersect_bvh`
-    contract). o,d: (N,3).
+class Found(NamedTuple):
+    """What a query's search found, with no gradient: the winner's t as
+    the search computed it (the query's cap where nothing won), its prim
+    id (triangles 0..T-1, spheres T + j, -1 where nothing won), its
+    material row (-1 where nothing won, and on a BVH walk's triangles
+    when the search was not asked for shading), and for a triangle its
+    face normal as the search read it (zero otherwise) and the row it was
+    tested from (`row`: the geometry's triangle under brute force, the
+    BVH's leaf slot, leaf * K + slot, under the plain walk; -1 otherwise,
+    and under a walk kernel, whose t is differentiated through the plane
+    equation and needs no row)."""
 
-    Spheres are folded by brute force first, from `t_cap` (INF when None);
-    the triangle walk then keeps a triangle only when it is strictly closer
-    than that best. `occlusion=True` lets a lane stop once any hit lies
-    below `t_cap - 4*EPS`: such a hit settles a shadow verdict (|t - dist|
-    <= EPS with t_cap = dist + 2*EPS) as occluded, so its t need not be the
-    nearest. The walk is the one `bvh_route(bvh, streamed, reorder)` picks
-    (a kernel for CUDA tensors, its plain version for CPU tensors; each
-    differentiable through the plane equation) or, with `plain`, the plain
-    walk `_walk_tris` on any device, unsorted.
-
-    Returns Hit, or (Hit, ShadePoint) with `want_shade`."""
-    n = o.shape[0]
-    nt = geom.tri_p0.shape[0]
-    ns = geom.sph_c.shape[0]
-    dev = o.device
-    cap = (torch.full((n,), INF, dtype=o.dtype, device=dev)
-           if t_cap is None else t_cap)
-    stop = (cap - 4.0 * EPS if occlusion
-            else torch.full((n,), -INF, dtype=o.dtype, device=dev))
-    best_t, best_p, best_m, best_f = _fold(o, d, geom, cap, payload=True,
-                                           spheres_only=True)
-    if nt:
-        if plain:
-            outs = _walk_tris(o, d, best_t.detach(), stop, bvh, want_shade)
-        else:
-            outs = _walk_routed(o, d, best_t.detach(), stop, bvh, want_shade,
-                                streamed, reorder)
-        won = outs[1] >= 0
-        best_t = torch.where(won, outs[0], best_t)
-        best_p = torch.where(won, outs[1], best_p)
-        if want_shade:
-            best_m = torch.where(won, outs[2], best_m)
-            best_f = torch.where(won[:, None], outs[3], best_f)
-    hit, sp = _finish(o, d, nt, ns, best_t, best_p, best_m, best_f)
-    return (hit, sp) if want_shade else hit
+    t: torch.Tensor  # (N,) float32
+    prim: torch.Tensor  # (N,) int32
+    mat: torch.Tensor  # (N,) int32
+    n: torch.Tensor  # (N, 3) float32
+    row: torch.Tensor  # (N,) int32
 
 
 def _use_brute(geom: Geometry, mode: str, bvh: Bvh | None = None) -> bool:
     """Brute force for `mode="brute"`, and for `"auto"` up to
-    BRUTE_MAX_PRIMS prims; the BVH otherwise."""
+    BRUTE_MAX_PRIMS prims; the BVH otherwise ("bvh" and "pallas")."""
     del bvh  # the threshold does not depend on the BVH layout here
     if mode == "brute":
         return True
@@ -475,27 +438,181 @@ def _use_brute(geom: Geometry, mode: str, bvh: Bvh | None = None) -> bool:
     return geom.tri_p0.shape[0] + geom.sph_c.shape[0] <= BRUTE_MAX_PRIMS
 
 
+def check_pallas(bvh: Bvh):
+    """Raise unless a walk kernel serves `bvh`'s leaves (a K that divides
+    128), as the JAX package refuses a forced "pallas" intersector on a
+    layout its kernels do not serve."""
+    k = bvh.blk_p0.shape[1]
+    if k > 128 or 128 % k:
+        raise ValueError(f"intersector 'pallas' asks for a BVH walk kernel, and none "
+                         f"serves leaves of K={k} (K must divide 128); use 'auto'")
+
+
+def search(o, d, geom: Geometry, bvh: Bvh | None, mode: str = "auto", t_cap=None,
+           occlusion: bool = False, plain: bool = False, streamed: bool | None = None,
+           reorder: bool | None = None, want_shade: bool = True) -> Found:
+    """The nearest hit of each ray o,d (N,3), found with no gradient:
+    brute force or the BVH, as `_use_brute(geom, mode)` picks.
+
+    The BVH follows the JAX package's `intersect_bvh` contract: the spheres
+    are folded by brute force first, from `t_cap` (INF when None); the
+    triangle walk then keeps a triangle only when it is strictly closer.
+    `occlusion=True` lets a lane stop once any hit lies below `t_cap -
+    4*EPS`: such a hit settles a shadow verdict (|t - dist| <= EPS with
+    t_cap = dist + 2*EPS) as occluded, so its t need not be the nearest
+    (brute force tests every prim either way). The walk is the one
+    `bvh_route(bvh, streamed, reorder)` picks (a kernel for CUDA tensors,
+    its plain version for CPU tensors) or, with `plain`, the plain walk
+    `_walk_tris` on any device, unsorted. `mode="pallas"` is the routed
+    walk whatever `plain` says: it raises for CPU tensors, where no kernel
+    runs, and for leaves no walk kernel serves (`check_pallas`)."""
+    n = o.shape[0]
+    nt = geom.tri_p0.shape[0]
+    dev = o.device
+    if mode == "pallas":
+        check_pallas(bvh)
+        if dev.type != "cuda":
+            raise ValueError("intersector 'pallas' runs the BVH walk kernels, which take "
+                             f"CUDA tensors, not {dev}; use 'bvh' or 'auto' off the card")
+        plain = False
+    with torch.no_grad():
+        cap = (torch.full((n,), INF, dtype=o.dtype, device=dev)
+               if t_cap is None else t_cap.detach())
+        if _use_brute(geom, mode, bvh):
+            t, prim, mat = _fold(o, d, geom, cap)
+            tri = (prim >= 0) & (prim < nt)
+            nrm = take_rows(geom.tri_n, prim) if nt else torch.zeros_like(o)
+            return Found(t, prim, mat, torch.where(tri[:, None], nrm, torch.zeros_like(nrm)),
+                         torch.where(tri, prim, -1))
+        t, prim, mat = _fold(o, d, geom, cap, spheres_only=True)
+        nrm = torch.zeros_like(o)
+        row = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        if nt:
+            stop = (cap - 4.0 * EPS if occlusion
+                    else torch.full((n,), -INF, dtype=o.dtype, device=dev))
+            if plain:
+                t_w, p_w, m_w, face, slot = _walk_tris(o, d, t, stop, bvh, True,
+                                                       want_slot=True)
+                slot = slot.to(torch.int32)
+            else:
+                from . import cuda_bvh
+
+                outs = _walk_routed(o, d, t, stop, bvh, want_shade, streamed, reorder)
+                t_w, p_w = outs[:2]
+                m_w = outs[2] if want_shade else torch.full_like(mat, -1)
+                face = (outs[3] if want_shade
+                        else take_rows(cuda_bvh.tables_of(bvh)["tri_n"], p_w))
+                slot = row
+            won = p_w >= 0
+            t = torch.where(won, t_w, t)
+            prim = torch.where(won, p_w, prim)
+            mat = torch.where(won, m_w, mat)
+            nrm = torch.where(won[:, None], face, nrm)
+            row = torch.where(won, slot, row)
+        return Found(t, prim, mat, nrm, row)
+
+
+def _xyz(a):
+    """(N, 3) -> its three (N,) columns."""
+    return a[:, 0], a[:, 1], a[:, 2]
+
+
+def evaluate(o, d, geom: Geometry, found: Found, t_cap=None, plane: bool = False,
+             want_shade: bool = True, bvh: Bvh | None = None):
+    """The differentiable half of a query: (Hit, ShadePoint), or the Hit
+    alone without `want_shade`, from its search's `found`, as functions of
+    o, d and t_cap. Only the search is left out: the winner's t is
+    re-derived from its prim by the test that found it, on the row it
+    tested (`found.row` of the BVH's leaf rows where `bvh` is given, of the
+    geometry's triangles otherwise), so it has the search's value and the
+    gradient of the test. A triangle's is Moller-Trumbore (brute force and
+    the plain walk) or, with `plane`, the plane-equation VJP of the BVH
+    walk kernels (`cuda_bvh.plane_t`, the JAX package's custom VJP, on the
+    face normal the search read), which keeps the search's t; a sphere's
+    is its quadratic, and its normal follows the position. Where nothing won,
+    t is `t_cap` (INF where None), and a lane whose query was not asked
+    (cap -inf) gets its origin as position: o + d * -inf would put inf or
+    NaN into the backward pass of every masked use of it."""
+    nt = geom.tri_p0.shape[0]
+    ns = geom.sph_c.shape[0]
+    prim = found.prim
+    t = found.t if t_cap is None else t_cap
+    if nt:
+        if bvh is None:
+            tris = dict(p0=geom.tri_p0, e1=geom.tri_e1, e2=geom.tri_e2)
+        else:
+            tris = {k: getattr(bvh, f"blk_{k}").reshape(-1, 3) for k in ("p0", "e1", "e2")}
+        tri = (prim >= 0) & (prim < nt)
+        if plane:
+            from . import cuda_bvh
+
+            t_tri = cuda_bvh.plane_t(o, d, found.t, tri, found.n)
+        else:
+            t_tri, _ = _mt(_xyz(o), _xyz(d), *(_xyz(take_rows(tris[k], found.row))
+                                               for k in ("p0", "e1", "e2")))
+        t = torch.where(tri, t_tri, t)
+    if ns:
+        sph = prim >= nt
+        c = take_rows(geom.sph_c, prim - nt)
+        t_sph, _ = _sph(_xyz(o), _xyz(d), _xyz(c), take_rows(geom.sph_r, prim - nt))
+        t = torch.where(sph, t_sph, t)
+    hit = Hit(t=t, prim=prim)
+    if not want_shade:
+        return hit
+    hitmask = prim >= 0
+    t_pos = torch.where(torch.isfinite(t), t, torch.zeros_like(t))
+    pos = o + d * t_pos[..., None]
+    normal = found.n
+    if ns:
+        normal = torch.where(sph[..., None], vec.safe_normalize(pos - c), normal)
+    normal = torch.where(hitmask[..., None], normal, normal.new_tensor([0.0, 0.0, 1.0]))
+    return hit, ShadePoint(position=pos, normal=normal, mat=found.mat, hit=hitmask)
+
+
+def _evaluation(geom: Geometry, mode: str, bvh, plain: bool) -> dict:
+    """`evaluate`'s `bvh` and `plane` for a query that `search` ran with
+    these arguments: brute force re-derives its winner from the geometry's
+    rows, the plain walk from the BVH's, a walk kernel through the plane
+    equation."""
+    if _use_brute(geom, mode, bvh):
+        return dict(bvh=None, plane=False)
+    return dict(bvh=bvh, plane=mode == "pallas" or not plain)
+
+
+def intersect_bvh(o, d, geom: Geometry, bvh: Bvh, want_shade: bool = False,
+                  t_cap=None, occlusion: bool = False, plain: bool = False,
+                  streamed: bool | None = None, reorder: bool | None = None):
+    """Nearest hit through the BVH (the JAX package's `intersect_bvh`
+    contract, `search` with mode "bvh"), differentiable as `evaluate`.
+    Returns Hit, or (Hit, ShadePoint) with `want_shade`."""
+    found = search(o, d, geom, bvh, "bvh", t_cap, occlusion, plain, streamed, reorder,
+                   want_shade)
+    return evaluate(o, d, geom, found, t_cap, want_shade=want_shade,
+                    **_evaluation(geom, "bvh", bvh, plain))
+
+
 def intersect(o, d, geom: Geometry, bvh: Bvh, mode: str = "auto",
               plain: bool = False, streamed: bool | None = None,
               reorder: bool | None = None) -> Hit:
     """Nearest hit: brute force or the BVH, as `_use_brute` picks."""
-    if _use_brute(geom, mode, bvh):
-        return intersect_brute(o, d, geom)
-    return intersect_bvh(o, d, geom, bvh, plain=plain, streamed=streamed,
-                         reorder=reorder)
+    found = search(o, d, geom, bvh, mode, plain=plain, streamed=streamed, reorder=reorder,
+                   want_shade=False)
+    return evaluate(o, d, geom, found, want_shade=False,
+                    **_evaluation(geom, mode, bvh, plain))
 
 
 def intersect_shade(o, d, geom: Geometry, bvh: Bvh, mode: str = "auto",
                     t_cap=None, occlusion: bool = False, plain: bool = False,
-                    streamed: bool | None = None, reorder: bool | None = None):
-    """(Hit, ShadePoint) fused; see `intersect_shade_brute` and
-    `intersect_bvh` (brute force ignores `occlusion`: it tests every prim
-    either way)."""
-    if _use_brute(geom, mode, bvh):
-        return intersect_shade_brute(o, d, geom, t_cap=t_cap)
-    return intersect_bvh(o, d, geom, bvh, want_shade=True, t_cap=t_cap,
-                         occlusion=occlusion, plain=plain, streamed=streamed,
-                         reorder=reorder)
+                    streamed: bool | None = None, reorder: bool | None = None,
+                    keep=None):
+    """(Hit, ShadePoint): `search`, then `evaluate`. `keep(find)`, where
+    given, runs the search `find()` or hands back what it found before
+    (the `isect` recompute policies, integrator/wavefront.py::Remat)."""
+    def find():
+        return search(o, d, geom, bvh, mode, t_cap, occlusion, plain, streamed, reorder)
+
+    found = find() if keep is None else keep(find)
+    return evaluate(o, d, geom, found, t_cap, **_evaluation(geom, mode, bvh, plain))
 
 
 def shade_point(o, d, hit: Hit, geom: Geometry) -> ShadePoint:

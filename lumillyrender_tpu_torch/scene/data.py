@@ -158,7 +158,11 @@ class RenderSettings:
     # Hard cap on the bounce loop: RR decays contribution by
     # 0.5^(d - depth_limit) past depth_limit (`scene.rs:64-76`).
     max_bounces: int = 80
-    # "auto" picks brute force for small scenes, bvh otherwise.
+    # "auto" picks brute force for small scenes, the BVH otherwise; "brute"
+    # and "bvh" force one (the BVH's walk: a kernel on the card, the plain
+    # walk on the CPU); "pallas" forces the BVH through a walk kernel and
+    # raises on the CPU and for leaves no walk kernel serves (K not
+    # dividing 128).
     intersector: str = "auto"
     # "pop-rr" = staged compaction with population-control Russian roulette
     # on capacity overflow (unbiased); "off" = plain masked loop.
@@ -166,14 +170,23 @@ class RenderSettings:
     # Material type ids present in the scene's table: the BSDF code prunes
     # absent families (ops/bsdf.py). None = assume all five.
     mat_types: tuple | None = None
+    # The bounce kernels or the plain step (ops/cuda_bounce.py::fused_mode):
+    # "auto" takes the kernels on the card; "off" the plain step, forward
+    # and differentiable, on any device (on the card its BVH walk is a
+    # kernel, and a forward chunk runs in the host loop); "on" the kernels
+    # wherever they serve the scene, and raises on the CPU.
+    fused: str = "auto"
     # Recompute policy of the differentiable bounce loop
-    # (integrator/wavefront.py::trace_film): "full" checkpoints every
+    # (integrator/wavefront.py::_run_fixed) for steps without a backward
+    # of their own (autograd of the plain step: `fused="off"`, and on the
+    # CPU the BVH, IBL and simple-sky scenes): "full" checkpoints every
     # bounce (only its input state is kept, the bounce is recomputed in the
     # backward pass), "none" keeps every bounce's intermediates, "hybrid"
-    # keeps them on stages of at most 48k lanes and checkpoints wider ones.
-    # It acts only on steps without a backward of their own (autograd of
-    # the plain step: BVH and IBL scenes, on the CPU until they reach the
-    # card, whose memory and recompute time will set the threshold).
+    # keeps them on stages of at most 48k lanes and checkpoints wider ones,
+    # "isect" checkpoints every bounce keeping both queries' search results
+    # (the recompute walks nothing), "isect+samp" also the BSDF and light
+    # samples (the recompute samples nothing). The kernels' steps keep only
+    # their input state under every policy.
     bwd_remat: str = "full"
 
 

@@ -11,11 +11,11 @@ version, samples done, seed, total rays and the settings; it is written to
 `<path>.tmp` and then moved over `path` in one step, so a crash never
 leaves a broken checkpoint.
 
-The port's RenderSettings has no `fused` field (the JAX package's Pallas
-switch), and `load` compares the port's fields only: it takes a checkpoint
-the JAX package wrote whose other settings match. The JAX package's `load`
-compares every one of its own fields and refuses the port's checkpoints.
-Settings are compared as JSON gives them back (a tuple as a list).
+The port's RenderSettings has the JAX package's fields, `fused` included,
+and `load` compares them as JSON gives them back (a tuple as a list): it
+takes a checkpoint the JAX package wrote whose settings match. The JAX
+package's `load` compares the saved list of `mat_types` with its own
+tuple, which never match, so it refuses the port's checkpoints.
 """
 
 from __future__ import annotations

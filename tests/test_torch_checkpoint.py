@@ -1,7 +1,8 @@
 """Checkpoint/resume of the port on the CPU (utils/checkpoint.py): a resumed
 render is bit-equal to an uninterrupted one, a checkpoint of another render
 is refused, and a checkpoint that the JAX package wrote resumes in the
-port (the one-way rule: the port's settings have no `fused` field)."""
+port (one way: the JAX package's load compares its `mat_types` tuple with
+the saved list and refuses the port's checkpoints)."""
 
 import dataclasses
 import json
@@ -97,8 +98,8 @@ def test_port_resumes_a_jax_checkpoint(tmp_path):
         film += chunks.chunk(offset, 2)[0]
     assert np.array_equal(resumed.film, film.numpy() / 8)
 
-    # One way only: the JAX package's load compares its own `fused` field,
-    # which the port's checkpoint does not hold.
+    # One way only: the JAX package's load compares its `mat_types` tuple
+    # with the list the port's checkpoint holds.
     port_ck = tmp_path / "port.ckpt.npz"
     render(scene(4), seed=42, spp_chunk=2, device="cpu", checkpoint=str(port_ck))
     assert jax_ckpt.load(port_ck, jc.settings, 42) is None

@@ -39,7 +39,9 @@ IBL scenes (make_step_diff's `make_step_hybrid`: kernel 4 or 2 forward,
 kernel 3 in the backward's recompute) against autograd of the plain step
 with the plain walk, within `parity.AUTOGRAD_BWD_RTOL` on the lanes
 `parity.bwd_comparable` keeps, and its film_and_grads repeating bit for
-bit.
+bit; under `fused="off"` the plain step with kernel 3 as its walk, its
+gradients bit-equal under the four recompute policies and its backward
+pass walking nothing under the `isect` ones.
 """
 
 from pathlib import Path
@@ -595,6 +597,52 @@ def test_diff_step_runs_the_kernels_on_bvh_and_ibl_scenes(card, name, monkeypatc
     for a, b in zip(leaves(g1), leaves(g2)):
         assert torch.isfinite(a).all() and torch.equal(a, b)
     assert g1.materials.color.abs().sum() > 0 and g1.sky.ibl.abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_fused_off_takes_the_plain_step_with_the_walk_kernel(card, monkeypatch):
+    """Under fused="off" welcome-geo's training step (64x48 x 2 spp, 80
+    bounces) is autograd of the plain step on the card, its BVH walk kernel
+    3: 160 launches in the forward pass under every recompute policy (each
+    bounce's walk and NEE's), and in the backward pass 160 under "full",
+    none under "hybrid" (its stages are narrow), "isect" and "isect+samp";
+    no bounce kernel, the plain walk never; the loss, the film and every
+    gradient bit-equal across the four policies."""
+    import dataclasses
+
+    from lumillyrender_tpu_torch.diff import params_of, render_diff
+    from lumillyrender_tpu_torch.diff.render import leaves, map_params
+
+    c = compile_scene_file(ASSETS / "welcome-geo.toml", device=card)
+    st = dataclasses.replace(c.settings, width=64, height=48, fused="off")
+    assert cuda_bounce.diff_step_kind(c.data, st, on_card=True) == "plain"
+    p = params_of(c.data)
+    with torch.no_grad():
+        target = render_diff(c.data, st, p, 3, 2)
+    p = p._replace(materials=dataclasses.replace(p.materials, color=p.materials.color * 0.8))
+    plain = _PlainCalls(monkeypatch)
+    got = {}
+    for mode, backward in (("full", 160), ("hybrid", 0), ("isect", 0), ("isect+samp", 0)):
+        live = map_params(p, lambda t: t.detach().requires_grad_(t.is_floating_point()))
+        cuda_bounce.reset_counts()
+        film = render_diff(c.data, dataclasses.replace(st, bwd_remat=mode), live, 3, 2)
+        loss = torch.mean((film - target) ** 2)
+        torch.cuda.synchronize()
+        forward = cuda_bounce.counts()
+        xs = [t for t in leaves(live) if t.requires_grad]
+        grads = torch.autograd.grad(loss, xs, allow_unused=True)
+        torch.cuda.synchronize()
+        after = cuda_bounce.counts()
+        assert forward == dict(after, bvh=160), (mode, forward)
+        assert after["bvh"] - forward["bvh"] == backward, (mode, after)
+        assert not any(v for k, v in after.items() if k != "bvh"), (mode, after)
+        got[mode] = [loss.detach(), film.detach()] + [
+            torch.zeros_like(x) if g is None else g for g, x in zip(grads, xs)]
+    assert plain.n["walk"] == 0 and plain.n["recompute"] == 0, plain.n
+    for mode, vals in got.items():
+        assert all(torch.isfinite(v).all() for v in vals)
+        assert all(torch.equal(a, b) for a, b in zip(vals, got["full"])), mode
+    assert got["full"][2].abs().sum() > 0  # the colours
 
 
 @pytest.mark.cuda

@@ -13,9 +13,9 @@ and pixel_grad against the JAX package and against finite differences.
   the median): albedo, emission, roughness, ior, camera, sky, albedo
   through an IBL sky, an IBL texel, and welcome-geo (BASELINE config 5) at
   12x9, which runs autograd through the plain BVH walk.
-* The `bwd_remat` policies give the same gradients; the `isect` policies
-  raise; every gradient is finite on a scene with all five BSDFs;
-  inverse rendering converges.
+* The `bwd_remat` policies give the same gradients, bit for bit; every
+  gradient is finite on a scene with all five BSDFs; inverse rendering
+  converges.
 
 Inputs are compiled by the JAX package and carried across with
 `convert.py`; everything runs on `device="cpu"`.
@@ -216,21 +216,19 @@ def test_params_round_trip():
 
 
 def test_bwd_remat_policies_agree():
-    """'none', 'full' and 'hybrid' give the same gradients (checkpointing
-    recomputes each bounce exactly), on the IBL scene whose step is
-    autograd of the plain step; the 'isect' policies raise."""
+    """Every `bwd_remat` policy gives the gradients of 'none' bit for bit
+    (checkpointing recomputes each bounce exactly; the 'isect' policies
+    hand the recompute the forward pass's searches and samples), on the
+    IBL scene whose step is autograd of the plain step; a typo raises."""
     c = _with_ibl(_mixed(spp=2))
     scene, p0 = _port(c)
     grads = {}
-    for mode in ("none", "full", "hybrid"):
+    for mode in ("none", "full", "hybrid", "isect", "isect+samp"):
         st = dataclasses.replace(c.settings, bwd_remat=mode)
         grads[mode] = leaves(_mean_grad(scene, st, p0))
-    for mode in ("full", "hybrid"):
+    for mode in ("full", "hybrid", "isect", "isect+samp"):
         for a, b in zip(grads[mode], grads["none"]):
             assert torch.equal(a, b), mode
-    for mode in ("isect", "isect+samp"):
-        with pytest.raises(NotImplementedError, match="selective checkpointing"):
-            _mean_grad(scene, dataclasses.replace(c.settings, bwd_remat=mode), p0)
     with pytest.raises(ValueError):
         _mean_grad(scene, dataclasses.replace(c.settings, bwd_remat="sometimes"), p0)
 
