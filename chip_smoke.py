@@ -180,7 +180,26 @@ Phases, in order; any failure exits non-zero:
      then new-cbox's 256^2 x 64 spp film under `fused="off"` (the plain
      step's brute force in the host loop) through check_films against
      the kernels' film at the same chunk width, its chunk ms beside phase
-     6's; then one `{"kernels": [...]}` line for all 30 kernels.
+     6's;
+ 27. the environment knobs: kernel 1's threefry instance (LLR_RNG=threefry)
+     against its plain version at 2,097,152 lanes (random words bit-equal,
+     on the card and on the CPU), timed in turns with its pcg4d instance
+     beside its bounds; the CLI under LLR_RNG=threefry without --fused off
+     refused by name (a process of its own); a process of this script
+     under LLR_RNG=threefry (`--knobs-child`): the CLI on new-cbox at full
+     size with --fused off (raygen launched, no bounce kernel, the plain
+     step in the host loop, its chunk ms), 64^2 x 8 spp films on the card
+     and on the CPU under threefry and pcg4d (CROSS_DEVICE's bounds, which
+     the card's pcg4d film against the CPU's threefry film must fail), a
+     welcome-geo training step at 512x368 x 4 spp under fused="off"
+     (kernel 3 its walk, loss and gradients finite); kernel 4 on
+     welcome-geo built at K = 8, 16, 64 (LLR_TREELET_K) and 128
+     (LLR_WIDE_MIN_TRIS) against the plain step at 2,072,576 lanes,
+     bounces 0, 3, 7, 70, and on one chunk's stage widths, timed beside
+     its bounds; the CLI under LLR_FUSED=0, LLR_FUSED_BVH=0 (welcome-geo
+     and new-cbox), LLR_PALLAS=0 and LLR_REORDER=1, each with its launch
+     counts and plain-step and sort-key calls; then one `{"kernels":
+     [...]}` line for all 30 kernels (kernel 1's with both instances).
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
@@ -567,7 +586,8 @@ class PlainCalls:
     (`calls`). The hybrid step's backward runs the plain step by design,
     once a bounce, inside `cuda_bounce.recompute`: those calls are counted
     apart (`recomputes`, one a recompute), and a plain walk counts in
-    `calls` wherever it runs."""
+    `calls` wherever it runs. `n` counts every call by name, the ray sort
+    key's (`_ray_sort_key`, which no plain path is) too."""
 
     def __enter__(self):
         from lumillyrender_tpu_torch.integrator import wavefront
@@ -578,9 +598,12 @@ class PlainCalls:
         self.inside = 0
         self.saved = [(m, name, getattr(m, name)) for m, name in (
             (wavefront, "plain_bounce_step"), (intersect, "_walk_tris"),
-            (cuda_bounce, "plain_bounce_bwd"), (cuda_bounce, "recompute"))]
+            (cuda_bounce, "plain_bounce_bwd"), (cuda_bounce, "recompute"),
+            (intersect, "_ray_sort_key"))]
+        self.n = {name: 0 for _, name, _ in self.saved}
         for mod, name, fn in self.saved:
             def counted(*a, _fn=fn, _name=name, **k):
+                self.n[_name] += 1
                 if _name == "recompute":
                     self.inside += 1
                     try:
@@ -589,7 +612,7 @@ class PlainCalls:
                         self.inside -= 1
                 if _name == "plain_bounce_step" and self.inside:
                     self.recomputes += 1
-                else:
+                elif _name != "_ray_sort_key":
                     self.calls += 1
                 return _fn(*a, **k)
             setattr(mod, name, counted)
@@ -601,31 +624,38 @@ class PlainCalls:
         return False
 
 
-def run_main_path(tag, argv, want, must_be_zero=()):
-    """One CLI run with every launch count zeroed just before it and read
-    just after; fails unless each kernel in `want` launched and neither the
-    plain step nor the plain walk ran. Returns (result, counts)."""
+def run_main_path(tag, argv, want, must_be_zero=(), env=None, plain_step=False):
+    """One CLI run, under the environment variables `env` if given, with
+    every launch count zeroed just before it and read just after; fails
+    unless each kernel in `want` launched, none in `must_be_zero` did, and
+    neither the plain step nor the plain walk ran, or with `plain_step`,
+    unless the plain step ran and the plain walk did not. Returns (result,
+    counts, calls by name)."""
+    from unittest import mock
+
     from lumillyrender_tpu_torch import cli
     from lumillyrender_tpu_torch.ops import cuda_bounce
 
-    with PlainCalls() as plain:
+    with mock.patch.dict(os.environ, env or {}), PlainCalls() as plain:
         cuda_bounce.reset_counts()
         result = cli.run(argv)
         torch.cuda.synchronize()
         launches = cuda_bounce.counts()
-    print(f"launches during the {tag} render: {launches}; plain step or "
-          f"walk calls: {plain.calls}")
+    knobs = "".join(f" {k}={v}" for k, v in (env or {}).items())
+    print(f"launches during the {tag}{knobs} render: {launches}; plain calls by name: "
+          f"{plain.n}")
     if any(launches[k] < 1 for k in want):
         fail(f"a kernel of the {tag} path was not launched: {launches}")
-    if plain.calls or any(launches[k] for k in must_be_zero):
-        fail(f"the {tag} render left the kernel path: {launches}, "
-             f"{plain.calls} plain calls")
+    walks = plain.n["_walk_tris"] + plain.n["plain_bounce_bwd"]
+    left = walks or not plain.n["plain_bounce_step"] if plain_step else plain.calls
+    if left or any(launches[k] for k in must_be_zero):
+        fail(f"the {tag} render left its path: {launches}, plain calls {plain.n}")
     film = result.film
     print(f"film {film.shape}, mean {film.mean():.6f}, max {film.max():.4f}, "
           f"rays {result.rays:.0f}, rays/s {result.rays_per_second:.4e}")
     if not (np.isfinite(film).all() and film.max() > 0):
         fail(f"the {tag} film is not finite and non-zero")
-    return result, launches
+    return result, launches, dict(plain.n)
 
 
 def cli_checkpoint_telemetry_profile(scene):
@@ -1684,8 +1714,8 @@ def time_walk(tag, launch, bvh, o, d, plain, key, sort, tables):
     return rec
 
 
-def time_k128_bounce(c, spp_chunk):
-    """Kernel 4 on a K=128 scene: one chunk traced with the kernel alone,
+def time_bvh_bounce(c, spp_chunk, label="K=128"):
+    """Kernel 4 on a BVH scene (`label`: its leaf width): one chunk traced with the kernel alone,
     the first state of each stage width kept; on each, the kernel against
     the plain step (parity.py's rules), its bare launch beside the bound of
     that launch (counted as bounce_bounds counts) and the plain step's time
@@ -1719,7 +1749,7 @@ def time_k128_bounce(c, spp_chunk):
         m = parity.agreement(want, got)
         bad = parity.failures(m)
         if bad:
-            fail(f"BVH bounce kernel at K=128 vs plain on the main path, width {w}: {bad}")
+            fail(f"BVH bounce kernel at {label} vs plain on the main path, width {w}: {bad}")
         b = bounce_bounds(c, [(w, s0.alive.sum(), got.rays_traced, work["visits"],
                                work["tests"])], brute=False)[w]
         f3 = lambda: torch.empty((w, 3), dtype=torch.float32, device="cuda")
@@ -1730,7 +1760,7 @@ def time_k128_bounce(c, spp_chunk):
                        bytes_ms=b["bytes_ms"], ops_ms=b["ops_ms"], plain_ms=plain_ms,
                        live=float(s0.alive.sum()), rays=b["rays"], visits=b["visits"],
                        tests=b["tests"], tie=m["tie"], accum_flip=m["accum_flip"])
-        print(f"BVH bounce at K=128, width {w} ({per_width[w]} launches/chunk; the stage's "
+        print(f"BVH bounce at {label}, width {w} ({per_width[w]} launches/chunk; the stage's "
               f"first state, {recs[w]['live']:.0f} live): kernel {ms:.4f} ms/launch (bare "
               f"launch), bound {b['bound_ms']:.4f} ms (bytes {b['bytes_ms']:.4f}, operations "
               f"{b['ops_ms']:.4f}); plain step {plain_ms:.1f} ms; tie {m['tie']:.4%}, accum "
@@ -1862,18 +1892,18 @@ def huge_meshes(card, lap):
     t0 = time.monotonic()
     chunks = -(-c1.settings.spp // spp_chunk)
     scene1, scene15 = str(paths["terrain-1m"]), str(paths["terrain-1.5m"])
-    pt, l_pt = run_main_path(
+    pt, l_pt, _ = run_main_path(
         "terrain-1m", [scene1, "--out", str(OUT / "terrain-1m.png")],
         want=("raygen", "bounce_bvh"), must_be_zero=("bounce", "bvh", "bvh_wide", "bvh_streamed"))
-    _, l_depth = run_main_path(
+    _, l_depth, _ = run_main_path(
         "terrain-1m --aov depth", [scene1, "--aov", "depth", "--out",
                                    str(OUT / "terrain-1m-depth.png")],
         want=("raygen", "bvh_wide"), must_be_zero=("bounce", "bounce_bvh", "bvh", "bvh_streamed"))
-    _, l_normal = run_main_path(
+    _, l_normal, _ = run_main_path(
         "terrain-1m --aov normal", [scene1, "--aov", "normal", "--out",
                                     str(OUT / "terrain-1m-normal.png")],
         want=("raygen", "bvh_wide"), must_be_zero=("bounce", "bounce_bvh", "bvh", "bvh_streamed"))
-    _, l_15 = run_main_path(
+    _, l_15, _ = run_main_path(
         "terrain-1.5m --aov depth", [scene15, "--aov", "depth", "--out",
                                      str(OUT / "terrain-1.5m-depth.png")],
         want=("raygen", "bvh_streamed"), must_be_zero=("bounce", "bounce_bvh", "bvh", "bvh_wide"))
@@ -1912,7 +1942,7 @@ def huge_meshes(card, lap):
     rep["forward"] = dict(rays_per_s=rate, chunk_ms=chunk_ms, idle_share=idle, busy_ms=busy,
                           launches_per_chunk=per_chunk, **plan_cost(r1, spp_chunk))
     del r1
-    rep["bounce_k128"] = {str(w): r for w, r in time_k128_bounce(c1, spp_chunk).items()}
+    rep["bounce_k128"] = {str(w): r for w, r in time_bvh_bounce(c1, spp_chunk).items()}
     t7, t6, t3, t6_15 = {}, {}, {}, {}
     for key in ("camera", "random"):
         for srt in (False, True):
@@ -2510,7 +2540,7 @@ def vr_on_card(card, lap, raygen_err) -> tuple[dict, float]:
     print(f"omnidirectional raygen at {n} lanes: {ms:.4f} ms/launch (bare launch), bound "
           f"{bound:.4f} ms (bytes), plain {plain_ms:.3f} ms  [{card}]")
     del o, d, uni, o_p, d_p, u_p
-    result, launches = run_main_path(
+    result, launches, _ = run_main_path(
         "vr", [str(assets / "vr.toml"), "--out", str(OUT / "vr.png")],
         want=("raygen", "bounce"), must_be_zero=("bvh", "bounce_bvh"))
     if result.film.shape != (128, 256, 3):
@@ -3033,6 +3063,491 @@ def remat_policies(card, lap, cbox, geo, terrain_1m, geo_step, phase6_chunk_ms) 
     return report
 
 
+# Phase 27: the JAX package's render-changing environment knobs.
+# Threefry's operation bound counts SASS instructions (raygen_threefry_sass)
+# against the pipes that issue them on an H100 SM, per clock: 4 schedulers
+# of one warp instruction (128 thread instructions), 64 lanes of integer
+# ALU (add, logic, shift, compare) and 64 of integer multiply-add, which
+# issues on the FP32 FMA pipe (Hopper white paper: 64 INT32 and 128 FP32
+# units an SM).
+ISSUE_PER_CLK, INT_ALU_PER_CLK, INT_FMA_PER_CLK = 128, 64, 64
+INT_ALU_OPS = ("IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", "ISETP", "SEL",
+               "PRMT", "IMNMX", "IABS")
+INT_FMA_OPS = ("IMAD", "IMUL")
+RAYGEN_BYTES = 24  # o and d written, 12 B each (the ideal pinhole writes no g)
+KNOB_WIDTHS = (8, 16, 64)  # LLR_TREELET_K values held on welcome-geo
+GEO_WIDE_MIN_TRIS = 50_000  # an LLR_WIDE_MIN_TRIS that builds welcome-geo at K=128
+THREEFRY_FILM = (64, 64, 8)  # w, h, spp of the card-against-CPU film
+
+
+# The plain step on the card and on the CPU: both are PyTorch, but the two
+# devices' kernels need not round alike (transcendentals, reductions), so a
+# path forks now and then and the films differ in the pixels it touches,
+# under either mixer (the pcg4d pair shows the devices' own gap), where two
+# runs on one device agree to check_films' gate. Each limit lies between
+# the card's threefry film against the CPU's (|mean| rel 1.6e-4, 0.914 of
+# pixels within 1e-4, 8x8 block rel 0.0018 on an H100) and the control, the
+# card's pcg4d film against the CPU's threefry film, which draws another
+# sample of every pixel (2.3e-3, 0.069, 0.084): the control must fail each.
+CROSS_DEVICE = dict(mean_rel=6e-4, block_rel=0.012, within=0.45)
+
+
+def cross_device(a, b) -> dict:
+    """CROSS_DEVICE's readings of film `a` against film `b` (8x8 blocks),
+    with check_films' max |diff|, and which limits hold (`holds`)."""
+    mean_rel, within, max_abs = film_gap(a, b)
+    h, w = b.shape[:2]
+    block = lambda x: x.reshape(h // 8, 8, w // 8, 8, 3).mean(axis=(1, 3))
+    block_rel = float(np.abs(block(a) - block(b)).max() / np.abs(block(b)).max())
+    holds = dict(mean_rel=mean_rel < CROSS_DEVICE["mean_rel"],
+                 block_rel=block_rel < CROSS_DEVICE["block_rel"],
+                 within=within >= CROSS_DEVICE["within"])
+    return dict(mean_rel=mean_rel, within=within, max_abs=max_abs, block_rel=block_rel,
+                holds=holds)
+
+
+def device_films(tag, films) -> dict:
+    """The card's plain-step film against the CPU's, under threefry and
+    under pcg4d, and the control (the card's pcg4d film against the CPU's
+    threefry film): the threefry pair must hold every CROSS_DEVICE limit,
+    the control must fail every one."""
+    recs = {}
+    for name, a, b in (("threefry", "threefry_cuda", "threefry_cpu"),
+                       ("pcg4d", "pcg4d_cuda", "pcg4d_cpu"),
+                       ("control", "pcg4d_cuda", "threefry_cpu")):
+        r = recs[name] = cross_device(films[a], films[b])
+        print(f"{tag}, {name}, card ({a}) vs CPU ({b}): |mean| rel {r['mean_rel']:.3e}, "
+              f"pixels within 1e-4 of the film max {r['within']:.5f}, 8x8 block max rel "
+              f"{r['block_rel']:.4f}, max |diff| {r['max_abs']:.3e}; CROSS_DEVICE limits held "
+              f"{r['holds']}")
+    if not all(recs["threefry"]["holds"].values()):
+        fail(f"{tag}: the threefry film on the card is not the CPU's: {recs['threefry']}")
+    if any(recs["control"]["holds"].values()):
+        fail(f"{tag}: CROSS_DEVICE passes a film of another mixer: {recs['control']}")
+    return recs
+
+
+def knobs_child(out: Path) -> int:
+    """Phase 27's threefry process, started as `chip_smoke.py --knobs-child
+    FILE` with LLR_RNG=threefry (read when ops/rng.py is imported): the CLI
+    on new-cbox at full size with --fused off, its launch counts and plain
+    step calls; that film's chunk ms in the host loop; the 64^2 film on
+    the card and on the CPU at one chunk width; one welcome-geo training
+    step at 512x368 x 4 spp under fused="off", with its launch counts.
+    Writes what it measured to FILE (.npz)."""
+    if not torch.cuda.is_available():
+        return 2
+    sys.path.insert(0, str(REPO))
+    from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
+    from lumillyrender_tpu_torch.diff.render import leaves
+    from lumillyrender_tpu_torch.integrator.render import ChunkRenderer, render
+    from lumillyrender_tpu_torch.ops import cuda_bounce, rng
+    from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
+
+    if rng._MIXER != "threefry":
+        fail(f"LLR_RNG=threefry was not read at import: the mixer is {rng._MIXER!r}")
+    assets = REPO / "assets"
+    rec = {}
+    result, rec["cli_launches"], rec["cli_calls"] = run_main_path(
+        "new-cbox 256^2 x 64 spp, LLR_RNG=threefry --fused off",
+        [str(assets / "new-cbox.toml"), "--fused", "off", "--spp-chunk", "32",
+         "--out", str(OUT / "new-cbox-threefry.png")], want=("raygen",),
+        must_be_zero=("bounce", "bounce_bvh", "bounce_bwd", "bvh"), plain_step=True)
+    rec["cli_seconds"] = result.seconds
+    secs = rec["seconds"] = {}
+    t0 = time.monotonic()
+    cbox = compile_scene_file(assets / "new-cbox.toml", device="cuda")
+    off = dataclasses.replace(cbox, settings=dataclasses.replace(cbox.settings, fused="off"))
+    renderer = ChunkRenderer(off.data, off.settings, SEED, "cuda")
+    _, rec["chunk_ms"], _ = chunk_rate(renderer, 32, 1, 0)
+    rec["graphed"] = renderer.graphed
+    secs["chunk timing"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    w, h, spp = THREEFRY_FILM
+    small = resized(off, w, h, spp)
+    films = {}
+    for mixer in ("threefry", "pcg4d"):  # pcg4d: the two devices' own gap
+        rng._MIXER = mixer
+        for dev in ("cuda", "cpu"):
+            films[f"{mixer}_{dev}"] = render(small, seed=SEED, spp_chunk=spp, device=dev).film
+    rng._MIXER = "threefry"
+    secs["films"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    geo = compile_scene_file(assets / "welcome-geo.toml", device="cuda")
+    st = dataclasses.replace(geo.settings, spp=4, fused="off")
+    p = params_of(geo.data)
+    with torch.no_grad():
+        target = render_diff(geo.data, st, p, SEED, 4)
+    p = p._replace(materials=dataclasses.replace(p.materials, color=p.materials.color * 0.8))
+    with PlainCalls() as calls:
+        cuda_bounce.reset_counts()
+        t0 = time.monotonic()
+        loss, film, grads = film_and_grads(geo.data, st, p, target, SEED, 4)
+        torch.cuda.synchronize()
+        rec["train_seconds"] = time.monotonic() - t0
+        rec["train_launches"] = cuda_bounce.counts()
+    rec["train_calls"] = dict(calls.n)
+    vals = [loss, film] + leaves(grads)
+    rec["train_finite"] = all(bool(torch.isfinite(v).all()) for v in vals)
+    rec["train_loss"] = float(loss)
+    rec["grad_color_abs_sum"] = float(grads.materials.color.abs().sum())
+    secs["training step"] = time.monotonic() - t0
+    np.savez(out, rec=json.dumps(rec), **films)
+    return 0
+
+
+def raygen_threefry_check(cbox) -> dict:
+    """Kernel 1's threefry instance against its plain version at 2,097,152
+    lanes (new-cbox 256^2 x 32 spp, lanes from a sample offset that wraps
+    past 2^32), the mixer set as LLR_RNG sets it at import (`rng._MIXER`)."""
+    from lumillyrender_tpu_torch.integrator.render import global_lanes
+    from lumillyrender_tpu_torch.ops import cuda_bounce, rng
+
+    dev = torch.device("cuda")
+    st = cbox.settings
+    n = st.width * st.height * 32
+    off = 2**32 // (st.width * st.height) - 16
+    uni = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    rng._MIXER = "threefry"
+    try:
+        o, d, pdf, g = cuda_bounce.generate_rays(cbox.data, st, SEED, off, n, uniforms=uni)
+        o_p, d_p, pdf_p, g_p = cuda_bounce.plain_generate_rays(cbox.data, st, SEED, off, n)
+        want = torch.stack(rng.uniform4(SEED, global_lanes(st, off, n, dev), 0x40000000), 1)
+        on_cpu = torch.stack(rng.uniform4(SEED, global_lanes(st, off, n, "cpu"), 0x40000000), 1)
+    finally:
+        rng._MIXER = "pcg4d"
+    pcg = torch.stack(rng.uniform4(SEED, global_lanes(st, off, n, dev), 0x40000000), 1)
+    torch.cuda.synchronize()
+    bits_equal = (torch.equal(uni.view(torch.int32), want.view(torch.int32))
+                  and torch.equal(want.cpu().view(torch.int32), on_cpu.view(torch.int32)))
+    differ = float((uni != pcg).float().mean())
+    rel = lambda a, b: ((a - b).abs() / b.abs().clamp(min=1.0)).max().item()
+    errs = dict(o=rel(o, o_p), d=rel(d, d_p), g=rel(g, g_p), pdf=rel(pdf, pdf_p))
+    max_abs = max((o - o_p).abs().max().item(), (d - d_p).abs().max().item())
+    print(f"raygen threefry instance, {n} lanes: random words bit-equal to rng.uniform4 under "
+          f"threefry, on the card and on the CPU, {bits_equal} ({differ:.4f} of them differ "
+          f"from pcg4d's); max rel err "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if not bits_equal or differ < 0.99 or max(errs.values()) > 1e-5:
+        fail(f"raygen's threefry instance disagrees with its plain version: {errs}")
+    return dict(lanes=n, offset=off, bits_equal=bits_equal, max_rel=errs, max_abs_err=max_abs)
+
+
+def raygen_threefry_sass() -> dict:
+    """SASS opcode counts of kernel 1's two instances (`cuobjdump -sass` of
+    the built library; NOPs left out) and what threefry's adds over
+    pcg4d's: the two instances differ only in the mixer, so the difference
+    is threefry's instructions less pcg4d's, a floor on threefry's own.
+    Straight-line code, so each counted instruction issues once a lane."""
+    import collections
+    import shutil
+
+    from lumillyrender_tpu_torch.ops import cuda_build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(cuda_build.lib_path("raygen"))],
+                         capture_output=True, text=True, check=True, timeout=120).stdout
+    ops, cur = {}, None
+    for ln in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            cur = ops.setdefault(m.group(1), collections.Counter())
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", ln)
+        if cur is not None and m and m.group(2) != "NOP":
+            cur[m.group(2)] += 1
+    inst = {}
+    for fn, c in ops.items():
+        for flag, name in (("ILb1E", "threefry"), ("ILb0E", "pcg4d")):
+            if "raygen_kernel" in fn and flag in fn:
+                inst[name] = c
+    if set(inst) != {"threefry", "pcg4d"}:
+        fail(f"raygen's SASS holds no two instances: {list(ops)}")
+    diff = {k: inst["threefry"][k] - inst["pcg4d"][k] for k in inst["threefry"] | inst["pcg4d"]}
+    diff = {k: v for k, v in sorted(diff.items()) if v}
+    pipes = dict(issue=sum(diff.values()),
+                 int_alu=sum(v for k, v in diff.items() if k in INT_ALU_OPS),
+                 int_fma=sum(v for k, v in diff.items() if k in INT_FMA_OPS))
+    return dict(threefry=sum(inst["threefry"].values()), pcg4d=sum(inst["pcg4d"].values()),
+                added=diff, pipes=pipes)
+
+
+def raygen_threefry_times(card, cbox, rec) -> dict:
+    """Both instances of kernel 1 timed in turns at `rec`'s lanes (bare
+    launch, CUDA graph), beside threefry's bounds and its plain version."""
+    from lumillyrender_tpu_torch.ops import cuda_bounce, rng
+
+    dev = torch.device("cuda")
+    st = cbox.settings
+    n, off = rec["lanes"], rec["offset"]
+    o_buf = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    d_buf = torch.empty((n, 3), dtype=torch.float32, device=dev)
+
+    def launch(mixer):
+        def run():
+            rng._MIXER = mixer
+            try:
+                cuda_bounce.raygen_launch(cbox.data, st, SEED, off, o_buf, d_buf)
+            finally:
+                rng._MIXER = "pcg4d"
+        return run
+
+    pcg_ms, tf_ms, tf_ms2, pcg_ms2 = (graph_ms(launch(m), 20) for m in
+                                      ("pcg4d", "threefry", "threefry", "pcg4d"))
+    rng._MIXER = "threefry"
+    try:
+        plain_ms = events_ms(lambda: cuda_bounce.plain_generate_rays(cbox.data, st, SEED, 0, n),
+                             3)
+    finally:
+        rng._MIXER = "pcg4d"
+    bytes_ms = RAYGEN_BYTES * n / HBM_BYTES_PER_S * 1e3
+    sass = raygen_threefry_sass()
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                       timeout=60)
+    clk = float(r.stdout.strip().splitlines()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = dict(issue=ISSUE_PER_CLK, int_alu=INT_ALU_PER_CLK, int_fma=INT_FMA_PER_CLK)
+    pipe_ms = {k: sass["pipes"][k] * n / (sms * rate[k] * clk) * 1e3 for k in rate}
+    ops_ms = max(pipe_ms.values())
+    sass.update(sm_clock_hz=clk, sms=sms, pipe_ms=pipe_ms)
+    print(f"raygen SASS: threefry instance {sass['threefry']} instructions, pcg4d "
+          f"{sass['pcg4d']}; threefry adds {sass['added']}: {sass['pipes']} a lane (issue, "
+          f"integer ALU, integer FMA pipes) at {sms} SMs x {clk / 1e6:.0f} MHz, "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in pipe_ms.items()))
+    rec = dict(rec, ms=statistics.mean((tf_ms, tf_ms2)), ms_each=[tf_ms, tf_ms2],
+               pcg4d_ms=statistics.mean((pcg_ms, pcg_ms2)), pcg4d_ms_each=[pcg_ms, pcg_ms2],
+               plain_ms=plain_ms, bytes_ms=bytes_ms, ops_ms=ops_ms, sass=sass,
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    print(f"raygen at {n} lanes, in turns (pcg4d, threefry, threefry, pcg4d): threefry "
+          f"{tf_ms:.4f} / {tf_ms2:.4f} ms, pcg4d {pcg_ms:.4f} / {pcg_ms2:.4f} ms a launch (bare "
+          f"launch, CUDA graph); threefry's bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+          f"bytes {bytes_ms:.4f}, operations {ops_ms:.4f}: the SASS instructions threefry adds "
+          f"over pcg4d on their busiest pipe); "
+          f"plain under threefry {plain_ms:.3f} ms  [{card}]")
+    return rec
+
+
+def leaf_width_scene(geo, k):
+    """welcome-geo with its BVH built at leaf width `k` through the knobs'
+    attributes, as LLR_TREELET_K / LLR_WIDE_MIN_TRIS set them at import:
+    `pack.TREELET_K` for build_tri_bvh's default width, `pack.WIDE_MIN_TRIS`
+    for the compiler's K=128."""
+    from lumillyrender_tpu_torch.accel import pack
+    from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
+    from lumillyrender_tpu_torch.scene.data import Bvh, tensor_of
+
+    if k == 128:
+        saved, pack.WIDE_MIN_TRIS = pack.WIDE_MIN_TRIS, GEO_WIDE_MIN_TRIS
+        try:
+            return compile_scene_file(REPO / "assets" / "welcome-geo.toml", device="cuda")
+        finally:
+            pack.WIDE_MIN_TRIS = saved
+    g = geo.data.geometry
+    saved, pack.TREELET_K = pack.TREELET_K, k
+    try:
+        arrays = pack.build_tri_bvh(*(getattr(g, f).cpu().numpy() for f in (
+            "tri_p0", "tri_e1", "tri_e2", "tri_n", "tri_mat")))
+    finally:
+        pack.TREELET_K = saved
+    bvh = Bvh(**{f: tensor_of(v).cuda() for f, v in arrays.items()})
+    return dataclasses.replace(geo, data=dataclasses.replace(geo.data, bvh=bvh))
+
+
+def leaf_widths(card, geo, geo_chunk) -> dict:
+    """Kernel 4 on welcome-geo at K = 8, 16, 64 and 128 against the plain
+    step on random states at the chunk's full width, bounces 0, 3, 7, 70
+    (the plain step once a bounce, on the compiled K=32 BVH: its nearest
+    hit does not depend on the leaf width, but for exact-t ties between
+    triangles, which parity.py counts), then one chunk traced with the
+    kernel at each K, checked against the plain step at that K and timed at
+    each stage width (time_bvh_bounce); kernel 3 on a chunk's camera rays
+    and the captured forward chunk at each K and at K=32."""
+    from lumillyrender_tpu_torch import parity
+    from lumillyrender_tpu_torch.constants import INF
+    from lumillyrender_tpu_torch.integrator import wavefront
+    from lumillyrender_tpu_torch.integrator.render import ChunkRenderer
+    from lumillyrender_tpu_torch.ops import cuda_bounce, cuda_bvh, intersect
+
+    n = geo.settings.width * geo.settings.height * geo_chunk
+    scenes = {k: leaf_width_scene(geo, k) for k in KNOB_WIDTHS + (128,)}
+    rep = {k: dict(leaves=int(c.data.bvh.blk_p0.shape[0]), walk="warp" if k > 32 else
+                   "per-thread", route=list(intersect.bvh_route(c.data.bvh)), max_abs=0.0,
+                   checks={}) for k, c in scenes.items()}
+    for k, r in rep.items():
+        print(f"welcome-geo at K={k}: {r['leaves']} leaves, kernel 4's {r['walk']} walk, AOV "
+              f"route {tuple(r['route'])}")
+        if scenes[k].data.bvh.blk_p0.shape[1] != k:
+            fail(f"welcome-geo was built at K={scenes[k].data.bvh.blk_p0.shape[1]}, not {k}")
+    if rep[128]["route"] != ["wide", False]:
+        fail(f"welcome-geo at K=128 is not admitted as wide: {rep[128]['route']}")
+    for b in (0, 3, 7, 70):
+        state = random_state(geo.data, n, 5000 * b + 27, b)
+        want = wavefront.plain_bounce_step(geo.data, geo.settings, SEED, state)
+        for k, c in scenes.items():
+            got = cuda_bounce.bounce_bvh(c.data, c.settings, SEED, state)
+            torch.cuda.synchronize()
+            m = parity.agreement(want, got)
+            bad = parity.failures(m)
+            print(f"welcome-geo K={k}@b{b}: lanes {m['lanes']}, tie {m['tie']:.4%}, excluded "
+                  f"{m['excluded']:.4%}, accum flips {m['accum_flip']:.4%}, max rel "
+                  + ", ".join(f"{k2} {v:.1e}" for k2, v in m["max_rel"].items())
+                  + (f"  FAIL {bad}" if bad else ""))
+            if bad:
+                fail(f"kernel 4 at K={k} vs the plain step, bounce {b}: {bad}")
+            rep[k]["checks"][b] = dict(tie=m["tie"], excluded=m["excluded"],
+                                       accum_flip=m["accum_flip"])
+            rep[k]["max_abs"] = max(rep[k]["max_abs"], *m["max_abs"].values())
+    for k, c in scenes.items():
+        rep[k]["widths"] = {str(w): r for w, r in
+                            time_bvh_bounce(c, geo_chunk, f"K={k}").items()}
+    # Kernel 3 on one chunk's camera rays and the forward chunk in the
+    # captured plan at each width, the compiled K=32 beside them.
+    cam_o, cam_d, _, _ = cuda_bounce.generate_rays(geo.data, geo.settings, SEED, 0, n)
+    inf = torch.full((n,), INF, device="cuda")
+    never = torch.full_like(inf, -INF)
+    out = (torch.empty(n, dtype=torch.float32, device="cuda"),
+           torch.empty(n, dtype=torch.int32, device="cuda"))
+    rep[32] = {}
+    for k, c in ((32, geo),) + tuple(scenes.items()):
+        bvh = c.data.bvh
+        tables = cuda_bvh.tables_of(bvh)
+        ms = graph_ms(lambda: cuda_bvh.intersect_tris_launch(cam_o, cam_d, inf, never, tables,
+                                                             out))
+        with intersect.count_work() as work:
+            want = intersect._walk_tris(cam_o, cam_d, inf, never, bvh, False)
+        if not all(torch.equal(a, b) for a, b in zip(out, want)):
+            fail(f"kernel 3 at K={k} differs from the plain walk on camera rays")
+        visits, tests = float(work["visits"]), float(work["tests"])
+        bound, bytes_ms, ops_ms = walk_bound(n, False, visits, tests, 0, k)
+        renderer = ChunkRenderer(c.data, c.settings, SEED, "cuda")
+        rate, chunk_ms, per_chunk = chunk_rate(renderer, geo_chunk, 2, 0)
+        del renderer
+        rep[k].update(k3=dict(ms=ms, bound_ms=bound, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                              visits_per_ray=visits / n, tests_per_ray=tests / n),
+                      chunk_ms=chunk_ms, rays_per_s=rate, launches_per_chunk=per_chunk)
+        print(f"welcome-geo at K={k}: kernel 3 on {n} camera rays {ms:.4f} ms/launch (bare "
+              f"launch), bound {bound:.4f} ms (bytes {bytes_ms:.4f}, operations {ops_ms:.4f}: "
+              f"{visits / n:.2f} node visits and {tests / n:.2f} triangle tests per ray), bit-"
+              f"equal to the plain walk; forward chunk in the captured plan {chunk_ms:.4f} ms, "
+              f"{rate:.4e} rays/s  [{card}]")
+    return rep
+
+
+def env_knobs(card, lap, cbox, geo, geo_chunk) -> dict:
+    """Phase 27: the JAX package's render-changing environment knobs."""
+    phase("27 the environment knobs (LLR_RNG=threefry and kernel 1's threefry instance; "
+          "LLR_TREELET_K / LLR_WIDE_MIN_TRIS through kernel 4; LLR_FUSED, LLR_FUSED_BVH, "
+          "LLR_PALLAS, LLR_REORDER)")
+    t0 = time.monotonic()
+    rep = {}
+    assets = REPO / "assets"
+    env = dict(os.environ, LLR_RNG="threefry")
+    # The CLI without --fused off: refused by name before anything renders.
+    refused = subprocess.Popen(
+        [sys.executable, "-m", "lumillyrender_tpu_torch", str(assets / "new-cbox.toml"),
+         "--out", str(OUT / "refused.png")], cwd=str(REPO), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        check = raygen_threefry_check(cbox)
+        log, _ = refused.communicate(timeout=300)
+    finally:
+        if refused.poll() is None:
+            refused.kill()
+            refused.wait()
+    rep["raygen_threefry"] = raygen_threefry_times(card, cbox, check)
+    said = [line for line in log.splitlines() if "LLR_RNG" in line]
+    print(f"CLI under LLR_RNG=threefry without --fused off: exit {refused.returncode}; "
+          f"{said[-1] if said else 'no line names LLR_RNG'}")
+    if refused.returncode == 0 or not said or "--fused off" not in said[-1]:
+        print(log[-3000:])
+        fail("the CLI under LLR_RNG=threefry with the kernels was not refused by name")
+    rep["refused"] = dict(exit=refused.returncode, message=said[-1])
+    lap("27 raygen threefry and the refusal", t0)
+
+    t1 = time.monotonic()
+    child_out = OUT / "knobs_child.npz"
+    with open(OUT / "knobs_child.log", "w") as log_f:
+        child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--knobs-child",
+                                  str(child_out)], cwd=str(REPO), env=env, stdout=log_f,
+                                 stderr=subprocess.STDOUT)
+        try:
+            code = child.wait(timeout=600)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    print((OUT / "knobs_child.log").read_text()[-2500:])
+    if code:
+        fail(f"the threefry process exited with {code}")
+    got = np.load(child_out)
+    tf = json.loads(str(got["rec"]))
+    launches, calls = tf["cli_launches"], tf["cli_calls"]
+    print(f"threefry CLI (new-cbox 256^2 x 64 spp, --fused off): launches {launches}, plain "
+          f"steps {calls['plain_bounce_step']}, plain walks {calls['_walk_tris']}; "
+          f"{tf['cli_seconds']:.2f} s; "
+          f"{tf['chunk_ms']:.4f} ms a 32-spp chunk in the host loop (graphed "
+          f"{tf['graphed']})  [{card}]")
+    if (launches["raygen"] != 2 or any(v for k2, v in launches.items() if k2 != "raygen")
+            or not calls["plain_bounce_step"] or calls["_walk_tris"] or tf["graphed"]):
+        fail(f"the threefry render left its path: {launches}, {calls}")
+    print(f"threefry process: {tf['seconds']}")
+    w, h, spp = THREEFRY_FILM
+    rep["threefry_film"] = device_films(
+        f"new-cbox {w}x{h} x {spp} spp, fused off, one {spp}-spp chunk", got)
+    tl = tf["train_launches"]
+    print(f"welcome-geo 512x368 x 4 spp training step under threefry, fused=\"off\": "
+          f"{tf['train_seconds']:.2f} s (first call); loss {tf['train_loss']:.6e}, finite "
+          f"{tf['train_finite']}; launches {tl}; plain steps "
+          f"{tf['train_calls']['plain_bounce_step']}, plain walks "
+          f"{tf['train_calls']['_walk_tris']}")
+    if (not tf["train_finite"] or not tf["grad_color_abs_sum"] > 0 or not tl["bvh"]
+            or any(v for k2, v in tl.items() if k2 != "bvh")
+            or tf["train_calls"]["_walk_tris"]):
+        fail(f"the threefry training step: {tf}")
+    rep["threefry"] = tf
+    lap("27 threefry process", t1)
+
+    t1 = time.monotonic()
+    rep["leaf_widths"] = leaf_widths(card, geo, geo_chunk)
+    lap("27 leaf widths", t1)
+
+    t1 = time.monotonic()
+    runs = {}
+    small_cbox = ["--resolution", "64", "64", "--spp", "8"]
+    small_geo = ["--resolution", "128", "92", "--spp", "4"]
+    # (tag, scene, extra arguments, knobs, kernels launched, kernels not
+    # launched, the plain step run, the rays sorted)
+    cases = [
+        ("LLR_FUSED=0, new-cbox", "new-cbox", small_cbox, dict(LLR_FUSED="0"),
+         ("raygen",), ("bounce",), True, False),
+        ("LLR_FUSED_BVH=0, welcome-geo", "welcome-geo", small_geo, dict(LLR_FUSED_BVH="0"),
+         ("raygen", "bvh"), ("bounce_bvh",), True, False),
+        ("LLR_FUSED_BVH=0, new-cbox", "new-cbox", small_cbox, dict(LLR_FUSED_BVH="0"),
+         ("raygen", "bounce"), (), False, False),
+        ("LLR_PALLAS=0, welcome-geo", "welcome-geo", small_geo, dict(LLR_PALLAS="0"),
+         ("raygen", "bvh"), ("bounce_bvh",), True, False),
+        ("LLR_REORDER=1, welcome-geo --aov depth", "welcome-geo",
+         small_geo + ["--aov", "depth"], dict(LLR_REORDER="1"), ("raygen", "bvh"), (), False,
+         True),
+        ("welcome-geo --aov depth (no knob)", "welcome-geo", small_geo + ["--aov", "depth"],
+         {}, ("raygen", "bvh"), (), False, False),
+    ]
+    for tag, scene, extra, knobs, want, zero, plain_step, sorted_ in cases:
+        ext = "hdr" if scene == "welcome-geo" else "png"
+        _, launches, calls = run_main_path(
+            tag, [str(assets / f"{scene}.toml"), *extra, "--out", str(OUT / f"knob.{ext}")],
+            want, zero, env=knobs, plain_step=plain_step)
+        if bool(calls["_ray_sort_key"]) != sorted_:
+            fail(f"{tag}: sort key calls {calls['_ray_sort_key']}, sorted expected {sorted_}")
+        runs[tag] = dict(launches=launches, calls=calls)
+    rep["cli_runs"] = runs
+    lap("27 CLI knob runs", t1)
+    lap("environment knobs", t0)
+    return rep
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -3160,7 +3675,7 @@ def main() -> int:
 
     phase("5 end-to-end render (CLI, new-cbox 256^2 x 64 spp)")
     t0 = time.monotonic()
-    _, cbox_launches = run_main_path(
+    _, cbox_launches, _ = run_main_path(
         "new-cbox", [str(assets / "new-cbox.toml"), "--out", str(OUT / "new-cbox.png")],
         want=("raygen", "bounce"), must_be_zero=("bvh", "bounce_bvh"))
     cbox_films = kernel_vs_plain_films("new-cbox 64^2x8", resized(cbox, 64, 64, 8))
@@ -3291,17 +3806,17 @@ def main() -> int:
 
     phase("9 end-to-end render (CLI, welcome-geo 512x368 x 64 spp, hdr; --aov depth)")
     t0 = time.monotonic()
-    geo_result, geo_launches = run_main_path(
+    geo_result, geo_launches, _ = run_main_path(
         "welcome-geo", [str(assets / "welcome-geo.toml"), "--out", str(OUT / "welcome-geo.hdr")],
         want=("raygen", "bounce_bvh"), must_be_zero=("bounce", "bvh"))
     if geo_result.film.shape != (368, 512, 3):
         fail(f"welcome-geo film shape {geo_result.film.shape}")
-    _, aov_launches = run_main_path(
+    _, aov_launches, _ = run_main_path(
         "welcome-geo --aov depth",
         [str(assets / "welcome-geo.toml"), "--aov", "depth",
          "--out", str(OUT / "welcome-geo-depth.hdr")],
         want=("raygen", "bvh"), must_be_zero=("bounce", "bounce_bvh"))
-    normal_result, _ = run_main_path(
+    normal_result, _, _ = run_main_path(
         "welcome-geo --aov normal",
         [str(assets / "welcome-geo.toml"), "--aov", "normal",
          "--out", str(OUT / "welcome-geo-normal.hdr")],
@@ -3487,6 +4002,8 @@ def main() -> int:
     remat_report = remat_policies(card, lap, cbox, geo, terrain_1m, geo_step,
                                   cbox_report["chunk_ms"])
     del terrain_1m
+    knob_report = env_knobs(card, lap, cbox, geo, geo_chunk)
+    tf = knob_report["raygen_threefry"]
     bounce_err = max(bounce_err, sky_err)
     bvh_bounce_err = max(bvh_bounce_err, sky_bvh_err)
 
@@ -3496,7 +4013,11 @@ def main() -> int:
              replaces="lumillyrender_tpu/ops/pallas_bounce.py:2143",
              launches=cbox_launches["raygen"], max_abs_err=raygen_err,
              ms=raygen_ms, plain_ms=raygen_plain_ms, bound_ms=raygen_bound,
-             bound_by="bytes", library_ms=None),
+             bound_by="bytes", library_ms=None, instances=["pcg4d", "threefry"],
+             threefry=dict(launches=knob_report["threefry"]["cli_launches"]["raygen"],
+                           max_abs_err=tf["max_abs_err"], ms=tf["ms"], plain_ms=tf["plain_ms"],
+                           bound_ms=tf["bound_ms"], bound_by=tf["bound_by"],
+                           library_ms=None)),
         dict(name="bounce", route="cuda",
              source="lumillyrender_tpu_torch/csrc/bounce.cu",
              replaces="lumillyrender_tpu/ops/pallas_bounce.py:786",
@@ -3542,6 +4063,7 @@ def main() -> int:
         huge_meshes=big_report, probes=probe_report, stage_loop=stage_loop, cli_files=cli_files,
         data_parallel=dp_report, vr=vr_report, simple_sky=sky_report,
         differentiable_scenes=diff_report, remat_policies=remat_report,
+        environment_knobs=knob_report,
         kernels=kernels, ptxas=ptxas_report,
         phase_seconds=secs,
         seconds=time.monotonic() - t_start)
@@ -3557,9 +4079,12 @@ def main() -> int:
 
 def dp_rank_args(argv) -> int:
     """Phase 22's rank mode: `--dp-rank R --dp-world N --dp-port P --dp-out
-    FILE` (started by phase 22 itself)."""
+    FILE` (started by phase 22 itself); phase 27's threefry process:
+    `--knobs-child FILE`."""
     import argparse
 
+    if argv[0] == "--knobs-child" and len(argv) == 2:
+        return knobs_child(Path(argv[1]))
     parser = argparse.ArgumentParser(prog="chip_smoke.py")
     for flag, kind in (("--dp-rank", int), ("--dp-world", int), ("--dp-port", int),
                        ("--dp-out", Path)):

@@ -12,16 +12,24 @@ repacked by `ops/cuda_bvh.py::pack_bvh`.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from . import native
 
-TREELET_K = 32
+# The leaf width of a BVH built without `max_leaf`, read from LLR_TREELET_K
+# at import as the JAX package reads it; `build_tri_bvh` reads the
+# attribute at call time. The card's kernels serve any width (kernel 3's
+# runtime-K instance, kernel 4's per-thread walk up to 32 and warp walk
+# above); the AOV route's streamed walk takes a K that divides 128.
+TREELET_K = int(os.environ.get("LLR_TREELET_K", "32"))
 
 # Triangle count from which the scene compiler builds 128-wide leaves, as
-# the JAX package's compiler does; `ops/intersect.py::intersect_bvh` routes
-# such BVHs to the packet walks. The compiler reads it at call time.
-WIDE_MIN_TRIS = 650000
+# the JAX package's compiler does (LLR_WIDE_MIN_TRIS, read at import);
+# `ops/intersect.py::bvh_route` routes such BVHs to the AOV walks. The
+# compiler reads the attribute at call time.
+WIDE_MIN_TRIS = int(os.environ.get("LLR_WIDE_MIN_TRIS", "650000"))
 
 
 def build_tri_bvh(tri_p0, tri_e1, tri_e2, tri_n=None, tri_mat=None,

@@ -1,8 +1,11 @@
 // Camera ray generation: one thread per camera lane.
 //
 // Replaces the TPU kernel lumillyrender_tpu/ops/pallas_bounce.py::_raygen_kernel.
-// Per lane: the tile (or raster) pixel decode of integrator/render.py, pcg4d
-// at counter 0x40000000, and the camera math of ops/camera.py for all four
+// Per lane: the tile (or raster) pixel decode of integrator/render.py, the
+// lane's four random numbers at counter 0x40000000 (pcg4d, or under
+// LLR_RNG=threefry two Threefry-2x32 blocks: the template parameter
+// kThreefry, one kernel with two instances), and the camera math of
+// ops/camera.py for all four
 // kinds: the ideal pinhole, the thin lens, the realistic pinhole and the
 // omnidirectional camera (an equirect direction from the aperture position
 // that ignores the camera basis, quirk #13 of ops/camera.py). Outputs o, d
@@ -12,7 +15,11 @@
 //
 // Bound on an H100: a pure store. 24 B/lane (28 with g) written, nothing
 // read; the arithmetic (one pcg4d, a few divisions, a sqrt, sin/cos for
-// the aperture and omnidirectional kinds) is far below the FP32 rate. The
+// the aperture and omnidirectional kinds) is far below the FP32 rate.
+// Threefry's two blocks add 120 SASS instructions a lane to pcg4d's (81 on
+// the integer ALU pipe, 49 IMAD on the FMA pipe): on an H100 the ALU pipe
+// needs 0.0102 ms at 2,097,152 lanes, under the stores' 0.0150 ms, so the
+// bytes bound both instances (chip_smoke.py phase 27 counts the SASS). The
 // design keeps the stores coalesced (consecutive threads write consecutive
 // 12-byte rows) and reads the camera as a kernel argument, so no load
 // reaches memory.
@@ -23,6 +30,38 @@
 // bounces. Lane ids wrap in uint32: glane = lane + lane_offset.
 #include "common.cuh"
 
+// Threefry-2x32, 20 rounds, in native uint32 (ops/rng.py::threefry2x32):
+// add, rotate (the funnel shift) and xor a round, the key injected every 4.
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t& x0,
+                                             uint32_t& x1) {
+  constexpr int kRot[8] = {13, 15, 26, 6, 17, 29, 16, 24};
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 20; ++i) {
+    x0 += x1;
+    x1 = __funnelshift_l(x1, x1, kRot[i % 8]) ^ x0;
+    if (i % 4 == 3) {
+      const int j = i / 4 + 1;
+      x0 += ks[j % 3];
+      x1 += ks[(j + 1) % 3] + (uint32_t)j;
+    }
+  }
+}
+
+// ops/rng.py::uniform4 under threefry: blocks keyed (seed, seed ^
+// 0x9E3779B9) on (lane, ctr) and (lane, ctr ^ 0x80000000).
+__device__ __forceinline__ void uniform4_threefry(uint32_t seed, uint32_t lane, uint32_t ctr,
+                                                  float out[4]) {
+  const uint32_t k1 = seed ^ 0x9E3779B9u;
+  uint32_t v[4] = {lane, ctr, lane, ctr ^ 0x80000000u};
+  threefry2x32(seed, k1, v[0], v[1]);
+  threefry2x32(seed, k1, v[2], v[3]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[i] = (float)(v[i] >> 8) * (1.0f / 16777216.0f);
+}
+
 struct CameraRow {
   float v[24];  // position3 | aperture3 | right3 | sensor2 | up3 | forward3 |
                 // aperture_radius | focus_distance | aperture_sensor_distance | pad
@@ -30,6 +69,7 @@ struct CameraRow {
 
 enum { CAM_IDEAL_PINHOLE = 0, CAM_THIN_LENS = 1, CAM_OMNIDIRECTIONAL = 2, CAM_PINHOLE = 3 };
 
+template <bool kThreefry>
 __global__ void __launch_bounds__(256) raygen_kernel(
     float* __restrict__ o_out, float* __restrict__ d_out, float* __restrict__ g_out,
     float* __restrict__ u_out, int n, uint32_t seed, uint32_t lane_offset, int w, int h, int tw,
@@ -50,7 +90,11 @@ __global__ void __launch_bounds__(256) raygen_kernel(
     py = (tile / tpr) * (uint32_t)th + within / (uint32_t)tw;
   }
   float r[4];
-  uniform4(seed, (uint32_t)lane + lane_offset, 0x40000000u, r);
+  if (kThreefry) {
+    uniform4_threefry(seed, (uint32_t)lane + lane_offset, 0x40000000u, r);
+  } else {
+    uniform4(seed, (uint32_t)lane + lane_offset, 0x40000000u, r);
+  }
   const float u = r[0], v = r[1], u2 = r[2], v2 = r[3];
   if (u_out != nullptr) {  // the random numbers themselves, for checking
     float* ul = u_out + 4 * (int64_t)lane;
@@ -103,16 +147,21 @@ __global__ void __launch_bounds__(256) raygen_kernel(
   store3(d_out, lane, normalize(sub(add(ap, op), apt)));
 }
 
+// `threefry`: 0 draws pcg4d, 1 Threefry-2x32 (ops/rng.py's mixer).
 extern "C" int llr_raygen(float* o_out, float* d_out, float* g_out, float* u_out, int n,
                           uint32_t seed, uint32_t lane_offset, int w, int h, int tw, int th,
-                          int kind, const float* cam_row, void* stream) {
+                          int kind, const float* cam_row, int threefry, void* stream) {
   CameraRow cam;
   for (int i = 0; i < 24; ++i) cam.v[i] = cam_row[i];
   const int block = 256;
   const int grid = (n + block - 1) / block;
-  if (grid > 0) {
-    raygen_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        o_out, d_out, g_out, u_out, n, seed, lane_offset, w, h, tw, th, kind, cam);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (grid > 0 && threefry) {
+    raygen_kernel<true><<<grid, block, 0, s>>>(o_out, d_out, g_out, u_out, n, seed, lane_offset,
+                                               w, h, tw, th, kind, cam);
+  } else if (grid > 0) {
+    raygen_kernel<false><<<grid, block, 0, s>>>(o_out, d_out, g_out, u_out, n, seed,
+                                                lane_offset, w, h, tw, th, kind, cam);
   }
   return (int)cudaGetLastError();
 }

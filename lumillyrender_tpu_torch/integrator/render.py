@@ -199,7 +199,8 @@ class ChunkRenderer:
     """What a render keeps across its chunks: the scene on the device
     (checked once for the card), the bounce step with its tables packed
     once, and on a CUDA device one `ForwardPlan` per chunk size (`graphed`;
-    not under `fused="off"`, whose plain step runs in the host loop)."""
+    not where `cuda_bounce.step_mode` says "off", whose plain step runs in
+    the host loop)."""
 
     def __init__(self, scene: SceneData, settings: RenderSettings, seed, device=None):
         from ..ops import cuda_bounce
@@ -212,7 +213,7 @@ class ChunkRenderer:
             cuda_bounce.require_supported(self.scene, settings)
         self.step = None if self.aov else make_bounce_step(self.scene, settings, seed)
         self.graphed = (dev.type == "cuda" and not self.aov
-                        and cuda_bounce.fused_mode(settings, True) != "off")
+                        and cuda_bounce.step_mode(self.scene, settings, True) != "off")
         self.plans: dict[int, ForwardPlan] = {}
 
     def chunk(self, sample_offset: int, spp_chunk: int):

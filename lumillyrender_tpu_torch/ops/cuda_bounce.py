@@ -1,7 +1,8 @@
 """The render kernels' wrappers, hand-written CUDA C++ for Hopper (sm_90a).
 
-* `generate_rays` wraps `csrc/raygen.cu` (camera rays per lane); its plain
-  version is `plain_generate_rays` (`rng.uniform4` + `camera.sample_rays`).
+* `generate_rays` wraps `csrc/raygen.cu` (camera rays per lane, drawing
+  `rng`'s mixer: its pcg4d or its threefry instance); its plain version is
+  `plain_generate_rays` (`rng.uniform4` + `camera.sample_rays`).
 * `bounce` wraps `csrc/bounce.cu` (one whole brute-force bounce) and
   `bounce_bvh` wraps `csrc/bounce_bvh.cu` (one whole bounce through the
   BVH); both are `csrc/bounce_body.cuh` with another intersector, and their
@@ -21,8 +22,12 @@
   kernel forward with the backward kernel (`diff_supported`), or with
   autograd of the plain step recomputed on the input state
   (`make_step_hybrid`: every other scene on the card, BVH, IBL and
-  simple-sky scenes included), or under `fused="off"` (`fused_mode`, as
+  simple-sky scenes included), or under `fused="off"` (`step_mode`, as
   `make_step` for the forward render) autograd of the plain step itself.
+* `step_mode` reads the JAX package's switches as it reads
+  them, at call time: `settings.fused`, `LLR_FUSED`, `LLR_FUSED_BVH` and
+  `LLR_PALLAS`; under `LLR_RNG=threefry` the card takes only the plain
+  step, and a fused mode is refused by name.
 
 Each wrapper runs its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises. The launch itself is
@@ -40,6 +45,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -54,10 +60,10 @@ from ..scene.data import (
     SKY_UNIFORM,
     SceneData,
 )
-from . import cuda_build, cuda_bvh
+from . import cuda_build, cuda_bvh, rng
 from .bounce_bwd import BounceGrads, plain_bounce_bwd
 from .cuda_build import ptr as _ptr
-from .intersect import _use_brute, check_pallas
+from .intersect import _use_brute, check_pallas, pallas_enabled
 
 
 # ---------------------------------------------------------------------------
@@ -76,11 +82,12 @@ def _shading_supported(settings: RenderSettings) -> tuple[bool, str]:
 
 def bounce_supported(scene: SceneData, settings: RenderSettings) -> tuple[bool, str]:
     """(ok, reason) for the bounce kernels: pt or pt-direct under any sky,
-    on a brute-force scene (bounce.cu) or a BVH scene of any
-    leaf width (bounce_bvh.cu: the compiler's 128-wide leaves through the
-    warp walk, its 32-wide ones through the per-thread walk, at any table
-    size). Lights and materials have no cap (binary-search light pick,
-    tables read from global memory)."""
+    on a brute-force scene (bounce.cu) or a BVH scene of any leaf width
+    (bounce_bvh.cu: K > 32 through the warp walk, K <= 32 through the
+    per-thread walk, at any table size; held against the plain step at
+    K = 8, 16, 24, 32, 48, 64 and 128, tests/test_torch_cuda.py and
+    chip_smoke.py phase 27). Lights and materials have no cap
+    (binary-search light pick, tables read from global memory)."""
     return _shading_supported(settings)
 
 
@@ -206,7 +213,7 @@ def plain_generate_rays(scene: SceneData, settings: RenderSettings, seed,
                         sample_offset: int, n: int):
     """Camera rays in plain PyTorch on the scene's device: (o, d, pdf, g)."""
     from ..integrator.render import camera_lanes
-    from . import camera, rng
+    from . import camera
 
     dev = scene.camera.position.device
     glane, px, py = camera_lanes(settings, sample_offset, n, dev)
@@ -252,8 +259,9 @@ def raygen_launch(scene: SceneData, settings: RenderSettings, seed,
     """The raygen kernel alone, for o.shape[0] lanes: writes `o` and `d`
     ((n,3) float32 on the card) and, for the aperture cameras, `g` ((n,)
     float32; None for the ideal pinhole and the omnidirectional camera,
-    whose g is 1). `generate_rays` allocates these and adds pdf and g; this
-    is the launch it counts."""
+    whose g is 1). The kernel draws `rng`'s mixer (its pcg4d or its
+    threefry instance). `generate_rays` allocates these and adds pdf and
+    g; this is the launch it counts."""
     from ..integrator.render import tile_dims
     from .camera import samples_aperture
 
@@ -279,7 +287,8 @@ def raygen_launch(scene: SceneData, settings: RenderSettings, seed,
         _ptr(o), _ptr(d), None if g is None else _ptr(g),
         None if uniforms is None else _ptr(uniforms), n,
         int(seed) & 0xFFFFFFFF, (sample_offset * w * h) & 0xFFFFFFFF,
-        w, h, tw, th, settings.camera_kind, ctypes.addressof(cam), cuda_build.stream(),
+        w, h, tw, th, settings.camera_kind, ctypes.addressof(cam),
+        int(rng._MIXER == "threefry"), cuda_build.stream(),
     )
     cuda_build.check(rc, "raygen")
     generate_rays.launches += 1
@@ -620,18 +629,39 @@ bounce_bvh.launches = 0
 FUSED_MODES = ("auto", "on", "off")
 
 
-def fused_mode(settings: RenderSettings, on_card: bool) -> str:
-    """`settings.fused`, the JAX package's switch between the fused kernels
-    and the plain step: "auto" and "on" take the bounce kernels on the card
-    (they serve every scene the card renders), "off" the plain step,
-    forward and differentiable, on any device. "on" raises on the CPU,
-    where no kernel runs."""
+def step_mode(scene: SceneData, settings: RenderSettings, on_card: bool) -> str:
+    """The JAX package's switch between the fused kernels and the plain
+    step for the scene's bounce, "auto", "on" or "off", as it reads it at
+    call time: `LLR_FUSED` ("0" off, "1" on; for the BVH bounce, a scene
+    that `_use_brute` puts on the BVH, `LLR_FUSED_BVH` first) beside
+    `settings.fused`, "0" or "off" first, then "1" or "on"; for the BVH
+    bounce, also off under `LLR_PALLAS=0` (`intersect.pallas_enabled`: the
+    JAX package's fused BVH bounce needs its Pallas walk; the port's BVH
+    bounce follows, and kernel 3 or 7 stays its plain step's walk). "auto"
+    and "on" take the bounce kernels on the card (they serve every scene
+    the card renders), "off" the plain step, forward and differentiable, on
+    any device. Raises for "on" on the CPU, where no kernel runs, and for
+    anything but "off" on the card under `LLR_RNG=threefry`: the bounce
+    kernels draw pcg4d, so one film would mix two mixers (`ops/rng.py`)."""
     mode = getattr(settings, "fused", "auto")
     if mode not in FUSED_MODES:
         raise ValueError(f"unknown fused mode {mode!r}; expected 'auto', 'on' or 'off'")
-    if mode == "on" and not on_card:
-        raise ValueError("fused='on' asks for the bounce kernels, which run only on a "
-                         "CUDA device; use 'auto' or 'off' on the CPU")
+    bvh = not _use_brute(scene.geometry, settings.intersector, scene.bvh)
+    flag = os.environ.get("LLR_FUSED", "auto")
+    if bvh:
+        flag = os.environ.get("LLR_FUSED_BVH", flag)
+    if flag == "0" or mode == "off" or (bvh and not pallas_enabled()):
+        return "off"
+    if flag == "1" or mode == "on":
+        if not on_card:
+            raise ValueError("fused='on' (or LLR_FUSED=1 / LLR_FUSED_BVH=1) asks for the "
+                             "bounce kernels, which run only on a CUDA device; use 'auto' "
+                             "or 'off' on the CPU")
+        mode = "on"
+    if on_card and rng._MIXER == "threefry":
+        raise ValueError(f"LLR_RNG=threefry with fused={mode!r}: the bounce kernels draw "
+                         "pcg4d, and only the plain step draws threefry; render it on the "
+                         "card with fused='off' (--fused off) or LLR_FUSED=0")
     return mode
 
 
@@ -643,14 +673,15 @@ def make_step(scene: SceneData, settings: RenderSettings, seed,
               mats_eval: MaterialTable | None = None):
     """PathState -> PathState transition for the render loop: the bounce
     kernel on a CUDA device (brute force or BVH, as `_use_brute` picks;
-    tables packed once), the plain step on the CPU and, with `fused="off"`
-    (`fused_mode`), on the card too, its BVH walk there a kernel (the walk
-    `bvh_route` picks). `mats_eval` is the evaluation table (default
-    scene.materials)."""
+    tables packed once), the plain step on the CPU and, where `step_mode`
+    says "off" (`fused="off"`, LLR_FUSED=0, and for the BVH bounce
+    LLR_FUSED_BVH=0 or LLR_PALLAS=0), on the card too, its BVH walk there a
+    kernel (the walk `bvh_route` picks). `mats_eval` is the evaluation
+    table (default scene.materials)."""
     from ..integrator.wavefront import plain_bounce_step
 
     on_card = _on_card(scene)
-    if fused_mode(settings, on_card) == "off" or not on_card:
+    if step_mode(scene, settings, on_card) == "off" or not on_card:
         return lambda state: plain_bounce_step(scene, settings, seed, state, mats_eval,
                                                plain_walk=not on_card)
     _require_kernels(scene, settings)
@@ -908,14 +939,14 @@ class _BounceHybrid(_BounceFn):
 
 def diff_step_kind(scene: SceneData, settings: RenderSettings, on_card: bool) -> str:
     """Which differentiable step `make_step_diff` builds for the scene, on
-    the card or on the CPU: "plain" (autograd of the plain step) under
-    `fused="off"` on either, as the JAX package's `render_diff` always
-    runs, and otherwise "bwd" (the backward kernel, `diff_supported`),
+    the card or on the CPU: "plain" (autograd of the plain step) where
+    `step_mode` says "off" on either, as the JAX package's `render_diff`
+    always runs, and otherwise "bwd" (the backward kernel, `diff_supported`),
     "hybrid" (`make_step_hybrid`: on the CPU only where `hybrid_supported`,
     on the card for every other scene) or "plain" (the CPU's path for BVH,
-    IBL and simple-sky scenes). `fused="on"` raises on the CPU
-    (`fused_mode`)."""
-    if fused_mode(settings, on_card) == "off":
+    IBL and simple-sky scenes). `fused="on"` raises on the CPU, and a
+    fused mode on the card under threefry (`step_mode`)."""
+    if step_mode(scene, settings, on_card) == "off":
         return "plain"
     if diff_supported(scene, settings)[0]:
         return "bwd"

@@ -48,8 +48,11 @@ package's two names and their K checks. "Admitted as wide" is
 point in both packages. `streamed=False` keeps a K=128 BVH off the
 streamed walk (wide if admitted, else the per-thread walk). `reorder`
 means one thing everywhere: True sorts the rays by `_ray_sort_key` before
-the walk, None and False do not. The sort changes only the order in which
-lanes are walked, never a lane's result. The JAX package sorts by default
+the walk, None and False do not, unless `LLR_REORDER` is "1" or "0"
+(`reorder_of`, the JAX package's packet-walk precedence on every route).
+`LLR_PALLAS=0` leaves the routing as it is (the port has no other walk)
+and refuses `intersector="pallas"` (`check_pallas`). The sort changes
+only the order in which lanes are walked, never a lane's result. The JAX package sorts by default
 before its packet walks; the port's walks give each ray its own cursor,
 and on an H100 the sort of 2M rays costs more than it saves before any of
 them (PERF.md §6.1-6.9, §6.11).
@@ -58,6 +61,7 @@ them (PERF.md §6.1-6.9, §6.11).
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import NamedTuple
 
 import torch
@@ -365,13 +369,24 @@ def sort_rays(o, d, bvh: Bvh):
     return perm, inv
 
 
+def reorder_of(reorder: bool | None) -> bool:
+    """Whether a walk sorts its rays, by the JAX package's packet-walk
+    precedence (`lumillyrender_tpu/ops/intersect.py:445-449`), read at call
+    time: `LLR_REORDER` "0" or "1" first, then the `reorder` argument, then
+    the port's default, no sort."""
+    env = os.environ.get("LLR_REORDER", "auto")
+    if env in ("0", "1"):
+        return env == "1"
+    return bool(reorder)
+
+
 def bvh_route(bvh: Bvh, streamed: bool | None = None,
               reorder: bool | None = None) -> tuple[str, bool]:
     """(walk, sort) by the routing rule of this module's docstring: walk
     is "thread" (csrc/bvh.cu), "wide" (`llr_bvh_wide`) or "streamed"
     (`llr_bvh_streamed`, both csrc/bvh_aov.cu). On the card "wide" and
     "streamed" launch the same kernel: between those two, `streamed=` and
-    the wide cap only choose its name. `sort` is `reorder is True`."""
+    the wide cap only choose its name. `sort` is `reorder_of(reorder)`."""
     from . import cuda_bvh
 
     k = bvh.blk_p0.shape[1]
@@ -385,7 +400,7 @@ def bvh_route(bvh: Bvh, streamed: bool | None = None,
                 else "thread" if streamed is False else "streamed")
     else:
         walk = "thread"
-    return walk, bool(reorder)
+    return walk, reorder_of(reorder)
 
 
 _ENTRY = {"thread": "bvh", "wide": "bvh_wide", "streamed": "bvh_streamed"}
@@ -438,10 +453,23 @@ def _use_brute(geom: Geometry, mode: str, bvh: Bvh | None = None) -> bool:
     return geom.tri_p0.shape[0] + geom.sph_c.shape[0] <= BRUTE_MAX_PRIMS
 
 
+def pallas_enabled() -> bool:
+    """False under `LLR_PALLAS=0`, read at call time: the JAX package then
+    has no Pallas walk, so it refuses `intersector="pallas"` and its BVH
+    scenes take the plain step (`cuda_bounce.step_mode`). The port has no
+    second walk, so its routing (`bvh_route`) stays as it is: kernel 3 or
+    7, the same nearest hit as the JAX package's XLA walk."""
+    return os.environ.get("LLR_PALLAS", "1") != "0"
+
+
 def check_pallas(bvh: Bvh):
     """Raise unless a walk kernel serves `bvh`'s leaves (a K that divides
-    128), as the JAX package refuses a forced "pallas" intersector on a
-    layout its kernels do not serve."""
+    128), and under `LLR_PALLAS=0`, as the JAX package refuses a forced
+    "pallas" intersector on a layout its kernels do not serve or with its
+    Pallas walks turned off."""
+    if not pallas_enabled():
+        raise ValueError("intersector 'pallas' asks for a BVH walk kernel, and LLR_PALLAS=0 "
+                         "turns them off; use 'auto' or 'bvh', or unset LLR_PALLAS")
     k = bvh.blk_p0.shape[1]
     if k > 128 or 128 % k:
         raise ValueError(f"intersector 'pallas' asks for a BVH walk kernel, and none "

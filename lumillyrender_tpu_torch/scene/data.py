@@ -170,7 +170,7 @@ class RenderSettings:
     # Material type ids present in the scene's table: the BSDF code prunes
     # absent families (ops/bsdf.py). None = assume all five.
     mat_types: tuple | None = None
-    # The bounce kernels or the plain step (ops/cuda_bounce.py::fused_mode):
+    # The bounce kernels or the plain step (ops/cuda_bounce.py::step_mode):
     # "auto" takes the kernels on the card; "off" the plain step, forward
     # and differentiable, on any device (on the card its BVH walk is a
     # kernel, and a forward chunk runs in the host loop); "on" the kernels

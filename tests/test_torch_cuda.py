@@ -41,7 +41,12 @@ with the plain walk, within `parity.AUTOGRAD_BWD_RTOL` on the lanes
 `parity.bwd_comparable` keeps, and its film_and_grads repeating bit for
 bit; under `fused="off"` the plain step with kernel 3 as its walk, its
 gradients bit-equal under the four recompute policies and its backward
-pass walking nothing under the `isect` ones.
+pass walking nothing under the `isect` ones; under `LLR_RNG=threefry`
+(set as `rng._MIXER`), kernel 1's threefry instance with its random words
+bit-equal to `rng.uniform4`'s, the bounce kernels refused before anything
+is packed and `fused="off"` rendering with kernel 1 and the plain step;
+kernels 3 and 4 at leaf widths K = 8, 16, 24, 48 and 64 (kernel 3
+bit-equal to the plain walk, kernel 4 under parity.py's rules).
 """
 
 from pathlib import Path
@@ -1650,3 +1655,95 @@ def test_render_sharded_on_one_rank_is_render(card):
     assert got.world == 1 and got.reduce_ms is not None
     assert got.rays == want.rays
     assert np.abs(got.film - want.film).max() <= 1e-5 * max(1.0, np.abs(want.film).max())
+
+
+@pytest.fixture
+def threefry(monkeypatch):
+    from lumillyrender_tpu_torch.ops import rng
+
+    monkeypatch.setattr(rng, "_MIXER", "threefry")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["new-cbox", "ibl-material"])
+def test_raygen_threefry_instance_matches_plain(card, threefry, name):
+    """Kernel 1's threefry instance (LLR_RNG=threefry) against
+    `plain_generate_rays` under the same mixer: its random words bit-equal,
+    on lanes that wrap past 2^32 (the ideal pinhole of new-cbox, the thin
+    lens of ibl-material)."""
+    from lumillyrender_tpu_torch.integrator.render import global_lanes
+    from lumillyrender_tpu_torch.ops import rng
+
+    c = compile_scene_file(ASSETS / f"{name}.toml", device=card)
+    st = c.settings
+    n = 2 * st.width * st.height
+    off = 2**32 // (st.width * st.height) - 1  # lanes from 2^32 - w*h on
+    uni = torch.empty((n, 4), dtype=torch.float32, device=card)
+    o, d, pdf, g = cuda_bounce.generate_rays(c.data, st, 0xFFFFFFFF, off, n, uniforms=uni)
+    o_p, d_p, pdf_p, g_p = cuda_bounce.plain_generate_rays(c.data, st, 0xFFFFFFFF, off, n)
+    want = torch.stack(rng.uniform4(0xFFFFFFFF, global_lanes(st, off, n, card), 0x40000000), 1)
+    torch.cuda.synchronize()
+    assert torch.equal(uni.view(torch.int32), want.view(torch.int32))
+    rng._MIXER = "pcg4d"
+    pcg = torch.stack(rng.uniform4(0xFFFFFFFF, global_lanes(st, off, n, card), 0x40000000), 1)
+    assert (uni != pcg).float().mean() > 0.99
+    rel = lambda a, b: ((a - b).abs() / b.abs().clamp(min=1.0)).max().item()
+    assert max(rel(o, o_p), rel(d, d_p), rel(g, g_p), rel(pdf, pdf_p)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_threefry_renders_with_the_plain_step_and_refuses_the_kernels(card, threefry):
+    """Under threefry the card refuses the bounce kernels before it packs a
+    table; `fused="off"` renders with kernel 1's threefry instance and the
+    plain step (no bounce kernel, no graph), as the CPU renders."""
+    import dataclasses
+
+    from lumillyrender_tpu_torch.integrator.render import ChunkRenderer, render
+
+    c = compile_scene_file(ASSETS / "new-cbox.toml", spp=4, device=card)
+    c.settings = dataclasses.replace(c.settings, width=32, height=32)
+    with pytest.raises(ValueError, match=r"LLR_RNG=threefry.*--fused off"):
+        ChunkRenderer(c.data, c.settings, 3, card)
+    off = dataclasses.replace(c, settings=dataclasses.replace(c.settings, fused="off"))
+    cuda_bounce.reset_counts()
+    film = render(off, seed=3, spp_chunk=2, device=card).film
+    launches = cuda_bounce.counts()
+    assert launches["raygen"] == off.settings.spp // 2
+    assert not any(v for k, v in launches.items() if k != "raygen"), launches
+    assert not ChunkRenderer(off.data, off.settings, 3, card).graphed
+    assert np.isfinite(film).all() and film.max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 16, 24, 48, 64])
+@pytest.mark.parametrize("bounce", [0, 3])
+def test_bvh_kernels_at_other_leaf_widths(welcome, k, bounce):
+    """welcome-geo rebuilt at LLR_TREELET_K = k: kernel 4 (the per-thread
+    walk up to K=32 in its runtime-K instance, the warp walk above it, K=64
+    two slots a lane) against the plain step under parity.py's lane rules,
+    and kernel 3 (its runtime-K instance) bit-equal to the plain walk. K=24
+    and K=48 divide no 128."""
+    import dataclasses
+
+    from lumillyrender_tpu_torch.accel.pack import build_tri_bvh
+    from lumillyrender_tpu_torch.scene.data import Bvh, tensor_of
+
+    g = welcome.data.geometry
+    arrays = build_tri_bvh(*(getattr(g, f).cpu().numpy() for f in (
+        "tri_p0", "tri_e1", "tri_e2", "tri_n", "tri_mat")), max_leaf=k)
+    scene = dataclasses.replace(welcome.data, bvh=Bvh(**{
+        f: tensor_of(v).cuda() for f, v in arrays.items()}))
+    assert cuda_bounce.bounce_supported(scene, welcome.settings) == (True, "")
+    parts = _random_state(scene, 16384, 300 + k + bounce)
+    st = state_from_numpy(bounce, *parts, device="cuda")
+    got = cuda_bounce.bounce_bvh(scene, welcome.settings, 77, st)
+    want = wavefront.plain_bounce_step(scene, welcome.settings, 77, st)
+    torch.cuda.synchronize()
+    assert parity.failures(parity.agreement(want, got)) == []
+    o, d = _bvh_rays(scene.bvh, 4096, 40 + k)
+    inf = torch.full((o.shape[0],), INF, device="cuda")
+    never = torch.full_like(inf, -INF)
+    tables = cuda_bvh.tables_of(scene.bvh)
+    for a, b in zip(cuda_bvh.intersect_tris(o, d, inf, never, tables, True),
+                    _walk_tris(o, d, inf, never, scene.bvh, True)):
+        assert torch.equal(a, b)
