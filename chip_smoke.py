@@ -183,8 +183,10 @@ Phases, in order; any failure exits non-zero:
      6's;
  27. the environment knobs: kernel 1's threefry instance (LLR_RNG=threefry)
      against its plain version at 2,097,152 lanes (random words bit-equal,
-     on the card and on the CPU), timed in turns with its pcg4d instance
-     beside its bounds; the CLI under LLR_RNG=threefry without --fused off
+     on the card and on the CPU), timed in turns with its pcg4d instance,
+     each beside its bound (the larger of its bytes and the operations a
+     lane of the function needs, `raygen_ops`; the build's SASS per pipe
+     printed beside it); the CLI under LLR_RNG=threefry without --fused off
      refused by name (a process of its own); a process of this script
      under LLR_RNG=threefry (`--knobs-child`): the CLI on new-cbox at full
      size with --fused off (raygen launched, no bounce kernel, the plain
@@ -205,6 +207,7 @@ The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -2022,6 +2025,8 @@ PROBE_REPS = 200
 # kernel-vs-call rests on medians, since one replay's spread is as large as
 # the gaps between probes.
 PROBE_ROUNDS = 9
+# Clocks of one dependent FP32 add on an H100: the packet walk's add chain.
+WALK_ADD_CLOCKS = 4
 # A 128-triangle leaf as a kernel would stage it: nine geometry rows and the
 # prim row of 128 float32 or int32 each (ops/cuda_bvh.py::pack_bvh).
 LEAF_BYTES = 10 * 128 * 4
@@ -2259,12 +2264,39 @@ def capability_probes(card, lap):
           + (", ".join(f"{e['name']} {e['factor']:.2f}x ({e['ms']:.6f} vs "
                        f"{e['library_ms']:.6f} ms)" for e in slower) or "none"))
 
+    # packet_walk_core on the tool's table and on each seeded table (votes
+    # nowhere, everywhere, at its tiles' edges, scattered): bit-equal to its
+    # plain version, timed as every probe is, beside the floor of its add
+    # chain (each lane adds its visited rows in walk order: one dependent
+    # float add, WALK_ADD_CLOCKS, a step).
+    walk = pallas.packet_walk_core
+    clk = sm_clock_hz()
+    walks = {}
+    for pattern in (None,) + pallas.WALK_TABLES:
+        ins, outs = walk.inputs(dev, pattern), walk.outputs(dev)
+        walk.launch(ins, outs)
+        want = walk.compute(*ins)
+        torch.cuda.synchronize()
+        if not torch.equal(outs[0].view(torch.int32), want.view(torch.int32)):
+            fail(f"packet_walk_core differs from its plain version on the {pattern} table "
+                 f"(max |diff| {(outs[0] - want).abs().max().item()})")
+        ms, ms_range = spread(alternating_ms([lambda: walk.launch(ins, outs)], PROBE_REPS,
+                                             PROBE_ROUNDS)[0])
+        steps = len(pallas.walk_path(ins[0]))
+        nbytes, _ = walk.work(ins)
+        walks[pattern or "arange"] = r = dict(
+            steps=steps, ms=ms, ms_range=ms_range, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            chain_floor_ms=steps * WALK_ADD_CLOCKS / clk * 1e3)
+        print(f"packet_walk_core, {pattern or 'arange'} table: bit-equal; {steps} steps, "
+              f"{ms:.6f} ms [{ms_range[0]:.6f}, {ms_range[1]:.6f}], bound {r['bound_ms']:.3e} "
+              f"ms (bytes), add chain's floor {r['chain_floor_ms']:.6f} ms ({WALK_ADD_CLOCKS} "
+              f"clocks a step at {clk / 1e6:.0f} MHz)  [{card}]")
     onehot_ms = timed["onehot_matmul_gather"]["ms"]
     print(f"onehot_matmul_gather's {onehot_ms:.6f} ms: the launch of its grid and clusters "
           f"{cluster_ms[0]:.6f} ms, one cluster barrier {sync_ms[0] - cluster_ms[0]:.6f} ms more, "
           f"the rest (index and slice loads, products, shuffle tree, remote writes, the second "
           f"barrier, the combine) {onehot_ms - sync_ms[0]:.6f} ms")
-    steps = len(pallas.walk_path(pallas.packet_walk_core.inputs(dev)[0]))
+    steps = walks["arange"]["steps"]
     walk_ms = timed["packet_walk_core"]["ms"]
     links_ms = timed["while_walk_smem"]["ms"]
     answers = dict(
@@ -2272,13 +2304,13 @@ def capability_probes(card, lap):
         onehot_geometry=geometry, empty_cluster_ms=cluster_ms[0],
         empty_cluster_ms_range=cluster_ms[1], empty_cluster_barrier_ms=sync_ms[0],
         empty_cluster_barrier_ms_range=sync_ms[1],
-        leaves_per_block=limit // LEAF_BYTES, walk_steps=steps,
+        leaves_per_block=limit // LEAF_BYTES, walk_steps=steps, walk_tables=walks,
         slower_than_call=slower, walk_step_us=walk_ms / steps * 1e3,
         walk_step_over_floor_us=(walk_ms - floor_ms) / steps * 1e3,
         smem_link_step_over_floor_us=(links_ms - floor_ms) / 100 * 1e3)
     print(f"for the BVH kernels: a block's {limit} B of opt-in shared memory hold "
           f"{answers['leaves_per_block']} leaves of 128 triangles ({LEAF_BYTES} B each); "
-          f"one step of the block-uniform walk (an L2 row read and a vote; "
+          f"one step of the packet walk (the table streamed, votes taken ahead; "
           f"{steps} steps) {answers['walk_step_us']:.4f} us "
           f"({answers['walk_step_over_floor_us']:.4f} us over the empty launch); "
           f"one dependent link read from shared memory (100 steps) "
@@ -3064,16 +3096,19 @@ def remat_policies(card, lap, cbox, geo, terrain_1m, geo_step, phase6_chunk_ms) 
 
 
 # Phase 27: the JAX package's render-changing environment knobs.
-# Threefry's operation bound counts SASS instructions (raygen_threefry_sass)
-# against the pipes that issue them on an H100 SM, per clock: 4 schedulers
-# of one warp instruction (128 thread instructions), 64 lanes of integer
-# ALU (add, logic, shift, compare) and 64 of integer multiply-add, which
-# issues on the FP32 FMA pipe (Hopper white paper: 64 INT32 and 128 FP32
-# units an SM).
-ISSUE_PER_CLK, INT_ALU_PER_CLK, INT_FMA_PER_CLK = 128, 64, 64
-INT_ALU_OPS = ("IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", "ISETP", "SEL",
-               "PRMT", "IMNMX", "IABS")
-INT_FMA_OPS = ("IMAD", "IMUL")
+# Kernel 1's operations bound counts what one lane of the function needs
+# (raygen_ops) against the pipes that run it on an H100 SM, per clock: 64
+# lanes of integer ALU (add, logic, shift, funnel shift), 64 of integer
+# multiply-add, which issues on the FP32 FMA pipe, 128 of FP32 add and
+# multiply, and 16 of the special-function unit (reciprocal, reciprocal
+# square root, int-to-float conversion) (Hopper white paper; CUDA C++
+# Programming Guide, arithmetic instruction throughput).
+PIPE_RATES = dict(int_alu=64, int_fma=64, fp32=128, xu=16)
+# SASS opcodes by pipe, for the built instances' whole listings (a
+# diagnosis of a build, printed beside the bound, not a bound).
+PIPE_OPS = dict(int_alu=("IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", "ISETP",
+                         "SEL", "PRMT", "IMNMX", "IABS"),
+                int_fma=("IMAD", "IMUL"), fp32=("FADD", "FMUL", "FFMA"), xu=("MUFU", "I2F"))
 RAYGEN_BYTES = 24  # o and d written, 12 B each (the ideal pinhole writes no g)
 KNOB_WIDTHS = (8, 16, 64)  # LLR_TREELET_K values held on welcome-geo
 GEO_WIDE_MIN_TRIS = 50_000  # an LLR_WIDE_MIN_TRIS that builds welcome-geo at K=128
@@ -3233,48 +3268,106 @@ def raygen_threefry_check(cbox) -> dict:
     return dict(lanes=n, offset=off, bits_equal=bits_equal, max_rel=errs, max_abs_err=max_abs)
 
 
-def raygen_threefry_sass() -> dict:
-    """SASS opcode counts of kernel 1's two instances (`cuobjdump -sass` of
-    the built library; NOPs left out) and what threefry's adds over
-    pcg4d's: the two instances differ only in the mixer, so the difference
-    is threefry's instructions less pcg4d's, a floor on threefry's own.
-    Straight-line code, so each counted instruction issues once a lane."""
-    import collections
+def sass_functions(lib: Path) -> dict:
+    """{kernel function: [(address, instruction)]} of a built library
+    (`cuobjdump -sass`), NOPs left out."""
     import shutil
 
-    from lumillyrender_tpu_torch.ops import cuda_build
-
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    out = subprocess.run([tool, "-sass", str(cuda_build.lib_path("raygen"))],
-                         capture_output=True, text=True, check=True, timeout=120).stdout
-    ops, cur = {}, None
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    funcs, cur = {}, None
     for ln in out.splitlines():
         m = re.match(r"\s*Function : (\S+)", ln)
         if m:
-            cur = ops.setdefault(m.group(1), collections.Counter())
+            cur = funcs.setdefault(m.group(1), [])
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", ln)
-        if cur is not None and m and m.group(2) != "NOP":
-            cur[m.group(2)] += 1
-    inst = {}
-    for fn, c in ops.items():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        if cur is not None and m and _SASS.match(m.group(2)).group(3) != "NOP":
+            cur.append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+_SASS = re.compile(r"(?:@(!?)(U?P\w+)\s+)?([A-Z][A-Z0-9_.]*)\s*(.*)")
+
+
+def opcode_pipes(ops) -> dict:
+    """Instructions per pipe (PIPE_OPS) of a list of opcodes, and all of
+    them (issue)."""
+    c = collections.Counter(ops)
+    return dict(issue=sum(c.values()), **{k: sum(c[o] for o in names)
+                                          for k, names in PIPE_OPS.items()})
+
+
+def raygen_sass() -> dict:
+    """Kernel 1's two instances in SASS (the built library): per instance,
+    its whole listing per pipe (every camera kind, both pixel orders and the
+    slow paths: more than any lane issues), and what threefry's adds to
+    pcg4d's. A view of the build, printed; the bound is `raygen_ops`."""
+    from lumillyrender_tpu_torch.ops import cuda_build
+
+    funcs = sass_functions(cuda_build.lib_path("raygen"))
+    out, opcodes = {}, {}
+    for fn, code in funcs.items():
         for flag, name in (("ILb1E", "threefry"), ("ILb0E", "pcg4d")):
             if "raygen_kernel" in fn and flag in fn:
-                inst[name] = c
-    if set(inst) != {"threefry", "pcg4d"}:
-        fail(f"raygen's SASS holds no two instances: {list(ops)}")
-    diff = {k: inst["threefry"][k] - inst["pcg4d"][k] for k in inst["threefry"] | inst["pcg4d"]}
-    diff = {k: v for k, v in sorted(diff.items()) if v}
-    pipes = dict(issue=sum(diff.values()),
-                 int_alu=sum(v for k, v in diff.items() if k in INT_ALU_OPS),
-                 int_fma=sum(v for k, v in diff.items() if k in INT_FMA_OPS))
-    return dict(threefry=sum(inst["threefry"].values()), pcg4d=sum(inst["pcg4d"].values()),
-                added=diff, pipes=pipes)
+                whole = [_SASS.match(ins).group(3).split(".")[0] for _, ins in code]
+                out[name], opcodes[name] = opcode_pipes(whole), collections.Counter(whole)
+    if set(out) != {"threefry", "pcg4d"}:
+        fail(f"raygen's SASS holds no two instances: {list(funcs)}")
+    tf, pcg = opcodes["threefry"], opcodes["pcg4d"]
+    return dict(out, added={k: tf[k] - pcg[k] for k in sorted(tf | pcg) if tf[k] != pcg[k]})
+
+
+def raygen_ops(settings, mixer: str) -> dict:
+    """The operations one lane of kernel 1 needs at `settings` (the ideal
+    pinhole, no random words written), per pipe of PIPE_RATES: counted from
+    the function, not from a build. What is the same for every lane (the
+    key schedule, the divisors' magic numbers, pcg4d's counter, seed and
+    salt words) is the launch's, not the lane's.
+    * the lane: its index (a multiply-add) and its id (an add);
+    * the pixel: a division by a runtime divisor as a multiply-high (a
+      multiply-high, 4 adds and shifts) with its remainder (a multiply-add),
+      by w h, then by w in raster order, or by the tile's size, the tiles a
+      row and the tile width, with 2 multiply-adds for px and py;
+    * the 2 random words the ideal pinhole uses: threefry's first block (20
+      rounds of add, rotate and xor, 10 key additions, the key's add to the
+      lane id: 71), or pcg4d's (the lane's multiply-add, 3 and 2 more in its
+      rounds, an add of a uniform product, 4 shifts and 4 xors); then a
+      word's shift, conversion and multiply each;
+    * the camera: px and py converted; sx and sy (an add, a divide, a
+      subtract, a multiply each); the sensor point (12); the direction (3),
+      its normalisation (a dot of 5, a max, a square root, 3 divides). An
+      IEEE divide is a reciprocal and 5 FP32 operations, a square root a
+      reciprocal square root and 4."""
+    from lumillyrender_tpu_torch.integrator.render import tile_dims
+
+    if settings.camera_kind != 0:
+        raise ValueError("raygen_ops counts the ideal pinhole's lanes only")
+    tiles = tile_dims(settings) is not None
+    divisions = 4 if tiles else 2
+    ops = collections.Counter(int_fma=1 + 2 * divisions + 2 * tiles,
+                              int_alu=1 + 4 * divisions)
+    ops.update(dict(int_alu=71) if mixer == "threefry" else dict(int_fma=6, int_alu=9))
+    ops.update(int_alu=2, xu=2, fp32=2)  # the words to floats
+    ops.update(xu=2, fp32=2 * 3 + 12 + 3 + 5 + 1)
+    ops.update(fp32=5 * 5 + 4, xu=5 + 1)  # 5 divides, a square root
+    return dict(ops)
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi's clocks.max.sm), in Hz."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                       timeout=60)
+    return float(r.stdout.strip().splitlines()[0]) * 1e6
 
 
 def raygen_threefry_times(card, cbox, rec) -> dict:
     """Both instances of kernel 1 timed in turns at `rec`'s lanes (bare
-    launch, CUDA graph), beside threefry's bounds and its plain version."""
+    launch, CUDA graph), each beside its bound: the larger of its bytes and
+    the operations a lane needs (`raygen_ops`) on their busiest pipe; the
+    SASS of the build per pipe (`raygen_sass`); threefry's plain version."""
     from lumillyrender_tpu_torch.ops import cuda_bounce, rng
 
     dev = torch.device("cuda")
@@ -3301,30 +3394,41 @@ def raygen_threefry_times(card, cbox, rec) -> dict:
     finally:
         rng._MIXER = "pcg4d"
     bytes_ms = RAYGEN_BYTES * n / HBM_BYTES_PER_S * 1e3
-    sass = raygen_threefry_sass()
-    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                        "--format=csv,noheader,nounits"], capture_output=True, text=True,
-                       timeout=60)
-    clk = float(r.stdout.strip().splitlines()[0]) * 1e6
+    sass = raygen_sass()
+    clk = sm_clock_hz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rate = dict(issue=ISSUE_PER_CLK, int_alu=INT_ALU_PER_CLK, int_fma=INT_FMA_PER_CLK)
-    pipe_ms = {k: sass["pipes"][k] * n / (sms * rate[k] * clk) * 1e3 for k in rate}
-    ops_ms = max(pipe_ms.values())
-    sass.update(sm_clock_hz=clk, sms=sms, pipe_ms=pipe_ms)
-    print(f"raygen SASS: threefry instance {sass['threefry']} instructions, pcg4d "
-          f"{sass['pcg4d']}; threefry adds {sass['added']}: {sass['pipes']} a lane (issue, "
-          f"integer ALU, integer FMA pipes) at {sms} SMs x {clk / 1e6:.0f} MHz, "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in pipe_ms.items()))
+    pipe_ms = lambda counts: {k: counts.get(k, 0) * n / (sms * rate * clk) * 1e3
+                              for k, rate in PIPE_RATES.items()}
+    bounds = {}
+    for name in ("pcg4d", "threefry"):
+        ops = raygen_ops(st, name)
+        need_ms = pipe_ms(ops)
+        ops_ms = max(need_ms.values())
+        bounds[name] = dict(ops=ops, ops_pipe_ms=need_ms, ops_ms=ops_ms,
+                            sass_whole=sass[name], sass_whole_ms=pipe_ms(sass[name]),
+                            bound_ms=max(bytes_ms, ops_ms),
+                            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        b = bounds[name]
+        print(f"raygen {name} instance at {sms} SMs x {clk / 1e6:.0f} MHz, {n} lanes: a lane "
+              f"needs {ops} ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in need_ms.items())
+              + f" ms); bound {b['bound_ms']:.4f} ms ({b['bound_by']}: bytes {bytes_ms:.4f}, "
+              f"operations {ops_ms:.4f}); the build's whole SASS listing {sass[name]} ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in b["sass_whole_ms"].items())
+              + " ms: every kind and branch, more than a lane issues)")
+    print(f"raygen SASS: threefry's whole listing less pcg4d's: {sass['added']}")
+    tf = bounds["threefry"]
     rec = dict(rec, ms=statistics.mean((tf_ms, tf_ms2)), ms_each=[tf_ms, tf_ms2],
                pcg4d_ms=statistics.mean((pcg_ms, pcg_ms2)), pcg4d_ms_each=[pcg_ms, pcg_ms2],
-               plain_ms=plain_ms, bytes_ms=bytes_ms, ops_ms=ops_ms, sass=sass,
-               bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+               plain_ms=plain_ms, bytes_ms=bytes_ms, ops_ms=tf["ops_ms"], bounds=bounds,
+               sass_added=sass["added"], sm_clock_hz=clk, sms=sms,
+               bound_ms=tf["bound_ms"], bound_by=tf["bound_by"],
+               pcg4d_bound_ms=bounds["pcg4d"]["bound_ms"],
+               pcg4d_bound_by=bounds["pcg4d"]["bound_by"])
     print(f"raygen at {n} lanes, in turns (pcg4d, threefry, threefry, pcg4d): threefry "
           f"{tf_ms:.4f} / {tf_ms2:.4f} ms, pcg4d {pcg_ms:.4f} / {pcg_ms2:.4f} ms a launch (bare "
-          f"launch, CUDA graph); threefry's bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
-          f"bytes {bytes_ms:.4f}, operations {ops_ms:.4f}: the SASS instructions threefry adds "
-          f"over pcg4d on their busiest pipe); "
+          f"launch, CUDA graph); bound over time: threefry {tf['bound_ms'] / rec['ms']:.3f}, "
+          f"pcg4d {rec['pcg4d_bound_ms'] / rec['pcg4d_ms']:.3f}; "
           f"plain under threefry {plain_ms:.3f} ms  [{card}]")
     return rec
 

@@ -18,7 +18,8 @@
 //   loads and stores per thread, then __syncthreads, costs more than a few
 //   L2 round trips. 8a, 8h and 8t still stage a table they read at a few
 //   places; they are to be redesigned as 8b, 8g, 8i and 8p were
-//   (ROADMAP.md, item 5.1);
+//   (ROADMAP.md, queue 2). 8n, which reads its whole table, streams it
+//   through a ring in shared memory with TMA bulk copies;
 // * `table` (2048 x 128 float32, 1 MiB) is read from global memory, where
 //   it stays in the 50 MB L2; an input read once at a fixed place goes
 //   straight to registers.
@@ -495,32 +496,232 @@ PROBE_ENTRY(scatter_add) {
   return (int)cudaGetLastError();
 }
 
-// 8n. packet-walk core (tools/pallas_probe.py:171): one block-uniform cursor
-// walks the rows of table from 0: acc += row; the next cursor is +7 when any
-// lane of the row exceeds 131072 (a block vote, __syncthreads_or), else +1;
-// the walk stops at 2048. One block of 128 threads, a lane each; table
-// global (L2), one row per step. Each step's load waits on the previous
-// vote, so the kernel time over the step count is the cost of one step of a
-// block-uniform walk. Bound: bytes (the rows visited, out).
-extern "C" __global__ void probe_packet_walk_core(const float* __restrict__ table, int rows,
-                                                  float* __restrict__ out) {
-  const int j = threadIdx.x;
-  const float thresh = 0.5f * (float)(rows * kL);
-  float acc = 0.0f;
-  int cur = 0;
-  while (cur >= 0) {
-    const float v = table[cur * kL + j];
-    const int hit = __syncthreads_or(v > thresh);
-    acc = acc + v;
-    const int nxt = hit ? cur + 7 : cur + 1;
-    cur = nxt >= rows ? -1 : nxt;
+// 8n. packet-walk core (tools/pallas_probe.py:171): a cursor walks the rows
+// of table (rows x 128) from row 0: acc += row; the next cursor is +7 when
+// any lane of the row exceeds 0.5 rows 128 (131072 for the probe's 2048
+// rows), else +1; the walk stops at rows. The sums pass 2^24, so each lane
+// adds the rows it visits in walk order.
+//
+// A row's vote depends on that row alone, not on the cursor, so the votes
+// are taken ahead of the walk, in parallel, and the walk waits on no
+// barrier a step. One block of 10 warps streams the table through a ring
+// of kWalkStages tiles of 32 rows (16 KiB) in shared memory; each role
+// hands tiles on through mbarriers:
+// * the producer (warp 9, one lane) copies a tile with one TMA bulk copy
+//   (cp.async.bulk), whose bytes complete the stage's `full` barrier, once
+//   the walkers have released the stage (`empty`);
+// * the voters (warps 5-8) vote the tile's rows, 8 rows a warp, a row a
+//   step: a float4 a lane, __any_sync; each warp writes its byte of the
+//   tile's 32-bit vote mask and arrives on the tile's `voted` barrier;
+// * the navigator (warp 4) walks the cursor over the masks: from the
+//   cursor, +1 up to the next voting row, then +7, carried across tiles (a
+//   +7 from a tile's last rows lands in the next). Four tiles at once: lane
+//   7 t + e walks tile t from entry row e, for each of the 7 entry rows a
+//   jump can leave, and shuffles then chain the tiles' entries. It writes
+//   each tile's visited rows, in walk order, to shared memory (a lane a
+//   row, its place a popcount) and arrives on the tile's `navigated`;
+// * the walkers (warps 0-3), thread j for lane j, add their lane of each
+//   tile's visited rows in walk order (a tile visited wholly as 32 loads
+//   issued together, then 32 dependent adds; others from the visited list)
+//   and release the stage.
+// Bound: bytes (the rows visited, out), 1.8e-4 ms at 3.35 TB/s. The
+// function keeps a floor above that: its sums stay in walk order, one
+// dependent float add a step a lane (1,171 steps on the arange table, 4
+// clocks each: 0.0024 ms at 1.98 GHz). table must be 16-byte aligned, and
+// rows a multiple of 128 and at most 2048: the entry returns
+// cudaErrorMisalignedAddress or cudaErrorInvalidValue without a launch
+// otherwise.
+constexpr int kWalkTile = 32;                               // rows a tile: a bit each of a mask
+constexpr int kWalkStages = 8;                              // tiles in the ring
+constexpr int kWalkTiles = kM / kWalkTile;                  // tiles of the largest table taken
+constexpr int kWalkGroup = 4;                               // tiles the navigator walks at once
+constexpr int kWalkers = kL / 32, kVoters = 4;              // warps
+constexpr int kWalkThreads = (kWalkers + kVoters + 2) * 32;  // and the navigator, the producer
+constexpr int kWalkTileBytes = kWalkTile * kL * (int)sizeof(float);
+constexpr int kWalkSmem = kWalkStages * kWalkTileBytes;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the phase of parity `parity` of `bar` has completed: a
+// non-blocking test first (a phase long complete costs a load, not a
+// suspend), then blocking tries. A wait that outlasts 2^22 tries (seconds)
+// traps: a launch error, not a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  for (uint32_t tries = 0; !done; ++tries) {
+    if (tries == 1u << 22) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
   }
+}
+
+// One TMA bulk copy of `bytes` from global to shared memory, whose bytes
+// complete `bar`'s phase: the producer's arrival with their count first.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%2], [%3], %1, [%0];"
+      ::"r"(smem_u32(bar)), "r"(bytes), "r"(smem_u32(dst)), "l"(src)
+      : "memory");
+}
+
+extern "C" __global__ void __launch_bounds__(kWalkThreads)
+    probe_packet_walk_core(const float* __restrict__ table, int rows, float* __restrict__ out) {
+  extern __shared__ __align__(128) float s_ring[];  // [stage][row][kL]
+  __shared__ uint64_t full[kWalkStages], empty[kWalkStages];
+  __shared__ uint64_t voted[kWalkTiles], navigated[kWalkTiles];
+  __shared__ uint32_t votes[kWalkTiles];                 // a tile's vote mask,
+  __shared__ uint32_t visits[kWalkTiles];                // its visited rows,
+  __shared__ uint32_t order[kWalkTiles][kWalkTile / 4];  // in walk order, a byte each
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tiles = rows / kWalkTile;
+  if (warp == 0) {  // the barriers, a lane each, made visible to the TMA unit
+    if (lane < kWalkStages) {
+      mbar_init(&full[lane], 1);
+      mbar_init(&empty[lane], kWalkers);
+    }
+    for (int k = lane; k < tiles; k += 32) {
+      mbar_init(&voted[k], kVoters);
+      mbar_init(&navigated[k], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kWalkers + kVoters + 1) {  // the producer
+    for (int k = 0; k < tiles && lane == 0; ++k) {
+      const int s = k % kWalkStages;
+      if (k >= kWalkStages) mbar_wait(&empty[s], (k / kWalkStages - 1) & 1);
+      bulk_load(s_ring + s * kWalkTile * kL, table + (int64_t)k * kWalkTile * kL,
+                kWalkTileBytes, &full[s]);
+    }
+  } else if (warp > kWalkers) {  // a voter: rows 8 v .. 8 v + 7 of each tile
+    constexpr int kRows = kWalkTile / kVoters;
+    const int v = warp - kWalkers - 1;
+    const float thresh = 0.5f * (float)(rows * kL);
+    for (int k = 0; k < tiles; ++k) {
+      const int s = k % kWalkStages;
+      mbar_wait(&full[s], (k / kWalkStages) & 1);
+      const float4* t = reinterpret_cast<const float4*>(s_ring + (s * kWalkTile + v * kRows) * kL);
+      uint32_t bits = 0;
 #pragma unroll
-  for (int s = 0; s < kS; ++s) out[s * kL + j] = acc;
+      for (int r = 0; r < kRows; ++r) {
+        const float4 x = t[r * (kL / 4) + lane];
+        const bool hit = (x.x > thresh) | (x.y > thresh) | (x.z > thresh) | (x.w > thresh);
+        bits |= (uint32_t)__any_sync(0xffffffffu, hit) << r;
+      }
+      if (lane == 0) {
+        reinterpret_cast<uint8_t*>(&votes[k])[v] = (uint8_t)bits;
+        mbar_arrive(&voted[k]);
+      }
+    }
+  } else if (warp == kWalkers) {  // the navigator: lane 7 t + e, tile t, entry row e
+    const int t = lane / 7, e = lane % 7;
+    int entry = 0;  // the cursor's row in the next tile
+    for (int g = 0; g < tiles; g += kWalkGroup) {
+      uint32_t vis = 0;
+      int leave = 0;
+      if (t < kWalkGroup) {
+        mbar_wait(&voted[g + t], 0);
+        const uint32_t vote = votes[g + t];
+        int r = e;
+        while (r < kWalkTile) {
+          const uint32_t ahead = vote >> r;
+          if (ahead == 0) {  // +1 to the end of the tile
+            vis |= ~0u << r;
+            r = kWalkTile;
+          } else {  // rows r .. r + h, then +7 from the voting row r + h
+            const int h = __ffs(ahead) - 1;
+            vis |= ((2u << h) - 1u) << r;
+            r += h + 7;
+          }
+        }
+        leave = r - kWalkTile;
+      }
+#pragma unroll
+      for (int u = 0; u < kWalkGroup; ++u) {
+        const uint32_t tv = __shfl_sync(0xffffffffu, vis, 7 * u + entry);
+        entry = __shfl_sync(0xffffffffu, leave, 7 * u + entry);
+        if ((tv >> lane) & 1u) {
+          reinterpret_cast<uint8_t*>(order[g + u])[__popc(tv & ((1u << lane) - 1u))] =
+              (uint8_t)lane;
+        }
+        if (lane == 0) visits[g + u] = __popc(tv);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&navigated[g + u]);
+      }
+    }
+  } else {  // a walker: lane threadIdx.x of the table
+    const int j = threadIdx.x;
+    float acc = 0.0f;
+    for (int k = 0; k < tiles; ++k) {
+      const int s = k % kWalkStages;
+      // The tile's list, then its bytes: the walker waits on the stage's
+      // `full` itself, not through the voters' and the navigator's barriers
+      // (by then that phase is complete: one test_wait).
+      mbar_wait(&navigated[k], 0);
+      mbar_wait(&full[s], (k / kWalkStages) & 1);
+      const int n = (int)visits[k];
+      const float* t = s_ring + s * kWalkTile * kL + j;
+      float x[kWalkTile];
+      if (n == kWalkTile) {
+#pragma unroll
+        for (int i = 0; i < kWalkTile; ++i) x[i] = t[i * kL];
+#pragma unroll
+        for (int i = 0; i < kWalkTile; ++i) acc = acc + x[i];
+      } else {
+        for (int c = 0; c < n; c += 8) {
+          const uint32_t lo = order[k][c / 4], hi = order[k][c / 4 + 1];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            x[u] = t[(((u < 4 ? lo : hi) >> (8 * (u % 4))) & (kWalkTile - 1)) * kL];
+          }
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            if (c + u < n) acc = acc + x[u];
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+#pragma unroll
+    for (int r = 0; r < kS; ++r) out[r * kL + j] = acc;
+  }
 }
 
 PROBE_ENTRY(packet_walk_core) {
-  probe_packet_walk_core<<<1, kL, 0, STREAM>>>((const float*)a, n, (float*)out);
+  if ((uintptr_t)a % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  if (n <= 0 || n > kM || n % (kWalkTile * kWalkGroup) != 0) return (int)cudaErrorInvalidValue;
+  static int opted[kMaxDevices] = {};
+  const cudaError_t err = opt_in(probe_packet_walk_core, kWalkSmem, opted);
+  if (err != cudaSuccess) return (int)err;
+  probe_packet_walk_core<<<1, kWalkThreads, kWalkSmem, STREAM>>>((const float*)a, n,
+                                                                  (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -36,6 +36,13 @@ def aperture_pdf(cam: CameraData, width: int, height: int) -> torch.Tensor:
     return pdf_s * pdf_a
 
 
+def _over(x: torch.Tensor, n) -> torch.Tensor:
+    """x / n, an IEEE division on every device: PyTorch on CUDA multiplies
+    by the reciprocal of a host scalar divisor, so `n` goes as a tensor on
+    x's device (the JAX package and kernel 1 divide)."""
+    return x / torch.full((), float(n), dtype=x.dtype, device=x.device)
+
+
 def sample_rays(cam: CameraData, kind: int, px, py, width, height, u, v, u2, v2):
     """Generate rays for pixel indices (px, py) with uniforms u,v,u2,v2.
 
@@ -48,8 +55,8 @@ def sample_rays(cam: CameraData, kind: int, px, py, width, height, u, v, u2, v2)
     if kind == CAM_OMNIDIRECTIONAL:
         # Equirect direction; deliberately ignores the camera basis —
         # quirk #13 (`camera.rs:169-188`).
-        p = (pxf + u) / width * (2.0 * PI)
-        t = (pyf + v) / height * PI
+        p = _over(pxf + u, width) * (2.0 * PI)
+        t = _over(pyf + v, height) * PI
         st, ct = torch.sin(t), torch.cos(t)
         d = torch.stack([st * torch.cos(p), st * torch.sin(p), ct], dim=-1)
         o = cam.aperture_position.expand_as(d)
@@ -57,8 +64,8 @@ def sample_rays(cam: CameraData, kind: int, px, py, width, height, u, v, u2, v2)
 
     # Shared sensor sampling (`camera.rs:64-81,411-428`): note the MINUS on
     # the right axis (sensor is mirrored through the aperture).
-    sx = (((pxf + u) / width) - 0.5) * cam.sensor_size[0]
-    sy = (((pyf + v) / height) - 0.5) * cam.sensor_size[1]
+    sx = (_over(pxf + u, width) - 0.5) * cam.sensor_size[0]
+    sy = (_over(pyf + v, height) - 0.5) * cam.sensor_size[1]
     sensor_point = (
         cam.position - cam.right * sx[..., None] + cam.up * sy[..., None]
     )

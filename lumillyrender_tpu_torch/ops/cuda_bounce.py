@@ -209,6 +209,48 @@ def _camera_row(scene: SceneData) -> list[float]:
     return cached[1]
 
 
+RAYGEN_CTR = 0x40000000  # kernel 1's counter: above every bounce-loop slot
+
+
+def magic_divisor(d: int) -> tuple[int, int, int, int]:
+    """(m, s1, s2, d) of the kernel's division by `d` (csrc/raygen.cu
+    `udiv`): for every uint32 n, n // d == (t + ((n - t) >> s1)) >> s2 with
+    t = (m * n) >> 32 (Granlund & Montgomery 1994, fig. 4.1)."""
+    if not 0 < d < 2**32:
+        raise ValueError(f"divisor {d} is not a positive uint32")
+    lg = (d - 1).bit_length()  # ceil(log2 d)
+    m = (2**32 * (2**lg - d)) // d + 1
+    return m, min(lg, 1), max(lg - 1, 0), d
+
+
+def threefry_schedule(seed: int, ctr: int) -> tuple[list[int], list[int], list[int]]:
+    """Kernel 1's threefry key schedule for `seed` (the key (seed, seed ^
+    0x9E3779B9) of `rng.uniform4`'s two blocks): each block's x1 after its
+    first injection (its counter, ctr and ctr ^ 0x80000000, plus ks[1]),
+    and the x0 and x1 injections after rounds 4, 8, .., 20 (ks[j % 3] and
+    ks[(j + 1) % 3] + j for j = 1 .. 5). A lane's x0 enters as lane + seed."""
+    m = rng._MASK
+    ks = (seed & m, (seed ^ rng._KEY2) & m)
+    ks += (ks[0] ^ ks[1] ^ rng._KS_PARITY,)
+    x1 = [(c + ks[1]) & m for c in (ctr, ctr ^ rng._BLOCK2)]
+    return (x1, [ks[j % 3] for j in range(1, 6)],
+            [(ks[(j + 1) % 3] + j) & m for j in range(1, 6)])
+
+
+def raygen_consts(settings: RenderSettings, seed: int) -> list[int]:
+    """The 28 uint32 words of kernel 1's RaygenConsts for a launch at
+    `settings` and `seed`: the divisors w*h and, in raster order, w, else
+    the tile's size, the tiles a row and the tile width (`magic_divisor`;
+    unused ones are 1), then `threefry_schedule` at RAYGEN_CTR."""
+    from ..integrator.render import tile_dims
+
+    w, h = settings.width, settings.height
+    tw, th = tile_dims(settings) or (0, 0)
+    divs = (w * h, w, 1, 1) if tw == 0 else (w * h, tw * th, w // tw, tw)
+    x1, k0, k1 = threefry_schedule(seed, RAYGEN_CTR)
+    return [x for d in divs for x in magic_divisor(d)] + x1 + k0 + k1
+
+
 def plain_generate_rays(scene: SceneData, settings: RenderSettings, seed,
                         sample_offset: int, n: int):
     """Camera rays in plain PyTorch on the scene's device: (o, d, pdf, g)."""
@@ -217,8 +259,7 @@ def plain_generate_rays(scene: SceneData, settings: RenderSettings, seed,
 
     dev = scene.camera.position.device
     glane, px, py = camera_lanes(settings, sample_offset, n, dev)
-    # High counter so it never collides with bounce-loop slots.
-    u, v, u2, v2 = rng.uniform4(seed, glane, 0x40000000)
+    u, v, u2, v2 = rng.uniform4(seed, glane, RAYGEN_CTR)
     o, d, pdf, g = camera.sample_rays(
         scene.camera, settings.camera_kind, px, py,
         settings.width, settings.height, u, v, u2, v2,
@@ -283,11 +324,13 @@ def raygen_launch(scene: SceneData, settings: RenderSettings, seed,
     w, h = settings.width, settings.height
     tw, th = tile_dims(settings) or (0, 0)
     cam = (ctypes.c_float * 24)(*_camera_row(scene))  # copied into the launch
+    seed = int(seed) & 0xFFFFFFFF
+    consts = (ctypes.c_uint32 * 28)(*raygen_consts(settings, seed))
     rc = cuda_build.fn("raygen")(
         _ptr(o), _ptr(d), None if g is None else _ptr(g),
         None if uniforms is None else _ptr(uniforms), n,
-        int(seed) & 0xFFFFFFFF, (sample_offset * w * h) & 0xFFFFFFFF,
-        w, h, tw, th, settings.camera_kind, ctypes.addressof(cam),
+        seed, (sample_offset * w * h) & 0xFFFFFFFF,
+        w, h, tw, th, settings.camera_kind, ctypes.addressof(cam), ctypes.addressof(consts),
         int(rng._MIXER == "threefry"), cuda_build.stream(),
     )
     cuda_build.check(rc, "raygen")

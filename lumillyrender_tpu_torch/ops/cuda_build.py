@@ -54,8 +54,9 @@ _SKY = [_F, _F, _F, _P, _I, _I, _F, _F, _F, _F, _I, _P]
 # lights, total light area, lanes, bounce, seed, flags, RR scale.
 _SHADE = [_P, _I, _P, _P, _I, _P, _I, _F, _I, _I, _U, _I, _F]
 ARGTYPES = {
-    # ... the camera row, then the mixer (1: threefry) and the stream.
-    "llr_raygen": [_P, _P, _P, _P, _I, _U, _U, _I, _I, _I, _I, _I, _P, _I, _P],
+    # ... the camera row, the launch's constants (raygen_consts), then the
+    # mixer (1: threefry) and the stream.
+    "llr_raygen": [_P, _P, _P, _P, _I, _U, _U, _I, _I, _I, _I, _I, _P, _P, _I, _P],
     # ... then the instance bits, threads per lane and the host copy of the
     # small scene's prim rows (csrc/bounce.cu), and the stream.
     "llr_bounce": [_P] * 12 + [_P, _I] + _SHADE + _SKY[:-1] + [_I, _I, _P, _P],

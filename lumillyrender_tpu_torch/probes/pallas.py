@@ -268,9 +268,52 @@ def _walk(t):
     return _rows_bcast(acc)
 
 
+# Rows a tile of the packet-walk kernel (csrc/probes.cu, kWalkTile): the
+# seeded tables put votes at its edges.
+WALK_TILE = 32
+WALK_TABLES = ("none", "all", "edges", "scattered")
+
+
+def walk_votes(pattern: str) -> np.ndarray:
+    """The rows that vote in seeded walk table `pattern` (see `walk_table`)."""
+    rows = np.arange(M)
+    if pattern == "none":
+        return rows[:0]
+    if pattern == "all":
+        return rows
+    if pattern == "edges":
+        # Each tile's first row, one of its last 7 (so a +7 lands at offsets
+        # 0-6 of the next tile), and the table's last 7 rows.
+        tile = rows[::WALK_TILE]
+        late = tile + WALK_TILE - 7 + (tile // WALK_TILE) % 7
+        return np.unique(np.concatenate([tile, late, rows[-7:]]))
+    if pattern == "scattered":
+        return rows[np.random.default_rng(14).random(M) < 0.1]
+    raise ValueError(f"no walk table {pattern!r}; one of {WALK_TABLES}")
+
+
+def walk_table(device="cpu", pattern: str | None = None) -> torch.Tensor:
+    """The packet-walk core's table: the tool's arange for pattern None, else
+    a seeded (M, L) float32 table whose rows `walk_votes(pattern)` vote:
+    "none" (M steps of +1), "all" (+7 from row 0), "edges", "scattered" (a
+    seeded tenth of the rows). Values are seeded uniforms in (-T/4, T), T =
+    0.5 M L the vote's threshold: both signs, full mantissas, so every add
+    rounds and the sums pass 2^24, and the order of the adds shows in the
+    result; a voting row has one seeded lane at T + (1 .. 2^20)."""
+    if pattern is None:
+        return _table(device)
+    thresh = 0.5 * (M * L)
+    g = np.random.default_rng(WALK_TABLES.index(pattern) + 20)
+    t = g.uniform(-thresh / 4, thresh, (M, L)).astype(np.float32)
+    votes = walk_votes(pattern)
+    t[votes, g.integers(0, L, votes.size)] = (
+        thresh + g.uniform(1.0, 2.0**20, votes.size)).astype(np.float32)
+    return torch.from_numpy(t).to(device)
+
+
 packet_walk_core = Probe(
     "packet_walk_core", "packet-walk core: SMEM cursor while_loop + dyn-slice + any()",
-    f"{TOOL}:171", lambda device: (_table(device),), _walk, (S, L),
+    f"{TOOL}:171", lambda device, pattern=None: (walk_table(device, pattern),), _walk, (S, L),
     work=lambda ins: (len(walk_path(ins[0])) * L * 4 + _OUT,
                       2 * len(walk_path(ins[0])) * L))
 plain_packet_walk_core = packet_walk_core.plain

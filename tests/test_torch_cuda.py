@@ -31,7 +31,10 @@ compared on its backward rules' lanes (`bwd_comparable`) within
 `parity.KERNEL_BWD_RTOL` (1e-5) of each cotangent's and table's largest
 magnitude, with the recomputed alive' equal to the forward kernel's on
 every lane and two runs bit-equal; the capability probes' kernels
-(csrc/probes.cu) every output bit-equal; the forward stage loop captured
+(csrc/probes.cu) every output bit-equal, the packet walk on seeded tables
+too; kernel 1's two instances for every camera kind in both pixel orders,
+d and g within 1e-6 where the film's dims are no powers of 2 (PyTorch on
+the card divides by a host scalar through its reciprocal); the forward stage loop captured
 as a CUDA graph, every stage-end state and the ray count bit-equal to a
 host loop over the same kernels, the films within chip_smoke.py's film
 gate (the banks add with atomics); the hybrid training step on BVH and
@@ -1206,6 +1209,24 @@ def test_probe_kernels_match_plain(card, tag, probe, params):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pattern", (None,) + probes.pallas.WALK_TABLES)
+def test_walk_kernel_matches_plain_on_seeded_tables(card, pattern):
+    """packet_walk_core's kernel (the table streamed through shared memory
+    by TMA, votes taken ahead of the walk, every thread walking the vote
+    mask) bit-equal to its plain version on the tool's arange table (None)
+    and on each seeded table: no row votes, every row votes, votes at the
+    kernel's tile edges and in the last 7 rows, votes scattered."""
+    probe = probes.pallas.packet_walk_core
+    ins = probe.inputs(card, pattern)
+    before = probe.launches
+    got = probe.run(ins)
+    want = probe.compute(*ins)
+    torch.cuda.synchronize()
+    assert probe.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_dyn_lane_kernel_matches_plain_at_every_lane(card):
     """vmem_dyn_lane reads tab[3, idx] straight from L2: bit-equal at each
     lane 0..127."""
@@ -1689,6 +1710,69 @@ def test_raygen_threefry_instance_matches_plain(card, threefry, name):
     assert (uni != pcg).float().mean() > 0.99
     rel = lambda a, b: ((a - b).abs() / b.abs().clamp(min=1.0)).max().item()
     assert max(rel(o, o_p), rel(d, d_p), rel(g, g_p), rel(pdf, pdf_p)) <= 1e-5
+
+
+# Kernel 1's four camera kinds: (scene, camera kind); the realistic pinhole
+# is ibl-material's thin-lens camera drawn as CAM_PINHOLE.
+RAYGEN_KINDS = {"ideal pinhole": ("new-cbox", 0), "thin lens": ("ibl-material", 1),
+                "omnidirectional": ("vr", 2), "realistic pinhole": ("ibl-material", 3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["tiles", "raster"])
+@pytest.mark.parametrize("kind", list(RAYGEN_KINDS))
+@pytest.mark.parametrize("mixer", ["pcg4d", "threefry"])
+def test_raygen_instances_match_plain_for_every_camera(card, monkeypatch, mixer, kind, order):
+    """Both instances of kernel 1 (pcg4d, threefry) against
+    `plain_generate_rays` for each camera kind, in tile order (the scene's
+    own film) and in raster order (a 100 x 75 film, whose dims give no 8 x 8
+    tile), on 2 w h lanes from the sample offset whose lane ids pass 2^32:
+    the random words, o, d, pdf and g bit-equal (the plain version divides
+    by the film's dims as IEEE divisions, as the kernel does)."""
+    import dataclasses
+
+    from lumillyrender_tpu_torch.integrator.render import global_lanes, tile_dims
+    from lumillyrender_tpu_torch.ops import rng
+
+    monkeypatch.setattr(rng, "_MIXER", mixer)
+    name, cam = RAYGEN_KINDS[kind]
+    c = compile_scene_file(ASSETS / f"{name}.toml", device=card)
+    st = dataclasses.replace(c.settings, camera_kind=cam)
+    if order == "raster":
+        st = dataclasses.replace(st, width=100, height=75)
+    assert (tile_dims(st) is None) == (order == "raster")
+    n = 2 * st.width * st.height
+    off = 2**32 // (st.width * st.height) - 1
+    uni = torch.empty((n, 4), dtype=torch.float32, device=card)
+    got = cuda_bounce.generate_rays(c.data, st, 0x9E3779B9, off, n, uniforms=uni)
+    want = cuda_bounce.plain_generate_rays(c.data, st, 0x9E3779B9, off, n)
+    words = torch.stack(rng.uniform4(0x9E3779B9, global_lanes(st, off, n, card), 0x40000000), 1)
+    torch.cuda.synchronize()
+    assert torch.equal(uni.view(torch.int32), words.view(torch.int32))
+    for what, a, b in zip(("o", "d", "pdf", "g"), got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixer", ["pcg4d", "threefry"])
+def test_raygen_writes_a_partial_last_block(card, monkeypatch, mixer):
+    """Kernel 1 on 1,000 lanes (a last block of 232, a last warp of 8) of
+    the thin lens: o, d and g bit-equal to `plain_generate_rays`, and
+    nothing written past the last row."""
+    from lumillyrender_tpu_torch.ops import rng
+
+    monkeypatch.setattr(rng, "_MIXER", mixer)
+    c = compile_scene_file(ASSETS / "ibl-material.toml", device=card)
+    st, n = c.settings, 1000
+    want = cuda_bounce.plain_generate_rays(c.data, st, 11, 3, n)
+    bufs = [torch.full((3 * n + 4,), -7.0, device=card) for _ in range(2)]
+    o, d = (b[:3 * n].view(n, 3) for b in bufs)
+    g = torch.empty(n, device=card)
+    cuda_bounce.raygen_launch(c.data, st, 11, 3, o, d, g)
+    torch.cuda.synchronize()
+    for what, a, b in (("o", o, want[0]), ("d", d, want[1]), ("g", g, want[3])):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), what
+    assert all((b[3 * n:] == -7.0).all() for b in bufs)
 
 
 @pytest.mark.cuda

@@ -191,6 +191,57 @@ def test_ref_ds_row_read_plain_version_is_numpy_indexing_at_every_row():
             np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
 
 
+def _numpy_walk(t: np.ndarray) -> tuple:
+    """The packet-walk core in numpy, written from the tool's kernel: the
+    (8, 128) float32 sum of the rows visited, in order, and the steps."""
+    hit = (t > np.float32(0.5 * t.shape[0] * t.shape[1])).any(axis=1)
+    acc, cur, steps = np.zeros(t.shape[1], np.float32), 0, 0
+    while cur < t.shape[0]:
+        acc = acc + t[cur]
+        cur, steps = cur + (7 if hit[cur] else 1), steps + 1
+    return np.broadcast_to(acc, (8, t.shape[1])), steps
+
+
+# Steps of each walk: 1,024 of +1 then 147 of +7 on the arange table, 2,048
+# of +1 with no vote, ceil(2048 / 7) with every row voting.
+WALK_STEPS = {None: 1171, "none": 2048, "all": 293}
+
+
+@pytest.mark.parametrize("pattern", (None,) + probes.pallas.WALK_TABLES)
+def test_walk_plain_version_is_a_numpy_walk(pattern):
+    """The plain version the packet_walk_core kernel is held against on the
+    card, on the tool's arange table (None) and on each seeded table, bit
+    for bit against a numpy walk; the sums depend on their order."""
+    probe = probes.pallas.packet_walk_core
+    (t,) = probe.inputs("cpu", pattern)
+    want, steps = _numpy_walk(t.numpy())
+    got = probe.compute(t)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (8, 128)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    assert len(probes.pallas.walk_path(t)) == steps == WALK_STEPS.get(pattern, steps)
+    backwards = np.zeros(128, np.float32)
+    for cur in reversed(probes.pallas.walk_path(t)):
+        backwards = backwards + t.numpy()[cur]
+    assert (backwards != want[0]).any()
+
+
+def test_walk_tables_vote_where_they_say():
+    """The seeded walk tables vote on exactly their rows: none, all, each
+    kernel tile's first row with one of its last 7 and the table's last 7,
+    a seeded tenth; every other value lies below the threshold."""
+    tile = probes.pallas.WALK_TILE
+    for pattern in probes.pallas.WALK_TABLES:
+        t = probes.pallas.walk_table("cpu", pattern).numpy()
+        votes = probes.pallas.walk_votes(pattern)
+        hit = np.flatnonzero((t > np.float32(0.5 * 2048 * 128)).any(axis=1))
+        np.testing.assert_array_equal(hit, votes)
+        assert (t < 0).any() and (t.view(np.int32) & 0xFF != 0).mean() > 0.9
+    edges = set(probes.pallas.walk_votes("edges").tolist())
+    assert set(range(0, 2048, tile)) <= edges and set(range(2041, 2048)) <= edges
+    assert {r % tile for r in edges} >= set(range(tile - 7, tile))
+    assert 150 < probes.pallas.walk_votes("scattered").size < 260
+
+
 @pytest.mark.parametrize("name", probes.DIRECT_PROBES)
 def test_direct_probes_take_no_shared_memory_and_raise_on_misalignment(name):
     """The probes that read their table straight from L2 (scalar_broadcast

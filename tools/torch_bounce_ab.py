@@ -1,7 +1,7 @@
-"""The bounce kernels of two trees of the PyTorch/CUDA port, on the same
-states, in turns on one card.
+"""The bounce kernels and kernel 1 (raygen) of two trees of the
+PyTorch/CUDA port, on the same states, in turns on one card.
 
-    python tools/torch_bounce_ab.py --parent DIR
+    python tools/torch_bounce_ab.py --parent DIR [--cases all|bounce|raygen]
 
 builds DIR's `lumillyrender_tpu_torch/csrc/bounce_bvh.cu`, `bounce.cu` and
 `bounce_bwd.cu` (a checkout of an earlier commit of the port; its own
@@ -42,6 +42,14 @@ bit-equal first. Prints both trees' ptxas lines of every instance
 (registers, stack, spills) and the blocks per SM their registers allow,
 the card's name and power limit, per case the median and [min, max] ms
 per launch of each, and one JSON line of all of it.
+
+Raygen cases (`--cases raygen` runs only these): DIR's
+`lumillyrender_tpu_torch/csrc/raygen.cu` built beside this tree's, on the
+cameras of new-cbox (the ideal pinhole, tile order), ibl-material (the
+thin lens) and vr (the omnidirectional camera), 2,097,152 lanes whose ids
+pass 2^32, under each mixer (its pcg4d and threefry instances): o, d, g
+and the four random words of every lane bit-equal between the trees, then
+the bare launches timed in turns as above.
 """
 
 from __future__ import annotations
@@ -61,6 +69,8 @@ REPO = Path(__file__).resolve().parents[1]
 # (kernel library, scene) of the forward cases, in the order they run.
 CASES = (("bounce_bvh", "terrain-1m"), ("bounce_bvh", "welcome-geo"), ("bounce", "new-cbox"))
 TRAIN_SPP = (16, 4)
+RAYGEN_SCENES = ("new-cbox", "ibl-material", "vr")
+RAYGEN_LANES = 1 << 21
 REPS = 5  # launches per CUDA graph
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
@@ -72,6 +82,8 @@ EARLIER_ARGTYPES = {
     "llr_bounce": [_P] * 12 + [_P, _I] + _SHADE + [_F, _F, _F, _P, _I, _I, _F, _P],
     "llr_bounce_bwd": [_P] * 14 + [_P, _I] + _SHADE + [_F, _F, _F, _P],
     "llr_bounce_bvh": [_P] * 12 + [_P, _P, _P, _I] + _SHADE + [_F, _F, _F, _P, _I, _I, _F, _P],
+    # before the launch's constants (raygen_consts), the 14th argument
+    "llr_raygen": [_P, _P, _P, _P, _I, _U, _U, _I, _I, _I, _I, _I, _P, _I, _P],
 }
 # The simple sky's four arguments (horizon colour, the flag) of the forward
 # entries, by position; a source without `hor_r` predates them and is called
@@ -79,7 +91,7 @@ EARLIER_ARGTYPES = {
 SIMPLE_SKY_ARGS = {"bounce": range(34, 38), "bounce_bvh": range(37, 41)}
 # What a source of the current signature holds and an earlier one lacks.
 CURRENT_MARK = {"bounce": "small_rows", "bounce_bwd": "small_rows",
-                "bounce_bvh": "const int32_t* counts"}
+                "bounce_bvh": "const int32_t* counts", "raygen": "RaygenConsts"}
 
 
 def earlier_signature(src: Path, name: str) -> bool:
@@ -161,10 +173,13 @@ def entry_point(name: str, fn):
 def forward_entry(name: str, parent: tuple):
     """The parent's forward entry as this tree's wrapper calls it: an
     earlier llr_bounce drops the instance, group and small rows, an earlier
-    llr_bounce_bvh the leaves' valid counts."""
+    llr_bounce_bvh the leaves' valid counts, an earlier llr_raygen the
+    launch's constants."""
     fn, _, earlier = parent
     if not earlier:
         return fn
+    if name == "raygen":
+        return lambda *a: fn(*a[:13], *a[14:])
     if name == "bounce_bvh":
         return lambda *a: fn(*a[:15], *a[16:])
     return lambda *a: fn(*a[:-4], a[-1])
@@ -393,10 +408,53 @@ def backward_case(tag, c, settings, state, cot, tables, parent, res, card):
               res, card)
 
 
+def raygen_case(scene: str, c, parent: tuple, res: dict, card: str):
+    """Kernel 1 of both trees on `c`'s camera, RAYGEN_LANES lanes from the
+    sample offset whose lane ids pass 2^32, under each mixer: every output
+    bit-equal between the trees, then timed in turns."""
+    from lumillyrender_tpu_torch.ops import cuda_bounce, rng
+    from lumillyrender_tpu_torch.ops.camera import samples_aperture
+
+    st, n = c.settings, RAYGEN_LANES
+    off = 2**32 // (st.width * st.height) - 16
+    aperture = samples_aperture(st.camera_kind)
+    outs = {who: (torch.empty((n, 3), device="cuda"), torch.empty((n, 3), device="cuda"),
+                  torch.empty(n, device="cuda") if aperture else None,
+                  torch.empty((n, 4), device="cuda")) for who in ("parent", "change")}
+
+    def launch(who, mixer, uniforms):
+        def run():
+            rng._MIXER = mixer
+            ctx = (entry_point("raygen", forward_entry("raygen", parent)) if who == "parent"
+                   else contextlib.nullcontext())
+            try:
+                with ctx:
+                    o, d, g, u = outs[who]
+                    cuda_bounce.raygen_launch(c.data, st, 1234, off, o, d, g,
+                                              u if uniforms else None)
+            finally:
+                rng._MIXER = "pcg4d"
+        return run
+
+    for mixer in ("pcg4d", "threefry"):
+        tag = f"raygen {scene} ({'thin lens' if aperture else 'no aperture'}), {mixer}"
+        for who in outs:
+            launch(who, mixer, True)()
+        torch.cuda.synchronize()
+        for a, b, what in zip(outs["parent"], outs["change"], ("o", "d", "g", "words")):
+            if a is not None and not torch.equal(bits(a), bits(b)):
+                raise SystemExit(f"torch_bounce_ab: {tag}: {what} differs from the parent's")
+        print(f"{tag}: o, d, g and the random words bit-equal to the parent's", flush=True)
+        time_case(f"{tag}, {n} lanes", {who: launch(who, mixer, False) for who in outs}, res,
+                  card)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python tools/torch_bounce_ab.py")
     ap.add_argument("--parent", required=True, type=Path,
                     help="a checkout of the earlier tree")
+    ap.add_argument("--cases", choices=("all", "bounce", "raygen"), default="all",
+                    help="the bounce kernels' cases, kernel 1's, or both")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_bounce_ab: no CUDA device", file=sys.stderr)
@@ -407,12 +465,14 @@ def main(argv=None) -> int:
     from lumillyrender_tpu_torch.ops import cuda_bounce, cuda_build
     from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
 
-    names = ("bounce", "bounce_bvh", "bounce_bwd")
+    names = (("bounce", "bounce_bvh", "bounce_bwd") if args.cases != "raygen" else ()) + (
+        ("raygen",) if args.cases != "bounce" else ())
     cuda_build.build(names, verbose=True)
     parent = build_parents(args.parent.resolve(), names)
     card = chip_smoke.gpu_line()
     res = {"card": card, "rounds": chip_smoke.PROBE_ROUNDS, "reps": REPS,
-           "ptxas": {who: {name: kernel_lines(log) for name, log in by_name.items()}
+           "ptxas": {who: {name: kernel_lines(log, "raygen" if name == "raygen" else "bounce")
+                           for name, log in by_name.items()}
                      for who, by_name in (("parent", {n: p[1] for n, p in parent.items()}),
                                           ("change", {n: cuda_build.LOGS.get(n, "")
                                                       for n in names}))}}
@@ -422,6 +482,13 @@ def main(argv=None) -> int:
                 print(f"{who} {name}.cu {kernel}: {rec['ptxas']} ({rec['blocks_per_sm']} "
                       "blocks of 128 per SM by registers)")
     print(card)
+    if "raygen" in names:
+        for scene in RAYGEN_SCENES:
+            c = compile_scene_file(REPO / "assets" / f"{scene}.toml", device="cuda")
+            raygen_case(scene, c, parent["raygen"], res, card)
+    if "bounce" not in names:
+        print(json.dumps(res))
+        return 0
     paths = {"terrain-1m": chip_smoke.write_terrain("terrain-1m", chip_smoke.BIG_TRIS[
         "terrain-1m"])[0], "welcome-geo": REPO / "assets" / "welcome-geo.toml",
         "new-cbox": REPO / "assets" / "new-cbox.toml"}

@@ -21,8 +21,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -33,20 +31,9 @@ SCHEDULERS = 4  # warp schedulers an SM, each issuing one warp instruction a cyc
 
 def sass_counts(lib: Path) -> dict:
     """{kernel function: non-NOP SASS instructions} of one library."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                         check=True).stdout
-    counts, cur = {}, None
-    for ln in out.splitlines():
-        m = re.match(r"\s*Function : (\S+)", ln)
-        if m:
-            cur = m.group(1)
-            counts[cur] = 0
-            continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
-        if cur and m and not m.group(2).startswith("NOP"):
-            counts[cur] += 1
-    return counts
+    import chip_smoke
+
+    return {fn: len(code) for fn, code in chip_smoke.sass_functions(lib).items()}
 
 
 def main(argv=None) -> int:
