@@ -2245,9 +2245,13 @@ def capability_probes(card, lap):
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                    bytes=nbytes, flops=flops, max_abs_err=0.0,
                    first=got.reshape(-1)[:4].tolist())
+        # The share of its bound the kernel reaches, the bound taken at least
+        # the empty kernel's launch (the rule that orders the redesigns).
+        rec["floored_share"] = max(rec["bound_ms"], floor_ms) / ms
         print(f"{tag}: bit-equal {rec['first']}; kernel {ms:.6f} ms "
               f"[{ms_range[0]:.6f}, {ms_range[1]:.6f}], bound {rec['bound_ms']:.3e} ms "
-              f"({rec['bound_by']}), plain {plain_ms:.4f} ms, library "
+              f"({rec['bound_by']}; {rec['floored_share']:.0%} of it floored at the empty "
+              f"launch), plain {plain_ms:.4f} ms, library "
               + ("none" if library_ms is None else
                  f"{library_ms:.6f} ms [{library_ms_range[0]:.6f}, {library_ms_range[1]:.6f}]"))
         rows[tag] = timed[probe.name] = rec

@@ -8,18 +8,21 @@
 // the question is what the pattern costs. Memory spaces, translated:
 // * an input the Pallas probe puts in SMEM (the TPU's scalar memory, read
 //   uniformly by the whole tile) is read block-uniformly: one thread reads
-//   it, or every thread reads the same address (one broadcast load);
+//   it, or every thread reads the same address (one broadcast load), or a
+//   warp's lanes read its few words in one load and share them by
+//   shuffles (8a, 8t);
 // * a VMEM table that the kernel reads at a few places is read straight
 //   from global memory, where it stays in the 50 MB L2, with read-only
 //   loads (__ldg, ld.global.nc) of what the function needs: no shared
-//   memory, no barrier (8b, 8g, 8i, 8p). Only a table that the kernel
-//   reads wholly or repeatedly is staged into shared memory by the block
-//   (above 48 KB as opted-in dynamic shared memory): a round of 4-byte
-//   loads and stores per thread, then __syncthreads, costs more than a few
-//   L2 round trips. 8a, 8h and 8t still stage a table they read at a few
-//   places; they are to be redesigned as 8b, 8g, 8i and 8p were
-//   (ROADMAP.md, queue 2). 8n, which reads its whole table, streams it
-//   through a ring in shared memory with TMA bulk copies;
+//   memory, no barrier (8a, 8b, 8g, 8i, 8p, 8t). Only a table that the
+//   kernel reads wholly or repeatedly is staged into shared memory by the
+//   block (above 48 KB as opted-in dynamic shared memory): a round of
+//   4-byte loads and stores per thread, then __syncthreads, costs more than
+//   a few L2 round trips. 8h still stages a table it reads at a few places;
+//   it is to be redesigned as the others were (ROADMAP.md, queue 2). 8c
+//   stages its table on purpose: the probe asks how large a table fits. 8n,
+//   which reads its whole table, streams it through a ring in shared
+//   memory with TMA bulk copies;
 // * `table` (2048 x 128 float32, 1 MiB) is read from global memory, where
 //   it stays in the 50 MB L2; an input read once at a fixed place goes
 //   straight to registers.
@@ -97,23 +100,28 @@ cudaError_t opt_in(Kernel kernel, int bytes, int (&opted)[kMaxDevices]) {
 // ---------------------------------------------------------------------------
 
 // 8a. probe_vmem_dyn_sublane_static_lane (tools/probe_mosaic.py:34): the sum
-// over i < 16 of tab[idx[i], 5]. tab (64,128) VMEM -> shared memory (32 KiB);
-// idx (1,16) SMEM -> read by thread 0. Bound: bytes (16 table reads, 16
-// indices, one output).
+// over i < 16 of tab[idx[i], 5], in order. tab (64,128) VMEM and idx (1,16)
+// SMEM are read by one warp straight from global memory (L2): lane i < 16
+// loads idx[i] (the 16 loads coalesce), then the one element tab[idx[i], 5],
+// read-only loads (__ldg): 16 independent loads in two dependent L2 round
+// trips, as 8b makes for one element. The warp gathers the 16 values by
+// shuffles and adds them in order from 0.0f (the plain version starts from
+// zeros: 0 + -0 is +0), and lane 0 writes the sum. Only the 16 elements are
+// read; nothing is staged, no shared memory, no barrier. Bound: bytes (16
+// table reads, 16 indices, one output).
 extern "C" __global__ void probe_vmem_dyn_sublane_static_lane(const float* __restrict__ tab,
                                                               const int32_t* __restrict__ idx,
                                                               float* __restrict__ out) {
-  __shared__ float s_tab[64 * kL];
-  stage(s_tab, tab, 64 * kL);
-  if (threadIdx.x == 0) {
-    float acc = 0.0f;
-    for (int i = 0; i < 16; ++i) acc += s_tab[idx[i] * kL + 5];
-    out[0] = acc;
-  }
+  const int lane = threadIdx.x;
+  const float v = lane < 16 ? __ldg(&tab[__ldg(&idx[lane]) * kL + 5]) : 0.0f;
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc = acc + __shfl_sync(0xffffffffu, v, i);
+  if (lane == 0) out[0] = acc;
 }
 
 PROBE_ENTRY(vmem_dyn_sublane_static_lane) {
-  probe_vmem_dyn_sublane_static_lane<<<1, 256, 0, STREAM>>>(
+  probe_vmem_dyn_sublane_static_lane<<<1, 32, 0, STREAM>>>(
       (const float*)a, (const int32_t*)b, (float*)out);
   return (int)cudaGetLastError();
 }
@@ -829,23 +837,45 @@ PROBE_ENTRY(int32_bit_ops) {
 // ---------------------------------------------------------------------------
 
 // 8t. probe_dyn_row_vector_read (tools/probe_wide.py:34): the sum over i < 8
-// of the (1,128) row tab[idx[i], :], in order. tab (64,128) VMEM -> shared
-// memory (32 KiB); idx (1,8) SMEM -> every thread reads it; a lane per
-// thread. Bound: bytes (8 rows, out).
-extern "C" __global__ void probe_dyn_row_vector_read(const float* __restrict__ tab,
+// of the (1,128) row tab[idx[i], :], in order. tab (64,128) VMEM and idx
+// (1,8) SMEM are read by one warp straight from global memory (L2): lane
+// i < 8 loads idx[i] (one coalesced 32-byte load) and shuffles hand each
+// index to the warp; lane l owns float4 l of the 512-byte row and issues
+// its 8 read-only 16-byte loads (ld.global.nc.v4.f32) before the first add,
+// so that they are in flight together, then adds them per component in
+// index order from 0.0f (the plain version starts from zeros: 0 + -0 is
+// +0) and writes one float4. Only the 8 rows gathered are read; nothing is
+// staged, no shared memory, no barrier. The 16-byte loads and stores need
+// tab and out 16-byte aligned: the entry returns cudaErrorMisalignedAddress
+// without a launch where either is not, and never falls back to 4-byte
+// loads. Bound: bytes (8 rows, 8 indices, out).
+extern "C" __global__ void probe_dyn_row_vector_read(const float4* __restrict__ tab,
                                                      const int32_t* __restrict__ idx,
-                                                     float* __restrict__ out) {
-  __shared__ float s_tab[64 * kL];
-  stage(s_tab, tab, 64 * kL);
-  const int j = threadIdx.x;
-  float acc = 0.0f;
-  for (int i = 0; i < 8; ++i) acc = acc + s_tab[idx[i] * kL + j];
-  out[j] = acc;
+                                                     float4* __restrict__ out) {
+  const int lane = threadIdx.x;
+  const int mine = lane < 8 ? __ldg(&idx[lane]) : 0;
+  float4 row[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    row[i] = __ldg(&tab[__shfl_sync(0xffffffffu, mine, i) * (kL / 4) + lane]);
+  }
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    acc.x = acc.x + row[i].x;
+    acc.y = acc.y + row[i].y;
+    acc.z = acc.z + row[i].z;
+    acc.w = acc.w + row[i].w;
+  }
+  out[lane] = acc;
 }
 
 PROBE_ENTRY(dyn_row_vector_read) {
-  probe_dyn_row_vector_read<<<1, kL, 0, STREAM>>>((const float*)a, (const int32_t*)b,
-                                                  (float*)out);
+  if (((uintptr_t)a | (uintptr_t)out) % sizeof(float4) != 0) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  probe_dyn_row_vector_read<<<1, kL / 4, 0, STREAM>>>((const float4*)a, (const int32_t*)b,
+                                                      (float4*)out);
   return (int)cudaGetLastError();
 }
 
@@ -942,7 +972,9 @@ extern "C" int llr_probe_smem_limit(int* bytes, int device) {
     return (int)err;                                                      \
   }
 
+PROBE_STATIC_SMEM(vmem_dyn_sublane_static_lane)
 PROBE_STATIC_SMEM(vmem_dyn_lane)
 PROBE_STATIC_SMEM(take_rowgather)
 PROBE_STATIC_SMEM(ref_ds_row_read)
 PROBE_STATIC_SMEM(scalar_broadcast)
+PROBE_STATIC_SMEM(dyn_row_vector_read)

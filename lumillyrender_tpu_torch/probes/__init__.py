@@ -20,7 +20,8 @@ PROBES: tuple[Probe, ...] = mosaic.PROBES + pallas.PROBES + wide.PROBES
 # The probes whose kernels read their table straight from global memory (L2)
 # and must use no shared memory: each loaded kernel reports its static
 # (`static_smem`), and their entries launch with no dynamic.
-DIRECT_PROBES = ("vmem_dyn_lane", "take_rowgather", "ref_ds_row_read", "scalar_broadcast")
+DIRECT_PROBES = ("vmem_dyn_sublane_static_lane", "vmem_dyn_lane", "take_rowgather",
+                 "ref_ds_row_read", "scalar_broadcast", "dyn_row_vector_read")
 
 
 def cases() -> list:

@@ -53,6 +53,17 @@ def fits(need: int, limit: int | None) -> bool:
     return limit is None or need <= limit
 
 
+def bag_sum_call(weight: torch.Tensor, index: torch.Tensor):
+    """One `torch.nn.functional.embedding_bag(mode="sum")` call over the rows
+    of `weight` at the int64 positions `index`, one bag, its offsets made
+    beforehand: a function of no arguments returning the (1, cols) sum. The
+    bag starts from 0 and adds its rows in index order, in float32 for a
+    float32 weight: the probes' in-order sums, for a table's rows (weight
+    the table) or its elements (weight its flat (rows*cols, 1) view)."""
+    offsets = torch.zeros(1, dtype=torch.int64, device=weight.device)
+    return lambda: torch.nn.functional.embedding_bag(index, weight, offsets, mode="sum")
+
+
 def _same(res: torch.Tensor, want: torch.Tensor) -> bool:
     """`res` bit for bit `want`, broadcast to its shape (a library call may
     leave the broadcast to a view)."""

@@ -9,9 +9,10 @@ tool builds them. `smem_input` takes the table's row count as well.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .kernel import Probe
+from .kernel import Probe, bag_sum_call
 
 F32, I32 = torch.float32, torch.int32
 TOOL = "tools/probe_mosaic.py"
@@ -31,6 +32,37 @@ def _in_order(vals: torch.Tensor) -> torch.Tensor:
     return acc.reshape(1, 1)
 
 
+# Row of seeded_tab whose column 5 and a seeded quarter of whose lanes hold
+# -0.0: the first row each seeded index set reads.
+NEG_ZERO_ROW = 17
+
+
+def seeded_tab(device="cpu") -> torch.Tensor:
+    """A (64, 128) float32 table of seeded normal values (both signs, full
+    mantissas) in place of the tools' arange, with -0.0 at column 5 and a
+    seeded quarter of the lanes of row NEG_ZERO_ROW; for the tests of
+    vmem_dyn_sublane_static_lane and dyn_row_vector_read on the card and
+    here."""
+    g = np.random.default_rng(18)
+    t = g.standard_normal((64, 128)).astype(np.float32)
+    t[NEG_ZERO_ROW, g.random(128) < 0.25] = -0.0
+    t[NEG_ZERO_ROW, 5] = -0.0
+    return torch.from_numpy(t).to(device)
+
+
+def seeded_index_sets(length: int, sets: int = 128, device="cpu") -> torch.Tensor:
+    """`sets` seeded (1, length) int32 index sets into seeded_tab's rows:
+    each starts at NEG_ZERO_ROW and repeats its second index at its end;
+    set 0 reads NEG_ZERO_ROW alone (its sums are zeros, whose sign is the
+    starting value's), set 1 starts, after NEG_ZERO_ROW, with rows 0 and 63."""
+    idx = np.random.default_rng(length).integers(0, 64, (sets, 1, length)).astype(np.int32)
+    idx[:, 0, 0] = NEG_ZERO_ROW
+    idx[1, 0, 1:3] = (0, 63)
+    idx[:, 0, -1] = idx[:, 0, 1]
+    idx[0] = NEG_ZERO_ROW
+    return torch.from_numpy(idx).to(device)
+
+
 def _dyn_sublane_inputs(device):
     return _tab(device), torch.arange(16, dtype=I32, device=device).reshape(1, 16)
 
@@ -42,7 +74,8 @@ def _dyn_sublane(tab, idx):
 vmem_dyn_sublane_static_lane = Probe(
     "vmem_dyn_sublane_static_lane", "probe_vmem_dyn_sublane_static_lane", f"{TOOL}:34",
     _dyn_sublane_inputs, _dyn_sublane, (1, 1),
-    work=lambda ins: (16 * 4 + 16 * 4 + 4, 16))
+    work=lambda ins: (16 * 4 + 16 * 4 + 4, 16),
+    library=lambda ins: bag_sum_call(ins[0].view(-1, 1), ins[1].reshape(-1).long() * 128 + 5))
 plain_vmem_dyn_sublane_static_lane = vmem_dyn_sublane_static_lane.plain
 
 
@@ -82,10 +115,15 @@ def smem_bytes(rows: int) -> int:
     return rows * 8 * 4
 
 
+def _smem_call(tab):
+    i = torch.arange(64, device=tab.device)
+    return bag_sum_call(tab.view(-1, 1), 8 * ((977 * i) % tab.shape[0]) + i % 8)
+
+
 smem_input = Probe(
     "smem_input", "probe_smem_input", f"{TOOL}:73",
     _smem_inputs, _smem_sum, (1, 1), work=lambda ins: (64 * 4 + 4, 64),
-    smem=lambda ins: smem_bytes(ins[0].shape[0]))
+    library=lambda ins: _smem_call(ins[0]), smem=lambda ins: smem_bytes(ins[0].shape[0]))
 plain_smem_input = smem_input.plain
 
 

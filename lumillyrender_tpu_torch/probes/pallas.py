@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..ops import rng
-from .kernel import Probe
+from .kernel import Probe, bag_sum_call
 
 F32, I32 = torch.float32, torch.int32
 M, S, L = 2048, 8, 128
@@ -140,6 +140,7 @@ vmem_scalar_dynamic_read = Probe(
     "vmem_scalar_dynamic_read", "vmem scalar dynamic read t_ref[i, 0]", f"{TOOL}:83",
     lambda device: (_table8(device), _idx(device).reshape(1, -1)[:, :L].contiguous()),
     _sum4, (1, 1), work=lambda ins: (4 * 4 + 4 * 4 + 4, 4),
+    library=lambda ins: bag_sum_call(ins[0].view(-1, 1), ins[1][0, :4].long() * 8),
     smem=lambda ins: ins[0].numel() * 4)
 plain_vmem_scalar_dynamic_read = vmem_scalar_dynamic_read.plain
 

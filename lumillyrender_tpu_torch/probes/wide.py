@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import Probe
+from .kernel import Probe, bag_sum_call
 
 F32, I32 = torch.float32, torch.int32
 TOOL = "tools/probe_wide.py"
@@ -36,7 +36,8 @@ def _dyn_rows(tab, idx):
 dyn_row_vector_read = Probe(
     "dyn_row_vector_read", "probe_dyn_row_vector_read", f"{TOOL}:34",
     _dyn_rows_inputs, _dyn_rows, (1, 128),
-    work=lambda ins: (8 * 128 * 4 + 8 * 4 + 128 * 4, 8 * 128))
+    work=lambda ins: (8 * 128 * 4 + 8 * 4 + 128 * 4, 8 * 128),
+    library=lambda ins: bag_sum_call(ins[0], ins[1].reshape(-1).long()))
 plain_dyn_row_vector_read = dyn_row_vector_read.plain
 
 

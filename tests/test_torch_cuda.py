@@ -1259,13 +1259,39 @@ def test_rowgather_kernel_matches_plain_on_seeded_rows(card):
 
 @pytest.mark.cuda
 def test_direct_probes_declare_no_shared_memory(card):
-    """The probes of probes.DIRECT_PROBES (vmem_dyn_lane, take_rowgather,
-    scalar_broadcast; the list chip_smoke.py's phase 20 checks) read their
-    table straight from L2: the loaded kernels report no static shared
-    memory."""
-    assert "scalar_broadcast" in probes.DIRECT_PROBES
+    """The probes of probes.DIRECT_PROBES (vmem_dyn_sublane_static_lane,
+    vmem_dyn_lane, take_rowgather, ref_ds_row_read, scalar_broadcast,
+    dyn_row_vector_read; the list chip_smoke.py's phase 20 checks) read
+    their table straight from L2: the loaded kernels report no static
+    shared memory."""
+    assert {"scalar_broadcast", "vmem_dyn_sublane_static_lane",
+            "dyn_row_vector_read"} <= set(probes.DIRECT_PROBES)
     assert {name: probes.static_smem(name) for name in probes.DIRECT_PROBES} \
         == dict.fromkeys(probes.DIRECT_PROBES, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,length", [("vmem_dyn_sublane_static_lane", 16),
+                                         ("dyn_row_vector_read", 8)])
+def test_in_order_sum_kernels_match_plain_on_seeded_sets(card, name, length):
+    """vmem_dyn_sublane_static_lane (16 elements of column 5) and
+    dyn_row_vector_read (8 rows, float4 lanes) read straight from L2 and add
+    in index order from 0.0f: bit-equal to their plain versions at each of
+    128 seeded index sets (repeats, rows 0 and 63) of the seeded table,
+    whose first row read holds -0.0; both kernels declare no static shared
+    memory."""
+    probe = next(p for p in probes.PROBES if p.name == name)
+    assert name in probes.DIRECT_PROBES and probes.static_smem(name) == 0
+    tab = probes.mosaic.seeded_tab(card)
+    sets = probes.mosaic.seeded_index_sets(length, device=card)
+    before = probe.launches
+    for k, idx in enumerate(sets):
+        ins = (tab, idx.contiguous())
+        got = probe.run(ins)
+        want = probe.compute(*ins)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), k
+    assert probe.launches == before + len(sets)
 
 
 @pytest.mark.cuda
@@ -1344,10 +1370,13 @@ def test_ref_ds_row_read_kernel_matches_plain_on_seeded_rows(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,which", [("scalar_broadcast", "out"),
-                                        ("onehot_matmul_gather", "table")])
+                                        ("onehot_matmul_gather", "table"),
+                                        ("dyn_row_vector_read", "out"),
+                                        ("dyn_row_vector_read", "table")])
 def test_float4_probe_kernels_raise_when_misaligned(card, name, which):
-    """scalar_broadcast writes float4s and onehot_matmul_gather reads its
-    table as float4s: a tensor 4 bytes off a 16-byte boundary is refused by
+    """scalar_broadcast writes float4s, onehot_matmul_gather reads its table
+    as float4s and dyn_row_vector_read does both: a tensor 4 bytes off a
+    16-byte boundary is refused by
     the entry (cudaErrorMisalignedAddress), the launch raises, nothing is
     written or counted, and the next aligned launch is right."""
     probe = next(p for p in probes.PROBES if p.name == name)
@@ -1396,15 +1425,31 @@ def test_rowgather_kernel_raises_on_a_misaligned_table(card):
     assert torch.equal(outs[0].view(torch.int32), probe.compute(table8, idx).view(torch.int32))
 
 
-LIBRARY_PROBES = [p for p in probes.PROBES if p.library is not None]
+LIBRARY_CASES = [(tag, p, params) for tag, p, params in probes.cases() if p.library is not None]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("probe", LIBRARY_PROBES, ids=[p.name for p in LIBRARY_PROBES])
-def test_probe_library_calls_match_plain(card, probe):
+@pytest.mark.parametrize("tag,probe,params", LIBRARY_CASES, ids=[c[0] for c in LIBRARY_CASES])
+def test_probe_library_calls_match_plain(card, tag, probe, params):
     """The PyTorch call each probe's kernel is timed against computes the
-    same function on the card, bit for bit."""
-    assert probe.library_agrees(probe.inputs(card))
+    same function on the card, bit for bit (smem_input's at each of its
+    table sizes: the call reads global memory, which no opt-in limits)."""
+    assert probe.library_agrees(probe.inputs(card, *params))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,length", [("vmem_dyn_sublane_static_lane", 16),
+                                         ("dyn_row_vector_read", 8)])
+def test_embedding_bag_matches_plain_on_seeded_sets(card, name, length):
+    """The embedding_bag call that vmem_dyn_sublane_static_lane and
+    dyn_row_vector_read are timed against, bit-equal to their plain versions
+    on the card at each of 128 seeded index sets of the seeded table (the
+    first read -0.0): the call starts each bag from 0 and adds in index
+    order, in float32."""
+    probe = next(p for p in probes.PROBES if p.name == name)
+    tab = probes.mosaic.seeded_tab(card)
+    for k, idx in enumerate(probes.mosaic.seeded_index_sets(length, device=card)):
+        assert probe.library_agrees((tab, idx.contiguous())), k
 
 
 @pytest.mark.cuda

@@ -257,14 +257,105 @@ def test_direct_probes_take_no_shared_memory_and_raise_on_misalignment(name):
             probe.check(rc, ins, limit)
 
 
-LIBRARY_PROBES = [p for p in probes.PROBES if p.library is not None]
+LIBRARY_CASES = [(tag, p, params) for tag, p, params in probes.cases() if p.library is not None]
 
 
-@pytest.mark.parametrize("probe", LIBRARY_PROBES, ids=[p.name for p in LIBRARY_PROBES])
-def test_library_call_matches_plain(probe):
+@pytest.mark.parametrize("tag,probe,params", LIBRARY_CASES, ids=[c[0] for c in LIBRARY_CASES])
+def test_library_call_matches_plain(tag, probe, params):
     """The one PyTorch call each probe is timed against computes the same
-    function, bit for bit (here on the CPU; on the card in chip_smoke.py)."""
-    assert probe.library_agrees(probe.inputs(torch.device("cpu")))
+    function, bit for bit (here on the CPU; on the card in chip_smoke.py),
+    smem_input's at each of its table sizes."""
+    assert probe.library_agrees(probe.inputs(torch.device("cpu"), *params))
+
+
+# The four probes that sum reads in order, and the reads of each bag.
+BAG_PROBES = {"vmem_dyn_sublane_static_lane": 16, "smem_input": 64,
+              "vmem_scalar_dynamic_read": 4, "dyn_row_vector_read": 8}
+
+
+@pytest.mark.parametrize("name", list(BAG_PROBES))
+def test_in_order_sums_are_timed_against_one_embedding_bag(monkeypatch, name):
+    """The four probes that sum reads in order are timed against exactly one
+    embedding_bag(mode="sum") call, made over one bag of their reads."""
+    probe = next(p for p in probes.PROBES if p.name == name)
+    ins = probe.inputs("cpu", *([probes.SMEM_ROWS[0]] if probe is mosaic.smem_input else []))
+    bag = torch.nn.functional.embedding_bag
+    seen = []
+
+    def counted(index, weight, offsets, **kw):
+        seen.append((tuple(index.shape), tuple(offsets.tolist()), kw.get("mode")))
+        return bag(index, weight, offsets, **kw)
+
+    call = probe.library(ins)
+    monkeypatch.setattr(torch.nn.functional, "embedding_bag", counted)
+    assert torch.equal(call(), probe.compute(*ins))
+    assert seen == [((BAG_PROBES[name],), (0,), "sum")]
+
+
+# The in-order sums of 8a (16 elements of column 5) and 8t (8 rows), each on
+# seeded_tab at its seeded index sets.
+IN_ORDER = {"vmem_dyn_sublane_static_lane": 16, "dyn_row_vector_read": 8}
+
+
+def _numpy_in_order(t: np.ndarray, idx: np.ndarray, name: str) -> np.ndarray:
+    """The probe's sum in numpy, from float32 zeros, one read at a time in
+    index order: (1, 1) for column 5, (1, 128) for whole rows."""
+    acc = np.zeros((1, 1) if name == "vmem_dyn_sublane_static_lane" else (1, 128), np.float32)
+    for i in idx.reshape(-1):
+        acc = acc + (t[i, 5] if name == "vmem_dyn_sublane_static_lane" else t[i])
+    return acc
+
+
+def test_seeded_tab_and_index_sets():
+    """The seeded table has full mantissas, both signs and -0.0 where each
+    index set first reads; the sets repeat an index, reach rows 0 and 63,
+    and their sums depend on the order of the adds."""
+    t = mosaic.seeded_tab().numpy()
+    assert t.shape == (64, 128) and (t < 0).any() and (t > 0).any()
+    assert (t.view(np.int32) & 0xFFFF != 0).mean() > 0.7  # low mantissa bits in use
+    z = t[mosaic.NEG_ZERO_ROW]
+    assert np.signbit(z[5]) and z[5] == 0 and 16 < (np.signbit(z) & (z == 0)).sum() < 64
+    for name, length in IN_ORDER.items():
+        sets = mosaic.seeded_index_sets(length).numpy()
+        assert sets.shape == (128, 1, length) and sets.dtype == np.int32
+        assert (sets[:, 0, 0] == mosaic.NEG_ZERO_ROW).all()
+        assert (sets[:, 0, -1] == sets[:, 0, 1]).all()
+        assert {0, 63} <= set(sets[1, 0].tolist())
+        backwards = [_numpy_in_order(t, s[0, ::-1], name) for s in sets]
+        forwards = [_numpy_in_order(t, s, name) for s in sets]
+        assert any((b.view(np.int32) != f.view(np.int32)).any()
+                   for b, f in zip(backwards, forwards))
+
+
+@pytest.mark.parametrize("name", list(IN_ORDER))
+def test_in_order_plain_version_is_numpy_sum_on_seeded_sets(name):
+    """The plain versions the vmem_dyn_sublane_static_lane and
+    dyn_row_vector_read kernels are held against on the card, bit for bit
+    against numpy's in-order float32 sum from zeros, at each of 128 seeded
+    index sets of the seeded table: +0.0 where set 0 reads -0.0 alone."""
+    probe = next(p for p in probes.PROBES if p.name == name)
+    tab = mosaic.seeded_tab()
+    t = tab.numpy()
+    for k, idx in enumerate(mosaic.seeded_index_sets(IN_ORDER[name])):
+        got = probe.compute(tab, idx)
+        assert got.dtype == torch.float32 and tuple(got.shape) == probe.out_shape
+        want = _numpy_in_order(t, idx.numpy(), name)
+        np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+        if k == 0:
+            zeros = got.numpy()[got.numpy() == 0]
+            assert zeros.size and not np.signbit(zeros).any()
+
+
+@pytest.mark.parametrize("name", list(IN_ORDER))
+def test_embedding_bag_matches_plain_on_seeded_sets(name):
+    """The embedding_bag call of vmem_dyn_sublane_static_lane (the table's
+    flat view at 128 idx + 5) and of dyn_row_vector_read (the table's rows
+    at idx) bit-equal to the plain version at each of 128 seeded index sets
+    of the seeded table."""
+    probe = next(p for p in probes.PROBES if p.name == name)
+    tab = mosaic.seeded_tab()
+    for idx in mosaic.seeded_index_sets(IN_ORDER[name]):
+        assert probe.library_agrees((tab, idx))
 
 
 def test_entry_point_on_the_cpu(capsys):
