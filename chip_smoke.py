@@ -114,6 +114,10 @@ Phases, in order; any failure exits non-zero:
      empty kernel's launch (and, for onehot_matmul_gather, an empty kernel
      of its grid and clusters, without and with a cluster barrier); the
      probes whose median exceeds their call's, by factor;
+     vmem_scalar_dynamic_read at 128 seeded index sets and
+     while_walk_smem on seeded link tables bit-equal to their plain
+     versions, while_walk_smem NaN on cyclic tables, its time over the
+     empty launch a round of lookups beside its add chain's floor;
  21. the captured forward stage loop against the host loop on new-cbox,
      welcome-geo and terrain-1m at full chunks: a fresh ChunkRenderer's
      eager first chunk and its first graph replay against the host loop
@@ -173,7 +177,7 @@ Phases, in order; any failure exits non-zero:
      under hybrid, none under the isect ones), no plain walk and no other
      kernel; the loss, film and every gradient bit-equal across the four,
      and within TRAIN_PLAIN_RTOL of phase 25's default dispatch (the
-     hybrid); each policy's step ms (3 steps, the policies in turns),
+     hybrid); each policy's step ms (2 steps, the policies in turns),
      device busy ms and idle share, peak memory, device launches a step;
      terrain-1m at 64x64 x 1 spp under full and isect (kernel 7 the walk:
      160 launches forward, 160 and 0 backward, the gradients bit-equal);
@@ -197,7 +201,7 @@ Phases, in order; any failure exits non-zero:
      (kernel 3 its walk, loss and gradients finite); kernel 4 on
      welcome-geo built at K = 8, 16, 64 (LLR_TREELET_K) and 128
      (LLR_WIDE_MIN_TRIS) against the plain step at 2,072,576 lanes,
-     bounces 0, 3, 7, 70, and on one chunk's stage widths, timed beside
+     bounces 0 and 70, and on one chunk's stage widths, timed beside
      its bounds; the CLI under LLR_FUSED=0, LLR_FUSED_BVH=0 (welcome-geo
      and new-cbox), LLR_PALLAS=0 and LLR_REORDER=1, each with its launch
      counts and plain-step and sort-key calls; then one `{"kernels":
@@ -210,6 +214,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -2152,7 +2157,7 @@ def capability_probes(card, lap):
     Returns (report, the 23 kernels' entries)."""
     from lumillyrender_tpu_torch import probes
     from lumillyrender_tpu_torch.ops import cuda_build
-    from lumillyrender_tpu_torch.probes import pallas
+    from lumillyrender_tpu_torch.probes import mosaic, pallas
     from lumillyrender_tpu_torch.probes.__main__ import main as probes_main
 
     dev = torch.device("cuda")
@@ -2295,6 +2300,30 @@ def capability_probes(card, lap):
               f"{ms:.6f} ms [{ms_range[0]:.6f}, {ms_range[1]:.6f}], bound {r['bound_ms']:.3e} "
               f"ms (bytes), add chain's floor {r['chain_floor_ms']:.6f} ms ({WALK_ADD_CLOCKS} "
               f"clocks a step at {clk / 1e6:.0f} MHz)  [{card}]")
+    # vmem_scalar_dynamic_read at 128 seeded index sets of a seeded table8
+    # (-0.0 read first), while_walk_smem on each seeded link table with
+    # seeded rays: bit-equal to their plain versions; NaN on a cyclic table.
+    sum4 = pallas.vmem_scalar_dynamic_read
+    tab8, outs = pallas.sum4_table8(dev), sum4.outputs(dev)
+    for k, idx in enumerate(pallas.sum4_sets(device=dev)):
+        sum4.launch((tab8, idx), outs)
+        if not torch.equal(outs[0].view(torch.int32), sum4.compute(tab8, idx).view(torch.int32)):
+            fail(f"vmem_scalar_dynamic_read differs from its plain version at seeded set {k}")
+    link = mosaic.while_walk_smem
+    for table in mosaic.LINK_TABLES + mosaic.CYCLIC_TABLES:
+        ins, outs = link.inputs(dev, table), link.outputs(dev)
+        link.launch(ins, outs)
+        torch.cuda.synchronize()
+        if table in mosaic.CYCLIC_TABLES:
+            ok = bool(torch.isnan(outs[0]).all())
+        else:
+            ok = torch.equal(outs[0].view(torch.int32), link.compute(*ins).view(torch.int32))
+        if not ok:
+            fail(f"while_walk_smem on the {table} link table: "
+                 + ("not NaN" if table in mosaic.CYCLIC_TABLES else "differs from plain"))
+    print(f"vmem_scalar_dynamic_read: bit-equal at 128 seeded index sets; while_walk_smem: "
+          f"bit-equal on the {', '.join(mosaic.LINK_TABLES)} link tables, NaN on the "
+          f"{', '.join(mosaic.CYCLIC_TABLES)} ones")
     onehot_ms = timed["onehot_matmul_gather"]["ms"]
     print(f"onehot_matmul_gather's {onehot_ms:.6f} ms: the launch of its grid and clusters "
           f"{cluster_ms[0]:.6f} ms, one cluster barrier {sync_ms[0] - cluster_ms[0]:.6f} ms more, "
@@ -2302,7 +2331,15 @@ def capability_probes(card, lap):
           f"barrier, the combine) {onehot_ms - sync_ms[0]:.6f} ms")
     steps = walks["arange"]["steps"]
     walk_ms = timed["packet_walk_core"]["ms"]
+    # while_walk_smem on the tool's 100 links: rounds of dependent lookups
+    # (pointer doubling up to J_5 = succ^32, ceil(log2 n) rounds but at most
+    # 5, then one round for each further 32 cursors), then 99 dependent adds
+    # an element in walk order.
     links_ms = timed["while_walk_smem"]["ms"]
+    link_ins = mosaic.while_walk_smem.inputs(dev)
+    nodes = link_ins[0].shape[0]
+    link_rounds = min(math.ceil(math.log2(nodes)), 5) + (nodes - 1) // 32
+    link_adds = len(mosaic.walk_cursors(link_ins[0]))
     answers = dict(
         empty_ms=floor_ms, empty_ms_range=floor_range, smem_optin_bytes=limit, leaf_bytes=LEAF_BYTES,
         onehot_geometry=geometry, empty_cluster_ms=cluster_ms[0],
@@ -2311,14 +2348,20 @@ def capability_probes(card, lap):
         leaves_per_block=limit // LEAF_BYTES, walk_steps=steps, walk_tables=walks,
         slower_than_call=slower, walk_step_us=walk_ms / steps * 1e3,
         walk_step_over_floor_us=(walk_ms - floor_ms) / steps * 1e3,
-        smem_link_step_over_floor_us=(links_ms - floor_ms) / 100 * 1e3)
+        link_rounds=link_rounds, link_adds=link_adds,
+        link_over_floor_per_round_us=(links_ms - floor_ms) / link_rounds * 1e3,
+        link_add_chain_floor_ms=link_adds * WALK_ADD_CLOCKS / clk * 1e3)
     print(f"for the BVH kernels: a block's {limit} B of opt-in shared memory hold "
           f"{answers['leaves_per_block']} leaves of 128 triangles ({LEAF_BYTES} B each); "
           f"one step of the packet walk (the table streamed, votes taken ahead; "
           f"{steps} steps) {answers['walk_step_us']:.4f} us "
-          f"({answers['walk_step_over_floor_us']:.4f} us over the empty launch); "
-          f"one dependent link read from shared memory (100 steps) "
-          f"{answers['smem_link_step_over_floor_us']:.4f} us over the empty launch")
+          f"({answers['walk_step_over_floor_us']:.4f} us over the empty launch)")
+    print(f"while_walk_smem (the {nodes}-link chain by {link_rounds} rounds of lookups, pointer "
+          f"doubling, then {link_adds} adds an element in walk order): {links_ms:.6f} ms, "
+          f"{answers['link_over_floor_per_round_us']:.4f} us a round (its whole time over the "
+          f"empty launch, the links' load, the adds and the stores included, over the rounds); its "
+          f"add chain's floor {answers['link_add_chain_floor_ms']:.6f} ms ({WALK_ADD_CLOCKS} "
+          f"clocks an add at {clk / 1e6:.0f} MHz)  [{card}]")
     lap("capability probes", t0)
     kernels = [
         dict(name=f"probe_{p.name}", route="cuda",
@@ -2895,7 +2938,7 @@ def diff_scenes(card, lap, cbox, geo, ibl, terrain_1m):
 # ---------------------------------------------------------------------------
 
 REMAT_POLICIES = ("full", "hybrid", "isect", "isect+samp")
-REMAT_STEPS = 3  # timed steps a policy, after its counted film_and_grads
+REMAT_STEPS = 2  # timed steps a policy, after its counted film_and_grads
 
 
 class Phases:
@@ -3465,10 +3508,13 @@ def leaf_width_scene(geo, k):
 
 def leaf_widths(card, geo, geo_chunk) -> dict:
     """Kernel 4 on welcome-geo at K = 8, 16, 64 and 128 against the plain
-    step on random states at the chunk's full width, bounces 0, 3, 7, 70
-    (the plain step once a bounce, on the compiled K=32 BVH: its nearest
-    hit does not depend on the leaf width, but for exact-t ties between
-    triangles, which parity.py counts), then one chunk traced with the
+    step on random states at the chunk's full width, bounces 0 and 70 (the
+    leaf width changes the walk, not a bounce's flags and roulette, which
+    phase 8 checks at bounces 0, 3, 7, 70 at K=32; the random rays are
+    alike at every bounce; the plain step once a bounce, on the compiled
+    K=32 BVH: its nearest hit does not depend on the leaf width, but for
+    exact-t ties between triangles, which parity.py counts), then one
+    chunk traced with the
     kernel at each K, checked against the plain step at that K and timed at
     each stage width (time_bvh_bounce); kernel 3 on a chunk's camera rays
     and the captured forward chunk at each K and at K=32."""
@@ -3490,7 +3536,7 @@ def leaf_widths(card, geo, geo_chunk) -> dict:
             fail(f"welcome-geo was built at K={scenes[k].data.bvh.blk_p0.shape[1]}, not {k}")
     if rep[128]["route"] != ["wide", False]:
         fail(f"welcome-geo at K=128 is not admitted as wide: {rep[128]['route']}")
-    for b in (0, 3, 7, 70):
+    for b in (0, 70):
         state = random_state(geo.data, n, 5000 * b + 27, b)
         want = wavefront.plain_bounce_step(geo.data, geo.settings, SEED, state)
         for k, c in scenes.items():

@@ -10,19 +10,19 @@
 //   uniformly by the whole tile) is read block-uniformly: one thread reads
 //   it, or every thread reads the same address (one broadcast load), or a
 //   warp's lanes read its few words in one load and share them by
-//   shuffles (8a, 8t);
+//   shuffles (8a, 8h, 8t); a table of links that the probe follows from
+//   node to node (8d) is held in shared memory by one warp, which finds
+//   the walk by pointer doubling rather than link by link;
 // * a VMEM table that the kernel reads at a few places is read straight
 //   from global memory, where it stays in the 50 MB L2, with read-only
 //   loads (__ldg, ld.global.nc) of what the function needs: no shared
-//   memory, no barrier (8a, 8b, 8g, 8i, 8p, 8t). Only a table that the
+//   memory, no barrier (8a, 8b, 8g, 8h, 8i, 8p, 8t). Only a table that the
 //   kernel reads wholly or repeatedly is staged into shared memory by the
 //   block (above 48 KB as opted-in dynamic shared memory): a round of
 //   4-byte loads and stores per thread, then __syncthreads, costs more than
-//   a few L2 round trips. 8h still stages a table it reads at a few places;
-//   it is to be redesigned as the others were (ROADMAP.md, queue 2). 8c
-//   stages its table on purpose: the probe asks how large a table fits. 8n,
-//   which reads its whole table, streams it through a ring in shared
-//   memory with TMA bulk copies;
+//   a few L2 round trips. 8c stages its table on purpose: the probe asks
+//   how large a table fits. 8n, which reads its whole table, streams it
+//   through a ring in shared memory with TMA bulk copies;
 // * `table` (2048 x 128 float32, 1 MiB) is read from global memory, where
 //   it stays in the 50 MB L2; an input read once at a fixed place goes
 //   straight to registers.
@@ -170,38 +170,148 @@ PROBE_ENTRY(smem_input) {
   return (int)cudaGetLastError();
 }
 
-// 8d. probe_while_walk_smem (tools/probe_mosaic.py:89): a cursor follows
-// links (n,1) from 0 until -1, and every element of out = rays gains the
-// cursor whenever its successor is >= 0. links SMEM -> shared memory, read
-// block-uniformly (one broadcast load per step); rays (8,128) VMEM ->
-// registers, one column of 8 per thread. Bound: bytes (rays in, out, the
-// links walked).
-extern "C" __global__ void probe_while_walk_smem(const int32_t* __restrict__ links, int n,
-                                                 const float* __restrict__ rays,
-                                                 float* __restrict__ out) {
-  extern __shared__ int32_t s_links[];
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s_links[i] = links[i];
-  __syncthreads();
-  const int j = threadIdx.x;
-  float acc[kS];
+// 8d. probe_while_walk_smem (tools/probe_mosaic.py:89): out = rays (8,128);
+// a cursor follows links (n,1) from 0 until it is negative, and at each
+// step every element gains the cursor where the cursor's successor is >= 0,
+// the adds in walk order.
+//
+// Walked link by link, the function is a serial chain: one dependent read,
+// a compare and a branch a step (99 on the tool's chain). This kernel
+// takes the walk off that chain. A walk that ends visits each node at most
+// once, so it is at most n steps long, and its cursors p_d = succ^d(0)
+// come from pointer doubling. With J_0 = links and J_{k+1}[i] = J_k[i] < 0
+// ? -1 : J_k[J_k[i]] (succ^(2^k), -1 past a walk's end):
+// * rounds h = 2^k = 1, 2, 4, 8, 16 extend the cursors known, p_0 ..
+//   p_{h-1}, to p_{2h-1}: lane d < h looks up p_{d+h} = J_k[p_d] and a
+//   shuffle hands it to lane d + h, while every lane squares J_k at its
+//   four nodes into J_{k+1};
+// * then p_{d+32} = J_5[p_d]: lane d holds p_d, p_{d+32}, p_{d+64},
+//   p_{d+96}, three dependent lookups in the lane. 8 rounds of lookups in
+//   all at n = 100 (7 of doubling would need J_6 as well).
+// A cursor once negative stays so: the walk's length L is the count of p_d
+// >= 0, d < n, and step d adds p_d where p_{d+1} >= 0, so the adds are p_0
+// .. p_{L-2}. Then each element adds those cursors in walk order, one
+// dependent float add a step, independent across elements.
+// * One warp a block holds J_k in shared memory, rows by turns, a
+//   __syncwarp a round: a lookup at a node that differs from lane to lane
+//   is one shared-memory load (~30 clocks), where from registers (four
+//   nodes a lane) it would be four shuffles (~32 clocks each) and a
+//   select. Each round issues all its loads before its stores: the
+//   compiler cannot tell the rows apart, and a store between two loads
+//   would put a load's latency on the chain four times a round.
+// * 16 blocks of one warp, two elements a lane: a step is two adds and a
+//   quarter of a 16-byte broadcast load from shared memory, under the
+//   clocks of the add chain (~4.3 a step). Each block doubles for itself
+//   on the links it reads from L2 (400 bytes); no block waits on another.
+// A table whose walk from 0 has not ended after n steps has a cycle; a link
+// past the table (>= n) is taken as a link to itself, a cycle too. On such
+// a table the JAX probe and the plain version never return (or fail on the
+// index); this kernel returns no plausible sum: it writes NaN to every
+// element. n must lie in [1, 128]: the entry returns cudaErrorInvalidValue
+// without a launch otherwise. Bound: bytes (rays in, out, the links
+// walked); chip_smoke.py prints the add chain's floor beside it (one
+// dependent add a step, 4 clocks).
+constexpr int kLinkMax = 128;       // nodes a table may hold: four a lane
+constexpr int kLinkElems = 2 * 32;  // elements a block: two a lane
+constexpr int kLinkBlocks = kS * kL / kLinkElems;
+
+extern "C" __global__ void __launch_bounds__(32)
+    probe_while_walk_smem(const int32_t* __restrict__ links, int n,
+                          const float* __restrict__ rays, float* __restrict__ out) {
+  // J_0 (the links, kept for the cycle test), then J_k in rows 1 and 2 by
+  // turns.
+  __shared__ int32_t s_jump[3][kLinkMax];
+  __shared__ __align__(16) float s_add[kLinkMax];  // the cursors added, then +0.0
+  const int lane = threadIdx.x & 31;
+  const int e = blockIdx.x * kLinkElems + lane;
+  float acc0 = rays[e], acc1 = rays[e + 32];  // loaded now, added to last
+  int jump[4];  // J_k at this lane's nodes lane + 32 u
 #pragma unroll
-  for (int s = 0; s < kS; ++s) acc[s] = rays[s * kL + j];
-  int cur = 0;
-  while (cur >= 0) {
-    const int nxt = s_links[cur];
-    if (nxt >= 0) {
-#pragma unroll
-      for (int s = 0; s < kS; ++s) acc[s] = acc[s] + (float)cur;
-    }
-    cur = nxt;
+  for (int u = 0; u < 4; ++u) {
+    const int i = lane + 32 * u;
+    int l = i < n ? __ldg(&links[i]) : -1;
+    if (l >= n) l = i;
+    jump[u] = l;
+    s_jump[0][i] = l;
   }
+  __syncwarp();
+  // p[u] = p_{lane + 32 u}. Rounds h = 1 .. 16: lane d < h looks up
+  // p_{d+h}, a shuffle moves it to lane d + h; each round's loads come
+  // before its stores (the compiler cannot tell the rows apart).
+  int p[4] = {lane == 0 ? 0 : -1, -1, -1, -1};
+  int row = 0;  // the row of J_k
 #pragma unroll
-  for (int s = 0; s < kS; ++s) out[s * kL + j] = acc[s];
+  for (int k = 0; k < 5; ++k) {
+    const int h = 1 << k;
+    if (h >= n) break;
+    const int ext = lane < h && p[0] >= 0 ? s_jump[row][p[0]] : -1;
+    int sq[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) sq[u] = jump[u] < 0 ? -1 : s_jump[row][jump[u]];
+    const int next = row == 1 ? 2 : 1;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) s_jump[next][lane + 32 * u] = jump[u] = sq[u];
+    row = next;
+    const int moved = __shfl_sync(0xffffffffu, ext, (lane - h) & 31);
+    if (lane >= h && lane < 2 * h) p[0] = moved;
+    __syncwarp();
+  }
+  // p_0 .. p_31 known and J_5 = succ^32 in `row`: p_{d+32} = J_5[p_d] in the
+  // same lane.
+#pragma unroll
+  for (int u = 1; u < 4; ++u) {
+    if (32 * u < n) p[u] = p[u - 1] < 0 ? -1 : s_jump[row][p[u - 1]];
+  }
+  int len = 0;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    len += __popc(__ballot_sync(0xffffffffu, lane + 32 * u < n && p[u] >= 0));
+  }
+  const int adds = len - 1;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    s_add[lane + 32 * u] = lane + 32 * u < adds ? (float)p[u] : 0.0f;
+  }
+  __syncwarp();
+  // The adds in groups of 16, the next group's four 16-byte loads issued
+  // before this group's adds; the last group's tail adds +0.0, which leaves
+  // every sum as it is: x + 0 is x but for x = -0.0, and no sum is -0.0
+  // after the first add, of cursor 0 itself (a sum is -0.0 only where both
+  // terms are). A walk that adds nothing adds no group.
+  const float4* s_add4 = reinterpret_cast<const float4*>(s_add);
+  float4 c[4], nc[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] = s_add4[i];
+  for (int g = 0; g < (adds + 15) / 16; ++g) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) nc[i] = s_add4[(4 * g + 4 + i) % (kLinkMax / 4)];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc0 = acc0 + c[i].x;
+      acc1 = acc1 + c[i].x;
+      acc0 = acc0 + c[i].y;
+      acc1 = acc1 + c[i].y;
+      acc0 = acc0 + c[i].z;
+      acc1 = acc1 + c[i].z;
+      acc0 = acc0 + c[i].w;
+      acc1 = acc1 + c[i].w;
+      c[i] = nc[i];
+    }
+  }
+  // The walk ended iff its last cursor p_{len-1} links to a negative; where
+  // len < n that holds, as p_len < 0.
+  const int last = n - 1;
+  const int held = last < 32 ? p[0] : last < 64 ? p[1] : last < 96 ? p[2] : p[3];
+  const int tail = __shfl_sync(0xffffffffu, held, last & 31);
+  if (len == n && s_jump[0][tail] >= 0) acc0 = acc1 = __int_as_float(0x7fffffff);
+  out[e] = acc0;
+  out[e + 32] = acc1;
 }
 
 PROBE_ENTRY(while_walk_smem) {
-  probe_while_walk_smem<<<1, kL, n * (int)sizeof(int32_t), STREAM>>>(
-      (const int32_t*)a, n, (const float*)b, (float*)out);
+  if (n < 1 || n > kLinkMax) return (int)cudaErrorInvalidValue;
+  probe_while_walk_smem<<<kLinkBlocks, 32, 0, STREAM>>>((const int32_t*)a, n,
+                                                        (const float*)b, (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -273,28 +383,29 @@ PROBE_ENTRY(take_rowgather) {
 }
 
 // 8h. vmem scalar dynamic read (tools/pallas_probe.py:83): the sum over
-// j < 4 of table8[idx[0, j], 0]. table8 VMEM -> shared memory (64 KiB,
-// opted in); idx (1,128) SMEM -> thread 0. Bound: bytes (4 reads, 4 indices,
-// one output).
+// j < 4 of table8[idx[0, j], 0], in order. table8 (2048,8) VMEM and idx
+// (1,128) SMEM are read by one warp straight from global memory (L2):
+// lanes 0-3 load idx[0, 0..3] (one coalesced load), then each its element
+// table8[idx[0, lane], 0], read-only loads (__ldg): 4 independent loads in
+// two dependent L2 round trips, as 8a makes for 16. Shuffles hand the 4
+// values to every lane, which adds them in index order from 0.0f (the
+// plain version starts from zeros: 0 + -0 is +0); lane 0 writes out[0].
+// Only the 4 elements are read; nothing is staged, no shared memory, no
+// barrier. Bound: bytes (4 reads, 4 indices, one output).
 extern "C" __global__ void probe_vmem_scalar_dynamic_read(const float* __restrict__ table8,
                                                           const int32_t* __restrict__ idx,
                                                           float* __restrict__ out) {
-  extern __shared__ float s_t8[];
-  stage(s_t8, table8, kM * 8);
-  if (threadIdx.x == 0) {
-    float acc = 0.0f;
-    for (int j = 0; j < 4; ++j) acc += s_t8[idx[j] * 8];
-    out[0] = acc;
-  }
+  const int lane = threadIdx.x;
+  const float v = lane < 4 ? __ldg(&table8[__ldg(&idx[lane]) * 8]) : 0.0f;
+  float acc = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc = acc + __shfl_sync(0xffffffffu, v, j);
+  if (lane == 0) out[0] = acc;
 }
 
 PROBE_ENTRY(vmem_scalar_dynamic_read) {
-  static int opted[kMaxDevices] = {};
-  const int bytes = kM * 8 * (int)sizeof(float);
-  const cudaError_t err = opt_in(probe_vmem_scalar_dynamic_read, bytes, opted);
-  if (err != cudaSuccess) return (int)err;
-  probe_vmem_scalar_dynamic_read<<<1, 1024, bytes, STREAM>>>(
-      (const float*)a, (const int32_t*)b, (float*)out);
+  probe_vmem_scalar_dynamic_read<<<1, 32, 0, STREAM>>>((const float*)a, (const int32_t*)b,
+                                                       (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -975,6 +1086,7 @@ extern "C" int llr_probe_smem_limit(int* bytes, int device) {
 PROBE_STATIC_SMEM(vmem_dyn_sublane_static_lane)
 PROBE_STATIC_SMEM(vmem_dyn_lane)
 PROBE_STATIC_SMEM(take_rowgather)
+PROBE_STATIC_SMEM(vmem_scalar_dynamic_read)
 PROBE_STATIC_SMEM(ref_ds_row_read)
 PROBE_STATIC_SMEM(scalar_broadcast)
 PROBE_STATIC_SMEM(dyn_row_vector_read)

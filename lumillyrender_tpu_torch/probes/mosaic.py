@@ -4,7 +4,9 @@ link-following walk.
 
 Each probe `<name>(device)` launches its kernel (csrc/probes.cu) on a CUDA
 device and runs `plain_<name>(device)` on the CPU; inputs are built as the
-tool builds them. `smem_input` takes the table's row count as well.
+tool builds them. `smem_input` takes the table's row count as well, and
+`while_walk_smem` may take the name of a seeded link table (LINK_TABLES,
+CYCLIC_TABLES), walked over seeded rays.
 """
 
 from __future__ import annotations
@@ -127,13 +129,61 @@ smem_input = Probe(
 plain_smem_input = smem_input.plain
 
 
-def _walk_inputs(device):
+# Seeded link tables of the tool's size (n = 100) for while_walk_smem, by
+# name: the tool's chain; a seeded permutation that visits every node; a
+# walk that ends after 40 nodes, a cycle among the nodes it leaves
+# unvisited; 0 -> -1 at once; a walk that ends on a link of -5.
+LINK_TABLES = ("chain", "permutation", "short", "at_once", "minus5")
+# Tables whose walk from 0 never ends: one that loops back into its own
+# path, and one whose path reaches a link past the table (the kernel takes
+# it as a link to itself). The plain version never returns on the first
+# and fails on the index of the second; the kernel writes NaN.
+CYCLIC_TABLES = ("cycle", "past")
+LINK_NODES = 100
+
+
+def link_table(device="cpu", name: str = "chain") -> torch.Tensor:
+    """A (100, 1) int32 link table of LINK_TABLES or CYCLIC_TABLES."""
+    n = LINK_NODES
+    g = np.random.default_rng(19 + (LINK_TABLES + CYCLIC_TABLES).index(name))
+    links = g.integers(0, n, n).astype(np.int32)  # where no walk from 0 goes
+    rest = 1 + g.permutation(n - 1)
+    if name == "chain":
+        links = np.append(np.arange(1, n), -1).astype(np.int32)
+    elif name == "at_once":
+        links[0] = -1
+    else:
+        visits = {"permutation": n - 1, "short": 39, "minus5": 69, "cycle": 29, "past": 49}[name]
+        path = np.concatenate([[0], rest[:visits]])
+        links[path[:-1]] = path[1:]
+        links[path[-1]] = {"permutation": -1, "short": -1, "minus5": -5, "cycle": path[10],
+                           "past": n}[name]
+        if name == "short":  # the unvisited nodes, one cycle
+            left = rest[visits:]
+            links[left] = np.roll(left, -1)
+    return torch.from_numpy(links.reshape(n, 1)).to(device)
+
+
+def seeded_rays(device="cpu") -> torch.Tensor:
+    """(8, 128) float32 seeded normal values (both signs, full mantissas) in
+    place of the tool's ones, with -0.0 at a seeded eighth of the elements:
+    the first add (cursor 0) makes those +0.0, and every later add rounds,
+    so the order of the adds shows in the result."""
+    g = np.random.default_rng(27)
+    r = g.standard_normal((8, 128)).astype(np.float32)
+    r[g.random((8, 128)) < 0.125] = -0.0
+    return torch.from_numpy(r).to(device)
+
+
+def _walk_inputs(device, table=None):
+    if table is not None:
+        return link_table(device, table), seeded_rays(device)
     links = torch.cat([torch.arange(1, 100, dtype=I32, device=device),
                        torch.tensor([-1], dtype=I32, device=device)]).reshape(100, 1)
     return links, torch.ones((8, 128), dtype=F32, device=device)
 
 
-def _walk_cursors(links) -> list:
+def walk_cursors(links) -> list:
     """The cursors the walk adds (those whose successor is >= 0), in order;
     the links are scalar memory, read on the host."""
     nxt = links[:, 0].tolist()
@@ -147,13 +197,13 @@ def _walk_cursors(links) -> list:
 
 def _walk(links, rays):
     out = rays.clone()
-    for cur in _walk_cursors(links):
+    for cur in walk_cursors(links):
         out = out + cur
     return out
 
 
 def _walk_work(ins):
-    steps = len(_walk_cursors(ins[0]))
+    steps = len(walk_cursors(ins[0]))
     return (4 * (steps + 1) + 2 * ins[1].numel() * 4, steps * ins[1].numel())
 
 

@@ -140,9 +140,33 @@ vmem_scalar_dynamic_read = Probe(
     "vmem_scalar_dynamic_read", "vmem scalar dynamic read t_ref[i, 0]", f"{TOOL}:83",
     lambda device: (_table8(device), _idx(device).reshape(1, -1)[:, :L].contiguous()),
     _sum4, (1, 1), work=lambda ins: (4 * 4 + 4 * 4 + 4, 4),
-    library=lambda ins: bag_sum_call(ins[0].view(-1, 1), ins[1][0, :4].long() * 8),
-    smem=lambda ins: ins[0].numel() * 4)
+    library=lambda ins: bag_sum_call(ins[0].view(-1, 1), ins[1][0, :4].long() * 8))
 plain_vmem_scalar_dynamic_read = vmem_scalar_dynamic_read.plain
+
+# Row of sum4_table8 whose column 0 holds -0.0: the first row each of
+# sum4_sets reads.
+SUM4_FIRST_ROW = 1234
+
+
+def sum4_table8(device="cpu") -> torch.Tensor:
+    """seeded_table8 (seeded normal values: both signs, full mantissas) with
+    -0.0 at column 0 of row SUM4_FIRST_ROW; for the tests of
+    vmem_scalar_dynamic_read on the card and here."""
+    t = seeded_table8(device).clone()
+    t[SUM4_FIRST_ROW, 0] = -0.0
+    return t
+
+
+def sum4_sets(sets: int = 128, device="cpu") -> torch.Tensor:
+    """`sets` seeded (1, 4) int32 index sets into sum4_table8's rows, each
+    starting at SUM4_FIRST_ROW: set 0 reads that row alone (its sum is
+    0 + -0 + -0 + -0 + -0, +0.0), set 1 repeats row 0 and reaches the
+    table's last row."""
+    idx = np.random.default_rng(19).integers(0, M, (sets, 1, 4)).astype(np.int32)
+    idx[:, 0, 0] = SUM4_FIRST_ROW
+    idx[0] = SUM4_FIRST_ROW
+    idx[1, 0, 1:] = (0, M - 1, 0)
+    return torch.from_numpy(idx).to(device)
 
 # --- ref ds-row read: table8[i, :] broadcast to (S, 8) -------------------
 

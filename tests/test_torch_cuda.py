@@ -31,8 +31,9 @@ compared on its backward rules' lanes (`bwd_comparable`) within
 `parity.KERNEL_BWD_RTOL` (1e-5) of each cotangent's and table's largest
 magnitude, with the recomputed alive' equal to the forward kernel's on
 every lane and two runs bit-equal; the capability probes' kernels
-(csrc/probes.cu) every output bit-equal, the packet walk on seeded tables
-too; kernel 1's two instances for every camera kind in both pixel orders,
+(csrc/probes.cu) every output bit-equal, the packet walk, the link walk
+and the four-read sum on seeded tables too, the link walk NaN on cyclic
+tables; kernel 1's two instances for every camera kind in both pixel orders,
 d and g within 1e-6 where the film's dims are no powers of 2 (PyTorch on
 the card divides by a host scalar through its reciprocal); the forward stage loop captured
 as a CUDA graph, every stage-end state and the ray count bit-equal to a
@@ -1260,11 +1261,11 @@ def test_rowgather_kernel_matches_plain_on_seeded_rows(card):
 @pytest.mark.cuda
 def test_direct_probes_declare_no_shared_memory(card):
     """The probes of probes.DIRECT_PROBES (vmem_dyn_sublane_static_lane,
-    vmem_dyn_lane, take_rowgather, ref_ds_row_read, scalar_broadcast,
-    dyn_row_vector_read; the list chip_smoke.py's phase 20 checks) read
-    their table straight from L2: the loaded kernels report no static
-    shared memory."""
-    assert {"scalar_broadcast", "vmem_dyn_sublane_static_lane",
+    vmem_dyn_lane, take_rowgather, vmem_scalar_dynamic_read,
+    ref_ds_row_read, scalar_broadcast, dyn_row_vector_read; the list
+    chip_smoke.py's phase 20 checks) read their table straight from L2: the
+    loaded kernels report no static shared memory."""
+    assert {"scalar_broadcast", "vmem_dyn_sublane_static_lane", "vmem_scalar_dynamic_read",
             "dyn_row_vector_read"} <= set(probes.DIRECT_PROBES)
     assert {name: probes.static_smem(name) for name in probes.DIRECT_PROBES} \
         == dict.fromkeys(probes.DIRECT_PROBES, 0)
@@ -1292,6 +1293,83 @@ def test_in_order_sum_kernels_match_plain_on_seeded_sets(card, name, length):
         torch.cuda.synchronize()
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), k
     assert probe.launches == before + len(sets)
+
+
+@pytest.mark.cuda
+def test_sum4_kernel_matches_plain_on_seeded_sets(card):
+    """vmem_scalar_dynamic_read reads its 4 elements straight from L2 (one
+    warp, no shared memory) and adds them in index order from 0.0f:
+    bit-equal to its plain version at each of 128 seeded index sets of the
+    seeded table8 (a repeated index, rows 0 and 2047, -0.0 read first and
+    read alone); its kernel declares no static shared memory."""
+    probe = probes.pallas.vmem_scalar_dynamic_read
+    assert probe.name in probes.DIRECT_PROBES and probes.static_smem(probe.name) == 0
+    tab = probes.pallas.sum4_table8(card)
+    sets = probes.pallas.sum4_sets(device=card)
+    before = probe.launches
+    for k, idx in enumerate(sets):
+        ins = (tab, idx.contiguous())
+        got = probe.run(ins)
+        want = probe.compute(*ins)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), k
+    assert probe.launches == before + len(sets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", probes.mosaic.LINK_TABLES)
+def test_link_walk_kernel_matches_plain_on_seeded_tables(card, table):
+    """while_walk_smem's kernel (the walk's cursors by pointer doubling, then
+    the adds in walk order) bit-equal to its plain version on each seeded
+    link table with seeded rays: the tool's chain, a permutation of all 100
+    nodes, a 40-node walk beside a cycle, 0 -> -1 at once (out = rays) and
+    a walk ending on -5."""
+    probe = probes.mosaic.while_walk_smem
+    ins = probe.inputs(card, table)
+    before = probe.launches
+    got = probe.run(ins)
+    want = probe.compute(*ins)
+    torch.cuda.synchronize()
+    assert probe.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", probes.mosaic.CYCLIC_TABLES)
+def test_link_walk_kernel_writes_nan_on_a_cyclic_table(card, table):
+    """A table whose walk from 0 never ends (a cycle, or a link past the
+    table) has no sum: the kernel writes NaN to every element, where the
+    plain version would never return."""
+    probe = probes.mosaic.while_walk_smem
+    got = probe.run(probe.inputs(card, table))
+    torch.cuda.synchronize()
+    assert torch.isnan(got).all()
+
+
+@pytest.mark.cuda
+def test_link_walk_kernel_refuses_more_than_128_links(card):
+    """The kernel holds at most 128 links (four a lane of its warp): a
+    table of 129 is refused by the entry (cudaErrorInvalidValue), nothing
+    written or counted; 128 links in one chain are walked."""
+    probe = probes.mosaic.while_walk_smem
+    rays = probes.mosaic.seeded_rays(card)
+    for n in (128, 129):
+        links = torch.cat([torch.arange(1, n, dtype=torch.int32),
+                           torch.tensor([-1], dtype=torch.int32)]).reshape(n, 1).to(card)
+        outs = probe.outputs(card)
+        outs[0].fill_(float("nan"))
+        before = probe.launches
+        if n == 128:
+            probe.launch((links, rays), outs)
+            want = probe.compute(links, rays)
+            torch.cuda.synchronize()
+            assert torch.equal(outs[0].view(torch.int32), want.view(torch.int32))
+            assert probe.launches == before + 1
+        else:
+            with pytest.raises(RuntimeError, match="CUDA error 1"):
+                probe.launch((links, rays), outs)
+            torch.cuda.synchronize()
+            assert probe.launches == before and torch.isnan(outs[0]).all()
 
 
 @pytest.mark.cuda

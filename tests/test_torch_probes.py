@@ -358,6 +358,129 @@ def test_embedding_bag_matches_plain_on_seeded_sets(name):
         assert probe.library_agrees((tab, idx))
 
 
+def _numpy_sum4(t: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """vmem_scalar_dynamic_read in numpy, written from the tool's kernel
+    (tools/pallas_probe.py:83-99): from float32 0, t[idx[0, j], 0] for
+    j < 4 in turn."""
+    acc = np.float32(0.0)
+    for j in range(4):
+        acc = np.float32(acc + t[idx[0, j], 0])
+    return np.full((1, 1), acc, np.float32)
+
+
+def test_sum4_table_and_sets():
+    """The seeded table8 of vmem_scalar_dynamic_read has full mantissas,
+    both signs and -0.0 at column 0 of the row each set reads first; set 0
+    reads that row alone, set 1 repeats an index and reaches both ends;
+    another order of the adds gives other bits on some set."""
+    t = probes.pallas.sum4_table8().numpy()
+    assert t.shape == (2048, 8) and (t < 0).any() and (t > 0).any()
+    assert (t.view(np.int32) & 0xFFFF != 0).mean() > 0.99
+    first = probes.pallas.SUM4_FIRST_ROW
+    assert t[first, 0] == 0 and np.signbit(t[first, 0])
+    sets = probes.pallas.sum4_sets().numpy()
+    assert sets.shape == (128, 1, 4) and sets.dtype == np.int32
+    assert (sets[:, 0, 0] == first).all() and (sets[0] == first).all()
+    assert len(set(sets[1, 0].tolist())) < 4 and {0, 2047} <= set(sets[1, 0].tolist())
+    assert any((_numpy_sum4(t, s[:, ::-1]).view(np.int32) != _numpy_sum4(t, s).view(np.int32))
+               .any() for s in sets)
+
+
+def test_sum4_plain_version_is_numpy_sum_on_seeded_sets():
+    """The plain version the vmem_scalar_dynamic_read kernel is held against
+    on the card, bit for bit against the numpy sum at each of 128 seeded
+    index sets of the seeded table8, and its embedding_bag call with it:
+    +0.0 where set 0 reads -0.0 alone."""
+    probe = probes.pallas.vmem_scalar_dynamic_read
+    tab = probes.pallas.sum4_table8()
+    for k, idx in enumerate(probes.pallas.sum4_sets()):
+        got = probe.compute(tab, idx)
+        assert got.dtype == torch.float32 and tuple(got.shape) == (1, 1)
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      _numpy_sum4(tab.numpy(), idx.numpy()).view(np.int32))
+        assert probe.library_agrees((tab, idx))
+        if k == 0:
+            assert got.item() == 0 and not np.signbit(got.numpy()).any()
+
+
+def _numpy_link_walk(links: np.ndarray, rays: np.ndarray) -> tuple:
+    """while_walk_smem in numpy, written from the tool's kernel
+    (tools/probe_mosaic.py:89-119): out = rays; from cursor 0 until it is
+    negative, out + float32(cursor) where the successor is >= 0. Returns
+    the output and the cursors added, in order."""
+    out, cur, added = rays.copy(), 0, []
+    while cur >= 0:
+        nxt = int(links[cur, 0])
+        if nxt >= 0:
+            out = out + np.float32(cur)
+            added.append(cur)
+        cur = nxt
+    return out, added
+
+
+# Cursors each seeded table's walk adds: the tool's chain 0..98, every node
+# but the last of a permutation, 39 of a 40-node walk, none, 69 of 70.
+LINK_ADDS = {None: 99, "chain": 99, "permutation": 99, "short": 39, "at_once": 0,
+             "minus5": 69}
+
+
+@pytest.mark.parametrize("table", (None,) + mosaic.LINK_TABLES)
+def test_link_walk_plain_version_is_a_numpy_walk(table):
+    """The plain version the while_walk_smem kernel is held against on the
+    card, on the tool's inputs (None) and on each seeded link table with
+    seeded rays, bit for bit against a numpy walk."""
+    probe = mosaic.while_walk_smem
+    links, rays = probe.inputs("cpu", *(() if table is None else (table,)))
+    want, added = _numpy_link_walk(links.numpy(), rays.numpy())
+    got = probe.compute(links, rays)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (8, 128)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    assert len(added) == LINK_ADDS[table]
+    if table is not None and added:  # the first add (cursor 0) turns -0.0 into +0.0
+        r = rays.numpy()
+        assert (np.signbit(r) & (r == 0)).any() and not np.signbit(got.numpy()[r == 0]).any()
+
+
+def test_link_tables_walk_where_they_say():
+    """The seeded link tables: 100 links each; the permutation visits every
+    node; the short walk's unvisited nodes form one cycle; the minus5 walk
+    ends on -5; each cyclic table's walk from 0 never ends (or leaves the
+    table); and another order of the adds gives other bits on some
+    table."""
+    rays = mosaic.seeded_rays().numpy()
+    assert (rays < 0).any() and (rays > 0).any() and 64 < (np.signbit(rays) & (rays == 0)).sum()
+    assert (rays.view(np.int32) & 0xFFFF != 0).mean() > 0.8
+    differs = False
+    for table in mosaic.LINK_TABLES:
+        links = mosaic.link_table(name=table).numpy()
+        assert links.shape == (100, 1) and links.dtype == np.int32 and (links < 100).all()
+        want, added = _numpy_link_walk(links, rays)
+        backwards = rays.copy()
+        for cur in reversed(added):
+            backwards = backwards + np.float32(cur)
+        differs |= bool((backwards.view(np.int32) != want.view(np.int32)).any())
+        path = added + [int(links[added[-1], 0])] if added else [0]
+        if table == "permutation":
+            assert sorted(path) == list(range(100))
+        if table == "short":
+            left = sorted(set(range(100)) - set(path))
+            cur, seen = left[0], []
+            while cur not in seen:
+                seen.append(cur)
+                cur = int(links[cur, 0])
+            assert cur == left[0] and sorted(seen) == left
+        if table == "minus5":
+            assert links[path[-1], 0] == -5
+    assert differs
+    for table in mosaic.CYCLIC_TABLES:
+        links = mosaic.link_table(name=table)[:, 0].tolist()
+        cur, seen = 0, set()
+        while 0 <= cur < 100 and cur not in seen:
+            seen.add(cur)
+            cur = links[cur]
+        assert cur >= 0, table
+
+
 def test_entry_point_on_the_cpu(capsys):
     probes.reset_counts()
     assert main(["--device", "cpu"]) == 0
@@ -378,6 +501,14 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="CUDA tensors"):
         mosaic.vmem_dyn_lane.launch(mosaic.vmem_dyn_lane.inputs("cpu"),
                                     mosaic.vmem_dyn_lane.outputs("cpu"))
+
+
+def test_dependent_latency_tool_needs_a_card(monkeypatch):
+    """tools/torch_dependent_latency.py times chains on a card only: without
+    one it exits 2 before building anything."""
+    tool = _load_tool("torch_dependent_latency")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tool.main() == 2
 
 
 def test_probes_import_no_jax():

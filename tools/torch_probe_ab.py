@@ -10,6 +10,7 @@ both. For every run of the probe entry point (`probes.cases()`: each
 probe, smem_input at each table size), on this tree's inputs: the earlier
 kernel, this tree's kernel and the probe's one PyTorch call, where it has
 one, must each equal the plain version bit for bit; then they are captured
+(both trees' kernels launching into the same output and scratch buffers)
 in CUDA graphs of `chip_smoke.PROBE_REPS` launches and replayed in turns,
 `chip_smoke.PROBE_ROUNDS` replays each with the order reversed every other
 round (`chip_smoke.alternating_ms`), as phase 20 of chip_smoke.py times
@@ -91,19 +92,21 @@ def main(argv=None) -> int:
         entry.argtypes, entry.restype = cuda_build.PROBE_ARGS, ctypes.c_int
         outs, outs_parent = probe.outputs(dev), probe.outputs(dev)
         b = ins[1].data_ptr() if len(ins) > 1 else None
-        scratch = outs_parent[1].data_ptr() if len(outs_parent) > 1 else None
 
-        def parent(entry=entry, ins=ins, b=b, scratch=scratch, out=outs_parent[0], tag=tag):
-            rc = entry(ins[0].data_ptr(), b, scratch, out.data_ptr(), ins[0].shape[0],
+        def parent(outs, entry=entry, ins=ins, b=b, tag=tag):
+            scratch = outs[1].data_ptr() if len(outs) > 1 else None
+            rc = entry(ins[0].data_ptr(), b, scratch, outs[0].data_ptr(), ins[0].shape[0],
                        cuda_build.stream())
             cuda_build.check(rc, f"parent {tag}")
 
-        fns = {"parent": parent, "change": lambda probe=probe, ins=ins, outs=outs:
-               probe.launch(ins, outs)}
+        # Timed, both trees launch into the same output and scratch buffers:
+        # a gap between them is then the kernels', not where their buffers lie.
+        fns = {"parent": lambda parent=parent, outs=outs: parent(outs),
+               "change": lambda probe=probe, ins=ins, outs=outs: probe.launch(ins, outs)}
         if probe.library is not None:
             fns["library"] = probe.library(ins)
         want = probe.compute(*ins).view(torch.int32)
-        parent()
+        parent(outs_parent)
         probe.launch(ins, outs)
         got = dict(parent=outs_parent[0], change=outs[0])
         if "library" in fns:
