@@ -13,24 +13,27 @@
 //   shuffles (8a, 8h, 8t); a table of links that the probe follows from
 //   node to node (8d) is held in shared memory by one warp, which finds
 //   the walk by pointer doubling rather than link by link;
-// * a VMEM table that the kernel reads at a few places is read straight
-//   from global memory, where it stays in the 50 MB L2, with read-only
-//   loads (__ldg, ld.global.nc) of what the function needs: no shared
-//   memory, no barrier (8a, 8b, 8g, 8h, 8i, 8p, 8t). Only a table that the
-//   kernel reads wholly or repeatedly is staged into shared memory by the
-//   block (above 48 KB as opted-in dynamic shared memory): a round of
-//   4-byte loads and stores per thread, then __syncthreads, costs more than
-//   a few L2 round trips. 8c stages its table on purpose: the probe asks
-//   how large a table fits. 8n, which reads its whole table, streams it
-//   through a ring in shared memory with TMA bulk copies;
+// * a VMEM or SMEM table that the kernel reads at a few places is read
+//   straight from global memory, where it stays in the 50 MB L2, with
+//   read-only loads (__ldg, ld.global.nc) of what the function needs: no
+//   shared memory, no barrier (8a, 8b, 8c, 8g, 8h, 8i, 8p, 8t). Only a
+//   table that the kernel reads wholly or repeatedly is staged into shared
+//   memory by the block: a round of 4-byte loads and stores per thread,
+//   then __syncthreads, costs more than a few L2 round trips. 8c's probe
+//   asks how large a table the TPU's scalar memory holds; on the card the
+//   answer is the L2, which holds each of its tool's tables (up to 4 MiB).
+//   8n, which reads its whole table, streams it through a ring in shared
+//   memory with TMA bulk copies;
 // * `table` (2048 x 128 float32, 1 MiB) is read from global memory, where
 //   it stays in the 50 MB L2; an input read once at a fixed place goes
-//   straight to registers.
+//   straight to registers. A scatter whose output is a few rows of a
+//   larger buffer computes those rows alone (8m).
 // Every entry has the signature (a, b, scratch, out, n, stream): the probe's
-// inputs in its tool's order, a scratch buffer (the scatter only), the
-// output, one integer (the first input's row count), the stream. It
-// launches on the stream, does not synchronise and returns
-// cudaGetLastError().
+// inputs in its tool's order, a scratch pointer that no kernel here reads
+// (tools/torch_probe_ab.py calls an earlier tree's entries, whose scatter
+// used one, through the same signature), the output, one integer (the first
+// input's row count), the stream. It launches on the stream, does not
+// synchronise and returns cudaGetLastError().
 //
 // Bounds on an H100: each probe moves at most 3 MiB and does at most 4.2
 // Mflop, a few nanoseconds at 3.35 TB/s or 67 TFLOP/s, so every one sits on
@@ -143,30 +146,34 @@ PROBE_ENTRY(vmem_dyn_lane) {
 }
 
 // 8c. probe_smem_input(rows) (tools/probe_mosaic.py:73): the sum over i < 64
-// of tab[(977 i) % rows, i % 8], tab (rows,8). The probe asks how large a
-// table the fast scalar memory holds; here the whole table is staged in
-// dynamic shared memory (rows x 32 B) and thread 0 makes the 64 dynamic
-// reads. A table larger than the card's opt-in limit
-// (cudaDevAttrMaxSharedMemoryPerBlockOptin) is refused by the runtime at the
-// opt-in, and the entry returns that error without a launch; it never reads
-// from global memory instead. Bound: bytes (64 table reads, one output).
+// of tab[(977 i) % rows, i % 8], in order, tab (rows,8), rows = n. The TPU
+// probe asks how large a table its scalar memory holds; the card reads any
+// of the tool's four tables (32 KiB to 4 MiB) from the L2. One warp reads
+// the 64 elements straight from global memory: lane l computes the
+// addresses of i = l and i = l + 32 (two remainders, in parallel across
+// the lanes; one lane issuing all 64 loads would compute 64 remainders in
+// turn) and issues both read-only loads (__ldg), 64 independent loads in
+// one L2 round trip. Shuffles hand the values to every lane in i order,
+// which adds them from 0.0f (the plain version starts from zeros: 0 + -0
+// is +0), a chain of 64 dependent adds; lane 0 writes the sum. Nothing is
+// staged: no shared memory, no opt-in, no barrier. Bound: bytes (64 table
+// reads, one output).
 extern "C" __global__ void probe_smem_input(const float* __restrict__ tab, int rows,
                                             float* __restrict__ out) {
-  extern __shared__ float s_tab[];
-  stage(s_tab, tab, rows * 8);
-  if (threadIdx.x == 0) {
-    float acc = 0.0f;
-    for (int i = 0; i < 64; ++i) acc += s_tab[((i * 977) % rows) * 8 + i % 8];
-    out[0] = acc;
-  }
+  const int lane = threadIdx.x;
+  const float lo = __ldg(&tab[((lane * 977) % rows) * 8 + lane % 8]);
+  const float hi = __ldg(&tab[(((lane + 32) * 977) % rows) * 8 + lane % 8]);
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc = acc + __shfl_sync(0xffffffffu, lo, i);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc = acc + __shfl_sync(0xffffffffu, hi, i);
+  if (lane == 0) out[0] = acc;
 }
 
 PROBE_ENTRY(smem_input) {
-  static int opted[kMaxDevices] = {};
-  const int bytes = n * 8 * (int)sizeof(float);
-  const cudaError_t err = opt_in(probe_smem_input, bytes, opted);
-  if (err != cudaSuccess) return (int)err;
-  probe_smem_input<<<1, 1024, bytes, STREAM>>>((const float*)a, n, (float*)out);
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  probe_smem_input<<<1, 32, 0, STREAM>>>((const float*)a, n, (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -592,26 +599,58 @@ PROBE_ENTRY(while_loop_vector_state) {
 }
 
 // 8m. scatter-add (tools/pallas_probe.py:162): zeros (2048,128) with 1.0
-// added at (idx[s, l], 0) for every (s, l), rows 0:8 out. scratch (2048,128)
-// is zeroed by a memset on the stream, then one block adds with atomicAdd in
-// global memory and copies rows 0:8 after a barrier. The 1,024 indices
-// (7 k % 2048) are distinct, since 7 is prime to 2048, so no two atomics meet
-// and the result does not depend on their order. table (an input of the
-// probe) is not read. Bound: bytes (idx, out).
-extern "C" __global__ void probe_scatter_add(const int32_t* __restrict__ idx,
-                                             float* __restrict__ scratch,
-                                             float* __restrict__ out) {
-  const int t = threadIdx.x;
-  atomicAdd(&scratch[idx[t] * kL], 1.0f);
-  __syncthreads();
-  out[t] = __ldcg(&scratch[t]);
+// added at (idx[s, l], 0) for every (s, l), rows 0:8 out. An index i in
+// [-2048, 0) stands for row i + 2048, as JAX and index_put_ take it; one
+// outside [-2048, 2048) is dropped, as JAX's scatter drops it. Only rows 0-7
+// leave the kernel, and each of their elements is a count: [r, 0] the
+// indices that land on row r, every other element +0.0. So the kernel
+// counts them, with no scratch, memset, atomics or shared memory: one block
+// of four warps, warp p for rows 2p and 2p + 1, each warp on its own
+// scheduler, so that the compares and adds over the 1,024 indices, the
+// kernel's longest part, are split four ways (one warp counting all eight
+// rows took 6-9% longer in turns, however few instructions an index). Lane
+// l of each warp reads its 32 indices as eight 16-byte loads (int4 l +
+// 32 k, coalesced; the four warps share them through L1), counts its hits
+// of the warp's two rows in the 16-bit halves of one register, and one
+// __reduce_add_sync sums both over the warp (a count is at most 1,024).
+// Each warp writes its two rows of the output as float4 stores, (float)
+// count at [r, 0] and +0.0 elsewhere: a count below 2^24 is exact, so it
+// equals the plain version's sum of 1.0s in any order. table (an input of
+// the probe) is not read. The entry refuses idx or out off 16 bytes
+// (cudaErrorMisalignedAddress) without a launch. Bound: bytes (idx, out).
+//
+// Index i lands on row r < 8 exactly where w = i + 2048 (mod 2^32) is r or
+// 2048 + r, that is where w with bit 11 cleared is r.
+constexpr int kScatterWarps = kS / 2;
+
+extern "C" __global__ void __launch_bounds__(kScatterWarps * 32)
+    probe_scatter_add(const int4* __restrict__ idx, float4* __restrict__ out) {
+  constexpr int kLoads = kS * kL / 4 / 32;  // int4 loads a lane
+  const int lane = threadIdx.x % 32, row = 2 * (threadIdx.x / 32);
+  unsigned hits = 0;  // row `row` in bits 0-15, `row` + 1 in bits 16-31
+#pragma unroll
+  for (int k = 0; k < kLoads; ++k) {
+    const int4 v = __ldg(&idx[lane + 32 * k]);
+    const int e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const unsigned w = (unsigned)e[q] + kM;
+      hits += (w & ~(unsigned)(kM | 1)) == (unsigned)row ? 1u << (16 * (w % 2)) : 0u;
+    }
+  }
+  const unsigned both = __reduce_add_sync(0xffffffffu, hits);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float count = (float)((both >> (16 * h)) & 0xffffu);
+    out[(row + h) * (kL / 4) + lane] = make_float4(lane == 0 ? count : 0.0f, 0.0f, 0.0f, 0.0f);
+  }
 }
 
 PROBE_ENTRY(scatter_add) {
-  const cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(float) * kM * kL, STREAM);
-  if (err != cudaSuccess) return (int)err;
-  probe_scatter_add<<<1, kS * kL, 0, STREAM>>>((const int32_t*)b, (float*)scratch,
-                                               (float*)out);
+  if (((uintptr_t)b | (uintptr_t)out) % sizeof(float4) != 0) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  probe_scatter_add<<<1, kScatterWarps * 32, 0, STREAM>>>((const int4*)b, (float4*)out);
   return (int)cudaGetLastError();
 }
 
@@ -1085,8 +1124,10 @@ extern "C" int llr_probe_smem_limit(int* bytes, int device) {
 
 PROBE_STATIC_SMEM(vmem_dyn_sublane_static_lane)
 PROBE_STATIC_SMEM(vmem_dyn_lane)
+PROBE_STATIC_SMEM(smem_input)
 PROBE_STATIC_SMEM(take_rowgather)
 PROBE_STATIC_SMEM(vmem_scalar_dynamic_read)
 PROBE_STATIC_SMEM(ref_ds_row_read)
 PROBE_STATIC_SMEM(scalar_broadcast)
 PROBE_STATIC_SMEM(dyn_row_vector_read)
+PROBE_STATIC_SMEM(scatter_add)

@@ -12,17 +12,17 @@ each per JAX probe, named as there; run them all with
 from __future__ import annotations
 
 from . import mosaic, pallas, wide
-from .kernel import (Probe, SharedMemoryLimit, fits, launch_empty, launch_empty_cluster,
-                     onehot_geometry, smem_limit, static_smem)
+from .kernel import (Probe, launch_empty, launch_empty_cluster, onehot_geometry, smem_limit,
+                     static_smem)
 from .mosaic import SMEM_ROWS
 
 PROBES: tuple[Probe, ...] = mosaic.PROBES + pallas.PROBES + wide.PROBES
-# The probes whose kernels read their table straight from global memory (L2)
+# The probes whose kernels read their inputs straight from global memory (L2)
 # and must use no shared memory: each loaded kernel reports its static
 # (`static_smem`), and their entries launch with no dynamic.
-DIRECT_PROBES = ("vmem_dyn_sublane_static_lane", "vmem_dyn_lane", "take_rowgather",
-                 "vmem_scalar_dynamic_read", "ref_ds_row_read", "scalar_broadcast",
-                 "dyn_row_vector_read")
+DIRECT_PROBES = ("vmem_dyn_sublane_static_lane", "vmem_dyn_lane", "smem_input",
+                 "take_rowgather", "vmem_scalar_dynamic_read", "ref_ds_row_read",
+                 "scatter_add", "scalar_broadcast", "dyn_row_vector_read")
 
 
 def cases() -> list:
@@ -46,6 +46,6 @@ def counts() -> dict:
     return {p.name: p.launches for p in PROBES}
 
 
-__all__ = ["DIRECT_PROBES", "PROBES", "Probe", "SMEM_ROWS", "SharedMemoryLimit", "cases",
-           "counts", "fits", "launch_empty", "launch_empty_cluster", "onehot_geometry",
-           "reset_counts", "smem_limit", "static_smem"]
+__all__ = ["DIRECT_PROBES", "PROBES", "Probe", "SMEM_ROWS", "cases", "counts",
+           "launch_empty", "launch_empty_cluster", "onehot_geometry", "reset_counts",
+           "smem_limit", "static_smem"]

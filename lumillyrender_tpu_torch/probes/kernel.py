@@ -17,15 +17,6 @@ import torch
 
 from ..ops import cuda_build
 
-# cudaErrorInvalidValue: what the runtime returns when a kernel asks to opt
-# in to more shared memory than a block of the card may have.
-CUDA_ERROR_INVALID_VALUE = 1
-
-
-class SharedMemoryLimit(ValueError):
-    """The card refused a probe's table in shared memory: it is larger than
-    one block may opt in to. The kernel does not read global memory instead."""
-
 
 @functools.lru_cache(maxsize=None)
 def _optin_bytes(index: int) -> int:
@@ -38,19 +29,11 @@ def _optin_bytes(index: int) -> int:
 
 def smem_limit(device) -> int | None:
     """Bytes of shared memory one block may opt in to on a CUDA device
-    (cudaDevAttrMaxSharedMemoryPerBlockOptin); None for the CPU, where the
-    plain versions know no such limit."""
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin); None for the CPU."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return None
     return _optin_bytes(dev.index if dev.index is not None else torch.cuda.current_device())
-
-
-def fits(need: int, limit: int | None) -> bool:
-    """Whether `need` bytes of shared memory lie within a block's opt-in
-    `limit` (None: no limit, the CPU): the prediction that the card's own
-    refusal is held against."""
-    return limit is None or need <= limit
 
 
 def bag_sum_call(weight: torch.Tensor, index: torch.Tensor):
@@ -87,19 +70,15 @@ class Probe:
               written once);
     library   inputs -> a function of no arguments that makes one PyTorch
               call computing the same function and returns its result, or
-              None where there is none (timed as a yardstick only);
-    scratch   the shape of a float32 scratch buffer the kernel needs;
-    smem      inputs -> bytes of shared memory the kernel must opt in to.
+              None where there is none (timed as a yardstick only).
     """
 
     def __init__(self, name: str, label: str, replaces: str, inputs: Callable,
                  compute: Callable, out_shape: tuple, work: Callable,
-                 library: Callable | None = None, scratch: tuple | None = None,
-                 smem: Callable | None = None):
+                 library: Callable | None = None):
         self.name, self.label, self.replaces = name, label, replaces
         self.inputs, self.compute, self.out_shape = inputs, compute, out_shape
         self.work, self.library = work, library
-        self.scratch, self.smem = scratch, smem
         self.launches = 0
         cuda_build.ARGTYPES[f"llr_probe_{name}"] = cuda_build.PROBE_ARGS
 
@@ -120,55 +99,39 @@ class Probe:
         self.launch(ins, outs)
         return outs[0]
 
-    def fits(self, ins, limit: int | None) -> bool:
-        """Whether the card should take this probe's shared memory on
-        inputs `ins`, given its opt-in `limit`."""
-        return self.smem is None or fits(self.smem(ins), limit)
-
     def library_agrees(self, ins) -> bool:
         """Whether the library call returns the plain version's output bit
         for bit on `ins`."""
         return _same(self.library(ins)(), self.compute(*ins))
 
     def outputs(self, device) -> list:
-        """The output (and the scratch buffer, if any), uninitialised."""
-        outs = [torch.empty(self.out_shape, dtype=torch.float32, device=device)]
-        if self.scratch is not None:
-            outs.append(torch.empty(self.scratch, dtype=torch.float32, device=device))
-        return outs
+        """The output, uninitialised, in a list."""
+        return [torch.empty(self.out_shape, dtype=torch.float32, device=device)]
 
     def launch(self, ins, outs):
         """The kernel alone: reads `ins`, writes `outs` (from `outputs`), all
-        on the card; the launch `launches` counts. Raises SharedMemoryLimit
-        where the card refuses the kernel's shared memory."""
+        on the card; the launch `launches` counts. Raises RuntimeError where
+        the entry returns an error."""
         dev = outs[0].device
         if dev.type != "cuda":
             raise ValueError(f"the {self.name} probe kernel takes CUDA tensors, not {dev}")
-        want = [self.out_shape] + ([self.scratch] if self.scratch is not None else [])
-        if [tuple(o.shape) for o in outs] != want or any(
-                o.dtype != torch.float32 for o in outs):
-            raise ValueError(f"{self.name}: outputs must be float32 of shapes {want}")
+        if [tuple(o.shape) for o in outs] != [self.out_shape] or outs[0].dtype != torch.float32:
+            raise ValueError(f"{self.name}: the output must be float32 of shape {self.out_shape}")
         for t in (*ins, *outs):
             if t.device != dev or not t.is_contiguous():
                 raise ValueError(f"{self.name}: every tensor must be contiguous on {dev}")
         a = ins[0].data_ptr()
         b = ins[1].data_ptr() if len(ins) > 1 else None
-        scratch = outs[1].data_ptr() if len(outs) > 1 else None
         with torch.cuda.device(dev):
             rc = cuda_build.fn("probes", f"llr_probe_{self.name}")(
-                a, b, scratch, outs[0].data_ptr(), ins[0].shape[0], cuda_build.stream())
-            self.check(rc, ins, lambda: smem_limit(dev))
+                a, b, None, outs[0].data_ptr(), ins[0].shape[0], cuda_build.stream())
+            self.check(rc)
         self.launches += 1
 
-    def check(self, rc: int, ins, limit: Callable):
-        """Raise for an entry's return code `rc`: SharedMemoryLimit, naming
-        the table's bytes and the card's `limit()`, where the card refused
-        the kernel's shared memory; RuntimeError for any other error."""
-        if rc == CUDA_ERROR_INVALID_VALUE and self.smem is not None:
-            raise SharedMemoryLimit(
-                f"{self.name}: the card refused {self.smem(ins)} bytes of shared memory "
-                f"for the table (CUDA error {rc}); a block of this card may opt in to "
-                f"{limit()} bytes")
+    def check(self, rc: int):
+        """Raise RuntimeError for an entry's nonzero return code `rc`: the
+        kernel was not launched (a refused launch, or inputs the entry
+        refuses, such as a misaligned table)."""
         cuda_build.check(rc, f"{self.name} probe")
 
 

@@ -4,9 +4,10 @@ link-following walk.
 
 Each probe `<name>(device)` launches its kernel (csrc/probes.cu) on a CUDA
 device and runs `plain_<name>(device)` on the CPU; inputs are built as the
-tool builds them. `smem_input` takes the table's row count as well, and
-`while_walk_smem` may take the name of a seeded link table (LINK_TABLES,
-CYCLIC_TABLES), walked over seeded rays.
+tool builds them. `smem_input` takes the table's row count as well (and
+runs on seeded_smem_tab's tables too), and `while_walk_smem` may take the
+name of a seeded link table (LINK_TABLES, CYCLIC_TABLES), walked over
+seeded rays.
 """
 
 from __future__ import annotations
@@ -112,9 +113,17 @@ def _smem_sum(tab):
     return _in_order(tab[(i * 977) % rows, i % 8])
 
 
-def smem_bytes(rows: int) -> int:
-    """Shared memory the smem_input kernel stages its (rows, 8) table in."""
-    return rows * 8 * 4
+def seeded_smem_tab(rows: int, device="cpu") -> torch.Tensor:
+    """A (rows, 8) float32 table of seeded values in place of the tool's
+    arange, for smem_input: both signs, full mantissas, magnitudes spread
+    over 2^-24 to 2^24 (so the 64 in-order adds round, and another order of
+    them gives other bits), and -0.0 at [0, 0], the first element the probe
+    reads at every table size."""
+    g = np.random.default_rng(rows)
+    t = g.standard_normal((rows, 8)) * 2.0 ** g.integers(-24, 25, (rows, 8))
+    t = t.astype(np.float32)
+    t[0, 0] = -0.0
+    return torch.from_numpy(t).to(device)
 
 
 def _smem_call(tab):
@@ -125,7 +134,7 @@ def _smem_call(tab):
 smem_input = Probe(
     "smem_input", "probe_smem_input", f"{TOOL}:73",
     _smem_inputs, _smem_sum, (1, 1), work=lambda ins: (64 * 4 + 4, 64),
-    library=lambda ins: _smem_call(ins[0]), smem=lambda ins: smem_bytes(ins[0].shape[0]))
+    library=lambda ins: _smem_call(ins[0]))
 plain_smem_input = smem_input.plain
 
 

@@ -245,11 +245,47 @@ plain_while_loop_vector_state = while_loop_vector_state.plain
 
 
 def _scatter(t, i):
-    buf = torch.zeros((M, L), dtype=F32, device=t.device)
+    """JAX's `.at[i, 0].add(1.0)`: an index in [-M, 0) stands for row
+    i + M; one outside [-M, M) is dropped (index_put_ would raise on it)."""
     flat = i.reshape(-1).long()
+    flat = torch.where(flat < 0, flat + M, flat)
+    flat = flat[(flat >= 0) & (flat < M)]
+    buf = torch.zeros((M, L), dtype=F32, device=t.device)
     buf.index_put_((flat, torch.zeros_like(flat)),
                    torch.ones(flat.shape, dtype=F32, device=t.device), accumulate=True)
     return buf[:S].clone()
+
+
+# Seeded (S, L) int32 index sets for scatter_add, by name: the tool's; all
+# 1,024 in rows 0-7 (row 5 more than half of them); seeded in [0, M) with
+# repeats; negatives in [-M, -M + 8) mixed with rows 0-7, -1 and M - 1;
+# none in rows 0-7 (every output +0.0); seeded in [-M, M) with indices
+# past the table (M, 5000, -M - 1 and int32's ends), which JAX drops.
+SCATTER_SETS = ("tool", "low_rows", "seeded", "negatives", "none", "dropped")
+
+
+def scatter_set(name: str, device="cpu") -> torch.Tensor:
+    """An (S, L) int32 index set of SCATTER_SETS."""
+    if name == "tool":
+        return _idx(device)
+    g = np.random.default_rng(20 + SCATTER_SETS.index(name))
+    if name == "low_rows":
+        idx = g.integers(0, S, (S, L))
+        idx[g.random((S, L)) < 0.6] = 5
+    elif name == "seeded":
+        idx = g.integers(0, M, (S, L))
+        idx[0, :6] = (0, 0, 7, 3, 3, 3)
+    elif name == "negatives":
+        idx = g.choice(np.r_[-M:-M + S, 0:S, -1, M - 1], (S, L))
+    elif name == "none":
+        idx = np.where(g.random((S, L)) < 0.5, g.integers(S, M, (S, L)),
+                       g.integers(-M + S, 0, (S, L)))
+    else:
+        idx = g.integers(-M, M, (S, L))
+        out = g.random((S, L)) < 0.25
+        idx[out] = g.choice([M, 5000, -M - 1, 2**31 - 1, -2**31], out.sum())
+        idx[0, :4] = (0, -M, M, -M - 1)
+    return torch.from_numpy(idx.astype(np.int32)).to(device)
 
 
 def _index_put_call(t, i):
@@ -268,7 +304,7 @@ scatter_add = Probe(
     "scatter_add", "scatter-add o_ref[idx] += v (per-lane)", f"{TOOL}:162",
     lambda device: (_table(device), _idx(device)), _scatter, (S, L),
     work=lambda ins: (ins[1].numel() * 4 + _OUT, ins[1].numel()),
-    library=lambda ins: _index_put_call(*ins), scratch=(M, L))
+    library=lambda ins: _index_put_call(*ins))
 plain_scatter_add = scatter_add.plain
 
 # --- packet-walk core: a uniform cursor steered by an any-vote -----------

@@ -31,9 +31,10 @@ compared on its backward rules' lanes (`bwd_comparable`) within
 `parity.KERNEL_BWD_RTOL` (1e-5) of each cotangent's and table's largest
 magnitude, with the recomputed alive' equal to the forward kernel's on
 every lane and two runs bit-equal; the capability probes' kernels
-(csrc/probes.cu) every output bit-equal, the packet walk, the link walk
-and the four-read sum on seeded tables too, the link walk NaN on cyclic
-tables; kernel 1's two instances for every camera kind in both pixel orders,
+(csrc/probes.cu) every output bit-equal, the packet walk, the link walk,
+the four-read sum and smem_input's 64-read sum (at each table size) on
+seeded tables too, the scatter on seeded index sets (wrapped and dropped
+indices), the link walk NaN on cyclic tables; kernel 1's two instances for every camera kind in both pixel orders,
 d and g within 1e-6 where the film's dims are no powers of 2 (PyTorch on
 the card divides by a host scalar through its reciprocal); the forward stage loop captured
 as a CUDA graph, every stage-end state and the ray count bit-equal to a
@@ -1190,17 +1191,9 @@ PROBE_CASES = probes.cases()
 @pytest.mark.parametrize("tag,probe,params", PROBE_CASES, ids=[c[0] for c in PROBE_CASES])
 def test_probe_kernels_match_plain(card, tag, probe, params):
     """Every capability probe's kernel (csrc/probes.cu) bit-equal to its
-    plain version; smem_input refused exactly where its table exceeds the
-    card's opt-in shared memory."""
+    plain version, smem_input at each of its four table sizes."""
     before = probe.launches
     ins = probe.inputs(card, *params)
-    limit = probes.smem_limit(card)
-    if not probe.fits(ins, limit):
-        with pytest.raises(probes.SharedMemoryLimit,
-                           match=f"{probe.smem(ins)} bytes.*{limit} bytes"):
-            probe.run(ins)
-        assert probe.launches == before
-        return
     got = probe.run(ins)
     want = probe.compute(*ins)
     torch.cuda.synchronize()
@@ -1262,11 +1255,12 @@ def test_rowgather_kernel_matches_plain_on_seeded_rows(card):
 def test_direct_probes_declare_no_shared_memory(card):
     """The probes of probes.DIRECT_PROBES (vmem_dyn_sublane_static_lane,
     vmem_dyn_lane, take_rowgather, vmem_scalar_dynamic_read,
-    ref_ds_row_read, scalar_broadcast, dyn_row_vector_read; the list
-    chip_smoke.py's phase 20 checks) read their table straight from L2: the
-    loaded kernels report no static shared memory."""
+    ref_ds_row_read, scalar_broadcast, dyn_row_vector_read, smem_input,
+    scatter_add; the list chip_smoke.py's phase 20 checks) read their
+    inputs straight from L2: the loaded kernels report no static shared
+    memory."""
     assert {"scalar_broadcast", "vmem_dyn_sublane_static_lane", "vmem_scalar_dynamic_read",
-            "dyn_row_vector_read"} <= set(probes.DIRECT_PROBES)
+            "dyn_row_vector_read", "smem_input", "scatter_add"} <= set(probes.DIRECT_PROBES)
     assert {name: probes.static_smem(name) for name in probes.DIRECT_PROBES} \
         == dict.fromkeys(probes.DIRECT_PROBES, 0)
 
@@ -1293,6 +1287,50 @@ def test_in_order_sum_kernels_match_plain_on_seeded_sets(card, name, length):
         torch.cuda.synchronize()
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), k
     assert probe.launches == before + len(sets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", probes.SMEM_ROWS)
+def test_smem_input_kernel_matches_plain_on_seeded_tabs(card, rows):
+    """smem_input's kernel (one warp, the 64 elements read straight from L2,
+    an in-order sum from +0.0) bit-equal to its plain version on the seeded
+    table of each size (-0.0 read first, magnitudes over 2^-24 to 2^24) and
+    on a table of -0.0 (+0.0 out); it declares no static shared memory."""
+    probe = probes.mosaic.smem_input
+    assert probe.name in probes.DIRECT_PROBES and probes.static_smem(probe.name) == 0
+    tab = probes.mosaic.seeded_smem_tab(rows, card)
+    before = probe.launches
+    for t in (tab, torch.full_like(tab, -0.0)):
+        got = probe.run((t,))
+        want = probe.compute(t)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert probe.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", probes.pallas.SCATTER_SETS)
+def test_scatter_kernel_matches_plain_on_seeded_sets(card, name):
+    """scatter_add's kernel (one warp counting the hits of rows 0-7, no
+    scratch, memset or atomics) bit-equal to its plain version on each
+    seeded index set: repeats, counts past 512, negative indices that wrap,
+    indices past the table dropped; it declares no static shared memory,
+    and its entry refuses indices off 16 bytes (error 716) without a
+    launch."""
+    probe = probes.pallas.scatter_add
+    assert probe.name in probes.DIRECT_PROBES and probes.static_smem(probe.name) == 0
+    table = probe.inputs(card)[0]
+    idx = probes.pallas.scatter_set(name, card)
+    before = probe.launches
+    got = probe.run((table, idx))
+    want = probe.compute(table, idx)
+    torch.cuda.synchronize()
+    assert probe.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    off = torch.empty(1025, dtype=torch.int32, device=card)[1:].view(8, 128).copy_(idx)
+    with pytest.raises(RuntimeError, match="CUDA error 716"):
+        probe.run((table, off))
+    assert probe.launches == before + 1
 
 
 @pytest.mark.cuda
@@ -1536,9 +1574,12 @@ def test_probe_entry_point_runs_on_the_card(card, capsys):
 
     probes.reset_counts()
     assert main([]) == 0
-    assert set(probes.counts().values()) == {1}
+    # One launch a run: smem_input's four table sizes all run on the card.
+    assert probes.counts() == {p.name: sum(q is p for _, q, _ in probes.cases())
+                               for p in probes.PROBES}
+    assert probes.counts()["smem_input"] == 4
     out = capsys.readouterr().out
-    assert out.count("\nOK ") + out.count("\nFAIL ") == 26
+    assert out.count("\nOK ") == 26 and "\nFAIL " not in out
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,6 @@ from lumillyrender_tpu_torch.probes.__main__ import main, smem_input_sum
 
 REPO = Path(__file__).resolve().parents[1]
 _PALLAS_CALL = pl.pallas_call
-# An H100's cudaDevAttrMaxSharedMemoryPerBlockOptin (227 KB).
-H100_OPTIN = 232448
 
 # Every probe that runs in interpret mode, smem_input at its four sizes.
 CASES = [(tag, p.name, params) for tag, p, params in probes.cases()
@@ -86,23 +84,118 @@ def test_prng_counterpart_is_pcg4d_of_the_jax_package():
 
 
 def test_smem_input_split_and_refusal():
+    """smem_input runs at each of its tool's four table sizes (its kernel
+    reads the table from L2 and stages nothing, so no size is refused for
+    its shared memory), each plain sum its exact value; an entry's error,
+    cudaErrorInvalidValue (1) among them, is a failed launch."""
     smem = mosaic.smem_input
-    tables = [smem.inputs("cpu", rows) for rows in probes.SMEM_ROWS]
-    assert [smem.fits(ins, H100_OPTIN) for ins in tables] == [True, False, False, False]
-    assert all(smem.fits(ins, None) for ins in tables)
-    assert probes.fits(H100_OPTIN, H100_OPTIN) and not probes.fits(H100_OPTIN + 1, H100_OPTIN)
+    assert [tag for tag, p, _ in probes.cases() if p is smem] == [
+        f"smem_input({rows})" for rows in probes.SMEM_ROWS]
     for rows in probes.SMEM_ROWS:
         assert mosaic.plain_smem_input("cpu", rows).item() == smem_input_sum(rows)
-    # The card's refusal of the opt-in (cudaErrorInvalidValue) names both sizes;
-    # any other error is a failed launch.
-    limit = lambda: H100_OPTIN
-    smem.check(0, tables[0], limit)
-    with pytest.raises(probes.SharedMemoryLimit, match="262144 bytes.*232448 bytes"):
-        smem.check(1, tables[1], limit)
-    with pytest.raises(RuntimeError, match="CUDA error 2"):
-        smem.check(2, tables[1], limit)
-    with pytest.raises(RuntimeError, match="CUDA error 1"):
-        mosaic.vmem_dyn_lane.check(1, mosaic.vmem_dyn_lane.inputs("cpu"), limit)
+    smem.check(0)
+    for rc in (1, 2):
+        with pytest.raises(RuntimeError, match=f"CUDA error {rc}"):
+            smem.check(rc)
+
+
+def _numpy_smem_sum(t: np.ndarray, order=range(64)) -> np.ndarray:
+    """smem_input in numpy, written from the tool's kernel
+    (tools/probe_mosaic.py:74-78): from float32 0, t[(977 i) % rows, i % 8]
+    for i < 64 in turn (in `order`)."""
+    acc = np.float32(0.0)
+    for i in order:
+        acc = np.float32(acc + t[(i * 977) % t.shape[0], i % 8])
+    return np.full((1, 1), acc, np.float32)
+
+
+def test_seeded_smem_tabs():
+    """smem_input's seeded tables: (rows, 8) at each table size, both
+    signs, full mantissas, magnitudes over many powers of 2, -0.0 at [0, 0]
+    (the first element read); another order of the 64 adds gives other
+    bits at some size."""
+    differs = False
+    for rows in probes.SMEM_ROWS:
+        t = mosaic.seeded_smem_tab(rows).numpy()
+        assert t.shape == (rows, 8) and t.dtype == np.float32
+        assert (t < 0).any() and (t > 0).any()
+        assert (t.view(np.int32) & 0xFFFF != 0).mean() > 0.99
+        e = np.log2(np.abs(t[t != 0]))
+        assert e.max() - e.min() > 40
+        assert t[0, 0] == 0 and np.signbit(t[0, 0])
+        want = _numpy_smem_sum(t)
+        differs |= bool((_numpy_smem_sum(t, reversed(range(64))).view(np.int32)
+                         != want.view(np.int32)).any())
+    assert differs
+
+
+@pytest.mark.parametrize("rows", probes.SMEM_ROWS)
+def test_smem_plain_version_is_numpy_sum_on_seeded_tabs(rows):
+    """The plain version the smem_input kernel is held against on the
+    card, bit for bit against numpy's in-order float32 sum on the seeded
+    table of each size; its embedding_bag call with it."""
+    probe = mosaic.smem_input
+    tab = mosaic.seeded_smem_tab(rows)
+    got = probe.compute(tab)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (1, 1)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  _numpy_smem_sum(tab.numpy()).view(np.int32))
+    assert probe.library_agrees((tab,))
+    # The sum starts from +0.0: on a table of -0.0 it is +0.0.
+    zeros = probe.compute(torch.full_like(tab, -0.0))
+    assert zeros.item() == 0 and not np.signbit(zeros.numpy()).any()
+
+
+def _numpy_scatter(idx: np.ndarray) -> np.ndarray:
+    """scatter_add in numpy: np.add.at of 1.0 into column 0 of float32
+    zeros (2048, 128), rows 0:8; an index in [-2048, 0) taken as i + 2048,
+    one outside [-2048, 2048) dropped, as JAX's scatter does."""
+    i = idx.reshape(-1).astype(np.int64)
+    i = np.where(i < 0, i + 2048, i)
+    i = i[(i >= 0) & (i < 2048)]
+    buf = np.zeros((2048, 128), np.float32)
+    np.add.at(buf, (i, 0), np.float32(1.0))
+    return buf[:8]
+
+
+def test_scatter_sets():
+    """scatter_add's seeded index sets: (8, 128) int32 each; the tool's;
+    one all in rows 0-7 with a row past 512 hits; one with repeats and
+    hits; negatives that wrap onto rows 0-7; one with no hit (+0.0
+    everywhere); one with indices past the table, which are dropped."""
+    sets = {name: probes.pallas.scatter_set(name).numpy() for name in probes.pallas.SCATTER_SETS}
+    assert all(s.shape == (8, 128) and s.dtype == np.int32 for s in sets.values())
+    np.testing.assert_array_equal(sets["tool"], probes.pallas.scatter_add.inputs("cpu")[1])
+    counts = {name: _numpy_scatter(s)[:, 0] for name, s in sets.items()}
+    assert ((sets["low_rows"] >= 0) & (sets["low_rows"] < 8)).all()
+    assert counts["low_rows"].max() > 512 and counts["low_rows"].sum() == 1024
+    assert np.unique(sets["seeded"]).size < 1024 and counts["seeded"].sum() > 0
+    neg = sets["negatives"]
+    assert {-2048, -2041, -1, 2047} <= set(neg.ravel().tolist())
+    assert counts["negatives"].sum() == ((neg >= -2048) & (neg < -2040)).sum() + (
+        (neg >= 0) & (neg < 8)).sum()
+    assert not counts["none"].any() and (sets["none"] < 0).any()
+    d = sets["dropped"]
+    assert {2048, 5000, -2049, 2**31 - 1, -2**31} <= set(d.ravel().tolist())
+    assert counts["dropped"].any()
+
+
+@pytest.mark.parametrize("name", probes.pallas.SCATTER_SETS)
+def test_scatter_plain_version_matches_numpy_and_jax(name):
+    """The plain version the scatter_add kernel is held against on the
+    card, bit for bit against np.add.at and against JAX's
+    zeros((2048, 128)).at[idx, 0].add(1.0)[:8] on each seeded index set:
+    negative indices wrap, indices past the table are dropped."""
+    probe = probes.pallas.scatter_add
+    idx = probes.pallas.scatter_set(name)
+    got = probe.compute(probe.inputs("cpu")[0], idx)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (8, 128)
+    want = _numpy_scatter(idx.numpy())
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    jax_out = jnp.zeros((2048, 128), jnp.float32).at[jnp.asarray(idx.numpy()), 0].add(1.0)[:8]
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(jax_out).view(np.int32))
+    assert not np.signbit(got.numpy()).any()
 
 
 def test_dyn_lane_plain_version_is_numpy_indexing_at_every_lane():
@@ -131,18 +224,15 @@ def test_rowgather_plain_version_is_numpy_indexing():
 
 
 def test_rowgather_takes_no_shared_memory_and_raises_on_misalignment():
-    """take_rowgather reads its table straight from L2: it declares no shared
-    memory, so no opt-in limit refuses it, and its entry's
-    cudaErrorMisalignedAddress (716) for a table or output off 16 bytes is a
-    failed launch."""
+    """take_rowgather reads its table straight from L2 (a probe of
+    DIRECT_PROBES), and its entry's cudaErrorMisalignedAddress (716) for a
+    table or output off 16 bytes is a failed launch."""
     probe = probes.pallas.take_rowgather
-    ins = probe.inputs("cpu")
-    assert probe.smem is None and probe.fits(ins, 0)
-    limit = lambda: H100_OPTIN
-    probe.check(0, ins, limit)
+    assert probe.name in probes.DIRECT_PROBES
+    probe.check(0)
     for rc in (716, 1):
         with pytest.raises(RuntimeError, match=f"CUDA error {rc}"):
-            probe.check(rc, ins, limit)
+            probe.check(rc)
 
 
 def test_onehot_plain_version_is_numpy_indexing():
@@ -244,17 +334,24 @@ def test_walk_tables_vote_where_they_say():
 
 @pytest.mark.parametrize("name", probes.DIRECT_PROBES)
 def test_direct_probes_take_no_shared_memory_and_raise_on_misalignment(name):
-    """The probes that read their table straight from L2 (scalar_broadcast
-    among them) declare no shared memory, so no opt-in limit refuses them,
-    and an entry's cudaErrorMisalignedAddress (716) is a failed launch."""
+    """The probes that read their inputs straight from L2 (scalar_broadcast,
+    smem_input and scatter_add among them): on the CPU, at each of their
+    entry point's runs, the wrapper is the plain version and launches
+    nothing; their kernels get one output and no scratch; an entry's
+    cudaErrorMisalignedAddress (716) is a failed launch."""
     probe = next(p for p in probes.PROBES if p.name == name)
-    ins = probe.inputs("cpu")
-    assert probe.smem is None and probe.fits(ins, 0)
-    limit = lambda: H100_OPTIN
-    probe.check(0, ins, limit)
+    runs = [params for _, p, params in probes.cases() if p is probe]
+    assert runs
+    for params in runs:
+        ins = probe.inputs("cpu", *params)
+        got = probe.run(ins)
+        assert tuple(got.shape) == probe.out_shape and torch.equal(got, probe.compute(*ins))
+    assert probe.launches == 0
+    assert [tuple(o.shape) for o in probe.outputs("cpu")] == [probe.out_shape]
+    probe.check(0)
     for rc in (716, 1):
         with pytest.raises(RuntimeError, match=f"CUDA error {rc}"):
-            probe.check(rc, ins, limit)
+            probe.check(rc)
 
 
 LIBRARY_CASES = [(tag, p, params) for tag, p, params in probes.cases() if p.library is not None]
