@@ -2327,6 +2327,19 @@ def capability_probes(card, lap):
         if not ok:
             fail(f"while_walk_smem on the {table} link table: "
                  + ("not NaN" if table in mosaic.CYCLIC_TABLES else "differs from plain"))
+    # take_along_axis_axis0 and take_rowgather at each seeded index set:
+    # negative indices wrap, other out-of-range ones give NaN, as in JAX.
+    for gather, sets in ((pallas.take_along_axis_axis0, pallas.take_along_sets),
+                         (pallas.take_rowgather, pallas.take_rows_sets)):
+        table = gather.inputs(dev)[0]
+        for name, idx in sets(dev).items():
+            outs = gather.outputs(dev)
+            gather.launch((table, idx), outs)
+            if not torch.equal(outs[0].view(torch.int32),
+                               gather.compute(table, idx).view(torch.int32)):
+                fail(f"{gather.name} differs from its plain version on the {name} index set")
+    print(f"take_along_axis_axis0, take_rowgather: bit-equal on the "
+          f"{', '.join(pallas.INDEX_SETS)} index sets (JAX's index rule)")
     print(f"vmem_scalar_dynamic_read: bit-equal at 128 seeded index sets; smem_input: "
           f"bit-equal on seeded tables of {', '.join(map(str, probes.SMEM_ROWS))} rows and on "
           f"tables of -0.0; scatter_add: bit-equal on the {', '.join(pallas.SCATTER_SETS)} "

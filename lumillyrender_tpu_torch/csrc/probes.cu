@@ -25,9 +25,15 @@
 //   8n, which reads its whole table, streams it through a ring in shared
 //   memory with TMA bulk copies;
 // * `table` (2048 x 128 float32, 1 MiB) is read from global memory, where
-//   it stays in the 50 MB L2; an input read once at a fixed place goes
-//   straight to registers. A scatter whose output is a few rows of a
-//   larger buffer computes those rows alone (8m).
+//   it stays in the 50 MB L2, also where the kernel gathers from all of it
+//   at scattered places (8e): an element reaches the SM in its 32-byte
+//   sector either way, and on this card a copy held across a cluster costs
+//   more (barriers, remote reads) than the sectors it saves. An input read
+//   once at a fixed place goes straight to registers. A scatter whose
+//   output is a few rows of a larger buffer computes those rows alone (8m);
+// * the gathers follow JAX's index rule (8e, 8g), as the scatter does
+//   (8m): an index i in [-M, 0) reads row i + M, and any other index
+//   outside [0, M) gives NaN (bits 0x7fc00000) where JAX's gather fills.
 // Every entry has the signature (a, b, scratch, out, n, stream): the probe's
 // inputs in its tool's order, a scratch pointer that no kernel here reads
 // (tools/torch_probe_ab.py calls an earlier tree's entries, whose scatter
@@ -326,19 +332,64 @@ PROBE_ENTRY(while_walk_smem) {
 // tools/pallas_probe.py (M, S, L = 2048, 8, 128)
 // ---------------------------------------------------------------------------
 
-// 8e. take_along_axis axis0 (tools/pallas_probe.py:53): out[i, j] =
-// table[idx[i, j], j], (2048,128). table global (L2), idx global, one thread
-// per output. Bound: bytes (table, idx and out, 1 MiB each).
-extern "C" __global__ void probe_take_along_axis_axis0(const float* __restrict__ table,
-                                                       const int32_t* __restrict__ idx,
-                                                       float* __restrict__ out) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  out[t] = table[idx[t] * kL + t % kL];
+// The row an index i of a gather over `rows` rows reads, by JAX's rule: i
+// + rows for i in [-rows, 0), i in [0, rows); -1 where i is out of range
+// (JAX's gather fills NaN there).
+__device__ __forceinline__ int jax_row(int i, int rows) {
+  const int r = i < 0 ? i + rows : i;
+  return (unsigned)r < (unsigned)rows ? r : -1;
+}
+
+// float32 NaN with the bits of PyTorch's float("nan") and JAX's fill.
+__device__ __forceinline__ float fill_nan() { return __int_as_float(0x7fc00000); }
+
+// 8e. take_along_axis axis0 (tools/pallas_probe.py:53): out[m, l] =
+// table[idx[m, l], l], (2048,128), rows by JAX's index rule (jax_row; NaN
+// out of range). Bound: bytes (table, idx and out, 1 MiB each). A table
+// element reaches an SM inside its 32-byte sector (8 floats of one row),
+// and the tool's idx = (7 m + l) % 2048 needs each sector for 8 outputs in
+// 8 scattered rows, so a gather that reads L2 moves 8 MiB of table sectors
+// into the SMs, and that, not the launch, is its time. Holding the table
+// once across a cluster does not pay on this card (PERF.md, 8e): each
+// cluster barrier costs ~0.6 us and each read of a peer's shared memory
+// more than a sector from L2; staging a 64 KiB column strip per block moves
+// as many bytes as the gather. So the kernel reads L2 directly, with the
+// fewest instructions: thread t of 65,536 takes columns 4q .. 4q + 3 of row
+// m (t = 32 m + q), one 16-byte index load, four independent read-only
+// table loads (of row 0 where an index is out of range, then NaN), one
+// 16-byte store; a warp's index load and store are 512 contiguous bytes.
+// No shared memory, no barrier. A gather does no arithmetic: bit for bit
+// its plain version. The index loads and stores need idx and out 16-byte
+// aligned: the entry returns cudaErrorMisalignedAddress without a launch
+// where either is not (never falling back to 4-byte accesses), and
+// cudaErrorInvalidValue for a table of other than 2048 rows.
+constexpr int kTaThreads = 256;
+constexpr int kTaGrid = kM * kL / 4 / kTaThreads;  // 256 blocks, 4 outputs a thread
+
+extern "C" __global__ void __launch_bounds__(kTaThreads)
+    probe_take_along_axis_axis0(const float* __restrict__ table, const int4* __restrict__ idx,
+                                float4* __restrict__ out) {
+  const int t = blockIdx.x * kTaThreads + threadIdx.x;
+  const int4 i = __ldg(&idx[t]);
+  const int col = 4 * (t % (kL / 4));
+  const int r0 = jax_row(i.x, kM), r1 = jax_row(i.y, kM);
+  const int r2 = jax_row(i.z, kM), r3 = jax_row(i.w, kM);
+  const float v0 = __ldg(&table[(r0 < 0 ? 0 : r0) * kL + col]);
+  const float v1 = __ldg(&table[(r1 < 0 ? 0 : r1) * kL + col + 1]);
+  const float v2 = __ldg(&table[(r2 < 0 ? 0 : r2) * kL + col + 2]);
+  const float v3 = __ldg(&table[(r3 < 0 ? 0 : r3) * kL + col + 3]);
+  const float nan = fill_nan();
+  out[t] = make_float4(r0 < 0 ? nan : v0, r1 < 0 ? nan : v1, r2 < 0 ? nan : v2,
+                       r3 < 0 ? nan : v3);
 }
 
 PROBE_ENTRY(take_along_axis_axis0) {
-  probe_take_along_axis_axis0<<<kM * kL / 256, 256, 0, STREAM>>>(
-      (const float*)a, (const int32_t*)b, (float*)out);
+  if (((uintptr_t)b | (uintptr_t)out) % sizeof(int4) != 0) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  if (n != kM) return (int)cudaErrorInvalidValue;
+  probe_take_along_axis_axis0<<<kTaGrid, kTaThreads, 0, STREAM>>>(
+      (const float*)a, (const int4*)b, (float4*)out);
   return (int)cudaGetLastError();
 }
 
@@ -364,9 +415,11 @@ PROBE_ENTRY(take_along_axis_axis1) {
 }
 
 // 8g. jnp.take axis0 rowgather (tools/pallas_probe.py:76): out = table8[idx],
-// (128,8). A row of table8 (2048,8) VMEM is 32 B, two float4s: thread t of
-// 256 loads idx[t / 2] (idx (128,) VMEM; a warp's index loads coalesce),
-// then half t % 2 of that row with one read-only 16-byte load
+// (128,8), rows by JAX's index rule (jax_row over the table's n rows; a row
+// of NaN out of range). A row of table8 (n,8) VMEM is 32 B, two float4s:
+// thread t of 256 loads idx[t / 2] (idx (128,) VMEM; a warp's index loads
+// coalesce), then half t % 2 of that row (of row 0 where the index is out
+// of range, its value then replaced by NaN) with one read-only 16-byte load
 // (ld.global.nc.v4.f32, from L2), and writes float4 t of out. Only the 128
 // rows gathered are read; nothing is staged. The 16-byte loads and stores
 // need table8 and out 16-byte aligned: the entry returns
@@ -374,17 +427,20 @@ PROBE_ENTRY(take_along_axis_axis1) {
 // never falls back to 4-byte loads. Bound: bytes (the 128 rows gathered,
 // idx, out).
 extern "C" __global__ void probe_take_rowgather(const float4* __restrict__ table8,
-                                                const int32_t* __restrict__ idx,
+                                                const int32_t* __restrict__ idx, int rows,
                                                 float4* __restrict__ out) {
   const int t = threadIdx.x;
-  out[t] = __ldg(&table8[__ldg(&idx[t / 2]) * 2 + t % 2]);
+  const int row = jax_row(__ldg(&idx[t / 2]), rows);
+  const float4 v = __ldg(&table8[(row < 0 ? 0 : row) * 2 + t % 2]);
+  const float nan = fill_nan();
+  out[t] = row < 0 ? make_float4(nan, nan, nan, nan) : v;
 }
 
 PROBE_ENTRY(take_rowgather) {
   if (((uintptr_t)a | (uintptr_t)out) % sizeof(float4) != 0) {
     return (int)cudaErrorMisalignedAddress;
   }
-  probe_take_rowgather<<<1, kL * 2, 0, STREAM>>>((const float4*)a, (const int32_t*)b,
+  probe_take_rowgather<<<1, kL * 2, 0, STREAM>>>((const float4*)a, (const int32_t*)b, n,
                                                  (float4*)out);
   return (int)cudaGetLastError();
 }
@@ -1123,6 +1179,7 @@ extern "C" int llr_probe_smem_limit(int* bytes, int device) {
   }
 
 PROBE_STATIC_SMEM(vmem_dyn_sublane_static_lane)
+PROBE_STATIC_SMEM(take_along_axis_axis0)
 PROBE_STATIC_SMEM(vmem_dyn_lane)
 PROBE_STATIC_SMEM(smem_input)
 PROBE_STATIC_SMEM(take_rowgather)

@@ -21,8 +21,8 @@ PROBES: tuple[Probe, ...] = mosaic.PROBES + pallas.PROBES + wide.PROBES
 # and must use no shared memory: each loaded kernel reports its static
 # (`static_smem`), and their entries launch with no dynamic.
 DIRECT_PROBES = ("vmem_dyn_sublane_static_lane", "vmem_dyn_lane", "smem_input",
-                 "take_rowgather", "vmem_scalar_dynamic_read", "ref_ds_row_read",
-                 "scatter_add", "scalar_broadcast", "dyn_row_vector_read")
+                 "take_along_axis_axis0", "take_rowgather", "vmem_scalar_dynamic_read",
+                 "ref_ds_row_read", "scatter_add", "scalar_broadcast", "dyn_row_vector_read")
 
 
 def cases() -> list:

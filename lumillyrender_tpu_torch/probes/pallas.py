@@ -60,6 +60,28 @@ def _distinct_bytes(positions: torch.Tensor) -> int:
 # --- take_along_axis axis0: out[i, j] = table[idx_full[i, j], j] ---------
 
 
+def jax_rows(i: torch.Tensor, rows: int) -> tuple:
+    """JAX's index rule for a gather over `rows` rows, as `jnp.take` and
+    `jnp.take_along_axis` apply it by default: an index in [-rows, 0) reads
+    row i + rows, one in [0, rows) row i, and any other gives NaN. Returns
+    (the int64 row to read, clamped into the table, and where the index is
+    in range)."""
+    i = i.long()
+    i = torch.where(i < 0, i + rows, i)
+    ok = (i >= 0) & (i < rows)
+    return i.clamp(0, rows - 1), ok
+
+
+def _nan_where_out(got: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """`got` with NaN (bits 0x7fc00000, JAX's fill) where `ok` is false."""
+    return torch.where(ok, got, torch.full_like(got, float("nan")))
+
+
+def _take_along0(t, i):
+    row, ok = jax_rows(i, t.shape[0])
+    return _nan_where_out(torch.gather(t, 0, row), ok)
+
+
 def _gather_call(t, dim, index):
     out = torch.empty(index.shape, dtype=t.dtype, device=t.device)
     return lambda: torch.gather(t, dim, index, out=out)
@@ -73,7 +95,7 @@ def _axis0_inputs(device):
 
 take_along_axis_axis0 = Probe(
     "take_along_axis_axis0", "take_along_axis axis0 full-shape (M,L)[idx (M,L)]",
-    f"{TOOL}:53", _axis0_inputs, lambda t, i: torch.gather(t, 0, i.long()), (M, L),
+    f"{TOOL}:53", _axis0_inputs, _take_along0, (M, L),
     # Row (7 i + j) % M over i covers every row: the whole table is read.
     work=lambda ins: (3 * M * L * 4, 0),
     library=lambda ins: _gather_call(ins[0], 0, ins[1].long()))
@@ -98,10 +120,14 @@ def _index_select_call(t, index):
     return lambda: torch.index_select(t, 0, index, out=out)
 
 
+def _take_rows(t, i):
+    row, ok = jax_rows(i, t.shape[0])
+    return _nan_where_out(torch.index_select(t, 0, row), ok[:, None])
+
+
 take_rowgather = Probe(
     "take_rowgather", "jnp.take axis0 rowgather (M,8)[idx (L,)]", f"{TOOL}:76",
-    lambda device: (_table8(device), _idx_flat(device)),
-    lambda t, i: torch.index_select(t, 0, i), (L, 8),
+    lambda device: (_table8(device), _idx_flat(device)), _take_rows, (L, 8),
     work=lambda ins: (_distinct_bytes(ins[1][:, None] * 8 + torch.arange(
         8, device=ins[1].device)) + L * 4 + L * 32, 0),
     library=lambda ins: _index_select_call(ins[0], ins[1]))
@@ -116,6 +142,50 @@ def seeded_rows(device="cpu") -> torch.Tensor:
     idx = np.random.default_rng(6).integers(0, M, L).astype(np.int32)
     idx[0], idx[-1] = 0, M - 1
     return torch.from_numpy(idx).to(device)
+
+
+# Seeded int32 index sets for the gathers take_along_axis_axis0 ((M, L))
+# and take_rowgather ((L,)), by name: seeded in [0, M) with rows 0 and
+# M - 1; seeded in [-M, 0) with -M and -1, which wrap; seeded in [-M, M)
+# with a quarter past the table (M, -M - 1, 5000, far values, int32's
+# ends); every index past the table (all NaN).
+INDEX_SETS = ("in_range", "negatives", "mixed", "outside")
+INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
+_OUTSIDE = np.array([M, -M - 1, 5000, -5000, 2**20, -2**30, INT32_MAX, INT32_MIN])
+
+
+def index_set(name: str, shape: tuple, device="cpu") -> torch.Tensor:
+    """An int32 index set of INDEX_SETS of `shape` into M rows, its edges
+    first (in flat order)."""
+    g = np.random.default_rng(30 + INDEX_SETS.index(name) + 10 * len(shape))
+    if name == "in_range":
+        idx, edges = g.integers(0, M, shape), (0, M - 1)
+    elif name == "negatives":
+        idx, edges = g.integers(-M, 0, shape), (-M, -1)
+    elif name == "mixed":
+        idx = g.integers(-M, M, shape)
+        out = g.random(shape) < 0.25
+        idx[out] = g.choice(_OUTSIDE, out.sum())
+        edges = (0, M - 1, -1, -M, M, -M - 1, INT32_MIN, INT32_MAX)
+    else:
+        idx = np.where(g.random(shape) < 0.5, g.integers(M, INT32_MAX, shape, endpoint=True),
+                       g.integers(INT32_MIN, -M - 1, shape, endpoint=True))
+        edges = (M, -M - 1, INT32_MIN, INT32_MAX)
+    idx = idx.astype(np.int32)
+    idx.reshape(-1)[:len(edges)] = edges
+    return torch.from_numpy(idx).to(device)
+
+
+def take_along_sets(device="cpu") -> dict:
+    """{name: (M, L) int32 index set} of INDEX_SETS, for take_along_axis_axis0
+    on the tool's table, on the card and here."""
+    return {name: index_set(name, (M, L), device) for name in INDEX_SETS}
+
+
+def take_rows_sets(device="cpu") -> dict:
+    """{name: (L,) int32 index set} of INDEX_SETS, for take_rowgather on the
+    tool's table8, on the card and here."""
+    return {name: index_set(name, (L,), device) for name in INDEX_SETS}
 
 
 def seeded_table8(device="cpu") -> torch.Tensor:

@@ -1252,9 +1252,50 @@ def test_rowgather_kernel_matches_plain_on_seeded_rows(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("set_name", probes.pallas.INDEX_SETS)
+def test_gather_kernels_match_plain_on_index_sets(card, set_name):
+    """take_along_axis_axis0's and take_rowgather's kernels (both read L2
+    directly) follow JAX's index rule: bit-equal to their plain versions on the
+    tools' tables at each seeded index set (negative indices wrap, any
+    other out-of-range index gives NaN 0x7fc00000)."""
+    for probe, sets in ((probes.pallas.take_along_axis_axis0, probes.pallas.take_along_sets),
+                        (probes.pallas.take_rowgather, probes.pallas.take_rows_sets)):
+        ins = (probe.inputs(card)[0], sets(card)[set_name])
+        before = probe.launches
+        got = probe.run(ins)
+        want = probe.compute(*ins)
+        torch.cuda.synchronize()
+        assert probe.launches == before + 1
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), probe.name
+
+
+@pytest.mark.cuda
+def test_take_along_kernel_refuses_misaligned_indices_and_output(card):
+    """take_along_axis_axis0 reads its table straight from L2 (no shared
+    memory) with 16-byte index loads and stores: its entry refuses an index
+    array or an output 4 bytes off a 16-byte boundary
+    (cudaErrorMisalignedAddress, 716) without a launch, nothing written or
+    counted."""
+    probe = probes.pallas.take_along_axis_axis0
+    assert probe.name in probes.DIRECT_PROBES and probes.static_smem(probe.name) == 0
+    table, idx = probe.inputs(card)
+    bad_idx = torch.empty(idx.numel() + 1, dtype=torch.int32, device=card)[1:]
+    bad_idx = bad_idx.view(idx.shape).copy_(idx)
+    bad_out = torch.empty(idx.numel() + 1, dtype=torch.float32, device=card)[1:].view(idx.shape)
+    assert bad_idx.data_ptr() % 16 == 4 and bad_out.data_ptr() % 16 == 4
+    for ins, out in (((table, bad_idx), probe.outputs(card)[0]), ((table, idx), bad_out)):
+        out.fill_(float("nan"))
+        before = probe.launches
+        with pytest.raises(RuntimeError, match="CUDA error 716"):
+            probe.launch(ins, [out])
+        torch.cuda.synchronize()
+        assert probe.launches == before and torch.isnan(out).all()
+
+
+@pytest.mark.cuda
 def test_direct_probes_declare_no_shared_memory(card):
     """The probes of probes.DIRECT_PROBES (vmem_dyn_sublane_static_lane,
-    vmem_dyn_lane, take_rowgather, vmem_scalar_dynamic_read,
+    vmem_dyn_lane, take_along_axis_axis0, take_rowgather, vmem_scalar_dynamic_read,
     ref_ds_row_read, scalar_broadcast, dyn_row_vector_read, smem_input,
     scatter_add; the list chip_smoke.py's phase 20 checks) read their
     inputs straight from L2: the loaded kernels report no static shared

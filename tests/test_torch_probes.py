@@ -17,11 +17,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from lumillyrender_tpu.ops import rng as jax_rng
 from lumillyrender_tpu_torch import probes
@@ -223,6 +225,101 @@ def test_rowgather_plain_version_is_numpy_indexing():
                                   table8.numpy()[idx].view(np.int32))
 
 
+# The gathers' seeded index sets: the (M, L) sets of take_along_axis_axis0
+# and the (L,) sets of take_rowgather, by name.
+GATHER_SETS = {"take_along_axis_axis0": probes.pallas.take_along_sets,
+               "take_rowgather": probes.pallas.take_rows_sets}
+NAN_BITS = 0x7FC00000
+
+
+def _numpy_gather(t: np.ndarray, idx: np.ndarray, name: str) -> np.ndarray:
+    """The gather in numpy by JAX's index rule: an index in [-M, 0) reads row
+    i + M, one outside [-M, M) gives float32 NaN; take_along_axis_axis0
+    reads table[row, l] for each (m, l), take_rowgather the whole row."""
+    rows = t.shape[0]
+    i = idx.astype(np.int64)
+    i = np.where(i < 0, i + rows, i)
+    ok = (i >= 0) & (i < rows)
+    r = np.where(ok, i, 0)
+    if name == "take_rowgather":
+        return np.where(ok[:, None], t[r], np.float32(np.nan))
+    return np.where(ok, t[r, np.arange(t.shape[1])[None, :]], np.float32(np.nan))
+
+
+def _jax_gather(t: np.ndarray, idx: np.ndarray, name: str) -> tuple:
+    """The JAX probe's kernel body on (t, idx), run as its tool runs it (a
+    pallas_call over VMEM refs), in interpret mode, and the same jnp call
+    outside any kernel."""
+    if name == "take_rowgather":
+        def take(x, i):
+            return jnp.take(x, i, axis=0)
+        shape = (idx.shape[0], t.shape[1])
+    else:
+        def take(x, i):
+            return jnp.take_along_axis(x, i, axis=0)
+        shape = idx.shape
+
+    def k(t_ref, i_ref, o_ref):
+        o_ref[:] = take(t_ref[:], i_ref[:])
+
+    kernel = _PALLAS_CALL(
+        k, out_shape=jax.ShapeDtypeStruct(shape, jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM), interpret=True)(t, idx)
+    return np.asarray(kernel), np.asarray(take(jnp.asarray(t), jnp.asarray(idx)))
+
+
+def test_gather_index_sets_hold_what_they_say():
+    """The gathers' seeded index sets, (2048, 128) for take_along_axis_axis0
+    and (128,) for take_rowgather: in range with rows 0 and 2047; in
+    [-2048, 0) with -2048 and -1; mixed, with in-range, negative and
+    out-of-range indices (2048, -2049, values far out, int32's ends); all
+    out of range."""
+    m = 2048
+    for name, sets in GATHER_SETS.items():
+        got = {k: v.numpy() for k, v in sets().items()}
+        assert list(got) == list(probes.pallas.INDEX_SETS)
+        shape = (m, 128) if name == "take_along_axis_axis0" else (128,)
+        assert all(v.shape == shape and v.dtype == np.int32 for v in got.values())
+        r = got["in_range"]
+        assert ((r >= 0) & (r < m)).all() and {0, m - 1} <= set(r.ravel().tolist())
+        n = got["negatives"]
+        assert ((n >= -m) & (n < 0)).all() and {-m, -1} <= set(n.ravel().tolist())
+        x = got["mixed"].ravel()
+        assert {0, m - 1, -1, -m, m, -m - 1, -2**31, 2**31 - 1} <= set(x.tolist())
+        outside = (x < -m) | (x >= m)
+        assert 0.15 < outside.mean() < 0.35 and (x[outside] > 4096).any()
+        assert ((x >= 0) & (x < m)).any() and ((x >= -m) & (x < 0)).any()
+        o = got["outside"].ravel()
+        assert ((o < -m) | (o >= m)).all() and {m, -m - 1, -2**31, 2**31 - 1} <= set(o.tolist())
+
+
+@pytest.mark.parametrize("set_name", probes.pallas.INDEX_SETS)
+@pytest.mark.parametrize("name", list(GATHER_SETS))
+def test_gather_plain_version_follows_jax_index_rule(name, set_name):
+    """The plain versions the take_along_axis_axis0 and take_rowgather
+    kernels are held against on the card, bit for bit against the JAX
+    probe's kernel body (interpret mode), the jnp call itself and numpy, on
+    the tool's table at each seeded index set: negative indices in
+    [-2048, 0) wrap, every other index outside [0, 2048) gives NaN with the
+    bits 0x7fc00000. On the CPU the wrapper is the plain version."""
+    probe = next(p for p in probes.PROBES if p.name == name)
+    table = probe.inputs("cpu")[0]
+    idx = GATHER_SETS[name]()[set_name]
+    got = probe.compute(table, idx)
+    assert got.dtype == torch.float32 and tuple(got.shape) == probe.out_shape
+    bits = got.numpy().view(np.int32)
+    want = _numpy_gather(table.numpy(), idx.numpy(), name)
+    np.testing.assert_array_equal(bits, want.view(np.int32))
+    for jax_out in _jax_gather(table.numpy(), idx.numpy(), name):
+        np.testing.assert_array_equal(bits, jax_out.view(np.int32))
+    nan = np.isnan(got.numpy())
+    assert (bits[nan] == NAN_BITS).all()
+    assert nan.all() if set_name == "outside" else (nan.any() == (set_name == "mixed"))
+    assert torch.equal(probe.run((table, idx)).view(torch.int32), got.view(torch.int32))
+    assert probe.launches == 0
+
+
 def test_rowgather_takes_no_shared_memory_and_raises_on_misalignment():
     """take_rowgather reads its table straight from L2 (a probe of
     DIRECT_PROBES), and its entry's cudaErrorMisalignedAddress (716) for a
@@ -335,7 +432,7 @@ def test_walk_tables_vote_where_they_say():
 @pytest.mark.parametrize("name", probes.DIRECT_PROBES)
 def test_direct_probes_take_no_shared_memory_and_raise_on_misalignment(name):
     """The probes that read their inputs straight from L2 (scalar_broadcast,
-    smem_input and scatter_add among them): on the CPU, at each of their
+    smem_input, take_along_axis_axis0 and scatter_add among them): on the CPU, at each of their
     entry point's runs, the wrapper is the plain version and launches
     nothing; their kernels get one output and no scratch; an entry's
     cudaErrorMisalignedAddress (716) is a failed launch."""
@@ -604,6 +701,14 @@ def test_dependent_latency_tool_needs_a_card(monkeypatch):
     """tools/torch_dependent_latency.py times chains on a card only: without
     one it exits 2 before building anything."""
     tool = _load_tool("torch_dependent_latency")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tool.main() == 2
+
+
+def test_gather_floor_tool_needs_a_card(monkeypatch):
+    """tools/torch_gather_floor.py times 8e's floors on a card only: without
+    one it exits 2 before building anything."""
+    tool = _load_tool("torch_gather_floor")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tool.main() == 2
 
