@@ -106,7 +106,7 @@ def _sample_light_point(scene: SceneData, u_pick, u1, u2):
     r = table.take_rows(lights.r, li)
     phi = 2.0 * PI * u1
     z = u2 * 2.0 - 1.0
-    zs = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    zs = vec.sqrt(torch.clamp(1.0 - z * z, min=0.0))
     dir_s = torch.stack([torch.cos(phi) * zs, torch.sin(phi) * zs, z], dim=-1)
     p_sph = c + dir_s * r[..., None]
 

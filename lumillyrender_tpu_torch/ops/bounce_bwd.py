@@ -206,9 +206,9 @@ def plain_bounce_bwd(scene: SceneData, settings: RenderSettings, seed, state,
         u, v = vec.orthonormal_basis(on)
         phi = 2.0 * PI * r1
         cp, spn = torch.cos(phi), torch.sin(phi)
-        r2s = torch.sqrt(r2)
+        r2s = vec.sqrt(r2)
         gl = _where(alive3 & is_sph, g_d)
-        gon = gl * torch.sqrt(1.0 - r2)[..., None]
+        gon = gl * vec.sqrt(1.0 - r2)[..., None]
         gu = gl * (cp * r2s)[..., None]
         gv = gl * (spn * r2s)[..., None]
         gon = gon + vec.cross(u, gv)

@@ -119,7 +119,7 @@ def _ggx_alpha(rough):
 def _ggx_g1(v, n, a2):
     cos = vec.dot(v, n)
     tan2 = 1.0 / torch.clamp(cos * cos, min=1e-20) - 1.0
-    return 2.0 / (1.0 + torch.sqrt(1.0 + a2 * a2 * tan2 * tan2))
+    return 2.0 / (1.0 + vec.sqrt(1.0 + a2 * a2 * tan2 * tan2))
 
 
 def _ggx_ndf(m, n, a2):
@@ -196,7 +196,7 @@ def eval_brdf(m: GatheredMaterial, out_, in_, n, pos, present=None):
 
     if MAT_LAMBERT in present:
         # Lambert: albedo * checker(x, z) / pi (`lambert.rs:32-35`).
-        f_lambert = m.color * checker(pos[..., 0], pos[..., 2])[..., None] / PI
+        f_lambert = vec.over(m.color * checker(pos[..., 0], pos[..., 2])[..., None], PI)
         out = torch.where(t == MAT_LAMBERT, f_lambert, out)
 
     if MAT_PHONG in present:
@@ -204,7 +204,7 @@ def eval_brdf(m: GatheredMaterial, out_, in_, n, pos, present=None):
         r = vec.reflect(out_, on)
         cos_ph = vec.dot(r, in_)
         f_phong = m.color * (
-            (m.alpha + 2.0) / (2.0 * PI) * _pow_clamped(cos_ph, m.alpha)
+            vec.over(m.alpha + 2.0, 2.0 * PI) * _pow_clamped(cos_ph, m.alpha)
         )[..., None]
         f_phong = _where(front, f_phong, 0.0)
         out = torch.where(t == MAT_PHONG, f_phong, out)
@@ -288,13 +288,13 @@ def sample(m: GatheredMaterial, out_, n, r1u, r2u, r3u,
 
     if MAT_LAMBERT in present:
         # Lambert: cosine hemisphere (`util.rs:87-96`, `lambert.rs:37-55`).
-        r2s = torch.sqrt(r2u)
+        r2s = vec.sqrt(r2u)
         d_lam = (
             u * (cp * r2s)[..., None]
             + v * (sp * r2s)[..., None]
-            + on * torch.sqrt(1.0 - r2u)[..., None]
+            + on * vec.sqrt(1.0 - r2u)[..., None]
         )
-        pdf_lam = vec.dot(d_lam, n) / PI  # geometric n (`lambert.rs:47-50`)
+        pdf_lam = vec.over(vec.dot(d_lam, n), PI)  # geometric n (`lambert.rs:47-50`)
         d = torch.where(t3 == MAT_LAMBERT, d_lam, d)
         pdf = torch.where(t == MAT_LAMBERT, pdf_lam, pdf)
 
@@ -304,14 +304,14 @@ def sample(m: GatheredMaterial, out_, n, r1u, r2u, r3u,
         r = vec.reflect(out_, on)
         ur, vr = vec.orthonormal_basis(r)
         t_ph = torch.pow(r2u, 1.0 / (a + 2.0))
-        ts_ph = torch.sqrt(torch.clamp(1.0 - t_ph * t_ph, min=0.0))
+        ts_ph = vec.sqrt(torch.clamp(1.0 - t_ph * t_ph, min=0.0))
         d_ph = (
             ur * (cp * ts_ph)[..., None]
             + vr * (sp * ts_ph)[..., None]
             + r * t_ph[..., None]
         )
         cos_ph = vec.dot(r, d_ph)
-        pdf_ph = (a + 2.0) / (2.0 * PI) * _pow_clamped(cos_ph, a)
+        pdf_ph = vec.over(a + 2.0, 2.0 * PI) * _pow_clamped(cos_ph, a)
         d = torch.where(t3 == MAT_PHONG, d_ph, d)
         pdf = torch.where(t == MAT_PHONG, pdf_ph, pdf)
 
@@ -320,24 +320,24 @@ def sample(m: GatheredMaterial, out_, n, r1u, r2u, r3u,
         # half-vector measure (quirk #15, `blinn_phong.rs:49-72`).
         a = m.alpha
         t_bl = torch.pow(r2u, 1.0 / (a + 2.0))
-        ts_bl = torch.sqrt(torch.clamp(1.0 - t_bl * t_bl, min=0.0))
+        ts_bl = vec.sqrt(torch.clamp(1.0 - t_bl * t_bl, min=0.0))
         h_bl = (
             u * (cp * ts_bl)[..., None]
             + v * (sp * ts_bl)[..., None]
             + on * t_bl[..., None]
         )
         d_bl = h_bl * (2.0 * vec.dot(out_, h_bl))[..., None] - out_
-        pdf_bl = (a + 2.0) / (2.0 * PI) * _pow_clamped(vec.dot(on, h_bl), a)
+        pdf_bl = vec.over(a + 2.0, 2.0 * PI) * _pow_clamped(vec.dot(on, h_bl), a)
         d = torch.where(t3 == MAT_BLINN_PHONG, d_bl, d)
         pdf = torch.where(t == MAT_BLINN_PHONG, pdf_bl, pdf)
 
     if MAT_GGX in present:
         # GGX: NDF-sampled half vector (`ggx.rs:87-113`).
         a2 = _ggx_alpha(m.alpha)
-        tan = a2 * torch.sqrt(r2u / torch.clamp(1.0 - r2u, min=1e-12))
+        tan = a2 * vec.sqrt(r2u / torch.clamp(1.0 - r2u, min=1e-12))
         x = 1.0 + tan * tan
-        cos_g = 1.0 / torch.sqrt(x)
-        sin_g = tan / torch.sqrt(x)
+        cos_g = 1.0 / vec.sqrt(x)
+        sin_g = tan / vec.sqrt(x)
         h_g = (
             u * (cp * sin_g)[..., None]
             + v * (sp * sin_g)[..., None]

@@ -31,16 +31,9 @@ def samples_aperture(kind: int) -> bool:
 def aperture_pdf(cam: CameraData, width: int, height: int) -> torch.Tensor:
     """Constant sampling pdf of the finite-aperture kinds: sensor area per
     pixel times aperture disk (`camera.rs:411-445`). A 0-d tensor."""
-    pdf_s = 1.0 / (cam.sensor_size[0] * cam.sensor_size[1] / (width * height))
+    pdf_s = 1.0 / vec.over(cam.sensor_size[0] * cam.sensor_size[1], width * height)
     pdf_a = 1.0 / (PI * cam.aperture_radius**2)
     return pdf_s * pdf_a
-
-
-def _over(x: torch.Tensor, n) -> torch.Tensor:
-    """x / n, an IEEE division on every device: PyTorch on CUDA multiplies
-    by the reciprocal of a host scalar divisor, so `n` goes as a tensor on
-    x's device (the JAX package and kernel 1 divide)."""
-    return x / torch.full((), float(n), dtype=x.dtype, device=x.device)
 
 
 def sample_rays(cam: CameraData, kind: int, px, py, width, height, u, v, u2, v2):
@@ -55,8 +48,8 @@ def sample_rays(cam: CameraData, kind: int, px, py, width, height, u, v, u2, v2)
     if kind == CAM_OMNIDIRECTIONAL:
         # Equirect direction; deliberately ignores the camera basis —
         # quirk #13 (`camera.rs:169-188`).
-        p = _over(pxf + u, width) * (2.0 * PI)
-        t = _over(pyf + v, height) * PI
+        p = vec.over(pxf + u, width) * (2.0 * PI)
+        t = vec.over(pyf + v, height) * PI
         st, ct = torch.sin(t), torch.cos(t)
         d = torch.stack([st * torch.cos(p), st * torch.sin(p), ct], dim=-1)
         o = cam.aperture_position.expand_as(d)
@@ -64,8 +57,8 @@ def sample_rays(cam: CameraData, kind: int, px, py, width, height, u, v, u2, v2)
 
     # Shared sensor sampling (`camera.rs:64-81,411-428`): note the MINUS on
     # the right axis (sensor is mirrored through the aperture).
-    sx = (_over(pxf + u, width) - 0.5) * cam.sensor_size[0]
-    sy = (_over(pyf + v, height) - 0.5) * cam.sensor_size[1]
+    sx = (vec.over(pxf + u, width) - 0.5) * cam.sensor_size[0]
+    sy = (vec.over(pyf + v, height) - 0.5) * cam.sensor_size[1]
     sensor_point = (
         cam.position - cam.right * sx[..., None] + cam.up * sy[..., None]
     )
@@ -77,7 +70,7 @@ def sample_rays(cam: CameraData, kind: int, px, py, width, height, u, v, u2, v2)
 
     # Shared finite-aperture sampling (`camera.rs:285-300,430-445`).
     theta = 2.0 * PI * u2
-    rad = torch.sqrt(v2) * cam.aperture_radius
+    rad = vec.sqrt(v2) * cam.aperture_radius
     aperture_point = (
         cam.aperture_position
         + cam.right * (torch.cos(theta) * rad)[..., None]

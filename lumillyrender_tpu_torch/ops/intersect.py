@@ -159,7 +159,7 @@ def _sph(o3, d3, c3, r):
     cox, coy, coz = ox - cx, oy - cy, oz - cz
     cod = cox * dx + coy * dy + coz * dz
     det = _fma(cod, cod, -(cox * cox + coy * coy + coz * coz)) + r * r
-    sq = torch.sqrt(torch.where(det > 0.0, det, torch.ones_like(det)))
+    sq = vec.sqrt(torch.where(det > 0.0, det, torch.ones_like(det)))
     t1 = -cod - sq
     t2 = -cod + sq
     t = torch.where(t1 > EPS, t1, t2)

@@ -7,6 +7,7 @@ import torch
 
 from ..constants import PI
 from ..scene.data import SKY_IBL, SKY_SIMPLE, SkyData
+from . import vec
 from .table import take_rows
 
 
@@ -25,16 +26,14 @@ def ibl_texel(sky: SkyData, d) -> torch.Tensor:
     Equirect lookup (`sky.rs:57-79`): y-up, u offset by longitude_offset in
     RADIANS (quirk #14), nearest-neighbor texel, width == 2*height.
 
-    The divisors are tensors on d's device: PyTorch on CUDA multiplies by
-    the float reciprocal of a host-scalar divisor, an ulp off the IEEE
-    division that it makes on the CPU and that the CUDA kernels make, and
-    an ulp moves a lane across a texel edge."""
+    Both divisions are IEEE on every device (`vec.over`): an ulp moves a
+    lane across a texel edge."""
     h = sky.ibl.shape[0]
     w = sky.ibl.shape[1]
     theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))
     phi = torch.arctan2(d[..., 2], d[..., 0])
-    u = torch.remainder((phi + PI + sky.longitude_offset) / d.new_tensor(2.0 * PI), 1.0)
-    v = torch.remainder(theta / d.new_tensor(PI), 1.0)
+    u = torch.remainder(vec.over(phi + PI + sky.longitude_offset, 2.0 * PI), 1.0)
+    v = torch.remainder(vec.over(theta, PI), 1.0)
     x = torch.floor(w * u).to(torch.int64)
     y = torch.floor(h * v).to(torch.int64)
     # Reference wraps `index % all` over the flattened image (`sky.rs:73-74`).

@@ -1,4 +1,5 @@
-"""Batched 3-vector helpers for (..., 3) tensors.
+"""Batched 3-vector helpers for (..., 3) tensors, and the two roundings
+the plain step takes the same on every device (`sqrt`, `over`).
 
 Sums are written out left to right (x + y + z), the order the JAX
 package's reductions over a size-3 axis take, so both sides round alike.
@@ -9,6 +10,25 @@ from __future__ import annotations
 import torch
 
 from ..constants import EPS
+
+
+def sqrt(x):
+    """The IEEE square root of `x` on every device. PyTorch's CPU sqrt of
+    float32 goes through MKL's vector math, which misses the correctly
+    rounded root by an ulp on about 0.5% of inputs, where the card's sqrtf,
+    the kernels' and XLA's round correctly: on the CPU the root is taken in
+    float64 and rounded once to float32."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
+def over(x, c: float):
+    """x / c for a host number `c`, an IEEE division on every device:
+    PyTorch on CUDA multiplies by the float reciprocal of a host scalar
+    divisor, so `c` goes as a tensor on x's device (the CPU, the kernels
+    and XLA divide)."""
+    return x / torch.full((), float(c), dtype=x.dtype, device=x.device)
 
 
 def dot(a, b):
@@ -25,7 +45,7 @@ def cross(a, b):
 
 
 def norm(a):
-    return torch.sqrt(torch.clamp(dot(a, a), min=0.0))
+    return sqrt(torch.clamp(dot(a, a), min=0.0))
 
 
 def sqr_norm(a):
@@ -65,7 +85,7 @@ def refract(v, n, eta):
     dn = dot(v, n)
     cos2 = 1.0 - (eta * eta) * (1.0 - dn * dn)
     valid = cos2 > 0.0
-    safe = torch.sqrt(torch.where(valid, cos2, torch.ones_like(cos2)))
+    safe = sqrt(torch.where(valid, cos2, torch.ones_like(cos2)))
     r = -v * eta[..., None] - n * (eta * -dn + safe)[..., None]
     return r, valid
 

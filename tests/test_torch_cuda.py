@@ -51,7 +51,11 @@ pass walking nothing under the `isect` ones; under `LLR_RNG=threefry`
 bit-equal to `rng.uniform4`'s, the bounce kernels refused before anything
 is packed and `fused="off"` rendering with kernel 1 and the plain step;
 kernels 3 and 4 at leaf widths K = 8, 16, 24, 48 and 64 (kernel 3
-bit-equal to the plain walk, kernel 4 under parity.py's rules).
+bit-equal to the plain walk, kernel 4 under parity.py's rules); kernel 4
+on the hero scenes ridaisai (refraction through closed meshes, pure pt)
+and welcome (GGX on triangles), and ridaisai's full-width chunk through
+the captured stage loop; vec.sqrt and vec.over (the plain step's sqrt and
+host-scalar divisions) bit-equal to numpy's IEEE results.
 """
 
 from pathlib import Path
@@ -215,6 +219,53 @@ def test_bvh_bounce_kernel_matches_plain(welcome, bounce):
     want = wavefront.plain_bounce_step(c.data, c.settings, 77, st)
     torch.cuda.synchronize()
     assert parity.failures(parity.agreement(want, got)) == []
+
+
+@pytest.fixture(scope="module")
+def heroes():
+    """The hero scenes: ridaisai (refraction through two closed bunny
+    meshes, pure pt) and welcome (GGX on triangles, pt-direct), both under
+    an IBL sky."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    return {name: compile_scene_file(ASSETS / f"{name}.toml", device="cuda")
+            for name in ("ridaisai", "welcome")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounce", [0, 3, 7, 70])
+@pytest.mark.parametrize("name", ["ridaisai", "welcome"])
+def test_bvh_bounce_kernel_matches_plain_on_hero_scenes(heroes, name, bounce):
+    c = heroes[name]
+    parts = _random_state(c.data, 16384, 200 + bounce + len(name))
+    st = state_from_numpy(bounce, *parts, device="cuda")
+    got = cuda_bounce.bounce_bvh(c.data, c.settings, 77, st)
+    want = wavefront.plain_bounce_step(c.data, c.settings, 77, st)
+    torch.cuda.synchronize()
+    assert parity.failures(parity.agreement(want, got)) == []
+
+
+@pytest.mark.cuda
+def test_sqrt_and_host_divisions_round_as_ieee_on_the_card(card):
+    """vec.sqrt and vec.over on the card give numpy's correctly rounded
+    float32 sqrt and division bit for bit, as they do on the CPU
+    (tests/test_torch_ops.py), so the plain step rounds both alike on the
+    two devices; a host-scalar divisor alone (x / c) is the multiply by its
+    reciprocal that vec.over avoids."""
+    from lumillyrender_tpu_torch.constants import PI
+    from lumillyrender_tpu_torch.ops import vec
+
+    rng = np.random.default_rng(5)
+    x = np.concatenate([
+        rng.integers(0, 0x7F800000, size=1 << 20, dtype=np.int64).astype(np.int32).view(
+            np.float32),
+        np.array([0.0, -0.0, 1.0, 4.0, np.inf, 1e-45, 3.4e38], np.float32)])
+    t = torch.from_numpy(x).to(card)
+    for got, want in ((vec.sqrt(t), np.sqrt(x)), (torch.sqrt(t), np.sqrt(x)),
+                      (vec.over(t, PI), x / np.float32(PI)),
+                      (vec.over(t, 2138 * 1536), x / np.float32(2138 * 1536))):
+        assert np.array_equal(got.cpu().numpy().view(np.int32), want.view(np.int32))
+    assert not np.array_equal((t / PI).cpu().numpy(), x / np.float32(PI))
 
 
 @pytest.mark.cuda
@@ -1691,7 +1742,8 @@ def _host_loop_chunk(c, step, spp, offset):
 
 
 SEED_LOOP = 1234
-LOOP_SCENES = [("new-cbox", 64, 64, 4), ("welcome-geo", 64, 48, 4)]
+# ridaisai at its own film: one 3,283,968-lane chunk, 2x32 tiles.
+LOOP_SCENES = [("new-cbox", 64, 64, 4), ("welcome-geo", 64, 48, 4), ("ridaisai", 2138, 1536, 1)]
 
 
 @pytest.mark.cuda

@@ -1,6 +1,8 @@
 """The port's shading ops against the JAX package's functions on the same
 numpy inputs: camera rays (four kinds), sky radiance (three kinds), the
-BSDF table (five families) and brute-force intersection and shading.
+BSDF table (five families) and brute-force intersection and shading; and
+the plain step's sqrt and divisions by host numbers against numpy's IEEE
+results.
 
 Tolerances: the two sides run the same formulas in float32, but XLA fuses
 multiply-adds and brings its own sin/cos/exp/pow, so results differ in the
@@ -251,3 +253,40 @@ def test_sphere_brute_matches_jax(assets_dir):
     assert same.mean() >= 0.999
     _close(tt[torch.from_numpy(same)], np.asarray(jt)[same], rtol=1e-4,
            name="sphere_brute/t")
+
+
+def _ieee_inputs(n=1 << 20, seed=5):
+    """float32 inputs over the whole positive range (random bit patterns),
+    numbers of every scale the step takes, and the special values."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 0x7F800000, size=n, dtype=np.int64).astype(np.int32)
+    scaled = (rng.uniform(1.0, 2.0, size=n) * 2.0 ** rng.integers(-40, 40, size=n))
+    special = np.array([0.0, -0.0, 1.0, 4.0, np.inf, -1.0, np.nan, 1e-45, 3.4e38])
+    return np.concatenate([bits.view(np.float32), scaled.astype(np.float32),
+                           special.astype(np.float32)])
+
+
+def _same_bits(got: torch.Tensor, want: np.ndarray):
+    got = got.numpy()
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(got[~nan].view(np.int32), want[~nan].view(np.int32))
+
+
+def test_sqrt_and_host_divisions_round_as_ieee():
+    """vec.sqrt and vec.over give numpy's correctly rounded float32 sqrt and
+    division bit for bit (the card's sqrtf and division, the kernels' and
+    XLA's), so the plain step rounds them alike on the CPU and on the card;
+    PyTorch's own CPU sqrt goes through MKL's vector math, an ulp off on
+    about 0.5% of inputs (tools/torch_device_fork.py)."""
+    from lumillyrender_tpu_torch.constants import PI
+    from lumillyrender_tpu_torch.ops import vec
+
+    x = _ieee_inputs()
+    with np.errstate(invalid="ignore"):
+        _same_bits(vec.sqrt(torch.from_numpy(x)), np.sqrt(x))
+    for c in (PI, 2.0 * PI, 3.0, 2138 * 1536):
+        _same_bits(vec.over(torch.from_numpy(x), c), x / np.float32(c))
+    g = torch.from_numpy(x[:64] + 1.0).requires_grad_()
+    vec.sqrt(g).sum().backward()
+    assert g.grad.dtype == torch.float32 and torch.isfinite(g.grad).all()

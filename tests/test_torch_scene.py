@@ -15,9 +15,11 @@ from lumillyrender_tpu_torch.scene.data import SceneData
 
 torch.set_num_threads(2)
 
-# Every asset scene without the 82k-triangle bunny mesh.
+# Every asset scene but welcome-geo (tests/test_torch_render.py holds its
+# film): the bunny scenes sample (BASELINE config 1), welcome and ridaisai
+# (the JAX package's hero renders; two bunnies, 163,842 triangles) too.
 SCENES = ["primitive", "debug-nee", "brdf", "new-cbox", "many-light",
-          "ibl-material", "vr"]
+          "ibl-material", "vr", "sample", "welcome", "ridaisai"]
 
 
 def _leaves(scene: SceneData):
