@@ -224,6 +224,28 @@ Phases, in order; any failure exits non-zero:
      launched; 64x48 x 4 spp films of each, kernel path twice and plain
      path once; ridaisai's plain film on the card against the CPU's under
      CROSS_DEVICE, which its film of another seed must fail;
+ 29. the estimator gates (tools/torch_oracle_gate.py): the JAX package's
+     oracle configs (pt-spheres, nee-phong-blinn, ggx, mesh-thinlens,
+     ibl-refraction, omni) at ORACLE.json's size, seeds 9000-9009, through
+     `render` (kernels 1 and 2, no plain step) against the independent
+     oracle's committed stacks (tests/oracle_stacks.npz): frac(|z|>5) <
+     0.008, untestable < 0.05, rel mean diff < 0.06 (0.15 ggx), each beside
+     ORACLE.json's JAX row; the configs with triangles again under
+     intersector="bvh" (kernel 4, not 2); controls on the card's stacks
+     (x1.2 on each quadrant in turn, at least one failing a config; x1.5
+     on 5% of the lit pixels printed);
+     then tests/test_render.py's statistical gates through the kernels:
+     the white furnace within 1e-3 of 1 and the gray furnace on its
+     8-sample lattice at the test's 48^2 x 8 spp; the white furnace at
+     256^2 x 32 spp (2,097,152 lanes) on its 32-sample lattice, with the
+     samples trapped inside the sphere (as in the JAX package) under 1e-5
+     of them; pt vs pt-direct (film
+     means, and the per-pixel z on the big-lamp scene with its +50%
+     control failing), compaction overflow through the captured plan
+     (256 slots from bounce 2, 40 seeds each way, z < 4), tiled vs raster
+     lane order (kernel 1's raster decode against its plain version) and
+     many-light pt vs pt-direct (the step its 256 lights take, by the
+     launch counts);
 then one `{"kernels": [...]}` line for all 30 kernels (kernel 1's with
 both instances).
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -3950,6 +3972,198 @@ def hero_scenes(card, lap, assets) -> tuple[dict, float, float]:
     return rep, raygen_err, bounce_err
 
 
+def counted_films(tag, c, seeds, want, must_be_zero, spp_chunk=None):
+    """The films of `c` for each seed through `render` on the card, with
+    every launch count zeroed just before and read just after; fails unless
+    each kernel in `want` launched, none in `must_be_zero` did, and neither
+    the plain step nor the plain walk ran. -> (films (S, h, w, 3), counts)."""
+    from lumillyrender_tpu_torch.integrator.render import render
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    with PlainCalls() as plain:
+        cuda_bounce.reset_counts()
+        films = np.stack([render(c, seed=s, spp_chunk=spp_chunk, device="cuda").film
+                          for s in seeds])
+        torch.cuda.synchronize()
+        launches = cuda_bounce.counts()
+    if (any(launches[k] < 1 for k in want) or any(launches[k] for k in must_be_zero)
+            or plain.calls or not np.isfinite(films).all()):
+        fail(f"{tag}: left its path or gave a non-finite film: {launches}, plain calls "
+             f"{plain.n}")
+    return films, {k: v for k, v in launches.items() if v}
+
+
+def oracle_configs(card, tg, scenes, kernel, off, settings) -> tuple[dict, dict]:
+    """Each config of `scenes` (tools/torch_oracle_gate.py's, at ORACLE.json's
+    size) rendered at seeds 9000-9009 through `kernel` against the committed
+    oracle stack, printed beside ORACLE.json's JAX row. -> (rows, films)."""
+    stacks, jax_rows = tg.load_stacks("full"), tg.oracle_json_rows()
+    seeds = tg.SIZES["full"]["seeds"]
+    rows, films = {}, {}
+    for name, c in scenes.items():
+        c = dataclasses.replace(c, settings=dataclasses.replace(c.settings, **settings))
+        fr, launches = counted_films(f"{name} ({kernel})", c, seeds, ("raygen", kernel), (off,))
+        r = tg.gate_fields(name, fr, stacks[name][0], seeds, c)
+        r.update(passed=tg.passes(r), launches=launches,
+                 jax={k: jax_rows[name][k] for k in tg.ORACLE_FIELDS})
+        print(json.dumps(dict(phase=29, kernel=kernel, card=card, **r)))
+        rows[name], films[name] = r, fr
+    bad = [name for name, r in rows.items() if not r["passed"]]
+    if bad:
+        fail(f"the oracle gate fails through {kernel}: {bad}")
+    return rows, films
+
+
+def estimator_gates(card, lap) -> dict:
+    """Phase 29: the JAX package's estimator gates through the kernels. The
+    oracle gate (tools/torch_oracle_gate.py against the committed stacks of
+    tests/oracle_stacks.npz) on the six configs through kernels 1 and 2, and
+    on the triangle configs through kernel 4, with its controls; then
+    tests/test_render.py's statistical gates on the card."""
+    from unittest import mock
+
+    from lumillyrender_tpu_torch.integrator import render as render_mod
+    from lumillyrender_tpu_torch.integrator import wavefront
+    from tools import torch_oracle_gate as tg
+
+    phase("29 estimator gates (the oracle's six configs through kernels 1, 2 and 4; "
+          "test_render.py's statistical gates)")
+    t0 = time.monotonic()
+    scenes = tg.sized_scenes("full", "cuda")
+    rep = {}
+    rep["oracle"], films = oracle_configs(card, tg, scenes, "bounce", "bounce_bvh", {})
+    tris = {name: c for name, c in scenes.items() if c.data.geometry.tri_p0.shape[0]}
+    rep["oracle_bvh"], _ = oracle_configs(card, tg, tris, "bounce_bvh", "bounce",
+                                          dict(intersector="bvh"))
+    lap("29 oracle gate", t0)
+
+    # Controls on the card's own stacks: x1.2 on each quadrant in turn, of
+    # which the gate must catch at least one a config, and a sparse bias
+    # that records its power at this budget.
+    stacks = tg.load_stacks("full")
+    seeds = tg.SIZES["full"]["seeds"]
+    rep["controls"] = {}
+    for name in ("pt-spheres", "mesh-thinlens"):
+        fo = stacks[name][0]
+        biased = {f"quadrant {q} x1.2": tg.quadrant_bias(films[name], q) for q in range(4)}
+        biased["sparse x1.5 on 5% of the lit pixels"] = tg.sparse_bias(films[name])
+        recs = rep["controls"][name] = {}
+        for kind, f in biased.items():
+            r = recs[kind] = tg.gate_fields(name, f, fo, seeds, scenes[name])
+            r["passed"] = tg.passes(r)
+            print(f"control, {name} {kind}: frac(|z|>5) {r['frac_abs_z_gt5']}, max |z| "
+                  f"{r['max_abs_z']}, untestable {r['frac_untestable']}, rel mean diff "
+                  f"{r['rel_mean_diff']}, passes the gate {r['passed']}")
+        if all(r["passed"] for kind, r in recs.items() if kind.startswith("quadrant")):
+            fail(f"the oracle gate passes x1.2 on every quadrant of {name}")
+    del films
+    t1 = time.monotonic()
+
+    st = rep["statistical"] = {}
+    brute = (("raygen", "bounce"), ("bounce_bvh",))
+    # The furnaces at tests/test_render.py's size (48^2 x 8 spp): exact.
+    f, launches = counted_films("white furnace", tg.furnace_scene(1.0, device="cuda"), [3],
+                                *brute)
+    st["white_furnace"] = dict(max_abs=float(np.abs(f - 1.0).max()), launches=launches)
+    spp = 8
+    f, launches = counted_films("gray furnace", tg.furnace_scene(0.37, spp=spp, device="cuda"),
+                                [4], *brute)
+    st["gray_furnace"] = dict(lattice_max=tg.gray_lattice_max(f, spp, 0.37),
+                              sphere_seen=bool(np.abs(f - 0.37).min() < 1e-3), launches=launches)
+    # The white furnace at full chunk width (256^2 x 32 spp, 2,097,152
+    # lanes): every pixel on the 32-sample lattice, the samples lost inside
+    # the sphere (tg.FURNACE_LOST_SHARE) counted.
+    side, spp = 256, 32
+    f, launches = counted_films(
+        "white furnace, full width", tg.furnace_scene(1.0, spp=spp, device="cuda", width=side,
+                                                      height=side), [3], *brute)
+    lattice_max, lost = tg.furnace_lost_samples(f[0], spp)
+    st["white_furnace_full_width"] = dict(
+        lanes=side * side * spp, max_abs=float(np.abs(f - 1.0).max()), lattice_max=lattice_max,
+        lost_samples=lost, pixels_below_1=int((np.abs(f[0] - 1.0).max(axis=2) > 1e-3).sum()),
+        launches=launches)
+    print(f"furnaces: {st}")
+    if not (st["white_furnace"]["max_abs"] < 1e-3 and st["gray_furnace"]["lattice_max"] < 1e-3
+            and st["gray_furnace"]["sphere_seen"] and lattice_max < 1e-3
+            and lost < tg.FURNACE_LOST_SHARE * side * side * spp):
+        fail(f"a furnace identity fails on the card: {st}")
+
+    a, _ = counted_films("pt", tg.nee_scene("pt", 768, "cuda"), [11], *brute)
+    b, _ = counted_films("pt-direct", tg.nee_scene("pt-direct", 192, "cuda"), [12], *brute)
+    st["pt_vs_nee"] = means_agree("pt vs pt-direct 32^2", a, b)
+
+    fa, _ = counted_films("pt, big lamp", tg.big_lamp_scene("pt", 768, "cuda"), range(300, 316),
+                          *brute)
+    fb, _ = counted_films("pt-direct, big lamp", tg.big_lamp_scene("pt-direct", 256, "cuda"),
+                          range(400, 416), *brute)
+    rec = st["perpixel_z"] = tg.perpixel_z(fa, fb)
+    print(f"pt vs pt-direct per-pixel z (big lamp, 16^2, 16 seeds each): {rec}")
+    if not tg.perpixel_z_holds(rec, 16 * 16):
+        fail(f"the per-pixel z gate fails on the card: {rec}")
+
+    # Compaction overflow, through the captured plan: 32 spp in two chunks
+    # of 4,096 lanes (the second a replay of the first's graph).
+    shell = tg.compile_toml(tg.shell_toml(), "cuda", spp=32)
+    shell_off = dataclasses.replace(shell, settings=dataclasses.replace(
+        shell.settings, compaction="off"))
+    seeds = range(100, 140)
+    f_off, _ = counted_films("shell, uncompacted", shell_off, seeds, *brute, spp_chunk=16)
+    forced = ((4096, 0, 2), (256, 2, shell.settings.max_bounces))
+    overflowed, orig = [], wavefront._compact
+
+    def spy(state, width, seed, ctr, salt=None):
+        if not torch.cuda.is_current_stream_capturing():
+            overflowed.append(int(state.alive.sum()) > width)
+        return orig(state, width, seed, ctr, salt=salt)
+
+    with mock.patch.object(wavefront, "_stage_plan", lambda n, s, **kw: forced), \
+            mock.patch.object(wavefront, "_compact", spy):
+        f_on, launches = counted_films("shell, forced plan", shell, seeds, *brute, spp_chunk=16)
+    mp, mc = f_off.mean(axis=(1, 2, 3)), f_on.mean(axis=(1, 2, 3))
+    rec = st["compaction_overflow"] = dict(
+        z=tg.z_of_means(mp, mc), mean_uncompacted=float(mp.mean()), mean_forced=float(mc.mean()),
+        eager_overflows=sum(overflowed), eager_chunks=len(overflowed), launches=launches)
+    print(f"compaction overflow (16^2 x 32 spp, 256 slots from bounce 2, 40 seeds): {rec}")
+    if not (rec["z"] < 4.0 and overflowed and all(overflowed)):
+        fail(f"the compaction overflow gate fails on the card: {rec}")
+
+    nee64 = tg.nee_scene("pt-direct", 16, "cuda", width=64, height=64)
+    tiled, _ = counted_films("tiled", nee64, [50 + s for s in range(12)], *brute)
+    with mock.patch.object(render_mod, "tile_dims", lambda s: None):
+        raster_err = check_raygen("kernel 1 in raster order, 64^2 x 16", nee64.data,
+                                  nee64.settings, 16, 0)
+        raster, _ = counted_films("raster", nee64, [150 + s for s in range(12)], *brute)
+    rec = st["tiled_vs_raster"] = dict(z=tg.z_of_means(tiled.mean(axis=(1, 2, 3)),
+                                                       raster.mean(axis=(1, 2, 3))),
+                                       raygen_raster_max_abs=raster_err)
+    print(f"tiled vs raster lane order (64^2 x 16 spp, 12 seeds each): {rec}")
+    if not rec["z"] < 4.0:
+        fail(f"tiled and raster lane order disagree on the card: {rec}")
+
+    ml = tg.many_light_scene("pt-direct", 192, "cuda")
+    a, _ = counted_films("many-light pt", tg.many_light_scene("pt", 768, "cuda"), [21], *brute)
+    b, launches = counted_films("many-light pt-direct", ml, [22], *brute)
+    rec = st["many_light"] = means_agree("many-light pt vs pt-direct 32^2", a, b)
+    rec.update(lights=int(ml.data.lights.prim.shape[0]), launches=launches,
+               step="kernel 2 (bounce)" if launches.get("bounce") else "plain step")
+    print(f"many-light: {rec['lights']} lights, pt-direct took {rec['step']}: {launches}")
+    lap("29 statistical gates", t1)
+    lap("estimator gates", t0)
+    return rep
+
+
+def means_agree(tag, a, b) -> dict:
+    """tests/test_render.py's film-mean gate (tg.means_agree) on the first
+    film of two stacks."""
+    from tools import torch_oracle_gate as tg
+
+    rec = tg.means_gap(a[0].mean(axis=2), b[0].mean(axis=2))
+    print(f"{tag}: {rec}")
+    if not tg.means_agree(rec):
+        fail(f"{tag}: the two estimators disagree on the card: {rec}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -4384,6 +4598,7 @@ def main() -> int:
     knob_report = env_knobs(card, lap, cbox, geo, geo_chunk)
     tf = knob_report["raygen_threefry"]
     hero_report, hero_raygen_err, hero_bounce_err = hero_scenes(card, lap, assets)
+    estimator_report = estimator_gates(card, lap)
     bounce_err = max(bounce_err, sky_err)
     bvh_bounce_err = max(bvh_bounce_err, sky_bvh_err, hero_bounce_err)
     raygen_err = max(raygen_err, hero_raygen_err)
@@ -4445,6 +4660,7 @@ def main() -> int:
         data_parallel=dp_report, vr=vr_report, simple_sky=sky_report,
         differentiable_scenes=diff_report, remat_policies=remat_report,
         environment_knobs=knob_report, hero_scenes=hero_report,
+        estimator_gates=estimator_report,
         kernels=kernels, ptxas=ptxas_report,
         phase_seconds=secs,
         seconds=time.monotonic() - t_start)

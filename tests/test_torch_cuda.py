@@ -55,7 +55,13 @@ bit-equal to the plain walk, kernel 4 under parity.py's rules); kernel 4
 on the hero scenes ridaisai (refraction through closed meshes, pure pt)
 and welcome (GGX on triangles), and ridaisai's full-width chunk through
 the captured stage loop; vec.sqrt and vec.over (the plain step's sqrt and
-host-scalar divisions) bit-equal to numpy's IEEE results.
+host-scalar divisions) bit-equal to numpy's IEEE results; the estimator
+gates of tools/torch_oracle_gate.py through the kernels: the white
+furnace (exact at 48^2 x 8 spp; at 2,097,152 lanes on its lattice with
+the few samples trapped inside the sphere counted) and the oracle gate on
+pt-spheres and mesh-thinlens at the CI size against the committed stacks
+(tests/oracle_stacks.npz; chip_smoke.py's phase 29 runs all six configs
+at ORACLE.json's size).
 """
 
 from pathlib import Path
@@ -2088,3 +2094,42 @@ def test_bvh_kernels_at_other_leaf_widths(welcome, k, bounce):
     for a, b in zip(cuda_bvh.intersect_tris(o, d, inf, never, tables, True),
                     _walk_tris(o, d, inf, never, scene.bvh, True)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_white_furnace_through_the_kernels_at_full_width(card):
+    """tests/test_render.py's white furnace through kernels 1 and 2: within
+    1e-3 of 1 at the test's 48^2 x 8 spp; at one full chunk (256^2 x 32
+    spp, 2,097,152 lanes) every pixel on the 32-sample lattice and the
+    samples trapped inside the sphere under tg.FURNACE_LOST_SHARE of them
+    (the JAX package loses 7 there, the CPU plain path 6)."""
+    from tools import torch_oracle_gate as tg
+
+    from lumillyrender_tpu_torch.integrator.render import render
+
+    film = render(tg.furnace_scene(1.0, device="cuda"), seed=3, device="cuda").film
+    assert np.abs(film - 1.0).max() < 1e-3
+    c = tg.furnace_scene(1.0, spp=32, device="cuda", width=256, height=256)
+    cuda_bounce.reset_counts()
+    film = render(c, seed=3, device="cuda").film
+    launches = cuda_bounce.counts()
+    assert launches["raygen"] == 1 and launches["bounce"] > 0, launches
+    lattice_max, lost = tg.furnace_lost_samples(film, 32)
+    assert lattice_max < 1e-3 and lost < tg.FURNACE_LOST_SHARE * 256 * 256 * 32, lost
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pt-spheres", "mesh-thinlens"])
+def test_oracle_gate_through_the_kernels(card, name):
+    """The oracle gate at the CI size (16^2 x 24 spp, seeds 9000-9005)
+    through kernels 1 and 2 against the committed CI stack (oracle seeds
+    100-105): tests/test_oracle.py's bounds."""
+    from tools import torch_oracle_gate as tg
+
+    c = tg.sized_scenes("ci", "cuda", (name,))[name]
+    cuda_bounce.reset_counts()
+    r = tg.run_gate(name, c, tg.SIZES["ci"]["seeds"], "cuda", "ci")
+    launches = cuda_bounce.counts()
+    assert launches["bounce"] > 0 and launches["bounce_bvh"] == 0, launches
+    assert r["frac_abs_z_gt5"] <= 2 / 256 and r["frac_untestable"] < 0.45, r
+    assert r["rel_mean_diff"] < 0.06 and r["passed"], r
