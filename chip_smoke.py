@@ -246,6 +246,31 @@ Phases, in order; any failure exits non-zero:
      lane order (kernel 1's raster decode against its plain version) and
      many-light pt vs pt-direct (the step its 256 lights take, by the
      launch counts);
+ 30. the JAX package's gradient gates through the hybrid step
+     (make_step_hybrid), each FD case through tools/torch_grad_gates.py's
+     fd_vs_ad with the sign its AD must have: through kernel 2, the hybrid
+     FD tests on tests/test_fused_bounce.py's GLOSSY_DIFF_SCENE (GGX
+     roughness and reflectance), every family on ibl-material at 32x24 x 4
+     spp and five bounces (GGX roughness, the Phong and Blinn-Phong
+     exponents, the glass's absorbtance, IOR at steps of 1e-2 or less, and
+     reflectance) and tests/test_torch_diff.py's hybrid cases on the mixed
+     scene (roughness, IOR, camera), with the counts zeroed just before and
+     read just after (bounce launched, no bounce_bwd, no bounce_bvh, no
+     plain forward step, the recomputes), and each case's AD against the
+     CPU's on the same inputs within CARD_CPU_RTOL; tests/test_diff.py's
+     analytic direct view (the lamp's emission gradient, pt, one bounce,
+     equal to the share of camera samples on the lamp over 3 and to the
+     CPU's within 1e-6); then the heroes welcome, ridaisai (2138x1536 x 1
+     spp, one 3,283,968-lane chunk) and sample (512^2 x 1) through kernel
+     4: film_and_grads from the bunny rows' parameters perturbed toward the
+     film at the true ones (80 bounce_bvh, kernel 3 in the 80 recomputes,
+     no plain walk, two runs bit-equal, against the plain path within
+     TRAIN_PLAIN_RTOL, the bunny rows' gradients nonzero), the step's ms,
+     busy ms, idle share and peak memory beside phase 25's welcome-geo
+     step, and FD vs AD at that width through kernel 4 over the pixels the
+     bunny's row moves (welcome's GGX roughness and reflectance; ridaisai's
+     orange absorbtance and reflectance) and ridaisai's orange IOR over the
+     pixels that cross no texel or edge inside the steps;
 then one `{"kernels": [...]}` line for all 30 kernels (kernel 1's with
 both instances).
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -451,7 +476,6 @@ name = "ball"
 type = "sphere"
 radius = 2
 """
-
 
 def phase(name):
     print(f"\n== {name}", flush=True)
@@ -1235,65 +1259,16 @@ def autograd_vs_plain_bwd(tag, c, state, cot):
     return dict(comparable=float(keep.mean()), rel_to_max=errs)
 
 
-def set_leaf(p, part, field, idx, v):
-    t = getattr(getattr(p, part), field).clone()
-    t[idx] = v
-    return p._replace(**{part: dataclasses.replace(getattr(p, part), **{field: t})})
+def fd_gate(c, cases, device="cuda", grad=None) -> dict:
+    """tools/torch_grad_gates.py's fd_vs_ad on `c` (a CompiledScene) for
+    `cases` ({tag: (part, field, index, eps, atol, rtol[, pixels[,
+    sign]])}); fails if a case's gate does not hold."""
+    from tools import torch_grad_gates as gg
 
-
-def fd_vs_ad(c, cases, device="cuda") -> dict:
-    """tests/test_diff.py's gate on the card: for each case {tag: (part,
-    field, index, eps, atol, rtol[, interior])}, central differences at
-    three steps (the median) against pixel_grad of the mean film, sampling
-    pinned at theta0 (one AD gradient for the cases of the whole film). An
-    index of None takes the element whose AD gradient is largest (an IBL
-    texel that the paths reach most). With `interior`, both sides take the
-    mean over the pixels whose three central differences agree within 10%
-    (no edge or texel border crossed inside the steps), where the
-    detached-sampling gradient, which leaves such boundary terms out, and
-    FD measure the same thing; at least half the pixels must be kept."""
-    from lumillyrender_tpu_torch.diff import params_of, pixel_grad, render_diff
-
-    p0 = params_of(c.data)
-    spp = c.settings.spp
-    film = lambda p: render_diff(c.data, c.settings, p, 21, spp, params_sample=p0,
-                                 device=device)
-    grad = lambda select: pixel_grad(c.data, c.settings, p0, 21, spp, select,
-                                     params_sample=p0, device=device)
-    g_all = grad(lambda f: f.mean())
-    out = {}
-    for tag, (part, field, idx, eps, atol, rtol, *interior) in cases.items():
-        g = g_all
-        if idx is None:
-            ga = getattr(getattr(g, part), field)
-            idx = tuple(int(i) for i in np.unravel_index(int(ga.argmax()), tuple(ga.shape)))
-        idx = idx if isinstance(idx, tuple) else (idx,)
-        v0 = float(getattr(getattr(p0, part), field)[idx])
-        fd = torch.stack([(film(set_leaf(p0, part, field, idx, v0 + e))
-                           - film(set_leaf(p0, part, field, idx, v0 - e))) / (2 * e)
-                          for e in (eps / 2, eps, 2 * eps)])
-        med = fd.median(dim=0).values
-        keep = torch.ones(med.shape[:2], dtype=torch.bool, device=med.device)
-        if interior and interior[0]:
-            spread = fd.max(dim=0).values - fd.min(dim=0).values
-            keep = (spread <= 0.1 * med.abs() + 1e-4 * med.abs().max()).all(dim=-1)
-            mask = keep[..., None].to(med.dtype)
-            g = grad(lambda f: (f * mask).sum() / (mask.sum() * 3))
-            g_fd = float((med * mask).sum() / (mask.sum() * 3))
-        else:
-            g_fd = float(np.median([float(fd[k].mean()) for k in range(3)]))
-        g_ad = float(getattr(getattr(g, part), field)[idx])
-        kept = float(keep.float().mean())
-        ok = (np.isfinite(g_ad) and np.isfinite(g_fd) and abs(g_ad - g_fd) < atol + rtol * abs(g_fd)
-              and kept >= 0.5)
-        rel = abs(g_ad - g_fd) / max(abs(g_fd), 1e-30)
-        print(f"FD vs AD, {tag} ({part}.{field}{list(idx)}): AD {g_ad:.7g}, FD {g_fd:.7g}, rel "
-              f"{rel:.2e} (limit {atol:g} + {rtol:g} |FD|)"
-              + (f", over the {kept:.2%} of pixels without a boundary crossed" if kept < 1 else "")
-              + ("" if ok else "  FAIL"))
-        if not ok:
-            fail(f"FD vs AD on the kernel path, {tag}")
-        out[tag] = dict(ad=g_ad, fd=g_fd, rel=rel, index=list(idx), pixels_kept=kept)
+    out = gg.fd_vs_ad(c.data, c.settings, cases, device, grad)
+    bad = [tag for tag, r in out.items() if not r["ok"]]
+    if bad:
+        fail(f"FD vs AD on the kernel path: {bad}")
     return out
 
 
@@ -2756,7 +2731,7 @@ def simple_sky(card, lap, cbox, geo) -> tuple[dict, float, float]:
 # FD vs AD on welcome-geo through the hybrid step (kernel 4 forward, kernel
 # 3 in the backward's recompute), sampling pinned at theta0: {tag: (part,
 # field, index (None: the texel whose AD gradient is largest), FD step,
-# atol, rtol[, interior])}. The albedo's and the texel's films are
+# atol, rtol[, pixels])}. The albedo's and the texel's films are
 # polynomial and linear in them (tests/test_diff.py's steps and
 # tolerances). The focus distance moves every camera ray across the
 # bunny's and the box's edges and the IBL's texel borders: the
@@ -2764,27 +2739,35 @@ def simple_sky(card, lap, cbox, geo) -> tuple[dict, float, float]:
 # 16x12 x 1 spp, AD 0.00309 against FD 0.00723 over the whole film, 0.01339
 # against 0.01344 over the 172 of 192 pixels where no boundary is crossed;
 # at 64x48 x 4 spp -1.290e-5 against -1.270e-5 over 73.6% of the pixels),
-# so it is compared over those pixels (`interior`), at the camera's rtol of
+# so it is compared over those pixels ("interior"), at the camera's rtol of
 # tests/test_diff.py (its atol fits that scene's scale, not this one's).
 GEO_FD = {
     "albedo": ("materials", "color", (0, 0), 2e-2, 1e-2, 0.08),
     "ibl texel": ("sky", "ibl", None, 0.1, 1e-5, 0.01),
-    "focus distance": ("camera", "focus_distance", (), 16.0, 1e-8, 0.25, True),
+    "focus distance": ("camera", "focus_distance", (), 16.0, 1e-8, 0.25, "interior"),
 }
-def hybrid_film_and_grads(tag, c, spp, want):
-    """film_and_grads on `c` (a CompiledScene on the card) from the albedo
-    at 0.8 of its value toward the film at the true one, through
-    make_step_diff's hybrid step, with the counts zeroed just before and
-    read just after: each kernel of `want` ({name: launches}) exactly so
-    often and no other, the plain step once a bounce and only inside the
-    recomputes, the plain walk never, the scene's tables packed once and the
-    BVH's at most once; every gradient finite; a second run bit-equal; then
-    against the plain path (PlainDiffStep, the plain walk): the films
-    through check_films' gate and every gradient within TRAIN_PLAIN_RTOL of
-    its largest magnitude (kernel 4's forward flips a lane's decision now
-    and then against the plain step, and such a lane takes another path:
-    at welcome-geo's full width the largest gap was 2.5e-6, PERF.md §6.14).
-    Returns (record, params, target, gradients)."""
+
+
+def walks_per_bounce(c) -> int:
+    """The BVH queries a bounce of `c`'s recompute walks: the primary ray,
+    and under pt-direct with lights the shadow ray."""
+    return 2 if c.settings.integrator == "pt-direct" and c.settings.has_lights else 1
+
+
+def hybrid_film_and_grads(tag, c, spp, want, p=None):
+    """film_and_grads on `c` (a CompiledScene on the card) from the parameters
+    `p` (default: the albedo at 0.8 of its value) toward the film at the
+    true ones, through make_step_diff's hybrid step, with the counts zeroed
+    just before and read just after: each kernel of `want` ({name:
+    launches}) exactly so often and no other, the plain step once a bounce
+    and only inside the recomputes, the plain walk never, the scene's tables
+    packed once and the BVH's at most once; every gradient finite; a second
+    run bit-equal; then against the plain path (PlainDiffStep, the plain
+    walk): the films through check_films' gate and every gradient within
+    TRAIN_PLAIN_RTOL of its largest magnitude (kernel 4's forward flips a
+    lane's decision now and then against the plain step, and such a lane
+    takes another path: at welcome-geo's full width the largest gap was
+    2.5e-6, PERF.md §6.14). Returns (record, params, target, gradients)."""
     from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
     from lumillyrender_tpu_torch.diff.render import leaves
     from lumillyrender_tpu_torch.ops import cuda_bounce, cuda_bvh
@@ -2795,8 +2778,9 @@ def hybrid_film_and_grads(tag, c, spp, want):
     p_true = params_of(c.data)
     with torch.no_grad():
         target = render_diff(c.data, st, p_true, SEED, spp)
-    p = p_true._replace(materials=dataclasses.replace(
-        p_true.materials, color=p_true.materials.color * 0.8))
+    if p is None:
+        p = p_true._replace(materials=dataclasses.replace(
+            p_true.materials, color=p_true.materials.color * 0.8))
     packs = dict(pack_tables=0, pack_bvh=0)
     saved = [(m, name, getattr(m, name)) for m, name in ((cuda_bounce, "pack_tables"),
                                                          (cuda_bvh, "pack_bvh"))]
@@ -2954,7 +2938,7 @@ def diff_scenes(card, lap, cbox, geo, ibl, terrain_1m):
     small = resized(geo, 64, 48, 4)
     with PlainCalls() as calls:
         cuda_bounce.reset_counts()
-        report["fd_vs_ad"] = fd_vs_ad(small, GEO_FD)
+        report["fd_vs_ad"] = fd_gate(small, GEO_FD)
         torch.cuda.synchronize()
         launches = cuda_bounce.counts()
     print(f"FD vs AD on welcome-geo 64x48x4: launches {launches}; plain forward steps or walks "
@@ -2963,8 +2947,7 @@ def diff_scenes(card, lap, cbox, geo, ibl, terrain_1m):
             or launches["bvh"] < 1 or launches["bounce"] or launches["bounce_bwd"]):
         fail(f"the welcome-geo FD gates left the kernel path: {launches}, {calls.calls} calls")
     part("FD vs AD")
-    n_lights = lambda c: 2 if c.settings.integrator == "pt-direct" and c.settings.has_lights else 1
-    geo_want = {"bounce_bvh": 80, "bvh": 80 * n_lights(geo)}
+    geo_want = {"bounce_bvh": 80, "bvh": 80 * walks_per_bounce(geo)}
     full = resized(geo, geo.settings.width, geo.settings.height, 4)
     rec, p_geo, t_geo, g_geo = hybrid_film_and_grads("welcome-geo 512x368", full, 4, geo_want)
     report["welcome-geo"] = rec
@@ -3007,7 +2990,7 @@ def diff_scenes(card, lap, cbox, geo, ibl, terrain_1m):
     part("the simple sky")
     report["terrain-1m"], _, _, _ = hybrid_film_and_grads(
         "terrain-1m 64x64", resized(terrain_1m, 64, 64, 1), 1,
-        {"bounce_bvh": 80, "bvh_wide": 80 * n_lights(terrain_1m)})
+        {"bounce_bvh": 80, "bvh_wide": 80 * walks_per_bounce(terrain_1m)})
     part("terrain-1m")
     report["example"] = run_example()
     lap("differentiable BVH, IBL and simple-sky scenes", t0)
@@ -4164,6 +4147,136 @@ def means_agree(tag, a, b) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The JAX package's gradient gates through the hybrid step (phase 30)
+# ---------------------------------------------------------------------------
+
+def grad_gates(card, lap, assets, geo_step) -> dict:
+    """Phase 30: the JAX package's gradient gates through the hybrid step
+    (make_step_hybrid: kernel 2 or 4 forward, autograd of the plain step
+    recomputed backward, kernel 3 its walk on the heroes). `geo_step` is
+    phase 25's welcome-geo step timing at 4 spp, printed beside the heroes'."""
+    from unittest import mock
+
+    from lumillyrender_tpu_torch.diff import params_of
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+    from lumillyrender_tpu_torch.scene.compiler import compile_scene_file
+    from tools import torch_grad_gates as gg
+
+    phase("30 gradient gates through the hybrid step (every family on kernel 2; the analytic "
+          "direct view; the heroes at full width on kernel 4)")
+    t0 = t_part = time.monotonic()
+    rep = {}
+
+    def part(name):
+        nonlocal t_part
+        lap(f"30 {name}", t_part)
+        t_part = time.monotonic()
+
+    scenes, view = gg.gate_scenes(assets, "cuda")
+    for name, c in list(scenes.items()) + [("direct view", view)]:
+        if cuda_bounce.diff_step_kind(c.data, c.settings, on_card=True) != "hybrid":
+            fail(f"phase 30: {name} does not take the hybrid step")
+    card_fd = {}
+    with PlainCalls() as calls:
+        cuda_bounce.reset_counts()
+        for name, c in scenes.items():
+            card_fd[name] = fd_gate(c, {f"{name} {t}": v for t, v in gg.KERNEL2_FD[name].items()})
+        g_view, share = gg.direct_view(view.data, view.settings, "cuda")
+        torch.cuda.synchronize()
+        launches = cuda_bounce.counts()
+    print(f"FD vs AD through kernel 2 and the direct view: launches {launches}; plain forward "
+          f"steps or walks {calls.calls}, recomputes {calls.recomputes}")
+    if (calls.calls or not calls.recomputes or launches["bounce"] < 1 or launches["bounce_bwd"]
+            or launches["bounce_bvh"]):
+        fail(f"the kernel-2 gradient gates left the hybrid step: {launches}, {calls.calls} calls")
+    rep["kernel2_launches"] = launches
+    rep["kernel2_recomputes"] = calls.recomputes
+    part("FD vs AD on the card")
+    # The CPU's AD of each case and of the direct view, through the same step
+    # (make_step_hybrid: the plain step forward on the CPU), which
+    # tests/test_torch_grad_gates.py holds against the JAX package.
+    cpu_scenes, cpu_view = gg.gate_scenes(assets, "cpu")
+    rep["fd"], bad = {}, []
+    with mock.patch.object(cuda_bounce, "make_step_diff", cuda_bounce.make_step_hybrid):
+        for name, c in cpu_scenes.items():
+            g_cpu = gg.mean_grad(c.data, c.settings, "cpu")
+            for t, (table, field, idx, *_) in gg.KERNEL2_FD[name].items():
+                r = dict(card_fd[name][f"{name} {t}"])
+                r["ad_cpu"] = float(getattr(getattr(g_cpu, table), field)[idx])
+                r["vs_cpu"] = abs(r["ad"] - r["ad_cpu"]) / max(abs(r["ad_cpu"]), 1e-30)
+                ok = r["vs_cpu"] <= gg.CARD_CPU_RTOL
+                print(f"{name} {t}: AD on the card {r['ad']:.7g}, on the CPU {r['ad_cpu']:.7g}, "
+                      f"rel {r['vs_cpu']:.2e} (limit {gg.CARD_CPU_RTOL:g})"
+                      + ("" if ok else "  FAIL"))
+                if not ok:
+                    bad.append(f"{name} {t}")
+                rep["fd"][f"{name} {t}"] = r
+        g_cpu, share_cpu = gg.direct_view(cpu_view.data, cpu_view.settings, "cpu")
+    if bad:
+        fail(f"the card's AD against the CPU's: {bad}")
+    rel = lambda a, b: float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+    view_rec = dict(grad=g_view.tolist(), share=share, grad_cpu=g_cpu.tolist(),
+                    share_cpu=share_cpu, vs_share=rel(g_view, np.full(3, share / 3)),
+                    vs_cpu=rel(g_view, g_cpu))
+    print(f"direct view (pt, 1 bounce, 12x12 x 8 spp): the lamp's emission gradient on the card "
+          f"{g_view.tolist()}, the share of camera samples on the lamp {share:.7g} (/3 "
+          f"{share / 3:.7g}; rel {view_rec['vs_share']:.1e}); the CPU's gradient "
+          f"{g_cpu.tolist()} (rel {view_rec['vs_cpu']:.1e}), share {share_cpu:.7g} (held to 1e-6)")
+    if not ((g_view >= 0).all() and g_view[0] == g_view[1] == g_view[2] and 0 < share < 1
+            and view_rec["vs_share"] < 1e-6 and view_rec["vs_cpu"] < 1e-6):
+        fail(f"the analytic direct view: {view_rec}")
+    rep["direct_view"] = view_rec
+    del scenes, view, cpu_scenes, cpu_view
+    part("the CPU's AD")
+
+    rep["heroes"] = {}
+    for name, (w, h) in gg.HERO_WIDTHS.items():
+        c = resized(compile_scene_file(assets / f"{name}.toml", device="cuda"), w, h, 1)
+        rows = gg.bunny_rows(c.data)
+        p_true = params_of(c.data)
+        p = p_true._replace(materials=gg.perturbed_rows(p_true.materials, rows))
+        rec, p, target, grads = hybrid_film_and_grads(
+            f"{name} {w}x{h}", c, 1, {"bounce_bvh": 80, "bvh": 80 * walks_per_bounce(c)}, p=p)
+        nonzero = {f"{k}[{r}]": float(getattr(grads.materials, k)[r].abs().sum())
+                   for k in gg.HERO_FIELDS[name] for r in rows}
+        rec["bunny_rows"], rec["bunny_grads"] = rows, nonzero
+        print(f"{name}: |gradient| of the bunny rows {rows}: "
+              + ", ".join(f"{k} {v:.4g}" for k, v in nonzero.items()))
+        if not all(v > 0 for v in nonzero.values()):
+            fail(f"{name}: a bunny row's gradient is zero: {nonzero}")
+        timing = time_train_step(c, 1, p, target, 1, tag=f"{name} {w}x{h}", top=4)
+        timing.pop("by_name")
+        rec["timing"] = timing
+        print(f"{name} {w}x{h} x 1 spp step {timing['step_ms']:.1f} ms, device busy "
+              f"{timing['busy_ms']:.1f} ms, idle share {timing['idle_share']:.4f}, peak memory "
+              f"{timing['peak_bytes'] / 2**30:.3f} GiB; beside welcome-geo 512x368 x 4 spp (phase "
+              f"25) {geo_step['step_ms']:.1f} ms, busy {geo_step['busy_ms']:.1f} ms, idle "
+              f"{geo_step['idle_share']:.4f}, peak {geo_step['peak_bytes'] / 2**30:.3f} GiB  "
+              f"[{card}]")
+        del target, grads
+        if name in gg.HERO_FD:
+            with PlainCalls() as calls:
+                cuda_bounce.reset_counts()
+                rec["fd_vs_ad"] = fd_gate(c, {f"{name} {w}x{h} {t}": v
+                                              for t, v in gg.HERO_FD[name].items()})
+                torch.cuda.synchronize()
+                launches = cuda_bounce.counts()
+            print(f"FD vs AD on {name} {w}x{h}: launches {launches}; plain forward steps or "
+                  f"walks {calls.calls}, recomputes {calls.recomputes}")
+            if (calls.calls or not calls.recomputes or launches["bounce_bvh"] < 1
+                    or launches["bvh"] < 1 or launches["bounce"] or launches["bounce_bwd"]):
+                fail(f"the FD gates on {name} left the hybrid step: {launches}, "
+                     f"{calls.calls} calls")
+            rec["fd_launches"] = launches
+        rep["heroes"][name] = rec
+        del c, p
+        torch.cuda.empty_cache()
+        part(name)
+    lap("gradient gates", t0)
+    return rep
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -4518,7 +4631,7 @@ def main() -> int:
                 "sky": ("sky", "color", 1, 5e-2, 1e-5, 0.05, 5),
                 "camera": ("camera", "aperture_position", 2, 5e-2, 2e-3, 0.25, 3)}.items():
             c = dataclasses.replace(lam, settings=dataclasses.replace(lam.settings, max_bounces=mb))
-            fd.update(fd_vs_ad(c, {tag: (part, field, idx, eps, atol, rtol)}))
+            fd.update(fd_gate(c, {tag: (part, field, idx, eps, atol, rtol)}))
         fd_launches = cuda_bounce.counts()
     print(f"FD vs AD launches: {fd_launches}; plain step or backward calls: {plain.calls}")
     if fd_launches["bounce_bwd"] < 1 or plain.calls:
@@ -4599,6 +4712,7 @@ def main() -> int:
     tf = knob_report["raygen_threefry"]
     hero_report, hero_raygen_err, hero_bounce_err = hero_scenes(card, lap, assets)
     estimator_report = estimator_gates(card, lap)
+    grad_report = grad_gates(card, lap, assets, diff_report["timing"]["4"])
     bounce_err = max(bounce_err, sky_err)
     bvh_bounce_err = max(bvh_bounce_err, sky_bvh_err, hero_bounce_err)
     raygen_err = max(raygen_err, hero_raygen_err)
@@ -4660,7 +4774,7 @@ def main() -> int:
         data_parallel=dp_report, vr=vr_report, simple_sky=sky_report,
         differentiable_scenes=diff_report, remat_policies=remat_report,
         environment_knobs=knob_report, hero_scenes=hero_report,
-        estimator_gates=estimator_report,
+        estimator_gates=estimator_report, gradient_gates=grad_report,
         kernels=kernels, ptxas=ptxas_report,
         phase_seconds=secs,
         seconds=time.monotonic() - t_start)

@@ -116,9 +116,24 @@ def _ggx_alpha(rough):
     return rough * rough
 
 
+# The gradient's floor of cos^2 in `_ggx_g1`: 1 / cos^2's derivative,
+# -1 / cos^4, is finite in float32 down to cos^2 ~ 5.4e-20.
+_G1_GRAD_FLOOR = 1e-19
+
+
 def _ggx_g1(v, n, a2):
+    """The reference's G1, 1 / max(cos^2, 1e-20) its tan^2 + 1. Its gradient
+    takes 1 / max(cos^2, _G1_GRAD_FLOOR): between 1e-20 and ~5.4e-20 the
+    reference's derivative overflows, and a zero cotangent times it is NaN
+    (a direction within ~2.3e-10 of the surface's plane, on any lane that
+    evaluates the GGX branch); below the floor G1's gradient is 0, as the
+    clamped value is constant there. The value is the reference's, bit for
+    bit."""
     cos = vec.dot(v, n)
-    tan2 = 1.0 / torch.clamp(cos * cos, min=1e-20) - 1.0
+    cos2 = cos * cos
+    inv = 1.0 / torch.clamp(cos2, min=1e-20)
+    inv_grad = 1.0 / torch.clamp(cos2, min=_G1_GRAD_FLOOR)
+    tan2 = inv.detach() + (inv_grad - inv_grad.detach()) - 1.0
     return 2.0 / (1.0 + vec.sqrt(1.0 + a2 * a2 * tan2 * tan2))
 
 

@@ -57,7 +57,14 @@ def normalize(a):
 
 
 def safe_normalize(a, eps=1e-20):
-    return a / torch.clamp(norm(a), min=eps)[..., None]
+    """a / max(|a|, eps), the reference's value bit for bit. Where a . a is
+    0 (a half vector of opposite directions), the root's derivative is
+    infinite and the max's zero cotangent times it is NaN: the root takes
+    1 there and the denominator eps, so the gradient is 1 / eps."""
+    n2 = torch.clamp(dot(a, a), min=0.0)
+    zero = n2 == 0.0
+    den = torch.where(zero, eps, torch.clamp(sqrt(torch.where(zero, 1.0, n2)), min=eps))
+    return a / den[..., None]
 
 
 def orthonormal_basis(w):

@@ -61,9 +61,14 @@ furnace (exact at 48^2 x 8 spp; at 2,097,152 lanes on its lattice with
 the few samples trapped inside the sphere counted) and the oracle gate on
 pt-spheres and mesh-thinlens at the CI size against the committed stacks
 (tests/oracle_stacks.npz; chip_smoke.py's phase 29 runs all six configs
-at ORACLE.json's size).
+at ORACLE.json's size); FD against AD through make_step_diff's hybrid
+(tools/torch_grad_gates.py, the gates tests/test_torch_grad_gates.py holds
+on the CPU against the JAX package): ibl-material's GGX roughness through
+kernel 2, welcome's GGX bunny (roughness, reflectance) under a camera it
+fills through kernel 4, each with its launch counts.
 """
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -2133,3 +2138,48 @@ def test_oracle_gate_through_the_kernels(card, name):
     assert launches["bounce"] > 0 and launches["bounce_bvh"] == 0, launches
     assert r["frac_abs_z_gt5"] <= 2 / 256 and r["frac_untestable"] < 0.45, r
     assert r["rel_mean_diff"] < 0.06 and r["passed"], r
+
+
+def _counted_fd(scene, settings, case):
+    """tools/torch_grad_gates.py's fd_vs_ad on the card with the launch
+    counts zeroed just before and read just after: (reading, counts)."""
+    from tools import torch_grad_gates as gg
+
+    assert cuda_bounce.diff_step_kind(scene, settings, on_card=True) == "hybrid"
+    cuda_bounce.reset_counts()
+    reading = gg.fd_vs_ad(scene, settings, {"case": case}, "cuda")["case"]
+    torch.cuda.synchronize()
+    return reading, cuda_bounce.counts()
+
+
+@pytest.mark.cuda
+def test_hybrid_fd_through_the_bounce_kernel_on_ibl_material(card):
+    """ibl-material's GGX roughness (tools/torch_grad_gates.py's
+    IBL_MATERIAL_FD, which tests/test_torch_grad_gates.py holds on the CPU)
+    through make_step_diff's hybrid on the card: kernel 2 forward, autograd
+    of the plain step recomputed backward, no backward kernel and no BVH
+    bounce."""
+    from tools import torch_grad_gates as gg
+
+    c = compile_scene_file(ASSETS / "ibl-material.toml", device=card)
+    w, h, spp, bounces = gg.IBL_MATERIAL_SIZE
+    st = dataclasses.replace(c.settings, width=w, height=h, spp=spp, max_bounces=bounces)
+    reading, n = _counted_fd(c.data, st, gg.IBL_MATERIAL_FD["ggx alpha"])
+    assert reading["ok"], reading
+    assert n["bounce"] > 0 and n["bounce_bwd"] == 0 and n["bounce_bvh"] == 0, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["glossy alpha", "glossy reflectance"])
+def test_hybrid_fd_through_the_bvh_bounce_kernel_on_welcome(card, case):
+    """welcome's GGX bunny (row 0) under a camera it fills
+    (tools/torch_grad_gates.py's view_of_rows, 64x48 x 4 spp, the scene's
+    own depth) through make_step_diff's hybrid on the card: kernel 4
+    forward, kernel 3 the recompute's walk, no brute-force bounce."""
+    from tools import torch_grad_gates as gg
+
+    c = compile_scene_file(ASSETS / "welcome.toml", device=card)
+    scene, st = gg.view_of_rows(c.data, c.settings, gg.bunny_rows(c.data), 64, 48, 4)
+    reading, n = _counted_fd(scene, st, gg.WELCOME_FD[case])
+    assert reading["ok"], reading
+    assert n["bounce_bvh"] > 0 and n["bvh"] > 0 and n["bounce"] == 0, n

@@ -122,8 +122,9 @@ def test_import_pulls_in_no_jax():
         "lumillyrender_tpu_torch.ops.cuda_bounce, lumillyrender_tpu_torch.ops.cuda_bvh, "
         "lumillyrender_tpu_torch.ops.cuda_build, lumillyrender_tpu_torch.scene.terrain, "
         "lumillyrender_tpu_torch.parallel.shard, importlib.util\n"
-        "import tools.torch_oracle_gate as tg\n"
+        "import tools.torch_oracle_gate as tg, tools.torch_grad_gates as gg, chip_smoke\n"
         "tg.sized_scenes('ci', 'cpu', ('pt-spheres', 'mesh-thinlens'))\n"
+        "gg.gate_scenes(gg.REPO / 'assets', 'cpu')\n"
         "spec = importlib.util.spec_from_file_location('invert', "
         "'examples/invert_materials_torch.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
