@@ -135,9 +135,9 @@ Phases, in order; any failure exits non-zero:
      (launch counts and ray count equal, no plain step, the film within
      1e-5 of its max: the banks add with atomics, so not bit for bit),
      with its all-reduce's ms a chunk and rays/s beside phase 6's; then
-     sharded_train_step at 4 spp against film_and_grads on the same
-     offsets (loss and every gradient bit-equal, 80 bounce and 80
-     bounce_bwd launches); then two ranks in two processes of this script
+     sharded_train_step at 4 spp against film_and_grads (its captured
+     plan) on the same offsets (loss and every gradient bit-equal, 80
+     bounce and 80 bounce_bwd launches); then two ranks in two processes of this script
      (`--dp-rank`) sharing the card over gloo, which all-reduces the CUDA
      tensors: each rank's launches half the one-rank run's, the film
      within 1e-5 of its max;
@@ -156,19 +156,23 @@ Phases, in order; any failure exits non-zero:
      recomputed on the input state backward, its walk kernel 3 or 7
      through the plane-equation VJP): FD vs AD on welcome-geo at 64x48 x 4
      spp (the albedo, the IBL texel the paths reach most, the thin lens's
-     focus distance); film_and_grads on welcome-geo at 512x368 x 4 spp with
-     its counts zeroed just before and read just after (80 bounce_bvh and
-     160 bvh launches, the plain step only inside the 80 recomputes, no
-     plain walk), two runs bit-equal, against the plain path (the plain
-     walk) within TRAIN_PLAIN_RTOL; its step timed at 4 and 16 spp (ms, rays/s,
+     focus distance); the eager step (`eager_film_and_grads`) on
+     welcome-geo at 512x368 x 4 spp with its counts zeroed just before and
+     read just after (80 bounce_bvh and 160 bvh launches, the plain step
+     only inside the 80 recomputes, no plain walk), two runs bit-equal,
+     then film_and_grads (the captured TrainPlan: its first call and a
+     replay, counts zeroed around each) bit-equal to it with the same
+     launches (the capture's seconds and pool bytes), then against the
+     plain path (the plain walk) within TRAIN_PLAIN_RTOL; its step timed at 4 and 16 spp (ms, rays/s,
      busy and idle share, peak memory, kernel 3's launches and ms in the
      backward, the row gathers' gradient scatters) and those scatters
      alone at full width (autograd's index_put_, index_add_ and the
      port's table.scatter_rows); ibl-material at
-     320x240 x 4 spp (kernel 2, all families), new-cbox and welcome-geo
-     under the simple sky (the gradients in its two colours) and terrain-1m
-     at 64x64 x 1 spp (kernel 4 at K=128 forward, kernel 7 in the
-     backward), each against the plain path; the example
+     320x240 x 4 spp and its own 80 bounces (kernel 2, all families), new-cbox
+     and welcome-geo under the simple sky (the gradients in its two
+     colours) and terrain-1m at 64x64 x 1 spp (kernel 4 at K=128 forward,
+     kernel 7 in the backward), each likewise: eager, the plan bit-equal
+     to it, the plain path; the example
      examples/invert_materials_torch.py at its defaults (the albedo error
      falls by more than 2x);
  26. remat_policies: `fused="off"` (autograd of the plain step on the
@@ -264,13 +268,33 @@ Phases, in order; any failure exits non-zero:
      spp, one 3,283,968-lane chunk) and sample (512^2 x 1) through kernel
      4: film_and_grads from the bunny rows' parameters perturbed toward the
      film at the true ones (80 bounce_bvh, kernel 3 in the 80 recomputes,
-     no plain walk, two runs bit-equal, against the plain path within
+     no plain walk, two runs bit-equal, film_and_grads's captured plan
+     bit-equal to the eager step with its launches, its capture seconds and
+     pool bytes at hero width, against the plain path within
      TRAIN_PLAIN_RTOL, the bunny rows' gradients nonzero), the step's ms,
      busy ms, idle share and peak memory beside phase 25's welcome-geo
      step, and FD vs AD at that width through kernel 4 over the pixels the
      bunny's row moves (welcome's GGX roughness and reflectance; ridaisai's
      orange absorbtance and reflectance) and ridaisai's orange IOR over the
      pixels that cross no texel or edge inside the steps;
+ 31. (run after phase 13, in a process whose profiler is young) the
+     training step as one captured program (`diff.TrainPlan`, which
+     `film_and_grads` runs on the card): on new-cbox 256^2 x 4 spp (kernels
+     2 + 5, the albedo and the uniform sky colour trained), welcome-geo
+     512x368 x 4 (kernel 4, kernel 3 in the recomputes) and ibl-material
+     320x240 x 4 at PLAN_IBL_BOUNCES bounces (kernel 2, the IBL texels'
+     gradients), PLAN_STEPS Adam
+     steps at new seeds, each taken eagerly (`eager_film_and_grads`) and
+     through the plan (its first call eager and then captured, every later
+     one a replay) with the counts zeroed just before and read just after
+     each: loss, film and every gradient bit-equal, the same launches; then
+     the eager step and the plan's in turns over PLAN_ROUNDS rounds (host
+     clock to a synchronize: median and range), device busy ms and idle
+     share of each (profiler; "not measured" where it lost records of the
+     replay's kernels), the replay's span between CUDA events, peak memory,
+     the capture's seconds and the graph pool's bytes; then the example
+     examples/invert_materials_torch.py for PLAN_EXAMPLE_STEPS steps, its
+     steps replays of one plan;
 then one `{"kernels": [...]}` line for all 30 kernels (kernel 1's with
 both instances).
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -1509,8 +1533,9 @@ def time_bwd_widths(cb, spp, p, target):
     graph + events) beside its bound (bytes: BWD_HIT_BYTES, BWD_MISS_BYTES or
     BWD_DEAD_BYTES a lane by what this state's lane needs, plus the row
     table out; operations: this state's live lanes and shadow rays) and the
-    plain backward's time. Returns {width: record}."""
-    from lumillyrender_tpu_torch.diff import film_and_grads
+    plain backward's time. The step runs eagerly, so that its launches are
+    seen. Returns {width: record}."""
+    from lumillyrender_tpu_torch.diff import eager_film_and_grads
     from lumillyrender_tpu_torch.ops import cuda_bounce, intersect
     from lumillyrender_tpu_torch.ops.bounce_bwd import plain_bounce_bwd
 
@@ -1528,7 +1553,7 @@ def time_bwd_widths(cb, spp, p, target):
 
     cuda_bounce.bounce_bwd_launch = keeping
     try:
-        film_and_grads(cb.data, cb.settings, p, target, SEED, spp)
+        eager_film_and_grads(cb.data, cb.settings, p, target, SEED, spp)
         torch.cuda.synchronize()
     finally:
         cuda_bounce.bounce_bwd_launch = launch
@@ -2519,7 +2544,7 @@ def kernel_vs_plain_films(tag, small):
 def data_parallel(card, lap, cbox, phase6_rate) -> dict:
     """Phase 22: render_sharded and sharded_train_step on the card."""
     from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
-    from lumillyrender_tpu_torch.diff.render import leaves
+    from lumillyrender_tpu_torch.diff.render import clear_plans, leaves
     from lumillyrender_tpu_torch.integrator.render import render
     from lumillyrender_tpu_torch.ops import cuda_bounce
     from lumillyrender_tpu_torch.parallel import shard
@@ -2593,6 +2618,7 @@ def data_parallel(card, lap, cbox, phase6_rate) -> dict:
                                     launches=step_launches)
     finally:
         shard.dist.destroy_process_group()
+        clear_plans()
 
     port = free_port()
     outs = [OUT / f"dp_rank{r}.npz" for r in range(DP_RANKS)]
@@ -2767,8 +2793,14 @@ def hybrid_film_and_grads(tag, c, spp, want, p=None):
     TRAIN_PLAIN_RTOL of its largest magnitude (kernel 4's forward flips a
     lane's decision now and then against the plain step, and such a lane
     takes another path: at welcome-geo's full width the largest gap was
-    2.5e-6, PERF.md §6.14). Returns (record, params, target, gradients)."""
-    from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
+    2.5e-6, PERF.md §6.14). The steps run eagerly (`eager_film_and_grads`),
+    so that the plain step's calls and the packing are counted and the plain
+    path can take their place; then `plan_matches_eager` holds the main
+    entry, `film_and_grads` (a captured TrainPlan on the card), to the
+    eager step at the same point. Returns (record, params, target,
+    gradients)."""
+    from lumillyrender_tpu_torch.diff import eager_film_and_grads as film_and_grads
+    from lumillyrender_tpu_torch.diff import params_of, render_diff
     from lumillyrender_tpu_torch.diff.render import leaves
     from lumillyrender_tpu_torch.ops import cuda_bounce, cuda_bvh
 
@@ -2819,6 +2851,7 @@ def hybrid_film_and_grads(tag, c, spp, want, p=None):
     if (bad or calls.calls or calls.recomputes != bounces or not bit_equal or not finite
             or packs["pack_tables"] != 1 or packs["pack_bvh"] > 1):
         fail(f"{tag}: the hybrid training step: {rec} (expected launches {want})")
+    rec["plan"] = plan_matches_eager(tag, c, p, target, spp, (loss, film, grads), launches)
     t0 = time.monotonic()
     with PlainDiffStep():
         _, f_plain, g_plain = film_and_grads(c.data, st, p, target, SEED, spp)
@@ -2834,6 +2867,54 @@ def hybrid_film_and_grads(tag, c, spp, want, p=None):
     if not max(rec["vs_plain"].values()) < TRAIN_PLAIN_RTOL:
         fail(f"{tag}: kernel-path gradients disagree with the plain path's: {rec['vs_plain']}")
     return rec, p, target, grads
+
+
+def plan_matches_eager(tag, c, p, target, spp, want, want_launches):
+    """`film_and_grads`, the main training entry, on `c` (a CompiledScene on
+    the card) at `p`, `target`, SEED and `spp`, the point of the eager step
+    `want` (loss, film, gradients) that launched `want_launches`: on the
+    card a TrainPlan, whose first call runs the step eagerly on a side
+    stream and then captures it, and whose second call is a replay. The
+    counts are zeroed just before each call and read just after: each call
+    launches what the eager step launched, and gives its loss, film and
+    every gradient bit for bit. Returns the record: the step kind, the
+    capture's seconds and the graph pool's bytes, each call's seconds (host
+    clock, to a synchronize), launches."""
+    from lumillyrender_tpu_torch.diff import film_and_grads
+    from lumillyrender_tpu_torch.diff.render import clear_plans, kept_plan
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    clear_plans()
+    rec = {}
+    for call in ("first", "replay"):
+        cuda_bounce.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got = film_and_grads(c.data, c.settings, p, target, SEED, spp)
+        torch.cuda.synchronize()
+        rec[f"{call}_seconds"] = time.monotonic() - t0
+        rec[f"{call}_launches"] = cuda_bounce.counts()
+        rec[f"{call}_bit_equal"] = _bit_equal(got, want)
+        del got
+    plan = kept_plan()
+    rec.update(kind=plan and plan.kind, replays=plan and plan.replays,
+               capture_seconds=plan and plan.capture_seconds,
+               pool_bytes=plan and plan.pool_bytes)
+    print(f"{tag} x {spp} spp through film_and_grads (a {rec['kind']} TrainPlan): first call "
+          f"(eager on a side stream, then the capture) {rec['first_seconds']:.3f} s, capture "
+          f"{rec['capture_seconds']:.3f} s, graph pool {rec['pool_bytes']} B; a replay "
+          f"{rec['replay_seconds']:.4f} s; each bit-equal to the eager step "
+          f"{rec['first_bit_equal']} / {rec['replay_bit_equal']}; launches each "
+          f"{rec['first_launches'] == want_launches} / {rec['replay_launches'] == want_launches}"
+          f" equal to the eager step's")
+    if (plan is None or plan.graph is None or plan.replays != 1 or not rec["first_bit_equal"]
+            or not rec["replay_bit_equal"] or rec["first_launches"] != want_launches
+            or rec["replay_launches"] != want_launches):
+        fail(f"{tag}: film_and_grads through the plan is not the eager step: {rec} (eager "
+             f"launches {want_launches})")
+    clear_plans()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def scatter_ms(geo, n):
@@ -4277,6 +4358,218 @@ def grad_gates(card, lap, assets, geo_step) -> dict:
     return rep
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: the training step as one captured program
+# ---------------------------------------------------------------------------
+
+PLAN_STEPS = 3  # Adam steps a scene, each eager and through the plan
+PLAN_ROUNDS = 4  # rounds of phase 31's timing, the eager step and the plan's in turns
+PLAN_EXAMPLE_STEPS = 5
+# ibl-material's depth in phase 31: its all-family recompute is ~4,300
+# PyTorch ops a bounce, whose capture took 28.6 s at 80 bounces (PERF.md
+# §6.25).
+PLAN_IBL_BOUNCES = 20
+
+
+def _bit_equal(a, b) -> bool:
+    from lumillyrender_tpu_torch.diff.render import leaves
+
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and all(x.dtype == y.dtype and torch.equal(x, y)
+                    for x, y in zip(leaves(a[2]), leaves(b[2]))))
+
+
+def _step_busy(fn, want_records=None):
+    """(device busy ms of one `fn()`, kernel records, {kernel name: (ms,
+    launches)}) from the profiler, the busy ms None where it recorded fewer
+    kernels than `want_records` (a long process's profiler loses records of
+    kernels inside graph replays)."""
+    busy, by_name = device_busy(fn)
+    records = sum(n for _, n in by_name.values())
+    if want_records is not None and records < want_records:
+        return None, records, by_name
+    return busy, records, by_name
+
+
+def plan_vs_eager(tag, c, spp, kind, sky_leaf, card):
+    """PLAN_STEPS Adam steps on `c` at `spp`, from the albedo at 0.8 of its
+    value (and the sky leaf `sky_leaf`, where given, at 1.2) toward the film
+    at the true parameters, each step at a new seed taken eagerly and then
+    through the plan, with the counts zeroed just before and read just
+    after each: loss, film and every gradient bit-equal, the same launches.
+    Then both timed in turns. Returns the record."""
+    from lumillyrender_tpu_torch.diff import (
+        eager_film_and_grads, params_of, render_diff, train_plan)
+    from lumillyrender_tpu_torch.diff.render import clear_plans
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    st = c.settings
+    clear_plans()
+    p_true = params_of(c.data)
+    with torch.no_grad():
+        target = render_diff(c.data, st, p_true, SEED, spp)
+    color = torch.nn.Parameter(p_true.materials.color * 0.8)
+    trained = [color]
+    if sky_leaf:
+        sky = torch.nn.Parameter(getattr(p_true.sky, sky_leaf) * 1.2)
+        trained.append(sky)
+    opt = torch.optim.Adam(trained, lr=0.02)
+
+    def params():
+        p = p_true._replace(materials=dataclasses.replace(p_true.materials,
+                                                          color=color.detach().clone()))
+        if sky_leaf:
+            p = p._replace(sky=dataclasses.replace(p.sky, **{sky_leaf: sky.detach().clone()}))
+        return p
+
+    plan = train_plan(c.data, st, p_true, target, spp)
+    if plan is None or plan.kind != kind:
+        fail(f"{tag}: the step is not a {kind} plan ({plan and plan.kind})")
+    steps = []
+    for k in range(PLAN_STEPS):
+        p, seed = params(), SEED + 200 + k
+        cuda_bounce.reset_counts()
+        want = eager_film_and_grads(c.data, st, p, target, seed, spp)
+        torch.cuda.synchronize()
+        eager_launches = cuda_bounce.counts()
+        cuda_bounce.reset_counts()
+        t0 = time.monotonic()
+        got = plan(p, target, seed)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = cuda_bounce.counts()
+        equal = _bit_equal(got, want)
+        rec = dict(seed=seed, loss=float(got[0]), bit_equal=equal, launches=launches,
+                   eager_launches=eager_launches, replay=k > 0, seconds=seconds)
+        print(f"{tag}, step {k} (seed {seed}, {'a replay' if k else 'eager, then captured'}): "
+              f"loss {rec['loss']:.6e}; loss, film and every gradient bit-equal to the eager "
+              f"step {equal}; launches {launches} (eager {eager_launches}); {seconds:.3f} s")
+        if not equal or launches != eager_launches:
+            fail(f"{tag}: the plan's step {k} is not the eager step: {rec}")
+        steps.append(rec)
+        opt.zero_grad()
+        color.grad = got[2].materials.color
+        if sky_leaf:
+            sky.grad = getattr(got[2].sky, sky_leaf)
+        opt.step()
+    print(f"{tag}: captured in {plan.capture_seconds:.3f} s, graph pool {plan.pool_bytes} B, "
+          f"launches per replay {plan.launches}")
+
+    p = params()
+    fns = {"eager": lambda seed: eager_film_and_grads(c.data, st, p, target, seed, spp),
+           "plan": lambda seed: plan(p, target, seed)}
+    ms = {"eager": [], "plan": []}
+    for r in range(PLAN_ROUNDS):
+        for who in (("eager", "plan") if r % 2 == 0 else ("plan", "eager")):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            fns[who](SEED + 300 + r)
+            torch.cuda.synchronize()
+            ms[who].append((time.monotonic() - t0) * 1e3)
+    rec = dict(steps=steps, capture_seconds=plan.capture_seconds, pool_bytes=plan.pool_bytes,
+               launches_per_replay=plan.launches, lanes=st.width * st.height * spp)
+    # The peak memory past what was held before, of the profiled step.
+    peaks = {}
+
+    def peak_of(who, seed):
+        def run():
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fns[who](seed)
+            torch.cuda.synchronize()
+            peaks[who] = torch.cuda.max_memory_allocated() - held
+        return run
+
+    busy_eager, records, names_e = _step_busy(peak_of("eager", SEED + 400))
+    busy_plan, plan_records, names_p = _step_busy(peak_of("plan", SEED + 401), records)
+    for who, busy in (("eager", busy_eager), ("plan", busy_plan)):
+        med, rng_ = spread(ms[who])
+        rec[who] = dict(ms=ms[who], median_ms=med, range_ms=rng_, busy_ms=busy,
+                        idle_share=None if busy is None else 1.0 - busy / med,
+                        peak_bytes=peaks[who])
+    rec["plan"]["records"], rec["eager"]["records"] = plan_records, records
+    # The kernels the replay runs more often than the eager step.
+    more = sorted(((n - names_e.get(k, (0.0, 0))[1], t - names_e.get(k, (0.0, 0))[0], k)
+                   for k, (t, n) in names_p.items()), reverse=True)[:5]
+    rec["plan"]["more_than_eager"] = {k[:70]: [dn, dt] for dn, dt, k in more if dn > 0}
+    rec["plan"]["replay_span_ms"] = events_ms(plan.graph.replay, 3)
+    rec["speedup"] = rec["eager"]["median_ms"] / rec["plan"]["median_ms"]
+    for who in ("eager", "plan"):
+        r = rec[who]
+        busy = "not measured" if r["busy_ms"] is None else f"{r['busy_ms']:.4f} ms"
+        idle = "not measured" if r["idle_share"] is None else f"{r['idle_share']:.4f}"
+        print(f"{tag} {who} step: median {r['median_ms']:.4f} ms [{r['range_ms'][0]:.4f}, "
+              f"{r['range_ms'][1]:.4f}] over {PLAN_ROUNDS} in turns; device busy {busy}, idle "
+              f"share {idle}; peak memory {r['peak_bytes'] / 2**30:.3f} GiB  [{card}]")
+    print(f"{tag}: the replay's span (CUDA events, the graph alone) "
+          f"{rec['plan']['replay_span_ms']:.4f} ms; the plan's step {rec['speedup']:.2f}x "
+          f"faster than the eager step; profiler kernel records {plan_records} (plan) / "
+          f"{records} (eager); records the plan has more of (records, ms): "
+          f"{rec['plan']['more_than_eager']}")
+    clear_plans()
+    return rec
+
+
+def plan_example():
+    """examples/invert_materials_torch.py for PLAN_EXAMPLE_STEPS steps on the
+    card: its film_and_grads calls are one plan's, captured at the first and
+    replayed at every later one, with the counts zeroed just before and read
+    just after."""
+    import importlib.util
+
+    from lumillyrender_tpu_torch.diff import render as diff_render
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    spec = importlib.util.spec_from_file_location(
+        "invert_materials_torch", REPO / "examples" / "invert_materials_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    diff_render.clear_plans()
+    cuda_bounce.reset_counts()
+    t0 = time.monotonic()
+    err0, err = example.main(["--steps", str(PLAN_EXAMPLE_STEPS)])
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches = cuda_bounce.counts()
+    plans = [] if diff_render.kept_plan() is None else [diff_render.kept_plan()]
+    replays = [pl.replays for pl in plans]
+    per_step = plans[0].launches.get("bounce_bwd", 0) if plans else 0
+    rec = dict(steps=PLAN_EXAMPLE_STEPS, err0=err0, err=err, seconds=seconds,
+               launches=launches, plans=len(plans), replays=replays,
+               launches_per_replay=plans[0].launches if plans else None)
+    print(f"the example, {PLAN_EXAMPLE_STEPS} steps: max albedo error {err0:.4f} -> {err:.4f} "
+          f"in {seconds:.2f} s; {len(plans)} plan, replays {replays}, launches per replay "
+          f"{rec['launches_per_replay']}; launches {launches}")
+    # Its backward launches: one step's for each training step and for the
+    # example's pixel_grad (which finds the observable rows), eager.
+    if (len(plans) != 1 or replays != [PLAN_EXAMPLE_STEPS - 1] or not per_step
+            or launches["bounce_bwd"] != per_step * (PLAN_EXAMPLE_STEPS + 1)):
+        fail(f"the example through the plan: {rec}")
+    diff_render.clear_plans()
+    return rec
+
+
+def captured_steps(card, lap, cbox, geo, ibl) -> dict:
+    """Phase 31 (module docstring). Returns the report."""
+    phase("31 the training step as one captured program (TrainPlan: new-cbox, welcome-geo, "
+          "ibl-material)")
+    t0 = time.monotonic()
+    report = {}
+    for tag, c, kind, sky_leaf in (
+            ("new-cbox 256^2 x 4", cbox, "bwd", "color"),
+            ("welcome-geo 512x368 x 4", resized(geo, geo.settings.width, geo.settings.height, 4),
+             "hybrid", None),
+            (f"ibl-material 320x240 x 4, {PLAN_IBL_BOUNCES} bounces",
+             dataclasses.replace(ibl, settings=dataclasses.replace(
+                 ibl.settings, max_bounces=PLAN_IBL_BOUNCES)), "hybrid", "ibl")):
+        report[tag] = plan_vs_eager(tag, c, 4, kind, sky_leaf, card)
+        torch.cuda.empty_cache()
+    report["example"] = plan_example()
+    lap("captured training step", t0)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -4290,7 +4583,7 @@ def main() -> int:
     from lumillyrender_tpu_torch.scene.compiler import compile_scene, compile_scene_file
     from lumillyrender_tpu_torch.scene.data import CAM_PINHOLE
     from lumillyrender_tpu_torch.scene.loader import parse_config
-    from lumillyrender_tpu_torch.diff import film_and_grads
+    from lumillyrender_tpu_torch.diff import eager_film_and_grads
 
     OUT.mkdir(exist_ok=True)
     dev = torch.device("cuda")
@@ -4641,7 +4934,8 @@ def main() -> int:
         rec, p_last, target, g_kernel = train_new_cbox(cbox, spp)
         if spp == 4:
             with PlainDiffStep():
-                _, _, g_plain = film_and_grads(cbox.data, cbox.settings, p_last, target, SEED, spp)
+                _, _, g_plain = eager_film_and_grads(cbox.data, cbox.settings, p_last, target,
+                                                     SEED, spp)
             torch.cuda.synchronize()
             gap = grads_gap(g_kernel, g_plain)
             print("kernel path vs plain path (autograd of the plain step), 256^2 x 4 spp, "
@@ -4657,7 +4951,7 @@ def main() -> int:
     phase("13 timing of the training step (new-cbox 256^2, 4 and 16 spp per step)")
     t0 = time.monotonic()
     train_timing = {spp: time_train_step(cbox, spp, training[spp]["params"],
-                                         training[spp]["target"], 5 if spp == 4 else 3)
+                                         training[spp]["target"], 3 if spp == 4 else 2)
                     for spp in (4, 16)}
     bwd_widths = time_bwd_widths(cbox, 16, training[16]["params"], training[16]["target"])
     bwd_err = max(bwd_err, *(r["max_abs"] for r in bwd_widths.values()))
@@ -4672,6 +4966,7 @@ def main() -> int:
     lap("training timing", t0)
     for spp in training:
         del training[spp]["params"], training[spp]["target"]
+    plan_report = captured_steps(card, lap, cbox, geo, ibl)
 
     big_report, big_kernels, terrain_1m = huge_meshes(card, lap)
     probe_report, probe_kernels = capability_probes(card, lap)
@@ -4775,6 +5070,7 @@ def main() -> int:
         differentiable_scenes=diff_report, remat_policies=remat_report,
         environment_knobs=knob_report, hero_scenes=hero_report,
         estimator_gates=estimator_report, gradient_gates=grad_report,
+        captured_step=plan_report,
         kernels=kernels, ptxas=ptxas_report,
         phase_seconds=secs,
         seconds=time.monotonic() - t_start)

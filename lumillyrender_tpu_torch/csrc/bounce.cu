@@ -43,12 +43,12 @@ int launch_family(const float* o_in, const float* d_in, const float* thr_in, con
                   float* thr_out, float* acc_out, uint8_t* alive_out, float* rays_out,
                   const Scene& sc, const float* tris, int nt, const float* sph, int ns,
                   const float* small_rows, bool small, int group, int n, int bounce,
-                  uint32_t seed, int flags, float rr_scale, void* stream) {
+                  int flags, float rr_scale, void* stream) {
   if (group > 1) {
     const int log2g = group == 2 ? 1 : group == 4 ? 2 : group == 8 ? 3 : 4;
     return launch_bounce<kFam>(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out,
                                thr_out, acc_out, alive_out, rays_out, sc,
-                               GroupIsect{tris, nt, sph, ns, log2g}, n, bounce, seed, flags,
+                               GroupIsect{tris, nt, sph, ns, log2g}, n, bounce, flags,
                                rr_scale, stream, 1 << log2g);
   }
   if (small) {
@@ -57,12 +57,12 @@ int launch_family(const float* o_in, const float* d_in, const float* thr_in, con
     isect.nt = nt;
     isect.ns = ns;
     return launch_bounce<kFam>(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out,
-                               thr_out, acc_out, alive_out, rays_out, sc, isect, n, bounce, seed,
-                               flags, rr_scale, stream);
+                               thr_out, acc_out, alive_out, rays_out, sc, isect, n, bounce, flags,
+                               rr_scale, stream);
   }
   return launch_bounce<kFam>(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out,
                              thr_out, acc_out, alive_out, rays_out, sc,
-                             BruteIsect{tris, nt, sph, ns}, n, bounce, seed, flags, rr_scale,
+                             BruteIsect{tris, nt, sph, ns}, n, bounce, flags, rr_scale,
                              stream);
 }
 
@@ -72,33 +72,35 @@ int launch_family(const float* o_in, const float* d_in, const float* thr_in, con
 // copy of a SmallPrims, which needs nt <= 16 and ns <= 8) and
 // INSTANCE_LAMBERT (every row Lambert) bits; `group` threads per lane (1,
 // or 2, 4, 8, 16 for GroupIsect, which reads the tables whatever the
-// instance). Returns 1 (cudaErrorInvalidValue) on an argument outside that.
+// instance); `args` the launch's step values (bounce_body.cuh ARG_*, 16-byte
+// aligned, on the card). Returns 1 (cudaErrorInvalidValue) on an argument
+// outside that.
 extern "C" int llr_bounce(const float* o_in, const float* d_in, const float* thr_in,
                           const float* acc_in, const uint8_t* alive_in, const int32_t* lane_in,
                           float* o_out, float* d_out, float* thr_out, float* acc_out,
                           uint8_t* alive_out, float* rays_out, const float* tris, int nt,
                           const float* sph, int ns, const float* mats,
                           const float* mats_eval, int nm, const float* lights, int nl,
-                          float total_area, int n, int bounce,
-                          uint32_t seed, int flags, float rr_scale, float sky_r, float sky_g,
-                          float sky_b, const float* ibl, int ibl_w, int ibl_h, float lon,
-                          float hor_r, float hor_g, float hor_b, int simple,
-                          int instance, int group, const float* small_rows, void* stream) {
-  const Scene sc{sph, ns, mats, mats_eval, nm, lights, nl, total_area, V3{sky_r, sky_g, sky_b},
-                 ibl, ibl_w, ibl_h, lon, V3{hor_r, hor_g, hor_b}, simple != 0};
+                          float total_area, int n, int bounce, const uint32_t* args,
+                          int flags, float rr_scale, const float* ibl, int ibl_w, int ibl_h,
+                          int simple, int instance, int group, const float* small_rows,
+                          void* stream) {
+  const Scene sc{sph, ns, mats, mats_eval, nm, lights, nl, total_area, args, ibl, ibl_w, ibl_h,
+                 simple != 0};
   const bool small = (instance & INSTANCE_SMALL) != 0;
   if ((small && (small_rows == nullptr || nt > kSmallTris || ns > kSmallSpheres)) ||
-      !(group == 1 || group == 2 || group == 4 || group == 8 || group == 16)) {
+      !(group == 1 || group == 2 || group == 4 || group == 8 || group == 16) ||
+      args == nullptr || reinterpret_cast<uintptr_t>(args) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (instance & INSTANCE_LAMBERT) {
     return launch_family<FAM_LAMBERT>(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out,
                                       d_out, thr_out, acc_out, alive_out, rays_out, sc, tris, nt,
-                                      sph, ns, small_rows, small, group, n, bounce, seed, flags,
+                                      sph, ns, small_rows, small, group, n, bounce, flags,
                                       rr_scale, stream);
   }
   return launch_family<FAM_ALL>(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out,
                                 thr_out, acc_out, alive_out, rays_out, sc, tris, nt, sph, ns,
-                                small_rows, small, group, n, bounce, seed, flags, rr_scale,
+                                small_rows, small, group, n, bounce, flags, rr_scale,
                                 stream);
 }

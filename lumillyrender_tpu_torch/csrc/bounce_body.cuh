@@ -84,13 +84,26 @@ struct Scene {
   const float* lights;
   int nl;
   float total_area;
-  V3 sky;           // uniform sky radiance; the simple sky's meridian colour
+  const uint32_t* args;  // the launch's step values (ARG_*), on the card
   const float* ibl;  // (h*w, 3) equirect texture, or null for the uniform sky
   int ibl_w, ibl_h;
-  float lon;  // IBL longitude offset, radians
-  V3 horizon;   // the simple sky's horizon colour
   bool simple;  // the simple sky: meridian and horizon blended by |d.y|
 };
+
+// The values of a launch that change from one training step to the next,
+// read from the card (ops/cuda_bounce.py::kernel_args) so that a launch
+// captured in a CUDA graph takes each replay's: the seed, the sky colour
+// (the simple sky's meridian), the simple sky's horizon and the IBL
+// longitude offset in radians, as 32-bit words, 16-byte aligned.
+enum { ARG_SEED = 0, ARG_SKY = 1, ARG_HORIZON = 4, ARG_LON = 7, ARG_WORDS = 8 };
+
+__device__ __forceinline__ float arg_f(const uint32_t* args, int k) {
+  return __uint_as_float(__ldg(args + k));
+}
+
+__device__ __forceinline__ V3 arg_v3(const uint32_t* args, int k) {
+  return v3(arg_f(args, k), arg_f(args, k + 1), arg_f(args, k + 2));
+}
 
 struct Hit {
   float t;
@@ -318,12 +331,13 @@ __device__ __forceinline__ float floor_mod(float a, float b) {
 __device__ __forceinline__ V3 sky_radiance(const Scene& sc, V3 d) {
   if (sc.simple) {
     const float w = fabsf(d.y);
-    return add(scale(sc.sky, w), scale(sc.horizon, 1.0f - w));
+    return add(scale(arg_v3(sc.args, ARG_SKY), w),
+               scale(arg_v3(sc.args, ARG_HORIZON), 1.0f - w));
   }
-  if (sc.ibl == nullptr) return sc.sky;
+  if (sc.ibl == nullptr) return arg_v3(sc.args, ARG_SKY);
   const float theta = acosf(fminf(fmaxf(d.y, -1.0f), 1.0f));
   const float phi = atan2f(d.z, d.x);
-  const float u = floor_mod((phi + LLR_PI + sc.lon) / LLR_TWO_PI, 1.0f);
+  const float u = floor_mod((phi + LLR_PI + arg_f(sc.args, ARG_LON)) / LLR_TWO_PI, 1.0f);
   const float v = floor_mod(theta / LLR_PI, 1.0f);
   const long long w = sc.ibl_w, h = sc.ibl_h;
   const long long x = (long long)floorf((float)sc.ibl_w * u);
@@ -828,7 +842,7 @@ __global__ void __launch_bounds__(128) bounce_kernel(
     const uint8_t* __restrict__ alive_in, const int32_t* __restrict__ lane_in,
     float* __restrict__ o_out, float* __restrict__ d_out, float* __restrict__ thr_out,
     float* __restrict__ acc_out, uint8_t* __restrict__ alive_out, float* __restrict__ rays_out,
-    Scene sc, Isect isect, int n, int bounce, uint32_t seed, int flags, float rr_scale) {
+    Scene sc, Isect isect, int n, int bounce, int flags, float rr_scale) {
   bool lead;
   const int i = lane_index(isect, lead);
   if (i >= n) return;
@@ -850,6 +864,9 @@ __global__ void __launch_bounds__(128) bounce_kernel(
         const V3 out = neg(d);
         if ((flags & FLAG_EMIT) && dot(out, hp.n) > 0.f) acc = add(acc, mul(thr, me.emi));
 
+        // The seed is read where a hit lane first needs it, not held
+        // through the walk.
+        const uint32_t seed = __ldg(sc.args + ARG_SEED);
         const uint32_t lane = (uint32_t)lane_in[i];
         const uint32_t ctr = (uint32_t)bounce * 8u;
         float r[4];
@@ -892,6 +909,7 @@ __global__ void __launch_bounds__(128) bounce_kernel(
         me = kSplit ? load_mat<kFam>(sc.mats_eval, sc.nm, hp.mat) : ms;
         if ((flags & FLAG_EMIT) && dot(out, hp.n) > 0.f) acc = add(acc, mul(thr, me.emi));
 
+        const uint32_t seed = __ldg(sc.args + ARG_SEED);
         const uint32_t lane = (uint32_t)lane_in[i];
         const uint32_t ctr = (uint32_t)bounce * 8u;
         uniform4(seed, lane, ctr, r);
@@ -939,19 +957,19 @@ template <int kFam, class Isect>
 int launch_bounce(const float* o_in, const float* d_in, const float* thr_in, const float* acc_in,
                   const uint8_t* alive_in, const int32_t* lane_in, float* o_out, float* d_out,
                   float* thr_out, float* acc_out, uint8_t* alive_out, float* rays_out,
-                  const Scene& sc, const Isect& isect, int n, int bounce, uint32_t seed,
-                  int flags, float rr_scale, void* stream, int threads_per_lane = 1) {
+                  const Scene& sc, const Isect& isect, int n, int bounce, int flags,
+                  float rr_scale, void* stream, int threads_per_lane = 1) {
   const int block = 128;
   const long long threads = (long long)n * threads_per_lane;
   const int grid = (int)((threads + block - 1) / block);
   if (grid > 0 && sc.mats_eval == sc.mats) {
     bounce_kernel<Isect, false, kFam><<<grid, block, 0, (cudaStream_t)stream>>>(
         o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out, thr_out, acc_out, alive_out,
-        rays_out, sc, isect, n, bounce, seed, flags, rr_scale);
+        rays_out, sc, isect, n, bounce, flags, rr_scale);
   } else if (grid > 0) {
     bounce_kernel<Isect, true, kFam><<<grid, block, 0, (cudaStream_t)stream>>>(
         o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out, thr_out, acc_out, alive_out,
-        rays_out, sc, isect, n, bounce, seed, flags, rr_scale);
+        rays_out, sc, isect, n, bounce, flags, rr_scale);
   }
   return (int)cudaGetLastError();
 }

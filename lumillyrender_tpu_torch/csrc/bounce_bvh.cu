@@ -118,28 +118,29 @@ extern "C" int llr_bounce_bvh(const float* o_in, const float* d_in, const float*
                               const int32_t* counts, int k,
                               const float* sph, int ns, const float* mats,
                               const float* mats_eval, int nm, const float* lights, int nl,
-                              float total_area, int n, int bounce,
-                              uint32_t seed, int flags, float rr_scale, float sky_r, float sky_g,
-                              float sky_b, const float* ibl, int ibl_w, int ibl_h, float lon,
-                              float hor_r, float hor_g, float hor_b, int simple,
-                              void* stream) {
-  const Scene sc{sph, ns, mats, mats_eval, nm, lights, nl, total_area, V3{sky_r, sky_g, sky_b},
-                 ibl, ibl_w, ibl_h, lon, V3{hor_r, hor_g, hor_b}, simple != 0};
+                              float total_area, int n, int bounce, const uint32_t* args,
+                              int flags, float rr_scale, const float* ibl, int ibl_w, int ibl_h,
+                              int simple, void* stream) {
+  const Scene sc{sph, ns, mats, mats_eval, nm, lights, nl, total_area, args, ibl, ibl_w, ibl_h,
+                 simple != 0};
   const BvhTables b{nodes, leaves, ids, k};
+  if (args == nullptr || reinterpret_cast<uintptr_t>(args) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (k >= kWarpWalkMinK) {
     return launch_bounce<FAM_ALL>(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out,
                                   thr_out, acc_out, alive_out, rays_out, sc,
-                                  BvhWarpIsect{b, sph, ns}, n, bounce, seed, flags, rr_scale,
+                                  BvhWarpIsect{b, sph, ns}, n, bounce, flags, rr_scale,
                                   stream);
   }
   if (k == 32) {
     return launch_bounce<FAM_ALL>(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out,
                                   thr_out, acc_out, alive_out, rays_out, sc,
-                                  BvhIsect<32>{b, counts, sph, ns}, n, bounce, seed, flags,
+                                  BvhIsect<32>{b, counts, sph, ns}, n, bounce, flags,
                                   rr_scale, stream);
   }
   return launch_bounce<FAM_ALL>(o_in, d_in, thr_in, acc_in, alive_in, lane_in, o_out, d_out,
                                 thr_out, acc_out, alive_out, rays_out, sc,
-                                BvhIsect<0>{b, counts, sph, ns}, n, bounce, seed, flags,
+                                BvhIsect<0>{b, counts, sph, ns}, n, bounce, flags,
                                 rr_scale, stream);
 }

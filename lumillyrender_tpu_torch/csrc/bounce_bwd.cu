@@ -167,9 +167,10 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) bounce_bwd_kernel(
     const float* __restrict__ ga_in, float* __restrict__ o_bar, float* __restrict__ d_bar,
     float* __restrict__ t_bar, float* __restrict__ rows, float* __restrict__ partial,
     unsigned* __restrict__ ticket, uint8_t* __restrict__ alive_out, Scene sc, Isect isect,
-    int n, int tiles, int bounce, uint32_t seed, int flags, float rr_scale) {
+    int n, int tiles, int bounce, int flags, float rr_scale) {
   extern __shared__ float tables[];  // kWarps x width: each warp's row table
   __shared__ bool last;
+  const uint32_t seed = __ldg(sc.args + ARG_SEED);
   const int width = 6 * sc.nm + 3;
   const int warp = threadIdx.x / 32, lid = threadIdx.x % 32;
   float* mine = tables + warp * width;
@@ -189,7 +190,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) bounce_bwd_kernel(
         const V3 gA = load3(ga_in, i);
         const Hit hp = isect(o, d, LLR_INF, -LLR_INF);
         if (!hp.hit) {  // sky on miss
-          gT0 = add(gT0, mul(gA, sc.sky));
+          gT0 = add(gT0, mul(gA, arg_v3(sc.args, ARG_SKY)));
           rg.sky = mul(gA, T0);
           rg.missed = true;
         } else {
@@ -341,7 +342,7 @@ int launch_bwd(const float* o_in, const float* d_in, const float* thr_in, const 
                const float* gt_in, const float* ga_in, float* o_bar, float* d_bar, float* t_bar,
                float* rows, float* partial, int max_blocks, unsigned* ticket,
                uint8_t* alive_out, const Scene& sc, const Isect& isect, int n, int bounce,
-               uint32_t seed, int flags, float rr_scale, void* stream) {
+               int flags, float rr_scale, void* stream) {
   const size_t smem = sizeof(float) * kWarps * (6 * (size_t)sc.nm + 3);
   auto kernel = bounce_bwd_kernel<Isect>;
   if (smem > 48 * 1024) {
@@ -360,7 +361,7 @@ int launch_bwd(const float* o_in, const float* d_in, const float* thr_in, const 
   }
   kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
       o_in, d_in, thr_in, alive_in, lane_in, go_in, gd_in, gt_in, ga_in, o_bar, d_bar, t_bar,
-      rows, partial, ticket, alive_out, sc, isect, n, tiles, bounce, seed, flags, rr_scale);
+      rows, partial, ticket, alive_out, sc, isect, n, tiles, bounce, flags, rr_scale);
   return (int)cudaGetLastError();
 }
 
@@ -369,8 +370,9 @@ int launch_bwd(const float* o_in, const float* d_in, const float* thr_in, const 
 // `instance`: INSTANCE_SMALL (prims by value from `small_rows`, the host
 // copy of a SmallPrims: nt <= 16, ns <= 8) or not. `partial` holds
 // (6*nm + 3) x `max_blocks` floats; `ticket` one zero uint32 (the kernel
-// leaves it 0). Returns 1 (cudaErrorInvalidValue) on an argument outside
-// that.
+// leaves it 0); `args` the launch's step values (bounce_body.cuh ARG_*:
+// the seed and the uniform sky colour are read). Returns 1
+// (cudaErrorInvalidValue) on an argument outside that.
 extern "C" int llr_bounce_bwd(const float* o_in, const float* d_in, const float* thr_in,
                               const uint8_t* alive_in, const int32_t* lane_in,
                               const float* go_in, const float* gd_in, const float* gt_in,
@@ -378,15 +380,13 @@ extern "C" int llr_bounce_bwd(const float* o_in, const float* d_in, const float*
                               float* rows, uint8_t* alive_out, const float* tris, int nt,
                               const float* sph, int ns, const float* mats,
                               const float* mats_eval, int nm, const float* lights, int nl,
-                              float total_area, int n, int bounce, uint32_t seed, int flags,
-                              float rr_scale, float sky_r, float sky_g, float sky_b,
-                              int instance, const float* small_rows, float* partial,
-                              int max_blocks, unsigned* ticket, void* stream) {
-  const Scene sc{sph, ns, mats, mats_eval, nm, lights, nl, total_area, V3{sky_r, sky_g, sky_b},
-                 nullptr, 0, 0, 0.f, V3{0.f, 0.f, 0.f}, false};
+                              float total_area, int n, int bounce, const uint32_t* args,
+                              int flags, float rr_scale, int instance, const float* small_rows,
+                              float* partial, int max_blocks, unsigned* ticket, void* stream) {
+  const Scene sc{sph, ns, mats, mats_eval, nm, lights, nl, total_area, args, nullptr, 0, 0, false};
   const bool small = (instance & INSTANCE_SMALL) != 0;
   if ((small && (small_rows == nullptr || nt > kSmallTris || ns > kSmallSpheres)) ||
-      max_blocks < 1) {
+      max_blocks < 1 || args == nullptr || reinterpret_cast<uintptr_t>(args) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (small) {
@@ -396,9 +396,9 @@ extern "C" int llr_bounce_bwd(const float* o_in, const float* d_in, const float*
     isect.ns = ns;
     return launch_bwd(o_in, d_in, thr_in, alive_in, lane_in, go_in, gd_in, gt_in, ga_in, o_bar,
                       d_bar, t_bar, rows, partial, max_blocks, ticket, alive_out, sc, isect, n,
-                      bounce, seed, flags, rr_scale, stream);
+                      bounce, flags, rr_scale, stream);
   }
   return launch_bwd(o_in, d_in, thr_in, alive_in, lane_in, go_in, gd_in, gt_in, ga_in, o_bar,
                     d_bar, t_bar, rows, partial, max_blocks, ticket, alive_out, sc,
-                    BruteIsect{tris, nt, sph, ns}, n, bounce, seed, flags, rr_scale, stream);
+                    BruteIsect{tris, nt, sph, ns}, n, bounce, flags, rr_scale, stream);
 }

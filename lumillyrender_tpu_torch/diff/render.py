@@ -28,11 +28,21 @@ keep only their input state; `RenderSettings.bwd_remat` sets what the
 plain step's autograd keeps and recomputes (integrator/wavefront.py::
 _run_fixed). Camera rays come from `ops/camera.py::sample_rays`, so that
 camera gradients exist; the raygen kernel is not on this path.
+
+On the card `film_and_grads` runs a `TrainPlan`: the whole step (forward,
+loss, and autograd of it, each bounce's backward kernel or recompute
+included) captured once as one CUDA graph and replayed for new parameter
+values and new seeds, as the JAX package's jitted `film_and_grads` is one
+compiled program that takes both as inputs. The plain step kind
+(`fused="off"`), `pixel_grad` and `parallel/shard.py::sharded_train_step`
+run eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import warnings
 from typing import Callable, NamedTuple
 
 import torch
@@ -40,7 +50,7 @@ import torch
 from ..integrator.render import tile_decode
 from ..integrator.wavefront import trace_film, u32_to_i32
 from ..ops import camera as camera_ops
-from ..ops import rng
+from ..ops import rng, vec
 from ..scene.data import (
     CameraData,
     MaterialTable,
@@ -80,12 +90,13 @@ def leaves(params: DiffParams) -> list[torch.Tensor]:
 
 
 def render_diff(scene: SceneData, settings: RenderSettings, params: DiffParams,
-                seed: int, spp: int, sample_offsets=None,
+                seed, spp: int, sample_offsets=None,
                 params_sample: DiffParams | None = None, with_rays: bool = False,
                 device=None):
     """Differentiable film (H, W, 3) as a function of `params`, on `device`
     (default `cuda`; the scene and the parameters are moved there with
-    differentiable copies).
+    differentiable copies). `seed` is a Python int or an integer tensor on
+    `device` (a training plan's).
 
     Sampling decisions read the detached `params` (or `params_sample`,
     which pins them: the FD gate holds the sampling measure at theta0 on
@@ -133,7 +144,7 @@ def render_diff(scene: SceneData, settings: RenderSettings, params: DiffParams,
         n_pixels=w * h, differentiable=True, mats_eval=params.materials,
         pixel_fn=pixel_fn,
     )
-    film = film_flat.reshape(h, w, 3) / torch.tensor(float(spp), device=dev)
+    film = vec.over(film_flat.reshape(h, w, 3), spp)
     if with_rays:
         return film, rays + float(n)  # + camera rays
     return film
@@ -156,11 +167,11 @@ def _grads(fn, params: DiffParams, dev) -> tuple:
     return value.detach(), aux, map_params(live, grad_of)
 
 
-def film_and_grads(scene: SceneData, settings: RenderSettings, params: DiffParams,
-                   target: torch.Tensor, seed: int, spp: int, device=None):
-    """One inverse-rendering step on `device` (default `cuda`): the L2 loss
-    of the film against `target`, the film, and the loss's gradient in
-    every parameter as a DiffParams (zeros for integer leaves)."""
+def eager_film_and_grads(scene: SceneData, settings: RenderSettings, params: DiffParams,
+                         target: torch.Tensor, seed, spp: int, device=None):
+    """`film_and_grads` run op by op from the host, with nothing captured:
+    the step a `TrainPlan` captures, and what `film_and_grads` runs on the
+    CPU and for the plain step kind."""
     dev = resolve_device(device)
     target = target.to(dev)
 
@@ -170,6 +181,223 @@ def film_and_grads(scene: SceneData, settings: RenderSettings, params: DiffParam
 
     loss, film, grads = _grads(loss_fn, params, dev)
     return loss, film, grads
+
+
+def film_and_grads(scene: SceneData, settings: RenderSettings, params: DiffParams,
+                   target: torch.Tensor, seed, spp: int, device=None):
+    """One inverse-rendering step on `device` (default `cuda`): the L2 loss
+    of the film against `target`, the film, and the loss's gradient in
+    every parameter as a DiffParams (zeros for integer leaves), all new
+    tensors the caller may keep across steps. On the card the step is a
+    `TrainPlan`'s (`train_plan`: captured at the first call for the scene,
+    settings, spp, shapes and material types, replayed at every later one
+    with the new parameters and seed; one plan is kept, so steps that
+    alternate between two scenes capture anew at every switch); the plain
+    step kind, which the card runs eagerly, says so in a warning. On the
+    CPU it runs eagerly."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        plan = train_plan(scene, settings, params, target, spp, dev)
+        if plan is not None:
+            return plan(params, target, seed)
+    return eager_film_and_grads(scene, settings, params, target, seed, spp, device=dev)
+
+
+class TrainPlan:
+    """One training step of a scene on a device: the counterpart of the JAX
+    package's jitted `film_and_grads`, one program compiled once and run for
+    every parameter value and seed.
+
+    The plan keeps the scene on the device, a static buffer for every
+    floating leaf of the DiffParams it was made from, the target and the
+    seed as a device scalar. Its integer leaves, the material types, are
+    its own and never copied: the kernels' instances and the step's
+    branches follow them, so a call with other types raises. A call copies
+    the new leaf values, the target and the seed into the buffers and runs
+    the step: `render_diff` at the buffers, the L2 loss and
+    `torch.autograd.grad` of it in every floating leaf, each bounce's
+    backward kernel or recompute included. The step reads nothing from the
+    card on the host and makes no tensor from host data (the kernels'
+    geometry tables are packed at the first call and kept on the scene's
+    geometry, `cuda_bounce.geometry_of`), so on the card the first call
+    runs it eagerly on a side stream (which also loads every kernel and
+    packs the tables) and then captures it as one CUDA graph; every later
+    call replays the graph on the current stream, the stream of the eager
+    steps, and adds its launches to the kernels' counts. The step kinds
+    "bwd" and "hybrid" (`cuda_bounce.diff_step_kind`) are captured; the
+    plain kind raises on the card. On the CPU the plan runs the same step
+    eagerly at every call. A capture or a replay that fails raises: nothing
+    falls back to the eager step. `capture_seconds` and `pool_bytes` say
+    what the graph cost; `replays` counts its replays."""
+
+    def __init__(self, scene: SceneData, settings: RenderSettings, params: DiffParams,
+                 target: torch.Tensor, spp: int, device=None):
+        from ..ops import cuda_bounce
+
+        self.device = dev = resolve_device(device)
+        self.source = scene  # its tensors, train_plan's key, stay unique while the plan lives
+        self.scene = scene.to(dev)
+        self.settings, self.spp = settings, spp
+        self.on_card = dev.type == "cuda"
+        self.kind = cuda_bounce.diff_step_kind(self.scene, settings, self.on_card)
+        if self.on_card and self.kind == "plain":
+            raise NotImplementedError(
+                "the plain step kind (fused='off', LLR_FUSED=0, LLR_FUSED_BVH=0 or "
+                "LLR_PALLAS=0 on a BVH scene) is not captured: it runs eagerly")
+        self.params = map_params(params, lambda t: t.detach().to(dev).clone())
+        self.target = torch.zeros(target.shape, dtype=target.dtype, device=dev)
+        self.seed = torch.zeros((), dtype=torch.int64, device=dev)
+        self._types_seen = None  # the integer leaves last found equal to the plan's
+        self.geometry = None  # on the card, the geometry tables its graph reads
+        self.graph = None
+        self.out = None  # the graph's loss, film and gradients
+        self.launches = {}  # per replay, by cuda_bounce.counts() name
+        self.capture_seconds = None
+        self.pool_bytes = None
+        self.replays = 0
+
+    def takes(self, params: DiffParams) -> bool:
+        """Whether `params` has the plan's leaf shapes and integer leaves.
+        The integer leaves are compared on the host (a read of the card)
+        only where they are other tensors, or were changed in place, since
+        the last call that found them equal; the tensors of that call are
+        held, so that no other tensor takes their storage."""
+        pairs = list(zip(leaves(self.params), leaves(params)))
+        if any(new.shape != buf.shape for buf, new in pairs):
+            return False
+        ints = [new for buf, new in pairs if not buf.is_floating_point()]
+        key = tuple((t.data_ptr(), t._version) for t in ints)
+        if self._types_seen is not None and self._types_seen[0] == key:
+            return True
+        if not all(torch.equal(buf, new.to(self.device)) for buf, new in pairs
+                   if not buf.is_floating_point()):
+            return False
+        self._types_seen = (key, ints)
+        return True
+
+    def _load(self, params: DiffParams, target: torch.Tensor, seed):
+        if not self.takes(params):
+            raise ValueError("the parameters' shapes or integer leaves (the material "
+                             "types) are not the plan's: make another plan")
+        for buf, new in zip(leaves(self.params), leaves(params)):
+            if buf.is_floating_point():
+                buf.copy_(new.detach())
+        if target.shape != self.target.shape:
+            raise ValueError(f"a target of shape {tuple(target.shape)} for the plan's "
+                             f"{tuple(self.target.shape)}")
+        self.target.copy_(target)
+        if isinstance(seed, torch.Tensor):
+            self.seed.copy_(seed.reshape(()).to(torch.int64) & 0xFFFFFFFF)
+        else:
+            self.seed.fill_(int(seed) & 0xFFFFFFFF)
+
+    def _step(self):
+        """The captured work (module docstring)."""
+        def loss_fn(p):
+            film = render_diff(self.scene, self.settings, p, self.seed, self.spp,
+                               device=self.device)
+            return torch.mean((film - self.target) ** 2), film.detach()
+
+        return _grads(loss_fn, self.params, self.device)
+
+    @staticmethod
+    def _copies(out):
+        loss, film, grads = out
+        return loss.clone(), film.clone(), map_params(grads, torch.clone)
+
+    def __call__(self, params: DiffParams, target: torch.Tensor, seed):
+        """(loss, film, grads) of `film_and_grads` at `params`, `target` and
+        `seed`, as new tensors."""
+        from ..integrator.render import capture_graph
+        from ..ops import cuda_bounce
+
+        self._load(params, target, seed)
+        if not self.on_card:
+            return self._step()
+        if self.graph is None:
+            # PyTorch's recipe for capturing a whole network: a warm-up run
+            # on a side stream, then the capture.
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                out = self._step()
+            current.wait_stream(side)
+            out = self._copies(out)
+            # The graph reads the geometry tables the warm-up packed by their
+            # addresses: held here, a repack for other material types (an
+            # eager step's) frees none of them.
+            self.geometry = cuda_bounce.geometry_of(
+                dataclasses.replace(self.scene, materials=self.params.materials))
+            (self.graph, self.out, self.launches, self.capture_seconds,
+             self.pool_bytes) = capture_graph(self._step, self.device)
+            return out
+        self.graph.replay()
+        self.replays += 1
+        cuda_bounce.add_counts(self.launches)
+        return self._copies(self.out)
+
+
+# The training plan `train_plan` keeps, (key, plan), or None: one, as the
+# training loop a caller runs steps one scene at a time; a graph's pool is
+# ~1 GiB at 753,664 lanes (PERF.md §6.25), so more would hold gigabytes.
+_plan = None
+
+
+def _plan_key(scene, settings, params, target, spp, dev) -> tuple:
+    """What a plan's graph depends on besides its inputs' values: the
+    scene's geometry, lights and BVH (by the storage and version counter of
+    each tensor, as `cuda_bounce._camera_row` keys the camera: the same
+    tensors under another SceneData, `scene.to(device)` where they already
+    lie, are the same scene; an in-place edit is another), the settings,
+    spp, the leaves' and the target's shapes and dtypes, the device, the
+    step kind, the random mixer and the environment's LLR_* knobs (read at
+    call time). The integer leaves' values are checked by the plan
+    (`TrainPlan.takes`)."""
+    from ..ops import cuda_bounce
+
+    kind = cuda_bounce.diff_step_kind(scene, settings, dev.type == "cuda")
+    env = tuple(sorted((k, v) for k, v in os.environ.items() if k.startswith("LLR_")))
+    shapes = tuple((tuple(t.shape), t.dtype) for t in leaves(params))
+    parts = (scene.geometry, scene.lights, scene.bvh)
+    tensors = tuple((t.data_ptr(), t._version, tuple(t.shape), str(t.device))
+                    for part in parts for f in dataclasses.fields(part)
+                    for t in (getattr(part, f.name),))
+    return (tensors, settings, spp, shapes, tuple(target.shape), target.dtype, str(dev),
+            kind, rng._MIXER, env)
+
+
+def train_plan(scene: SceneData, settings: RenderSettings, params: DiffParams,
+               target: torch.Tensor, spp: int, device=None) -> TrainPlan | None:
+    """The `TrainPlan` for this scene, settings, spp, shapes, material types
+    and device: the one kept where it matches, else a new one, which
+    replaces it. None where the step is the plain kind on the card, which
+    runs eagerly: a warning says so."""
+    global _plan
+    dev = resolve_device(device)
+    key = _plan_key(scene, settings, params, target, spp, dev)
+    if _plan is not None and _plan[0] == key and _plan[1].takes(params):
+        return _plan[1]
+    if dev.type == "cuda" and key[7] == "plain":
+        warnings.warn(f"film_and_grads runs the plain step kind eagerly on the card, with no "
+                      f"captured plan (fused={settings.fused!r}, or an LLR_* knob)",
+                      stacklevel=3)
+        return None
+    _plan = None  # the old graph's pool is freed before the new plan captures
+    plan = TrainPlan(scene, settings, params, target, spp, dev)
+    _plan = (key, plan)
+    return plan
+
+
+def kept_plan() -> TrainPlan | None:
+    """The training plan `train_plan` keeps, if any."""
+    return None if _plan is None else _plan[1]
+
+
+def clear_plans():
+    """Drop the kept training plan (and its graph's memory)."""
+    global _plan
+    _plan = None
 
 
 def pixel_grad(scene: SceneData, settings: RenderSettings, params: DiffParams,

@@ -110,6 +110,31 @@ def _pixel_fn(settings: RenderSettings):
     return pixel_fn
 
 
+def capture_graph(fn, device: torch.device):
+    """`fn()` captured as one CUDA graph on `device`: (graph, its outputs,
+    the launches it holds by `cuda_bounce.counts()` name, the capture's
+    seconds, the device memory the capture reserved in bytes). The capture
+    launches nothing, so the calls it made are taken back from the counts;
+    a replay adds `launches` (`cuda_bounce.add_counts`). A capture that
+    fails raises."""
+    from ..ops import cuda_bounce
+
+    before = cuda_bounce.counts()
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.monotonic()
+    with torch.cuda.graph(graph):
+        out = fn()
+    seconds = time.monotonic() - t0
+    pool_bytes = torch.cuda.memory_reserved(device) - reserved
+    after = cuda_bounce.counts()
+    launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    cuda_bounce.add_counts({k: -v for k, v in launches.items()})
+    return graph, out, launches, seconds, pool_bytes
+
+
 class ForwardPlan:
     """One forward chunk size of a scene on a CUDA device: raygen writes the
     camera rays into `o`, `d` (and `g`), and the chunk's stage plan, from
@@ -158,24 +183,8 @@ class ForwardPlan:
                           step=self.step)
 
     def _capture(self):
-        from ..ops import cuda_bounce
-
-        before = cuda_bounce.counts()
-        dev = self.o.device
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.monotonic()
-        with torch.cuda.graph(graph):
-            self.out = self._trace()
-        self.capture_seconds = time.monotonic() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        after = cuda_bounce.counts()
-        self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-        # The capture launched nothing: take its calls back.
-        cuda_bounce.add_counts({k: -v for k, v in self.launches.items()})
-        self.graph = graph
+        (self.graph, self.out, self.launches, self.capture_seconds,
+         self.pool_bytes) = capture_graph(self._trace, self.o.device)
 
     def __call__(self, sample_offset: int):
         """(film_flat (w*h, 3) sum, rays ()) of the chunk at `sample_offset`;

@@ -96,7 +96,7 @@ def plain_bounce_bwd(scene: SceneData, settings: RenderSettings, seed, state,
     o, d, T0 = state.o, state.d, state.throughput
     alive0 = state.alive
     dev = o.device
-    pi = torch.tensor(PI, dtype=o.dtype, device=dev)
+    pi = torch.full((), PI, dtype=o.dtype, device=dev)
     lam = (MAT_LAMBERT,)
     ctr = bounce * _SLOTS
 
@@ -214,7 +214,7 @@ def plain_bounce_bwd(scene: SceneData, settings: RenderSettings, seed, state,
         gon = gon + vec.cross(u, gv)
         gu = gu + vec.cross(gv, on)
         use_y = (torch.abs(on[..., 0]) > EPS)[..., None]
-        a = torch.where(use_y, on.new_tensor([0.0, 1.0, 0.0]), on.new_tensor([1.0, 0.0, 0.0]))
+        a = torch.where(use_y, vec.unit(1, on), vec.unit(0, on))
         c = vec.cross(a.expand_as(on), on)
         gon = gon + vec.cross(_norm_vjp(u, gu, vec.norm(c)), a.expand_as(on))
         gn = gn + gon * sigma[..., None]

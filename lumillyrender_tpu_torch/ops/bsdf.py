@@ -53,11 +53,10 @@ def gather(table: MaterialTable, mat_id) -> GatheredMaterial:
 
 
 def _where(m, a, b):
-    """torch.where that accepts Python floats on either side."""
-    if not isinstance(a, torch.Tensor):
-        a = torch.tensor(a, dtype=torch.float32, device=m.device)
-    if not isinstance(b, torch.Tensor):
-        b = torch.tensor(b, dtype=torch.float32, device=m.device)
+    """torch.where that accepts Python floats on either side, as float32
+    scalars of the op (no tensor made from host data)."""
+    if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
+        return torch.where(m, torch.full_like(m, a, dtype=torch.float32), b)
     return torch.where(m, a, b)
 
 

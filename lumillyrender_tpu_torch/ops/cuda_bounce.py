@@ -59,6 +59,7 @@ from ..scene.data import (
     SKY_SIMPLE,
     SKY_UNIFORM,
     SceneData,
+    SkyData,
 )
 from . import cuda_build, cuda_bvh, rng
 from .bounce_bwd import BounceGrads, plain_bounce_bwd
@@ -436,44 +437,118 @@ def _small_rows(tris: torch.Tensor, sph: torch.Tensor):
     return (ctypes.c_float * block.size).from_buffer_copy(block.tobytes())
 
 
+def pack_geometry(scene: SceneData) -> dict:
+    """What the bounce kernels read of a scene besides its parameters and
+    its BVH (layouts in csrc/bounce_body.cuh), on the scene's device: the
+    triangle, sphere and light rows, the total light area, the material
+    families present (for the brute-force kernels' instances) and, for a
+    scene within the small sweep's caps, the host copy of its prim rows
+    (`small`). The total area, the families and the small rows are read to
+    the host here; `geometry_of` keeps what this packs."""
+    g = scene.geometry
+    lt = scene.lights
+    geo = dict(
+        tris=_rows([g.tri_p0, g.tri_e1, g.tri_e2, g.tri_n, g.tri_mat], 16),
+        sph=_rows([g.sph_c, g.sph_r, g.sph_mat], 8),
+        lights=_rows([lt.is_tri, lt.p0, lt.e1, lt.e2, lt.c, lt.r, lt.cdf], 16),
+        total_area=float(lt.total_area.detach()),
+        families=tuple(sorted(set(scene.materials.type_id.tolist()))),
+    )
+    nt, ns = geo["tris"].shape[0], geo["sph"].shape[0]
+    fits = nt <= SMALL_TRIS and ns <= SMALL_SPHERES
+    geo["small"] = _small_rows(geo["tris"], geo["sph"]) if fits else None
+    return geo
+
+
+def geometry_of(scene: SceneData) -> dict:
+    """`pack_geometry(scene)`, packed at the first call and kept on
+    `scene.geometry` (the geometry is never trained), keyed by the storage
+    and version counter of every tensor it reads, as `_camera_row` keys the
+    camera: an in-place update or another tensor (other material types)
+    packs again. The entry holds those tensors, so that no other tensor
+    takes their storage while it is kept. A step after the first packs
+    nothing and reads nothing to the host, which a training plan's capture
+    needs (diff/render.py::TrainPlan)."""
+    g, lt = scene.geometry, scene.lights
+    src = [getattr(part, f.name) for part in (g, lt)
+           for f in dataclasses.fields(part)] + [scene.materials.type_id]
+    key = tuple((t.data_ptr(), t._version) for t in src)
+    cached = getattr(g, "_kernel_tables", None)
+    if cached is None or cached[0] != key:
+        cached = (key, src, pack_geometry(scene))
+        g._kernel_tables = cached
+    return cached[2]
+
+
+def sky_values(sky: SkyData) -> torch.Tensor:
+    """The sky's words of the kernels' argument block (`kernel_args`): its
+    colour, its horizon colour and its longitude offset, (7,) float32 on
+    its device, detached."""
+    return torch.cat([sky.color.reshape(3), sky.color2.reshape(3),
+                      sky.longitude_offset.reshape(1)]).detach().to(torch.float32)
+
+
 def pack_tables(scene: SceneData, bvh: bool = False,
                 mats_eval: MaterialTable | None = None) -> dict:
     """The bounce kernels' tables (layouts in csrc/bounce_body.cuh), on the
-    scene's device: `mats` is the sampling table (scene.materials),
-    `mats_eval` the evaluation table (`mats_eval`, default the same rows);
-    with `bvh`, also the BVH kernel's tables (csrc/bvh_walk.cuh), which only
-    the BVH bounce reads. For the brute-force kernels' instances, the
-    material `families` present and, for a scene within the small sweep's
-    caps, the host copy of its prim rows (`small`). The sky colours, total
-    light area, material types and small prim rows are read to the host
-    here, once: a launch reads nothing from the card. A test or a tool may
-    add "instance" (an Instance) and "group" (threads per lane) to fix
-    what every launch takes."""
-    g = scene.geometry
-    lt = scene.lights
-    f32 = torch.float32
+    scene's device: the geometry's (`geometry_of`); with `bvh`, the BVH
+    kernel's tables (csrc/bvh_walk.cuh, `cuda_bvh.tables_of`), which only
+    the BVH bounce reads; then what the parameters give, made on the device
+    with no host read: `mats`, the sampling table (scene.materials),
+    `mats_eval` the evaluation table (`mats_eval`, default the same rows),
+    `ibl` the sky's texture and `sky` its values (`sky_values`). A launch
+    reads these and its argument block (`launch_args`) and nothing from the
+    card's memory on the host. A test or a tool may add "instance" (an
+    Instance) and "group" (threads per lane) to fix what every launch
+    takes."""
+    tables = dict(geometry_of(scene))
+    if bvh:
+        tables["bvh"] = cuda_bvh.tables_of(scene.bvh)
     mats = material_rows(scene.materials).detach()
-    tables = dict(
-        tris=_rows([g.tri_p0, g.tri_e1, g.tri_e2, g.tri_n, g.tri_mat], 16),
-        sph=_rows([g.sph_c, g.sph_r, g.sph_mat], 8),
+    tables.update(
         mats=mats,
         mats_eval=mats if mats_eval is None else material_rows(mats_eval).detach(),
-        lights=_rows([lt.is_tri, lt.p0, lt.e1, lt.e2, lt.c, lt.r, lt.cdf], 16),
-        total_area=float(lt.total_area.detach()),
-        sky=[float(x) for x in scene.sky.color.detach().cpu()],
-        horizon=[float(x) for x in scene.sky.color2.detach().cpu()],
-        ibl=scene.sky.ibl.detach().to(f32).contiguous(),
-        lon=float(scene.sky.longitude_offset.detach()),
-        families=tuple(sorted(set(scene.materials.type_id.tolist()))),
+        ibl=scene.sky.ibl.detach().to(torch.float32).contiguous(),
+        sky=sky_values(scene.sky),
     )
     if tables["mats_eval"].shape != mats.shape:
         raise ValueError("the evaluation table must have the sampling table's rows")
-    nt, ns = tables["tris"].shape[0], tables["sph"].shape[0]
-    fits = nt <= SMALL_TRIS and ns <= SMALL_SPHERES
-    tables["small"] = _small_rows(tables["tris"], tables["sph"]) if fits else None
-    if bvh:
-        tables["bvh"] = cuda_bvh.tables_of(scene.bvh)
     return tables
+
+
+def kernel_args(seed, sky: torch.Tensor) -> torch.Tensor:
+    """The bounce kernels' argument block (csrc/bounce_body.cuh ARG_*), (8,)
+    int32 on `sky`'s device: the uint32 bits of `seed` (a Python int, or an
+    integer tensor on that device), then those of `sky` (`sky_values`).
+    Made with no host read, so that a CUDA graph can capture it and a
+    replay takes the seed and sky it is given."""
+    from ..integrator.wavefront import u32_to_i32
+
+    word = u32_to_i32(rng.as_u32(seed, sky.device)).reshape(1)
+    return torch.cat([word, sky.contiguous().view(torch.int32)])
+
+
+def _same_seed(a, b) -> bool:
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return a is b
+    return int(a) == int(b)
+
+
+def launch_args(tables: dict, seed) -> torch.Tensor:
+    """`kernel_args(seed, tables["sky"])`, made at the tables' first launch
+    at that seed (the same int, or the same tensor) and kept in them as
+    "args", so that a step's or a render's launches make nothing else on the
+    device. A block made inside a CUDA graph's capture holds its values only
+    in a replay, so it serves only launches captured with it; one made
+    outside serves any launch."""
+    sky = tables["sky"]
+    capturing = sky.is_cuda and torch.cuda.is_current_stream_capturing()
+    kept = tables.get("args")
+    if kept is not None and _same_seed(kept[0], seed) and (capturing or not kept[2]):
+        return kept[1]
+    args = kernel_args(seed, sky)
+    tables["args"] = (seed, args, capturing)
+    return args
 
 
 def launch_instance(tables: dict, n: int, backward: bool = False) -> tuple[Instance, int]:
@@ -492,7 +567,8 @@ def launch_instance(tables: dict, n: int, backward: bool = False) -> tuple[Insta
 
 
 def _aligned(*tensors):
-    """The kernels read table rows as float4s."""
+    """The kernels read table rows as float4s (and the argument block as
+    two 16-byte loads)."""
     if any(t.numel() and t.data_ptr() % 16 for t in tensors):
         raise ValueError("the bounce kernels' tables must be 16-byte aligned")
 
@@ -552,11 +628,13 @@ def _launch(kernel: str, scene: SceneData, settings: RenderSettings, seed,
         inst, group = launch_instance(tables, n)
         small = tables.get("small")
         extra = [inst.code, group, None if small is None else ctypes.addressof(small)]
+    args = launch_args(tables, seed)
     _aligned(tables["tris"], tables["sph"], tables["mats"], tables["mats_eval"],
-             tables["lights"])
+             tables["lights"], args)
+    if args.device != dev:
+        raise ValueError("the argument block must lie on the state's device")
     ibl = settings.sky_kind == SKY_IBL
     h, w = tables["ibl"].shape[:2]
-    sky, hor = tables["sky"], tables["horizon"]
     rc = cuda_build.fn(kernel)(
         _ptr(state.o), _ptr(state.d), _ptr(state.throughput),
         _ptr(state.accum), _ptr(alive_in), _ptr(lane_in),
@@ -565,9 +643,8 @@ def _launch(kernel: str, scene: SceneData, settings: RenderSettings, seed,
         _ptr(tables["sph"]), tables["sph"].shape[0],
         _ptr(tables["mats"]), _ptr(tables["mats_eval"]), tables["mats"].shape[0],
         _ptr(tables["lights"]), tables["lights"].shape[0],
-        tables["total_area"], n, b, int(seed) & 0xFFFFFFFF, flags, rr_scale,
-        sky[0], sky[1], sky[2], _ptr(tables["ibl"]) if ibl else None, w, h,
-        tables["lon"], hor[0], hor[1], hor[2], int(settings.sky_kind == SKY_SIMPLE),
+        tables["total_area"], n, b, _ptr(args), flags, rr_scale,
+        _ptr(tables["ibl"]) if ibl else None, w, h, int(settings.sky_kind == SKY_SIMPLE),
         *extra, cuda_build.stream(),
     )
     cuda_build.check(rc, kernel)
@@ -730,6 +807,7 @@ def make_step(scene: SceneData, settings: RenderSettings, seed,
     _require_kernels(scene, settings)
     brute = _use_brute(scene.geometry, settings.intersector, scene.bvh)
     tables = pack_tables(scene, bvh=not brute, mats_eval=mats_eval)
+    launch_args(tables, seed)
     kernel = bounce if brute else bounce_bvh
     return lambda state: kernel(scene, settings, seed, state, tables)
 
@@ -788,9 +866,13 @@ def bwd_blocks(n: int, device: torch.device) -> int:
 def _ticket(device: torch.device) -> torch.Tensor:
     """The backward kernel's ticket on `device`: zeroed once, and left zero
     by every launch (the last block resets it). The launches of one device
-    share it, so they must run on one stream, as the port's do."""
+    share it, so they must run on one stream, as the port's do (a training
+    plan's graph replays on the stream its eager steps use)."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
     if idx not in _tickets:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the backward kernel's ticket is zeroed outside a CUDA "
+                               "graph's capture: launch the kernel once before capturing")
         _tickets[idx] = torch.zeros(1, dtype=torch.int32, device=device)
     return _tickets[idx]
 
@@ -841,15 +923,17 @@ def bounce_bwd_launch(scene: SceneData, settings: RenderSettings, seed, state,
     partial = torch.empty((6 * nm + 3) * blocks, dtype=torch.float32, device=dev)
     small = tables.get("small")
     flags, rr_scale = _flags(settings, state.bounce)
-    sky = tables["sky"]
+    args = launch_args(tables, seed)
+    _aligned(args)
+    if args.device != dev:
+        raise ValueError("the argument block must lie on the state's device")
     rc = cuda_build.fn("bounce_bwd")(
         _ptr(state.o), _ptr(state.d), _ptr(state.throughput), _ptr(state.alive),
         _ptr(state.lane), *(_ptr(t) for t in cot), _ptr(o_bar), _ptr(d_bar), _ptr(t_bar),
         _ptr(rows), _ptr(alive_out), _ptr(tables["tris"]), tables["tris"].shape[0],
         _ptr(tables["sph"]), tables["sph"].shape[0], _ptr(tables["mats"]),
         _ptr(tables["mats_eval"]), nm, _ptr(tables["lights"]), tables["lights"].shape[0],
-        tables["total_area"], n, state.bounce, int(seed) & 0xFFFFFFFF, flags, rr_scale,
-        sky[0], sky[1], sky[2], inst.code,
+        tables["total_area"], n, state.bounce, _ptr(args), flags, rr_scale, inst.code,
         None if small is None else ctypes.addressof(small), _ptr(partial), blocks,
         _ptr(_ticket(dev)), cuda_build.stream(),
     )
@@ -1002,8 +1086,11 @@ def _make_step(fn, scene: SceneData, settings: RenderSettings, seed,
                mats_eval: MaterialTable):
     """The PathState -> PathState step that applies `fn` (`_BounceDiff` or
     `_BounceHybrid`) to each bounce: on the card with the bounce kernel that
-    `_use_brute` picks and its tables, packed once here from detached
-    values; on the CPU with the plain step forward."""
+    `_use_brute` picks and its tables (`pack_tables`: the geometry's as
+    kept, the parameters' made on the device from detached values) and one
+    argument block for the step's launches; on the CPU with the plain step
+    forward. `seed` is a Python int or an integer tensor on the scene's
+    device."""
     from ..integrator.wavefront import PathState
 
     on_card = _on_card(scene)
@@ -1012,6 +1099,7 @@ def _make_step(fn, scene: SceneData, settings: RenderSettings, seed,
         _require_kernels(scene, settings)
         brute = _use_brute(scene.geometry, settings.intersector, scene.bvh)
         tables = pack_tables(scene, bvh=not brute)
+        launch_args(tables, seed)
         kernel = bounce if brute else bounce_bvh
     mt_eval = material_rows(mats_eval)
     sky = [getattr(scene.sky, name) for name in SKY_LEAVES[settings.sky_kind]]
@@ -1048,6 +1136,7 @@ def make_step_diff(scene: SceneData, settings: RenderSettings, seed,
     package's `make_bounce_step` dispatches it (`diff_step_kind`):
     `scene.materials` is the detached sampling table, `mats_eval` (default
     the same) the live evaluation table, and `scene.sky` the live sky.
+    `seed` is a Python int or an integer tensor on the scene's device.
 
     * a Lambert-only brute-force scene under a uniform sky
       (`diff_supported`): the bounce kernel forward with the hand-written

@@ -43,16 +43,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
-# The sky arguments the forward bounce entry points end with: uniform (or
-# the simple sky's meridian) colour, equirect texture (null for a uniform
-# or simple sky), its width and height, the longitude offset, the simple
-# sky's horizon colour and whether the sky is the simple one, then the
-# stream.
-_SKY = [_F, _F, _F, _P, _I, _I, _F, _F, _F, _F, _I, _P]
+# The sky arguments the forward bounce entry points end with: the equirect
+# texture (null for a uniform or simple sky), its width and height and
+# whether the sky is the simple one, then the stream.
+_SKY = [_P, _I, _I, _I, _P]
 # The bounce entry points start with the PathState in and out (12 pointers)
 # and share this tail: spheres, the sampling and evaluation material tables,
-# lights, total light area, lanes, bounce, seed, flags, RR scale.
-_SHADE = [_P, _I, _P, _P, _I, _P, _I, _F, _I, _I, _U, _I, _F]
+# lights, total light area, lanes, bounce, the argument block on the card
+# (seed, sky colours, longitude: cuda_bounce.kernel_args), flags, RR scale.
+_SHADE = [_P, _I, _P, _P, _I, _P, _I, _F, _I, _I, _P, _I, _F]
 ARGTYPES = {
     # ... the camera row, the launch's constants (raygen_consts), then the
     # mixer (1: threefry) and the stream.
@@ -67,9 +66,9 @@ ARGTYPES = {
     "llr_bvh_wide": [_P] * 7 + [_I, _I] + [_P] * 4 + [_P],
     "llr_bvh_streamed": [_P] * 7 + [_I, _I] + [_P] * 4 + [_P],
     # state in (5), cotangents in (4), out (5), triangles, then _SHADE, the
-    # uniform sky colour, the instance bits, the small scene's prim rows,
-    # the partial table and its columns, the ticket and the stream.
-    "llr_bounce_bwd": [_P] * 14 + [_P, _I] + _SHADE + [_F, _F, _F, _I, _P, _P, _I, _P, _P],
+    # instance bits, the small scene's prim rows, the partial table and its
+    # columns, the ticket and the stream.
+    "llr_bounce_bwd": [_P] * 14 + [_P, _I] + _SHADE + [_I, _P, _P, _I, _P, _P],
     "llr_probe_smem_limit": [ctypes.POINTER(_I), _I],
 }
 # The signature of every capability probe's entry `llr_probe_<probe>` (two

@@ -593,7 +593,7 @@ def evaluate(o, d, geom: Geometry, found: Found, t_cap=None, plane: bool = False
     normal = found.n
     if ns:
         normal = torch.where(sph[..., None], vec.safe_normalize(pos - c), normal)
-    normal = torch.where(hitmask[..., None], normal, normal.new_tensor([0.0, 0.0, 1.0]))
+    normal = torch.where(hitmask[..., None], normal, vec.unit(2, normal))
     return hit, ShadePoint(position=pos, normal=normal, mat=found.mat, hit=hitmask)
 
 
@@ -666,6 +666,5 @@ def shade_point(o, d, hit: Hit, geom: Geometry) -> ShadePoint:
 
     mat = torch.where(hitmask, mat, torch.full_like(mat, -1))
     # Miss lanes get a unit dummy normal so downstream math stays NaN-free.
-    normal = torch.where(hitmask[..., None], normal,
-                         normal.new_tensor([0.0, 0.0, 1.0]))
+    normal = torch.where(hitmask[..., None], normal, vec.unit(2, normal))
     return ShadePoint(position=pos, normal=normal, mat=mat, hit=hitmask)

@@ -31,6 +31,24 @@ def over(x, c: float):
     return x / torch.full((), float(c), dtype=x.dtype, device=x.device)
 
 
+_units: dict = {}  # (device, dtype, axis) -> the unit vector `unit` made there
+
+
+def unit(axis: int, like: torch.Tensor) -> torch.Tensor:
+    """The unit vector along `axis` (0, 1, 2), a (3,) tensor of `like`'s
+    dtype on its device: made by a fill, not copied from the host, once a
+    device and dtype (inside a CUDA graph's capture, in the graph and not
+    kept: its values exist only in a replay)."""
+    key = (like.device, like.dtype, axis)
+    u = _units.get(key)
+    if u is None:
+        u = torch.zeros(3, dtype=like.dtype, device=like.device)
+        u.narrow(0, axis, 1).fill_(1.0)
+        if not (u.is_cuda and torch.cuda.is_current_stream_capturing()):
+            _units[key] = u
+    return u
+
+
 def dot(a, b):
     p = a * b
     return p[..., 0] + p[..., 1] + p[..., 2]
@@ -72,9 +90,7 @@ def orthonormal_basis(w):
     tangent = normalize(((0,1,0) if |w.x| > EPS else (1,0,0)) x w);
     binormal = w x tangent. The EPS branch is per-lane."""
     use_y = (torch.abs(w[..., 0]) > EPS)[..., None]
-    ey = w.new_tensor([0.0, 1.0, 0.0])
-    ex = w.new_tensor([1.0, 0.0, 0.0])
-    a = torch.where(use_y, ey, ex).expand_as(w)
+    a = torch.where(use_y, unit(1, w), unit(0, w)).expand_as(w)
     tangent = safe_normalize(cross(a, w))
     binormal = cross(w, tangent)
     return tangent, binormal

@@ -44,7 +44,11 @@ IBL scenes (make_step_diff's `make_step_hybrid`: kernel 4 or 2 forward,
 kernel 3 in the backward's recompute) against autograd of the plain step
 with the plain walk, within `parity.AUTOGRAD_BWD_RTOL` on the lanes
 `parity.bwd_comparable` keeps, and its film_and_grads repeating bit for
-bit; under `fused="off"` the plain step with kernel 3 as its walk, its
+bit; film_and_grads's training plan (its first call captured as a CUDA
+graph, every later one a replay) bit-equal to the eager step, with the
+same launches, as the albedo, the sky and the seed change (new-cbox,
+ibl-material, welcome-geo), the plain step kind eager with a warning;
+under `fused="off"` the plain step with kernel 3 as its walk, its
 gradients bit-equal under the four recompute policies and its backward
 pass walking nothing under the `isect` ones; under `LLR_RNG=threefry`
 (set as `rng._MIXER`), kernel 1's threefry instance with its random words
@@ -639,10 +643,13 @@ def test_diff_step_runs_the_kernels_on_bvh_and_ibl_scenes(card, name, monkeypatc
     kernel 3 twice a bounce in the backward's recompute on welcome-geo (the
     bounce's walk and NEE's), no backward kernel and no raygen; it runs the
     plain step only inside the 80 recomputes and the plain walk never; and
-    two runs give the loss, the film and every gradient bit for bit."""
+    two runs give the loss, the film and every gradient bit for bit. The
+    step runs eagerly (`eager_film_and_grads`), so that its calls are seen;
+    film_and_grads's captured plan is held to it below."""
     import dataclasses
 
-    from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
+    from lumillyrender_tpu_torch.diff import eager_film_and_grads as film_and_grads
+    from lumillyrender_tpu_torch.diff import params_of, render_diff
     from lumillyrender_tpu_torch.diff.render import leaves
 
     c = compile_scene_file(ASSETS / f"{name}.toml", device=card)
@@ -794,6 +801,66 @@ def test_training_step_runs_the_kernels_and_repeats_bit_for_bit(card):
     for a, b in zip(leaves(g1), leaves(g2)):
         assert torch.isfinite(a).all() and torch.equal(a, b)
     assert g1.materials.color.abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,w,h,spp,sky", [("new-cbox", 64, 64, 4, "color"),
+                                             ("ibl-material", 64, 48, 2, "ibl"),
+                                             ("welcome-geo", 64, 48, 2, "ibl")])
+def test_plan_replays_equal_eager_steps(card, name, w, h, spp, sky):
+    """film_and_grads on the card runs a TrainPlan: its first call eager and
+    then captured, every later one a replay of the graph. Three calls at new
+    seeds, the albedo and the sky (new-cbox's uniform colour, the IBL
+    texels) moved between them: each equals the eager step
+    (`eager_film_and_grads`) bit for bit, loss, film and every gradient,
+    and launches what it launched; the calls after the first are replays
+    of one plan."""
+    from lumillyrender_tpu_torch.diff import eager_film_and_grads, film_and_grads, params_of
+    from lumillyrender_tpu_torch.diff import render_diff
+    from lumillyrender_tpu_torch.diff.render import clear_plans, kept_plan, leaves
+
+    clear_plans()
+    c = compile_scene_file(ASSETS / f"{name}.toml", device=card)
+    st = dataclasses.replace(c.settings, width=w, height=h)
+    p0 = params_of(c.data)
+    target = render_diff(c.data, st, p0, 3, spp).detach()
+    for k, seed in enumerate((11, 12, 13)):
+        scale = 0.8 + 0.1 * k
+        p = p0._replace(
+            materials=dataclasses.replace(p0.materials, color=p0.materials.color * scale),
+            sky=dataclasses.replace(p0.sky, **{sky: getattr(p0.sky, sky) * (2.0 - scale)}))
+        cuda_bounce.reset_counts()
+        want = eager_film_and_grads(c.data, st, p, target, seed, spp)
+        torch.cuda.synchronize()
+        eager = cuda_bounce.counts()
+        cuda_bounce.reset_counts()
+        got = film_and_grads(c.data, st, p, target, seed, spp)
+        torch.cuda.synchronize()
+        assert cuda_bounce.counts() == eager
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        for a, b in zip(leaves(got[2]), leaves(want[2])):
+            assert torch.isfinite(a).all() and torch.equal(a, b)
+        assert getattr(got[2].sky, sky).abs().sum() > 0
+    plan = kept_plan()
+    assert plan is not None and plan.replays == 2 and plan.graph is not None
+    clear_plans()
+
+
+@pytest.mark.cuda
+def test_plain_step_kind_runs_eagerly_and_says_so(card):
+    """Under fused="off" film_and_grads keeps the eager step on the card (no
+    plan is made) and warns that it does."""
+    from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
+    from lumillyrender_tpu_torch.diff.render import clear_plans, kept_plan
+
+    clear_plans()
+    c = compile_scene_file(ASSETS / "new-cbox.toml", device=card)
+    st = dataclasses.replace(c.settings, width=16, height=16, max_bounces=3, fused="off")
+    p = params_of(c.data)
+    target = render_diff(c.data, st, p, 3, 1).detach()
+    with pytest.warns(UserWarning, match="plain step kind eagerly"):
+        loss, _, _ = film_and_grads(c.data, st, p, target, 4, 1)
+    assert torch.isfinite(loss) and kept_plan() is None
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,10 @@ headers beside them) with this tree's nvcc flags into this tree's
 `lumillyrender_tpu_torch/build/` under other library names, beside this
 tree's kernels, and loads them (an entry point of an earlier signature,
 before the brute-force kernels took an instance or kernel 4 the leaves'
-valid counts, or the forward entries the simple sky's arguments, is called
-with it).
+valid counts, or the forward entries the simple sky's arguments, or the
+bounce entries their step values (seed, sky colours, longitude) in an
+argument block on the card, is called with it: by value, those of the
+launch).
 
 Forward cases, on one chunk traced with this tree's kernel, the first state
 of each stage width kept:
@@ -92,6 +94,20 @@ SIMPLE_SKY_ARGS = {"bounce": range(34, 38), "bounce_bvh": range(37, 41)}
 # What a source of the current signature holds and an earlier one lacks.
 CURRENT_MARK = {"bounce": "small_rows", "bounce_bwd": "small_rows",
                 "bounce_bvh": "const int32_t* counts", "raygen": "RaygenConsts"}
+# The bounce entry points before their step values (seed, sky colours,
+# longitude) moved into an argument block on the card: those values by
+# value, in this order, where the block's pointer now stands.
+_SHADE_BY_VALUE = [_P, _I, _P, _P, _I, _P, _I, _F, _I, _I, _U, _I, _F]
+_SKY_BY_VALUE = [_F, _F, _F, _P, _I, _I, _F, _F, _F, _F, _I, _P]
+BY_VALUE_ARGTYPES = {
+    "llr_bounce": [_P] * 12 + [_P, _I] + _SHADE_BY_VALUE + _SKY_BY_VALUE[:-1] + [_I, _I, _P, _P],
+    "llr_bounce_bvh": [_P] * 12 + [_P, _P, _P, _P, _I] + _SHADE_BY_VALUE + _SKY_BY_VALUE,
+    "llr_bounce_bwd": [_P] * 14 + [_P, _I] + _SHADE_BY_VALUE + [_F, _F, _F, _I, _P, _P, _I, _P,
+                                                                   _P],
+}
+# The argument block's position in the current entries' arguments.
+ARGS_AT = {"bounce": 24, "bounce_bvh": 27, "bounce_bwd": 26}
+BLOCK_MARK = "const uint32_t* args"
 
 
 def earlier_signature(src: Path, name: str) -> bool:
@@ -103,6 +119,32 @@ def earlier_signature(src: Path, name: str) -> bool:
         return False
     cu = (src / "lumillyrender_tpu_torch" / "csrc" / cuda_build.SOURCES[name]).read_text()
     return CURRENT_MARK[name] not in cu
+
+
+def takes_values(src: Path, name: str) -> bool:
+    """Whether the parent's bounce entry of library `name` takes its step
+    values by value (BY_VALUE_ARGTYPES) rather than in a block on the card."""
+    from lumillyrender_tpu_torch.ops import cuda_build
+
+    if name not in ARGS_AT:
+        return False
+    csrc = src / "lumillyrender_tpu_torch" / "csrc"
+    cu = (csrc / cuda_build.SOURCES[name]).read_text() + (csrc / "bounce_body.cuh").read_text()
+    return BLOCK_MARK not in cu
+
+
+def values_entry(name: str, fn, seed: int, sky: list):
+    """`fn`, an entry of library `name` that takes its step values by value,
+    as this tree's wrapper calls it (the argument block's pointer where
+    those values stood): `seed` and `sky` (cuda_bounce.sky_values, on the
+    host) in the block's place."""
+    at = ARGS_AT[name]
+    col, hor, lon = sky[:3], sky[3:6], sky[6]
+    seed = int(seed) & 0xFFFFFFFF
+    if name == "bounce_bwd":
+        return lambda *a: fn(*a[:at], seed, *a[at + 1:at + 3], *col, *a[at + 3:])
+    return lambda *a: fn(*a[:at], seed, *a[at + 1:at + 3], *col, *a[at + 3:at + 6], lon, *hor,
+                         *a[at + 6:])
 
 
 def build_sources(jobs: dict) -> dict:
@@ -140,7 +182,8 @@ def build_parents(src: Path, names) -> dict:
     for name, (lib, log) in libs.items():
         earlier = earlier_signature(src, name)
         fn = getattr(lib, f"llr_{name}")
-        fn.argtypes = (EARLIER_ARGTYPES if earlier else cuda_build.ARGTYPES)[f"llr_{name}"]
+        fn.argtypes = (EARLIER_ARGTYPES if earlier else BY_VALUE_ARGTYPES
+                       if takes_values(src, name) else cuda_build.ARGTYPES)[f"llr_{name}"]
         fn.restype = ctypes.c_int
         cu = (src / "lumillyrender_tpu_torch" / "csrc" / cuda_build.SOURCES[name]).read_text()
         if not earlier and name in SIMPLE_SKY_ARGS and "hor_r" not in cu:
@@ -148,7 +191,7 @@ def build_parents(src: Path, names) -> dict:
             fn.argtypes = [t for i, t in enumerate(fn.argtypes) if i not in drop]
             fn = (lambda f, drop: lambda *a: f(*(x for i, x in enumerate(a) if i not in drop)))(
                 fn, drop)
-        built[name] = (fn, log, earlier)
+        built[name] = (fn, log, earlier, takes_values(src, name))
     return built
 
 
@@ -170,19 +213,26 @@ def entry_point(name: str, fn):
             cuda_build._fns[entry] = saved
 
 
-def forward_entry(name: str, parent: tuple):
-    """The parent's forward entry as this tree's wrapper calls it: an
+def forward_entry(name: str, parent: tuple, tables: dict | None = None):
+    """The parent's forward entry as this tree's wrapper calls it: one that
+    takes the step values by value gets those of chip_smoke.SEED and
+    `tables["sky"]` in the argument block's place (`values_entry`); an
     earlier llr_bounce drops the instance, group and small rows, an earlier
     llr_bounce_bvh the leaves' valid counts, an earlier llr_raygen the
     launch's constants."""
-    fn, _, earlier = parent
-    if not earlier:
-        return fn
-    if name == "raygen":
-        return lambda *a: fn(*a[:13], *a[14:])
-    if name == "bounce_bvh":
-        return lambda *a: fn(*a[:15], *a[16:])
-    return lambda *a: fn(*a[:-4], a[-1])
+    import chip_smoke
+
+    fn, _, earlier, by_value = parent
+    if earlier:
+        if name == "raygen":
+            fn = (lambda f: lambda *a: f(*a[:13], *a[14:]))(fn)
+        elif name == "bounce_bvh":
+            fn = (lambda f: lambda *a: f(*a[:15], *a[16:]))(fn)
+        else:
+            fn = (lambda f: lambda *a: f(*a[:-4], a[-1]))(fn)
+    if by_value:
+        fn = values_entry(name, fn, chip_smoke.SEED, tables["sky"].tolist())
+    return fn
 
 
 def kernel_lines(log: str, match: str = "bounce") -> dict:
@@ -223,13 +273,13 @@ def stage_states(c, spp_chunk: int, name: str, tables: dict) -> dict:
 
 
 def training_states(c, spp: int) -> tuple[dict, dict]:
-    """One new-cbox film_and_grads at `spp` from a perturbed albedo
-    (as chip_smoke.py's phase 12): ({width: (first forward state, its
+    """One new-cbox training step at `spp` from a perturbed albedo, run
+    eagerly so that its launches are seen (as chip_smoke.py's phase 12): ({width: (first forward state, its
     tables)}, {width: (first backward state, cotangents, tables)}). The
     backward runs from the last bounce to the first, so its last launch at
     a width is its stage's first."""
     import chip_smoke
-    from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
+    from lumillyrender_tpu_torch.diff import eager_film_and_grads, params_of, render_diff
     from lumillyrender_tpu_torch.ops import cuda_bounce
 
     p = params_of(c.data)
@@ -249,7 +299,7 @@ def training_states(c, spp: int) -> tuple[dict, dict]:
 
     cuda_bounce.bounce_launch, cuda_bounce.bounce_bwd_launch = keep_fwd, keep_bwd
     try:
-        film_and_grads(c.data, c.settings, p, target, chip_smoke.SEED, spp)
+        eager_film_and_grads(c.data, c.settings, p, target, chip_smoke.SEED, spp)
         torch.cuda.synchronize()
     finally:
         cuda_bounce.bounce_launch, cuda_bounce.bounce_bwd_launch = launch, launch_bwd
@@ -314,7 +364,7 @@ def forward_case(tag, c, settings, state, tables, name, parent, res, card):
 
     w = state.o.shape[0]
     launch_fn = getattr(cuda_bounce, f"{name}_launch")
-    pfn = forward_entry(name, parent)
+    pfn = forward_entry(name, parent, tables)
     runs = {"parent": (pfn, tables), **{k: (None, t) for k, t in
                                          variants(name, tables, w).items()}}
     outs = {k: outputs(w) for k in runs}
@@ -351,7 +401,9 @@ def backward_case(tag, c, settings, state, cot, tables, parent, res, card):
     w = state.o.shape[0]
     dev = state.o.device
     nm = tables["mats"].shape[0]
-    fn, _, earlier = parent
+    fn, _, earlier, by_value = parent
+    if by_value and not earlier:
+        fn = values_entry("bounce_bwd", fn, chip_smoke.SEED, tables["sky"].tolist())
     f3 = lambda: torch.empty((w, 3), dtype=torch.float32, device=dev)
     mine = {k: (t, (f3(), f3(), f3(), torch.empty(6 * nm + 3, dtype=torch.float32, device=dev),
                     torch.empty(w, dtype=torch.bool, device=dev)))
@@ -361,7 +413,7 @@ def backward_case(tag, c, settings, state, cot, tables, parent, res, card):
     p_partial = torch.empty((p_blocks, 6 * nm + 3), dtype=torch.float32, device=dev)
     p_rows = torch.empty(6 * nm + 3, dtype=torch.float32, device=dev)
     flags, rr_scale = cuda_bounce._flags(settings, state.bounce)
-    sky = tables["sky"]
+    sky = tables["sky"].tolist()
 
     def launch_parent():
         if not earlier:

@@ -15,7 +15,10 @@ tree, parent, ...), each times `--steps` calls of `film_and_grads` (the
 training step a user calls: the hybrid step forward, autograd of the
 recompute backward), each at its own seed, the same seeds in both trees,
 after one warm-up step: the host clock around each step, which ends in a
-synchronize. Only one worker runs at a time; the other waits on its pipe.
+synchronize. A tree whose `film_and_grads` runs a captured training plan
+(`diff.render.TrainPlan`, which keeps one plan) captures anew at the
+warm-up step of each request, since the requests alternate between the
+scenes, and its timed steps are replays. Only one worker runs at a time; the other waits on its pipe.
 Prints the card's name and power limit, each round's ms a step, the
 median of each tree and scene over every step of every round, whether
 the two trees' losses are bit-equal step by step, and one JSON line,
