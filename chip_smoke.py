@@ -128,19 +128,31 @@ Phases, in order; any failure exits non-zero:
      stage-end state (o, d, throughput, accum, alive, lane) and the ray
      count bit-equal, the films through check_films' gate; beside phases
      6, 10 and 19's chunk ms, busy ms, idle share, launches per chunk,
-     capture seconds and pool bytes, the host loop's ms per chunk;
+     capture seconds and pool bytes, the host loop's ms per chunk; then
+     new-cbox and welcome-geo under `fused="off"` (the plain step's
+     PyTorch ops as the captured plan, kernel 3 their walk on
+     welcome-geo) held to the host loop over the plain step the same way,
+     and their captured chunk timed (ms over two replays, busy ms and idle
+     share, launches, capture seconds, pool bytes) beside the host loop's
+     ms per chunk;
  22. data parallelism over ranks (lumillyrender_tpu_torch/parallel/shard.py):
      a world-size-1 NCCL group runs render_sharded on new-cbox at full size
      (32 and 16 spp a chunk) against render in chunks of the same size
      (launch counts and ray count equal, no plain step, the film within
      1e-5 of its max: the banks add with atomics, so not bit for bit),
      with its all-reduce's ms a chunk and rays/s beside phase 6's; then
-     sharded_train_step at 4 spp against film_and_grads (its captured
-     plan) on the same offsets (loss and every gradient bit-equal, 80
-     bounce and 80 bounce_bwd launches); then two ranks in two processes of this script
-     (`--dp-rank`) sharing the card over gloo, which all-reduces the CUDA
-     tensors: each rank's launches half the one-rank run's, the film
-     within 1e-5 of its max;
+     sharded_train_step at 4 spp (a training plan with the rank's offsets
+     as a device input: its first call and a replay) against
+     film_and_grads (its captured plan) on the same offsets (loss and every
+     gradient bit-equal, 80 bounce and 80 bounce_bwd launches each call),
+     and the sharded step eager and through the plan in turns (median,
+     range, capture seconds, pool bytes); then two ranks in two processes
+     of this script (`--dp-rank`) sharing the card over gloo, which
+     all-reduces the CUDA tensors: each rank's launches half the one-rank
+     run's, the film within 1e-5 of its max; each rank's sharded training
+     step (its first call and a replay of its own plan, 80 + 80 launches at
+     half the lanes), the same loss and gradients on both ranks, within
+     1e-5 of the two blocks' eager steps added here;
  23. vr.toml on the card: the omnidirectional raygen against its plain
      version at 2,097,152 lanes (random bits equal, g = pdf = 1), timed
      beside its bound; the full-size render (256x128, 16 spp) through the
@@ -177,21 +189,26 @@ Phases, in order; any failure exits non-zero:
      falls by more than 2x);
  26. remat_policies: `fused="off"` (autograd of the plain step on the
      card, kernel 3 its walk) on welcome-geo's training step at 512x368 x
-     4 spp under the recompute policies full, hybrid, isect and
-     isect+samp: each film_and_grads with kernel 3's launches counted in
-     the forward and the backward pass apart (160 forward; 160 backward
-     under full, twice the bounces of the stages wider than 48k lanes
-     under hybrid, none under the isect ones), no plain walk and no other
-     kernel; the loss, film and every gradient bit-equal across the four,
-     and within TRAIN_PLAIN_RTOL of phase 25's default dispatch (the
-     hybrid); each policy's step ms (2 steps, the policies in turns),
-     device busy ms and idle share, peak memory, device launches a step;
-     terrain-1m at 64x64 x 1 spp under full and isect (kernel 7 the walk:
-     160 launches forward, 160 and 0 backward, the gradients bit-equal);
-     then new-cbox's 256^2 x 64 spp film under `fused="off"` (the plain
-     step's brute force in the host loop) through check_films against
-     the kernels' film at the same chunk width, its chunk ms beside phase
-     6's;
+     4 spp under the recompute policies none, full, hybrid, isect and
+     isect+samp: each eager step (`eager_film_and_grads`) with kernel 3's
+     launches counted in the forward and the backward pass apart (160
+     forward; 160 backward under full, twice the bounces of the stages
+     wider than 48k lanes under hybrid, none under none and the isect
+     ones), no plain walk and no other kernel; the loss, film and every
+     gradient bit-equal across the five, and within TRAIN_PLAIN_RTOL of
+     phase 25's default dispatch (the hybrid); then each policy through
+     film_and_grads's captured plan (`plan_vs_eager`: its first call and a
+     replay at a new seed and albedo, each bit-equal to the eager step
+     with the same launches; the eager step and the replay in turns,
+     REMAT_ROUNDS rounds after each of REMAT_CAPTURES captures, median and
+     range, busy ms and idle share, peak memory, capture seconds and pool
+     bytes); terrain-1m at 64x64 x 1 spp under full and isect (kernel 7 the
+     walk: 160 launches forward, 160 and 0 backward, the gradients
+     bit-equal; the plan's first call and a replay bit-equal to the eager
+     step with its launches); then new-cbox's 256^2 x 64 spp film under
+     `fused="off"` (the plain step's brute force, each chunk size a
+     captured plan) through check_films against the kernels' film at the
+     same chunk width, its chunk ms beside phase 6's;
  27. the environment knobs: kernel 1's threefry instance (LLR_RNG=threefry)
      against its plain version at 2,097,152 lanes (random words bit-equal,
      on the card and on the CPU), timed in turns with its pcg4d instance,
@@ -201,17 +218,21 @@ Phases, in order; any failure exits non-zero:
      refused by name (a process of its own); a process of this script
      under LLR_RNG=threefry (`--knobs-child`): the CLI on new-cbox at full
      size with --fused off (raygen launched, no bounce kernel, the plain
-     step in the host loop, its chunk ms), 64^2 x 8 spp films on the card
-     and on the CPU under threefry and pcg4d (CROSS_DEVICE's bounds, which
-     the card's pcg4d film against the CPU's threefry film must fail), a
-     welcome-geo training step at 512x368 x 4 spp under fused="off"
-     (kernel 3 its walk, loss and gradients finite); kernel 4 on
+     step only in the captured plan's first chunk and its capture, no
+     chunk in the host loop, its chunk ms as the plan's replay), 64^2 x 8
+     spp films on the card and on the CPU under threefry and pcg4d
+     (CROSS_DEVICE's bounds, which the card's pcg4d film against the CPU's
+     threefry film must fail), a welcome-geo training step at 512x368 x 4
+     spp under fused="off" (kernel 3 its walk, loss and gradients finite),
+     eager and then through film_and_grads's plan (first call and a
+     replay bit-equal to it, the same launches); kernel 4 on
      welcome-geo built at K = 8, 16, 64 (LLR_TREELET_K) and 128
      (LLR_WIDE_MIN_TRIS) against the plain step at 2,072,576 lanes,
      bounces 0 and 70, and on one chunk's stage widths, timed beside
      its bounds; the CLI under LLR_FUSED=0, LLR_FUSED_BVH=0 (welcome-geo
      and new-cbox), LLR_PALLAS=0 and LLR_REORDER=1, each with its launch
-     counts and plain-step and sort-key calls;
+     counts and plain-step and sort-key calls (every CLI run of the script
+     with no chunk in the host loop);
  28. the hero scenes ridaisai and welcome (2138x1536, IBL, thin lens under
      one and two camera transforms) and BASELINE config 1, sample (512^2):
      kernel 1 against its plain version on ridaisai's and welcome's
@@ -685,10 +706,12 @@ class PlainCalls:
     once a bounce, inside `cuda_bounce.recompute`: those calls are counted
     apart (`recomputes`, one a recompute), and a plain walk counts in
     `calls` wherever it runs. `n` counts every call by name, the ray sort
-    key's (`_ray_sort_key`, which no plain path is) too."""
+    key's (`_ray_sort_key`, which no plain path is) too, and `trace_film`'s
+    and `ForwardPlan._trace`'s (equal where every chunk is a captured
+    plan's: no chunk ran in the host loop)."""
 
     def __enter__(self):
-        from lumillyrender_tpu_torch.integrator import wavefront
+        from lumillyrender_tpu_torch.integrator import render, wavefront
         from lumillyrender_tpu_torch.ops import cuda_bounce, intersect
 
         self.calls = 0
@@ -697,7 +720,8 @@ class PlainCalls:
         self.saved = [(m, name, getattr(m, name)) for m, name in (
             (wavefront, "plain_bounce_step"), (intersect, "_walk_tris"),
             (cuda_bounce, "plain_bounce_bwd"), (cuda_bounce, "recompute"),
-            (intersect, "_ray_sort_key"))]
+            (intersect, "_ray_sort_key"), (render, "trace_film"),
+            (render.ForwardPlan, "_trace"))]
         self.n = {name: 0 for _, name, _ in self.saved}
         for mod, name, fn in self.saved:
             def counted(*a, _fn=fn, _name=name, **k):
@@ -710,7 +734,7 @@ class PlainCalls:
                         self.inside -= 1
                 if _name == "plain_bounce_step" and self.inside:
                     self.recomputes += 1
-                elif _name != "_ray_sort_key":
+                elif _name not in ("_ray_sort_key", "trace_film", "_trace"):
                     self.calls += 1
                 return _fn(*a, **k)
             setattr(mod, name, counted)
@@ -727,8 +751,9 @@ def run_main_path(tag, argv, want, must_be_zero=(), env=None, plain_step=False):
     every launch count zeroed just before it and read just after; fails
     unless each kernel in `want` launched, none in `must_be_zero` did, and
     neither the plain step nor the plain walk ran, or with `plain_step`,
-    unless the plain step ran and the plain walk did not. Returns (result,
-    counts, calls by name)."""
+    unless the plain step ran and the plain walk did not; and unless every
+    chunk was a captured plan's (no host-loop chunk: `trace_film` called
+    only by `ForwardPlan`). Returns (result, counts, calls by name)."""
     from unittest import mock
 
     from lumillyrender_tpu_torch import cli
@@ -748,6 +773,8 @@ def run_main_path(tag, argv, want, must_be_zero=(), env=None, plain_step=False):
     left = walks or not plain.n["plain_bounce_step"] if plain_step else plain.calls
     if left or any(launches[k] for k in must_be_zero):
         fail(f"the {tag} render left its path: {launches}, plain calls {plain.n}")
+    if plain.n["trace_film"] != plain.n["_trace"]:
+        fail(f"the {tag} render ran a chunk in the host loop: plain calls {plain.n}")
     film = result.film
     print(f"film {film.shape}, mean {film.mean():.6f}, max {film.max():.4f}, "
           f"rays {result.rays:.0f}, rays/s {result.rays_per_second:.4e}")
@@ -1082,6 +1109,43 @@ def host_loop_chunk(c, step, spp, offset):
 
 
 STATE_FIELDS = ("o", "d", "throughput", "accum", "alive", "lane", "rays_traced")
+
+
+def fused_off_chunks(tag, c, spp_chunk, card) -> dict:
+    """Phase 21's `fused="off"` chunks: `graphed_vs_host_loop` over the plain
+    step, then a fresh renderer's captured plan timed (chunk ms over two
+    replays after the capture, busy ms and idle share from the profiler,
+    the capture's seconds and pool bytes) beside the host loop's ms a
+    chunk; its film of the first chunk through check_films against the
+    kernels' plan's film of the same chunk."""
+    from lumillyrender_tpu_torch.integrator.render import ChunkRenderer
+
+    rec = graphed_vs_host_loop(tag, c, spp_chunk)
+    renderer = ChunkRenderer(c.data, c.settings, SEED, "cuda")
+    if not renderer.graphed:
+        fail(f"{tag}: the chunk is not a captured plan")
+    _, chunk_ms, per_chunk = chunk_rate(renderer, spp_chunk, 2, 0)
+    idle, busy, _ = idle_share(renderer, spp_chunk, chunk_ms, 8 * spp_chunk)
+    rec.update(chunk_ms=chunk_ms, busy_ms=busy, idle_share=idle, launches_per_chunk=per_chunk,
+               **plan_cost(renderer, spp_chunk))
+    busy_s = "not measured" if busy is None else f"{busy:.4f} ms"
+    idle_s = "not measured" if idle is None else f"{idle:.4f}"
+    print(f"{tag}, {rec['lanes']} lanes a chunk: captured plan {chunk_ms:.4f} ms per chunk, "
+          f"device busy {busy_s}, idle share {idle_s}, launches per chunk {per_chunk}, capture "
+          f"{rec['capture_seconds']:.3f} s, graph pool {rec['pool_bytes']} B; the host loop "
+          f"{rec['host_loop_chunk_ms']:.4f} ms per chunk  [{card}]")
+    if any(per_chunk.get(k) for k in ("bounce", "bounce_bvh", "bounce_bwd")):
+        fail(f"{tag}: a bounce kernel ran under fused='off': {per_chunk}")
+    # The plan's film against the kernels' at the same chunk (one width:
+    # the brute-force ladder resamples within a chunk).
+    kernels = ChunkRenderer(c.data, dataclasses.replace(c.settings, fused="auto"), SEED, "cuda")
+    f_off, _ = renderer.chunk(0, spp_chunk)
+    f_k, _ = kernels.chunk(0, spp_chunk)
+    rec["vs_kernels"] = check_films(f"{tag} captured plan vs the kernels' plan, one chunk", {
+        "plain step vs kernel path": (f_off.cpu().numpy(), f_k.cpu().numpy())})
+    del renderer, kernels
+    torch.cuda.empty_cache()
+    return rec
 
 
 def graphed_vs_host_loop(tag, c, spp_chunk):
@@ -2498,11 +2562,25 @@ def dp_rank(rank: int, world: int, port: int, out: Path) -> int:
             r = shard.render_sharded(cbox, seed=SEED, spp_per_device=DP_SPP_PER_RANK)
             torch.cuda.synchronize()
             launches = cuda_bounce.counts()
+        p, target = dp_train_inputs(cbox)
+        steps = []
+        for _ in range(2):  # the first call (eager, then captured), a replay
+            with PlainCalls() as step_plain:
+                cuda_bounce.reset_counts()
+                loss, grads = shard.sharded_train_step(cbox.data, cbox.settings, p, target,
+                                                       np.arange(DP_TRAIN_SPP))
+                torch.cuda.synchronize()
+                steps.append(dict(launches=cuda_bounce.counts(), plain_calls=step_plain.calls))
+        from lumillyrender_tpu_torch.diff.render import kept_plan, leaves
+
+        grads = [g.cpu().numpy() for g in leaves(grads) if g.is_floating_point()]
+        steps.append(dict(replays=kept_plan().replays))
     finally:
         shard.dist.destroy_process_group()
     np.savez(out, film=r.film, rays=r.rays, seconds=r.seconds, reduce_ms=r.reduce_ms,
              plain_calls=plain.calls,
-             launches=json.dumps(launches))
+             launches=json.dumps(launches), steps=json.dumps(steps),
+             loss=loss.cpu().numpy(), **{f"grad{k}": g for k, g in enumerate(grads)})
     return 0
 
 
@@ -2541,10 +2619,155 @@ def kernel_vs_plain_films(tag, small):
         "kernel run vs kernel run": (f_k2, f_k), "kernel path vs plain path": (f_k, f_p)})
 
 
+DP_TRAIN_SPP = 4  # phase 22's training step: 256^2 x 4 spp over the ranks
+DP_TRAIN_ROUNDS = 3  # rounds of the sharded step's timing, eager and plan in turns
+
+
+def dp_train_inputs(cbox):
+    """Phase 22's training step: new-cbox's true parameters' film at seed 0
+    (the target), the parameters with the albedo at 0.8 of its value."""
+    from lumillyrender_tpu_torch.diff import params_of, render_diff
+
+    p_true = params_of(cbox.data)
+    with torch.no_grad():
+        target = render_diff(cbox.data, cbox.settings, p_true, 0, DP_TRAIN_SPP)
+    return p_true._replace(materials=dataclasses.replace(
+        p_true.materials, color=p_true.materials.color * 0.8)), target
+
+
+def eager_sharded_step(scene, st, p, target, offsets):
+    """`sharded_train_step` with its rank's step run op by op (as before the
+    step was a plan's): `eager_film_and_grads` on this rank's block at seed
+    0, then the same one all-reduce of the loss and the float gradients."""
+    from lumillyrender_tpu_torch.diff import eager_film_and_grads
+    from lumillyrender_tpu_torch.diff.render import leaves
+    from lumillyrender_tpu_torch.parallel import shard
+
+    rank, world = shard.ranks()
+    per = len(offsets) // world
+    local = torch.as_tensor(np.asarray(offsets[rank * per:(rank + 1) * per], np.int64))
+    loss, _, grads = eager_film_and_grads(scene, st, p, target, 0, per, sample_offsets=local)
+    buf = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in leaves(grads)
+                                         if g.is_floating_point()]) / world
+    shard.ChunkReducer(loss.device)(buf)
+    return buf
+
+
+def sharded_step_one_rank(card, cbox) -> dict:
+    """Phase 22's training step on a world-size-1 NCCL group:
+    `sharded_train_step` (a training plan's, with the offsets buffer) at
+    DP_TRAIN_SPP spp, its first call (eager, then captured) and a replay
+    with the counts zeroed just before and read just after each, against
+    `film_and_grads`'s plan on the same offsets (sample ids 0..spp-1 at
+    seed 0: loss and every gradient bit-equal, 80 bounce and 80 bounce_bwd
+    launches, no plain step); then the step eager (`eager_sharded_step`)
+    and through the plan in turns, median and range, with the plan's
+    capture seconds and pool bytes."""
+    from lumillyrender_tpu_torch.diff import film_and_grads
+    from lumillyrender_tpu_torch.diff.render import clear_plans, kept_plan, leaves
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+    from lumillyrender_tpu_torch.parallel import shard
+
+    st, spp = cbox.settings, DP_TRAIN_SPP
+    p, target = dp_train_inputs(cbox)
+    clear_plans()
+    cuda_bounce.reset_counts()
+    loss_ref, _, grads_ref = film_and_grads(cbox.data, st, p, target, 0, spp)
+    torch.cuda.synchronize()
+    ref_launches = cuda_bounce.counts()
+    clear_plans()
+    rec = {}
+    for call in ("first", "replay"):
+        with PlainCalls() as plain:
+            cuda_bounce.reset_counts()
+            loss, grads = shard.sharded_train_step(cbox.data, st, p, target, np.arange(spp))
+            torch.cuda.synchronize()
+            launches = cuda_bounce.counts()
+        equal = bool(torch.equal(loss, loss_ref) and all(
+            torch.equal(a, b) for a, b in zip(leaves(grads), leaves(grads_ref))))
+        plan = kept_plan()
+        rec[call] = dict(loss=float(loss), bit_equal=equal, launches=launches,
+                         plain_calls=plain.calls, replays=plan.replays)
+        print(f"sharded_train_step, 1 rank, 256^2 x {spp} spp, {call} call: loss "
+              f"{float(loss):.6e} vs film_and_grads {float(loss_ref):.6e}; loss and every "
+              f"gradient bit-equal {equal}; launches {launches} (film_and_grads "
+              f"{ref_launches}), plain calls {plain.calls}; plan replays {plan.replays}")
+        if (not equal or launches["bounce"] != 80 or launches["bounce_bwd"] != 80
+                or launches != ref_launches or plain.calls or plan.offsets is None
+                or plan.replays != (call == "replay")):
+            fail(f"sharded_train_step on one rank is not film_and_grads: {rec[call]}")
+    rec.update(capture_seconds=plan.capture_seconds, pool_bytes=plan.pool_bytes,
+               launches_per_replay=plan.launches)
+    fns = {"eager": lambda: eager_sharded_step(cbox.data, st, p, target, np.arange(spp)),
+           "plan": lambda: shard.sharded_train_step(cbox.data, st, p, target, np.arange(spp))}
+    ms = {"eager": [], "plan": []}
+    for r in range(DP_TRAIN_ROUNDS):
+        for who in (("eager", "plan") if r % 2 == 0 else ("plan", "eager")):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            fns[who]()
+            torch.cuda.synchronize()
+            ms[who].append((time.monotonic() - t0) * 1e3)
+    for who in ("eager", "plan"):
+        med, rng_ = spread(ms[who])
+        rec[f"{who}_ms"] = dict(ms=ms[who], median=med, range=rng_)
+        print(f"sharded_train_step ({who}), 1 NCCL rank, 256^2 x {spp} spp: median {med:.4f} "
+              f"ms [{rng_[0]:.4f}, {rng_[1]:.4f}] over {DP_TRAIN_ROUNDS} in turns  [{card}]")
+    print(f"sharded step's plan: captured in {plan.capture_seconds:.3f} s, graph pool "
+          f"{plan.pool_bytes} B, launches per replay {plan.launches}")
+    clear_plans()
+    return rec
+
+
+def gloo_train_steps(card, cbox, outs) -> dict:
+    """The two gloo ranks' `sharded_train_step` (written by `dp_rank`):
+    each rank's first call and its replay launch 80 bounce and 80
+    bounce_bwd kernels (each rank's step at half the one-rank step's lanes,
+    its own plan), no plain step; both ranks hold the same loss and
+    gradients, which agree with the ranks' blocks computed here eagerly on
+    one process (`eager_film_and_grads` on offsets 0-1 and 2-3, each loss
+    and float gradient halved and added) within DP_FILM_TOL of each one's
+    largest magnitude (bit-equal printed)."""
+    from lumillyrender_tpu_torch.diff import eager_film_and_grads
+    from lumillyrender_tpu_torch.diff.render import leaves
+
+    got = [np.load(path) for path in outs]
+    steps = [json.loads(str(g["steps"])) for g in got]
+    p, target = dp_train_inputs(cbox)
+    per = DP_TRAIN_SPP // DP_RANKS
+    parts = [eager_film_and_grads(cbox.data, cbox.settings, p, target, 0, per,
+                                  sample_offsets=torch.arange(r * per, (r + 1) * per))
+             for r in range(DP_RANKS)]
+    want = [sum(part[0] / DP_RANKS for part in parts).cpu().numpy()]
+    floats = [[g for g in leaves(part[2]) if g.is_floating_point()] for part in parts]
+    want += [sum(f[k] / DP_RANKS for f in floats).cpu().numpy() for k in range(len(floats[0]))]
+    rec = dict(steps=steps)
+    for r, g in enumerate(got):
+        vals = [g["loss"]] + [g[f"grad{k}"] for k in range(len(want) - 1)]
+        gaps = [float(np.abs(a - b).max(initial=0.0) / max(np.abs(b).max(initial=0.0), 1e-30))
+                for a, b in zip(vals, want)]
+        same = all(np.array_equal(a, b) for a, b in zip(vals, [got[0]["loss"]] + [
+            got[0][f"grad{k}"] for k in range(len(want) - 1)]))
+        exact = all(np.array_equal(a, b) for a, b in zip(vals, want))
+        rec[f"rank{r}"] = dict(max_rel_gap=max(gaps), bit_equal=exact, same_as_rank0=same)
+        print(f"rank {r} of {DP_RANKS} (gloo), sharded_train_step 256^2 x {DP_TRAIN_SPP} spp: "
+              f"launches {[s['launches'] for s in steps[r][:2]]}, plain calls "
+              f"{[s['plain_calls'] for s in steps[r][:2]]}, plan replays "
+              f"{steps[r][2]['replays']}; loss and gradients the same as rank 0's {same}, "
+              f"against the two blocks' eager steps max rel gap {max(gaps):.3e} (limit "
+              f"{DP_FILM_TOL:g}), bit-equal {exact}  [{card}]")
+        for s in steps[r][:2]:
+            if (s["launches"]["bounce"] != 80 or s["launches"]["bounce_bwd"] != 80
+                    or s["plain_calls"]):
+                fail(f"rank {r}'s sharded training step: {s}")
+        if not same or max(gaps) > DP_FILM_TOL or steps[r][2]["replays"] != 1:
+            fail(f"rank {r}'s sharded training step disagrees: {rec[f'rank{r}']}")
+    return rec
+
+
 def data_parallel(card, lap, cbox, phase6_rate) -> dict:
     """Phase 22: render_sharded and sharded_train_step on the card."""
-    from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
-    from lumillyrender_tpu_torch.diff.render import clear_plans, leaves
+    from lumillyrender_tpu_torch.diff.render import clear_plans
     from lumillyrender_tpu_torch.integrator.render import render
     from lumillyrender_tpu_torch.ops import cuda_bounce
     from lumillyrender_tpu_torch.parallel import shard
@@ -2590,32 +2813,7 @@ def data_parallel(card, lap, cbox, phase6_rate) -> dict:
             if spd == DP_SPP_PER_RANK:
                 one_rank = (dp.film, dp_launches)
 
-        spp = 4
-        p_true = params_of(cbox.data)
-        with torch.no_grad():
-            target = render_diff(cbox.data, st, p_true, 0, spp)
-        p = p_true._replace(materials=dataclasses.replace(
-            p_true.materials, color=p_true.materials.color * 0.8))
-        with PlainCalls() as plain:
-            cuda_bounce.reset_counts()
-            loss, grads = shard.sharded_train_step(cbox.data, st, p, target, np.arange(spp))
-            torch.cuda.synchronize()
-            step_launches = cuda_bounce.counts()
-        cuda_bounce.reset_counts()
-        loss_ref, _, grads_ref = film_and_grads(cbox.data, st, p, target, 0, spp)
-        torch.cuda.synchronize()
-        ref_launches = cuda_bounce.counts()
-        step_equal = bool(torch.equal(loss, loss_ref) and all(
-            torch.equal(a, b) for a, b in zip(leaves(grads), leaves(grads_ref))))
-        print(f"sharded_train_step, 1 rank, 256^2 x {spp} spp: loss {float(loss):.6e} vs "
-              f"film_and_grads {float(loss_ref):.6e}; loss and every gradient bit-equal "
-              f"{step_equal}; launches {step_launches} (film_and_grads {ref_launches}), plain "
-              f"calls {plain.calls}")
-        if (not step_equal or step_launches["bounce"] != 80 or step_launches["bounce_bwd"] != 80
-                or step_launches != ref_launches or plain.calls):
-            fail("sharded_train_step on one rank is not film_and_grads")
-        report["train_step"] = dict(loss=float(loss), bit_equal=step_equal,
-                                    launches=step_launches)
+        report["train_step"] = sharded_step_one_rank(card, cbox)
     finally:
         shard.dist.destroy_process_group()
         clear_plans()
@@ -2662,6 +2860,7 @@ def data_parallel(card, lap, cbox, phase6_rate) -> dict:
         if launches != half or rec["plain_calls"] or gap > tol:
             fail(f"rank {r} of the gloo group: {rec}")
     report["gloo_ranks"] = ranks
+    report["gloo_train_step"] = gloo_train_steps(card, cbox, outs)
     lap("data parallelism", t0)
     return report
 
@@ -3082,8 +3281,9 @@ def diff_scenes(card, lap, cbox, geo, ibl, terrain_1m):
 # The JAX package's own differentiable path on the card (phase 26)
 # ---------------------------------------------------------------------------
 
-REMAT_POLICIES = ("full", "hybrid", "isect", "isect+samp")
-REMAT_STEPS = 2  # timed steps a policy, after its counted film_and_grads
+REMAT_POLICIES = ("none", "full", "hybrid", "isect", "isect+samp")
+REMAT_CAPTURES = 2  # captures of a policy's plan, each timed against the eager step
+REMAT_ROUNDS = 1  # rounds of that timing after each capture, eager and plan in turns
 
 
 class Phases:
@@ -3121,20 +3321,109 @@ class Phases:
         return False
 
 
+def policy_plan(tag, c, p, target, spp, want, want_launches, card) -> dict:
+    """`film_and_grads` on `c` (a CompiledScene on the card) through its
+    training plan, against the eager step `want` (loss, film, gradients at
+    `p`, `target`, SEED) that launched `want_launches`: the first call
+    (eager on a side stream, then the capture) and a replay at a new seed
+    and albedo, each bit-equal to the eager step at its point with the
+    same launches; then, over REMAT_CAPTURES captures (the plan made anew
+    before each after the first: a replay's speed may change between
+    captures), the eager step and a replay in turns (host clock to a
+    synchronize), REMAT_ROUNDS rounds each; the replay's device busy ms
+    and idle share (profiler), its peak memory, each capture's seconds and
+    pool bytes. Returns the record."""
+    from lumillyrender_tpu_torch.diff import eager_film_and_grads, film_and_grads
+    from lumillyrender_tpu_torch.diff.render import clear_plans, kept_plan
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    st = c.settings
+    p2 = p._replace(materials=dataclasses.replace(p.materials, color=p.materials.color * 1.1))
+    eager = lambda q, seed: eager_film_and_grads(c.data, st, q, target, seed, spp)  # noqa: E731
+    planned = lambda q, seed: film_and_grads(c.data, st, q, target, seed, spp)  # noqa: E731
+    clear_plans()
+    rec = dict(capture_seconds=[], pool_bytes=[])
+    checks = (("first", p, SEED, want, want_launches), ("replay", p2, SEED + 1, None, None))
+    for call, q, seed, w, w_launches in checks:
+        if w is None:
+            cuda_bounce.reset_counts()
+            w = eager(q, seed)
+            torch.cuda.synchronize()
+            w_launches = cuda_bounce.counts()
+        cuda_bounce.reset_counts()
+        got = planned(q, seed)
+        torch.cuda.synchronize()
+        launches = cuda_bounce.counts()
+        equal = _bit_equal(got, w)
+        rec[f"{call}_bit_equal"] = equal
+        if not equal or launches != w_launches:
+            fail(f"{tag}: the plan's {call} call is not the eager step: launches {launches}, "
+                 f"eager {w_launches}, bit-equal {equal}")
+        del got, w
+    plan = kept_plan()
+    if plan is None or plan.kind != "plain" or plan.replays != 1:
+        fail(f"{tag}: not one plain-kind plan replayed once ({plan and plan.kind})")
+    ms = {"eager": [], "plan": []}
+    for cap in range(REMAT_CAPTURES):
+        if cap:
+            clear_plans()
+            planned(p2, SEED + 10 + cap)  # eager, then captured anew
+            plan = kept_plan()
+        rec["capture_seconds"].append(plan.capture_seconds)
+        rec["pool_bytes"].append(plan.pool_bytes)
+        for r in range(REMAT_ROUNDS):
+            order = ("eager", "plan") if (cap + r) % 2 == 0 else ("plan", "eager")
+            for who in order:
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                (eager if who == "eager" else planned)(p2, SEED + 20 + r)
+                torch.cuda.synchronize()
+                ms[who].append((time.monotonic() - t0) * 1e3)
+    peak = {}
+
+    def replay():
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        planned(p2, SEED + 30)
+        torch.cuda.synchronize()
+        peak["plan"] = torch.cuda.max_memory_allocated() - held
+
+    busy, records, _ = _step_busy(replay)
+    med, rng_ = spread(ms["plan"])
+    e_med, e_rng = spread(ms["eager"])
+    rec.update(ms=ms, median_ms=med, range_ms=rng_, eager_median_ms=e_med, eager_range_ms=e_rng,
+               busy_ms=busy, idle_share=None if busy is None else 1.0 - busy / med,
+               records=records, peak_bytes=peak["plan"], launches_per_replay=plan.launches,
+               speedup=e_med / med)
+    idle = "not measured" if busy is None else f"{rec['idle_share']:.4f}"
+    print(f"{tag}: plan replays {med:.4f} ms [{rng_[0]:.4f}, {rng_[1]:.4f}] against the eager "
+          f"step's {e_med:.4f} [{e_rng[0]:.4f}, {e_rng[1]:.4f}] in turns over "
+          f"{REMAT_CAPTURES} captures ({rec['speedup']:.2f}x); replay busy "
+          f"{'not measured' if busy is None else f'{busy:.4f} ms'}, idle share {idle}, "
+          f"{records} kernel records, peak memory {peak['plan'] / 2**30:.3f} GiB; captures "
+          f"{[round(x, 3) for x in rec['capture_seconds']]} s, pools {rec['pool_bytes']} B; "
+          f"first call and replay bit-equal to the eager step, launches equal  [{card}]")
+    clear_plans()
+    return rec
+
+
 def remat_policies(card, lap, cbox, geo, terrain_1m, geo_step, phase6_chunk_ms) -> dict:
     """Phase 26: `fused="off"`, the JAX package's own differentiable path
     (autograd of the plain step, kernel 3 as its walk), on welcome-geo's
-    training step at 512x368 x 4 spp under each recompute policy; kernel 7
-    as its walk on terrain-1m; and the plain step's forward film on
-    new-cbox against the kernels'."""
-    from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
-    from lumillyrender_tpu_torch.diff.render import leaves, map_params
+    training step at 512x368 x 4 spp under each recompute policy, eager
+    and through `film_and_grads`'s captured plan; kernel 7 as its walk on
+    terrain-1m, likewise; and the plain step's forward film on new-cbox
+    against the kernels'."""
+    from lumillyrender_tpu_torch.diff import eager_film_and_grads, params_of, render_diff
+    from lumillyrender_tpu_torch.diff.render import leaves
     from lumillyrender_tpu_torch.integrator import wavefront
     from lumillyrender_tpu_torch.integrator.render import ChunkRenderer, render
     from lumillyrender_tpu_torch.ops import cuda_bounce
 
     phase('26 remat_policies: fused="off" (autograd of the plain step, kernel 3 its walk) '
-          "on welcome-geo 512x368 x 4 spp under full, hybrid, isect, isect+samp")
+          "on welcome-geo 512x368 x 4 spp under none, full, hybrid, isect, isect+samp, "
+          "eager and as a captured plan")
     t0 = time.monotonic()
     p, target, g_auto = geo_step
     spp = 4
@@ -3145,83 +3434,61 @@ def remat_policies(card, lap, cbox, geo, terrain_1m, geo_step, phase6_chunk_ms) 
     n = st_off.width * st_off.height * spp
     bounces = st_off.max_bounces
     wide = sum(b1 - b0 for w, b0, b1 in wavefront._stage_plan(n, st_off) if w > 48 * 1024)
-    want_bwd = {"full": 2 * bounces, "hybrid": 2 * wide, "isect": 0, "isect+samp": 0}
-    report, runs, steps = {}, {}, {}
+    want_bwd = {"none": 0, "full": 2 * bounces, "hybrid": 2 * wide, "isect": 0,
+                "isect+samp": 0}
+    report, runs = {}, {}
+    c_off = dataclasses.replace(base, settings=st_off)
     for mode in REMAT_POLICIES:
         st = dataclasses.replace(st_off, bwd_remat=mode)
         with Phases() as ph:
             cuda_bounce.reset_counts()
-            t = time.monotonic()
-            loss, film, grads = film_and_grads(base.data, st, p, target, SEED, spp)
-            torch.cuda.synchronize()
-            first_s = time.monotonic() - t
-            launches = cuda_bounce.counts()
-        k3_bwd = ph.backward["bvh"]
-        k3_fwd = launches["bvh"] - k3_bwd
-        others = {k: v for k, v in launches.items() if k != "bvh" and v}
-        report[mode] = dict(k3_forward=k3_fwd, k3_backward=k3_bwd,
-                            k3_backward_want=want_bwd[mode], plain_walks=ph.plain_walks,
-                            other_launches=others, first_call_s=first_s)
-        print(f"{mode}: film_and_grads {first_s:.2f} s (first call); kernel 3 {k3_fwd} "
-              f"launches forward, {k3_bwd} backward (want {2 * bounces} and "
-              f"{want_bwd[mode]}); plain walks {ph.plain_walks}; other kernels "
-              f"{others or 'none'}")
-        if (k3_fwd != 2 * bounces or k3_bwd != want_bwd[mode] or ph.plain_walks
-                or others):
-            fail(f'{mode}: the fused="off" training step\'s launches: {report[mode]}')
-        runs[mode] = [loss, film] + leaves(grads)
-        if mode == "full":
-            g_full = grads
-
-        def step(seed, st=st):
-            live = map_params(p, lambda x: x.detach().requires_grad_(x.is_floating_point()))
-            f = render_diff(base.data, st, live, seed, spp)
-            torch.autograd.grad(torch.mean((f - target) ** 2),
-                                [x for x in leaves(live) if x.requires_grad], allow_unused=True)
-
-        steps[mode] = step
-    # Timing: REMAT_STEPS rounds, the policies in turn (in reverse every
-    # other round), so that the host's drift spreads over all of them.
-    ms = {mode: [] for mode in REMAT_POLICIES}
-    peak = dict.fromkeys(REMAT_POLICIES, 0)
-    for k in range(REMAT_STEPS):
-        for mode in (REMAT_POLICIES if k % 2 == 0 else REMAT_POLICIES[::-1]):
             torch.cuda.synchronize()
             held = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             t = time.monotonic()
-            steps[mode](SEED + 51 + k)
+            loss, film, grads = eager_film_and_grads(base.data, st, p, target, SEED, spp)
             torch.cuda.synchronize()
-            ms[mode].append((time.monotonic() - t) * 1e3)
-            peak[mode] = max(peak[mode], torch.cuda.max_memory_allocated() - held)
-    for mode in REMAT_POLICIES:
-        t = time.monotonic()
-        busy, by_name = device_busy(lambda: steps[mode](SEED + 99))
-        step_ms = statistics.mean(ms[mode])
-        rec = report[mode]
-        rec.update(step_ms=step_ms, step_ms_each=ms[mode], busy_ms=busy,
-                   idle_share=1.0 - busy / step_ms, peak_bytes=peak[mode],
-                   device_launches=sum(c for _, c in by_name.values()),
-                   k3_ms=sum(v for name, (v, _) in by_name.items() if "k3::kernel" in name),
-                   profiled_s=time.monotonic() - t)
-        print(f"{mode}: {step_ms:.4f} ms per step (mean of {REMAT_STEPS}, in turns: "
-              + ", ".join(f"{v:.1f}" for v in ms[mode])
-              + f"), device busy {busy:.4f} ms: idle share {rec['idle_share']:.4f}; peak "
-              f"memory {peak[mode] / 2**30:.3f} GiB; kernel 3 {rec['k3_forward']} + "
-              f"{rec['k3_backward']} launches, {rec['k3_ms']:.4f} ms a step; "
-              f"{rec['device_launches']} device launches a step  [{card}]")
+            first_s = time.monotonic() - t
+            peak = torch.cuda.max_memory_allocated() - held
+            launches = cuda_bounce.counts()
+        k3_bwd = ph.backward["bvh"]
+        k3_fwd = launches["bvh"] - k3_bwd
+        others = {k: v for k, v in launches.items() if k != "bvh" and v}
+        rec = dict(k3_forward=k3_fwd, k3_backward=k3_bwd, k3_backward_want=want_bwd[mode],
+                   plain_walks=ph.plain_walks, other_launches=others, eager_s=first_s)
+        print(f"{mode}: the eager step {first_s:.2f} s; kernel 3 {k3_fwd} launches forward, "
+              f"{k3_bwd} backward (want {2 * bounces} and {want_bwd[mode]}); plain walks "
+              f"{ph.plain_walks}; other kernels {others or 'none'}")
+        if (k3_fwd != 2 * bounces or k3_bwd != want_bwd[mode] or ph.plain_walks
+                or others):
+            fail(f'{mode}: the fused="off" training step\'s launches: {rec}')
+        runs[mode] = [loss, film] + leaves(grads)
+        if mode == "full":
+            g_full = grads
+        with PlainCalls() as calls:
+            rec["plan"] = policy_plan(f'welcome-geo 512x368 x 4, fused="off", {mode}',
+                                      dataclasses.replace(c_off, settings=st), p, target, spp,
+                                      (loss, film, grads), launches, card)
+        rec["eager_peak_bytes"] = peak
+        if calls.n["_walk_tris"]:
+            fail(f"{mode}: the plain walk ran in the plan's steps")
+        del loss, film, grads
+        report[mode] = rec
+        torch.cuda.empty_cache()
     # Every policy computes the same function in the same order.
     for mode in REMAT_POLICIES[1:]:
         if not all(torch.equal(a, b) for a, b in zip(runs[mode], runs["full"])):
             fail(f"{mode}: the loss, film or gradients differ from full's")
     report["vs_default"] = grads_gap(g_full, g_auto)
-    full, isect = report["full"]["device_launches"], report["isect"]["device_launches"]
-    report["search_launch_share"] = (full - isect) / full
-    print(f"the four policies bit-equal (loss, film, every gradient); against the default "
+    full, isect = (report[m]["plan"]["records"] for m in ("full", "isect"))
+    report["search_launch_share"] = (full - isect) / full if full else None
+    share = report["search_launch_share"]
+    print(f"the five policies bit-equal (loss, film, every gradient); against the default "
           f"dispatch (make_step_hybrid), max |diff| over max per gradient: "
           + ", ".join(f"{k} {v:.2e}" for k, v in report["vs_default"].items())
           + f" (held to {TRAIN_PLAIN_RTOL:g}); the recompute's searches are "
-          f"{report['search_launch_share']:.4f} of full's device launches a step")
+          + ("not measured" if share is None else f"{share:.4f}")
+          + " of full's device launches a replay")
     if not max(report["vs_default"].values()) < TRAIN_PLAIN_RTOL:
         fail(f'fused="off" gradients disagree with the default dispatch: {report["vs_default"]}')
     lap("26 welcome-geo policies", t0)
@@ -3239,12 +3506,17 @@ def remat_policies(card, lap, cbox, geo, terrain_1m, geo_step, phase6_chunk_ms) 
         st = dataclasses.replace(small.settings, fused="off", bwd_remat=mode)
         with Phases() as ph:
             cuda_bounce.reset_counts()
-            _, _, g = film_and_grads(small.data, st, p_t, target_t, SEED, 1)
+            want = eager_film_and_grads(small.data, st, p_t, target_t, SEED, 1)
             torch.cuda.synchronize()
             launches = cuda_bounce.counts()
+        g = want[2]
         wide_bwd = ph.backward["bvh_wide"]
         terrain[mode] = dict(k7_forward=launches["bvh_wide"] - wide_bwd, k7_backward=wide_bwd,
                              plain_walks=ph.plain_walks, launches=launches, grads=g)
+        terrain[mode]["plan"] = plan_matches_eager(
+            f'terrain-1m 64x64 x 1, fused="off", {mode}', dataclasses.replace(small, settings=st),
+            p_t, target_t, 1, want, launches)
+        del want
         print(f'terrain-1m 64x64 x 1 spp, fused="off", {mode}: kernel 7 '
               f"{launches['bvh_wide'] - wide_bwd} launches forward, {wide_bwd} backward; "
               f"launches {launches}; plain walks {ph.plain_walks}")
@@ -3363,14 +3635,17 @@ def knobs_child(out: Path) -> int:
     """Phase 27's threefry process, started as `chip_smoke.py --knobs-child
     FILE` with LLR_RNG=threefry (read when ops/rng.py is imported): the CLI
     on new-cbox at full size with --fused off, its launch counts and plain
-    step calls; that film's chunk ms in the host loop; the 64^2 film on
-    the card and on the CPU at one chunk width; one welcome-geo training
-    step at 512x368 x 4 spp under fused="off", with its launch counts.
-    Writes what it measured to FILE (.npz)."""
+    step calls (every chunk a captured plan's); that film's chunk ms as
+    the plan's replay; the 64^2 film on the card and on the CPU at one
+    chunk width; one welcome-geo training step at 512x368 x 4 spp under
+    fused="off" taken eagerly, with its launch counts, then through
+    `film_and_grads`'s plan (its first call and a replay, each bit-equal
+    to the eager step with its launches). Writes what it measured to FILE
+    (.npz)."""
     if not torch.cuda.is_available():
         return 2
     sys.path.insert(0, str(REPO))
-    from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
+    from lumillyrender_tpu_torch.diff import eager_film_and_grads, params_of, render_diff
     from lumillyrender_tpu_torch.diff.render import leaves
     from lumillyrender_tpu_torch.integrator.render import ChunkRenderer, render
     from lumillyrender_tpu_torch.ops import cuda_bounce, rng
@@ -3414,11 +3689,14 @@ def knobs_child(out: Path) -> int:
     with PlainCalls() as calls:
         cuda_bounce.reset_counts()
         t0 = time.monotonic()
-        loss, film, grads = film_and_grads(geo.data, st, p, target, SEED, 4)
+        loss, film, grads = want = eager_film_and_grads(geo.data, st, p, target, SEED, 4)
         torch.cuda.synchronize()
         rec["train_seconds"] = time.monotonic() - t0
         rec["train_launches"] = cuda_bounce.counts()
     rec["train_calls"] = dict(calls.n)
+    rec["train_plan"] = plan_matches_eager(
+        'welcome-geo 512x368, LLR_RNG=threefry, fused="off"',
+        dataclasses.replace(geo, settings=st), p, target, 4, want, rec["train_launches"])
     vals = [loss, film] + leaves(grads)
     rec["train_finite"] = all(bool(torch.isfinite(v).all()) for v in vals)
     rec["train_loss"] = float(loss)
@@ -3789,12 +4067,14 @@ def env_knobs(card, lap, cbox, geo, geo_chunk) -> dict:
     tf = json.loads(str(got["rec"]))
     launches, calls = tf["cli_launches"], tf["cli_calls"]
     print(f"threefry CLI (new-cbox 256^2 x 64 spp, --fused off): launches {launches}, plain "
-          f"steps {calls['plain_bounce_step']}, plain walks {calls['_walk_tris']}; "
+          f"steps {calls['plain_bounce_step']}, plain walks {calls['_walk_tris']}, chunks "
+          f"through the captured plan {calls['_trace']} of trace_film's {calls['trace_film']}; "
           f"{tf['cli_seconds']:.2f} s; "
-          f"{tf['chunk_ms']:.4f} ms a 32-spp chunk in the host loop (graphed "
+          f"{tf['chunk_ms']:.4f} ms a 32-spp chunk as the captured plan's replay (graphed "
           f"{tf['graphed']})  [{card}]")
     if (launches["raygen"] != 2 or any(v for k2, v in launches.items() if k2 != "raygen")
-            or not calls["plain_bounce_step"] or calls["_walk_tris"] or tf["graphed"]):
+            or not calls["plain_bounce_step"] or calls["_walk_tris"] or not tf["graphed"]
+            or calls["trace_film"] != calls["_trace"]):
         fail(f"the threefry render left its path: {launches}, {calls}")
     print(f"threefry process: {tf['seconds']}")
     w, h, spp = THREEFRY_FILM
@@ -3802,7 +4082,7 @@ def env_knobs(card, lap, cbox, geo, geo_chunk) -> dict:
         f"new-cbox {w}x{h} x {spp} spp, fused off, one {spp}-spp chunk", got)
     tl = tf["train_launches"]
     print(f"welcome-geo 512x368 x 4 spp training step under threefry, fused=\"off\": "
-          f"{tf['train_seconds']:.2f} s (first call); loss {tf['train_loss']:.6e}, finite "
+          f"{tf['train_seconds']:.2f} s (eager); loss {tf['train_loss']:.6e}, finite "
           f"{tf['train_finite']}; launches {tl}; plain steps "
           f"{tf['train_calls']['plain_bounce_step']}, plain walks "
           f"{tf['train_calls']['_walk_tris']}")
@@ -3810,6 +4090,11 @@ def env_knobs(card, lap, cbox, geo, geo_chunk) -> dict:
             or any(v for k2, v in tl.items() if k2 != "bvh")
             or tf["train_calls"]["_walk_tris"]):
         fail(f"the threefry training step: {tf}")
+    tp = tf["train_plan"]
+    print(f"  through film_and_grads's plan: capture {tp['capture_seconds']:.3f} s, graph pool "
+          f"{tp['pool_bytes']} B, a replay {tp['replay_seconds']:.4f} s (the eager step "
+          f"{tf['train_seconds']:.2f} s); first call and replay bit-equal to the eager step "
+          f"{tp['first_bit_equal']} / {tp['replay_bit_equal']}  [{card}]")
     rep["threefry"] = tf
     lap("27 threefry process", t1)
 
@@ -4993,6 +5278,11 @@ def main() -> int:
               f"s, graph pool {g['pool_bytes']} B; the host loop {rec['host_loop_chunk_ms']:.4f} "
               f"ms per chunk  [{card}]")
         stage_loop[tag] = rec
+    # fused="off": the plain step's PyTorch ops (kernel 3 its walk on
+    # welcome-geo) captured as the chunk's ForwardPlan, held the same way.
+    for tag, c, spp in (("new-cbox", cbox, spp_chunk), ("welcome-geo", geo, geo_chunk)):
+        off = dataclasses.replace(c, settings=dataclasses.replace(c.settings, fused="off"))
+        stage_loop[f'{tag} fused="off"'] = fused_off_chunks(f'{tag} fused="off"', off, spp, card)
     lap("stage loop", t0)
 
     dp_report = data_parallel(card, lap, cbox, rays_per_s)

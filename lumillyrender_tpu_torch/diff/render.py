@@ -33,16 +33,18 @@ On the card `film_and_grads` runs a `TrainPlan`: the whole step (forward,
 loss, and autograd of it, each bounce's backward kernel or recompute
 included) captured once as one CUDA graph and replayed for new parameter
 values and new seeds, as the JAX package's jitted `film_and_grads` is one
-compiled program that takes both as inputs. The plain step kind
-(`fused="off"`), `pixel_grad` and `parallel/shard.py::sharded_train_step`
-run eagerly.
+compiled program that takes both as inputs. That holds for every step
+kind: the kernels' ("bwd", "hybrid") and the plain one (`fused="off"`,
+autograd of the plain step under each `bwd_remat` policy, its walk kernel
+3 or 7). `parallel/shard.py::sharded_train_step` runs a plan too, with the
+rank's sample offsets as one more input. `pixel_grad`, a bare `jax.grad`
+in the JAX package, runs eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import warnings
 from typing import Callable, NamedTuple
 
 import torch
@@ -102,7 +104,8 @@ def render_diff(scene: SceneData, settings: RenderSettings, params: DiffParams,
     which pins them: the FD gate holds the sampling measure at theta0 on
     both sides while it perturbs the live parameters); shading reads the
     live `params`. `sample_offsets` ((spp,) ints) gives the global sample
-    ids of this call. `with_rays=True` returns (film, rays), the rays
+    ids of this call (a device tensor on `dev` is used as it is: a training
+    plan's buffer). `with_rays=True` returns (film, rays), the rays
     counted as the forward renderer counts them (camera, live bounce and
     NEE shadow rays).
     """
@@ -168,15 +171,18 @@ def _grads(fn, params: DiffParams, dev) -> tuple:
 
 
 def eager_film_and_grads(scene: SceneData, settings: RenderSettings, params: DiffParams,
-                         target: torch.Tensor, seed, spp: int, device=None):
+                         target: torch.Tensor, seed, spp: int, device=None,
+                         sample_offsets=None):
     """`film_and_grads` run op by op from the host, with nothing captured:
-    the step a `TrainPlan` captures, and what `film_and_grads` runs on the
-    CPU and for the plain step kind."""
+    the step a `TrainPlan` captures (with `sample_offsets`, the step of
+    `parallel/shard.py::sharded_train_step` on a rank's block), and what
+    `film_and_grads` runs on the CPU."""
     dev = resolve_device(device)
     target = target.to(dev)
 
     def loss_fn(p):
-        film = render_diff(scene, settings, p, seed, spp, device=dev)
+        film = render_diff(scene, settings, p, seed, spp, sample_offsets=sample_offsets,
+                           device=dev)
         return torch.mean((film - target) ** 2), film.detach()
 
     loss, film, grads = _grads(loss_fn, params, dev)
@@ -192,14 +198,11 @@ def film_and_grads(scene: SceneData, settings: RenderSettings, params: DiffParam
     `TrainPlan`'s (`train_plan`: captured at the first call for the scene,
     settings, spp, shapes and material types, replayed at every later one
     with the new parameters and seed; one plan is kept, so steps that
-    alternate between two scenes capture anew at every switch); the plain
-    step kind, which the card runs eagerly, says so in a warning. On the
-    CPU it runs eagerly."""
+    alternate between two scenes capture anew at every switch), whatever
+    the step kind. On the CPU it runs eagerly."""
     dev = resolve_device(device)
     if dev.type == "cuda":
-        plan = train_plan(scene, settings, params, target, spp, dev)
-        if plan is not None:
-            return plan(params, target, seed)
+        return train_plan(scene, settings, params, target, spp, dev)(params, target, seed)
     return eager_film_and_grads(scene, settings, params, target, seed, spp, device=dev)
 
 
@@ -212,9 +215,13 @@ class TrainPlan:
     floating leaf of the DiffParams it was made from, the target and the
     seed as a device scalar. Its integer leaves, the material types, are
     its own and never copied: the kernels' instances and the step's
-    branches follow them, so a call with other types raises. A call copies
-    the new leaf values, the target and the seed into the buffers and runs
-    the step: `render_diff` at the buffers, the L2 loss and
+    branches follow them, so a call with other types raises. With
+    `sample_offsets` ((spp,) global sample ids, as `render_diff` takes
+    them) the plan also keeps an int64 offsets buffer on the device, which
+    every call loads (`parallel/shard.py::sharded_train_step`: a rank's
+    block). A call copies the new leaf values, the target, the seed (and
+    the offsets) into the buffers and runs the step: `render_diff` at the
+    buffers, the L2 loss and
     `torch.autograd.grad` of it in every floating leaf, each bounce's
     backward kernel or recompute included. The step reads nothing from the
     card on the host and makes no tensor from host data (the kernels'
@@ -223,15 +230,18 @@ class TrainPlan:
     runs it eagerly on a side stream (which also loads every kernel and
     packs the tables) and then captures it as one CUDA graph; every later
     call replays the graph on the current stream, the stream of the eager
-    steps, and adds its launches to the kernels' counts. The step kinds
-    "bwd" and "hybrid" (`cuda_bounce.diff_step_kind`) are captured; the
-    plain kind raises on the card. On the CPU the plan runs the same step
-    eagerly at every call. A capture or a replay that fails raises: nothing
-    falls back to the eager step. `capture_seconds` and `pool_bytes` say
+    steps, and adds its launches to the kernels' counts. Every step kind
+    (`cuda_bounce.diff_step_kind`) is captured: "bwd" and "hybrid", and
+    "plain", autograd of the plain step under `settings.bwd_remat` (its
+    checkpoints stash no RNG state, `wavefront._checkpointed`; the isect
+    policies' kept searches are the graph's own tensors, read back in the
+    replay's recompute at the addresses the capture wrote). On the CPU the
+    plan runs the same step eagerly at every call. A capture or a replay
+    that fails raises: nothing falls back to the eager step. `capture_seconds` and `pool_bytes` say
     what the graph cost; `replays` counts its replays."""
 
     def __init__(self, scene: SceneData, settings: RenderSettings, params: DiffParams,
-                 target: torch.Tensor, spp: int, device=None):
+                 target: torch.Tensor, spp: int, device=None, sample_offsets=None):
         from ..ops import cuda_bounce
 
         self.device = dev = resolve_device(device)
@@ -240,13 +250,12 @@ class TrainPlan:
         self.settings, self.spp = settings, spp
         self.on_card = dev.type == "cuda"
         self.kind = cuda_bounce.diff_step_kind(self.scene, settings, self.on_card)
-        if self.on_card and self.kind == "plain":
-            raise NotImplementedError(
-                "the plain step kind (fused='off', LLR_FUSED=0, LLR_FUSED_BVH=0 or "
-                "LLR_PALLAS=0 on a BVH scene) is not captured: it runs eagerly")
         self.params = map_params(params, lambda t: t.detach().to(dev).clone())
         self.target = torch.zeros(target.shape, dtype=target.dtype, device=dev)
         self.seed = torch.zeros((), dtype=torch.int64, device=dev)
+        self.offsets = None
+        if sample_offsets is not None:
+            self.offsets = torch.zeros((len(sample_offsets),), dtype=torch.int64, device=dev)
         self._types_seen = None  # the integer leaves last found equal to the plan's
         self.geometry = None  # on the card, the geometry tables its graph reads
         self.graph = None
@@ -275,7 +284,7 @@ class TrainPlan:
         self._types_seen = (key, ints)
         return True
 
-    def _load(self, params: DiffParams, target: torch.Tensor, seed):
+    def _load(self, params: DiffParams, target: torch.Tensor, seed, sample_offsets):
         if not self.takes(params):
             raise ValueError("the parameters' shapes or integer leaves (the material "
                              "types) are not the plan's: make another plan")
@@ -290,12 +299,21 @@ class TrainPlan:
             self.seed.copy_(seed.reshape(()).to(torch.int64) & 0xFFFFFFFF)
         else:
             self.seed.fill_(int(seed) & 0xFFFFFFFF)
+        if (sample_offsets is None) != (self.offsets is None):
+            raise ValueError("sample offsets are given to a plan made without them, or "
+                             "missing from a plan made with them")
+        if sample_offsets is not None:
+            offs = torch.as_tensor(sample_offsets, dtype=torch.int64)
+            if offs.shape != self.offsets.shape:
+                raise ValueError(f"{tuple(offs.shape)} sample offsets for the plan's "
+                                 f"{tuple(self.offsets.shape)}")
+            self.offsets.copy_(offs)
 
     def _step(self):
         """The captured work (module docstring)."""
         def loss_fn(p):
             film = render_diff(self.scene, self.settings, p, self.seed, self.spp,
-                               device=self.device)
+                               sample_offsets=self.offsets, device=self.device)
             return torch.mean((film - self.target) ** 2), film.detach()
 
         return _grads(loss_fn, self.params, self.device)
@@ -305,13 +323,14 @@ class TrainPlan:
         loss, film, grads = out
         return loss.clone(), film.clone(), map_params(grads, torch.clone)
 
-    def __call__(self, params: DiffParams, target: torch.Tensor, seed):
+    def __call__(self, params: DiffParams, target: torch.Tensor, seed, sample_offsets=None):
         """(loss, film, grads) of `film_and_grads` at `params`, `target` and
-        `seed`, as new tensors."""
+        `seed` (and `sample_offsets`, for a plan made with them), as new
+        tensors."""
         from ..integrator.render import capture_graph
         from ..ops import cuda_bounce
 
-        self._load(params, target, seed)
+        self._load(params, target, seed, sample_offsets)
         if not self.on_card:
             return self._step()
         if self.graph is None:
@@ -326,9 +345,11 @@ class TrainPlan:
             out = self._copies(out)
             # The graph reads the geometry tables the warm-up packed by their
             # addresses: held here, a repack for other material types (an
-            # eager step's) frees none of them.
-            self.geometry = cuda_bounce.geometry_of(
-                dataclasses.replace(self.scene, materials=self.params.materials))
+            # eager step's) frees none of them. The plain kind launches no
+            # bounce kernel (its walk's tables are kept on the BVH).
+            if self.kind != "plain":
+                self.geometry = cuda_bounce.geometry_of(
+                    dataclasses.replace(self.scene, materials=self.params.materials))
             (self.graph, self.out, self.launches, self.capture_seconds,
              self.pool_bytes) = capture_graph(self._step, self.device)
             return out
@@ -344,16 +365,16 @@ class TrainPlan:
 _plan = None
 
 
-def _plan_key(scene, settings, params, target, spp, dev) -> tuple:
+def _plan_key(scene, settings, params, target, spp, dev, sample_offsets=None) -> tuple:
     """What a plan's graph depends on besides its inputs' values: the
     scene's geometry, lights and BVH (by the storage and version counter of
     each tensor, as `cuda_bounce._camera_row` keys the camera: the same
     tensors under another SceneData, `scene.to(device)` where they already
     lie, are the same scene; an in-place edit is another), the settings,
     spp, the leaves' and the target's shapes and dtypes, the device, the
-    step kind, the random mixer and the environment's LLR_* knobs (read at
-    call time). The integer leaves' values are checked by the plan
-    (`TrainPlan.takes`)."""
+    step kind, the random mixer, the environment's LLR_* knobs (read at
+    call time) and the number of sample offsets (None without them). The
+    integer leaves' values are checked by the plan (`TrainPlan.takes`)."""
     from ..ops import cuda_bounce
 
     kind = cuda_bounce.diff_step_kind(scene, settings, dev.type == "cuda")
@@ -363,28 +384,24 @@ def _plan_key(scene, settings, params, target, spp, dev) -> tuple:
     tensors = tuple((t.data_ptr(), t._version, tuple(t.shape), str(t.device))
                     for part in parts for f in dataclasses.fields(part)
                     for t in (getattr(part, f.name),))
+    offsets = None if sample_offsets is None else len(sample_offsets)
     return (tensors, settings, spp, shapes, tuple(target.shape), target.dtype, str(dev),
-            kind, rng._MIXER, env)
+            kind, rng._MIXER, env, offsets)
 
 
 def train_plan(scene: SceneData, settings: RenderSettings, params: DiffParams,
-               target: torch.Tensor, spp: int, device=None) -> TrainPlan | None:
-    """The `TrainPlan` for this scene, settings, spp, shapes, material types
-    and device: the one kept where it matches, else a new one, which
-    replaces it. None where the step is the plain kind on the card, which
-    runs eagerly: a warning says so."""
+               target: torch.Tensor, spp: int, device=None,
+               sample_offsets=None) -> TrainPlan:
+    """The `TrainPlan` for this scene, settings, spp, shapes, material types,
+    device and number of sample offsets (None: the plan takes none): the
+    one kept where it matches, else a new one, which replaces it."""
     global _plan
     dev = resolve_device(device)
-    key = _plan_key(scene, settings, params, target, spp, dev)
+    key = _plan_key(scene, settings, params, target, spp, dev, sample_offsets)
     if _plan is not None and _plan[0] == key and _plan[1].takes(params):
         return _plan[1]
-    if dev.type == "cuda" and key[7] == "plain":
-        warnings.warn(f"film_and_grads runs the plain step kind eagerly on the card, with no "
-                      f"captured plan (fused={settings.fused!r}, or an LLR_* knob)",
-                      stacklevel=3)
-        return None
     _plan = None  # the old graph's pool is freed before the new plan captures
-    plan = TrainPlan(scene, settings, params, target, spp, dev)
+    plan = TrainPlan(scene, settings, params, target, spp, dev, sample_offsets)
     _plan = (key, plan)
     return plan
 

@@ -10,11 +10,12 @@ On a CUDA device a forward chunk reads nothing from the card: raygen writes
 into a `ForwardPlan`'s buffers, and the plan replays the chunk's whole stage
 plan (every bounce, `_compact` and bank) as one CUDA graph, captured at its
 first chunk: the counterpart of the JAX package's jitted chunk with its
-`lax.while_loop` stages. Under `fused="off"` the plain step runs in the
-host loop instead (kernel 1's rays, then `trace_film` launching the plain
-step's PyTorch ops, every stage to its full step count): it makes tensors
-from host values, which a capture refuses. `render` submits chunks with no
-host sync between them unless telemetry times each one.
+`lax.while_loop` stages. That holds for every step: the bounce kernels',
+and under `fused="off"` the plain step's PyTorch ops (its walk kernel 3 or
+7), which make their constants by fills and read nothing to the host
+(`run_stage` takes every stage to its full step count on the card).
+`render` submits chunks with no host sync between them unless telemetry
+times each one.
 """
 
 from __future__ import annotations
@@ -207,9 +208,9 @@ class ForwardPlan:
 class ChunkRenderer:
     """What a render keeps across its chunks: the scene on the device
     (checked once for the card), the bounce step with its tables packed
-    once, and on a CUDA device one `ForwardPlan` per chunk size (`graphed`;
-    not where `cuda_bounce.step_mode` says "off", whose plain step runs in
-    the host loop)."""
+    once (the plain step where `cuda_bounce.step_mode` says "off"), and on
+    a CUDA device one `ForwardPlan` per chunk size (`graphed`: every
+    integrator but the AOVs)."""
 
     def __init__(self, scene: SceneData, settings: RenderSettings, seed, device=None):
         from ..ops import cuda_bounce
@@ -221,8 +222,7 @@ class ChunkRenderer:
         if dev.type == "cuda":
             cuda_bounce.require_supported(self.scene, settings)
         self.step = None if self.aov else make_bounce_step(self.scene, settings, seed)
-        self.graphed = (dev.type == "cuda" and not self.aov
-                        and cuda_bounce.step_mode(self.scene, settings, True) != "off")
+        self.graphed = dev.type == "cuda" and not self.aov
         self.plans: dict[int, ForwardPlan] = {}
 
     def chunk(self, sample_offset: int, spp_chunk: int):

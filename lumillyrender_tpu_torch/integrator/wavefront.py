@@ -17,9 +17,9 @@ the render loop runs, which launches a fused bounce kernel on a CUDA device
 CPU (and on the card under `fused="off"`). The forward stage loop
 (`run_stage`) is a Python loop with one host sync per bounce (the "any
 lane alive" test) on the CPU, and a fixed number of steps with no host
-read on a CUDA device, which a CUDA graph captures for the kernels' step
-(integrator/render.py, `ChunkRenderer`): a bounce leaves a dead lane as it
-is, so the steps past the last live lane change nothing.
+read on a CUDA device, which a CUDA graph captures, the kernels' step or
+the plain one (integrator/render.py, `ChunkRenderer`): a bounce leaves a
+dead lane as it is, so the steps past the last live lane change nothing.
 
 The differentiable loop (`differentiable=True` of `trace` and
 `trace_film`, which diff/render.py drives) takes a fixed number of steps
@@ -148,7 +148,10 @@ def _direct_light(scene, settings, sp, out_dir, m_gathered, lane, seed, ctr,
     light_point, pdf = light_sample() if remat is None else remat.sampled(light_sample)
 
     path = light_point - sp.position
-    dist = vec.norm(path)
+    # A light point on the shading point (path 0): `vec.norm`'s root has
+    # an infinite derivative there, and the clamp's zero cotangent times it
+    # is NaN; `norm_at_zero` gives the same value with a finite one.
+    dist = vec.norm_at_zero(path)
     wi = path / torch.clamp(dist, min=1e-20)[..., None]
 
     point_normal = vec.orienting_normal(out_dir, sp.normal)
@@ -360,7 +363,12 @@ class Remat:
 def _checkpointed(step, state: PathState, remat: Remat | None = None) -> PathState:
     """`step(state)` under torch.utils.checkpoint: only the input state
     (and with `remat` what it keeps) is kept for the backward pass, which
-    recomputes the bounce."""
+    recomputes the bounce. The checkpoint stashes no RNG state
+    (`preserve_rng_state=False`): the step draws only the counter-based
+    mixers of ops/rng.py, from lane ids and counters, never torch's
+    generators, so the recompute draws the same numbers bit for bit, and a
+    CUDA graph's capture, which cannot read or set a generator's state on
+    the host, holds the checkpoint."""
     from torch.utils.checkpoint import checkpoint
 
     def run(o, d, thr, acc, alive, rays, lane):
@@ -374,7 +382,7 @@ def _checkpointed(step, state: PathState, remat: Remat | None = None) -> PathSta
 
     o, d, thr, acc, alive, rays = checkpoint(
         run, state.o, state.d, state.throughput, state.accum, state.alive,
-        state.rays_traced, state.lane, use_reentrant=False)
+        state.rays_traced, state.lane, use_reentrant=False, preserve_rng_state=False)
     return PathState(state.bounce + 1, o, d, thr, acc, alive, rays, state.lane)
 
 

@@ -115,14 +115,15 @@ def _ggx_alpha(rough):
     return rough * rough
 
 
-# The gradient's floor of cos^2 in `_ggx_g1`: 1 / cos^2's derivative,
-# -1 / cos^4, is finite in float32 down to cos^2 ~ 5.4e-20.
-_G1_GRAD_FLOOR = 1e-19
+# The floor of x in the gradient of 1 / x (`_ggx_g1`'s x = cos^2,
+# `_inv_idn`'s |in . n|): the derivative, -1 / x^2, is finite in float32
+# down to x ~ 5.4e-20.
+_RECIP_GRAD_FLOOR = 1e-19
 
 
 def _ggx_g1(v, n, a2):
     """The reference's G1, 1 / max(cos^2, 1e-20) its tan^2 + 1. Its gradient
-    takes 1 / max(cos^2, _G1_GRAD_FLOOR): between 1e-20 and ~5.4e-20 the
+    takes 1 / max(cos^2, _RECIP_GRAD_FLOOR): between 1e-20 and ~5.4e-20 the
     reference's derivative overflows, and a zero cotangent times it is NaN
     (a direction within ~2.3e-10 of the surface's plane, on any lane that
     evaluates the GGX branch); below the floor G1's gradient is 0, as the
@@ -131,9 +132,23 @@ def _ggx_g1(v, n, a2):
     cos = vec.dot(v, n)
     cos2 = cos * cos
     inv = 1.0 / torch.clamp(cos2, min=1e-20)
-    inv_grad = 1.0 / torch.clamp(cos2, min=_G1_GRAD_FLOOR)
+    inv_grad = 1.0 / torch.clamp(cos2, min=_RECIP_GRAD_FLOOR)
     tan2 = inv.detach() + (inv_grad - inv_grad.detach()) - 1.0
     return 2.0 / (1.0 + vec.sqrt(1.0 + a2 * a2 * tan2 * tan2))
+
+
+def _inv_idn(i_dot_n):
+    """The reference's 1 / (in . n) of the ideal refraction, 1 where in . n
+    is 0. Its gradient takes 1 / (in . n) with |in . n| floored at
+    _RECIP_GRAD_FLOOR: below ~5.4e-20 the reference's derivative overflows,
+    and a zero cotangent times it is NaN (a direction within ~5e-20 of the
+    surface's plane, on any lane that evaluates the refraction branch);
+    below the floor the gradient is 0. The value is the reference's, bit
+    for bit."""
+    safe = _where(i_dot_n != 0.0, i_dot_n, 1.0)
+    inv = 1.0 / safe
+    inv_grad = 1.0 / torch.copysign(torch.clamp(torch.abs(safe), min=_RECIP_GRAD_FLOOR), safe)
+    return inv.detach() + (inv_grad - inv_grad.detach())
 
 
 def _ggx_ndf(m, n, a2):
@@ -257,8 +272,7 @@ def eval_brdf(m: GatheredMaterial, out_, in_, n, pos, present=None):
         eta = from_ior / to_ior
         refr, valid = vec.refract(out_, on, eta)
         fr = _fresnel_exact(from_ior, to_ior, out_, refr, on)
-        i_dot_n = vec.dot(in_, n)
-        inv_idn = 1.0 / _where(i_dot_n != 0.0, i_dot_n, 1.0)
+        inv_idn = _inv_idn(vec.dot(in_, n))
         ft = (1.0 - fr) * _sq(to_ior / from_ior)
         w_refl = torch.where(i_dot_on > 0.0, fr, ft)
         f_refr = (

@@ -66,6 +66,15 @@ def norm(a):
     return sqrt(torch.clamp(dot(a, a), min=0.0))
 
 
+def norm_at_zero(a):
+    """|a|, `norm`'s value bit for bit, with a finite derivative where a .
+    a is 0: there the root's derivative is infinite, and a zero cotangent
+    times it is NaN; the root takes 1 there, so the gradient is 0."""
+    n2 = torch.clamp(dot(a, a), min=0.0)
+    zero = n2 == 0.0
+    return torch.where(zero, 0.0, sqrt(torch.where(zero, 1.0, n2)))
+
+
 def sqr_norm(a):
     return dot(a, a)
 

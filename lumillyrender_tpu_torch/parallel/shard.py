@@ -6,8 +6,9 @@ of each chunk's samples through its own `ChunkRenderer` (on the card: the
 raygen kernel and the captured stage plan of bounce kernels); the chunk's
 films and ray counts are summed over the ranks by one all-reduce and added
 into the total, as the JAX package psums each chunk over its mesh and then
-adds it on the host. The training step all-reduces the loss and the
-gradients the same way. The payloads are the film and the parameter rows:
+adds it on the host. The training step (on the card a captured training
+plan's replay, `diff.render.TrainPlan`) all-reduces the loss and the
+gradients the same way, outside the graph. The payloads are the film and the parameter rows:
 there is no weight matrix in a renderer.
 
 One difference from the JAX package: a JAX process may hold several
@@ -195,24 +196,28 @@ def sharded_train_step(scene: SceneData, settings: RenderSettings, params, targe
     gradient in every parameter; the loss and every float gradient are
     divided by the world size and summed over the ranks by one all-reduce
     (integer leaves keep their zero gradient). Returns (loss, grads), the
-    same on every rank. On the card the step is `make_step_diff`'s."""
-    from ..diff.render import _grads, render_diff, leaves, map_params
+    same on every rank. The rank's step is a training plan's
+    (`diff.render.train_plan`, keyed by the scene, settings, spp_local and
+    shapes, with the rank's block as one more input): on the card captured
+    at the first step and replayed at every later one, as the JAX
+    package's step is one jitted program; on the CPU run eagerly. The
+    all-reduce runs outside the graph, on the plan's copies (a gloo group
+    cannot be captured), as `render_sharded` reduces outside the stage
+    plan."""
+    from ..diff.render import leaves, map_params, train_plan
 
     rank, world = ranks()
     offsets = np.asarray(offsets, dtype=np.int64)
     if offsets.ndim != 1 or offsets.size % world:
         raise ValueError(f"{offsets.size} sample offsets do not split over {world} ranks")
     per = offsets.size // world
-    local = offsets[rank * per:(rank + 1) * per]
+    local = torch.from_numpy(offsets[rank * per:(rank + 1) * per].copy())
     dev = resolve_device(device)
-    build_kernels(dev)
     target = target.to(dev)
-
-    def loss_fn(p):
-        film = render_diff(scene, settings, p, 0, per, sample_offsets=local, device=dev)
-        return torch.mean((film - target) ** 2), None
-
-    loss, _, grads = _grads(loss_fn, params, dev)
+    plan = train_plan(scene, settings, params, target, per, dev, sample_offsets=local)
+    if plan.graph is None:  # a plan not yet captured: the kernels built before its first step
+        build_kernels(dev)
+    loss, _, grads = plan(params, target, 0, sample_offsets=local)
     if not dist.is_initialized():
         return loss, grads
     floats = [g for g in leaves(grads) if g.is_floating_point()]

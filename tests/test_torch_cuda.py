@@ -38,8 +38,9 @@ indices), the link walk NaN on cyclic tables; kernel 1's two instances for every
 d and g within 1e-6 where the film's dims are no powers of 2 (PyTorch on
 the card divides by a host scalar through its reciprocal); the forward stage loop captured
 as a CUDA graph, every stage-end state and the ray count bit-equal to a
-host loop over the same kernels, the films within chip_smoke.py's film
-gate (the banks add with atomics); the hybrid training step on BVH and
+host loop over the same kernels (and under fused="off" over the plain
+step), the films within chip_smoke.py's film gate (the banks add with
+atomics); the hybrid training step on BVH and
 IBL scenes (make_step_diff's `make_step_hybrid`: kernel 4 or 2 forward,
 kernel 3 in the backward's recompute) against autograd of the plain step
 with the plain walk, within `parity.AUTOGRAD_BWD_RTOL` on the lanes
@@ -47,7 +48,8 @@ with the plain walk, within `parity.AUTOGRAD_BWD_RTOL` on the lanes
 bit; film_and_grads's training plan (its first call captured as a CUDA
 graph, every later one a replay) bit-equal to the eager step, with the
 same launches, as the albedo, the sky and the seed change (new-cbox,
-ibl-material, welcome-geo), the plain step kind eager with a warning;
+ibl-material, welcome-geo) and of the plain step kind (fused="off",
+welcome-geo, under "full" and "isect");
 under `fused="off"` the plain step with kernel 3 as its walk, its
 gradients bit-equal under the four recompute policies and its backward
 pass walking nothing under the `isect` ones; under `LLR_RNG=threefry`
@@ -847,20 +849,42 @@ def test_plan_replays_equal_eager_steps(card, name, w, h, spp, sky):
 
 
 @pytest.mark.cuda
-def test_plain_step_kind_runs_eagerly_and_says_so(card):
-    """Under fused="off" film_and_grads keeps the eager step on the card (no
-    plan is made) and warns that it does."""
-    from lumillyrender_tpu_torch.diff import film_and_grads, params_of, render_diff
-    from lumillyrender_tpu_torch.diff.render import clear_plans, kept_plan
+@pytest.mark.parametrize("mode", ["full", "isect"])
+def test_plain_kind_plan_replays_equal_eager_steps(card, mode):
+    """Under fused="off" film_and_grads captures the plain step kind too
+    (autograd of the plain step under `bwd_remat`, kernel 3 its walk on
+    welcome-geo, 64x48 x 2 spp, 80 bounces): three calls at new seeds and
+    albedos, each bit-equal to the eager step with the same launches (320
+    kernel 3 launches under "full", 160 under "isect"), the calls after the
+    first replays of one plain-kind plan."""
+    from lumillyrender_tpu_torch.diff import eager_film_and_grads, film_and_grads, params_of
+    from lumillyrender_tpu_torch.diff import render_diff
+    from lumillyrender_tpu_torch.diff.render import clear_plans, kept_plan, leaves
 
     clear_plans()
-    c = compile_scene_file(ASSETS / "new-cbox.toml", device=card)
-    st = dataclasses.replace(c.settings, width=16, height=16, max_bounces=3, fused="off")
-    p = params_of(c.data)
-    target = render_diff(c.data, st, p, 3, 1).detach()
-    with pytest.warns(UserWarning, match="plain step kind eagerly"):
-        loss, _, _ = film_and_grads(c.data, st, p, target, 4, 1)
-    assert torch.isfinite(loss) and kept_plan() is None
+    c = compile_scene_file(ASSETS / "welcome-geo.toml", device=card)
+    st = dataclasses.replace(c.settings, width=64, height=48, fused="off", bwd_remat=mode)
+    p0 = params_of(c.data)
+    target = render_diff(c.data, st, p0, 3, 2).detach()
+    for k, seed in enumerate((11, 12, 13)):
+        p = p0._replace(materials=dataclasses.replace(
+            p0.materials, color=p0.materials.color * (0.8 + 0.1 * k)))
+        cuda_bounce.reset_counts()
+        want = eager_film_and_grads(c.data, st, p, target, seed, 2)
+        torch.cuda.synchronize()
+        eager = cuda_bounce.counts()
+        cuda_bounce.reset_counts()
+        got = film_and_grads(c.data, st, p, target, seed, 2)
+        torch.cuda.synchronize()
+        assert cuda_bounce.counts() == eager
+        assert eager["bvh"] == (320 if mode == "full" else 160), eager
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        for a, b in zip(leaves(got[2]), leaves(want[2])):
+            assert torch.isfinite(a).all() and torch.equal(a, b)
+        assert got[2].materials.color.abs().sum() > 0
+    plan = kept_plan()
+    assert plan is not None and plan.kind == "plain" and plan.replays == 2
+    clear_plans()
 
 
 # ---------------------------------------------------------------------------
@@ -1824,20 +1848,15 @@ SEED_LOOP = 1234
 LOOP_SCENES = [("new-cbox", 64, 64, 4), ("welcome-geo", 64, 48, 4), ("ridaisai", 2138, 1536, 1)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name,w,h,spp", LOOP_SCENES, ids=[s[0] for s in LOOP_SCENES])
-def test_graphed_stage_loop_matches_the_host_loop(card, monkeypatch, name, w, h, spp):
+def _graphed_vs_host_loop(card, monkeypatch, c, spp):
     """A ChunkRenderer's first chunk (eager, then captured) and its second
-    (a graph replay) against the host loop over the same kernels: each
-    stage's end state (o, d, throughput, accum, alive, lane) and the ray
-    count bit-equal, the films within the film gate; the replay adds the
-    captured launches to the counts."""
-    import dataclasses
-
+    (a graph replay) of `c` against the host loop over the same step: each
+    stage's end state and the ray count bit-equal, the films within the
+    film gate; the replay adds the captured launches (and raygen's) to the
+    counts. Returns the renderer's plan."""
     from lumillyrender_tpu_torch.integrator.render import ChunkRenderer
 
-    c = compile_scene_file(ASSETS / f"{name}.toml", device=card)
-    c.settings = dataclasses.replace(c.settings, width=w, height=h)
+    w, h = c.settings.width, c.settings.height
     ends = []
     run_stage = wavefront.run_stage
 
@@ -1848,6 +1867,7 @@ def test_graphed_stage_loop_matches_the_host_loop(card, monkeypatch, name, w, h,
 
     monkeypatch.setattr(wavefront, "run_stage", recorded)
     renderer = ChunkRenderer(c.data, c.settings, SEED_LOOP, card)
+    assert renderer.graphed
     film0, rays0 = renderer.chunk(0, spp)
     stages = len(ends) // 2  # the eager run's, then the capture's
     eager = [[t.clone() for t in e] for e in ends[:stages]]
@@ -1856,8 +1876,7 @@ def test_graphed_stage_loop_matches_the_host_loop(card, monkeypatch, name, w, h,
     torch.cuda.synchronize()
     replayed = [[t.clone() for t in e] for e in ends[stages:]]
     plan = renderer.plans[spp]
-    assert plan.graph is not None and plan.launches["bounce" if name == "new-cbox"
-                                                   else "bounce_bvh"] > 0
+    assert plan.graph is not None
     assert cuda_bounce.counts() == dict(
         {k: 0 for k in cuda_bounce.counts()}, raygen=1, **plan.launches)
     monkeypatch.setattr(wavefront, "run_stage", run_stage)
@@ -1873,6 +1892,35 @@ def test_graphed_stage_loop_matches_the_host_loop(card, monkeypatch, name, w, h,
                 assert torch.equal(t, getattr(want, k)), (offset, k)
         assert torch.equal(rays, want_rays + float(n))
         assert _films_agree(film.reshape(-1, 3).cpu(), want_film.cpu())
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,w,h,spp", LOOP_SCENES, ids=[s[0] for s in LOOP_SCENES])
+def test_graphed_stage_loop_matches_the_host_loop(card, monkeypatch, name, w, h, spp):
+    """A ChunkRenderer's first chunk (eager, then captured) and its second
+    (a graph replay) against the host loop over the same kernels: each
+    stage's end state (o, d, throughput, accum, alive, lane) and the ray
+    count bit-equal, the films within the film gate; the replay adds the
+    captured launches to the counts."""
+    c = compile_scene_file(ASSETS / f"{name}.toml", device=card)
+    c.settings = dataclasses.replace(c.settings, width=w, height=h)
+    plan = _graphed_vs_host_loop(card, monkeypatch, c, spp)
+    assert plan.launches["bounce" if name == "new-cbox" else "bounce_bvh"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,w,h,spp", LOOP_SCENES[:2], ids=[s[0] for s in LOOP_SCENES[:2]])
+def test_fused_off_chunk_plan_matches_the_host_loop(card, monkeypatch, name, w, h, spp):
+    """Under fused="off" a chunk is a captured ForwardPlan too, of the plain
+    step's PyTorch ops (its walk kernel 3 on welcome-geo): the first chunk
+    and a replay bit-equal to the host loop over the plain step, as the
+    kernels' plan is; no bounce kernel in the graph."""
+    c = compile_scene_file(ASSETS / f"{name}.toml", device=card)
+    c.settings = dataclasses.replace(c.settings, width=w, height=h, fused="off")
+    plan = _graphed_vs_host_loop(card, monkeypatch, c, spp)
+    assert not plan.launches.get("bounce") and not plan.launches.get("bounce_bvh")
+    assert (plan.launches.get("bvh", 0) > 0) == (name == "welcome-geo"), plan.launches
 
 
 @pytest.mark.cuda
@@ -2114,7 +2162,8 @@ def test_raygen_writes_a_partial_last_block(card, monkeypatch, mixer):
 def test_threefry_renders_with_the_plain_step_and_refuses_the_kernels(card, threefry):
     """Under threefry the card refuses the bounce kernels before it packs a
     table; `fused="off"` renders with kernel 1's threefry instance and the
-    plain step (no bounce kernel, no graph), as the CPU renders."""
+    plain step (no bounce kernel), its chunks one captured graph, as the
+    CPU renders."""
     import dataclasses
 
     from lumillyrender_tpu_torch.integrator.render import ChunkRenderer, render
@@ -2129,7 +2178,7 @@ def test_threefry_renders_with_the_plain_step_and_refuses_the_kernels(card, thre
     launches = cuda_bounce.counts()
     assert launches["raygen"] == off.settings.spp // 2
     assert not any(v for k, v in launches.items() if k != "raygen"), launches
-    assert not ChunkRenderer(off.data, off.settings, 3, card).graphed
+    assert ChunkRenderer(off.data, off.settings, 3, card).graphed
     assert np.isfinite(film).all() and film.max() > 0
 
 

@@ -370,3 +370,220 @@ def test_safe_normalize_gradient_is_finite_at_zero(scale):
     assert torch.isfinite(grad).all()
     if scale >= 1e-10:
         np.testing.assert_allclose(grad.numpy(), want_grad, rtol=1e-6)
+
+
+# The plain step's guarded values whose derivatives no gate had reached:
+# each site with its degenerate input (ROADMAP queue 3). "repaired": the
+# port's gradient was NaN there and is finite now, the value the
+# reference's; "finite": audited, the gradient finite as it was.
+DERIVATIVE_SITES = {
+    "light_point_on_the_shading_point": "repaired",  # wavefront._direct_light: wi's |path|
+    "zero_length_shadow_path": "finite",  # _direct_light: g's |path|^2
+    "rr_prob_zero_on_a_live_lane": "finite",  # plain_bounce_step: throughput / prob
+    "refraction_i_dot_n_+1e-30": "repaired",  # bsdf.eval_brdf: 1 / (in . n)
+    "refraction_i_dot_n_-1e-30": "repaired",
+    "refraction_i_dot_n_0": "finite",
+}
+
+
+def _finite(grads) -> bool:
+    return all(bool(np.isfinite(np.asarray(g)).all()) for g in grads)
+
+
+def _direct_light_site(assets_dir, site, monkeypatch):
+    """`_direct_light` on new-cbox's lanes with the shading point of lane 0
+    at its sampled light point (path 0): (the port's contributions, the
+    same with wi's distance by `vec.norm`, the unrepaired formula, the
+    port's gradients in the point, the normal, the outgoing direction and
+    the live albedo, JAX's)."""
+    from lumillyrender_tpu.integrator import wavefront as jax_wavefront
+    from lumillyrender_tpu.ops import bsdf as jax_bsdf
+    from lumillyrender_tpu.ops import intersect as jax_intersect
+    from lumillyrender_tpu_torch.integrator import wavefront
+    from lumillyrender_tpu_torch.ops import bsdf, intersect, rng, vec
+
+    c = jax_compile(assets_dir / "new-cbox.toml", spp=1)
+    scene, st = scene_from_numpy(c.data), c.settings
+    n, seed, ctr = 4, 7, 3 * wavefront._SLOTS
+    lane = torch.arange(n, dtype=torch.int32)
+    mat = torch.ones(n, dtype=torch.int32)  # a non-emissive row
+    light, _ = wavefront._sample_light_point(scene, *rng.uniform4(seed, lane, ctr + wavefront._NEE)[:3])
+    pos0 = torch.tensor([[278.0, 1.0, 279.0]] * n)
+    pos0[0] = light[0]  # both sites see a zero path on lane 0
+    nrm0 = torch.tensor([[0.0, 1.0, 0.0]] * n)
+    out0 = torch.tensor([[0.0, 1.0, 0.0]] * n)
+    col0 = scene.materials.color.clone()
+
+    def port():
+        xs = [t.clone().requires_grad_() for t in (pos0, nrm0, out0, col0)]
+        sp = intersect.ShadePoint(xs[0], xs[1], mat, torch.ones(n, dtype=torch.bool))
+        contrib = wavefront._direct_light(
+            scene, st, sp, xs[2], bsdf.gather(scene.materials, mat), lane, seed, ctr,
+            torch.ones(n, dtype=torch.bool), dataclasses.replace(scene.materials, color=xs[3]))
+        grads = torch.autograd.grad(contrib.sum(), xs, allow_unused=True)
+        return contrib.detach(), [torch.zeros(1) if g is None else g for g in grads]
+
+    got, grads = port()
+    monkeypatch.setattr(vec, "norm_at_zero", vec.norm)
+    unrepaired, _ = port()
+    monkeypatch.undo()
+    jmat = jnp.asarray(mat.numpy())
+
+    def jax_sum(p, nn, od, col):
+        sp = jax_intersect.ShadePoint(p, nn, jmat, jnp.ones(n, bool))
+        mats = dataclasses.replace(c.data.materials, color=col)
+        return jax_wavefront._direct_light(
+            c.data, st, sp, od, mats, jax_bsdf.gather(c.data.materials, jmat),
+            jnp.asarray(lane.numpy()), seed, ctr).sum()
+
+    want = jax.grad(jax_sum, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(t.numpy()) for t in (pos0, nrm0, out0, col0)))
+    assert torch.equal(light[0] - pos0[0], torch.zeros(3))
+    return got, unrepaired, grads, want
+
+
+def _rr_site(assets_dir, monkeypatch):
+    """One plain bounce of new-cbox's camera rays whose sampling table has
+    every albedo 0 (the detached table `bsdf.rr_weight` reads: prob 0 on
+    every live lane that hits), at bounce 0 and past the RR depth: the
+    port's output sum, its gradients in o, d, throughput and the live
+    albedo and emission, JAX's, and whether every lane died."""
+    from lumillyrender_tpu.integrator import wavefront as jax_wavefront
+    from lumillyrender_tpu_torch.integrator import wavefront
+    from lumillyrender_tpu_torch.ops import cuda_bounce as cb
+
+    c = jax_compile(assets_dir / "new-cbox.toml", spp=1)
+    st = dataclasses.replace(c.settings, width=8, height=8)
+    scene = scene_from_numpy(c.data)
+    n = 64
+    o, d, _, _ = cb.plain_generate_rays(scene, st, 3, 0, n)
+    lane = torch.arange(n, dtype=torch.int32)
+    zero = dataclasses.replace(scene.materials, color=torch.zeros_like(scene.materials.color))
+    j_zero = dataclasses.replace(c.data.materials, color=jnp.zeros_like(c.data.materials.color))
+    out = []
+    for bounce in (0, st.depth + 2):
+        xs = [t.clone().requires_grad_() for t in (o, d, torch.ones(n, 3), scene.materials.color,
+                                                    scene.materials.emission)]
+        mats = dataclasses.replace(scene.materials, color=xs[3], emission=xs[4])
+        state = wavefront.PathState(bounce, xs[0], xs[1], xs[2], torch.zeros(n, 3),
+                                    torch.ones(n, dtype=torch.bool), torch.zeros(()), lane)
+        s = wavefront.plain_bounce_step(dataclasses.replace(scene, materials=zero), st, 3,
+                                        state, mats)
+        total = s.o.sum() + s.d.sum() + s.throughput.sum() + s.accum.sum()
+        grads = torch.autograd.grad(total, xs, allow_unused=True)
+
+        def jax_total(o_, d_, t_, col, em, bounce=bounce):
+            me = dataclasses.replace(c.data.materials, color=col, emission=em)
+            step = jax_wavefront.make_bounce_step(dataclasses.replace(c.data, materials=j_zero),
+                                                  st, 3, mats_eval=me, allow_fused=False)
+            s2 = step(jax_wavefront.PathState(
+                jnp.int32(bounce), o_, d_, t_, jnp.zeros((n, 3)), jnp.ones(n, bool),
+                jnp.float32(0), jnp.asarray(lane.numpy()).astype(jnp.uint32)))
+            return s2.o.sum() + s2.d.sum() + s2.throughput.sum() + s2.accum.sum()
+
+        want = jax.grad(jax_total, argnums=(0, 1, 2, 3, 4))(
+            *(jnp.asarray(t.detach().numpy()) for t in xs))
+        # Every lane dies: a miss, or a hit whose roulette prob is 0.
+        out.append((total.detach(), [torch.zeros(1) if g is None else g for g in grads],
+                    want, not bool(s.alive.any())))
+    return out
+
+
+def _refraction_site(i_dot_n, monkeypatch):
+    """`bsdf.eval_brdf` of an ideal refraction lane and a Lambert lane (the
+    refraction branch evaluated and masked) with in . n = `i_dot_n`: the
+    port's f, f with the unrepaired 1 / where(in . n != 0, in . n, 1), the
+    gradients in in, out, n, the colour and the IOR, JAX's."""
+    from lumillyrender_tpu.ops import bsdf as jax_bsdf
+    from lumillyrender_tpu_torch.ops import bsdf
+
+    x0 = [np.array([[1.0, i_dot_n, 0.0]] * 2, np.float32),
+          np.array([[0.6, 0.8, 0.0]] * 2, np.float32), np.array([[0.0, 1.0, 0.0]] * 2, np.float32),
+          np.array([[0.9, 0.8, 0.7]] * 2, np.float32), np.array([1.5, 1.5], np.float32)]
+    types = np.array([4, 0], np.int32)  # ideal refraction, Lambert
+
+    def port():
+        xs = [torch.from_numpy(x).requires_grad_() for x in x0]
+        m = bsdf.GatheredMaterial(torch.from_numpy(types), xs[3], torch.zeros(2, 3),
+                                  torch.ones(2), xs[4], torch.zeros(2))
+        f = bsdf.eval_brdf(m, xs[1], xs[0], xs[2], torch.zeros(2, 3))
+        return f.detach(), torch.autograd.grad(f.sum(), xs)
+
+    got, grads = port()
+    monkeypatch.setattr(bsdf, "_inv_idn", lambda x: 1.0 / bsdf._where(x != 0.0, x, 1.0))
+    unrepaired, _ = port()
+    monkeypatch.undo()
+
+    def jax_sum(i, o, nn, col, ior):
+        m = jax_bsdf.GatheredMaterial(jnp.asarray(types), col, jnp.zeros((2, 3)), jnp.ones(2),
+                                      ior, jnp.zeros(2))
+        return jax_bsdf.eval_brdf(m, o, i, nn, jnp.zeros((2, 3))).sum()
+
+    want = jax.grad(jax_sum, argnums=(0, 1, 2, 3, 4))(*(jnp.asarray(x) for x in x0))
+    return got, unrepaired, grads, want
+
+
+@pytest.mark.parametrize("site", list(DERIVATIVE_SITES))
+def test_plain_step_derivative_sites(assets_dir, monkeypatch, site):
+    """The four places of the plain step that guard a value but not its
+    derivative, each at its degenerate input, called directly on the CPU:
+    the value bit-equal to the unrepaired formula, every live leaf's
+    gradient finite, and the JAX package's `jax.grad` on the same input
+    read (ROADMAP's "Found in the reference" where it is NaN).
+
+    * wi = path / max(|path|, 1e-20) with the light point on the shading
+      point: |path|'s root has an infinite derivative at 0, and the max's
+      zero cotangent times it was NaN in the point's gradient (JAX's too);
+      `vec.norm_at_zero` takes the root of 1 there.
+    * g's 1 / max(|path|^2, 1e-20) at the same zero path: the max passes a
+      zero cotangent to |path|^2, whose derivative 2 path is 0: finite.
+      (Below ~5.4e-20 and above 1e-20 the quotient's derivative would
+      overflow, but at a light's scene coordinates the shortest nonzero
+      path is an ulp of them, ~3e-5 on new-cbox.) JAX's gradient at this
+      input is NaN through the first site's root; this site's term alone,
+      with a nonzero cotangent at a zero path, is finite in the port
+      (PyTorch's clamp selects its cotangent) and NaN in JAX (its maximum
+      multiplies the quotient's overflowed derivative, -inf, by 0).
+    * throughput / max(prob, 1e-12) with prob 0 on live lanes: prob comes
+      from the detached sampling table, so no cotangent reaches a live
+      leaf through it; the lane dies, its 1e12-scaled throughput meets
+      only zero cotangents: finite on both.
+    * 1 / where(in . n != 0, in . n, 1) at +-1e-30: the reciprocal's
+      derivative, -1 / (in . n)^2, overflows, and a zero cotangent (the
+      Lambert lane's masked branch) or a nonzero one times it was NaN
+      through n's zero components (JAX's too); `bsdf._inv_idn` floors the
+      derivative's |in . n| at 1e-19. At exactly 0 the where passes
+      nothing: finite (JAX's NaN there comes from its unrepaired GGX G1,
+      PR 24's site)."""
+    status = DERIVATIVE_SITES[site]
+    if site in ("light_point_on_the_shading_point", "zero_length_shadow_path"):
+        got, unrepaired, grads, want = _direct_light_site(assets_dir, site, monkeypatch)
+        assert torch.equal(got, unrepaired)
+        assert _finite(grads)
+        print(f"{site}: port gradient finite; JAX's {_finite(want)}")
+        assert not _finite(want)  # the first site's root, on both inputs
+        if site == "zero_length_shadow_path":
+            path = np.zeros((1, 3), np.float32)
+            jt = jax.grad(lambda p: (0.5 / jnp.maximum(jnp.sum(p * p, axis=-1), 1e-20)).sum())
+            pt = torch.zeros(1, 3, requires_grad=True)
+            from lumillyrender_tpu_torch.ops import vec
+            g, = torch.autograd.grad((0.5 / torch.clamp(vec.sqr_norm(pt), min=1e-20)).sum(), pt)
+            # The term alone with a nonzero cotangent: the port's clamp
+            # selects its cotangent, JAX's maximum multiplies -0.5 / 1e-40
+            # (-inf) by 0: NaN in the reference (ROADMAP).
+            assert _finite([g]) and not _finite([jt(jnp.asarray(path))])
+    elif site == "rr_prob_zero_on_a_live_lane":
+        for total, grads, want, dead in _rr_site(assets_dir, monkeypatch):
+            assert dead and _finite([total]) and _finite(grads) and _finite(want)
+            for g, w in zip(grads, want):
+                w = np.asarray(w)
+                if g.shape == w.shape:
+                    np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-6)
+    else:
+        i_dot_n = {"+1e-30": 1e-30, "-1e-30": -1e-30, "0": 0.0}[site.rsplit("_", 1)[1]]
+        got, unrepaired, grads, want = _refraction_site(i_dot_n, monkeypatch)
+        assert torch.equal(got, unrepaired) and bool(torch.isfinite(got).all())
+        assert _finite(grads)
+        print(f"{site}: port gradient finite; JAX's {_finite(want)}")
+        assert not _finite(want)  # at 0 through JAX's G1 (PR 24), else this site
+    assert status in ("repaired", "finite")

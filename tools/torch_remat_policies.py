@@ -10,9 +10,11 @@ at 512x368 x 4 spp through the default dispatch (the hybrid step: its
 parameters at 0.8 of the albedo, its target and its gradients, as phase 25
 takes them) and terrain-1m (written by the port's `scene/terrain.py` under
 `lumillyrender_tpu_torch/build/scenes`). It prints what phase 26 prints
-(kernel 3's launches in the forward and backward passes, each policy's step
-ms in turns, device busy ms, idle share, peak memory, the new-cbox film
-under `fused="off"` against the kernels') and writes its record as JSON to
+(kernel 3's launches in the forward and backward passes, each policy's
+eager step against its captured plan's replays in turns, the replay's
+device busy ms, idle share, peak memory, capture seconds and pool bytes,
+the new-cbox film under `fused="off"` against the kernels') and writes its
+record as JSON to
 FILE (default chiprun_out/remat_policies.json). Exits non-zero without a
 card, or where phase 26 fails.
 """
