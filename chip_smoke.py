@@ -40,8 +40,10 @@ Phases, in order; any failure exits non-zero:
      2,072,576 lanes, bounces 0, 3, 7, 70;
   9. the full-size welcome-geo render (512x368, 64 spp, hdr) through the
      CLI, and its --aov depth and --aov normal renders, with the launch
-     counts of each run and no plain step or plain walk; 64x48 x 4 spp films of both, kernel path twice and plain
-     path once;
+     counts of each run and no plain step or plain walk, every chunk a
+     captured plan's and every chunk after a plan's first its replay (as
+     in every CLI run of the script); 64x48 x 4 spp films of both, kernel
+     path twice and plain path once;
  10. one welcome-geo chunk (2,072,576 lanes) in which every bounce launch
      (2,072,576 -> 259,072 -> 32,512 -> 4,096 lanes) is checked against the
      plain step; timing as in phase 6 (the captured plan), with the bounds counted from the
@@ -87,13 +89,19 @@ Phases, in order; any failure exits non-zero:
      terrain-1m built at K=32 with streamed=True;
  17. the BVH bounce kernel at K=128 vs the plain step on random states of
      terrain-1m at 2,097,152 lanes, bounces 0, 3, 7, 70;
- 18. through the CLI, with launch counts and no plain step or walk:
+ 18. through the CLI (its scene load served from phases 15-16's compile
+     of the same file), with launch counts and no plain step or walk:
      terrain-1m pt-direct at full size and its --aov depth and normal
-     renders (bvh_wide), terrain-1.5m --aov depth (bvh_streamed); 64^2 x 4
-     spp films of terrain-1m, kernel path twice and plain path once;
- 19. timing on terrain-1m: forward rays/s, launches per chunk, the
-     capture and the idle share of the captured plan; the BVH bounce
-     at K=128 at each stage width; the wide, streamed and per-thread walks
+     renders (bvh_wide), terrain-1.5m --aov depth (bvh_streamed) and
+     terrain-1.5m pt-direct at full size (256^2 x 64 spp in two 2M-lane
+     chunks: raygen and bounce_bvh alone, 80 bounce_bvh a chunk, the warp
+     walk over 119 MB of K=128 tables); 64^2 x 4 spp films of terrain-1m,
+     kernel path twice and plain path once, and of terrain-1.5m, whose
+     plain path is the `fused="off"` step with kernel 6 its walk;
+ 19. timing on terrain-1m and terrain-1.5m: forward rays/s, launches per
+     chunk, the capture and the idle share of the captured plan; the BVH
+     bounce at K=128 at each stage width (on each stage's first state,
+     against the plain step); the wide, streamed and per-thread walks
      (and the streamed one on terrain-1.5m), sorted and unsorted, on camera
      and random rays at 2,097,152 lanes beside their bounds and the plain
      walk; the sort itself, and whether the sorted walk plus the sort
@@ -197,12 +205,12 @@ Phases, in order; any failure exits non-zero:
      ones), no plain walk and no other kernel; the loss, film and every
      gradient bit-equal across the five, and within TRAIN_PLAIN_RTOL of
      phase 25's default dispatch (the hybrid); then each policy through
-     film_and_grads's captured plan (`plan_vs_eager`: its first call and a
+     film_and_grads's captured plan (`policy_plan`: its first call and a
      replay at a new seed and albedo, each bit-equal to the eager step
-     with the same launches; the eager step and the replay in turns,
-     REMAT_ROUNDS rounds after each of REMAT_CAPTURES captures, median and
-     range, busy ms and idle share, peak memory, capture seconds and pool
-     bytes); terrain-1m at 64x64 x 1 spp under full and isect (kernel 7 the
+     with the same launches, capture seconds and pool bytes; for
+     REMAT_TIMED, one eager step and one replay in turns; for
+     REMAT_PROFILED, a replay's busy ms, idle share and peak memory);
+     terrain-1m at 64x64 x 1 spp under full and isect (kernel 7 the
      walk: 160 launches forward, 160 and 0 backward, the gradients
      bit-equal; the plan's first call and a replay bit-equal to the eager
      step with its launches); then new-cbox's 256^2 x 64 spp film under
@@ -316,6 +324,17 @@ Phases, in order; any failure exits non-zero:
      the capture's seconds and the graph pool's bytes; then the example
      examples/invert_materials_torch.py for PLAN_EXAMPLE_STEPS steps, its
      steps replays of one plan;
+ 32. (run after phase 19) the AOV chunks as captured plans: welcome-geo
+     --aov depth and --aov normal (kernel 3), terrain-1m --aov depth
+     (kernel 7), terrain-1.5m --aov depth (kernel 6) and welcome-geo --aov
+     depth under LLR_REORDER=1 (kernel 3, the sort captured), each at the
+     CLI's chunk size: a ChunkRenderer's first call (eager, then captured)
+     and a replay at the next offset, each against the eager chunk with the
+     counts zeroed just before and read just after each call, film and
+     rays bit-equal, launches equal; the capture's seconds and pool bytes;
+     the eager chunk and a replay in turns; two eager AOV renders of
+     welcome-geo and terrain-1.5m bit-equal (the ordered bank), beside
+     index_add_'s two banks of one chunk (the bank before);
 then one `{"kernels": [...]}` line for all 30 kernels (kernel 1's with
 both instances).
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -699,16 +718,23 @@ def check_films(tag, films):
     return checks
 
 
+# What PlainCalls counts by name and no plain path is: the ray sort key,
+# the chunk's work (`trace_film`, an AOV's `aov`), a plan's traces of it and
+# its calls.
+NOT_PLAIN = ("_ray_sort_key", "trace_film", "aov", "_trace", "__call__")
+
+
 class PlainCalls:
     """Counts calls of the plain step, the plain backward and the plain BVH
     walk while open, so a kernel-path run can show that it ran none
     (`calls`). The hybrid step's backward runs the plain step by design,
     once a bounce, inside `cuda_bounce.recompute`: those calls are counted
     apart (`recomputes`, one a recompute), and a plain walk counts in
-    `calls` wherever it runs. `n` counts every call by name, the ray sort
-    key's (`_ray_sort_key`, which no plain path is) too, and `trace_film`'s
-    and `ForwardPlan._trace`'s (equal where every chunk is a captured
-    plan's: no chunk ran in the host loop)."""
+    `calls` wherever it runs. `n` counts every call by name, NOT_PLAIN's
+    too: `trace_film`'s and `aov`'s against `ForwardPlan._trace`'s (equal
+    where every chunk is a captured plan's: no chunk ran eagerly), and a
+    plan's calls (`__call__`; `plans` holds the plans called), so that
+    calls - plans chunks were graph replays."""
 
     def __enter__(self):
         from lumillyrender_tpu_torch.integrator import render, wavefront
@@ -717,11 +743,12 @@ class PlainCalls:
         self.calls = 0
         self.recomputes = 0
         self.inside = 0
+        self.plans = set()
         self.saved = [(m, name, getattr(m, name)) for m, name in (
             (wavefront, "plain_bounce_step"), (intersect, "_walk_tris"),
             (cuda_bounce, "plain_bounce_bwd"), (cuda_bounce, "recompute"),
-            (intersect, "_ray_sort_key"), (render, "trace_film"),
-            (render.ForwardPlan, "_trace"))]
+            (intersect, "_ray_sort_key"), (render, "trace_film"), (render, "aov"),
+            (render.ForwardPlan, "_trace"), (render.ForwardPlan, "__call__"))]
         self.n = {name: 0 for _, name, _ in self.saved}
         for mod, name, fn in self.saved:
             def counted(*a, _fn=fn, _name=name, **k):
@@ -734,7 +761,9 @@ class PlainCalls:
                         self.inside -= 1
                 if _name == "plain_bounce_step" and self.inside:
                     self.recomputes += 1
-                elif _name not in ("_ray_sort_key", "trace_film", "_trace"):
+                elif _name == "__call__":
+                    self.plans.add(id(a[0]))
+                elif _name not in NOT_PLAIN:
                     self.calls += 1
                 return _fn(*a, **k)
             setattr(mod, name, counted)
@@ -746,20 +775,35 @@ class PlainCalls:
         return False
 
 
-def run_main_path(tag, argv, want, must_be_zero=(), env=None, plain_step=False):
+def run_main_path(tag, argv, want, must_be_zero=(), env=None, plain_step=False, loaded=None):
     """One CLI run, under the environment variables `env` if given, with
     every launch count zeroed just before it and read just after; fails
     unless each kernel in `want` launched, none in `must_be_zero` did, and
     neither the plain step nor the plain walk ran, or with `plain_step`,
     unless the plain step ran and the plain walk did not; and unless every
-    chunk was a captured plan's (no host-loop chunk: `trace_film` called
-    only by `ForwardPlan`). Returns (result, counts, calls by name)."""
+    chunk was a captured plan's (no eager chunk: `trace_film` or, for an
+    AOV, `aov` called only by `ForwardPlan._trace`, twice a plan, its first
+    call's and its capture's) and every later chunk of a plan its graph's
+    replay. `loaded` ({scene path: CompiledScene}) holds scenes this
+    process already compiled with the CLI's own `compile_scene_file`
+    arguments: the CLI gets a copy of each (its setting overrides stay its
+    own) instead of parsing the file again. Returns (result, counts, calls
+    by name)."""
     from unittest import mock
 
     from lumillyrender_tpu_torch import cli
     from lumillyrender_tpu_torch.ops import cuda_bounce
+    from lumillyrender_tpu_torch.scene import compiler
 
-    with mock.patch.dict(os.environ, env or {}), PlainCalls() as plain:
+    compile_file = compiler.compile_scene_file
+
+    def compiled_once(path, spp=None, device=None):
+        if spp is None and str(path) in (loaded or {}):
+            return dataclasses.replace(loaded[str(path)])
+        return compile_file(path, spp=spp, device=device)
+
+    with mock.patch.dict(os.environ, env or {}), PlainCalls() as plain, \
+            mock.patch.object(compiler, "compile_scene_file", compiled_once):
         cuda_bounce.reset_counts()
         result = cli.run(argv)
         torch.cuda.synchronize()
@@ -773,14 +817,22 @@ def run_main_path(tag, argv, want, must_be_zero=(), env=None, plain_step=False):
     left = walks or not plain.n["plain_bounce_step"] if plain_step else plain.calls
     if left or any(launches[k] for k in must_be_zero):
         fail(f"the {tag} render left its path: {launches}, plain calls {plain.n}")
-    if plain.n["trace_film"] != plain.n["_trace"]:
-        fail(f"the {tag} render ran a chunk in the host loop: plain calls {plain.n}")
+    aov_run = "--aov" in argv
+    traced = plain.n["aov" if aov_run else "trace_film"]
+    if traced != plain.n["_trace"] or plain.n["aov" if not aov_run else "trace_film"]:
+        fail(f"the {tag} render ran a chunk eagerly: plain calls {plain.n}")
+    plans = len(plain.plans)
+    replays = plain.n["__call__"] - plans
+    if plain.n["_trace"] != 2 * plans:
+        fail(f"the {tag} render traced its {plans} plans {plain.n['_trace']} times: a chunk "
+             f"after a plan's first was not its graph's replay")
     film = result.film
     print(f"film {film.shape}, mean {film.mean():.6f}, max {film.max():.4f}, "
-          f"rays {result.rays:.0f}, rays/s {result.rays_per_second:.4e}")
+          f"rays {result.rays:.0f}, rays/s {result.rays_per_second:.4e}; {plans} captured "
+          f"plans, {replays} chunks their replays")
     if not (np.isfinite(film).all() and film.max() > 0):
         fail(f"the {tag} film is not finite and non-zero")
-    return result, launches, dict(plain.n)
+    return result, launches, dict(plain.n, plans=plans, replays=replays)
 
 
 def cli_checkpoint_telemetry_profile(scene):
@@ -1898,7 +1950,7 @@ def time_bvh_bounce(c, spp_chunk, label="K=128"):
 def huge_meshes(card, lap):
     """Phases 14-19: huge meshes (terrain-1m, terrain-1.5m) through the
     AOV walks and the BVH bounce at K=128. Returns (report, the two new
-    kernels' entries)."""
+    kernels' entries, the two compiled terrains)."""
     from lumillyrender_tpu_torch.accel import native
     from lumillyrender_tpu_torch.accel.pack import build_tri_bvh
     from lumillyrender_tpu_torch.integrator.render import (
@@ -2015,31 +2067,54 @@ def huge_meshes(card, lap):
     lap("K=128 bounce parity", t0)
 
     phase("18 end-to-end renders (CLI: terrain-1m 256^2 x 64 spp pt-direct, --aov depth, "
-          "--aov normal; terrain-1.5m --aov depth)")
+          "--aov normal; terrain-1.5m --aov depth and pt-direct)")
     t0 = time.monotonic()
     chunks = -(-c1.settings.spp // spp_chunk)
     scene1, scene15 = str(paths["terrain-1m"]), str(paths["terrain-1.5m"])
+    # The CLI renders the terrains phases 15-16 compiled from these files
+    # (~14 and ~21 s a parse and build, which the CLI would repeat 5 times).
+    loaded = {scene1: c1, scene15: c15}
     pt, l_pt, _ = run_main_path(
         "terrain-1m", [scene1, "--out", str(OUT / "terrain-1m.png")],
-        want=("raygen", "bounce_bvh"), must_be_zero=("bounce", "bvh", "bvh_wide", "bvh_streamed"))
-    _, l_depth, _ = run_main_path(
+        want=("raygen", "bounce_bvh"), must_be_zero=("bounce", "bvh", "bvh_wide", "bvh_streamed"),
+        loaded=loaded)
+    _, l_depth, c_depth = run_main_path(
         "terrain-1m --aov depth", [scene1, "--aov", "depth", "--out",
                                    str(OUT / "terrain-1m-depth.png")],
-        want=("raygen", "bvh_wide"), must_be_zero=("bounce", "bounce_bvh", "bvh", "bvh_streamed"))
-    _, l_normal, _ = run_main_path(
+        want=("raygen", "bvh_wide"), must_be_zero=("bounce", "bounce_bvh", "bvh", "bvh_streamed"),
+        loaded=loaded)
+    _, l_normal, c_normal = run_main_path(
         "terrain-1m --aov normal", [scene1, "--aov", "normal", "--out",
                                     str(OUT / "terrain-1m-normal.png")],
-        want=("raygen", "bvh_wide"), must_be_zero=("bounce", "bounce_bvh", "bvh", "bvh_streamed"))
-    _, l_15, _ = run_main_path(
+        want=("raygen", "bvh_wide"), must_be_zero=("bounce", "bounce_bvh", "bvh", "bvh_streamed"),
+        loaded=loaded)
+    _, l_15, c_15 = run_main_path(
         "terrain-1.5m --aov depth", [scene15, "--aov", "depth", "--out",
                                      str(OUT / "terrain-1.5m-depth.png")],
-        want=("raygen", "bvh_streamed"), must_be_zero=("bounce", "bounce_bvh", "bvh", "bvh_wide"))
+        want=("raygen", "bvh_streamed"), must_be_zero=("bounce", "bounce_bvh", "bvh", "bvh_wide"),
+        loaded=loaded)
+    pt15, l_pt15, calls_pt15 = run_main_path(
+        "terrain-1.5m", [scene15, "--out", str(OUT / "terrain-1.5m.png")],
+        want=("raygen", "bounce_bvh"), must_be_zero=("bounce", "bvh", "bvh_wide", "bvh_streamed"),
+        loaded=loaded)
+    bounces = c15.settings.max_bounces
+    print(f"terrain-1.5m pt-direct: {l_pt15['bounce_bvh']} bounce_bvh launches over {chunks} "
+          f"chunks ({bounces} a chunk expected), {pt15.seconds:.3f} s, "
+          f"{pt15.rays_per_second:.6e} rays/s  [{card}]")
+    if l_pt15["bounce_bvh"] != bounces * chunks or l_pt15["raygen"] != chunks:
+        fail(f"terrain-1.5m: {l_pt15} for {chunks} chunks of {bounces} bounces")
     for tag, got, k in (("--aov depth", l_depth, "bvh_wide"), ("--aov normal", l_normal, "bvh_wide"),
                         ("terrain-1.5m --aov depth", l_15, "bvh_streamed")):
         if got[k] < chunks:
             fail(f"{tag}: {got[k]} {k} launches for {chunks} chunks")
+    for tag, calls in (("terrain-1m --aov depth", c_depth), ("terrain-1m --aov normal", c_normal),
+                       ("terrain-1.5m --aov depth", c_15), ("terrain-1.5m", calls_pt15)):
+        if calls["replays"] < chunks - 1:
+            fail(f"{tag}: {calls['replays']} of {chunks} chunks were graph replays")
     small = resized(c1, 64, 64, 4)
     films = kernel_vs_plain_films("terrain-1m 64^2x4", small)
+    films15 = kernel_vs_plain_films("terrain-1.5m 64^2x4", resized(c15, 64, 64, 4),
+                                    walk="bvh_streamed")
     small_aov = dataclasses.replace(small, settings=dataclasses.replace(
         small.settings, integrator="depth"))
     a_k = render(small_aov, seed=SEED, device=dev).film
@@ -2055,11 +2130,15 @@ def huge_meshes(card, lap):
     rep.update(cli=dict(pt_direct=dict(launches=l_pt, rays_per_s=pt.rays_per_second,
                                        seconds=pt.seconds, chunks=chunks),
                         depth_launches=l_depth, normal_launches=l_normal,
-                        terrain_15m_depth_launches=l_15),
-               film_checks=films, aov_film_checks=aov_films)
+                        terrain_15m_depth_launches=l_15,
+                        terrain_15m_pt_direct=dict(launches=l_pt15, chunks=chunks,
+                                                   rays_per_s=pt15.rays_per_second,
+                                                   seconds=pt15.seconds)),
+               film_checks=films, film_checks_15m=films15, aov_film_checks=aov_films)
     lap("huge-mesh renders", t0)
 
-    phase(f"19 timing (terrain-1m 256^2, {spp_chunk} spp per chunk; the walks at {n} lanes)")
+    phase(f"19 timing (terrain-1m and terrain-1.5m 256^2, {spp_chunk} spp per chunk; the walks "
+          f"at {n} lanes)")
     t0 = time.monotonic()
     r1 = ChunkRenderer(c1.data, c1.settings, SEED, dev)
     rate, chunk_ms, per_chunk = chunk_rate(r1, spp_chunk, 3, 0)
@@ -2069,7 +2148,17 @@ def huge_meshes(card, lap):
     rep["forward"] = dict(rays_per_s=rate, chunk_ms=chunk_ms, idle_share=idle, busy_ms=busy,
                           launches_per_chunk=per_chunk, **plan_cost(r1, spp_chunk))
     del r1
+    r15 = ChunkRenderer(c15.data, c15.settings, SEED, dev)
+    rate, chunk_ms, per_chunk = chunk_rate(r15, spp_chunk, 3, 0)
+    print(f"terrain-1.5m forward (the captured stage plan, replayed): 3 chunks, {chunk_ms:.4f} "
+          f"ms each: {rate:.6e} rays/s; launches per chunk {per_chunk}  [{card}]")
+    idle, busy, _ = idle_share(r15, spp_chunk, chunk_ms, 10 * spp_chunk)
+    rep["forward_15m"] = dict(rays_per_s=rate, chunk_ms=chunk_ms, idle_share=idle, busy_ms=busy,
+                              launches_per_chunk=per_chunk, **plan_cost(r15, spp_chunk))
+    del r15
     rep["bounce_k128"] = {str(w): r for w, r in time_bvh_bounce(c1, spp_chunk).items()}
+    rep["bounce_k128_15m"] = {str(w): r for w, r in time_bvh_bounce(
+        c15, spp_chunk, label="K=128, terrain-1.5m").items()}
     t7, t6, t3, t6_15 = {}, {}, {}, {}
     for key in ("camera", "random"):
         for srt in (False, True):
@@ -2135,7 +2224,145 @@ def huge_meshes(card, lap):
              ms=main6["ms"], plain_ms=main6["plain_ms"], bound_ms=main6["bound_ms"],
              bound_by=main6["bound_by"], library_ms=None),
     ]
-    return rep, kernels, c1
+    return rep, kernels, c1, c15
+
+
+# ---------------------------------------------------------------------------
+# The AOV chunks as captured plans (phase 32)
+# ---------------------------------------------------------------------------
+
+AOV_PLAN_ROUNDS = 3  # rounds of an AOV plan's timing, the eager chunk and a replay in turns
+
+
+def eager_renderer(c):
+    """A ChunkRenderer of `c` on the card whose chunks run eagerly
+    (`graphed` false): the chunk a plan captures, op by op."""
+    from lumillyrender_tpu_torch.integrator.render import ChunkRenderer
+
+    r = ChunkRenderer(c.data, c.settings, SEED, "cuda")
+    r.graphed = False
+    return r
+
+
+def aov_plan_vs_eager(tag, c, walk, card, env=None) -> dict:
+    """`c`'s AOV chunk at the CLI's chunk size through a ChunkRenderer's
+    plan (its first call, eager and then captured, and a replay at the next
+    sample offset) against the eager chunk at the same offsets, the counts
+    zeroed just before and read just after each call: film and rays
+    bit-equal, the same launches, raygen and `walk` once each; under `env`
+    (LLR_REORDER=1) the sort key called by the plan's first call and its
+    capture; then the eager chunk and a replay in turns over
+    AOV_PLAN_ROUNDS rounds (host clock to a synchronize: median, range),
+    the capture's seconds and the graph pool's bytes. Returns the record."""
+    from unittest import mock
+
+    from lumillyrender_tpu_torch.integrator.render import ChunkRenderer, default_spp_chunk
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    spp = default_spp_chunk(c.settings)
+    want = dict({k: 0 for k in cuda_bounce.counts()}, raygen=1, **{walk: 1})
+    rec = dict(lanes=c.settings.width * c.settings.height * spp)
+    with mock.patch.dict(os.environ, env or {}), PlainCalls() as calls:
+        planned = ChunkRenderer(c.data, c.settings, SEED, "cuda")
+        eager = eager_renderer(c)
+        for call, offset in (("first", 0), ("replay", spp)):
+            got = {}
+            for who, r in (("eager", eager), ("plan", planned)):
+                keys = calls.n["_ray_sort_key"]
+                cuda_bounce.reset_counts()
+                film, rays = r.chunk(offset, spp)
+                torch.cuda.synchronize()
+                got[who] = (film, rays, cuda_bounce.counts(), calls.n["_ray_sort_key"] - keys)
+            (f_e, r_e, l_e, k_e), (f_p, r_p, l_p, k_p) = got["eager"], got["plan"]
+            equal = torch.equal(f_e, f_p) and torch.equal(r_e, r_p)
+            rec[f"{call}_bit_equal"], rec[f"{call}_launches"] = equal, l_p
+            sorts = (k_e, k_p) == ((1, 2 if call == "first" else 0) if env else (0, 0))
+            if not equal or l_e != want or l_p != want or not sorts:
+                fail(f"{tag}: the plan's {call} call is not the eager chunk: launches {l_p}, "
+                     f"eager {l_e}, want {want}; bit-equal {equal}; sort keys {k_e}, {k_p}")
+        plan = planned.plans[spp]
+        ms = {"eager": [], "plan": []}
+        for r_ in range(AOV_PLAN_ROUNDS):
+            for who in (("eager", "plan") if r_ % 2 == 0 else ("plan", "eager")):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                (eager if who == "eager" else planned).chunk((r_ + 2) * spp, spp)
+                torch.cuda.synchronize()
+                ms[who].append((time.monotonic() - t0) * 1e3)
+    med, rng_ = spread(ms["plan"])
+    e_med, e_rng = spread(ms["eager"])
+    rec.update(capture_seconds=plan.capture_seconds, pool_bytes=plan.pool_bytes,
+               launches_per_replay=plan.launches, ms=ms, median_ms=med, range_ms=rng_,
+               eager_median_ms=e_med, eager_range_ms=e_rng)
+    print(f"{tag}, {rec['lanes']} lanes a chunk: the plan's first call and a replay bit-equal to "
+          f"the eager chunk, launches {want}; capture {plan.capture_seconds:.3f} s, graph pool "
+          f"{plan.pool_bytes} B; a replay {med:.4f} ms [{rng_[0]:.4f}, {rng_[1]:.4f}] against "
+          f"the eager chunk's {e_med:.4f} [{e_rng[0]:.4f}, {e_rng[1]:.4f}] in turns  [{card}]")
+    del planned, eager
+    torch.cuda.empty_cache()
+    return rec
+
+
+def eager_aov_repeats(tag, c) -> dict:
+    """Two eager renders of `c` (an AOV at the CLI's size, every chunk
+    eager): bit-equal films. Beside them, the bank they replace read only:
+    index_add_ of one chunk's lane values into the film twice (on the card
+    it adds with atomics, in an order that changes between runs)."""
+    from unittest import mock
+
+    from lumillyrender_tpu_torch.integrator import render as render_mod
+    from lumillyrender_tpu_torch.integrator.render import camera_lanes, default_spp_chunk
+    from lumillyrender_tpu_torch.integrator.wavefront import aov
+    from lumillyrender_tpu_torch.ops import cuda_bounce
+
+    with mock.patch.object(render_mod, "captures_chunks", lambda device: False):
+        films = [render_mod.render(c, seed=SEED, device="cuda").film for _ in range(2)]
+    equal = np.array_equal(films[0], films[1])
+    st = c.settings
+    w, h = st.width, st.height
+    n = w * h * default_spp_chunk(st)
+    o, d, _, _ = cuda_bounce.generate_rays(c.data, st, SEED, 0, n)
+    val = aov(c.data, st, o, d)
+    _, px, py = camera_lanes(st, 0, n, o.device)
+    old = [torch.zeros((w * h, 3), device=o.device).index_add_(0, py * w + px, val)
+           for _ in range(2)]
+    old_equal = torch.equal(old[0], old[1])
+    old_diff = float((old[0] - old[1]).abs().max())
+    print(f"{tag}: two eager renders (the ordered bank) bit-equal: {equal}; index_add_ (the "
+          f"bank before) of one chunk's lane values twice: bit-equal {old_equal}, max |diff| "
+          f"{old_diff:.3e}")
+    if not equal:
+        fail(f"{tag}: two eager AOV renders differ")
+    return dict(bit_equal=equal, index_add_bit_equal=old_equal, index_add_max_diff=old_diff)
+
+
+def aov_plans(card, lap, geo, terrain_1m, terrain_15m) -> dict:
+    """Phase 32: the AOV chunks as captured plans, each held to the eager
+    chunk (`aov_plan_vs_eager`): welcome-geo depth and normal (kernel 3),
+    terrain-1m depth (kernel 7), terrain-1.5m depth (kernel 6), welcome-geo
+    depth under LLR_REORDER=1 (kernel 3, the sort in the graph); two eager
+    renders of welcome-geo's and terrain-1.5m's depth bit-equal."""
+    phase("32 the AOV chunks as captured plans (welcome-geo, terrain-1m, terrain-1.5m; "
+          "LLR_REORDER=1)")
+    t0 = time.monotonic()
+
+    def aov_of(c, integrator):
+        return dataclasses.replace(c, settings=dataclasses.replace(c.settings,
+                                                                   integrator=integrator))
+
+    rep = {}
+    for tag, c, integrator, walk, env in (
+            ("welcome-geo --aov depth", geo, "depth", "bvh", None),
+            ("welcome-geo --aov normal", geo, "normal", "bvh", None),
+            ("terrain-1m --aov depth", terrain_1m, "depth", "bvh_wide", None),
+            ("terrain-1.5m --aov depth", terrain_15m, "depth", "bvh_streamed", None),
+            ("welcome-geo --aov depth, LLR_REORDER=1", geo, "depth", "bvh",
+             dict(LLR_REORDER="1"))):
+        rep[tag] = aov_plan_vs_eager(tag, aov_of(c, integrator), walk, card, env)
+    for tag, c in (("welcome-geo --aov depth", geo), ("terrain-1.5m --aov depth", terrain_15m)):
+        rep[f"{tag}, eager twice"] = eager_aov_repeats(tag, aov_of(c, "depth"))
+    lap("32 AOV plans", t0)
+    return rep
 
 
 # ---------------------------------------------------------------------------
@@ -2601,9 +2828,13 @@ def resized(c, w, h, spp):
         c.settings, width=w, height=h, spp=spp))
 
 
-def kernel_vs_plain_films(tag, small):
+def kernel_vs_plain_films(tag, small, walk=None):
     """`small` (a CompiledScene at a small film): the kernel path twice and
-    the plain path once, all on the card, through check_films."""
+    the plain path once, all on the card, through check_films. The plain
+    path's BVH queries take the plain walk or, with `walk` (a
+    `cuda_bounce.counts()` name), the walk kernel of the `fused="off"` step
+    (`plain_walk=False`: the one `bvh_route` picks), which must be `walk`
+    and the only kernel the plain path launches."""
     from lumillyrender_tpu_torch.integrator import wavefront
     from lumillyrender_tpu_torch.integrator.render import render
     from lumillyrender_tpu_torch.ops import cuda_bounce
@@ -2611,9 +2842,16 @@ def kernel_vs_plain_films(tag, small):
     st = small.settings
     f_k = render(small, seed=SEED, device="cuda").film
     f_k2 = render(small, seed=SEED, device="cuda").film
+    cuda_bounce.reset_counts()
     f_p, _ = trace_chunk(
         small, 0, st.spp, cuda_bounce.plain_generate_rays,
-        lambda s: wavefront.plain_bounce_step(small.data, st, SEED, s))
+        lambda s: wavefront.plain_bounce_step(small.data, st, SEED, s, plain_walk=walk is None))
+    torch.cuda.synchronize()
+    launches = cuda_bounce.counts()
+    if walk is not None:
+        print(f"{tag}: the plain path's launches (the fused=\"off\" step): {launches}")
+        if not launches[walk] or any(v for k, v in launches.items() if k != walk):
+            fail(f"{tag}: the plain path's walk is not {walk} alone: {launches}")
     f_p = f_p.reshape(st.height, st.width, 3).cpu().numpy() / st.spp
     return check_films(tag, {
         "kernel run vs kernel run": (f_k2, f_k), "kernel path vs plain path": (f_k, f_p)})
@@ -3240,7 +3478,7 @@ def diff_scenes(card, lap, cbox, geo, ibl, terrain_1m):
 
             with torch.no_grad():
                 target = render_diff(geo.data, geo.settings, params_of(geo.data), SEED, spp)
-        timing[spp] = time_train_step(geo, spp, p_geo, target, 3 if spp == 4 else 2,
+        timing[spp] = time_train_step(geo, spp, p_geo, target, 2 if spp == 4 else 1,
                                       tag="welcome-geo 512x368", top=12)
         by_name = timing[spp].pop("by_name")
         k3 = [(t, n) for name, (t, n) in by_name.items() if "k3::kernel" in name]
@@ -3282,8 +3520,10 @@ def diff_scenes(card, lap, cbox, geo, ibl, terrain_1m):
 # ---------------------------------------------------------------------------
 
 REMAT_POLICIES = ("none", "full", "hybrid", "isect", "isect+samp")
-REMAT_CAPTURES = 2  # captures of a policy's plan, each timed against the eager step
-REMAT_ROUNDS = 1  # rounds of that timing after each capture, eager and plan in turns
+REMAT_TIMED = "full"  # the policy whose plan is timed against its eager step
+# The policies whose replay is profiled (the search share of a replay's
+# kernels compares the two).
+REMAT_PROFILED = ("full", "isect")
 
 
 class Phases:
@@ -3321,18 +3561,17 @@ class Phases:
         return False
 
 
-def policy_plan(tag, c, p, target, spp, want, want_launches, card) -> dict:
+def policy_plan(tag, c, p, target, spp, want, want_launches, card, timed=True,
+                profiled=True) -> dict:
     """`film_and_grads` on `c` (a CompiledScene on the card) through its
     training plan, against the eager step `want` (loss, film, gradients at
     `p`, `target`, SEED) that launched `want_launches`: the first call
     (eager on a side stream, then the capture) and a replay at a new seed
     and albedo, each bit-equal to the eager step at its point with the
-    same launches; then, over REMAT_CAPTURES captures (the plan made anew
-    before each after the first: a replay's speed may change between
-    captures), the eager step and a replay in turns (host clock to a
-    synchronize), REMAT_ROUNDS rounds each; the replay's device busy ms
-    and idle share (profiler), its peak memory, each capture's seconds and
-    pool bytes. Returns the record."""
+    same launches, the capture's seconds and pool bytes; with `timed`, one
+    eager step and one replay in turns (host clock to a synchronize); with
+    `profiled`, a replay's device busy ms and idle share (profiler) and
+    its peak memory. Returns the record."""
     from lumillyrender_tpu_torch.diff import eager_film_and_grads, film_and_grads
     from lumillyrender_tpu_torch.diff.render import clear_plans, kept_plan
     from lumillyrender_tpu_torch.ops import cuda_bounce
@@ -3363,22 +3602,23 @@ def policy_plan(tag, c, p, target, spp, want, want_launches, card) -> dict:
     plan = kept_plan()
     if plan is None or plan.kind != "plain" or plan.replays != 1:
         fail(f"{tag}: not one plain-kind plan replayed once ({plan and plan.kind})")
+    rec["capture_seconds"].append(plan.capture_seconds)
+    rec["pool_bytes"].append(plan.pool_bytes)
+    rec["launches_per_replay"] = plan.launches
+    captured = (f"captures {[round(x, 3) for x in rec['capture_seconds']]} s, pools "
+                f"{rec['pool_bytes']} B; first call and replay bit-equal to the eager step, "
+                f"launches equal  [{card}]")
+    if not (timed or profiled):
+        print(f"{tag}: {captured}")
+        clear_plans()
+        return rec
     ms = {"eager": [], "plan": []}
-    for cap in range(REMAT_CAPTURES):
-        if cap:
-            clear_plans()
-            planned(p2, SEED + 10 + cap)  # eager, then captured anew
-            plan = kept_plan()
-        rec["capture_seconds"].append(plan.capture_seconds)
-        rec["pool_bytes"].append(plan.pool_bytes)
-        for r in range(REMAT_ROUNDS):
-            order = ("eager", "plan") if (cap + r) % 2 == 0 else ("plan", "eager")
-            for who in order:
-                torch.cuda.synchronize()
-                t0 = time.monotonic()
-                (eager if who == "eager" else planned)(p2, SEED + 20 + r)
-                torch.cuda.synchronize()
-                ms[who].append((time.monotonic() - t0) * 1e3)
+    for who in ("eager", "plan") if timed else ():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        (eager if who == "eager" else planned)(p2, SEED + 20)
+        torch.cuda.synchronize()
+        ms[who].append((time.monotonic() - t0) * 1e3)
     peak = {}
 
     def replay():
@@ -3389,21 +3629,21 @@ def policy_plan(tag, c, p, target, spp, want, want_launches, card) -> dict:
         torch.cuda.synchronize()
         peak["plan"] = torch.cuda.max_memory_allocated() - held
 
-    busy, records, _ = _step_busy(replay)
-    med, rng_ = spread(ms["plan"])
-    e_med, e_rng = spread(ms["eager"])
-    rec.update(ms=ms, median_ms=med, range_ms=rng_, eager_median_ms=e_med, eager_range_ms=e_rng,
-               busy_ms=busy, idle_share=None if busy is None else 1.0 - busy / med,
-               records=records, peak_bytes=peak["plan"], launches_per_replay=plan.launches,
-               speedup=e_med / med)
-    idle = "not measured" if busy is None else f"{rec['idle_share']:.4f}"
-    print(f"{tag}: plan replays {med:.4f} ms [{rng_[0]:.4f}, {rng_[1]:.4f}] against the eager "
-          f"step's {e_med:.4f} [{e_rng[0]:.4f}, {e_rng[1]:.4f}] in turns over "
-          f"{REMAT_CAPTURES} captures ({rec['speedup']:.2f}x); replay busy "
-          f"{'not measured' if busy is None else f'{busy:.4f} ms'}, idle share {idle}, "
-          f"{records} kernel records, peak memory {peak['plan'] / 2**30:.3f} GiB; captures "
-          f"{[round(x, 3) for x in rec['capture_seconds']]} s, pools {rec['pool_bytes']} B; "
-          f"first call and replay bit-equal to the eager step, launches equal  [{card}]")
+    busy, records, _ = _step_busy(replay) if profiled else (None, None, None)
+    rec.update(busy_ms=busy, records=records, peak_bytes=peak.get("plan"))
+    line = ""
+    if timed:
+        (med,), (e_med,) = ms["plan"], ms["eager"]
+        rec.update(ms=ms, median_ms=med, eager_median_ms=e_med, speedup=e_med / med,
+                   idle_share=None if busy is None else 1.0 - busy / med)
+        line += (f"a replay {med:.4f} ms against the eager step's {e_med:.4f} in turns "
+                 f"({rec['speedup']:.2f}x); ")
+    if profiled:
+        idle = rec.get("idle_share")
+        line += (f"replay busy {'not measured' if busy is None else f'{busy:.4f} ms'}, idle "
+                 f"share {'not measured' if idle is None else f'{idle:.4f}'}, {records} kernel "
+                 f"records, peak memory {peak['plan'] / 2**30:.3f} GiB; ")
+    print(f"{tag}: {line}{captured}")
     clear_plans()
     return rec
 
@@ -3468,7 +3708,9 @@ def remat_policies(card, lap, cbox, geo, terrain_1m, geo_step, phase6_chunk_ms) 
         with PlainCalls() as calls:
             rec["plan"] = policy_plan(f'welcome-geo 512x368 x 4, fused="off", {mode}',
                                       dataclasses.replace(c_off, settings=st), p, target, spp,
-                                      (loss, film, grads), launches, card)
+                                      (loss, film, grads), launches, card,
+                                      timed=mode == REMAT_TIMED,
+                                      profiled=mode in REMAT_PROFILED)
         rec["eager_peak_bytes"] = peak
         if calls.n["_walk_tris"]:
             fail(f"{mode}: the plain walk ran in the plan's steps")
@@ -4648,7 +4890,7 @@ def grad_gates(card, lap, assets, geo_step) -> dict:
 # ---------------------------------------------------------------------------
 
 PLAN_STEPS = 3  # Adam steps a scene, each eager and through the plan
-PLAN_ROUNDS = 4  # rounds of phase 31's timing, the eager step and the plan's in turns
+PLAN_ROUNDS = 2  # rounds of phase 31's timing, the eager step and the plan's in turns
 PLAN_EXAMPLE_STEPS = 5
 # ibl-material's depth in phase 31: its all-family recompute is ~4,300
 # PyTorch ops a bounce, whose capture took 28.6 s at 80 bounces (PERF.md
@@ -5095,18 +5337,24 @@ def main() -> int:
         want=("raygen", "bounce_bvh"), must_be_zero=("bounce", "bvh"))
     if geo_result.film.shape != (368, 512, 3):
         fail(f"welcome-geo film shape {geo_result.film.shape}")
-    _, aov_launches, _ = run_main_path(
+    _, aov_launches, aov_calls = run_main_path(
         "welcome-geo --aov depth",
         [str(assets / "welcome-geo.toml"), "--aov", "depth",
          "--out", str(OUT / "welcome-geo-depth.hdr")],
         want=("raygen", "bvh"), must_be_zero=("bounce", "bounce_bvh"))
-    normal_result, _, _ = run_main_path(
+    normal_result, _, normal_calls = run_main_path(
         "welcome-geo --aov normal",
         [str(assets / "welcome-geo.toml"), "--aov", "normal",
          "--out", str(OUT / "welcome-geo-normal.hdr")],
         want=("raygen", "bvh"), must_be_zero=("bounce", "bounce_bvh"))
     if not normal_result.film.max() <= 1.0:
         fail("the normal AOV leaves [0, 1]")
+    # 64 spp in chunks of geo_chunk: every chunk after a plan's first replays it.
+    geo_chunks = -(-gst.spp // geo_chunk)
+    for tag, calls in (("--aov depth", aov_calls), ("--aov normal", normal_calls)):
+        if calls["replays"] != geo_chunks - calls["plans"] or calls["plans"] > 2:
+            fail(f"welcome-geo {tag}: {calls['plans']} plans and {calls['replays']} replays "
+                 f"for {geo_chunks} chunks")
     small = resized(geo, 64, 48, 4)
     geo_films = kernel_vs_plain_films("welcome-geo 64x48x4", small)
     # The depth AOV: the kernel path's film against the plain walk's.
@@ -5253,7 +5501,9 @@ def main() -> int:
         del training[spp]["params"], training[spp]["target"]
     plan_report = captured_steps(card, lap, cbox, geo, ibl)
 
-    big_report, big_kernels, terrain_1m = huge_meshes(card, lap)
+    big_report, big_kernels, terrain_1m, terrain_15m = huge_meshes(card, lap)
+    aov_report = aov_plans(card, lap, geo, terrain_1m, terrain_15m)
+    del terrain_15m
     probe_report, probe_kernels = capability_probes(card, lap)
 
     phase("21 the captured stage loop vs the host loop (new-cbox, welcome-geo, terrain-1m; "
@@ -5355,7 +5605,7 @@ def main() -> int:
                       timing={str(k): v for k, v in train_timing.items()},
                       backward_by_width={str(w): {k: v for k, v in r.items()}
                                          for w, r in bwd_widths.items()}),
-        huge_meshes=big_report, probes=probe_report, stage_loop=stage_loop, cli_files=cli_files,
+        huge_meshes=big_report, aov_plans=aov_report, probes=probe_report, stage_loop=stage_loop, cli_files=cli_files,
         data_parallel=dp_report, vr=vr_report, simple_sky=sky_report,
         differentiable_scenes=diff_report, remat_policies=remat_report,
         environment_knobs=knob_report, hero_scenes=hero_report,

@@ -13,9 +13,12 @@ first chunk: the counterpart of the JAX package's jitted chunk with its
 `lax.while_loop` stages. That holds for every step: the bounce kernels',
 and under `fused="off"` the plain step's PyTorch ops (its walk kernel 3 or
 7), which make their constants by fills and read nothing to the host
-(`run_stage` takes every stage to its full step count on the card).
-`render` submits chunks with no host sync between them unless telemetry
-times each one.
+(`run_stage` takes every stage to its full step count on the card). It
+holds for the AOV integrators too: their chunk (the query through the walk
+`ops/intersect.py::bvh_route` picks, kernel 3, 6 or 7, with the sort where
+`LLR_REORDER=1` asks for it, and the ordered bank) is a plan's graph, as
+the JAX package jits it in its chunk. `render` submits chunks with no host
+sync between them unless telemetry times each one.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 from ..scene.compiler import CompiledScene
 from ..ops.camera import aperture_pdf, samples_aperture
 from ..scene.data import RenderSettings, SceneData, resolve_device
-from .wavefront import aov, make_bounce_step, trace_film, u32_to_i32
+from .wavefront import aov, bank_ordered, make_bounce_step, trace_film, u32_to_i32
 
 TILE = 32  # max camera-lane tile side
 
@@ -111,6 +114,15 @@ def _pixel_fn(settings: RenderSettings):
     return pixel_fn
 
 
+def aov_film(scene: SceneData, settings: RenderSettings, o, d):
+    """An AOV chunk's film_flat (w*h, 3) sum from its camera rays o, d (in
+    lane order): `aov`, banked by `bank_ordered` (no atomics: the same film
+    on every run)."""
+    film = torch.zeros((settings.width * settings.height, 3), dtype=torch.float32,
+                       device=o.device)
+    return bank_ordered(film, aov(scene, settings, o, d), _pixel_fn(settings))
+
+
 def capture_graph(fn, device: torch.device):
     """`fn()` captured as one CUDA graph on `device`: (graph, its outputs,
     the launches it holds by `cuda_bounce.counts()` name, the capture's
@@ -139,12 +151,13 @@ def capture_graph(fn, device: torch.device):
 class ForwardPlan:
     """One forward chunk size of a scene on a CUDA device: raygen writes the
     camera rays into `o`, `d` (and `g`), and the chunk's stage plan, from
-    the lane ids to the film, runs with no host read. The first chunk runs
-    it eagerly (which also loads every kernel) and captures it as a CUDA
-    graph; every later chunk replays the graph, which adds its launches to
-    the kernels' counts. `capture_seconds` and `pool_bytes` (the device
-    memory the capture reserved) say what the graph cost. A capture or
-    replay that fails raises."""
+    the lane ids to the film, runs with no host read; with no `step` (the
+    AOV integrators), `aov_film`.
+    The first chunk runs it eagerly (which also loads every kernel) and
+    captures it as a CUDA graph; every later chunk replays the graph, which
+    adds its launches to the kernels' counts. `capture_seconds` and
+    `pool_bytes` (the device memory the capture reserved) say what the
+    graph cost. A capture or replay that fails raises."""
 
     def __init__(self, scene: SceneData, settings: RenderSettings, seed, step,
                  spp_chunk: int):
@@ -169,8 +182,12 @@ class ForwardPlan:
     def _trace(self):
         """The captured work: lane ids from the offset, camera weights,
         then trace_film's stages, as `ChunkRenderer.chunk` computes them on
-        the CPU."""
+        the CPU; for an AOV, `aov_film` (no ray but the camera's is
+        counted)."""
         st, scene, n = self.settings, self.scene, self.n
+        if self.step is None:
+            return (aov_film(scene, st, self.o, self.d),
+                    torch.zeros((), dtype=torch.float32, device=self.o.device))
         lane = u32_to_i32((self.lane_base + self.lane_offset) & 0xFFFFFFFF)
         if self.g is None:
             g = torch.ones(n, dtype=torch.float32, device=self.o.device)
@@ -205,12 +222,21 @@ class ForwardPlan:
         return self.out
 
 
+def captures_chunks(device: torch.device) -> bool:
+    """Whether a `ChunkRenderer` on `device` renders its chunks as
+    `ForwardPlan`s: on a CUDA device, for every integrator (pt, pt-direct
+    and the AOVs), as the JAX package jits every chunk; the CPU runs each
+    chunk eagerly, with its host loop."""
+    return device.type == "cuda"
+
+
 class ChunkRenderer:
     """What a render keeps across its chunks: the scene on the device
     (checked once for the card), the bounce step with its tables packed
-    once (the plain step where `cuda_bounce.step_mode` says "off"), and on
-    a CUDA device one `ForwardPlan` per chunk size (`graphed`: every
-    integrator but the AOVs)."""
+    once (the plain step where `cuda_bounce.step_mode` says "off"; none for
+    the AOVs), and on a CUDA device one `ForwardPlan` per chunk size
+    (`graphed`, `captures_chunks`: every integrator, the AOVs too). A chunk
+    with `graphed` false runs eagerly, on either device."""
 
     def __init__(self, scene: SceneData, settings: RenderSettings, seed, device=None):
         from ..ops import cuda_bounce
@@ -222,7 +248,7 @@ class ChunkRenderer:
         if dev.type == "cuda":
             cuda_bounce.require_supported(self.scene, settings)
         self.step = None if self.aov else make_bounce_step(self.scene, settings, seed)
-        self.graphed = dev.type == "cuda" and not self.aov
+        self.graphed = captures_chunks(dev)
         self.plans: dict[int, ForwardPlan] = {}
 
     def chunk(self, sample_offset: int, spp_chunk: int):
@@ -243,10 +269,7 @@ class ChunkRenderer:
 
         o, d, pdf, g = cuda_bounce.generate_rays(scene, settings, seed, sample_offset, n)
         if self.aov:
-            _, px, py = camera_lanes(settings, sample_offset, n, dev)
-            val = aov(scene, settings, o, d)
-            film = torch.zeros((w * h, 3), dtype=val.dtype, device=dev)
-            film.index_add_(0, py * w + px, val)
+            film = aov_film(scene, settings, o, d)
             return film.reshape(h, w, 3), torch.full((), float(n), device=dev)
         lane = global_lanes(settings, sample_offset, n, dev)
         weight = g * scene.camera.sensor_sensitivity / pdf

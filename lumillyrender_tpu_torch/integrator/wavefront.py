@@ -596,6 +596,24 @@ def _bank_rows(film, idx, lane, vals, deterministic: bool):
     return big.index_put((idx,), vals, accumulate=True)[:n_pix]
 
 
+def bank_ordered(film, vals, pixel_fn=None, deterministic: bool = False):
+    """film + the per-lane `vals` (N, C) of lanes in arange order, lane i
+    on film row i % P (P = film rows; N a multiple of P) or, with a tile
+    decode, on row `pixel_fn(i % P)`: a reshape-sum over the samples, the
+    rows placed through the decode's permutation, each row written once.
+    No two adds meet in a row, so the sum is the same on every run (the
+    JAX package's `.at[pix].add` adds in lane order; index_add on CUDA with
+    atomics, in an order that changes between runs). `trace_film`'s first
+    bank and the AOV chunks bank through it; `deterministic` as in
+    `_bank_rows`."""
+    n_pix = film.shape[0]
+    by_lane = vals.reshape(-1, n_pix, vals.shape[-1]).sum(dim=0)
+    if pixel_fn is None:
+        return film + by_lane
+    perm = pixel_fn(torch.arange(n_pix, device=film.device))
+    return _bank_rows(film, perm, perm, by_lane, deterministic)
+
+
 def trace_film(scene: SceneData, settings: RenderSettings, o, d, lane, seed,
                weight0, n_pixels: int, pixel_fn=None, step=None,
                differentiable: bool = False, mats_eval=None):
@@ -644,11 +662,7 @@ def trace_film(scene: SceneData, settings: RenderSettings, o, d, lane, seed,
 
     def bank(film, st: PathState, ordered: bool = False):
         if ordered and st.accum.shape[0] % n_pixels == 0:
-            by_lane = st.accum.reshape(-1, n_pixels, 3).sum(dim=0)
-            if pixel_fn is None:
-                return film + by_lane
-            perm = to_pixel(torch.arange(n_pixels, device=dev))
-            return _bank_rows(film, perm, perm, by_lane, differentiable)
+            return bank_ordered(film, st.accum, pixel_fn, differentiable)
         return _bank_rows(film, to_pixel(st.lane), st.lane, st.accum, differentiable)
 
     def stage(state, b1: int):

@@ -71,7 +71,13 @@ at ORACLE.json's size); FD against AD through make_step_diff's hybrid
 (tools/torch_grad_gates.py, the gates tests/test_torch_grad_gates.py holds
 on the CPU against the JAX package): ibl-material's GGX roughness through
 kernel 2, welcome's GGX bunny (roughness, reflectance) under a camera it
-fills through kernel 4, each with its launch counts.
+fills through kernel 4, each with its launch counts; an AOV chunk as a
+captured plan (welcome-geo through kernel 3, a 20,000-triangle terrain at
+K=128 through kernel 7 and, under a lowered wide cap, kernel 6): its first
+call and a replay bit-equal to the eager chunk with the same launches, two
+eager AOV renders bit-equal (the ordered bank), and kernel 4 on that
+terrain's streamed route under parity.py's rules against the
+`fused="off"` step, whose walk is kernel 6.
 """
 
 import dataclasses
@@ -2299,3 +2305,127 @@ def test_hybrid_fd_through_the_bvh_bounce_kernel_on_welcome(card, case):
     reading, n = _counted_fd(scene, st, gg.WELCOME_FD[case])
     assert reading["ok"], reading
     assert n["bounce_bvh"] > 0 and n["bvh"] > 0 and n["bounce"] == 0, n
+
+
+# ---------------------------------------------------------------------------
+# The AOV chunks as captured plans
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def small_terrain(tmp_path_factory):
+    """scene/terrain.py's terrain at 20,000 triangles under its framing
+    camera (64x64 x 4 spp pt-direct) on the card, its BVH rebuilt with
+    128-wide leaves (terrain-1m's and terrain-1.5m's layout)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    from lumillyrender_tpu_torch.accel.pack import build_tri_bvh
+    from lumillyrender_tpu_torch.scene import terrain
+    from lumillyrender_tpu_torch.scene.compiler import compile_scene
+    from lumillyrender_tpu_torch.scene.data import Bvh, tensor_of
+    from lumillyrender_tpu_torch.scene.loader import parse_config
+
+    d = tmp_path_factory.mktemp("terrain")
+    terrain.write_obj(d / "terrain.obj", *terrain.make_terrain(20000)[:3])
+    c = compile_scene(parse_config(terrain.terrain_scene_toml(
+        resolution=(64, 64), samples=4, **terrain.TERRAIN_VIEW), base_dir=d), device="cuda")
+    g = c.data.geometry
+    arrays = build_tri_bvh(*(getattr(g, f).cpu().numpy() for f in (
+        "tri_p0", "tri_e1", "tri_e2", "tri_n", "tri_mat")), max_leaf=128)
+    bvh = Bvh(**{f: tensor_of(v).cuda() for f, v in arrays.items()})
+    return dataclasses.replace(c, data=dataclasses.replace(c.data, bvh=bvh))
+
+
+def _streamed_route(monkeypatch, bvh):
+    """Lower the wide cap below `bvh`'s tables: its K=128 walk takes the
+    streamed route, as terrain-1.5m's does at the JAX package's cap."""
+    from lumillyrender_tpu_torch.ops.intersect import bvh_route
+
+    monkeypatch.setattr(cuda_bvh, "WIDE_TABLE_BYTES", cuda_bvh.wide_table_bytes(bvh) - 1)
+    assert bvh_route(bvh) == ("streamed", False)
+
+
+# (scene, AOV, the walk a chunk launches, LLR_REORDER=1): kernels 3, 7 and
+# 6, and kernel 3 on sorted rays.
+AOV_PLAN_CASES = [("welcome-geo", "depth", "bvh", False), ("welcome-geo", "normal", "bvh", False),
+                  ("terrain", "depth", "bvh_wide", False),
+                  ("terrain", "normal", "bvh_streamed", False),
+                  ("welcome-geo", "depth", "bvh", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,integrator,walk,reorder", AOV_PLAN_CASES,
+                         ids=[f"{a}-{b}-{c}" + ("-reorder" if r else "")
+                              for a, b, c, r in AOV_PLAN_CASES])
+def test_aov_chunk_plan_matches_the_eager_chunk(welcome, small_terrain, monkeypatch, name,
+                                                integrator, walk, reorder):
+    """A ChunkRenderer's AOV chunk on the card is a captured plan: its first
+    call (eager, then captured) and a replay at the next offset each give
+    the eager chunk's film and rays bit for bit, with the same launches
+    (raygen and the walk once each), the counts zeroed just before and
+    read just after each call; under LLR_REORDER=1 the sort is in the
+    graph."""
+    from lumillyrender_tpu_torch.integrator.render import ChunkRenderer
+    from lumillyrender_tpu_torch.ops.intersect import bvh_route
+
+    if reorder:
+        monkeypatch.setenv("LLR_REORDER", "1")
+    c = welcome if name == "welcome-geo" else small_terrain
+    if walk == "bvh_streamed":
+        _streamed_route(monkeypatch, c.data.bvh)
+    route = {"bvh": "thread", "bvh_wide": "wide", "bvh_streamed": "streamed"}[walk]
+    assert bvh_route(c.data.bvh)[0] == route
+    st = dataclasses.replace(c.settings, width=64, height=48 if name == "welcome-geo" else 64,
+                             integrator=integrator)
+    spp = 4
+    planned = ChunkRenderer(c.data, st, 5, "cuda")
+    eager = ChunkRenderer(c.data, st, 5, "cuda")
+    eager.graphed = False
+    assert planned.graphed
+    want = dict({k: 0 for k in cuda_bounce.counts()}, raygen=1, **{walk: 1})
+    for offset in (0, spp):
+        got = []
+        for r in (eager, planned):
+            cuda_bounce.reset_counts()
+            film, rays = r.chunk(offset, spp)
+            torch.cuda.synchronize()
+            got.append((film, rays, cuda_bounce.counts()))
+        (f_e, r_e, l_e), (f_p, r_p, l_p) = got
+        assert torch.equal(f_e, f_p) and torch.equal(r_e, r_p), offset
+        assert l_e == l_p == want, (offset, l_e, l_p)
+        assert f_p.abs().sum() > 0
+    plan = planned.plans[spp]
+    assert plan.graph is not None and plan.launches == {walk: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["depth", "normal"])
+def test_eager_aov_films_repeat_bit_for_bit(welcome, monkeypatch, integrator):
+    """Two eager AOV renders of welcome-geo (8 spp a pixel a chunk, every
+    chunk eager) give the same film bit for bit: the ordered bank adds no
+    two values into a row with atomics."""
+    from lumillyrender_tpu_torch.integrator import render as render_mod
+
+    c = dataclasses.replace(welcome, settings=dataclasses.replace(
+        welcome.settings, width=64, height=48, spp=16, integrator=integrator))
+    monkeypatch.setattr(render_mod, "captures_chunks", lambda device: False)
+    films = [render_mod.render(c, seed=9, spp_chunk=8, device="cuda").film for _ in range(2)]
+    assert np.array_equal(films[0], films[1]) and films[0].max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounce", [0, 3])
+def test_bvh_bounce_kernel_on_a_streamed_route_terrain(small_terrain, monkeypatch, bounce):
+    """Kernel 4 at K=128 on a terrain whose walk the route sends to the
+    streamed kernel (terrain-1.5m's case): against the `fused="off"` step,
+    whose queries take kernel 6, under parity.py's lane rules."""
+    scene, st = small_terrain.data, small_terrain.settings
+    _streamed_route(monkeypatch, scene.bvh)
+    state = state_from_numpy(bounce, *_random_state(scene, 16384, 500 + bounce), device="cuda")
+    cuda_bounce.reset_counts()
+    got = cuda_bounce.bounce_bvh(scene, st, 77, state)
+    want = wavefront.plain_bounce_step(scene, st, 77, state, plain_walk=False)
+    torch.cuda.synchronize()
+    n = cuda_bounce.counts()
+    assert n["bounce_bvh"] == 1 and n["bvh_streamed"] >= 1 and n["bvh_wide"] == 0, n
+    assert parity.failures(parity.agreement(want, got)) == []
